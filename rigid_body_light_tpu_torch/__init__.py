@@ -1,0 +1,33 @@
+"""rigid_body_light_tpu_torch — the PyTorch + CUDA port of rigid_body_light_tpu.
+
+A second package beside the JAX one, mirroring its module layout
+(``ops/``, ``dynamics/``) so each module's counterpart is easy to find.  It
+imports ``torch`` and never ``jax``; the JAX package stays the reference the
+port is tested against (``tests/test_torch_*.py``).
+
+The slice ported so far is the fluctuating Brownian-dynamics main path:
+rigid multiblob bodies above a no-slip wall, open domain, one blob radius,
+the ``block_free`` preconditioner, preconditioned fused two-draw Lanczos
+noise, the midpoint-slip RFD drift and a GMRES saddle solve
+(:func:`rigid_body_light_tpu_torch.dynamics.run_bd`).  Its two O(N²)
+mobility pair sweeps are hand-written CUDA kernels for sm_90a
+(``csrc/rpy_pair_sweep.cu``, wrapped by :mod:`.ops.rpy_cuda`); everything
+else is eager PyTorch on whatever device the input tensors live on.
+
+Float32 matmuls are pinned to full precision (TF32 off), mirroring the JAX
+package's ``jax_default_matmul_precision="highest"`` pin: reduced-precision
+matmuls biased the sampled equilibrium of the preconditioned noise
+(VALIDATION.md).  The pin is process-global.
+"""
+
+import torch as _torch
+
+_torch.set_float32_matmul_precision("highest")
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from rigid_body_light_tpu_torch.config import SimulationConfig  # noqa: E402
+from rigid_body_light_tpu_torch.state import BodyState, make_state  # noqa: E402
+from rigid_body_light_tpu_torch.structures import load_structure  # noqa: E402
+
+__all__ = ["SimulationConfig", "BodyState", "make_state", "load_structure"]

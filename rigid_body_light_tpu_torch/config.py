@@ -1,0 +1,159 @@
+"""Simulation configuration — the port of ``rigid_body_light_tpu/config.py``.
+
+Same field names, defaults and ``__post_init__`` checks as the JAX
+``SimulationConfig``, with ``dtype`` a ``torch.dtype``.  Fields whose
+feature the port does not have yet raise ``NotImplementedError`` naming the
+ROADMAP.md queue-1 item that will add it, instead of silently running
+something else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to rigid_body_light_tpu_torch yet "
+        f"(ROADMAP.md queue 1, {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class SimulationConfig:
+    """Configuration of a rigid multiblob system (see the JAX package's
+    ``SimulationConfig`` for the meaning of every field).
+
+    ``use_pallas`` keeps its JAX name so configurations carry across
+    unchanged: in the port it selects the hand-written CUDA pair-sweep
+    kernels (:mod:`rigid_body_light_tpu_torch.ops.rpy_cuda`) for float32
+    mobility products; False, or float64, takes the plain PyTorch sweep.
+    """
+
+    a: float = 1.0
+    eta: float = 1.0
+    dt: float = 1.0
+    kBT: float = 0.0
+    wall: bool = False
+    box: Any = None
+    image_shells: int = 0
+    ewald_xi: float = 0.0
+    ewald_tol: float = 1.0e-6
+    ewald_rc: float = 0.0
+    ewald_nbr_tiles: int = 0
+    ewald_grid_p: int = 0
+    farfield_grid: Any = None
+    farfield_p: int = 4
+    farfield_band_p: int = 0
+    farfield_nbr_tiles: int = 0
+    block_diag_pc: bool = False
+    pc_mode: str = ""
+    pc_halo: float = 4.0
+    pc_halo_max: int = 64
+    pc_refresh: int = 1
+    split_rand: bool = True
+    drift_mode: str = "midpoint_slip"
+    reject_below_wall: bool = True
+    max_step_residual: float = 1e-2
+    max_move: float = 5.0
+    max_rotation: float = 0.5
+    rfd_delta: float = 1.0e-4
+    dtype: Any = torch.float32
+    m_scale: float = 1.0
+    lanczos_iters: int = 30
+    lanczos_max_iters: int = 0
+    lanczos_err_tol: float = 0.0
+    lanczos_precond: bool = True
+    gmres_tol: float = 1.0e-6
+    gmres_maxiter: int = 200
+    gmres_restart: int = 40
+    matvec_row_tile: int = 512
+    use_pallas: bool = True
+    wall_h_floor: float = 0.75
+    validate_config: bool = True
+
+    def __post_init__(self):
+        if not isinstance(self.dtype, torch.dtype):
+            raise TypeError(f"dtype must be a torch.dtype, got {self.dtype!r}")
+        # the JAX package's validation, in its order
+        if self.box is not None:
+            box = tuple(float(b) for b in self.box)
+            if len(box) not in (2, 3) or any(b <= 0 for b in box):
+                raise ValueError(
+                    f"box must be None, a positive (Lx, Ly) pair or a "
+                    f"positive (Lx, Ly, Lz) triple, got {self.box!r}")
+            if len(box) == 3 and self.wall:
+                raise ValueError(
+                    "a 3-D (triply periodic Ewald) box is incompatible with "
+                    "wall=True — use a 2-D (Lx, Ly) box for wall-bounded "
+                    "pseudo-periodicity")
+            object.__setattr__(self, "box", box)
+        if self.image_shells:
+            if self.image_shells < 0:
+                raise ValueError(
+                    f"image_shells must be ≥ 0, got {self.image_shells}")
+            if self.box is None or len(self.box) != 2:
+                raise ValueError(
+                    "image_shells needs a 2-D (Lx, Ly) box — the exact "
+                    "image sum is the doubly-periodic (pseudo-2D) geometry")
+        if 0 < self.lanczos_max_iters <= self.lanczos_iters:
+            raise ValueError(
+                f"lanczos_max_iters={self.lanczos_max_iters} ≤ "
+                f"lanczos_iters={self.lanczos_iters}: the adaptive noise "
+                f"mode would silently never engage (it extends PAST "
+                f"lanczos_iters up to the cap) — raise the cap or drop it")
+        if self.ewald_rc > 0:
+            if self.ewald_xi > 0:
+                raise ValueError(
+                    "pass either ewald_rc (balanced splitting) or ewald_xi, "
+                    "not both — rc determines xi")
+            if self.box is None or len(self.box) != 3:
+                raise ValueError("ewald_rc needs a 3-D (Lx, Ly, Lz) box")
+        if self.ewald_grid_p:
+            if self.ewald_rc <= 0:
+                raise ValueError("ewald_grid_p needs ewald_rc > 0 (balanced "
+                                 "splitting)")
+            if self.ewald_grid_p < 2:
+                raise ValueError(
+                    f"ewald_grid_p must be >= 2 nodes per dim (or 0 = off), "
+                    f"got {self.ewald_grid_p}")
+        if self.drift_mode not in ("midpoint_slip", "em_exact"):
+            raise ValueError(
+                f"unknown drift_mode {self.drift_mode!r}; use 'midpoint_slip' "
+                "or 'em_exact' (a typo here would otherwise silently run the "
+                "midpoint scheme)")
+        if self.pc_mode == "ras" and self.pc_refresh > 1:
+            raise ValueError(
+                "pc_refresh > 1 with pc_mode='ras' is not supported: a "
+                "lagged halo tier is measured catastrophic (BENCH_NOTES "
+                "round 4)")
+        if self.max_step_residual > 0 and self.gmres_tol >= self.max_step_residual:
+            raise ValueError(
+                f"gmres_tol ({self.gmres_tol}) must be below max_step_residual "
+                f"({self.max_step_residual}) — otherwise every 'converged' solve "
+                "is rejected and the trajectory silently freezes")
+        # what the port does not have yet
+        if self.box is not None:
+            raise _not_ported(
+                "a periodic box", "item 12 (pseudo-2D) / item 13 (triply "
+                "periodic)")
+        if self.farfield_grid is not None:
+            raise _not_ported("farfield_grid", "item 11 (at-scale open/wall "
+                              "slice, kernel K3)")
+        if self.pc_mode == "ras":
+            raise _not_ported("pc_mode='ras'", "item 10 (settled slice)")
+        if self.lanczos_max_iters > 0 and self.lanczos_err_tol > 0:
+            raise _not_ported("adaptive Lanczos (lanczos_max_iters with "
+                              "lanczos_err_tol)", "item 10 (settled slice)")
+        if self.drift_mode == "em_exact":
+            raise _not_ported("drift_mode='em_exact' (rfd.n_rfd_exact)",
+                              "item 7 (rfd)")
+        if self.kBT > 0 and not self.lanczos_precond:
+            raise _not_ported("unpreconditioned Lanczos noise "
+                              "(lanczos.m_half_w / m_half_w_pair)",
+                              "item 6 (lanczos)")
+
+    def replace(self, **kw) -> "SimulationConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,232 @@
+"""Brownian-dynamics time steppers — the port of
+``rigid_body_light_tpu/dynamics/stepper.py``.
+
+The fluctuating step is the EM–midpoint scheme with RFD drift (Sprinkle et
+al. 2017): Lanczos M^{1/2}W draws at q^n, the midpoint-slip RFD drift, a
+predictor half-kick, the saddle solve at the half-kicked configuration,
+and a guarded commit.  Loops are Python loops; there is no ``jit``.
+
+PyTorch generators do not reproduce ``jax.random``, so the Gaussian draws
+are inputs: ``stochastic_step`` takes ``draws=(W1, W2, W_rfd)`` — W1, W2
+(B·3n,) in the body-frame layout of the preconditioned Lanczos, W_rfd
+(B, n, 3) — or makes them from an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple
+
+import torch
+
+from rigid_body_light_tpu_torch.config import SimulationConfig
+from rigid_body_light_tpu_torch.ops import kinematics as kin
+from rigid_body_light_tpu_torch.ops import lanczos
+from rigid_body_light_tpu_torch.ops import rfd
+from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
+from rigid_body_light_tpu_torch.ops import solvers
+from rigid_body_light_tpu_torch.state import BodyState
+
+
+class StepAux(NamedTuple):
+    U: torch.Tensor           # (B, 6) body velocities used for the commit
+    lam: torch.Tensor         # (N, 3) constraint forces
+    residual: torch.Tensor    # GMRES relative residual
+    iters: int = None         # inner GMRES iterations executed (exact)
+    noise_err: torch.Tensor = None  # Lanczos truncation estimate (0 if kBT=0)
+
+
+def _commit(geom, cfg, state, dU):
+    """Advance configs by dU, rejecting per-body moves that sink a blob
+    below the wall, translate more than ``max_move·a`` or rotate more than
+    ``max_rotation`` radians (the JAX ``_commit`` guards)."""
+    X_new, Q_new = kin.update_X_Q(state.X, state.Q, dU)
+    valid = torch.ones((state.X.shape[0],), dtype=torch.bool,
+                       device=state.X.device)
+    if cfg.max_move > 0:
+        valid = valid & (torch.linalg.norm(dU[:, 0:3], dim=-1)
+                         < cfg.max_move * cfg.a)
+    if cfg.max_rotation > 0:
+        valid = valid & (torch.linalg.norm(dU[:, 3:6], dim=-1)
+                         < cfg.max_rotation)
+    if cfg.wall and cfg.reject_below_wall:
+        pos_new = kin.blob_positions(geom, X_new, Q_new)
+        valid = valid & torch.all(pos_new[:, :, 2] > 0.0, dim=1)
+    return BodyState(X=torch.where(valid[:, None], X_new, state.X),
+                     Q=torch.where(valid[:, None], Q_new, state.Q))
+
+
+def _residual_ok(res, cfg):
+    return res.residual < cfg.max_step_residual
+
+
+def deterministic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
+                       state: BodyState, force, slip=None,
+                       mob_apply: Callable = None):
+    """One deterministic step: solve the mobility problem, advance by U·dt.
+    Returns (new_state, StepAux)."""
+    if mob_apply is None:
+        mob_apply = saddle_mod.mobility_apply_fn(cfg)
+    ops = saddle_mod.geometry_ops(geom, state)
+    if slip is None:
+        slip = torch.zeros_like(ops.flat_positions)
+    res = solvers.solve_saddle(ops, cfg, slip, force, mob_apply=mob_apply)
+    dU = torch.where(_residual_ok(res, cfg), res.U,
+                     torch.zeros_like(res.U)) * cfg.dt
+    return _commit(geom, cfg, state, dU), StepAux(
+        U=res.U, lam=res.lam, residual=res.residual, iters=res.iters)
+
+
+def make_draws(geom: kin.RefGeometry, state: BodyState,
+               generator: torch.Generator):
+    """The step's Gaussian draws (W1, W2, W_rfd) from ``generator``, on the
+    state's device and in its dtype."""
+    B, n = state.X.shape[0], geom.n_blobs
+    kw = dict(generator=generator, dtype=state.X.dtype, device=state.X.device)
+    return (torch.randn(B * 3 * n, **kw), torch.randn(B * 3 * n, **kw),
+            torch.randn((B, n, 3), **kw))
+
+
+def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
+                    state: BodyState, force, slip=None,
+                    mob_apply: Callable = None, x0=None, pc=None,
+                    noise_pc=None, mob_multi: Callable = None, draws=None,
+                    generator: torch.Generator = None):
+    """One fluctuating BD step (EM–midpoint with RFD drift).
+
+      1. M^{1/2}W₁ (and W₂ with ``split_rand``) by preconditioned Lanczos
+         at q^n — fused through the 2-RHS product when the operator is the
+         default one or ``mob_multi`` is given.
+      2. Drift D = kBT·M_RFD at q^n; Brownian increment
+         BI = c₂(M^{1/2}W₁ − M^{1/2}W₂) [split] or c₂·M^{1/2}W₁, with
+         c₁ = 2√(kBT/dt), c₂ = √(kBT/dt) [split], else c₁ = c₂ = √(2kBT/dt).
+      3. Predictor half-kick q^{n+1/2} = q^n + (dt/2)·K⁺(c₁ M^{1/2}W₁),
+         guarded like a commit.
+      4. Saddle solve at q^{n+1/2} with RHS [slip − (D + BI); F].
+      5. Commit q^{n+1} = q^n + U·dt, unless the solve residual exceeds
+         ``max_step_residual``.
+
+    draws: (W1, W2, W_rfd), or None to draw them from ``generator``.
+    x0: optional (λ, U) warm start.  Returns (new_state, StepAux).
+    """
+    default_mob = mob_apply is None
+    if default_mob:
+        mob_apply = saddle_mod.mobility_apply_fn(cfg)
+    dtype = state.X.dtype
+    ops = saddle_mod.geometry_ops(geom, state)
+    B, n, _ = ops.offsets.shape
+    if slip is None:
+        slip = torch.zeros_like(ops.flat_positions)
+
+    kBT = cfg.kBT
+    if kBT > 0.0:
+        if draws is None:
+            if generator is None:
+                raise ValueError("stochastic_step needs draws or a generator")
+            draws = make_draws(geom, state, generator)
+        W1, W2, W_rfd = (torch.as_tensor(w, dtype=dtype,
+                                         device=state.X.device)
+                         for w in draws)
+        pos = ops.flat_positions
+        if noise_pc is None:
+            noise_pc = lanczos.make_noise_preconditioner(geom.ref_cfg, cfg.a,
+                                                         cfg.eta)
+        L, L_inv = noise_pc
+        if cfg.split_rand:
+            if default_mob or mob_multi is not None:
+                if mob_multi is None:
+                    mob_multi = saddle_mod.mobility_apply_multi_fn(cfg)
+                mhw1, mhw2, noise_err = lanczos.m_half_w_precond(
+                    mob_multi, pos, ops.rot, L, L_inv, torch.stack([W1, W2]),
+                    iters=cfg.lanczos_iters, multi=True, return_err=True)
+            else:
+                mhw1, e1 = lanczos.m_half_w_precond(
+                    mob_apply, pos, ops.rot, L, L_inv, W1,
+                    iters=cfg.lanczos_iters, return_err=True)
+                mhw2, e2 = lanczos.m_half_w_precond(
+                    mob_apply, pos, ops.rot, L, L_inv, W2,
+                    iters=cfg.lanczos_iters, return_err=True)
+                noise_err = torch.maximum(e1, e2)
+            c1 = 2.0 * math.sqrt(kBT / cfg.dt)
+            c2 = math.sqrt(kBT / cfg.dt)
+            bi = c2 * (mhw1 - mhw2)
+        else:
+            mhw1, noise_err = lanczos.m_half_w_precond(
+                mob_apply, pos, ops.rot, L, L_inv, W1,
+                iters=cfg.lanczos_iters, return_err=True)
+            c1 = c2 = math.sqrt(2.0 * kBT / cfg.dt)
+            bi = c2 * mhw1
+        drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd, mob_apply)
+        slip_eff = slip - (drift + bi)
+        u_half = kin.Kinv_dot((c1 * mhw1).reshape(B, n, 3), ops.offsets,
+                              ops.ktkinv)
+        half_state = _commit(geom, cfg, state, (cfg.dt / 2.0) * u_half)
+        ops_solve = saddle_mod.geometry_ops(geom, half_state)
+    else:
+        slip_eff = slip
+        ops_solve = ops
+        noise_err = torch.zeros((), dtype=dtype, device=state.X.device)
+
+    res = solvers.solve_saddle(ops_solve, cfg, slip_eff, force,
+                               mob_apply=mob_apply, x0=x0, pc=pc)
+    # a failed solve moves nothing (a garbage U launches bodies across the
+    # box); aux.residual surfaces the event
+    dU = torch.where(_residual_ok(res, cfg), res.U,
+                     torch.zeros_like(res.U)) * cfg.dt
+    return _commit(geom, cfg, state, dU), StepAux(
+        U=res.U, lam=res.lam, residual=res.residual, iters=res.iters,
+        noise_err=noise_err.to(dtype))
+
+
+def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
+           n_steps: int, generator: torch.Generator = None,
+           force_fn: Callable = None, slip_fn: Callable = None,
+           mob_apply: Callable = None, save_every: int = 1,
+           mob_multi: Callable = None, draws_fn: Callable = None):
+    """Run a BD trajectory of ``n_steps`` stochastic steps.
+
+    force_fn / slip_fn: (BodyState, step) → (B, 6) force / (N, 3) slip
+    (default 0).  draws_fn: step → (W1, W2, W_rfd), else the draws come
+    from ``generator``.  The ``block_free`` PC and the noise-PC factors are
+    built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
+    ``pc_refresh`` steps; each solve is warm-started from the previous
+    step's (λ, U), zeroed after a failed solve.
+    Returns (final_state, trajectory dict of stacked snapshots every
+    ``save_every`` steps: X, Q, residual, iters, noise_err).
+    """
+    dtype, dev = state.X.dtype, state.X.device
+    B = state.X.shape[0]
+    if force_fn is None:
+        def force_fn(s, i):
+            return torch.zeros((B, 6), dtype=dtype, device=dev)
+    pc_mode = cfg.pc_mode or ("block" if cfg.block_diag_pc else "diag")
+    static_pc = pc_mode == "block_free"
+    lagged_pc = cfg.pc_refresh > 1 and not static_pc
+    noise_pc = (lanczos.make_noise_preconditioner(geom.ref_cfg, cfg.a, cfg.eta)
+                if (cfg.lanczos_precond and cfg.kBT > 0.0) else None)
+    pc = (saddle_mod.build_pc(saddle_mod.geometry_ops(geom, state), cfg)
+          if (lagged_pc or static_pc) else None)
+    x_prev = (torch.zeros((B * geom.n_blobs, 3), dtype=dtype, device=dev),
+              torch.zeros((B, 6), dtype=dtype, device=dev))
+    out = {"X": [], "Q": [], "residual": [], "iters": [], "noise_err": []}
+    s = state
+    for i in range(n_steps):
+        if lagged_pc and i % cfg.pc_refresh == 0:
+            pc = saddle_mod.build_pc(saddle_mod.geometry_ops(geom, s), cfg)
+        s, aux = stochastic_step(
+            geom, cfg, s, force_fn(s, i),
+            slip=slip_fn(s, i) if slip_fn is not None else None,
+            mob_apply=mob_apply, x0=x_prev, pc=pc, noise_pc=noise_pc,
+            mob_multi=mob_multi,
+            draws=draws_fn(i) if draws_fn is not None else None,
+            generator=generator)
+        for key, v in (("X", s.X), ("Q", s.Q), ("residual", aux.residual),
+                       ("iters", torch.tensor(aux.iters)),
+                       ("noise_err", aux.noise_err)):
+            out[key].append(v)
+        # a failed solve's (λ, U) would poison the next warm start
+        ok = _residual_ok(aux, cfg)
+        x_prev = (torch.where(ok, aux.lam, torch.zeros_like(aux.lam)),
+                  torch.where(ok, aux.U, torch.zeros_like(aux.U)))
+    keep = slice(save_every - 1, None, save_every)
+    return s, {k: torch.stack(v)[keep] for k, v in out.items()}

@@ -1,0 +1,161 @@
+"""Brownian increments M^{1/2}·W by Lanczos — the port of the main-path
+subset of ``rigid_body_light_tpu/ops/lanczos.py``.
+
+m Lanczos iterations with the matrix-free damped mobility product build a
+tridiagonal T and an orthonormal basis V; then
+M^{1/2} W ≈ ‖W‖ · Vᵀ · (V_T √Λ V_Tᵀ) e₁.  Preconditioned with the
+body-frame free-space factor (``make_noise_preconditioner``).
+
+The Gaussian draws W are inputs: the caller makes them (from a
+``torch.Generator``, or the JAX package's keys in the parity tests).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from rigid_body_light_tpu_torch.ops import rpy
+
+
+def _y_coeffs(alphas, betas, s, m):
+    """√T·e₁ coefficients of the size-``s`` leading block of the tridiagonal.
+
+    alphas/betas: (k, m) recurrence coefficients.  The block beyond ``s`` is
+    masked to the identity with its coupling zeroed, so its spurious
+    eigenpairs have zero e₁-projection; eigenvalues are clamped at 0.
+    """
+    idx = torch.arange(m, device=alphas.device)
+    a = torch.where(idx < s, alphas, torch.ones_like(alphas))
+    b = torch.where(idx < s - 1, betas, torch.zeros_like(betas))
+    T = torch.zeros(alphas.shape + (m,), dtype=alphas.dtype,
+                    device=alphas.device)
+    T[:, idx, idx] = a
+    T[:, idx[:-1], idx[1:]] = b[:, :-1]
+    T[:, idx[1:], idx[:-1]] = b[:, :-1]
+    evals, evecs = torch.linalg.eigh(T)
+    sq = torch.sqrt(torch.clamp(evals, min=0.0))
+    e1_proj = evecs[:, 0, :]
+    return torch.einsum("kmj,kj->km", evecs, sq * e1_proj)
+
+
+def _trunc_err(alphas, betas, s, m):
+    """Relative (s−1 → s) truncation estimate per batch row, shape (k,)."""
+    y = _y_coeffs(alphas, betas, s, m)
+    y_prev = _y_coeffs(alphas, betas, s - 1, m)
+    num = torch.linalg.norm(y - y_prev, dim=1)
+    den = torch.clamp(torch.linalg.norm(y, dim=1), min=1e-30)
+    return num / den
+
+
+def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
+                        max_iters: int = 0, err_tol: float = 0.0,
+                        return_err: bool = False):
+    """A^{1/2}·w_k for a batch W (k, sz) with a joint matvec (k, sz) →
+    (k, sz); fixed ``iters`` iterations with full reorthogonalization.
+    Returns (k, sz), or ((k, sz), err (k,)) when ``return_err``.
+
+    The m×m eigensolves run on the host (they are tiny); the O(sz) basis
+    stays on the device of ``W``.
+    """
+    if max_iters > iters and err_tol > 0.0:
+        raise NotImplementedError(
+            "adaptive Lanczos is not ported to rigid_body_light_tpu_torch yet "
+            "(ROADMAP.md queue 1, item 10)")
+    k, sz = W.shape
+    dtype, dev = W.dtype, W.device
+    m = iters
+    norm_w = torch.sqrt(torch.sum(W * W, dim=1))
+    V = torch.zeros((k, m, sz), dtype=dtype, device=dev)
+    V[:, 0] = W / torch.clamp(norm_w, min=1e-30)[:, None]
+    alphas = torch.zeros((k, m), dtype=dtype, device=dev)
+    betas = torch.zeros((k, m), dtype=dtype, device=dev)
+    v_prev = torch.zeros((k, sz), dtype=dtype, device=dev)
+    beta_prev = torch.zeros((k,), dtype=dtype, device=dev)
+    for i in range(m):
+        v = V[:, i].clone()
+        av = matvec(v)
+        alpha = torch.einsum("ks,ks->k", v, av)
+        r = av - alpha[:, None] * v - beta_prev[:, None] * v_prev
+        # full reorthogonalization against the basis built so far (rows
+        # ≥ i+1 are still zero) — keeps small m accurate in float32
+        proj = torch.einsum("kms,ks->km", V, r)
+        r = r - torch.einsum("km,kms->ks", proj, V)
+        beta = torch.sqrt(torch.sum(r * r, dim=1))
+        if i + 1 < m:
+            V[:, i + 1] = r / torch.clamp(beta, min=1e-30)[:, None]
+        alphas[:, i] = alpha
+        betas[:, i] = beta
+        v_prev, beta_prev = v, beta
+    a_h, b_h = alphas.cpu(), betas.cpu()
+    y = _y_coeffs(a_h, b_h, m, m).to(dev)
+    out = norm_w[:, None] * torch.einsum("km,kms->ks", y, V)
+    if not return_err:
+        return out
+    return out, _trunc_err(a_h, b_h, m, m).to(dev)
+
+
+def make_noise_preconditioner(ref_cfg, a, eta):
+    """Body-frame factor constants (L, L⁻¹), each (3n, 3n): L = chol of the
+    free-space per-body mobility M_ref, computed once per geometry in the
+    dtype and on the device of ``ref_cfg``."""
+    m_ref = rpy.mobility_matrix(ref_cfg, a, eta, wall=False)
+    L = torch.linalg.cholesky(m_ref)
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    L_inv = torch.linalg.solve_triangular(L, eye, upper=False)
+    return L, L_inv
+
+
+def _rot_apply(rot, v, transpose=False):
+    """Apply blkdiag(R, ..., R) per body: v (B, n, 3) → (B, n, 3)."""
+    eq = "bji,bnj->bni" if transpose else "bij,bnj->bni"
+    return torch.einsum(eq, rot, v)
+
+
+def m_half_w_precond(mob_apply_or_multi: Callable, positions, rot, L, L_inv,
+                     W, iters: int = 10, multi: bool = False,
+                     return_err: bool = False):
+    """Preconditioned M^{1/2}W draws from Gaussian draws ``W``: one (B·3n,)
+    draw (multi=False) or two, (2, B·3n), through the fused 2-RHS product
+    (multi=True).  Returns (N, 3), or a pair of (N, 3); with ``return_err``
+    the last element is the max relative truncation estimate (measured in
+    the preconditioned G-space).
+
+    G·v = L⁻¹ R̃ᵀ · M · R̃ L⁻ᵀ v, noise = R̃ L · G^{1/2} W.
+    """
+    positions = positions.reshape(-1, 3)
+    three_n = L.shape[0]
+    B = positions.shape[0] * 3 // three_n
+    n = three_n // 3
+    k = 2 if multi else 1
+    W = W.reshape(k, B * three_n).to(positions.dtype)
+    rot_k = rot.expand((k,) + rot.shape).reshape(k * B, 3, 3)
+
+    def to_world(vk):  # (k, sz) -> (k, N, 3): R̃ L^{-T} v
+        u = torch.einsum("qp,kbq->kbp", L_inv, vk.reshape(k, B, three_n))
+        return _rot_apply(rot_k, u.reshape(k * B, n, 3)).reshape(k, B * n, 3)
+
+    def from_world(xk):  # (k, N, 3) -> (k, sz): L^{-1} R̃ᵀ x
+        xb = _rot_apply(rot_k, xk.reshape(k * B, n, 3),
+                        transpose=True).reshape(k, B, three_n)
+        return torch.einsum("pq,kbq->kbp", L_inv, xb).reshape(k, -1)
+
+    def mv(vk):  # G v
+        x = to_world(vk)
+        if multi:
+            mx = mob_apply_or_multi(x, positions)
+        else:
+            mx = mob_apply_or_multi(x[0], positions)[None]
+        return from_world(mx)
+
+    g = sqrt_matvec_batched(mv, W, iters=iters, return_err=return_err)
+    err = None
+    if return_err:
+        g, err = g
+        err = torch.max(err)
+    lg = torch.einsum("pq,kbq->kbp", L, g.reshape(k, B, three_n))
+    out = _rot_apply(rot_k, lg.reshape(k * B, n, 3)).reshape(k, B * n, 3)
+    if multi:
+        return (out[0], out[1], err) if return_err else (out[0], out[1])
+    return (out[0], err) if return_err else out[0]

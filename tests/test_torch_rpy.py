@@ -1,0 +1,150 @@
+"""Port parity of the RPY mobility: the plain PyTorch sweep against the
+numpy oracle in float64, and the pair-sweep wrappers (kernels K1/K2's
+contract) against the Pallas kernels run in interpret mode in float32."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+import oracle  # noqa: E402
+from rigid_body_light_tpu.ops import rpy_pallas  # noqa: E402
+from rigid_body_light_tpu_torch.ops import rpy, rpy_cuda  # noqa: E402
+
+A, ETA = 0.9, 1.3
+# float32 kernel vs its reference, relative to max|U| — the bound
+# tests/test_pallas.py holds the TPU kernel to against a float64 oracle
+KERNEL_TOL = 5e-6
+
+
+@pytest.fixture
+def cloud():
+    """150 blobs whose heights straddle the wall floor h_floor = 0.75a
+    (z/a from 0.33 to 7.8), so pairs of unequal, floored and unfloored
+    heights all occur."""
+    rng = np.random.default_rng(7)
+    r = rng.uniform([-4, -4, 0.3], [4, 4, 7], (150, 3))
+    F = rng.standard_normal((2, 150, 3))
+    return r, F
+
+
+def _rel(U, Uref):
+    return np.abs(np.asarray(U) - Uref).max() / np.abs(Uref).max()
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_plain_mobility_apply_matches_oracle(cloud, wall):
+    r, F = cloud
+    Uref = oracle.apply_M(F[0], r, A, ETA, wall).reshape(-1, 3)
+    U = rpy.mobility_apply(torch.from_numpy(F[0]), torch.from_numpy(r), A,
+                           ETA, wall, row_tile=64)
+    assert _rel(U, Uref) < 1e-12
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_plain_multi_matches_oracle(cloud, wall):
+    r, F = cloud
+    U = rpy.mobility_apply_multi(torch.from_numpy(F), torch.from_numpy(r), A,
+                                 ETA, wall, row_tile=64)
+    for k in range(2):
+        Uref = oracle.apply_M(F[k], r, A, ETA, wall).reshape(-1, 3)
+        assert _rel(U[k], Uref) < 1e-12
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_plain_mobility_matrix_matches_oracle(cloud, wall):
+    r, _ = cloud
+    Mref = oracle.rpy_matrix(r[:60], A, ETA, wall)
+    M = rpy.mobility_matrix(torch.from_numpy(r[:60]), A, ETA, wall)
+    assert _rel(M, Mref) < 1e-12
+
+
+def test_plain_pair_sum_slab_offsets(cloud):
+    """An ordered row slab with global ids (K2's row/column-offset
+    contract) equals the matching rows of the square sweep."""
+    r, F = cloud
+    r_t, F_t = torch.from_numpy(r / A), torch.from_numpy(F)
+    ids = torch.arange(150)
+    full = rpy.pair_sum(r_t, ids, r_t, ids, F_t, wall=True)
+    lo, hi = 40, 110
+    slab = rpy.pair_sum(r_t[lo:hi], ids[lo:hi], r_t, ids, F_t, wall=True)
+    np.testing.assert_allclose(slab.numpy(), full[:, lo:hi].numpy(),
+                               rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_k1_wrapper_matches_pallas_kernel(cloud, wall):
+    """Single RHS: rpy_cuda.mobility_apply (K1's path) against
+    rpy_pallas.mobility_apply → _kernel_sym, interpret mode, float32."""
+    r, F = cloud
+    r32, F32 = r.astype(np.float32), F[0].astype(np.float32)
+    Uref = np.asarray(rpy_pallas.mobility_apply(
+        jnp.asarray(F32), jnp.asarray(r32), A, ETA, wall, interpret=True))
+    U = rpy_cuda.mobility_apply(torch.from_numpy(F32), torch.from_numpy(r32),
+                                A, ETA, wall)
+    assert U.dtype == torch.float32
+    assert _rel(U, Uref.astype(np.float64)) < KERNEL_TOL
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_k2_wrapper_matches_pallas_kernel(cloud, wall):
+    """Two RHS: rpy_cuda.mobility_apply_multi (K2's path) against
+    rpy_pallas.mobility_apply_multi → _kernel (150 blobs pad far below
+    _SYM_K2_MIN_NPAD), interpret mode, float32."""
+    r, F = cloud
+    r32, F32 = r.astype(np.float32), F.astype(np.float32)
+    Uref = np.asarray(rpy_pallas.mobility_apply_multi(
+        jnp.asarray(F32), jnp.asarray(r32), A, ETA, wall, interpret=True))
+    U = rpy_cuda.mobility_apply_multi(torch.from_numpy(F32),
+                                      torch.from_numpy(r32), A, ETA, wall)
+    assert U.shape == (2, 150, 3)
+    assert _rel(U, Uref.astype(np.float64)) < KERNEL_TOL
+
+
+@pytest.mark.parametrize("kwargs", [
+    dict(box_over_a=(10.0, 10.0)),
+    dict(image_shells=2),
+    dict(ahat=torch.ones(8)),
+])
+def test_wrapper_raises_on_unported_options(kwargs):
+    r = torch.rand(8, 3) + 1.0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rpy_cuda.pair_sum(r, torch.rand(8, 3), True, **kwargs)
+
+
+def test_wrapper_raises_on_three_rhs():
+    r = torch.rand(8, 3) + 1.0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        rpy_cuda.pair_sum(r, torch.rand(3, 8, 3), True)
+
+
+def test_wrapper_has_no_fallback_off_cpu():
+    """A tensor that is neither on the CPU nor on a card is refused, never
+    routed to the plain sweep; the launch counters do not move."""
+    r = torch.empty(8, 3, device="meta")
+    before = rpy_cuda.launch_counts()
+    with pytest.raises(ValueError, match="device"):
+        rpy_cuda.pair_sum(r, torch.empty(8, 3, device="meta"), True)
+    assert rpy_cuda.launch_counts() == before
+
+
+def test_kernel_launchers_require_cuda_tensors():
+    r = torch.rand(8, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        rpy_cuda.pair_sweep_sym(r, torch.rand(8, 3), True, 0.75)
+    with pytest.raises(ValueError, match="CUDA"):
+        rpy_cuda.pair_sweep_ordered(r, 0, r, torch.rand(2, 8, 3), 0, True,
+                                    0.75)
+
+
+def test_kernel_build_uses_ieee_math():
+    """The kernels are built for sm_90a without fast math, and the source
+    uses no approximate division (approximate reciprocals floor GMRES)."""
+    flags = " ".join(rpy_cuda.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    with open(rpy_cuda.SOURCE) as f:
+        src = f.read()
+    assert "__fdividef(" not in src and "__frcp" not in src
