@@ -8,7 +8,7 @@ Phases (each raises on failure; any failure exits nonzero):
   0. the card: name and power limit from nvidia-smi, torch and CUDA versions;
   1. build the kernels for sm_90a: K1/K2 from
      rigid_body_light_tpu_torch/csrc/rpy_pair_sweep.cu, K3 from
-     rigid_body_light_tpu_torch/csrc/near_sweep.cu;
+     near_sweep.cu, K4 from ewald_real_sweep.cu, P from fma_peak.cu;
   2. K1 (symmetric sweep, 1 RHS) against the plain PyTorch sweep in float64
      on the card, wall and free, at the slice's 10,272 blob positions and a
      ragged 1,000-blob cloud straddling the wall-height floor; then K1's
@@ -35,11 +35,35 @@ Phases (each raises on failure; any failure exits nonzero):
      configuration), run_bd for 1 warm-up and 2 timed steps, with the
      launch counts read around that run;
   9. one far-field step through K3 against one through the plain float32
-     near sweep, from identical draws, at 25,620 blobs.
+     near sweep, from identical draws, at 25,620 blobs;
+ 10. K4, the Ewald real-space sweep (rigid_body_light_tpu_torch/csrc/
+     ewald_real_sweep.cu), against the plain sweep in float64 on the card
+     (the same Chebyshev fit, float64 Clenshaw), 1 and 2 RHS: at the
+     periodic slice's 10,272 blob positions and at a uniform cloud of
+     10,272 blobs in its L = 14 box, and at 700 blobs in a (9, 11, 10) box
+     with a = 0.45 at the default tolerance (another degree, a ragged n);
+     two launches agree bitwise;
+ 11. K4's time at the periodic slice, 1 and 2 RHS, against the plain
+     float32 sweep and its bound, and at 4× the blobs; the wave part's
+     time and the whole operator's;
+ 12. the Ewald operator through K4 against the float64 operator with the
+     closed-form scalars at the periodic slice, its wave part against the
+     float64 wave part (full float32 matmuls, no TF32), and the operator's
+     symmetry;
+ 13. the periodic slice: 16 × shell_N_642 = 10,272 blobs in a cubic L = 14
+     box, ewald_tol 1e-4 (the JAX package's scripts/tpu_ewald_bench.py
+     configuration), run_bd for 1 warm-up and 8 timed steps, with the
+     launch counts read around that run;
+ 14. one periodic step through K4 against one through the plain float32
+     sweep, from identical draws;
+ 15. P, the FP32 FMA peak probe (rigid_body_light_tpu_torch/csrc/
+     fma_peak.cu), against its plain version, then the card's measured
+     FP32 rate beside the nominal one.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
-(K3).  The kernels are built at first use from the checkout's sources,
-one nvcc per source, all started together.
+(K3), phases 10-14 the triply-periodic path (K4); phase 15 is the probe's
+own entry point.  The kernels are built at first use from the checkout's
+sources, one nvcc per source, all started together.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -80,6 +104,26 @@ FF_TIMED_STEPS = 2
 # far field (p = 4) against the exact operator, max|ΔU| / max|U|: the JAX
 # config's operator-error estimate for p = 4 is ~5e-3
 FF_OPERATOR_TOL = 1e-2
+# the periodic slice, scripts/tpu_ewald_bench.py
+EW_BOX = (14.0, 14.0, 14.0)
+EW_TOL = 1e-4
+EW_WARM_STEPS = 1
+EW_TIMED_STEPS = 8
+K4_SOURCE = "rigid_body_light_tpu_torch/csrc/ewald_real_sweep.cu"
+P_SOURCE = "rigid_body_light_tpu_torch/csrc/fma_peak.cu"
+# float32 operator through K4 against the float64 operator with closed-form
+# scalars, max|ΔU| / max|U|: the fit is 3e-6 of scale, ewald_tol is 1e-4
+EW_OPERATOR_TOL = 1e-4
+# |F₁·M F₂ − F₂·M F₁| / |F₁·M F₂|
+EW_SYMMETRY_TOL = 1e-5
+# float32 wave part against float64: TF32 matmuls would leave ~1e-3
+EW_WAVE_TOL = 2e-5
+# P against its plain version in float64, max relative error of a row: the
+# chain's 64 roundings of half an ulp average out over a row of random
+# inputs; on the probe's own input (ones) every addend of a row sum is the
+# same number and rounds alike, so the bound is looser there
+P_TOL = 1e-6
+P_TOL_ONES = 5e-6
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -192,6 +236,56 @@ def farfield_setup(torch, device, n_bodies):
     return cfg, geom, state, force
 
 
+def ewald_setup(torch, device):
+    """scripts/tpu_ewald_bench.py's BD workload: 16 × shell_N_642 on a
+    4 × 4 lattice, spacing 3.2, heights 3.0 / 5.5 / 8.0, in a cubic L = 14
+    box; no wall, no force; ewald_tol 1e-4, GMRES restart 60."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    params, ref = rt.load_structure(SHELL)
+    xs = np.array([[3.2 * (i % 4) + 0.5, 3.2 * (i // 4) + 0.5,
+                    3.0 + 2.5 * (i % 3)] for i in range(N_BODIES)])
+    qs = np.tile([1.0, 0, 0, 0], (N_BODIES, 1))
+    cfg = rt.SimulationConfig(
+        a=params["sep"] / 2, dt=0.01, kBT=1.0, box=EW_BOX, wall=False,
+        dtype=torch.float32, lanczos_iters=6, gmres_tol=1e-4,
+        gmres_restart=60, gmres_maxiter=60, pc_mode="block_free",
+        ewald_tol=EW_TOL)
+    geom = kin.make_ref_geometry(ref, dtype=torch.float32, device=device)
+    state = rt.make_state(xs, qs, dtype=torch.float32, device=device)
+    return cfg, geom, state
+
+
+def check_ewald_sweep(torch, ewald, ewald_cuda, label, r32, F32, params):
+    """K4 (float32) against the plain sweep in float64 on the same
+    float32-representable inputs and the same Chebyshev fit, 1 and 2 RHS;
+    the plain float32 sweep's error is printed beside it (what float32
+    Clenshaw costs whoever evaluates it).  Returns the max absolute error
+    at 1 RHS."""
+    r64, F64 = r32.double(), F32.double()
+    err1 = None
+    for k in (1, 2):
+        U = ewald_cuda.real_pair_sum(F32[:k], r32, params)
+        torch.cuda.synchronize()
+        ref = ewald.real_space_apply(F64[:k], r64, params, cheb=True)
+        err = (U.double() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        plain = ewald.real_space_apply(F32[:k], r32, params)
+        rel_plain = ((plain.double() - ref).abs().max()
+                     / ref.abs().max()).item()
+        print(f"K4 ewald_real_sweep {label} n={r32.shape[0]} box={params.box}"
+              f" degree={params.cheb_A.shape[1] - 1} k={k}: max|dU|={err:.3e}"
+              f" max|dU|/max|U|={rel:.3e} (tol {KERNEL_TOL:g}); the plain "
+              f"float32 sweep {rel_plain:.3e}")
+        if not (rel <= KERNEL_TOL and torch.isfinite(U).all()):
+            raise AssertionError(f"K4 disagrees with the plain sweep on "
+                                 f"{label}, k={k}: {rel}")
+        if err1 is None:
+            err1 = err
+    return err1
+
+
 def near_pairs(torch, ctx, tile):
     """The pairs K3 must evaluate on this data: live rows against their
     neighbor tiles' live columns, cell offset ≤ 1 on every axis, not the
@@ -251,9 +345,11 @@ def main():
     try:
         from rigid_body_light_tpu_torch.dynamics import (make_draws, run_bd,
                                                          stochastic_step)
-        from rigid_body_light_tpu_torch.ops import (cuda_build, farfield,
+        from rigid_body_light_tpu_torch.ops import (cuda_build, ewald,
+                                                    ewald_cuda, farfield,
                                                     farfield_cuda, rpy,
-                                                    rpy_cuda)
+                                                    rpy_cuda, saddle)
+        from rigid_body_light_tpu_torch.utils import roofline
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -272,6 +368,8 @@ def main():
     built = cuda_build.build()
     rpy_cuda.build()
     farfield_cuda.build()
+    ewald_cuda.build()
+    roofline.build()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (path, log) in built.items():
         print(f"  {name} -> {path}")
@@ -522,6 +620,208 @@ def main():
     if not (rel <= STEP_TOL and torch.isfinite(s_k.X).all()):
         raise AssertionError(f"K3 step disagrees with the plain step: {rel}")
 
+
+    # ---- 10. K4 vs the float64 plain sweep (same fit, float64 Clenshaw)
+    cfg_e, geom_e, state_e = ewald_setup(torch, dev)
+    r_e = kin.blob_positions(geom_e, state_e.X, state_e.Q).reshape(-1, 3)
+    n_e = r_e.shape[0]
+    par_e = saddle._ewald_params(cfg_e.box, cfg_e.a, cfg_e.eta, None,
+                                 cfg_e.ewald_tol)
+    deg_e = par_e.cheb_A.shape[1] - 1
+    print(f"periodic slice: box {par_e.box}, xi {par_e.xi:.4f}, "
+          f"{len(par_e.kvecs)} wavevectors, Chebyshev degree {deg_e}, "
+          f"segment edges {par_e.cheb_bounds.tolist()}")
+    F_e = torch.from_numpy(rng.standard_normal((2, n_e, 3))).to(dev).float()
+    k4_err = check_ewald_sweep(torch, ewald, ewald_cuda, "slice", r_e, F_e,
+                               par_e)
+    r_u = torch.from_numpy(rng.uniform(0, EW_BOX[0], (n_e, 3))).to(dev).float()
+    check_ewald_sweep(torch, ewald, ewald_cuda, "uniform", r_u, F_e, par_e)
+    par_a = ewald.make_params((9.0, 11.0, 10.0), 0.45)
+    r_a = torch.from_numpy(rng.uniform(0, 1, (700, 3))
+                           * np.array(par_a.box)).to(dev).float()
+    check_ewald_sweep(torch, ewald, ewald_cuda, "ragged", r_a, F_e[:, :700],
+                      par_a)
+    for k in (1, 2):
+        Fk = F_e[:k].contiguous()
+        U1 = ewald_cuda.real_sweep_kernel(r_u, Fk, par_e)
+        ewald_cuda.real_sweep_kernel(r_a, Fk[:, :700].contiguous(), par_a)
+        U2 = ewald_cuda.real_sweep_kernel(r_u, Fk, par_e)
+        torch.cuda.synchronize()
+        if not torch.equal(U1, U2):
+            raise AssertionError(f"two K4 launches differ bitwise, k={k}")
+    print("K4 launches repeat bitwise at 1 and 2 RHS, with another box's "
+          "operator launched in between")
+
+    # ---- 11. K4's time at the periodic slice, the wave part, the operator
+    k4 = {}
+    for k in (1, 2):
+        Fk = F_e[:k].contiguous()
+        ms = cuda_ms(torch, lambda: ewald_cuda.real_sweep_kernel(
+            r_e, Fk, par_e), 20)
+        plain = cuda_ms(torch, lambda: ewald.real_space_apply(
+            Fk, r_e, par_e), 2)
+        # per unordered pair, from the kernel's arithmetic: separation,
+        # wrap, distance, segment map 36; two Clenshaw chains of one
+        # subtract and one FMA per step 6·D; both applies 36 per RHS
+        flops = n_e * (n_e - 1) // 2 * (36 + 6 * deg_e + 36 * k)
+        n_bytes = n_e * (12 + 24 * k) + 32 * (deg_e + 1)
+        k4[k] = dict(ms=ms, plain_ms=plain, bound=bound_ms(flops, n_bytes))
+        print(f"K4 time at n={n_e}, degree {deg_e}, {k} RHS: kernel {ms:.4f} "
+              f"ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s at "
+              f"{36 + 6 * deg_e + 36 * k} flop per unordered pair), plain "
+              f"float32 {plain:.4f} ms, bound {k4[k]['bound'][0]:.4f} ms "
+              f"({k4[k]['bound'][1]})")
+    # the same sweep over 4× the blobs (16× the pairs, ~14,000 working
+    # blocks against the slice's ~900, which all fit on the card at once):
+    # a higher rate there is what one uneven wave of blocks costs the slice
+    n_4 = 4 * n_e
+    r_4 = torch.from_numpy(rng.uniform(0, EW_BOX[0], (n_4, 3))).to(dev).float()
+    F_4 = torch.from_numpy(rng.standard_normal((1, n_4, 3))).to(dev).float()
+    ms_4 = cuda_ms(torch, lambda: ewald_cuda.real_sweep_kernel(
+        r_4, F_4, par_e), 5)
+    flops_4 = n_4 * (n_4 - 1) // 2 * (36 + 6 * deg_e + 36)
+    print(f"K4 time at n={n_4} (a uniform cloud in the same box), 1 RHS: "
+          f"kernel {ms_4:.4f} ms ({flops_4 / (ms_4 * 1e-3) / 1e9:.1f} GFLOP/s)")
+    del r_4, F_4
+    for k in (1, 2):
+        Fk = F_e[:k].contiguous()
+        wave_ms = cuda_ms(torch, lambda: ewald.wave_space_apply(
+            Fk, r_e, par_e), 10)
+        op_ms = cuda_ms(torch, lambda: ewald_cuda.mobility_apply_multi(
+            Fk, r_e, par_e), 10)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            ewald_cuda.mobility_apply_multi(Fk, r_e, par_e)
+        torch.cuda.synchronize()
+        op_host_ms = (time.perf_counter() - t0) * 100
+        print(f"Ewald operator at n={n_e}, {k} RHS: wave part {wave_ms:.4f} "
+              f"ms, whole apply {op_ms:.4f} ms by CUDA events, "
+              f"{op_host_ms:.4f} ms by the host clock")
+
+    # ---- 12. the operator through K4 vs float64 with closed-form scalars
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the wave part needs "
+                             "full float32 products")
+    r_e64, F_e64 = r_e.double(), F_e.double()
+    U_k = ewald_cuda.mobility_apply_multi(F_e, r_e, par_e)
+    U_w = ewald.wave_space_apply(F_e, r_e, par_e)
+    torch.cuda.synchronize()
+    U_64 = ewald.mobility_apply_multi(F_e64, r_e64, par_e)
+    U_w64 = ewald.wave_space_apply(F_e64, r_e64, par_e)
+    op_rel = ((U_k.double() - U_64).abs().max() / U_64.abs().max()).item()
+    wave_rel = ((U_w.double() - U_w64).abs().max()
+                / U_w64.abs().max()).item()
+    f1m2 = (F_e64[0] * U_k[1].double()).sum().item()
+    f2m1 = (F_e64[1] * U_k[0].double()).sum().item()
+    sym = abs(f1m2 - f2m1) / abs(f1m2)
+    print(f"Ewald operator through K4 vs float64 closed forms at n={n_e}: "
+          f"max|dU|/max|U| = {op_rel:.3e} (tol {EW_OPERATOR_TOL:g}); wave "
+          f"part float32 vs float64 {wave_rel:.3e} (tol {EW_WAVE_TOL:g}); "
+          f"symmetry |F1.MF2 - F2.MF1|/|F1.MF2| = {sym:.3e} "
+          f"(tol {EW_SYMMETRY_TOL:g})")
+    if not (op_rel <= EW_OPERATOR_TOL and wave_rel <= EW_WAVE_TOL
+            and sym <= EW_SYMMETRY_TOL and torch.isfinite(U_k).all()):
+        raise AssertionError("the Ewald operator through K4 fails its "
+                             f"bounds: {op_rel}, {wave_rel}, {sym}")
+    del U_64, U_w64, U_k, U_w
+
+    # ---- 13. the periodic slice through K4
+    gen_e = torch.Generator(device=dev).manual_seed(SEED)
+    x0_e = state_e.X.clone()
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    s_e, tr_ew = run_bd(geom_e, cfg_e, state_e, EW_WARM_STEPS,
+                        generator=gen_e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_e, tr_e = run_bd(geom_e, cfg_e, s_e, EW_TIMED_STEPS, generator=gen_e)
+    torch.cuda.synchronize()
+    wall_e = time.perf_counter() - t0
+    counts_e = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                **ewald_cuda.launch_counts()}
+    res_e = torch.cat([tr_ew["residual"], tr_e["residual"]])
+    iters_e = torch.cat([tr_ew["iters"], tr_e["iters"]]).double()
+    steps_e = EW_WARM_STEPS + EW_TIMED_STEPS
+    qn_e = torch.linalg.norm(s_e.Q, dim=1)
+    print(f"periodic slice: {N_BODIES} x {SHELL} = {n_e} blobs, box {EW_BOX}, "
+          f"ewald_tol {EW_TOL:g}: {EW_TIMED_STEPS} steps in {wall_e:.3f} s = "
+          f"{EW_TIMED_STEPS / wall_e:.4f} steps/s; max residual "
+          f"{res_e.max().item():.3e}; GMRES iters per step "
+          f"{iters_e.tolist()}; max noise_err "
+          f"{tr_e['noise_err'].max().item():.3e}; max||q|-1| "
+          f"{(qn_e - 1).abs().max().item():.3e}; launches {counts_e} over "
+          f"{steps_e} steps ({counts_e['ewald_real_sweep'] / steps_e:.1f} K4 "
+          f"per step)")
+    checks = {
+        "max residual < 10 gmres_tol": res_e.max().item()
+        < 10 * cfg_e.gmres_tol,
+        "state finite": bool(torch.isfinite(s_e.X).all()
+                             and torch.isfinite(s_e.Q).all()),
+        "|q| within 1e-5 of 1": (qn_e - 1).abs().max().item() <= 1e-5,
+        "bodies moved": (s_e.X - x0_e).abs().max().item() > 0,
+        "K4 launched": counts_e["ewald_real_sweep"] > 0,
+        "K1 not launched": counts_e["pair_sweep_sym"] == 0,
+        "K2 not launched": counts_e["pair_sweep_ordered"] == 0,
+        "K3 not launched": counts_e["near_sweep"] == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"periodic slice check failed: {what}")
+
+    # ---- 14. K4 step vs plain step, identical draws
+    zero_e = torch.zeros((N_BODIES, 6), dtype=torch.float32, device=dev)
+    draws = make_draws(geom_e, s_e, gen_e)
+    s_k, aux_k = stochastic_step(geom_e, cfg_e, s_e, zero_e, draws=draws)
+    s_p, aux_p = stochastic_step(geom_e, cfg_e.replace(use_pallas=False),
+                                 s_e, zero_e, draws=draws)
+    torch.cuda.synchronize()
+    dX_k, dX_p = s_k.X - s_e.X, s_p.X - s_e.X
+    rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    print(f"periodic step K4 vs plain: max|dX_k - dX_p|/max|dX_p| = "
+          f"{rel:.3e} (tol {STEP_TOL:g}); iters {aux_k.iters} vs "
+          f"{aux_p.iters}; residual {aux_k.residual.item():.3e} vs "
+          f"{aux_p.residual.item():.3e}")
+    if not (rel <= STEP_TOL and torch.isfinite(s_k.X).all()):
+        raise AssertionError(f"K4 step disagrees with the plain step: {rel}")
+
+    # ---- 15. P: the FMA probe vs its plain version, then the card's rate
+    n_p = 10240
+    x_p = torch.from_numpy(rng.uniform(0.5, 1.5, n_p)).to(dev).float()
+    c_p = torch.from_numpy(rng.uniform(0.5, 1.5, n_p)).to(dev).float()
+    one_p = torch.ones(n_p, dtype=torch.float32, device=dev)
+    p_err = None
+    for label, x_, c_, tol in (("random", x_p, c_p, P_TOL),
+                               ("ones", one_p, one_p, P_TOL_ONES)):
+        out = roofline.fma_chain(x_, c_)
+        torch.cuda.synchronize()
+        ref = roofline.fma_chain_plain(x_.double(), c_.double())
+        pl32 = roofline.fma_chain_plain(x_, c_)
+        rel = ((out.double() - ref).abs() / ref.abs()).max().item()
+        rel_pl = ((pl32.double() - ref).abs() / ref.abs()).max().item()
+        print(f"P fma_peak {label} n={n_p}: kernel vs float64 plain max rel "
+              f"{rel:.3e} (tol {tol:g}); float32 plain vs float64 plain "
+              f"{rel_pl:.3e}")
+        if not (rel <= tol and torch.isfinite(out).all()):
+            raise AssertionError(f"P disagrees with its plain version on "
+                                 f"{label}: {rel}")
+        if p_err is None:
+            p_err = (out.double() - ref).abs().max().item()
+    p_plain_ms = cuda_ms(torch, lambda: roofline.fma_chain_plain(
+        one_p, one_p), 2)
+    roofline.reset_launch_counts()
+    p_ms, p_tflops = roofline.measure_fp32_peak(n=n_p, device=dev)
+    p_launches = roofline.launch_counts()["fma_peak"]
+    p_flops = n_p * n_p * (2 * roofline.CHAIN + 2)
+    bp = bound_ms(p_flops, 12 * n_p)
+    print(f"P time at n={n_p}, chain {roofline.CHAIN}: kernel {p_ms:.4f} ms = "
+          f"{p_tflops:.2f} TFLOP/s measured FP32 FMA rate, "
+          f"{100 * p_tflops * 1e12 / PEAK_FP32_FLOPS:.1f}% of the nominal "
+          f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s; plain float32 "
+          f"{p_plain_ms:.4f} ms; bound {bp[0]:.4f} ms ({bp[1]}); "
+          f"{p_launches} launches")
+    if p_launches <= 0:
+        raise AssertionError("measure_fp32_peak launched no kernel")
+
     b1 = bound_ms(60 * n * n, 36 * n)
     b2 = bound_ms(90 * n * n, 84 * n)
     summary = {"kernels": [
@@ -543,6 +843,19 @@ def main():
          "library_ms": None, "ms_2rhs": k3[2]["ms"],
          "plain_ms_2rhs": k3[2]["plain_ms"],
          "bound_ms_2rhs": k3[2]["bound"][0]},
+        {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
+         "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
+         "launches": counts_e["ewald_real_sweep"], "max_abs_err": k4_err,
+         "ms": k4[1]["ms"], "plain_ms": k4[1]["plain_ms"],
+         "bound_ms": k4[1]["bound"][0], "bound_by": k4[1]["bound"][1],
+         "library_ms": None, "ms_2rhs": k4[2]["ms"],
+         "plain_ms_2rhs": k4[2]["plain_ms"],
+         "bound_ms_2rhs": k4[2]["bound"][0]},
+        {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
+         "replaces": "scripts/tpu_kernel_roofline.py:53",
+         "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,
+         "plain_ms": p_plain_ms, "bound_ms": bp[0], "bound_by": bp[1],
+         "library_ms": None, "measured_tflops": p_tflops},
     ]}
     print(card)
     print(json.dumps(summary))

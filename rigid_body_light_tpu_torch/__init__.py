@@ -5,14 +5,18 @@ A second package beside the JAX one, mirroring its module layout
 imports ``torch`` and never ``jax``; the JAX package stays the reference the
 port is tested against (``tests/test_torch_*.py``).
 
-The slice ported so far is the fluctuating Brownian-dynamics main path:
-rigid multiblob bodies above a no-slip wall, open domain, one blob radius,
-the ``block_free`` preconditioner, preconditioned fused two-draw Lanczos
-noise, the midpoint-slip RFD drift and a GMRES saddle solve
-(:func:`rigid_body_light_tpu_torch.dynamics.run_bd`).  Its two O(N²)
-mobility pair sweeps are hand-written CUDA kernels for sm_90a
-(``csrc/rpy_pair_sweep.cu``, wrapped by :mod:`.ops.rpy_cuda`); everything
-else is eager PyTorch on whatever device the input tensors live on.
+The slices ported so far are the fluctuating Brownian-dynamics main path
+(:func:`rigid_body_light_tpu_torch.dynamics.run_bd`): rigid multiblob
+bodies with one blob radius, the ``block_free`` preconditioner,
+preconditioned fused two-draw Lanczos noise, the midpoint-slip RFD drift
+and a GMRES saddle solve, with three mobility operators: the dense O(N²)
+pair sweep above a wall or in an open domain, the O(N) proxy-grid far
+field (``farfield_grid``), and the triply-periodic positively-split Ewald
+operator (a 3-D ``box``).  Their pair sweeps are hand-written CUDA
+kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
+:mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
+probe of :mod:`.utils.roofline`; everything else is eager PyTorch on
+whatever device the input tensors live on.
 
 Float32 matmuls are pinned to full precision (TF32 off), mirroring the JAX
 package's ``jax_default_matmul_precision="highest"`` pin: reduced-precision

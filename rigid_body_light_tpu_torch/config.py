@@ -28,9 +28,13 @@ class SimulationConfig:
     ``SimulationConfig`` for the meaning of every field).
 
     ``use_pallas`` keeps its JAX name so configurations carry across
-    unchanged: in the port it selects the hand-written CUDA pair-sweep
-    kernels (:mod:`rigid_body_light_tpu_torch.ops.rpy_cuda`) for float32
-    mobility products; False, or float64, takes the plain PyTorch sweep.
+    unchanged: in the port it selects the hand-written CUDA kernels
+    (:mod:`rigid_body_light_tpu_torch.ops.rpy_cuda`, ``farfield_cuda``,
+    ``ewald_cuda``) for float32 mobility products; False, or float64, takes
+    the plain PyTorch sweep.
+
+    A 3-D ``box`` is the triply-periodic Ewald operator (monodisperse,
+    classic split: ``ewald_rc`` / ``ewald_grid_p`` are not ported yet).
     """
 
     a: float = 1.0
@@ -182,10 +186,14 @@ class SimulationConfig:
                 f"({self.max_step_residual}) — otherwise every 'converged' solve "
                 "is rejected and the trajectory silently freezes")
         # what the port does not have yet
-        if self.box is not None:
+        if self.box is not None and len(self.box) == 2:
+            raise _not_ported("a 2-D (pseudo-periodic) box",
+                              "item 12 (pseudo-2D)")
+        if self.ewald_rc > 0 or self.ewald_grid_p:
             raise _not_ported(
-                "a periodic box", "item 12 (pseudo-2D) / item 13 (triply "
-                "periodic)")
+                "balanced-split Ewald (ewald_rc: the linked-cell real-space "
+                "sweep; ewald_grid_p: the cell-spectral wave part)",
+                "item 13 (ewald_cells, ewald_pme)")
         if self.farfield_grid is not None and self.farfield_band_p > 0:
             raise _not_ported("the far field's band tier (farfield_band_p "
                               "> 0)", "item 11")

@@ -26,6 +26,7 @@ from rigid_body_light_tpu_torch.ops import rfd
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.ops import solvers
 from rigid_body_light_tpu_torch.state import BodyState
+from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
 
 
 class StepAux(NamedTuple):
@@ -198,12 +199,15 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
     from ``generator``.  The ``block_free`` PC and the noise-PC factors are
     built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
     ``pc_refresh`` steps; each solve is warm-started from the previous
-    step's (λ, U), zeroed after a failed solve.
+    step's (λ, U), zeroed after a failed solve.  A periodic box too small
+    for the body geometry raises ``ValueError`` before the first step.
     Returns (final_state, trajectory dict of stacked snapshots every
     ``save_every`` steps: X, Q, residual, iters, noise_err).
     """
     dtype, dev = state.X.dtype, state.X.device
     B = state.X.shape[0]
+    if cfg.box is not None:
+        check_box_geometry(cfg.box, geom.ref_cfg.cpu().numpy(), cfg.a)
     if force_fn is None:
         def force_fn(s, i):
             return torch.zeros((B, 6), dtype=dtype, device=dev)

@@ -10,6 +10,7 @@ same numbers.  Tensors go to the card unless ``device`` names another
     state_t = state_from_numpy(np.asarray(state.X), np.asarray(state.Q))
     pc_t    = pc_from_numpy(np.asarray(pc.minv_ref), np.asarray(pc.n_ref))
     npc_t   = noise_pc_from_numpy(np.asarray(L), np.asarray(L_inv))
+    ew_t    = ewald_params_from_numpy(**params_jax._asdict())
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import kinematics as kin
+from rigid_body_light_tpu_torch.ops.ewald import EwaldParams
 from rigid_body_light_tpu_torch.ops.saddle import PCData
 from rigid_body_light_tpu_torch.state import BodyState, resolve_device
 
@@ -36,6 +38,23 @@ def config_from_dict(d) -> SimulationConfig:
     d = dict(d)
     d["dtype"] = _torch_dtype(d["dtype"])
     return SimulationConfig(**d)
+
+
+def ewald_params_from_numpy(box, a, eta, xi, kvecs, wk, wk_raw=None,
+                            cheb_bounds=None, cheb_A=None, cheb_B=None,
+                            rc=None, nvecs=None) -> EwaldParams:
+    """The port's ``EwaldParams`` from the fields of the JAX package's
+    (numpy arrays and floats), so both packages can run on the very same
+    wavevectors, weights and Chebyshev coefficients."""
+    def arr(v, dtype):
+        return None if v is None else np.array(v, dtype)
+    return EwaldParams(
+        box=tuple(float(b) for b in box), a=float(a), eta=float(eta),
+        xi=float(xi), kvecs=arr(kvecs, np.float64), wk=arr(wk, np.float64),
+        wk_raw=arr(wk_raw, np.float64),
+        cheb_bounds=arr(cheb_bounds, np.float64),
+        cheb_A=arr(cheb_A, np.float64), cheb_B=arr(cheb_B, np.float64),
+        rc=None if rc is None else float(rc), nvecs=arr(nvecs, np.int32))
 
 
 def geometry_from_numpy(ref_cfg, dtype=torch.float32, device="cuda"):

@@ -25,7 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # library name → source under csrc/
 SOURCES = {"rpy_pair_sweep": "rpy_pair_sweep.cu",
-           "near_sweep": "near_sweep.cu"}
+           "near_sweep": "near_sweep.cu",
+           "ewald_real_sweep": "ewald_real_sweep.cu",
+           "fma_peak": "fma_peak.cu"}
 HEADERS = ("rpy_fields.cuh",)
 
 

@@ -1,0 +1,566 @@
+"""Triply-periodic RPY mobility via positively-split Ewald — the port of
+the monodisperse, classic-split part of ``rigid_body_light_tpu/ops/ewald.py``.
+
+The exact periodic RPY operator, split with the positively-split screen
+
+    H(k) = (1 + k²/4ξ²) e^{−k²/4ξ²}          (Fiore, Balboa Usabiaga,
+                                               Donev & Swan, JCP 2017)
+
+into a short-ranged real-space part and a smooth wave-space part, both SPD
+for every ξ:
+
+    M_per = M_real(pairs) + A_self·I(self) + M_wave(everything).
+
+The real-space part is A(r)·I + B(r)·r̂r̂ under 3-D minimum image, with
+
+    A = S₀ + S'/r,   B = S'' − S'/r
+    S₀(r) = [2J₃(r) − J₃(r+2a) − J₃(r−2a)] / (8π²ηa²r)
+    S(r)  = [2J₅(r) − J₅(r+2a) − J₅(r−2a)] / (8π²ηa²r)
+    J₃(α) = (√πα/4ξ)e^{−α²ξ²} − (πα²/4)erfc(αξ)
+    J₅(α) = (πα⁴/48)erfc(αξ) − (√πα³/48ξ)e^{−α²ξ²}
+            + (√πα/96ξ³)e^{−α²ξ²} + (π/64ξ⁴)erf(αξ)
+
+(J_n odd in α), S', S'' by forward-mode differentiation of the closed
+form.  **float32 never evaluates these closed forms**: their J-combination
+differences cancel catastrophically in float32 (~1e-2 operator errors
+that diverge GMRES and break the M^{1/2} sampling).  float32 evaluates
+the host-fitted float64 piecewise-Chebyshev representation of A and B
+(``EwaldParams.cheb_*``) by Clenshaw instead; float64 evaluates the closed
+forms.
+
+The wave part is dense matmuls against the (N, K) phase matrices cos/sin
+of r·k: ``torch.matmul`` / ``einsum`` at full float32 precision (the
+package pins TF32 off).
+
+:func:`real_space_apply` is the plain version of the CUDA real-space
+sweep (:mod:`.ewald_cuda`, ``csrc/ewald_real_sweep.cu``) and the CPU
+path.  The host fits (:func:`make_params`, numpy + scipy) are copied from
+the JAX package so that both build identical arrays.
+
+Not here yet (each raises ``NotImplementedError``): the balanced split
+(``rc``: linked cells; ``grid``: the cell-spectral wave part) and per-blob
+radii (ROADMAP.md queue 1, item 13).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+_SQPI = math.sqrt(math.pi)
+
+
+def _not_ported(what):
+    return NotImplementedError(
+        f"{what} is not ported to rigid_body_light_tpu_torch yet "
+        "(ROADMAP.md queue 1, item 13)")
+
+
+# ------------------------------------------------------ float64 closed forms
+def _erfc(x):
+    return 1.0 - torch.special.erf(x)
+
+
+def _j3(al, xi):
+    """J₃(α) for α ≥ 0 (the odd extension is the caller's job)."""
+    e = torch.exp(-(al * xi) ** 2)
+    return _SQPI * al / (4.0 * xi) * e - math.pi * al**2 / 4.0 * _erfc(al * xi)
+
+
+def _j5(al, xi):
+    e = torch.exp(-(al * xi) ** 2)
+    return (math.pi * al**4 / 48.0 * _erfc(al * xi)
+            - _SQPI * al**3 / (48.0 * xi) * e
+            + _SQPI * al / (96.0 * xi**3) * e
+            + math.pi / (64.0 * xi**4) * torch.special.erf(al * xi))
+
+
+def _j_odd(j_fn, al, xi):
+    return torch.sign(al) * j_fn(torch.abs(al), xi)
+
+
+def _s0(r, a, xi, eta):
+    c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
+    return c / r * (2.0 * _j3(r, xi) - _j3(r + 2 * a, xi)
+                    - _j_odd(_j3, r - 2 * a, xi))
+
+
+def _s(r, a, xi, eta):
+    c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
+    return c / r * (2.0 * _j5(r, xi) - _j5(r + 2 * a, xi)
+                    - _j_odd(_j5, r - 2 * a, xi))
+
+
+def real_space_ab(r, a, xi, eta=1.0):
+    """Real-space Ewald scalars (A, B) with M_real = A·I + B·r̂r̂, from the
+    closed forms; elementwise over any-shape ``r`` (physical units).  S'
+    and S'' by forward-mode differentiation of the closed-form S, as the
+    JAX package takes them.  float64 only in practice (see module doc)."""
+    def s_fn(rr):
+        return _s(rr, a, xi, eta)
+
+    def sp_fn(rr):
+        return torch.func.jvp(s_fn, (rr,), (torch.ones_like(rr),))[1]
+
+    sp, spp = torch.func.jvp(sp_fn, (r,), (torch.ones_like(r),))
+    A = _s0(r, a, xi, eta) + sp / r
+    B = spp - sp / r
+    return A, B
+
+
+def self_coeff(a, xi, eta=1.0):
+    """A_self = lim_{r→0} A(r): the real-space part of the screened
+    periodic self mobility (a Python float)."""
+    return ((1.0 - math.erf(2.0 * a * xi)) / (6.0 * math.pi * eta * a)
+            + (1.0 - math.exp(-4.0 * a**2 * xi**2))
+            / (24.0 * math.pi**1.5 * a**2 * eta * xi))
+
+
+# ------------------------------------------------------------- host set-up
+class EwaldParams(NamedTuple):
+    """Static Ewald configuration (Python floats and numpy arrays).
+
+    kvecs: (K, 3) wavevectors (k ≠ 0, |k| ≤ kmax).
+    wk: (K,) positive wave weights H(k)·sinc²(ka)/(η V k²).
+    wk_raw: (K,) the same without the sinc² factor.
+    cheb_bounds/cheb_A/cheb_B: host-fitted float64 piecewise-Chebyshev
+      representation of the monodisperse real-space scalars: (4,) segment
+      edges and (3, D+1) coefficients per segment.  The float32 path must
+      evaluate these instead of the closed forms (see module doc).
+    rc: balanced-splitting real-space cutoff, or None for the classic
+      split (the real part spans min(L)/2).
+    nvecs: (K, 3) integer lattice indices n with k = 2πn/L.
+    """
+
+    box: tuple
+    a: float
+    eta: float
+    xi: float
+    kvecs: np.ndarray
+    wk: np.ndarray
+    wk_raw: np.ndarray = None
+    cheb_bounds: np.ndarray = None
+    cheb_A: np.ndarray = None
+    cheb_B: np.ndarray = None
+    rc: float = None
+    nvecs: np.ndarray = None
+
+
+def _np_j3(al, xi):
+    from scipy.special import erfc
+
+    e = np.exp(-(al * xi) ** 2)
+    return (np.sqrt(np.pi) * al / (4.0 * xi) * e
+            - np.pi * al**2 / 4.0 * erfc(al * xi))
+
+
+def _np_j5(al, xi):
+    from scipy.special import erf, erfc
+
+    e = np.exp(-(al * xi) ** 2)
+    return (np.pi * al**4 / 48.0 * erfc(al * xi)
+            - np.sqrt(np.pi) * al**3 / (48.0 * xi) * e
+            + np.sqrt(np.pi) * al / (96.0 * xi**3) * e
+            + np.pi / (64.0 * xi**4) * erf(al * xi))
+
+
+def _np_j_odd(j_fn, al, xi):
+    return np.sign(al) * j_fn(np.abs(al), xi)
+
+
+_CHEB_DEG = 48     # fit degree per segment (long-segment fit ≈ 4e-9 abs)
+_CHEB_DEG_S = 96   # degree of the intermediate S-series (derivative source)
+
+
+def _fit_pair_cheb(eta, xi, rmax, ai, aj, deg=_CHEB_DEG, deg_s=_CHEB_DEG_S):
+    """Host float64 piecewise-Chebyshev fit of A(r), B(r) for one radius
+    pair.
+
+    Segments split at the kink radii r = |aᵢ−aⱼ| and r = aᵢ+aⱼ (the
+    α|α|-type terms of the odd J-extension make the scalars non-smooth
+    exactly there).  S', S'' come from differentiating a degree-``deg_s``
+    Chebyshev series of S analytically (``chebder``).
+
+    The required degree grows with ξ·(segment length), so each fit is
+    validated against a deg+16 refit at off-node points and escalated
+    until they agree to 3e-6 of the scalar's scale.
+
+    Returns bounds (4,), coefA (3, D+1), coefB (3, D+1).
+    """
+    cheb = np.polynomial.chebyshev
+    c = 1.0 / (8.0 * np.pi**2 * eta * ai * aj)
+    d, sm = ai - aj, ai + aj
+
+    def g(r, j_fn):
+        return (_np_j_odd(j_fn, r + d, xi) + _np_j_odd(j_fn, r - d, xi)
+                - j_fn(r + sm, xi) - _np_j_odd(j_fn, r - sm, xi))
+
+    def fit_seg(lo, hi, deg, deg_s):
+        ks = np.arange(deg_s + 1)
+        xs = np.cos(np.pi * (ks + 0.5) / (deg_s + 1))
+        rs = lo + (hi - lo) * (xs + 1) / 2
+        cS = cheb.chebfit(xs, c / rs * g(rs, _np_j5), deg_s)
+        scale = 2.0 / (hi - lo)
+        cSp = cheb.chebder(cS) * scale
+        cSpp = cheb.chebder(cSp) * scale
+        kf = np.arange(deg + 1)
+        xf = np.cos(np.pi * (kf + 0.5) / (deg + 1))
+        rf = lo + (hi - lo) * (xf + 1) / 2
+        sp = cheb.chebval(xf, cSp)
+        spp = cheb.chebval(xf, cSpp)
+        s0 = c / rf * g(rf, _np_j3)
+        return (cheb.chebfit(xf, s0 + sp / rf, deg),
+                cheb.chebfit(xf, spp - sp / rf, deg))
+
+    rlo = 0.05 * min(ai, aj)   # below: clamp (A, B smooth and ~flat at 0)
+    edges = [rlo, max(abs(d), rlo * (1 + 1e-9)), sm, rmax]
+    edges = list(np.maximum.accumulate(edges))
+    a_scale = 1.0 / (6.0 * np.pi * eta * max(ai, aj))
+    coefA, coefB = [None] * 3, [None] * 3
+    deg_out = deg
+    for seg in (2, 1, 0):      # reverse: degenerate segs copy their right
+        lo, hi = edges[seg], edges[seg + 1]
+        if hi <= lo * (1 + 1e-8):
+            # zero-width (equal radii): constant = next segment's left edge
+            # (chosen only for r below the clamp radius)
+            coefA[seg] = np.asarray([cheb.chebval(-1.0, coefA[seg + 1])])
+            coefB[seg] = np.asarray([cheb.chebval(-1.0, coefB[seg + 1])])
+            continue
+        # initial degree tracks the segment's screened length (the
+        # Gaussian-decay bandwidth); cubic boxes land at the default
+        dcur = max(deg, int(10 + 7.5 * xi * (hi - lo)))
+        dscur = 2 * dcur
+        prev_err = np.inf
+        for _ in range(4):
+            cA, cB = fit_seg(lo, hi, dcur, dscur)
+            cA2, cB2 = fit_seg(lo, hi, dcur + 16, dscur + 32)
+            xv = np.linspace(-1, 1, 257)
+            err = max(np.abs(cheb.chebval(xv, cA) -
+                             cheb.chebval(xv, cA2)).max(),
+                      np.abs(cheb.chebval(xv, cB) -
+                             cheb.chebval(xv, cB2)).max())
+            # stop on convergence or plateau (short overlap segments are
+            # S''-sample-noise limited at ~1e-5·scale: more degree only
+            # fits noise)
+            if err <= 3e-6 * a_scale or err > 0.5 * prev_err:
+                break
+            prev_err = err
+            dcur, dscur = dcur + 16, dscur + 32
+        coefA[seg] = cA
+        coefB[seg] = cB
+        deg_out = max(deg_out, len(cA) - 1)
+    # pad all segments to the common escalated degree
+    coefA = [np.pad(ca, (0, deg_out + 1 - len(ca))) for ca in coefA]
+    coefB = [np.pad(cb, (0, deg_out + 1 - len(cb))) for cb in coefB]
+    return (np.asarray(edges), np.stack(coefA), np.stack(coefB))
+
+
+def wave_weights(kvecs, a, eta, box, xi):
+    """(wk_raw, wk) positively-split wave weights for k ≠ 0 (numpy).
+
+    wk_raw = H(k)/(ηVk²) with H = (1 + k²/4ξ²)·exp(−k²/4ξ²); wk adds the
+    monodisperse sinc²(ka) shape factor.
+    """
+    k2 = np.sum(np.asarray(kvecs) ** 2, axis=-1)
+    k = np.sqrt(np.maximum(k2, 1e-300))
+    V = box[0] * box[1] * box[2]
+    ka = k * a
+    sinc = np.sin(ka) / np.maximum(ka, 1e-300)
+    H = (1 + k2 / (4 * xi**2)) * np.exp(-k2 / (4 * xi**2))
+    wk_raw = np.where(k2 > 0, H / (eta * V * np.maximum(k2, 1e-300)), 0.0)
+    return wk_raw, wk_raw * sinc**2
+
+
+def make_params(box, a, eta=1.0, xi=None, tol=1e-6, rc=None) -> EwaldParams:
+    """Choose ξ and build the wavevector lattice for a (Lx, Ly, Lz) box.
+
+    The default ξ puts the real-space truncation error at ``tol`` for the
+    minimum-image radius min(L)/2 (so the real sweep needs no image loop),
+    and kmax puts the wave truncation at the same ``tol``.
+
+    rc: balanced-splitting real-space cutoff (2a < rc ≤ min(L)/2): ξ = s/rc,
+    pairs beyond rc excluded.  The params are built as the JAX package
+    builds them, but the port's operators raise for them (the linked-cell
+    sweep is not ported).  Explicit ``xi`` is incompatible with ``rc``.
+    """
+    box = tuple(float(b) for b in box)
+    if len(box) != 3:
+        raise ValueError(f"Ewald needs a 3-D box, got {box!r}")
+    s = float(np.sqrt(-np.log(tol)))
+    rcut = min(box) / 2.0
+    if rc is not None:
+        if xi is not None:
+            raise ValueError("pass either rc= (balanced split) or xi=, not both")
+        rc = float(rc)
+        if not 2.0 * a < rc <= rcut:
+            raise ValueError(
+                f"ewald rc must satisfy 2a = {2 * a:.4g} < rc <= min(L)/2 = "
+                f"{rcut:.4g}, got {rc:.4g}")
+        xi = s / rc
+    if xi is None:
+        xi = s / rcut
+    xi = float(xi)
+    kmax = 2.0 * xi * s
+    nmax = [int(np.ceil(kmax * L / (2 * np.pi))) for L in box]
+    grids = np.meshgrid(*[np.arange(-n, n + 1) for n in nmax], indexing="ij")
+    n_all = np.stack([g.ravel() for g in grids], axis=1)
+    kvecs = 2 * np.pi * n_all / np.asarray(box)
+    k2 = np.sum(kvecs**2, axis=1)
+    keep = (k2 > 0) & (k2 <= kmax**2)
+    kvecs = kvecs[keep]
+    wk_raw, wk = wave_weights(kvecs, a, eta, box, xi)
+    # the fit covers every distance the sweep can see: rc with cells, else
+    # half the box diagonal (minimum image)
+    rmax = (rc if rc is not None
+            else 0.5 * float(np.linalg.norm(box))) * 1.001
+    deg0 = 12 if rc is not None else _CHEB_DEG
+    b, cA, cB = _fit_pair_cheb(float(eta), xi, rmax, float(a), float(a),
+                               deg=deg0)
+    return EwaldParams(box=box, a=float(a), eta=float(eta), xi=xi,
+                       kvecs=kvecs.astype(np.float64),
+                       wk=wk.astype(np.float64),
+                       wk_raw=wk_raw.astype(np.float64),
+                       cheb_bounds=b, cheb_A=cA, cheb_B=cB, rc=rc,
+                       nvecs=n_all[keep].astype(np.int32))
+
+
+# ------------------------------------------------------------- real space
+def _cheb_ab(rr, bounds, coefA, coefB):
+    """Evaluate the piecewise fit elementwise in ``rr``'s dtype: the segment
+    is chosen once per element, the coefficients are read per Clenshaw step
+    by that index, and the two recurrences are the JAX package's
+    (``c_j + 2x·b₁ − b₂``).  Below ``bounds[0]`` the fit is held constant
+    (x clipped to −1)."""
+    dtype, dev = rr.dtype, rr.device
+    b = torch.as_tensor(np.asarray(bounds, np.float64), dtype=dtype,
+                        device=dev)
+    seg = (rr >= b[1]).long() + (rr >= b[2]).long()
+    lo, hi = b[:3][seg], b[1:][seg]
+    x = torch.clamp(2.0 * (rr - lo) / (hi - lo) - 1.0, -1.0, 1.0)
+    two_x = 2.0 * x
+
+    def clenshaw(coef):
+        c = torch.as_tensor(np.asarray(coef, np.float64), dtype=dtype,
+                            device=dev)
+        bk1 = torch.zeros_like(x)
+        bk2 = torch.zeros_like(x)
+        for j in range(c.shape[1] - 1, 0, -1):
+            bk1, bk2 = c[:, j][seg] + two_x * bk1 - bk2, bk1
+        return c[:, 0][seg] + x * bk1 - bk2
+
+    return clenshaw(coefA), clenshaw(coefB)
+
+
+def _wrap3(d, box):
+    """3-D minimum image of displacements d (..., 3); halves round to
+    even, as ``jnp.round`` does."""
+    L = torch.as_tensor(box, dtype=d.dtype, device=d.device)
+    return d - L * torch.round(d / L)
+
+
+def real_space_block(r_rows, row_ids, r_cols, col_ids, F_cols,
+                     params: EwaldParams, row_tile=512, cheb=None):
+    """Screened real-space pair terms of a (rows × column-block) slab,
+    Σ_j [A·I + B·r̂r̂]·F_j with 3-D minimum image; global ids mask the self
+    pair.  F_cols (N_c, 3) or (k, N_c, 3) sharing the pair fields.
+
+    cheb: evaluate A, B from the Chebyshev fit (True) or the closed forms
+    (False); None → the fit in float32, the closed forms in float64.
+    ``cheb=True`` in float64 is the float64 Clenshaw that the CUDA sweep is
+    held against.
+    """
+    if params.rc is not None:
+        raise _not_ported("the balanced split's real-space sweep (rc)")
+    multi = F_cols.dim() == 3
+    Fk = F_cols if multi else F_cols[None]
+    dtype = r_rows.dtype
+    if cheb is None:
+        cheb = dtype == torch.float32
+    if not cheb and dtype == torch.float32:
+        raise ValueError("the closed-form Ewald scalars cancel "
+                         "catastrophically in float32: use the Chebyshev "
+                         "fit (cheb=True) or float64")
+    outs = []
+    for s in range(0, r_rows.shape[0], row_tile):
+        ri, rid = r_rows[s:s + row_tile], row_ids[s:s + row_tile]
+        d = _wrap3(ri[:, None, :] - r_cols[None, :, :], params.box)
+        r2 = torch.sum(d * d, dim=-1)
+        self_mask = rid[:, None] == col_ids[None, :]
+        rr = torch.sqrt(torch.where(self_mask, torch.ones_like(r2),
+                                    torch.clamp(r2, min=1e-24)))
+        if cheb:
+            A, B = _cheb_ab(rr, params.cheb_bounds, params.cheb_A,
+                            params.cheb_B)
+        else:
+            A, B = real_space_ab(rr, params.a, params.xi, params.eta)
+        zero = torch.zeros_like(A)
+        A = torch.where(self_mask, zero, A)
+        B = torch.where(self_mask, zero, B)
+        e = d / rr[..., None]
+        eF = torch.einsum("tnx,knx->ktn", e, Fk)
+        outs.append(torch.einsum("tn,knx->ktx", A, Fk)
+                    + torch.einsum("ktn,tn,tnx->ktx", eF, B, e))
+    U = torch.cat(outs, dim=1)
+    return U if multi else U[0]
+
+
+def real_space_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
+                     cheb=None):
+    """Streamed U_real = Σ_{j≠i} [A·I + B·r̂r̂]·F_j with 3-D minimum image,
+    (N, 3) or (k, N, 3) forces.  No cutoff mask: A, B ≤ tol beyond
+    min(L)/2 by the choice of ξ.  The plain version of the CUDA sweep."""
+    if radii is not None:
+        raise _not_ported("polydisperse Ewald (per-blob radii)")
+    ids = torch.arange(r.shape[0], device=r.device)
+    return real_space_block(r, ids, r, ids, F, params, row_tile=row_tile,
+                            cheb=cheb)
+
+
+# ------------------------------------------------------------- wave space
+def wave_space_apply(F, r, params: EwaldParams, radii=None):
+    """U_wave = Σ_{k≠0} w(k)(I − k̂k̂) e^{ik·(r_i−r_j)} F_j as matmuls
+    against the (N, K) phase matrices C/S = cos/sin(r·kᵀ).  The k-sum
+    includes the i = j term (the wave part of the self mobility).  Above a
+    memory threshold the k-sum runs in K-chunks so the phase matrices never
+    exist whole."""
+    if radii is not None:
+        raise _not_ported("polydisperse Ewald (per-blob radii)")
+    K = len(params.kvecs)
+    if K * r.shape[0] > 2**27 and K > 4096:
+        return _wave_space_chunked(F, r, params)
+    return _wave_space_dense(F, r, params)
+
+
+def _nmax3(nvecs):
+    return tuple(int(m) for m in np.abs(nvecs).max(axis=0))
+
+
+def _phase_tables(r, box, nmax3):
+    """Per-dimension phase tables cos/sin(xᵢ·2πm/L) for m ∈ [−nmax, nmax].
+
+    Lattice wavevectors factorize, e^{ik·r} = Ex(n₁)·Ey(n₂)·Ez(n₃), so the
+    (N, K) phase matrices need only N·ΣW base transcendentals plus
+    gathers and complex multiplies instead of N·K."""
+    out = []
+    for d2 in range(3):
+        m = torch.arange(-nmax3[d2], nmax3[d2] + 1, dtype=r.dtype,
+                         device=r.device)
+        th = r[:, d2, None] * (2.0 * np.pi / box[d2]) * m[None, :]
+        out.append((torch.cos(th), torch.sin(th)))
+    return out
+
+
+def _phases_from_tables(tables, nvecs, nmax3):
+    """(N, K) C, S = Re/Im of Ex·Ey·Ez, the per-axis tables gathered at the
+    wavevectors' lattice indices (``index_select``; the JAX package uses
+    one-hot matmuls here because gathers are slow on a TPU)."""
+    dev = tables[0][0].device
+    g = []
+    for d2, (c, s) in enumerate(tables):
+        idx = torch.as_tensor(nvecs[:, d2].astype(np.int64) + nmax3[d2],
+                              device=dev)
+        g.append((c.index_select(1, idx), s.index_select(1, idx)))
+    (cxg, sxg), (cyg, syg), (czg, szg) = g
+    cxy = cxg * cyg - sxg * syg
+    sxy = cxg * syg + sxg * cyg
+    return cxy * czg - sxy * szg, cxy * szg + sxy * czg
+
+
+def _wave_space_chunked(F, r, params: EwaldParams, kc=4096):
+    """The k-sum in chunks of ``kc`` wavevectors, sharing the per-axis
+    phase tables."""
+    K = len(params.kvecs)
+    tables = nmax3 = None
+    if params.nvecs is not None:
+        nmax3 = _nmax3(params.nvecs)
+        tables = _phase_tables(r, params.box, nmax3)
+    U = torch.zeros_like(F)
+    for k0 in range(0, K, kc):
+        sl = slice(k0, k0 + kc)
+        sub = params._replace(kvecs=params.kvecs[sl], wk=params.wk[sl],
+                              wk_raw=params.wk_raw[sl], nvecs=None)
+        phases = (_phases_from_tables(tables, params.nvecs[sl], nmax3)
+                  if tables is not None else None)
+        U = U + _wave_space_dense(F, r, sub, phases=phases)
+    return U
+
+
+def _wave_space_dense(F, r, params: EwaldParams, phases=None):
+    dtype, dev = r.dtype, r.device
+    kv = torch.as_tensor(params.kvecs, dtype=dtype, device=dev)    # (K, 3)
+    wk = torch.as_tensor(params.wk, dtype=dtype, device=dev)       # (K,)
+    khat = kv / torch.linalg.norm(kv, dim=1, keepdim=True)
+    if phases is None and params.nvecs is not None and len(kv) >= 1024:
+        nmax3 = _nmax3(params.nvecs)
+        phases = _phases_from_tables(_phase_tables(r, params.box, nmax3),
+                                     params.nvecs, nmax3)
+    if phases is not None:
+        C, S = phases
+    else:
+        theta = r @ kv.T                                           # (N, K)
+        C = torch.cos(theta)
+        S = torch.sin(theta)
+
+    def project(X):
+        # transverse projection + weight, X (..., K, 3)
+        return wk[:, None] * (X - khat * torch.sum(khat * X, dim=-1,
+                                                   keepdim=True))
+
+    if F.dim() == 3:                           # (k, N, 3): shared phases
+        ReP = project(torch.einsum("nK,qnx->qKx", C, F))
+        ImP = project(-torch.einsum("nK,qnx->qKx", S, F))
+        return (torch.einsum("nK,qKx->qnx", C, ReP)
+                - torch.einsum("nK,qKx->qnx", S, ImP))
+    ReP = project(C.T @ F)                     # (K, 3) = Re Σ e^{-ikr} F
+    ImP = project(-(S.T @ F))
+    return C @ ReP - S @ ImP
+
+
+# --------------------------------------------------------------- operator
+def _check_classic_mono(params, radii, grid):
+    if params.rc is not None:
+        raise _not_ported("the balanced split (ewald_rc: the linked-cell "
+                          "real-space sweep)")
+    if grid is not None:
+        raise _not_ported("the gridded wave part (ewald_grid_p)")
+    if radii is not None:
+        raise _not_ported("polydisperse Ewald (per-blob radii)")
+
+
+def mobility_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
+                   grid=None, cheb=None):
+    """Full periodic RPY product U = M_per(r)·F, SPD by construction;
+    (N, 3) → (N, 3) in ``r``'s dtype."""
+    _check_classic_mono(params, radii, grid)
+    r = r.reshape(-1, 3)
+    F = F.to(r.dtype).reshape(-1, 3)
+    U = real_space_apply(F, r, params, row_tile=row_tile, cheb=cheb)
+    U = U + self_coeff(params.a, params.xi, params.eta) * F
+    return U + wave_space_apply(F, r, params)
+
+
+def mobility_apply_multi(Fs, r, params: EwaldParams, row_tile=512,
+                         radii=None, grid=None, cheb=None):
+    """Multi-RHS periodic product (k, N, 3) → (k, N, 3) sharing the pair
+    fields: the real-space (A, B) sweep and the wave-space phase matrices
+    are computed once for all RHS."""
+    _check_classic_mono(params, radii, grid)
+    r = r.reshape(-1, 3)
+    Fs = Fs.to(r.dtype)
+    U = real_space_apply(Fs, r, params, row_tile=row_tile, cheb=cheb)
+    U = U + self_coeff(params.a, params.xi, params.eta) * Fs
+    return U + wave_space_apply(Fs, r, params)
+
+
+def mobility_matrix(r, params: EwaldParams, radii=None):
+    """Dense (3N, 3N) periodic mobility, column c the product with the
+    c-th unit force: tests and preconditioner blocks only."""
+    r = r.reshape(-1, 3)
+    n = r.shape[0]
+    eye = torch.eye(3 * n, dtype=r.dtype, device=r.device)
+    cols = mobility_apply_multi(eye.reshape(3 * n, n, 3), r, params,
+                                radii=radii)
+    return cols.reshape(3 * n, 3 * n).T

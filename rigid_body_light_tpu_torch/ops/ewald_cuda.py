@@ -1,0 +1,179 @@
+"""Wrapper of the hand-written CUDA Ewald real-space sweep K4 — the port
+of ``rigid_body_light_tpu/ops/ewald_pallas.py`` (its ``real_pair_sum``,
+``mobility_apply`` and ``mobility_apply_multi`` contract).
+
+Kernel (``csrc/ewald_real_sweep.cu``, built for sm_90a at first use by
+:mod:`.cuda_build`):
+
+  K4 ``ewald_real_sweep``  replaces ``ewald_pallas._kernel_ewald_sym``:
+                           Σ_{j≠i} [A(r)·I + B(r)·r̂r̂]·F_j under 3-D
+                           minimum image, each unordered pair's A, B once
+                           (Clenshaw on the host-fitted Chebyshev
+                           representation, never the closed forms), applied
+                           forward and transposed.  1 or 2 RHS.
+
+Monodisperse float32, classic split only.  :func:`real_pair_sum` takes the
+plain PyTorch sweep (:func:`rigid_body_light_tpu_torch.ops.ewald.
+real_space_apply`) for a tensor on the CPU, and launches the kernel or
+raises for a CUDA tensor — there is no fallback.  Like the Pallas wrapper,
+inputs are cast to float32; the kernel itself refuses anything else.
+
+Every launch carries its own constants and coefficient table (built from
+the ``params`` it is given), so operators with different boxes can be
+alive at once.  Not differentiable (neither is the Pallas kernel).
+
+``sweep_launches`` counts kernel launches (incremented where the kernel is
+launched, nowhere else) so a run can show that its main path went through
+the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from rigid_body_light_tpu_torch.ops import cuda_build, ewald
+
+sweep_launches = 0
+
+_lib = None
+_F32_MAX = float(np.finfo(np.float32).max)
+
+
+def reset_launch_counts():
+    global sweep_launches
+    sweep_launches = 0
+
+
+def launch_counts():
+    return {"ewald_real_sweep": sweep_launches}
+
+
+def build():
+    """Compile ``csrc/ewald_real_sweep.cu`` (if its build is not current)
+    and load it.  Returns the ``ctypes`` library."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    lib = cuda_build.load("ewald_real_sweep")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.ewald_sweep_rows_per_tile, lib.ewald_sweep_cols_per_chunk,
+               lib.ewald_sweep_max_degree):
+        fn.restype = i
+        fn.argtypes = []
+    lib.ewald_real_sweep.restype = i
+    lib.ewald_real_sweep.argtypes = [p, p, i, i, ctypes.POINTER(ctypes.c_float),
+                                     p, i, p, p, p, p]
+    _lib = lib
+    return lib
+
+
+def sweep_constants(params):
+    """The kernel's 14 per-launch scalars from ``params``, computed in
+    float64: box[3], 1/box[3], the two inner segment edges, each segment's
+    left edge and 2/width (a zero-width segment's is capped at the float32
+    maximum: its x clips to −1 either way)."""
+    b = [float(v) for v in params.cheb_bounds]
+    two_inv_w = [min(2.0 / max(b[s + 1] - b[s], 1e-300), _F32_MAX)
+                 for s in range(3)]
+    box = [float(v) for v in params.box]
+    return np.asarray(box + [1.0 / v for v in box] + [b[1], b[2]] + b[:3]
+                      + two_inv_w, np.float32)
+
+
+def coefficient_table(params):
+    """The kernel's Chebyshev table, (D+1, 4, 2) float32: [j, segment] =
+    (A_j, B_j), slot 3 unused."""
+    cA = np.asarray(params.cheb_A, np.float64)
+    cB = np.asarray(params.cheb_B, np.float64)
+    table = np.zeros((cA.shape[1], 4, 2), np.float32)
+    table[:, :3, 0] = cA.T
+    table[:, :3, 1] = cB.T
+    return table
+
+
+def real_sweep_kernel(r, Fs, params):
+    """K4 on the card.  r (n, 3), Fs (k, n, 3) float32 contiguous CUDA
+    tensors, k ∈ {1, 2} → (k, n, 3) pair terms."""
+    global sweep_launches
+    n, k = r.shape[0], Fs.shape[0]
+    if k not in (1, 2):
+        raise ValueError(f"ewald_real_sweep takes 1 or 2 RHS, got {k}")
+    cuda_build.check_tensor(r, "r", (n, 3))
+    cuda_build.check_tensor(Fs, "Fs", (k, n, 3))
+    lib = build()
+    table = coefficient_table(params)
+    deg = table.shape[0] - 1
+    if deg > lib.ewald_sweep_max_degree():
+        raise ValueError(
+            f"the Chebyshev fit has degree {deg}; the kernel's table holds "
+            f"at most {lib.ewald_sweep_max_degree()} (a long anisotropic "
+            "box: raise kMaxDeg in csrc/ewald_real_sweep.cu)")
+    consts = sweep_constants(params)
+    dev = r.device
+    coef = torch.from_numpy(table).to(dev)
+    rows = lib.ewald_sweep_rows_per_tile()
+    chunk = lib.ewald_sweep_cols_per_chunk()
+    row_part = torch.empty((-(-n // chunk), 3 * k, n), dtype=torch.float32,
+                           device=dev)
+    col_part = torch.empty((-(-n // rows), 3 * k, n), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ewald_real_sweep(
+            r.data_ptr(), Fs.data_ptr(), n, k,
+            consts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            coef.data_ptr(), deg, row_part.data_ptr(), col_part.data_ptr(),
+            out.data_ptr(), stream)
+    cuda_build.raise_on_error(code, "ewald_real_sweep")
+    sweep_launches += 1
+    return out
+
+
+def _check(params, k):
+    if params.rc is not None:
+        raise NotImplementedError(
+            "the balanced split (ewald_rc) is not in the CUDA Ewald sweep: "
+            "its real part is the linked-cell sweep (ROADMAP.md queue 1, "
+            "item 13)")
+    if k > 2:
+        raise NotImplementedError(
+            f"a {k}-RHS sweep is not in the CUDA Ewald sweep (K4 takes "
+            "k ≤ 2, as the Pallas kernel does)")
+
+
+def real_pair_sum(Fs, r, params):
+    """Σ_{j≠i} [A·I + B·r̂r̂]·F_j in float32.
+
+    Fs: (k, N, 3) with k ∈ {1, 2}; r: (N, 3) physical positions.  CPU
+    tensors take the plain sweep, CUDA tensors K4.  Returns (k, N, 3).
+    """
+    _check(params, Fs.shape[0])
+    r = r.to(torch.float32).contiguous()
+    Fs = Fs.to(torch.float32).contiguous()
+    if r.device.type == "cpu":
+        return ewald.real_space_apply(Fs, r, params)
+    if r.device.type == "cuda":
+        return real_sweep_kernel(r, Fs, params)
+    raise ValueError(f"no Ewald sweep for device {r.device}")
+
+
+def mobility_apply_multi(Fs, r, params):
+    """Multi-RHS periodic product (k, N, 3) → (k, N, 3), float32, shared
+    pair fields: K4's real-space pairs, the closed-form self term and the
+    wave-space matmuls."""
+    r = r.to(torch.float32).reshape(-1, 3)
+    Fs = Fs.to(torch.float32)
+    Fs = Fs.reshape(Fs.shape[0], -1, 3)
+    U = real_pair_sum(Fs, r, params)
+    U = U + ewald.self_coeff(params.a, params.xi, params.eta) * Fs
+    return U + ewald.wave_space_apply(Fs, r, params)
+
+
+def mobility_apply(F, r, params):
+    """Drop-in for :func:`rigid_body_light_tpu_torch.ops.ewald.
+    mobility_apply` (monodisperse float32): (N, 3) → (N, 3)."""
+    return mobility_apply_multi(F.reshape(1, -1, 3), r, params)[0]

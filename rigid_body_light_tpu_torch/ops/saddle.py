@@ -13,11 +13,14 @@ body-frame inverse (``block_free``), forms Ñ⁻¹ = Kᵀ M̃⁻¹ K per body, t
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from rigid_body_light_tpu_torch.config import SimulationConfig
+from rigid_body_light_tpu_torch.ops import ewald
+from rigid_body_light_tpu_torch.ops import ewald_cuda
 from rigid_body_light_tpu_torch.ops import farfield
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import quaternion as quat
@@ -72,10 +75,13 @@ def body_K_blocks(offsets) -> torch.Tensor:
 
 def mobility_apply_fn(cfg: SimulationConfig):
     """The blob-space mobility product (F (N,3), r (N,3)) → (N,3), damped
-    iff ``cfg.wall``.  With ``farfield_grid`` set it is the proxy-grid far
-    field (:func:`_farfield_apply_fn`).  Otherwise float32 with
-    ``use_pallas`` goes through the CUDA pair-sweep wrappers (kernel K1 on
-    the card), and anything else takes the plain sweep."""
+    iff ``cfg.wall``.  A 3-D ``cfg.box`` routes to the triply-periodic
+    Ewald operator (:func:`_ewald_apply_fn`).  With ``farfield_grid`` set
+    it is the proxy-grid far field (:func:`_farfield_apply_fn`).  Otherwise
+    float32 with ``use_pallas`` goes through the CUDA pair-sweep wrappers
+    (kernel K1 on the card), and anything else takes the plain sweep."""
+    if cfg.box is not None and len(cfg.box) == 3:
+        return _ewald_apply_fn(cfg, multi=False)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
     if cfg.use_pallas and cfg.dtype == torch.float32:
@@ -95,7 +101,10 @@ def mobility_apply_fn(cfg: SimulationConfig):
 def mobility_apply_multi_fn(cfg: SimulationConfig):
     """Multi-RHS product (Fs (k,N,3), r (N,3)) → (k,N,3) sharing the pair
     fields across RHS (kernel K2 on the card for the fused two-draw
-    noise; the far field's ndim-polymorphic apply with ``farfield_grid``)."""
+    noise; the far field's ndim-polymorphic apply with ``farfield_grid``;
+    the Ewald operator with a 3-D box)."""
+    if cfg.box is not None and len(cfg.box) == 3:
+        return _ewald_apply_fn(cfg, multi=True)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
     if cfg.use_pallas and cfg.dtype == torch.float32:
@@ -110,6 +119,37 @@ def mobility_apply_multi_fn(cfg: SimulationConfig):
                                         wall=cfg.wall,
                                         row_tile=cfg.matvec_row_tile,
                                         h_floor=cfg.wall_h_floor)
+    return apply_plain
+
+
+@functools.lru_cache(maxsize=8)
+def _ewald_params(box, a, eta, xi, tol):
+    """``ewald.make_params`` (the host Chebyshev fit, tens of milliseconds
+    and more) once per configuration: a step asks for the operator anew,
+    and the arrays of the result are never written to."""
+    return ewald.make_params(box, a, eta, xi=xi, tol=tol)
+
+
+def _ewald_apply_fn(cfg: SimulationConfig, multi: bool):
+    """Triply-periodic positively-split Ewald operator (:mod:`.ewald`) for a
+    3-D ``cfg.box``.  Monodisperse float32 with ``use_pallas`` sweeps the
+    real-space part through kernel K4 (:mod:`.ewald_cuda`); anything else
+    takes the plain sweep (closed-form scalars in float64).  The config
+    already refuses the balanced split (``ewald_rc``, ``ewald_grid_p``)."""
+    params = _ewald_params(cfg.box, cfg.a, cfg.eta,
+                           cfg.ewald_xi if cfg.ewald_xi > 0 else None,
+                           cfg.ewald_tol)
+    if cfg.use_pallas and cfg.dtype == torch.float32:
+        kernel = (ewald_cuda.mobility_apply_multi if multi
+                  else ewald_cuda.mobility_apply)
+
+        def apply_kernel(F, r):
+            return kernel(F, r, params)
+        return apply_kernel
+    plain = ewald.mobility_apply_multi if multi else ewald.mobility_apply
+
+    def apply_plain(F, r):
+        return plain(F, r, params, row_tile=cfg.matvec_row_tile)
     return apply_plain
 
 
@@ -145,7 +185,7 @@ def hoist_positions(mob, r):
     that reuses it: call this where a Krylov or Lanczos loop starts.  The
     returned callable assumes every call passes the ``r`` it was bound to
     (its positions argument is ignored).  Operators without ``prepare``
-    are returned unchanged.
+    (the pair sweeps, the Ewald operator) are returned unchanged.
     """
     prep = getattr(mob, "prepare", None)
     if prep is None:

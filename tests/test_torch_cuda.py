@@ -1,5 +1,6 @@
-"""The CUDA kernels on the card (the pair sweeps K1/K2 and the far
-field's near sweep K3), against their plain PyTorch versions.
+"""The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
+near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
+against their plain PyTorch versions.
 
 Marked ``cuda``: they skip without a CUDA device.  The GPU machine has no
 JAX, so run them there without the JAX test harness's conftest:
@@ -13,8 +14,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import rigid_body_light_tpu_torch as rt  # noqa: E402
+from rigid_body_light_tpu_torch.ops import ewald, ewald_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import farfield, farfield_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import kinematics, rpy, rpy_cuda  # noqa: E402
+from rigid_body_light_tpu_torch.utils import roofline  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -197,6 +200,130 @@ def test_far_field_operator_through_k3(near):
         rl = r + torch.tensor([0.0, 0.0, lift], dtype=r.dtype, device=r.device)
         exact = rpy.mobility_apply(F, rl, wall=True)
         assert _rel(farfield.mobility_apply(F, rl, **kw), exact) < 2e-2
+
+
+@pytest.fixture(scope="module")
+def ewald_boxes():
+    """Two operators alive at once: (9, 11, 10) with a = 0.45 at the
+    default tolerance (degree 58) and the periodic slice's cubic L = 14
+    box with a = 0.0675 at 1e-4 (degree 81)."""
+    return (ewald.make_params((9.0, 11.0, 10.0), 0.45),
+            ewald.make_params((14.0, 14.0, 14.0), 0.06752767533299997,
+                              tol=1e-4))
+
+
+def _periodic_cloud(dev, box, n, seed):
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0, 1, (n, 3)) * np.asarray(box)
+    F = rng.standard_normal((2, n, 3))
+    return torch.from_numpy(r).to(dev), torch.from_numpy(F).to(dev)
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k4_matches_plain(dev, ewald_boxes, which, k):
+    """K4 (float32) against the float64 Clenshaw sweep on the same fit."""
+    params = ewald_boxes[which]
+    r, F = _periodic_cloud(dev, params.box, 700, 11)
+    ref = ewald.real_space_apply(F[:k], r, params, cheb=True)
+    before = ewald_cuda.sweep_launches
+    U = ewald_cuda.real_pair_sum(F[:k], r, params)
+    torch.cuda.synchronize()
+    assert ewald_cuda.sweep_launches == before + 1
+    assert U.shape == (k, 700, 3) and U.dtype == torch.float32
+    assert _rel(U, ref) < TOL
+
+
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 129, 515, 1025])
+def test_k4_ragged_sizes_match_plain(dev, ewald_boxes, n):
+    """Sizes off every tile edge (32-column sub-tiles, 128-row tiles,
+    512-column chunks), with pairs closer than 2a (the overlap segment).
+    The cloud's side grows with n at a fixed density, so that a few blobs
+    are neighbours too (beyond min(L)/2 the fields are below the Ewald
+    tolerance, and max|U| would be no scale to compare against)."""
+    params = ewald_boxes[0]
+    side = np.minimum(params.box, 2.5 * params.a * n ** (1 / 3))
+    r, F = _periodic_cloud(dev, side, n, n)
+    if n > 2:
+        r[1] = r[0] + 0.3 * params.a     # segment 1
+        r[2] = r[0] + 0.01 * params.a    # below the clamp radius
+    U = ewald_cuda.real_pair_sum(F, r, params)
+    torch.cuda.synchronize()
+    if n == 1:   # no pairs: exact zeros
+        assert not U.any()
+        return
+    ref = ewald.real_space_apply(F, r, params, cheb=True)
+    assert torch.isfinite(U).all() and _rel(U, ref) < TOL
+
+
+def test_k4_is_repeatable_and_operators_do_not_mix(dev, ewald_boxes):
+    """Two launches agree bitwise (no atomics), also with another box's
+    operator launched in between: every launch carries its own table."""
+    p0, p1 = ewald_boxes
+    r, F = _periodic_cloud(dev, p0.box, 700, 5)
+    r32, F32 = r.float().contiguous(), F.float().contiguous()
+    U1 = ewald_cuda.real_sweep_kernel(r32, F32, p0)
+    V1 = ewald_cuda.real_sweep_kernel(r32, F32, p1)
+    U2 = ewald_cuda.real_sweep_kernel(r32, F32, p0)
+    V2 = ewald_cuda.real_sweep_kernel(r32, F32, p1)
+    assert torch.equal(U1, U2) and torch.equal(V1, V2)
+    assert not torch.equal(U1, V1)
+    assert _rel(V1, ewald.real_space_apply(F, r, p1, cheb=True)) < TOL
+
+
+def test_k4_refuses_float64_and_three_rhs(dev, ewald_boxes):
+    params = ewald_boxes[0]
+    r, F = _periodic_cloud(dev, params.box, 100, 2)
+    with pytest.raises(TypeError, match="float32"):
+        ewald_cuda.real_sweep_kernel(r, F, params)
+    F3 = torch.cat([F, F[:1]]).float().contiguous()
+    with pytest.raises(ValueError, match="1 or 2 RHS"):
+        ewald_cuda.real_sweep_kernel(r.float().contiguous(), F3, params)
+    with pytest.raises(NotImplementedError, match="RHS"):
+        ewald_cuda.real_pair_sum(F3, r, params)
+
+
+def test_ewald_operator_through_k4(dev, ewald_boxes):
+    """float32 through K4 against float64 with the closed-form scalars
+    (the fit is 3e-6 of scale), and the operator's symmetry."""
+    params = ewald_boxes[1]
+    r, F = _periodic_cloud(dev, params.box, 700, 7)
+    before = ewald_cuda.sweep_launches
+    U = ewald_cuda.mobility_apply_multi(F, r, params)
+    assert ewald_cuda.sweep_launches == before + 1
+    ref = ewald.mobility_apply_multi(F, r, params)
+    assert _rel(U, ref) < 1e-4
+    U0 = ewald_cuda.mobility_apply(F[0], r, params)
+    assert torch.equal(U0, ewald_cuda.mobility_apply_multi(F[:1], r,
+                                                           params)[0])
+    f1m2 = (F[0] * U[1].double()).sum().item()
+    f2m1 = (F[1] * U[0].double()).sum().item()
+    assert abs(f1m2 - f2m1) / abs(f1m2) < 1e-5
+
+
+def test_fma_probe_matches_plain(dev):
+    """P fuses each step (one rounding), the plain chain multiplies, then
+    adds (two): 64 steps of at most half an ulp each, averaged over the
+    row, stay inside 1e-6 relative."""
+    rng = np.random.default_rng(9)
+    n = 1300    # ragged: 11 row tiles, 3 column chunks
+    x = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(dev)
+    c = torch.from_numpy(rng.uniform(0.5, 1.5, n).astype(np.float32)).to(dev)
+    before = roofline.peak_launches
+    out = roofline.fma_chain(x, c)
+    out2 = roofline.fma_chain(x, c)
+    torch.cuda.synchronize()
+    assert roofline.peak_launches == before + 2
+    assert torch.equal(out, out2)
+    ref = roofline.fma_chain_plain(x.double(), c.double())
+    assert _rel(out, ref) < 1e-6
+    assert _rel(roofline.fma_chain_plain(x, c), ref) < 1e-6
+    with pytest.raises(TypeError, match="float32"):
+        roofline.fma_chain_kernel(x.double(), c.double())
+    with pytest.raises(ValueError, match="chains 64"):
+        roofline.fma_chain(x, c, chain=8)
+    ms, tflops = roofline.measure_fp32_peak(n=2048, reps=3)
+    assert ms > 0 and 0 < tflops < 200
 
 
 def test_entry_points_default_to_the_card(dev):

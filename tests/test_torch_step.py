@@ -163,7 +163,12 @@ def test_package_never_imports_jax():
             "rigid_body_light_tpu_torch.ops.cuda_build, "
             "rigid_body_light_tpu_torch.ops.tiles, "
             "rigid_body_light_tpu_torch.ops.farfield, "
-            "rigid_body_light_tpu_torch.ops.farfield_cuda; "
+            "rigid_body_light_tpu_torch.ops.farfield_cuda, "
+            "rigid_body_light_tpu_torch.ops.ewald, "
+            "rigid_body_light_tpu_torch.ops.ewald_cuda, "
+            "rigid_body_light_tpu_torch.utils, "
+            "rigid_body_light_tpu_torch.utils.roofline, "
+            "rigid_body_light_tpu_torch.utils.validation; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'rigid_body_light_tpu')]; "
             "assert not bad, bad")
