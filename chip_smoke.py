@@ -21,13 +21,16 @@ Phases (each raises on failure; any failure exits nonzero):
   5. one step through the kernels against one step through the plain
      float32 sweep, from identical draws;
   6. K3, the far field's near sweep (rigid_body_light_tpu_torch/csrc/
-     near_sweep.cu), against its plain PyTorch version in float64 on the
-     card, wall and free, 1 and 2 RHS, at 10 × shell_N_2562 = 25,620 blobs
-     on the slice's (12, 12, 3) grid and at a ragged two-clump cloud with
-     empty cells straddling the wall-height floor; then, at the at-scale
-     slice's 102,480 blobs, K3 through its wrapper against the float64
-     plain sweep (wall, 1 and 2 RHS) and K3's time against the plain
-     float32 sweep;
+     near_sweep.cu, a symmetric sweep over unordered tile pairs), against
+     its plain PyTorch version in float64 on the card, wall and free, 1 and
+     2 RHS, at 10 × shell_N_2562 = 25,620 blobs on the slice's (12, 12, 3)
+     grid, at a ragged two-clump cloud with empty cells straddling the
+     wall-height floor, and at three far-apart clumps whose tiles have only
+     their diagonal pair (one of them a partial last tile); then, at the
+     at-scale slice's 102,480 blobs, K3 through its wrapper against the
+     float64 plain sweep (wall, 1 and 2 RHS), two launches bitwise equal
+     at 1 and 2 RHS, and K3's time against the plain float32 sweep and its
+     bound;
   7. the far-field operator through K3 against the exact operator through
      K1 at the at-scale slice's 102,480 positions, wall;
   8. the at-scale slice: 40 × shell_N_2562 = 102,480 blobs above a wall on
@@ -41,8 +44,9 @@ Phases (each raises on failure; any failure exits nonzero):
      (the same Chebyshev fit, float64 Clenshaw), 1 and 2 RHS: at the
      periodic slice's 10,272 blob positions and at a uniform cloud of
      10,272 blobs in its L = 14 box, and at 700 blobs in a (9, 11, 10) box
-     with a = 0.45 at the default tolerance (another degree, a ragged n);
-     two launches agree bitwise;
+     with a = 0.45 at the default tolerance (another degree, a ragged n),
+     and at 2,049 blobs in the slice's box (a last work-item row and
+     column of one blob); two launches agree bitwise;
  11. K4's time at the periodic slice, 1 and 2 RHS, against the plain
      float32 sweep and its bound, and at 4× the blobs; the wave part's
      time and the whole operator's;
@@ -321,7 +325,8 @@ def check_near(torch, farfield, farfield_cuda, label, r64, a, grid):
             (2, ctx.x_s.shape[0], 3))).to(r64.device)
         for k in (1, 2):
             U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, F[:k],
-                                         ctx.nbr, wall, 0.75)
+                                         ctx.nbr, wall, 0.75,
+                                         pairs=(ctx.pairs, ctx.n_pairs))
             torch.cuda.synchronize()
             ref = farfield._near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F[:k],
                                        ctx.nbr, wall, 0.75)
@@ -489,6 +494,22 @@ def main():
         rng.uniform([60, 60, 0.3], [80, 80, 8], (1500, 3))]) * a_ff
     check_near(torch, farfield, farfield_cuda, "ragged",
                torch.from_numpy(clump).to(dev), a_ff, (6, 6, 3))
+    # three clumps in cells far apart, 128, 128 and 70 blobs in cell-snake
+    # order, so every tile lists only itself (K3 sweeps each diagonal pair
+    # alone) and the last tile is partial, its pad rows on its last blob
+    # (its own generator, so the later phases draw what they drew before)
+    rng_l = np.random.default_rng(SEED + 3)
+    lone = np.concatenate([
+        rng_l.uniform([0, 0, 0.3], [3, 3, 3], (128, 3)),
+        rng_l.uniform([0, 40, 0.3], [3, 43, 3], (128, 3)),
+        rng_l.uniform([40, 0, 0.3], [43, 3, 3], (70, 3))]) * a_ff
+    ctx_l = farfield.prepare(torch.from_numpy(lone).to(dev), a=a_ff,
+                             wall=True, grid=(4, 4, 1), p=FF_P)
+    if not (ctx_l.nbr.shape[0] == 3 and int(ctx_l.n_pairs.item()) == 3):
+        raise AssertionError("the lone-clump cloud does not give three tiles "
+                             "with only their diagonal pair")
+    check_near(torch, farfield, farfield_cuda, "diagonal-only",
+               torch.from_numpy(lone).to(dev), a_ff, (4, 4, 1))
 
     cfg_f, geom_f, state_f, force_f = farfield_setup(torch, dev, FF_BODIES)
     r_f = kin.blob_positions(geom_f, state_f.X, state_f.Q).reshape(-1, 3)
@@ -500,12 +521,14 @@ def main():
     pairs = near_pairs(torch, ctx_f, farfield.TILE)
     F_f = torch.from_numpy(rng.standard_normal((2, n_pad, 3))).to(dev).float()
     k3_args = (ctx_f.x_s.contiguous(), ctx_f.ci_s.contiguous(),
-               live_f.contiguous(), ctx_f.nbr.contiguous())
+               live_f.contiguous(), ctx_f.nbr.contiguous(), ctx_f.pairs,
+               ctx_f.n_pairs)
     k3 = {}
     for k in (1, 2):
         Fk = F_f[:k].contiguous()
         U = farfield_cuda.near_sweep(ctx_f.x_s, ctx_f.ci_s, live_f, Fk,
-                                     ctx_f.nbr, True, h)
+                                     ctx_f.nbr, True, h,
+                                     pairs=(ctx_f.pairs, ctx_f.n_pairs))
         torch.cuda.synchronize()
         ref = farfield._near_sweep(ctx_f.x_s.double(), ctx_f.ci_s, ctx_f.id_s,
                                    Fk.double(), ctx_f.nbr, True, h)
@@ -517,9 +540,15 @@ def main():
             raise AssertionError(f"K3 disagrees with the plain sweep at the "
                                  f"slice, k={k}: {rel}")
         del U, ref
+        U1 = farfield_cuda.near_sweep_kernel(*k3_args[:3], Fk, *k3_args[3:],
+                                             True, h)
+        U2 = farfield_cuda.near_sweep_kernel(*k3_args[:3], Fk, *k3_args[3:],
+                                             True, h)
+        if not torch.equal(U1, U2):
+            raise AssertionError(f"two K3 launches differ bitwise, k={k}")
+        del U1, U2
         ms = cuda_ms(torch, lambda: farfield_cuda.near_sweep_kernel(
-            k3_args[0], k3_args[1], k3_args[2], Fk, k3_args[3], True,
-            h), 20)
+            *k3_args[:3], Fk, *k3_args[3:], True, h), 20)
         plain = cuda_ms(torch, lambda: farfield._near_sweep(
             ctx_f.x_s, ctx_f.ci_s, ctx_f.id_s, Fk, ctx_f.nbr, True, h), 2)
         # pair fields once per unordered pair (60 flop) and both
@@ -530,11 +559,14 @@ def main():
                      bound=bound_ms(flops, n_bytes))
         print(f"K3 time at n={n_f} (n_pad {n_pad}, {t_f} tiles, "
               f"{w_f} slots, {slots.mean().item():.1f} used on average, "
-              f"{int(slots.max().item())} at most), wall, {k} RHS: kernel "
-              f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s at "
-              f"{30 + 30 * k} flop over {pairs} kept ordered pairs), plain "
+              f"{int(slots.max().item())} at most, "
+              f"{int(ctx_f.n_pairs.item())} tile pairs), wall, {k} RHS: "
+              f"kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s "
+              f"at {30 + 30 * k} flop over {pairs} kept ordered pairs), plain "
               f"float32 {plain:.4f} ms, bound {k3[k]['bound'][0]:.4f} ms "
-              f"({k3[k]['bound'][1]})")
+              f"({k3[k]['bound'][1]}), {ms / k3[k]['bound'][0]:.2f}x the "
+              f"bound")
+    print("K3 launches repeat bitwise at 1 and 2 RHS")
 
     # ---- 7. the far-field operator (K3) vs the exact operator (K1)
     F7 = torch.from_numpy(rng.standard_normal((n_f, 3))).to(dev).float()
@@ -641,6 +673,14 @@ def main():
                            * np.array(par_a.box)).to(dev).float()
     check_ewald_sweep(torch, ewald, ewald_cuda, "ragged", r_a, F_e[:, :700],
                       par_a)
+    # 2,049 blobs: 17 tiles, the last holding one blob, so the last row and
+    # column of K4's work items are ragged
+    n_r = 2049
+    items_r = ewald_cuda.sweep_items(n_r)
+    print(f"K4 ragged items: n={n_r}, {len(items_r)} items, last tile "
+          f"{n_r - 128 * (int(items_r[:, 1].max()))} blob(s)")
+    check_ewald_sweep(torch, ewald, ewald_cuda, "ragged items",
+                      r_u[:n_r].contiguous(), F_e[:, :n_r].contiguous(), par_e)
     for k in (1, 2):
         Fk = F_e[:k].contiguous()
         U1 = ewald_cuda.real_sweep_kernel(r_u, Fk, par_e)
@@ -668,12 +708,14 @@ def main():
         k4[k] = dict(ms=ms, plain_ms=plain, bound=bound_ms(flops, n_bytes))
         print(f"K4 time at n={n_e}, degree {deg_e}, {k} RHS: kernel {ms:.4f} "
               f"ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s at "
-              f"{36 + 6 * deg_e + 36 * k} flop per unordered pair), plain "
+              f"{36 + 6 * deg_e + 36 * k} flop per unordered pair, "
+              f"{len(ewald_cuda.sweep_items(n_e))} work items), plain "
               f"float32 {plain:.4f} ms, bound {k4[k]['bound'][0]:.4f} ms "
-              f"({k4[k]['bound'][1]})")
-    # the same sweep over 4× the blobs (16× the pairs, ~14,000 working
-    # blocks against the slice's ~900, which all fit on the card at once):
-    # a higher rate there is what one uneven wave of blocks costs the slice
+              f"({k4[k]['bound'][1]}), {ms / k4[k]['bound'][0]:.2f}x the "
+              f"bound")
+    # the same sweep over 4× the blobs (16× the pairs, ~53,000 work items
+    # against the slice's 3,321): how much of the rate the slice's item
+    # count leaves on the table
     n_4 = 4 * n_e
     r_4 = torch.from_numpy(rng.uniform(0, EW_BOX[0], (n_4, 3))).to(dev).float()
     F_4 = torch.from_numpy(rng.standard_normal((1, n_4, 3))).to(dev).float()
@@ -695,8 +737,9 @@ def main():
         torch.cuda.synchronize()
         op_host_ms = (time.perf_counter() - t0) * 100
         print(f"Ewald operator at n={n_e}, {k} RHS: wave part {wave_ms:.4f} "
-              f"ms, whole apply {op_ms:.4f} ms by CUDA events, "
-              f"{op_host_ms:.4f} ms by the host clock")
+              f"ms alone, whole apply {op_ms:.4f} ms by CUDA events, "
+              f"{op_host_ms:.4f} ms by the host clock: K4 + "
+              f"{op_ms - k4[k]['ms']:.4f} ms")
 
     # ---- 12. the operator through K4 vs float64 with closed-form scalars
     if torch.backends.cuda.matmul.allow_tf32:
@@ -824,17 +867,26 @@ def main():
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b2 = bound_ms(90 * n * n, 84 * n)
+    print(f"K1 {k1_ms:.4f} ms, {k1_ms / b1[0]:.2f}x its bound; K2 "
+          f"{k2_ms:.4f} ms, {k2_ms / b2[0]:.2f}x; K3 {k3[1]['ms']:.4f} / "
+          f"{k3[2]['ms']:.4f} ms, {k3[1]['ms'] / k3[1]['bound'][0]:.2f}x / "
+          f"{k3[2]['ms'] / k3[2]['bound'][0]:.2f}x; K4 {k4[1]['ms']:.4f} / "
+          f"{k4[2]['ms']:.4f} ms, {k4[1]['ms'] / k4[1]['bound'][0]:.2f}x / "
+          f"{k4[2]['ms'] / k4[2]['bound'][0]:.2f}x; P {p_ms:.4f} ms, "
+          f"{p_ms / bp[0]:.2f}x")
     summary = {"kernels": [
         {"name": "pair_sweep_sym", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:312",
          "launches": counts["pair_sweep_sym"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": b1[0],
-         "bound_by": b1[1], "library_ms": None},
+         "bound_by": b1[1], "library_ms": None,
+         "bound_ratio": k1_ms / b1[0]},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b2[0],
-         "bound_by": b2[1], "library_ms": None},
+         "bound_by": b2[1], "library_ms": None,
+         "bound_ratio": k2_ms / b2[0]},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],
@@ -842,7 +894,10 @@ def main():
          "bound_ms": k3[1]["bound"][0], "bound_by": k3[1]["bound"][1],
          "library_ms": None, "ms_2rhs": k3[2]["ms"],
          "plain_ms_2rhs": k3[2]["plain_ms"],
-         "bound_ms_2rhs": k3[2]["bound"][0]},
+         "bound_ms_2rhs": k3[2]["bound"][0],
+         "bound_ratio": k3[1]["ms"] / k3[1]["bound"][0],
+         "bound_ratio_2rhs": k3[2]["ms"] / k3[2]["bound"][0],
+         "redesigned_in": 4},
         {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
          "launches": counts_e["ewald_real_sweep"], "max_abs_err": k4_err,
@@ -850,12 +905,16 @@ def main():
          "bound_ms": k4[1]["bound"][0], "bound_by": k4[1]["bound"][1],
          "library_ms": None, "ms_2rhs": k4[2]["ms"],
          "plain_ms_2rhs": k4[2]["plain_ms"],
-         "bound_ms_2rhs": k4[2]["bound"][0]},
+         "bound_ms_2rhs": k4[2]["bound"][0],
+         "bound_ratio": k4[1]["ms"] / k4[1]["bound"][0],
+         "bound_ratio_2rhs": k4[2]["ms"] / k4[2]["bound"][0],
+         "redesigned_in": 4},
         {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
          "replaces": "scripts/tpu_kernel_roofline.py:53",
          "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,
          "plain_ms": p_plain_ms, "bound_ms": bp[0], "bound_by": bp[1],
-         "library_ms": None, "measured_tflops": p_tflops},
+         "library_ms": None, "measured_tflops": p_tflops,
+         "bound_ratio": p_ms / bp[0]},
     ]}
     print(card)
     print(json.dumps(summary))

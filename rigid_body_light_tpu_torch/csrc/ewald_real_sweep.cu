@@ -18,27 +18,50 @@
 // division), the two Clenshaw chains (a subtract and an FMA per step and
 // chain: 6·D, 486 at the degree 81 of a 10,272-blob suspension of a =
 // 0.0675 blobs in an L = 14 box) and 36 flop per RHS for the two applies;
-// the operands are 24-36 bytes per blob.  Each chain is a serial run of D
-// dependent FMAs, so one thread keeps only two of them in flight and the
-// kernel leans on occupancy (4 warps per block, several blocks per SM) to
-// fill the FMA pipes.  Measured on an H100 (PERF.md): 21-22% of the FP32
-// peak at 10,272 blobs, where the ~900 working blocks form one uneven
-// wave, 32% over four times the blobs.
+// the operands are 24-36 bytes per blob.
+//
+// Work items.  The earlier design ran a grid of 128-row tiles × 512-column
+// chunks: at 10,272 blobs half of its 81 × 21 blocks exited at once and the
+// ~900 that worked all fitted on the card in one uneven wave (6.8 per SM on
+// average), so the launch lasted as long as the fullest SM; over 4× the
+// blobs the same code ran 1.5× faster per pair.  Now a block takes one
+// item, a 128 × 128 tile pair (I, J ≥ I) of the upper triangle: ⌈n/128⌉
+// diagonal items first (half of their pairs are kept, j > i, and a warp
+// skips the sub-tiles left of its rows), then the full items in row-major
+// order, so the cheap items lead and the tail is made of equal full ones.
+// At the periodic slice that is 3,321 items for a card that holds ~2,000
+// blocks at once.  The block decodes its item from its index.
+//
+// The Clenshaw loop.  Each chain is a serial run of D dependent FMAs, and
+// a step costs one 8-byte shared read (A_j, B_j) besides the two FADD and
+// two FFMA of the two chains.  A thread evaluates kPairs pairs side by side
+// (columns c and c + 32 of the item): 2·kPairs independent chains, and
+// where a warp's pairs share their segment (nearly always: the long
+// segment covers r ≥ 2a), one shared read serves all of a thread's chains.
+// On an H100 at 700 W, at the periodic slice (PERF.md §6): two pairs a
+// thread took 1.209 / 1.318 ms (1 / 2 RHS) against one pair's 1.314 /
+// 1.393 ms, with 55 / 61 registers (9 / 8 blocks an SM) against 40 / 48
+// (12 / 10), no spills: the independent chains and the shared read are
+// worth more than the resident warps they cost.  The item count showed in
+// the same runs: the slice reached 24.4 TFLOP/s against 26.1 over 4× the
+// blobs, where the earlier grid had 15.5 against 21.9.
 //
 // The coefficients.  The TPU kernel bakes them into the program and picks
 // each by two selects per Clenshaw step.  Here the segment is chosen once
 // per pair and the table lives in shared memory as float2 (A_j, B_j) at
-// [j][segment] (4 slots per j): one 8-byte read per step serves both
-// chains; lanes of one segment read one address (a broadcast), and lanes
-// of different segments read neighbouring banks, so a warp with mixed
-// segments does not serialise.  The table arrives by pointer with every
-// launch, with its degree (at most kMaxDeg), so two operators with
-// different boxes cannot read each other's coefficients.
+// [j][segment] (4 slots per j): lanes of one segment read one address (a
+// broadcast), and lanes of different segments read neighbouring banks.
+// The table arrives by pointer with every launch, with its degree (at most
+// kMaxDeg); the wrapper keeps one device copy per operator, so operators
+// with different boxes never read each other's coefficients.
 //
-// Cross-block accumulation: as K1 (rpy_pair_sweep.cu), per-row-tile column
-// partials and per-column-chunk row partials, each element written by
-// exactly one block, summed in a fixed order by a second pass.  No
-// atomics: launches are bitwise repeatable.
+// Cross-block accumulation: as K1 (rpy_pair_sweep.cu), each item writes a
+// row partial (its 128 rows) and a column partial (its 128 columns), each
+// element written by exactly one block; lane l visits column (l + s) mod
+// 32 at step s, so each warp adds its transposed terms into its own shared
+// column accumulator.  A second pass sums, for every blob, the partials of
+// the items that touch its tile in a fixed order.  No atomics: launches
+// are bitwise repeatable.
 //
 // Numerics: rintf (halves to even, as jnp.round), IEEE sqrtf and division
 // (no -use_fast_math), r² floored at 1e-24, x clipped to [−1, 1] (below the
@@ -53,10 +76,10 @@
 
 namespace {
 
-constexpr int kRows = 128;    // rows per block, one per thread
-constexpr int kChunk = 512;   // columns per block
-constexpr int kSub = 32;      // columns per shared sub-tile
-constexpr int kWarps = kRows / 32;
+constexpr int kTile = 128;    // rows and columns of an item, one row a thread
+constexpr int kSub = 32;      // columns per rotation sub-tile
+constexpr int kWarps = kTile / 32;
+constexpr int kPairs = 2;     // pairs a thread evaluates side by side
 constexpr int kMaxDeg = 128;  // largest Chebyshev degree the table holds
 
 // Per-launch constants, passed by value (they live in the constant bank).
@@ -68,33 +91,122 @@ struct SweepConsts {
   float two_inv_w[3];  // 2 / width of each segment
 };
 
+// Items: (I, I) for I < T at index I, then (I, J > I) row-major.
+__device__ __forceinline__ long long off_diagonal_before(int I, int T) {
+  return (long long)I * (2 * T - I - 1) / 2;
+}
+
+__device__ __forceinline__ int item_index(int I, int J, int T) {
+  return I == J ? I : T + (int)off_diagonal_before(I, T) + (J - I - 1);
+}
+
+__device__ __forceinline__ void item_tiles(int item, int T, int& I, int& J) {
+  if (item < T) {
+    I = J = item;
+    return;
+  }
+  const long long p = item - T;
+  const double b = 2.0 * T - 1.0;
+  int r = (int)((b - sqrt(b * b - 8.0 * (double)p)) * 0.5);
+  r = max(0, min(r, T - 2));
+  while (r > 0 && off_diagonal_before(r, T) > p) --r;
+  while (off_diagonal_before(r + 1, T) <= p) ++r;
+  I = r;
+  J = (int)(p - off_diagonal_before(r, T)) + r + 1;
+}
+
+// A(r), B(r) of P pairs by Clenshaw on their segments' coefficients.
+template <int P>
+__device__ __forceinline__ void clenshaw(const float2* s_coef, int deg,
+                                         const int (&seg)[P],
+                                         const float (&x)[P], float (&A)[P],
+                                         float (&B)[P]) {
+  float ya1[P], ya2[P], yb1[P], yb2[P], two_x[P];
+  bool same = true;
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    ya1[p] = ya2[p] = yb1[p] = yb2[p] = 0.0f;
+    two_x[p] = 2.0f * x[p];
+    same = same && seg[p] == seg[0];
+  }
+  // b_j = c_j + 2x·b_{j+1} − b_{j+2}, both chains of every pair
+  if (P == 1 || __all_sync(0xffffffffu, same)) {
+    const float2* cs = s_coef + seg[0];
+#pragma unroll 4
+    for (int q = deg; q >= 1; --q) {
+      const float2 cq = cs[4 * q];
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float ya = fmaf(two_x[p], ya1[p], cq.x - ya2[p]);
+        const float yb = fmaf(two_x[p], yb1[p], cq.y - yb2[p]);
+        ya2[p] = ya1[p]; ya1[p] = ya;
+        yb2[p] = yb1[p]; yb1[p] = yb;
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int q = deg; q >= 1; --q) {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const float2 cq = s_coef[4 * q + seg[p]];
+        const float ya = fmaf(two_x[p], ya1[p], cq.x - ya2[p]);
+        const float yb = fmaf(two_x[p], yb1[p], cq.y - yb2[p]);
+        ya2[p] = ya1[p]; ya1[p] = ya;
+        yb2[p] = yb1[p]; yb1[p] = yb;
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    const float2 c0 = s_coef[seg[p]];
+    A[p] = fmaf(x[p], ya1[p], c0.x - ya2[p]);
+    B[p] = fmaf(x[p], yb1[p], c0.y - yb2[p]);
+  }
+}
+
 template <int NRHS>
-__global__ void __launch_bounds__(kRows)
-ewald_real_sweep_kernel(const float* __restrict__ pos,     // (n, 3)
-                        const float* __restrict__ force,   // (NRHS, n, 3)
-                        int n, SweepConsts cst,
-                        const float2* __restrict__ coef,   // (deg+1, 4)
-                        int deg,
-                        float* __restrict__ row_part,  // (chunks, 3·NRHS, n)
-                        float* __restrict__ col_part) {  // (tiles, 3·NRHS, n)
+__global__ void __launch_bounds__(kTile)
+ewald_item_kernel(const float* __restrict__ pos,     // (n, 3)
+                  const float* __restrict__ force,   // (NRHS, n, 3)
+                  int n, int n_tiles, SweepConsts cst,
+                  const float2* __restrict__ coef,   // (deg+1, 4)
+                  int deg,
+                  float* __restrict__ row_part,      // (items, 3·NRHS, 128)
+                  float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
   constexpr int NF = 3 * NRHS;
   __shared__ float2 s_coef[(kMaxDeg + 1) * 4];
-  __shared__ float s_pos[3][kSub];
-  __shared__ float s_f[NF][kSub];
-  __shared__ float s_acc[kWarps][NF][kSub];
+  __shared__ float s_pos[3][kTile];
+  __shared__ float s_f[NF][kTile];
+  __shared__ float s_acc[kWarps][NF][kTile];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int row0 = blockIdx.x * kRows;
-  const int i = row0 + t;
+  int I, J;
+  item_tiles(blockIdx.x, n_tiles, I, J);
+  const bool diag = I == J;
+
+  for (int idx = t; idx < (deg + 1) * 4; idx += kTile) s_coef[idx] = coef[idx];
+  {
+    const int j = J * kTile + t;
+    const bool ok = j < n;
+    s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
+    s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
+    s_pos[2][t] = ok ? pos[3 * j + 2] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s_f[3 * k + d][t] = ok ? force[((size_t)k * n + j) * 3 + d] : 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+      for (int q = 0; q < NF; ++q) s_acc[w][q][t] = 0.0f;
+  }
+
+  const int i = I * kTile + t;
   const bool row_ok = i < n;
-  const int col_begin = blockIdx.y * kChunk;
-  const int col_end = min(col_begin + kChunk, n);
-  float* colp = col_part + (size_t)blockIdx.x * NF * n;
-
-  for (int idx = t; idx < (deg + 1) * 4; idx += kRows) s_coef[idx] = coef[idx];
-
+  const int n_cols = min(kTile, n - J * kTile);
   float xR = 0.0f, yR = 0.0f, zR = 0.0f;
   float fR[NF];
   float acc[NF];
@@ -103,134 +215,102 @@ ewald_real_sweep_kernel(const float* __restrict__ pos,     // (n, 3)
   if (row_ok) {
     xR = pos[3 * i]; yR = pos[3 * i + 1]; zR = pos[3 * i + 2];
 #pragma unroll
-    for (int k = 0; k < NRHS; ++k) {
-      const float* fk = force + ((size_t)k * n + i) * 3;
-      fR[3 * k] = fk[0]; fR[3 * k + 1] = fk[1]; fR[3 * k + 2] = fk[2];
-    }
+    for (int q = 0; q < NF; ++q) fR[q] = force[((size_t)(q / 3) * n + i) * 3 + q % 3];
   }
+  __syncthreads();  // the stage and the table are written
 
-  for (int c0 = col_begin; c0 < col_end; c0 += kSub) {
-    const int c_last = min(c0 + kSub, n) - 1;
-    if (c_last <= row0) {
-      // no pair j > i in this sub-tile (block-uniform): its column
-      // partials are zero
-      for (int idx = t; idx < NF * kSub; idx += kRows) {
-        const int j = c0 + idx % kSub;
-        if (j < n) colp[(size_t)(idx / kSub) * n + j] = 0.0f;
-      }
-      continue;
-    }
-    __syncthreads();  // the previous sub-tile's shared reads are done
-    if (t < kSub) {
-      const int j = c0 + t;
-      const bool ok = j < n;
-      s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
-      s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
-      s_pos[2][t] = ok ? pos[3 * j + 2] : 0.0f;
-#pragma unroll
-      for (int k = 0; k < NRHS; ++k) {
-        const float* fk = force + ((size_t)k * n + j) * 3;
-        s_f[3 * k][t] = ok ? fk[0] : 0.0f;
-        s_f[3 * k + 1][t] = ok ? fk[1] : 0.0f;
-        s_f[3 * k + 2][t] = ok ? fk[2] : 0.0f;
-      }
-    }
-    for (int idx = t; idx < kWarps * NF * kSub; idx += kRows)
-      (&s_acc[0][0][0])[idx] = 0.0f;
-    __syncthreads();  // also orders the coefficient table's first use
-
-    // lane l visits column (l + s) mod 32 at step s: the 32 lanes of a warp
-    // always touch 32 distinct columns, so each warp adds its transposed
-    // terms into its own column accumulator without conflicts
+  for (int q0 = 0; q0 < kTile; q0 += kPairs * kSub) {
+    // diagonal item: this warp's rows are all right of these columns
+    if (diag && q0 + kPairs * kSub <= warp * 32) continue;
     for (int s = 0; s < kSub; ++s) {
-      const int c = (lane + s) & (kSub - 1);
-      const int j = c0 + c;
-      const bool valid = row_ok && j < n && j > i;
-      float dx = xR - s_pos[0][c];
-      float dy = yR - s_pos[1][c];
-      float dz = zR - s_pos[2][c];
-      dx -= cst.box[0] * rintf(dx * cst.inv_box[0]);
-      dy -= cst.box[1] * rintf(dy * cst.inv_box[1]);
-      dz -= cst.box[2] * rintf(dz * cst.inv_box[2]);
-      float r2 = fmaxf(dx * dx + dy * dy + dz * dz, 1e-24f);
-      r2 = valid ? r2 : 1.0f;
-      const float r = sqrtf(r2);
-      const float inv_r2 = 1.0f / r2;
-      const bool in1 = r >= cst.b1, in2 = r >= cst.b2;
-      const int seg = (int)in1 + (int)in2;
-      const float lo = in2 ? cst.lo[2] : (in1 ? cst.lo[1] : cst.lo[0]);
-      const float two_inv_w = in2 ? cst.two_inv_w[2]
-                                  : (in1 ? cst.two_inv_w[1] : cst.two_inv_w[0]);
-      float x = (r - lo) * two_inv_w - 1.0f;
-      x = fminf(fmaxf(x, -1.0f), 1.0f);
-      const float two_x = 2.0f * x;
-      // Clenshaw, both chains: b_j = c_j + 2x·b_{j+1} − b_{j+2}
-      const float2* cs = s_coef + seg;
-      float ya1 = 0.0f, ya2 = 0.0f, yb1 = 0.0f, yb2 = 0.0f;
-#pragma unroll 4
-      for (int q = deg; q >= 1; --q) {
-        const float2 cq = cs[4 * q];
-        const float ya = fmaf(two_x, ya1, cq.x - ya2);
-        const float yb = fmaf(two_x, yb1, cq.y - yb2);
-        ya2 = ya1; ya1 = ya;
-        yb2 = yb1; yb1 = yb;
-      }
-      const float2 cz = cs[0];
-      float A = fmaf(x, ya1, cz.x - ya2);
-      float Bh = fmaf(x, yb1, cz.y - yb2) * inv_r2;  // r̂r̂ = d dᵀ / r²
-      A = valid ? A : 0.0f;
-      Bh = valid ? Bh : 0.0f;
+      int c[kPairs], seg[kPairs];
+      bool valid[kPairs];
+      bool any = false;
 #pragma unroll
-      for (int k = 0; k < NRHS; ++k) {
-        const float fx = s_f[3 * k][c], fy = s_f[3 * k + 1][c],
-                    fz = s_f[3 * k + 2][c];
-        const float bdF = Bh * (dx * fx + dy * fy + dz * fz);
-        acc[3 * k] += A * fx + bdF * dx;
-        acc[3 * k + 1] += A * fy + bdF * dy;
-        acc[3 * k + 2] += A * fz + bdF * dz;
-        const float bdR = Bh * (dx * fR[3 * k] + dy * fR[3 * k + 1]
-                                + dz * fR[3 * k + 2]);
-        s_acc[warp][3 * k][c] += A * fR[3 * k] + bdR * dx;
-        s_acc[warp][3 * k + 1][c] += A * fR[3 * k + 1] + bdR * dy;
-        s_acc[warp][3 * k + 2][c] += A * fR[3 * k + 2] + bdR * dz;
+      for (int p = 0; p < kPairs; ++p) {
+        c[p] = q0 + p * kSub + ((lane + s) & (kSub - 1));
+        valid[p] = row_ok && c[p] < n_cols && (!diag || c[p] > t);
+        any = any || valid[p];
+      }
+      if (!__any_sync(0xffffffffu, any)) continue;
+      float dx[kPairs], dy[kPairs], dz[kPairs], x[kPairs], inv_r2[kPairs];
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) {
+        dx[p] = xR - s_pos[0][c[p]];
+        dy[p] = yR - s_pos[1][c[p]];
+        dz[p] = zR - s_pos[2][c[p]];
+        dx[p] -= cst.box[0] * rintf(dx[p] * cst.inv_box[0]);
+        dy[p] -= cst.box[1] * rintf(dy[p] * cst.inv_box[1]);
+        dz[p] -= cst.box[2] * rintf(dz[p] * cst.inv_box[2]);
+        float r2 = fmaxf(dx[p] * dx[p] + dy[p] * dy[p] + dz[p] * dz[p],
+                         1e-24f);
+        r2 = valid[p] ? r2 : 1.0f;
+        const float r = sqrtf(r2);
+        inv_r2[p] = 1.0f / r2;
+        const bool in1 = r >= cst.b1, in2 = r >= cst.b2;
+        seg[p] = (int)in1 + (int)in2;
+        const float lo = in2 ? cst.lo[2] : (in1 ? cst.lo[1] : cst.lo[0]);
+        const float two_inv_w = in2 ? cst.two_inv_w[2]
+                                    : (in1 ? cst.two_inv_w[1]
+                                           : cst.two_inv_w[0]);
+        x[p] = fminf(fmaxf((r - lo) * two_inv_w - 1.0f, -1.0f), 1.0f);
+      }
+      float A[kPairs], B[kPairs];
+      clenshaw<kPairs>(s_coef, deg, seg, x, A, B);
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) {
+        const float Ap = valid[p] ? A[p] : 0.0f;
+        const float Bh = valid[p] ? B[p] * inv_r2[p] : 0.0f;  // r̂r̂ = d dᵀ/r²
+        const int cp = c[p];
+#pragma unroll
+        for (int k = 0; k < NRHS; ++k) {
+          const float fx = s_f[3 * k][cp], fy = s_f[3 * k + 1][cp],
+                      fz = s_f[3 * k + 2][cp];
+          const float bdF = Bh * (dx[p] * fx + dy[p] * fy + dz[p] * fz);
+          acc[3 * k] += Ap * fx + bdF * dx[p];
+          acc[3 * k + 1] += Ap * fy + bdF * dy[p];
+          acc[3 * k + 2] += Ap * fz + bdF * dz[p];
+          const float bdR = Bh * (dx[p] * fR[3 * k] + dy[p] * fR[3 * k + 1]
+                                  + dz[p] * fR[3 * k + 2]);
+          s_acc[warp][3 * k][cp] += Ap * fR[3 * k] + bdR * dx[p];
+          s_acc[warp][3 * k + 1][cp] += Ap * fR[3 * k + 1] + bdR * dy[p];
+          s_acc[warp][3 * k + 2][cp] += Ap * fR[3 * k + 2] + bdR * dz[p];
+        }
       }
       __syncwarp();
     }
-    __syncthreads();
-    for (int idx = t; idx < NF * kSub; idx += kRows) {
-      const int comp = idx / kSub;
-      const int c = idx % kSub;
-      const int j = c0 + c;
-      if (j < n) {
-        float v = 0.0f;
-        for (int w = 0; w < kWarps; ++w) v += s_acc[w][comp][c];
-        colp[(size_t)comp * n + j] = v;
-      }
-    }
   }
-  if (row_ok) {
-    float* rowp = row_part + (size_t)blockIdx.y * NF * n;
+  __syncthreads();  // every warp's column accumulator is complete
+
+  float* rowp = row_part + (size_t)blockIdx.x * NF * kTile;
+  float* colp = col_part + (size_t)blockIdx.x * NF * kTile;
 #pragma unroll
-    for (int q = 0; q < NF; ++q) rowp[(size_t)q * n + i] = acc[q];
+  for (int q = 0; q < NF; ++q) {
+    float v = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += s_acc[w][q][t];
+    rowp[q * kTile + t] = acc[q];
+    colp[q * kTile + t] = v;
   }
 }
 
-// Second pass: out[k][i][c] = Σ_C row_part[C][3k+c][i] + Σ_I
-// col_part[I][3k+c][i], in that fixed order.
-__global__ void sum_partials_kernel(const float* __restrict__ row_part,
-                                    int n_chunks,
-                                    const float* __restrict__ col_part,
-                                    int n_row_tiles, int n, int nf,
-                                    float* __restrict__ out) {  // (nrhs, n, 3)
+// Second pass: out[k][i][c] = Σ_{J ≥ I} row_part[(I, J)][3k+c][r] +
+// Σ_{I' ≤ I} col_part[(I', I)][3k+c][r] for i = 128·I + r, in that fixed
+// order.
+__global__ void sum_items_kernel(const float* __restrict__ row_part,
+                                 const float* __restrict__ col_part,
+                                 int n, int n_tiles, int nf,
+                                 float* __restrict__ out) {  // (nrhs, n, 3)
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nf * n) return;
   const int comp = idx / n;
   const int i = idx - comp * n;
+  const int I = i / kTile, r = i % kTile;
   float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c)
-    s += row_part[((size_t)c * nf + comp) * n + i];
-  for (int r = 0; r < n_row_tiles; ++r)
-    s += col_part[((size_t)r * nf + comp) * n + i];
+  for (int J = I; J < n_tiles; ++J)
+    s += row_part[((size_t)item_index(I, J, n_tiles) * nf + comp) * kTile + r];
+  for (int I2 = 0; I2 <= I; ++I2)
+    s += col_part[((size_t)item_index(I2, I, n_tiles) * nf + comp) * kTile + r];
   out[((size_t)(comp / 3) * n + i) * 3 + comp % 3] = s;
 }
 
@@ -238,17 +318,17 @@ __global__ void sum_partials_kernel(const float* __restrict__ row_part,
 
 extern "C" {
 
-// Tile sizes the wrapper needs to size the partial buffers, and the
-// largest degree the shared table holds.
-int ewald_sweep_rows_per_tile() { return kRows; }
-int ewald_sweep_cols_per_chunk() { return kChunk; }
+// The item edge the wrapper sizes its scratch by, and the largest degree
+// the shared table holds.
+int ewald_sweep_tile() { return kTile; }
 int ewald_sweep_max_degree() { return kMaxDeg; }
 
 // K4: out (nrhs, n, 3) = Σ_{j≠i} [A·I + B·r̂r̂]·F_j over unordered pairs.
-// consts: 14 host floats (box[3], inv_box[3], b1, b2, lo[3], two_inv_w[3]).
-// coef: device (deg+1, 4, 2) floats, [j][segment] = (A_j, B_j), slot 3
-// unused.  row_part holds ⌈n/512⌉·3·nrhs·n floats, col_part
-// ⌈n/128⌉·3·nrhs·n floats (scratch, fully overwritten).
+// consts: 14 host floats (box[3], inv_box[3], b1, b2, lo[3], two_inv_w[3]),
+// passed by value.  coef: device (deg+1, 4, 2) floats, [j][segment] =
+// (A_j, B_j), slot 3 unused.  row_part and col_part hold items·3·nrhs·128
+// floats each, items = T(T+1)/2 with T = ⌈n/128⌉ (scratch, fully
+// overwritten).
 int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
                      const float* consts, const float* coef, int deg,
                      float* row_part, float* col_part, float* out,
@@ -266,23 +346,22 @@ int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
   }
   cst.b1 = consts[6];
   cst.b2 = consts[7];
-  const int n_row_tiles = (n + kRows - 1) / kRows;
-  const int n_chunks = (n + kChunk - 1) / kChunk;
-  const dim3 grid(n_row_tiles, n_chunks);
+  const int n_tiles = (n + kTile - 1) / kTile;
+  const int items = n_tiles * (n_tiles + 1) / 2;
   const float2* coef2 = reinterpret_cast<const float2*>(coef);
   if (nrhs == 1)
-    ewald_real_sweep_kernel<1><<<grid, kRows, 0, stream>>>(
-        pos, force, n, cst, coef2, deg, row_part, col_part);
+    ewald_item_kernel<1><<<items, kTile, 0, stream>>>(
+        pos, force, n, n_tiles, cst, coef2, deg, row_part, col_part);
   else
-    ewald_real_sweep_kernel<2><<<grid, kRows, 0, stream>>>(
-        pos, force, n, cst, coef2, deg, row_part, col_part);
+    ewald_item_kernel<2><<<items, kTile, 0, stream>>>(
+        pos, force, n, n_tiles, cst, coef2, deg, row_part, col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nf = 3 * nrhs;
   const int threads = 256;
   const int blocks = (nf * n + threads - 1) / threads;
-  sum_partials_kernel<<<blocks, threads, 0, stream>>>(
-      row_part, n_chunks, col_part, n_row_tiles, n, nf, out);
+  sum_items_kernel<<<blocks, threads, 0, stream>>>(row_part, col_part, n,
+                                                   n_tiles, nf, out);
   return static_cast<int>(cudaGetLastError());
 }
 

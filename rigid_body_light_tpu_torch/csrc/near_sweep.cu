@@ -4,11 +4,11 @@
 // _near_sweep_call at :1067, entry near_sweep at :1094).
 //
 // The blobs arrive sorted in cell-snake order and padded to t tiles of 128
-// (rigid_body_light_tpu_torch/ops/farfield.py: prepare).  Every row tile
-// is swept against the column tiles of its neighbor list nbr (t, max_nbr),
-// −1 = empty slot.  A pair (i, j) is kept iff
+// (rigid_body_light_tpu_torch/ops/farfield.py: prepare).  Tile a's
+// neighbor list nbr[a] (t, max_nbr) holds its adjacent tiles in ascending
+// order, −1 = empty slot.  A pair (i, j) is kept iff
 //   - the cell offset of i and j is at most 1 on every axis,
-//   - column j is a real blob (live), and
+//   - both are real blobs (live), and
 //   - i ≠ j (sorted indices),
 // which is the near/far partition the far tier's kernel lattices exclude,
 // so every pair is counted exactly once.  out (k, t·128, 3) holds the pair
@@ -18,34 +18,57 @@
 //
 // What bounds it on the card: arithmetic.  The same RPY + Swan–Brady pair
 // fields as K1/K2 (rpy_fields.cuh): ~60 flops, two rsqrt and one IEEE
-// division per pair with a wall, then ~30 flops per RHS.  Its operands are
-// ~60 bytes per blob, a few MB at 10⁵ blobs, swept ~45 slots × 128 columns
-// deep; the pair fields stay in registers and the columns in shared memory.
+// division per pair with a wall, then ~30 flops per RHS and direction.
+// Its operands are ~60 bytes per blob, a few MB at 10⁵ blobs.
 //
-// Design, against what the TPU layout did:
-//   - The Pallas kernel streamed the neighbor table through SMEM 8 rows at
-//     a time (a v5e SMEM limit).  Here a block reads its own nbr row.
-//   - One thread per row over 801 row tiles would fill ~38% of the card's
-//     thread slots.  So a block owns 32 rows of a tile (one per lane) and
-//     8 warps; a stage copies 8 neighbor slots (8 × 128 columns) into
-//     shared memory, warp w sweeps slot w of the stage, and the 8 partial
-//     sums per row are added in a fixed order at the end.  Each output row
-//     has one writer: no atomics, launches are bitwise repeatable.
-//   - Empty slots cost nothing: a warp whose slot is −1 skips it, and a
-//     stage with no live slot is skipped by the whole block.  The lists are
-//     packed live-first (farfield._near_neighbor_lists), so the sweep
-//     covers the ~44 used slots, not max_nbr.
-//   - A column whose pairs are all masked for the warp's 32 rows (a vote)
-//     is skipped; masked pairs inside a kept column contribute an exact 0
-//     through a select.
-//   - Dead columns (pad blobs, empty slots) are staged with a cell index
-//     far outside the grid, so the adjacency test drops them, and with
-//     height 1 and zero force, so their fields stay finite.  The cell test
-//     is on int32 indices, exact (the Pallas kernel compared floats at
-//     ±1.5).
+// Design: a symmetric sweep over unordered tile pairs.  The earlier design
+// swept every row tile against each of its neighbor tiles, so it evaluated
+// every kept pair's fields twice, once from each side: 42.1 GFLOP of work
+// at 1 RHS against the 28.1 that the function needs (102,480 blobs, grid
+// (12, 12, 3)), and its 48 KB stage at 2 RHS held an SM to 4 blocks.  It
+// took 3.42-3.45 / 4.22-4.27 ms, 8.2× / 6.7× the bound (PERF.md).  Now:
+//   - The work list (farfield._tile_pairs, built once per positions on the
+//     device) holds each unordered adjacent tile pair (a, b), b ≥ a, once,
+//     in list order, with the slot of b in a's list and of a in b's list.
+//     The neighbor relation is symmetric (cell-range gaps), so that covers
+//     every kept pair once.
+//   - One block of 128 threads per tile pair: thread r owns row r of tile
+//     a, tile b's 128 columns are staged in shared memory.  Each kept
+//     pair's fields are evaluated once and applied twice: M_ij·F_j into row
+//     i (registers) and M_ijᵀ·F_i = M_ji·F_i into column j.  For the column
+//     side, lane l visits column (l + s) mod 32 of a 32-column sub-tile at
+//     step s (K1's rotation, rpy_pair_sweep.cu): the lanes of a warp touch
+//     distinct columns, so each warp adds into its own shared column
+//     accumulator, and the 4 warps' accumulators are summed in a fixed
+//     order.  On the diagonal pair (a, a) only r < c is kept, and a warp
+//     skips the sub-tiles left of its rows.
+//   - A step where no lane of the warp keeps its pair (a vote) is skipped;
+//     a masked pair inside a kept step adds an exact 0 through a select on
+//     the live flags of both sides (pad rows sit at a real blob's position,
+//     so r² of a pad row against its twin is at the 1e-24 floor: a zero
+//     force is not what keeps it out).
+//   - The row side goes to partial slot [slot of b in a] of tile a, the
+//     column side to slot [slot of a in b] of tile b (a diagonal pair adds
+//     both sides of its tile in the block and writes once): every element
+//     of the partials has exactly one writer.  A second pass sums each
+//     tile's used slots in list order.  No atomics: launches repeat
+//     bitwise.
+//   - The grid is persistent: as many blocks as fit on the card at once,
+//     block g taking items g, g + G, g + 2G, ... of the list, whose length
+//     the kernel reads from the device (the list is built without a host
+//     sync, so the host does not know it).
+//   - Dead columns (pad blobs) are staged with a cell index far outside the
+//     grid, so the adjacency test drops them, and with height 1 and zero
+//     force, so their fields stay finite.  The cell test is on int32
+//     indices, exact.
+// Resources (ptxas, sm_90a): 55 / 56 registers with a wall at 1 / 2 RHS
+// (40 / 48 without), no spills; 10.5 / 18 KB of static shared memory, so
+// an SM holds 9 blocks of 4 warps (the earlier design: 36 / 48 KB).  On an
+// H100 at 700 W, at the far-field slice, 2.44 / 3.29 ms, 5.8× / 5.2× the
+// bound (PERF.md §6): per kept pair as fast as K1's full sweep.
 //
-// Plain C interface for ctypes; the launch goes on the caller's stream,
-// allocates nothing and returns cudaGetLastError().
+// Plain C interface for ctypes; the launches go on the caller's stream,
+// allocate nothing and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 
@@ -57,131 +80,184 @@ using rpy_fields::Fields;
 using rpy_fields::apply;
 using rpy_fields::pair_fields;
 
-constexpr int kTile = 128;                  // blobs per tile (farfield.TILE)
-constexpr int kRows = 32;                   // rows per block, one per lane
-constexpr int kWarps = 8;                   // slots per stage, one per warp
-constexpr int kThreads = kRows * kWarps;
-constexpr int kStageCols = kWarps * kTile;  // columns staged at once
-constexpr int kRowGroups = kTile / kRows;   // blocks per row tile
-constexpr int kDeadCell = -(1 << 20);       // cell index of dead columns
+constexpr int kTile = 128;             // blobs per tile (farfield.TILE)
+constexpr int kSub = 32;               // columns per rotation sub-tile
+constexpr int kWarps = kTile / 32;     // one row per thread
+constexpr int kDeadCell = -(1 << 20);  // cell index of dead columns
+constexpr int kMaxDevices = 64;
 
-// Grid: (row tiles × 4).  Block (32, 8): lane = row of the block's 32,
-// threadIdx.y = the slot of each stage this warp sweeps.
+// One block per tile pair (persistent).  pairs (cap, 4): a, b ≥ a, slot of
+// b in a's list, slot of a in b's list; the first *n_pairs used.
+// part (max_nbr, NRHS, n_pad, 3): per-slot partial sums.
 template <bool WALL, int NRHS>
-__global__ void __launch_bounds__(kThreads)
-near_sweep_kernel(const float* __restrict__ pos,           // (n_pad, 3)
-                  const int* __restrict__ cell,            // (n_pad, 3)
-                  const unsigned char* __restrict__ live,  // (n_pad,)
-                  const float* __restrict__ force,         // (NRHS, n_pad, 3)
-                  const int* __restrict__ nbr,             // (t, max_nbr)
-                  int n_pad, int max_nbr, float h_floor,
-                  float* __restrict__ out) {               // (NRHS, n_pad, 3)
-  // stage layout: x, y, z | cx, cy, cz (int) | 3·NRHS force components,
-  // each kStageCols long; reused for the final reduction
-  __shared__ float smem[kStageCols * (6 + 3 * NRHS)];
-  float* s_pos = smem;
-  int* s_cell = reinterpret_cast<int*>(smem + 3 * kStageCols);
-  float* s_f = smem + 6 * kStageCols;
+__global__ void __launch_bounds__(kTile)
+near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
+                 const int* __restrict__ cell,            // (n_pad, 3)
+                 const unsigned char* __restrict__ live,  // (n_pad,)
+                 const float* __restrict__ force,         // (NRHS, n_pad, 3)
+                 const int4* __restrict__ pairs,
+                 const int* __restrict__ n_pairs,
+                 int n_pad, float h_floor,
+                 float* __restrict__ part) {
+  constexpr int NF = 3 * NRHS;
+  __shared__ float s_pos[3][kTile];
+  __shared__ int s_cell[3][kTile];
+  __shared__ float s_f[NF][kTile];
+  __shared__ float s_acc[kWarps][NF][kTile];
 
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int t = w * kRows + lane;
-  const int tile = blockIdx.x / kRowGroups;
-  const int i = tile * kTile + (blockIdx.x % kRowGroups) * kRows + lane;
-  const int* nbr_row = nbr + (size_t)tile * max_nbr;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int count = *n_pairs;
 
-  const bool row_live = live[i] != 0;
-  const float xR = pos[3 * i];
-  const float yR = pos[3 * i + 1];
-  const float zR = row_live ? pos[3 * i + 2] : 1.0f;   // pad heights: no 0/0
-  const int cxR = cell[3 * i];
-  const int cyR = cell[3 * i + 1];
-  const int czR = cell[3 * i + 2];
+  for (int item = blockIdx.x; item < count; item += gridDim.x) {
+    const int4 pr = pairs[item];
+    const int a = pr.x, b = pr.y;
+    const bool diag = a == b;
 
-  float acc[3 * NRHS];
-#pragma unroll
-  for (int q = 0; q < 3 * NRHS; ++q) acc[q] = 0.0f;
-
-  for (int s0 = 0; s0 < max_nbr; s0 += kWarps) {
-    __syncthreads();  // the previous stage's shared reads are done
-    for (int c = t; c < kStageCols; c += kThreads) {
-      const int slot = s0 + c / kTile;
-      const int ctile = slot < max_nbr ? nbr_row[slot] : -1;
-      const int j = ctile * kTile + c % kTile;
-      const bool ok = ctile >= 0 && live[ctile >= 0 ? j : 0] != 0;
-      s_pos[c] = ok ? pos[3 * j] : 0.0f;
-      s_pos[kStageCols + c] = ok ? pos[3 * j + 1] : 0.0f;
-      s_pos[2 * kStageCols + c] = ok ? pos[3 * j + 2] : 1.0f;
-      s_cell[c] = ok ? cell[3 * j] : kDeadCell;
-      s_cell[kStageCols + c] = ok ? cell[3 * j + 1] : kDeadCell;
-      s_cell[2 * kStageCols + c] = ok ? cell[3 * j + 2] : kDeadCell;
+    __syncthreads();  // the previous item's shared reads are done
+    {
+      const int j = b * kTile + t;
+      const bool ok = live[j] != 0;
+      s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
+      s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
+      s_pos[2][t] = ok ? pos[3 * j + 2] : 1.0f;
+      s_cell[0][t] = ok ? cell[3 * j] : kDeadCell;
+      s_cell[1][t] = ok ? cell[3 * j + 1] : kDeadCell;
+      s_cell[2][t] = ok ? cell[3 * j + 2] : kDeadCell;
 #pragma unroll
       for (int k = 0; k < NRHS; ++k) {
-        const float* fk = force + (size_t)k * 3 * n_pad;
+        const float* fk = force + ((size_t)k * n_pad + j) * 3;
 #pragma unroll
-        for (int d = 0; d < 3; ++d)
-          s_f[(3 * k + d) * kStageCols + c] = ok ? fk[3 * j + d] : 0.0f;
+        for (int d = 0; d < 3; ++d) s_f[3 * k + d][t] = ok ? fk[d] : 0.0f;
       }
     }
-    const int slot = s0 + w;
-    const int ctile = slot < max_nbr ? nbr_row[slot] : -1;
-    // barrier (the stage is staged) and block-uniform skip of empty stages
-    if (!__syncthreads_or(ctile >= 0)) continue;
-    if (ctile < 0) continue;  // warp-uniform: this warp's slot is empty
-
-    for (int q = 0; q < kTile; ++q) {
-      const int c = w * kTile + q;
-      const int j = ctile * kTile + q;
-      const bool keep = abs(cxR - s_cell[c]) <= 1
-                        && abs(cyR - s_cell[kStageCols + c]) <= 1
-                        && abs(czR - s_cell[2 * kStageCols + c]) <= 1
-                        && i != j;
-      if (!__any_sync(0xffffffffu, keep)) continue;
-      const float zC = s_pos[2 * kStageCols + c];
-      const float dx = xR - s_pos[c];
-      const float dy = yR - s_pos[kStageCols + c];
-      const float dz = zR - zC;
-      const Fields p = pair_fields<WALL>(dx, dy, dz, zR, zC, h_floor);
 #pragma unroll
-      for (int k = 0; k < NRHS; ++k) {
-        float ux, uy, uz;
-        apply<WALL, false>(p, dx, dy, dz, s_f[(3 * k) * kStageCols + c],
-                           s_f[(3 * k + 1) * kStageCols + c],
-                           s_f[(3 * k + 2) * kStageCols + c], ux, uy, uz);
-        acc[3 * k] += keep ? ux : 0.0f;
-        acc[3 * k + 1] += keep ? uy : 0.0f;
-        acc[3 * k + 2] += keep ? uz : 0.0f;
+    for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+      for (int q = 0; q < NF; ++q) s_acc[w][q][t] = 0.0f;
+
+    const int i = a * kTile + t;
+    const bool row_live = live[i] != 0;
+    const float xR = pos[3 * i];
+    const float yR = pos[3 * i + 1];
+    const float zR = row_live ? pos[3 * i + 2] : 1.0f;
+    const int cxR = cell[3 * i];
+    const int cyR = cell[3 * i + 1];
+    const int czR = cell[3 * i + 2];
+    float fR[NF];
+    float acc[NF];
+#pragma unroll
+    for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        fR[3 * k + d] = row_live ? force[((size_t)k * n_pad + i) * 3 + d]
+                                 : 0.0f;
+        acc[3 * k + d] = 0.0f;
+      }
+    __syncthreads();  // the stage is written
+
+    for (int q0 = 0; q0 < kTile; q0 += kSub) {
+      // diagonal pair: this warp's rows are all right of these columns
+      if (diag && q0 < warp * 32) continue;
+      for (int s = 0; s < kSub; ++s) {
+        const int c = q0 + ((lane + s) & (kSub - 1));
+        const bool keep = row_live && abs(cxR - s_cell[0][c]) <= 1
+                          && abs(cyR - s_cell[1][c]) <= 1
+                          && abs(czR - s_cell[2][c]) <= 1
+                          && (!diag || t < c);
+        if (!__any_sync(0xffffffffu, keep)) continue;
+        const float zC = s_pos[2][c];
+        const float dx = xR - s_pos[0][c];
+        const float dy = yR - s_pos[1][c];
+        const float dz = zR - zC;
+        const Fields p = pair_fields<WALL>(dx, dy, dz, zR, zC, h_floor);
+#pragma unroll
+        for (int k = 0; k < NRHS; ++k) {
+          float ux, uy, uz, tx, ty, tz;
+          apply<WALL, false>(p, dx, dy, dz, s_f[3 * k][c], s_f[3 * k + 1][c],
+                             s_f[3 * k + 2][c], ux, uy, uz);
+          apply<WALL, true>(p, dx, dy, dz, fR[3 * k], fR[3 * k + 1],
+                            fR[3 * k + 2], tx, ty, tz);
+          acc[3 * k] += keep ? ux : 0.0f;
+          acc[3 * k + 1] += keep ? uy : 0.0f;
+          acc[3 * k + 2] += keep ? uz : 0.0f;
+          s_acc[warp][3 * k][c] += keep ? tx : 0.0f;
+          s_acc[warp][3 * k + 1][c] += keep ? ty : 0.0f;
+          s_acc[warp][3 * k + 2][c] += keep ? tz : 0.0f;
+        }
+        __syncwarp();
       }
     }
-  }
+    __syncthreads();  // every warp's column accumulator is complete
 
-  // fixed-order sum of the 8 warps' partials
-  __syncthreads();
-  float* s_red = smem;  // (kWarps, 3·NRHS, kRows)
+    // thread t: row t of tile a and column t of tile b
+    float* row_out = part + (((size_t)pr.z * NRHS) * n_pad + i) * 3;
+    float* col_out = part + (((size_t)pr.w * NRHS) * n_pad + b * kTile + t) * 3;
 #pragma unroll
-  for (int q = 0; q < 3 * NRHS; ++q) s_red[(w * 3 * NRHS + q) * kRows + lane] = acc[q];
-  __syncthreads();
-  if (w == 0) {
+    for (int q = 0; q < NF; ++q) {
+      float col = 0.0f;
 #pragma unroll
-    for (int q = 0; q < 3 * NRHS; ++q) {
-      float v = 0.0f;
-      for (int s = 0; s < kWarps; ++s) v += s_red[(s * 3 * NRHS + q) * kRows + lane];
-      out[((size_t)(q / 3) * n_pad + i) * 3 + q % 3] = v;
+      for (int w = 0; w < kWarps; ++w) col += s_acc[w][q][t];
+      const size_t off = (size_t)(q / 3) * n_pad * 3 + q % 3;
+      if (diag) {
+        row_out[off] = acc[q] + col;
+      } else {
+        row_out[off] = acc[q];
+        col_out[off] = col;
+      }
     }
   }
 }
 
-template <bool WALL>
-void launch(int nrhs, dim3 grid, dim3 block, cudaStream_t stream,
-            const float* pos, const int* cell, const unsigned char* live,
-            const float* force, const int* nbr, int n_pad, int max_nbr,
-            float h_floor, float* out) {
-  if (nrhs == 1)
-    near_sweep_kernel<WALL, 1><<<grid, block, 0, stream>>>(
-        pos, cell, live, force, nbr, n_pad, max_nbr, h_floor, out);
-  else
-    near_sweep_kernel<WALL, 2><<<grid, block, 0, stream>>>(
-        pos, cell, live, force, nbr, n_pad, max_nbr, h_floor, out);
+// Second pass: out[k][i][d] = Σ over the used slots s of i's tile, in list
+// order, of part[s][k][i][d].
+__global__ void sum_slots_kernel(const float* __restrict__ part,
+                                 const int* __restrict__ nbr,
+                                 int n_pad, int max_nbr, int nrhs,
+                                 float* __restrict__ out) {  // (nrhs, n_pad, 3)
+  const size_t per_rhs = (size_t)n_pad * 3;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= nrhs * per_rhs) return;
+  const int i = (int)((idx % per_rhs) / 3);
+  const int* row = nbr + (size_t)(i / kTile) * max_nbr;
+  const size_t stride = nrhs * per_rhs;
+  float v = 0.0f;
+  for (int s = 0; s < max_nbr && row[s] >= 0; ++s) v += part[s * stride + idx];
+  out[idx] = v;
+}
+
+// Blocks of near_pair_kernel<WALL, NRHS> that fit on the card at once,
+// per device (0 if the runtime cannot say).
+template <bool WALL, int NRHS>
+int resident_blocks() {
+  static int cache[kMaxDevices] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+            != cudaSuccess
+        || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, near_pair_kernel<WALL, NRHS>, kTile, 0)
+               != cudaSuccess)
+      return 0;
+    cache[dev] = sms * per_sm;
+  }
+  return cache[dev];
+}
+
+template <bool WALL, int NRHS>
+int launch(int cap, cudaStream_t stream, const float* pos, const int* cell,
+           const unsigned char* live, const float* force, const int* pairs,
+           const int* n_pairs, int n_pad, float h_floor, float* part) {
+  const int resident = resident_blocks<WALL, NRHS>();
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = cap < resident ? cap : resident;
+  near_pair_kernel<WALL, NRHS><<<grid, kTile, 0, stream>>>(
+      pos, cell, live, force, reinterpret_cast<const int4*>(pairs), n_pairs,
+      n_pad, h_floor, part);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -191,25 +267,41 @@ extern "C" {
 // Blobs per tile: n_pad must be a multiple of it.
 int near_sweep_tile() { return kTile; }
 
-// K3: out (nrhs, n_pad, 3) = Σ_j M_ij F_j over the kept pairs of each row
-// tile and its neighbor tiles.  n_pad = t·128, nbr (t, max_nbr).
+// K3: out (nrhs, n_pad, 3) = Σ_j M_ij F_j over the kept pairs of each tile
+// and its neighbor tiles.  n_pad = t·128, nbr (t, max_nbr); pairs (cap, 4)
+// int32 with its used length in device memory at n_pairs; part holds
+// max_nbr·nrhs·n_pad·3 floats of scratch (only the used slots are written
+// and read).
 int near_sweep(const float* pos, const int* cell, const unsigned char* live,
-               const float* force, const int* nbr, int n_pad, int max_nbr,
-               int nrhs, int wall, float h_floor, float* out,
+               const float* force, const int* nbr, const int* pairs,
+               const int* n_pairs, int n_pad, int max_nbr, int cap, int nrhs,
+               int wall, float h_floor, float* part, float* out,
                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pad % kTile != 0 || max_nbr < 0)
+  if (n_pad % kTile != 0 || max_nbr < 0 || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad == 0) return 0;
-  const dim3 grid((n_pad / kTile) * kRowGroups);
-  const dim3 block(kRows, kWarps);
-  if (wall)
-    launch<true>(nrhs, grid, block, stream, pos, cell, live, force, nbr, n_pad,
-                 max_nbr, h_floor, out);
-  else
-    launch<false>(nrhs, grid, block, stream, pos, cell, live, force, nbr,
-                  n_pad, max_nbr, h_floor, out);
+  if (cap > 0) {
+    int code;
+    if (wall)
+      code = nrhs == 1
+          ? launch<true, 1>(cap, stream, pos, cell, live, force, pairs,
+                            n_pairs, n_pad, h_floor, part)
+          : launch<true, 2>(cap, stream, pos, cell, live, force, pairs,
+                            n_pairs, n_pad, h_floor, part);
+    else
+      code = nrhs == 1
+          ? launch<false, 1>(cap, stream, pos, cell, live, force, pairs,
+                             n_pairs, n_pad, h_floor, part)
+          : launch<false, 2>(cap, stream, pos, cell, live, force, pairs,
+                             n_pairs, n_pad, h_floor, part);
+    if (code != 0) return code;
+  }
+  const size_t total = (size_t)nrhs * n_pad * 3;
+  const int threads = 256;
+  sum_slots_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                     stream>>>(part, nbr, n_pad, max_nbr, nrhs, out);
   return static_cast<int>(cudaGetLastError());
 }
 

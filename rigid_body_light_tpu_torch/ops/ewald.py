@@ -45,6 +45,7 @@ radii (ROADMAP.md queue 1, item 13).
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -147,6 +148,29 @@ class EwaldParams(NamedTuple):
     cheb_B: np.ndarray = None
     rc: float = None
     nvecs: np.ndarray = None
+
+
+_KEPT = 32
+_kept = OrderedDict()
+
+
+def per_operator(params: EwaldParams, key, make):
+    """``make()`` once per operator ``params`` and ``key``, then kept: the
+    device copies of an operator's tables, so an apply neither rebuilds
+    nor uploads them (a blocking upload from pageable memory also waits
+    for the stream).  The last ``_KEPT`` entries are kept; an entry holds
+    its params, so that id cannot be reused while the entry lives, and a
+    hit checks identity — operators with equal contents keep their own."""
+    k = (id(params), key)
+    hit = _kept.get(k)
+    if hit is not None and hit[0] is params:
+        _kept.move_to_end(k)
+        return hit[1]
+    value = make()
+    _kept[k] = (params, value)
+    if len(_kept) > _KEPT:
+        _kept.popitem(last=False)
+    return value
 
 
 def _np_j3(al, xi):
@@ -484,15 +508,27 @@ def _wave_space_chunked(F, r, params: EwaldParams, kc=4096):
                               wk_raw=params.wk_raw[sl], nvecs=None)
         phases = (_phases_from_tables(tables, params.nvecs[sl], nmax3)
                   if tables is not None else None)
-        U = U + _wave_space_dense(F, r, sub, phases=phases)
+        U = U + _wave_space_dense(F, r, sub, phases=phases, keep=False)
     return U
 
 
-def _wave_space_dense(F, r, params: EwaldParams, phases=None):
+def _wave_tables(params: EwaldParams, dtype, dev):
+    """(K, 3) wavevectors, (K,) weights and (K, 3) unit wavevectors."""
+    kv = torch.as_tensor(params.kvecs, dtype=dtype, device=dev)
+    wk = torch.as_tensor(params.wk, dtype=dtype, device=dev)
+    return kv, wk, kv / torch.linalg.norm(kv, dim=1, keepdim=True)
+
+
+def _wave_space_dense(F, r, params: EwaldParams, phases=None, keep=True):
+    """keep: the wave tables are kept per operator (:func:`per_operator`);
+    the chunked sum's per-chunk operators are temporaries, not kept."""
     dtype, dev = r.dtype, r.device
-    kv = torch.as_tensor(params.kvecs, dtype=dtype, device=dev)    # (K, 3)
-    wk = torch.as_tensor(params.wk, dtype=dtype, device=dev)       # (K,)
-    khat = kv / torch.linalg.norm(kv, dim=1, keepdim=True)
+    if keep:
+        kv, wk, khat = per_operator(
+            params, ("wave tables", dtype, dev),
+            lambda: _wave_tables(params, dtype, dev))
+    else:
+        kv, wk, khat = _wave_tables(params, dtype, dev)
     if phases is None and params.nvecs is not None and len(kv) >= 1024:
         nmax3 = _nmax3(params.nvecs)
         phases = _phases_from_tables(_phase_tables(r, params.box, nmax3),

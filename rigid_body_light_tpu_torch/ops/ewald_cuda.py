@@ -18,9 +18,17 @@ real_space_apply`) for a tensor on the CPU, and launches the kernel or
 raises for a CUDA tensor — there is no fallback.  Like the Pallas wrapper,
 inputs are cast to float32; the kernel itself refuses anything else.
 
-Every launch carries its own constants and coefficient table (built from
-the ``params`` it is given), so operators with different boxes can be
-alive at once.  Not differentiable (neither is the Pallas kernel).
+The kernel sweeps 128 × 128 tile pairs of the upper triangle, one block
+each (:func:`sweep_items` lists them in launch order); it replaced a grid
+of 128-row × 512-column blocks that at the periodic slice formed one
+uneven wave of blocks (4.5–5.2× its bound, PERF.md §6).
+
+Every launch carries its own constants and coefficient table, so
+operators with different boxes can be alive at once.  Both are built once
+per operator (``params``) and kept: the table on the device, the constants
+on the host as the launch's by-value argument (:func:`operator_tables`),
+so a launch does no host arithmetic and no host→device copy.  Not
+differentiable (neither is the Pallas kernel).
 
 ``sweep_launches`` counts kernel launches (incremented where the kernel is
 launched, nowhere else) so a run can show that its main path went through
@@ -36,6 +44,7 @@ import torch
 
 from rigid_body_light_tpu_torch.ops import cuda_build, ewald
 
+TILE = 128  # rows and columns of a work item; build() checks the kernel's
 sweep_launches = 0
 
 _lib = None
@@ -59,10 +68,12 @@ def build():
         return _lib
     lib = cuda_build.load("ewald_real_sweep")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ewald_sweep_rows_per_tile, lib.ewald_sweep_cols_per_chunk,
-               lib.ewald_sweep_max_degree):
+    for fn in (lib.ewald_sweep_tile, lib.ewald_sweep_max_degree):
         fn.restype = i
         fn.argtypes = []
+    if lib.ewald_sweep_tile() != TILE:
+        raise RuntimeError(f"ewald_real_sweep.cu tiles {lib.ewald_sweep_tile()}"
+                           f" blobs, the wrapper {TILE}")
     lib.ewald_real_sweep.restype = i
     lib.ewald_real_sweep.argtypes = [p, p, i, i, ctypes.POINTER(ctypes.c_float),
                                      p, i, p, p, p, p]
@@ -94,6 +105,36 @@ def coefficient_table(params):
     return table
 
 
+def sweep_items(n):
+    """The kernel's work items for n blobs in launch order, as (I, J) tile
+    pairs of 128 blobs: the T = ⌈n/128⌉ diagonal pairs (I, I), then every
+    (I, J > I) row-major — the order the kernel decodes its block index by
+    and the second pass sums in.  (T(T+1)/2, 2) int64 numpy array."""
+    T = -(-n // TILE)
+    diag = np.repeat(np.arange(T), 2).reshape(T, 2)
+    return np.concatenate([diag, np.stack(np.triu_indices(T, 1), axis=1)])
+
+
+def operator_tables(params, dev):
+    """(coefficient table on ``dev``, the 14 constants as a ctypes array,
+    degree) of one operator, built at its first launch and kept
+    (:func:`.ewald.per_operator`)."""
+    lib = build()
+    coef = ewald.per_operator(
+        params, ("K4 table", dev),
+        lambda: torch.from_numpy(coefficient_table(params)).to(dev))
+    deg = coef.shape[0] - 1
+    if deg > lib.ewald_sweep_max_degree():
+        raise ValueError(
+            f"the Chebyshev fit has degree {deg}; the kernel's table holds "
+            f"at most {lib.ewald_sweep_max_degree()} (a long anisotropic "
+            "box: raise kMaxDeg in csrc/ewald_real_sweep.cu)")
+    consts = ewald.per_operator(
+        params, "K4 constants",
+        lambda: (ctypes.c_float * 14)(*sweep_constants(params).tolist()))
+    return coef, consts, deg
+
+
 def real_sweep_kernel(r, Fs, params):
     """K4 on the card.  r (n, 3), Fs (k, n, 3) float32 contiguous CUDA
     tensors, k ∈ {1, 2} → (k, n, 3) pair terms."""
@@ -104,30 +145,19 @@ def real_sweep_kernel(r, Fs, params):
     cuda_build.check_tensor(r, "r", (n, 3))
     cuda_build.check_tensor(Fs, "Fs", (k, n, 3))
     lib = build()
-    table = coefficient_table(params)
-    deg = table.shape[0] - 1
-    if deg > lib.ewald_sweep_max_degree():
-        raise ValueError(
-            f"the Chebyshev fit has degree {deg}; the kernel's table holds "
-            f"at most {lib.ewald_sweep_max_degree()} (a long anisotropic "
-            "box: raise kMaxDeg in csrc/ewald_real_sweep.cu)")
-    consts = sweep_constants(params)
     dev = r.device
-    coef = torch.from_numpy(table).to(dev)
-    rows = lib.ewald_sweep_rows_per_tile()
-    chunk = lib.ewald_sweep_cols_per_chunk()
-    row_part = torch.empty((-(-n // chunk), 3 * k, n), dtype=torch.float32,
+    coef, consts, deg = operator_tables(params, dev)
+    T = -(-n // TILE)
+    items = T * (T + 1) // 2
+    row_part = torch.empty((items, 3 * k, TILE), dtype=torch.float32,
                            device=dev)
-    col_part = torch.empty((-(-n // rows), 3 * k, n), dtype=torch.float32,
-                           device=dev)
+    col_part = torch.empty_like(row_part)
     out = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.ewald_real_sweep(
-            r.data_ptr(), Fs.data_ptr(), n, k,
-            consts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-            coef.data_ptr(), deg, row_part.data_ptr(), col_part.data_ptr(),
-            out.data_ptr(), stream)
+            r.data_ptr(), Fs.data_ptr(), n, k, consts, coef.data_ptr(), deg,
+            row_part.data_ptr(), col_part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "ewald_real_sweep")
     sweep_launches += 1
     return out

@@ -17,8 +17,9 @@ without a wall, one device, no band tier).
     exactly over cell-snake tiles of ``TILE`` blobs against per-tile
     neighbor-tile lists, masked pairwise by cell adjacency so near and far
     partition every pair exactly once.  On a CUDA tensor the sweep is the
-    hand-written kernel K3 (:mod:`.farfield_cuda`); :func:`_near_sweep` is
-    its plain version.
+    hand-written kernel K3 (:mod:`.farfield_cuda`), which visits each
+    unordered pair of neighbor tiles once (:func:`_tile_pairs`);
+    :func:`_near_sweep` is its plain version.
 
 The grid is anchored to the dynamic bounding box.  The neighbor-tile list
 width is the only static bound: overflow NaN-poisons the apply, as does a
@@ -320,6 +321,32 @@ def _near_neighbor_lists(ci_sorted, t, max_nbr):
     return torch.where(packed < t, packed, -1).to(torch.int32), overflow
 
 
+def _tile_pairs(nbr):
+    """K3's work list: each unordered adjacent tile pair (a, b), b ≥ a, of
+    the neighbor lists once, in list order (a-major, then a's slots), as
+    (t·max_nbr, 4) int32 rows (a, b, slot of b in a's list, slot of a in
+    b's list) whose first ``n_pairs`` are used; n_pairs a (1,) int32
+    tensor.  Built on the device with no host sync.  The lists are
+    symmetric (cell-range gaps), so the two slots point back at each other;
+    after an overflow (the apply is NaN-poisoned) the rows stay in range
+    but may miss pairs."""
+    t, w = nbr.shape
+    dev = nbr.device
+    a = torch.arange(t, device=dev)[:, None].expand(t, w)
+    s = torch.arange(w, device=dev)[None, :].expand(t, w)
+    b = nbr.long()
+    used = b >= 0
+    b = b.clamp(min=0)
+    # slot_of[x, y]: the slot of y in x's list (column t takes empty slots)
+    slot_of = torch.zeros((t, t + 1), dtype=torch.long, device=dev)
+    slot_of.scatter_(1, torch.where(used, b, t), s)
+    upper = (used & (b >= a)).reshape(-1)
+    rows = torch.stack([a, b, s, slot_of[b, a]], dim=-1).reshape(-1, 4)
+    order = torch.argsort((~upper).to(torch.int8), stable=True)
+    return (rows[order].to(torch.int32).contiguous(),
+            upper.sum().to(torch.int32).reshape(1))
+
+
 def auto_grid(n: int, p: int, wall: bool) -> int:
     """Density-targeted supercell count (cells of ~CELL_TARGET blobs),
     capped so the kernel lattices stay under KHAT_BUDGET bytes."""
@@ -442,7 +469,7 @@ class FarCtx(NamedTuple):
         bounding box, so nearby position sets (RFD displacements, the
         midpoint half-kick) share it through ``prepare(r, geo=...)``.
       position structures (the rest): exact for the ``r`` that built them;
-        one argsort and an O(t²) tile adjacency.
+        one argsort, an O(t²) tile adjacency and K3's tile-pair list.
     """
     lo: torch.Tensor                  # (3,) grid origin, units of a
     h: torch.Tensor                   # (3,) cell sizes, units of a
@@ -457,6 +484,8 @@ class FarCtx(NamedTuple):
     ci_s: torch.Tensor                # (t·TILE, 3) sorted padded cells
     id_s: torch.Tensor                # (t·TILE,) sorted blob ids (−1 pad)
     nbr: torch.Tensor                 # (t, max_nbr) neighbor-tile lists
+    pairs: torch.Tensor               # (t·max_nbr, 4) K3's tile-pair list
+    n_pairs: torch.Tensor             # (1,) int32: its used length
     overflow: torch.Tensor            # () bool: poison the apply
 
 
@@ -542,13 +571,14 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
                       torch.full((pad,), -1, dtype=torch.int32,
                                  device=r.device)])
     nbr, overflow = _near_neighbor_lists(ci_s, t, max_nbr)
+    pairs, n_pairs = _tile_pairs(nbr)
     if geo_bad is not None:
         overflow = overflow | geo_bad
     return FarCtx(lo=lo, h=h, khat_free=geo.khat_free,
                   khat_wall=geo.khat_wall, b=b, cid=cid, W3=W3,
                   self_diag=rpy._self_diag(r, a, wall, h_floor),
                   order=order, x_s=x_s, ci_s=ci_s, id_s=id_s, nbr=nbr,
-                  overflow=overflow)
+                  pairs=pairs, n_pairs=n_pairs, overflow=overflow)
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
@@ -590,8 +620,9 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                      torch.zeros((k, pad, 3), dtype=dtype, device=r.device)],
                     dim=1)
     if use_pallas and dtype == torch.float32 and k <= 2:
-        U_near_s = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s >= 0,
-                                            F_s, ctx.nbr, wall, h_floor)
+        U_near_s = farfield_cuda.near_sweep(
+            ctx.x_s, ctx.ci_s, ctx.id_s >= 0, F_s, ctx.nbr, wall, h_floor,
+            pairs=(ctx.pairs, ctx.n_pairs))
     else:
         U_near_s = _near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F_s, ctx.nbr,
                                wall, h_floor)

@@ -5,11 +5,20 @@ Pallas kernel ``_kernel_nbr``).
 Kernel (``csrc/near_sweep.cu``, built for sm_90a at first use by
 :mod:`.cuda_build`):
 
-  K3 ``near_sweep``  the proxy-grid far field's exact near part: every
-                     cell-snake-sorted 128-blob row tile against its
-                     neighbor tiles, pairs kept iff their cells are adjacent
-                     (offset ≤ 1 on every axis), the column is a real blob
-                     and it is not the self pair.  1 or 2 RHS.
+  K3 ``near_sweep``  the proxy-grid far field's exact near part: pairs of
+                     cell-snake-sorted 128-blob tiles that are neighbors,
+                     pairs of blobs kept iff their cells are adjacent
+                     (offset ≤ 1 on every axis), both are real blobs and it
+                     is not the self pair.  1 or 2 RHS.
+
+The kernel sweeps each unordered tile pair once (the list
+``farfield._tile_pairs`` builds with the neighbor lists), evaluating each
+kept pair's fields once and applying them to both blobs; it replaced an
+ordered design that swept every row tile against all of its neighbors and
+so evaluated every pair twice (8.2× / 6.7× its bound at 1 / 2 RHS on the
+102,480-blob slice, PERF.md §6).  Per-slot partial sums, one writer each,
+are added in list order by a second pass: no atomics, launches repeat
+bitwise.
 
 :func:`near_sweep` takes the plain PyTorch version
 (:func:`rigid_body_light_tpu_torch.ops.farfield._near_sweep`) for a tensor
@@ -56,7 +65,8 @@ def build():
     lib.near_sweep_tile.restype = i
     lib.near_sweep_tile.argtypes = []
     lib.near_sweep.restype = i
-    lib.near_sweep.argtypes = [p, p, p, p, p, i, i, i, i, f, p, p]
+    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p, p,
+                               p]
     if lib.near_sweep_tile() != TILE:
         raise RuntimeError(f"near_sweep.cu tiles {lib.near_sweep_tile()} "
                            f"blobs, the wrapper {TILE}")
@@ -64,15 +74,17 @@ def build():
     return lib
 
 
-def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, wall: bool,
-                      h_floor: float):
+def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
+                      wall: bool, h_floor: float):
     """K3 on the card.  x_s (n_pad, 3) float32, ci_s (n_pad, 3) int32,
     live_s (n_pad,) bool, F_s (k, n_pad, 3) float32 with k ∈ {1, 2}, nbr
-    (t, max_nbr) int32 with n_pad = t·128, all contiguous CUDA tensors
+    (t, max_nbr) int32 with n_pad = t·128, pairs (cap, 4) int32 and n_pairs
+    (1,) int32 (:func:`.farfield._tile_pairs`), all contiguous CUDA tensors
     → (k, n_pad, 3) pair terms in sorted order."""
     global near_launches
     n_pad, k = x_s.shape[0], F_s.shape[0]
     t, max_nbr = nbr.shape
+    cap = pairs.shape[0]
     if k not in (1, 2):
         raise ValueError(f"near_sweep takes 1 or 2 RHS, got {k}")
     if n_pad != t * TILE:
@@ -82,29 +94,39 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, wall: bool,
     cuda_build.check_tensor(live_s, "live_s", (n_pad,), torch.bool)
     cuda_build.check_tensor(F_s, "F_s", (k, n_pad, 3))
     cuda_build.check_tensor(nbr, "nbr", (t, max_nbr), torch.int32)
+    cuda_build.check_tensor(pairs, "pairs", (cap, 4), torch.int32)
+    cuda_build.check_tensor(n_pairs, "n_pairs", (1,), torch.int32)
     lib = build()
     dev = x_s.device
+    # per-slot partials; only the slots a tile uses are written and read
+    part = torch.empty((max_nbr, k, n_pad, 3), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((k, n_pad, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.near_sweep(
             x_s.data_ptr(), ci_s.data_ptr(), live_s.data_ptr(),
-            F_s.data_ptr(), nbr.data_ptr(), n_pad, max_nbr, k,
-            int(bool(wall)), float(h_floor), out.data_ptr(), stream)
+            F_s.data_ptr(), nbr.data_ptr(), pairs.data_ptr(),
+            n_pairs.data_ptr(), n_pad, max_nbr, cap, k, int(bool(wall)),
+            float(h_floor), part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "near_sweep")
     near_launches += 1
     return out
 
 
-def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float):
+def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
+               pairs=None):
     """Adjacent-cell pair sweep over the sorted tiles, float32: the contract
     of ``rpy_pallas.near_sweep`` (pair terms only, sorted order, no self
     term, scale or damping).
 
     x_s (n_pad, 3) sorted padded positions in units of a; ci_s (n_pad, 3)
     cell indices; live_s (n_pad,) real-blob mask; F_s (k, n_pad, 3) sorted
-    forces, k ≤ 2; nbr (t, max_nbr) neighbor-tile ids (−1 = empty).
-    Returns (k, n_pad, 3); rows of pad blobs hold garbage.
+    forces, k ≤ 2; nbr (t, max_nbr) neighbor-tile ids (−1 = empty); pairs
+    the (list, count) of :func:`.farfield._tile_pairs` for ``nbr``
+    (``FarCtx.pairs``, ``FarCtx.n_pairs``), which the kernel needs and the
+    plain version does not.  Returns (k, n_pad, 3); rows of pad blobs hold
+    garbage.
     """
     n_pad, k = x_s.shape[0], F_s.shape[0]
     if k > 2:
@@ -118,8 +140,12 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float):
         ids = torch.where(live_s, torch.arange(n_pad, dtype=torch.int32), -1)
         return farfield._near_sweep(x32, ci_s, ids, F32, nbr, wall, h_floor)
     if x_s.device.type == "cuda":
+        if pairs is None:
+            raise ValueError("K3 needs the tile-pair list of farfield.prepare "
+                             "(pairs=(ctx.pairs, ctx.n_pairs))")
         return near_sweep_kernel(
             x32, ci_s.to(torch.int32).contiguous(),
             live_s.to(torch.bool).contiguous(), F32,
-            nbr.to(torch.int32).contiguous(), wall, h_floor)
+            nbr.to(torch.int32).contiguous(), pairs[0].contiguous(),
+            pairs[1].contiguous(), wall, h_floor)
     raise ValueError(f"no near sweep for device {x_s.device}")

@@ -149,21 +149,62 @@ def test_k3_matches_plain(near, wall, k):
                                wall, 0.75)
     before = farfield_cuda.near_launches
     U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, F[:k], ctx.nbr,
-                                 wall, 0.75)
+                                 wall, 0.75, pairs=(ctx.pairs, ctx.n_pairs))
     torch.cuda.synchronize()
     assert farfield_cuda.near_launches == before + 1
     assert U.shape == (k, ctx.x_s.shape[0], 3) and U.dtype == torch.float32
     assert _rel(U[:, live], ref[:, live]) < TOL
 
 
-def test_k3_is_repeatable(near):
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_is_repeatable(near, k):
     ctx, F = near
     args = (ctx.x_s.float().contiguous(), ctx.ci_s.contiguous(),
-            (ctx.id_s >= 0).contiguous(), F.float().contiguous(), ctx.nbr,
-            True, 0.75)
+            (ctx.id_s >= 0).contiguous(), F[:k].float().contiguous(),
+            ctx.nbr, ctx.pairs, ctx.n_pairs, True, 0.75)
     U1 = farfield_cuda.near_sweep_kernel(*args)
     U2 = farfield_cuda.near_sweep_kernel(*args)
-    assert torch.equal(U1, U2)   # one writer per row, no atomics
+    assert torch.equal(U1, U2)   # one writer per partial, no atomics
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_diagonal_only_tiles_and_pad_twins(dev, k):
+    """Three clumps in cells far apart (128, 128 and 70 blobs in cell-snake
+    order): each tile lists only itself, so K3 sweeps diagonal pairs alone,
+    and the last tile's 58 pad rows sit on its last real blob, at zero
+    separation from it — only the live mask keeps those pairs out.  A
+    single partial tile (one list of one entry) too."""
+    farfield_cuda.build()
+    rng = np.random.default_rng(6)
+    clouds = [np.concatenate([
+        rng.uniform([0, 0, 0.3], [3, 3, 3], (128, 3)),
+        rng.uniform([0, 40, 0.3], [3, 43, 3], (128, 3)),
+        rng.uniform([40, 0, 0.3], [43, 3, 3], (70, 3))]),
+        rng.uniform([0, 0, 0.3], [4, 4, 3], (90, 3))]
+    for r in clouds:
+        ctx = farfield.prepare(torch.from_numpy(r).to(dev), wall=True,
+                               grid=(4, 4, 1), p=4)
+        t = ctx.nbr.shape[0]
+        assert int(ctx.n_pairs.item()) == t
+        assert (ctx.nbr[:, 0].cpu() == torch.arange(t)).all()
+        live = ctx.id_s >= 0
+        F = torch.from_numpy(rng.standard_normal(
+            (k, ctx.x_s.shape[0], 3))).to(dev)
+        ref = farfield._near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F, ctx.nbr,
+                                   True, 0.75)
+        U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, F, ctx.nbr,
+                                     True, 0.75,
+                                     pairs=(ctx.pairs, ctx.n_pairs))
+        torch.cuda.synchronize()
+        assert torch.isfinite(U[:, live]).all()
+        assert _rel(U[:, live], ref[:, live]) < TOL
+
+
+def test_k3_needs_the_pair_list(near):
+    ctx, F = near
+    with pytest.raises(ValueError, match="tile-pair list"):
+        farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s >= 0, F,
+                                 ctx.nbr, True, 0.75)
 
 
 def test_k3_refuses_three_rhs(near):
@@ -175,7 +216,7 @@ def test_k3_refuses_three_rhs(near):
     with pytest.raises(ValueError, match="1 or 2 RHS"):
         farfield_cuda.near_sweep_kernel(
             ctx.x_s.float().contiguous(), ctx.ci_s, ctx.id_s >= 0, F3,
-            ctx.nbr, True, 0.75)
+            ctx.nbr, ctx.pairs, ctx.n_pairs, True, 0.75)
 
 
 def test_far_field_operator_through_k3(near):
@@ -234,10 +275,12 @@ def test_k4_matches_plain(dev, ewald_boxes, which, k):
     assert _rel(U, ref) < TOL
 
 
-@pytest.mark.parametrize("n", [1, 2, 31, 33, 129, 515, 1025])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 129, 257, 515, 1025])
 def test_k4_ragged_sizes_match_plain(dev, ewald_boxes, n):
-    """Sizes off every tile edge (32-column sub-tiles, 128-row tiles,
-    512-column chunks), with pairs closer than 2a (the overlap segment).
+    """Sizes off every edge of K4's work items (32-column sub-tiles, 64
+    columns a thread's pair of sub-tiles, 128 × 128 items, so a ragged last
+    item row and column; 257 leaves one blob in the last tile), with pairs
+    closer than 2a (the overlap segment).
     The cloud's side grows with n at a fixed density, so that a few blobs
     are neighbours too (beyond min(L)/2 the fields are below the Ewald
     tolerance, and max|U| would be no scale to compare against)."""
@@ -269,6 +312,26 @@ def test_k4_is_repeatable_and_operators_do_not_mix(dev, ewald_boxes):
     assert torch.equal(U1, U2) and torch.equal(V1, V2)
     assert not torch.equal(U1, V1)
     assert _rel(V1, ewald.real_space_apply(F, r, p1, cheb=True)) < TOL
+
+
+def test_k4_table_is_kept_per_operator(dev, ewald_boxes):
+    """The coefficient table goes to the device once per operator and is
+    reused; two operators launched in turn keep their own tables, and an
+    operator with equal contents but another identity gets its own entry
+    and the same result."""
+    p0, p1 = ewald_boxes
+    r, F = _periodic_cloud(dev, p0.box, 300, 8)
+    r32, F32 = r.float().contiguous(), F[:1].float().contiguous()
+    U0 = ewald_cuda.real_sweep_kernel(r32, F32, p0)
+    t0 = ewald_cuda.operator_tables(p0, r32.device)
+    ewald_cuda.real_sweep_kernel(r32, F32, p1)
+    t1 = ewald_cuda.operator_tables(p1, r32.device)
+    assert ewald_cuda.operator_tables(p0, r32.device)[0] is t0[0]
+    assert t1[0] is not t0[0] and t1[2] != t0[2]
+    twin = p0._replace()
+    assert torch.equal(ewald_cuda.real_sweep_kernel(r32, F32, twin), U0)
+    assert ewald_cuda.operator_tables(twin, r32.device)[0] is not t0[0]
+    assert torch.equal(ewald_cuda.real_sweep_kernel(r32, F32, p0), U0)
 
 
 def test_k4_refuses_float64_and_three_rhs(dev, ewald_boxes):

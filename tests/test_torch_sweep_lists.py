@@ -1,0 +1,197 @@
+"""The work lists of the symmetric sweeps K3 and K4, on the CPU.
+
+K3 (the far field's near sweep) walks the unordered adjacent tile pairs of
+``farfield._tile_pairs`` and writes each side of a pair into a per-slot
+partial; a plain PyTorch walk of that list, written here, must give the
+plain ordered sweep ``farfield._near_sweep`` in float64.  K4 (the Ewald
+real-space sweep) walks the 128 × 128 tile pairs of ``ewald_cuda.
+sweep_items``, which must cover every unordered pair i < j once.  The
+kernels themselves run on the card (``tests/test_torch_cuda.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import rigid_body_light_tpu_torch as rt  # noqa: E402
+from rigid_body_light_tpu_torch.ops import ewald_cuda, farfield, rpy  # noqa: E402
+
+TILE = farfield.TILE
+H_FLOOR = 0.75
+# plain walk vs plain ordered sweep, both float64, relative to max|U|:
+# the same pair terms summed in another order
+WALK_TOL = 1e-12
+
+
+def _suspension(shell, n_bodies, spacing, seed):
+    """n_bodies copies of a shell on a square lattice at heights 1.6-3.4
+    (units of the shell's blob radius a), each shifted a little; returns
+    (positions, a)."""
+    params, ref = rt.load_structure(shell)
+    a = params["sep"] / 2
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(n_bodies)))
+    centers = np.array([[spacing * (i % side), spacing * (i // side),
+                         2.5] for i in range(n_bodies)])
+    centers += rng.uniform(-0.9, 0.9, centers.shape)
+    return (centers[:, None, :] + ref[None]).reshape(-1, 3), a
+
+
+CLOUDS = {
+    # 24 × shell_N_42 = 1,008 blobs: 8 tiles, the last one partial
+    "shell_N_42": dict(shell="shell_N_42", n_bodies=24, spacing=2.6,
+                       grid=(4, 4, 2)),
+    # 37 × shell_N_12 = 444 blobs: 4 tiles, 68 pad rows at the last real
+    # blob's position
+    "shell_N_12": dict(shell="shell_N_12", n_bodies=37, spacing=1.5,
+                       grid=(3, 3, 2)),
+}
+
+
+@pytest.fixture(scope="module", params=list(CLOUDS))
+def ctxs(request):
+    c = CLOUDS[request.param]
+    r, a = _suspension(c["shell"], c["n_bodies"], c["spacing"], seed=7)
+    r = torch.from_numpy(r)
+    return {wall: farfield.prepare(r, a=a, wall=wall, grid=c["grid"], p=4)
+            for wall in (False, True)}
+
+
+def test_tile_pairs_cover_each_adjacent_tile_pair_once(ctxs):
+    ctx = ctxs[True]
+    nbr = ctx.nbr.numpy()
+    t, w = nbr.shape
+    count = int(ctx.n_pairs.item())
+    assert ctx.pairs.shape == (t * w, 4) and ctx.pairs.dtype == torch.int32
+    pairs = ctx.pairs[:count].numpy()
+    # every listed neighbor relation, as unordered pairs
+    expected = {(min(a, int(b)), max(a, int(b)))
+                for a in range(t) for b in nbr[a] if b >= 0}
+    got = [(int(a), int(b)) for a, b in pairs[:, :2]]
+    assert len(got) == len(set(got)) == len(expected)
+    assert set(got) == expected
+    assert t < count < t * w           # more than the diagonal, a real list
+    for a, b, sab, sba in pairs:
+        assert b >= a
+        assert nbr[a, sab] == b and nbr[b, sba] == a
+    # list order: a-major, then a's slot order
+    assert [tuple(p) for p in pairs[:, [0, 2]]] == sorted(
+        tuple(p) for p in pairs[:, [0, 2]])
+    # the rows past the used length stay in range (the kernel never reads
+    # them, but an overflowed list may leave pairs unlisted)
+    rest = ctx.pairs[count:].numpy()
+    assert (rest >= 0).all() and (rest[:, :2] < t).all()
+    assert (rest[:, 2:] < w).all()
+
+
+def _pair_blocks(xr, xc, wall):
+    """(R, C, 3, 3) RPY + wall pair blocks M_ij of rows against columns
+    (units of a), the plain sweep's coefficients."""
+    d = xr[:, None, :] - xc[None, :, :]
+    alpha, beta = rpy._free_coeffs(torch.sum(d * d, dim=-1))
+    eye = torch.eye(3, dtype=xr.dtype)
+    M = (alpha[..., None, None] * eye
+         + beta[..., None, None] * d[..., :, None] * d[..., None, :])
+    if wall:
+        zi = torch.clamp(xr[:, 2], min=H_FLOOR)
+        zj = torch.clamp(xc[:, 2], min=H_FLOOR)
+        rz = zi[:, None] + zj[None, :]
+        d_img = torch.cat([d[..., :2], rz[..., None]], dim=-1)
+        f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(
+            d_img, zj[None, :].expand(rz.shape))
+        e = d_img * invR[..., None]
+        z = eye[2]
+        M = M + (f1[..., None, None] * eye
+                 + f2[..., None, None] * e[..., :, None] * e[..., None, :]
+                 + f3[..., None, None] * e[..., :, None] * z
+                 + f4[..., None, None] * z[:, None] * e[..., None, :]
+                 + f5[..., None, None] * z[:, None] * z)
+    return M
+
+
+def _walk_tile_pairs(ctx, F_s, wall):
+    """What K3 computes, in plain PyTorch: each listed tile pair once, its
+    kept pairs' blocks applied forward into the row tile's slot and
+    transposed into the column tile's slot, then each tile's used slots
+    summed in list order."""
+    x, ci, live = ctx.x_s, ctx.ci_s, ctx.id_s >= 0
+    t, w = ctx.nbr.shape
+    k = F_s.shape[0]
+    part = torch.full((w, k, t * TILE, 3), float("nan"), dtype=x.dtype)
+    lane = torch.arange(TILE)
+    for a, b, sab, sba in ctx.pairs[:int(ctx.n_pairs.item())].tolist():
+        rows = slice(a * TILE, (a + 1) * TILE)
+        cols = slice(b * TILE, (b + 1) * TILE)
+        keep = (torch.all((ci[rows][:, None] - ci[cols][None]).abs() <= 1,
+                          dim=-1)
+                & live[rows][:, None] & live[cols][None, :])
+        if a == b:
+            keep &= lane[:, None] < lane[None, :]
+        M = torch.where(keep[..., None, None],
+                        _pair_blocks(x[rows], x[cols], wall), 0.0)
+        row_side = torch.einsum("rcxy,kcy->krx", M, F_s[:, cols])
+        col_side = torch.einsum("rcxy,krx->kcy", M, F_s[:, rows])  # Mᵀ·F
+        if a == b:
+            part[sab, :, rows] = row_side + col_side
+        else:
+            part[sab, :, rows] = row_side
+            part[sba, :, cols] = col_side
+    out = torch.zeros((k, t * TILE, 3), dtype=x.dtype)
+    for a in range(t):
+        rows = slice(a * TILE, (a + 1) * TILE)
+        for s in range(w):
+            if ctx.nbr[a, s] < 0:
+                break
+            out[:, rows] += part[s, :, rows]
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("wall", [False, True])
+def test_tile_pair_walk_matches_plain_sweep(ctxs, wall, k):
+    ctx = ctxs[wall]
+    live = ctx.id_s >= 0
+    F = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (k, ctx.x_s.shape[0], 3)))
+    ref = farfield._near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F, ctx.nbr, wall,
+                               H_FLOOR)
+    U = _walk_tile_pairs(ctx, F, wall)
+    assert torch.isfinite(U[:, live]).all()
+    rel = ((U - ref)[:, live].abs().max() / ref[:, live].abs().max()).item()
+    assert rel < WALK_TOL
+
+
+def test_pad_rows_sit_on_a_real_blob():
+    """The ragged cloud's pad rows repeat the last real blob, so a pad row
+    against its twin is at zero separation: only the live mask keeps that
+    pair out of the walk (and of K3)."""
+    c = CLOUDS["shell_N_12"]
+    r, a = _suspension(c["shell"], c["n_bodies"], c["spacing"], seed=7)
+    ctx = farfield.prepare(torch.from_numpy(r), a=a, wall=True,
+                           grid=c["grid"], p=4)
+    live = ctx.id_s >= 0
+    n = r.shape[0]
+    assert int((~live).sum()) == ctx.x_s.shape[0] - n > 0
+    assert torch.equal(ctx.x_s[~live], ctx.x_s[n - 1].expand(
+        ctx.x_s.shape[0] - n, 3))
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 129, 515])
+def test_k4_items_cover_each_unordered_pair_once(n):
+    items = ewald_cuda.sweep_items(n)
+    T = -(-n // TILE)
+    assert items.shape == (T * (T + 1) // 2, 2)
+    # the diagonal items lead, then the rest row-major
+    assert (items[:T, 0] == np.arange(T)).all()
+    assert (items[:T, 1] == np.arange(T)).all()
+    rest = [tuple(p) for p in items[T:]]
+    assert rest == sorted(rest) and all(i < j for i, j in rest)
+    count = np.zeros((n, n), np.int64)
+    idx = np.arange(n)
+    for I, J in items:
+        rows = idx[I * TILE:(I + 1) * TILE]
+        cols = idx[J * TILE:(J + 1) * TILE]
+        keep = rows[:, None] < cols[None, :]
+        count[np.ix_(rows, cols)] += keep
+    assert (count == np.triu(np.ones((n, n), np.int64), 1)).all()
