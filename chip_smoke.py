@@ -9,11 +9,16 @@ Phases (each raises on failure; any failure exits nonzero):
   1. build the kernels for sm_90a: K1/K2 from
      rigid_body_light_tpu_torch/csrc/rpy_pair_sweep.cu, K3 from
      near_sweep.cu, K4 from ewald_real_sweep.cu, P from fma_peak.cu;
-  2. K1 (symmetric sweep, 1 RHS) against the plain PyTorch sweep in float64
-     on the card, wall and free, at the slice's 10,272 blob positions and a
-     ragged 1,000-blob cloud straddling the wall-height floor; then K1's
-     time against the plain float32 sweep at the slice's shape;
-  3. the same for K2 (ordered sweep, 2 RHS);
+  2. K1 (symmetric sweep) against the plain PyTorch sweep in float64 on
+     the card, wall and free, at the slice's 10,272 blob positions and a
+     ragged 1,000-blob cloud straddling the wall-height floor: at 1 RHS
+     through the mobility product, at 2 RHS (the form the Pallas kernel
+     has, which the dispatch gives it from 65,025 blobs) on its pair
+     terms; two launches bitwise equal at 1 and 2 RHS; then K1's time
+     against the plain float32 sweep at the slice's shape;
+  3. the same for K2 (ordered sweep): at 2 RHS, the slice's fused noise
+     product, through the mobility product, at 1 RHS on its pair terms;
+     and K1's time at 2 RHS beside K2's;
   4. the slice: 16 × shell_N_642 = 10,272 blobs above a wall (the JAX
      package's bench.py::seg_dispersed configuration), run_bd for 1 warm-up
      and 8 timed steps through the kernels, with the launch counts read
@@ -32,7 +37,9 @@ Phases (each raises on failure; any failure exits nonzero):
      at 1 and 2 RHS, and K3's time against the plain float32 sweep and its
      bound;
   7. the far-field operator through K3 against the exact operator through
-     K1 at the at-scale slice's 102,480 positions, wall;
+     K1 at the at-scale slice's 102,480 positions, wall; there, a 2-RHS
+     exact product, which the dispatch sends to K1, its pair terms against
+     K2's on the same inputs, and both kernels' times;
   8. the at-scale slice: 40 × shell_N_2562 = 102,480 blobs above a wall on
      the O(N) far field (the JAX package's bench.py::seg_farfield102k
      configuration), run_bd for 1 warm-up and 2 timed steps, with the
@@ -401,9 +408,26 @@ def main():
         lambda F, r, a_, e_, w: rpy.mobility_apply(F[0], r, a_, e_, w),
         [("slice", r_slice, F2), ("ragged", ragged, Fr)],
         a, eta)
+    def plain_pairs(F, r, a_, e_, w):
+        ids_ = torch.arange(r.shape[0], device=dev)
+        return rpy.pair_sum(r / a_, ids_, r / a_, ids_, F, wall=w, h_floor=h)
+
+    k1_err2 = check_kernel(
+        torch, "K1 pair_sweep_sym 2 RHS (pair terms)",
+        lambda F, r, a_, e_, w: rpy_cuda.pair_sweep_sym(
+            (r / a_).contiguous(), F.contiguous(), w, h),
+        plain_pairs, [("slice", r_slice, F2), ("ragged", ragged, Fr)],
+        a, eta)
     r32 = (r_slice / a).contiguous()
     F32 = F2.float().contiguous()
     ids = torch.arange(n, device=dev)
+    for k in (1, 2):
+        U1 = rpy_cuda.pair_sweep_sym(r32, F32[:k].contiguous(), True, h)
+        U2 = rpy_cuda.pair_sweep_sym(r32, F32[:k].contiguous(), True, h)
+        if not torch.equal(U1, U2):
+            raise AssertionError(f"two K1 launches differ bitwise, k={k}")
+    print(f"K1 launches repeat bitwise at 1 and 2 RHS; max|dU| at 2 RHS "
+          f"{k1_err2:.3e}")
     k1_ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_sym(
         r32, F32[0], True, h), 20)
     k1_plain_ms = cuda_ms(torch, lambda: rpy.pair_sum(
@@ -420,14 +444,31 @@ def main():
         lambda F, r, a_, e_, w: rpy.mobility_apply_multi(F, r, a_, e_, w),
         [("slice", r_slice, F2), ("ragged", ragged, Fr)],
         a, eta)
+    check_kernel(
+        torch, "K2 pair_sweep_ordered 1 RHS (pair terms)",
+        lambda F, r, a_, e_, w: rpy_cuda.pair_sweep_ordered(
+            (r / a_).contiguous(), 0, (r / a_).contiguous(),
+            F[:1].contiguous(), 0, w, h),
+        lambda F, *rest: plain_pairs(F[:1], *rest),
+        [("slice", r_slice, F2), ("ragged", ragged, Fr)],
+        a, eta)
+    U1 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, True, h)
+    U2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, True, h)
+    if not torch.equal(U1, U2):
+        raise AssertionError("two K2 launches differ bitwise")
+    print("K2 launches repeat bitwise")
     k2_ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_ordered(
         r32, 0, r32, F32, 0, True, h), 20)
     k2_plain_ms = cuda_ms(torch, lambda: rpy.pair_sum(
         r32, ids, r32, ids, F32, wall=True, h_floor=h), 3)
+    k1_ms2 = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_sym(
+        r32, F32, True, h), 20)
     k2_gflops = n * n * (60 + 2 * 2 * 30) / 2 / (k2_ms * 1e-3) / 1e9
     print(f"K2 time at n={n}, wall, 2 RHS: kernel {k2_ms:.4f} ms "
           f"({k2_gflops:.1f} GFLOP/s at 90 flop/ordered pair), plain "
-          f"float32 {k2_plain_ms:.4f} ms")
+          f"float32 {k2_plain_ms:.4f} ms; K1 at 2 RHS {k1_ms2:.4f} ms, "
+          f"{k2_ms / k1_ms2:.3f}x faster than K2 (the dispatch keeps K2 "
+          f"below 65,025 blobs, as the JAX package does)")
 
     # ---- 4. the slice through the kernels
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -593,6 +634,37 @@ def main():
         raise AssertionError(f"the far field disagrees with the exact "
                              f"operator: {ff_rel}")
     del U_ex
+    # a 2-RHS exact product at 102,480 blobs: n padded to 512 is past
+    # 65,536, so the dispatch sends it to K1, as rpy_pallas.py:623 does
+    F7b = torch.from_numpy(rng.standard_normal((2, n_f, 3))).to(dev).float()
+    before = rpy_cuda.launch_counts()
+    U7 = rpy_cuda.mobility_apply_multi(F7b, r_f, a=a_ff, eta=cfg_f.eta,
+                                       wall=True)
+    torch.cuda.synchronize()
+    after = rpy_cuda.launch_counts()
+    if not (after["pair_sweep_sym"] == before["pair_sweep_sym"] + 1
+            and after["pair_sweep_ordered"] == before["pair_sweep_ordered"]
+            and U7.shape == (2, n_f, 3) and torch.isfinite(U7).all()):
+        raise AssertionError(f"the 2-RHS product at n={n_f} did not go "
+                             f"through K1: {before} -> {after}")
+    del U7
+    r_fa = (r_f / a_ff).contiguous()
+    P1 = rpy_cuda.pair_sweep_sym(r_fa, F7b, True, h)
+    P2 = rpy_cuda.pair_sweep_ordered(r_fa, 0, r_fa, F7b, 0, True, h)
+    torch.cuda.synchronize()
+    k12_rel = ((P1 - P2).abs().max() / P2.abs().max()).item()
+    del P1, P2
+    k1_ms_f = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_sym(
+        r_fa, F7b, True, h), 3)
+    k2_ms_f = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_ordered(
+        r_fa, 0, r_fa, F7b, 0, True, h), 3)
+    print(f"2-RHS exact product at n={n_f}: dispatched to K1 (launches "
+          f"{before} -> {after}); K1 vs K2 pair terms max|dU|/max|U| = "
+          f"{k12_rel:.3e} (tol {KERNEL_TOL:g}); K1 {k1_ms_f:.3f} ms, K2 "
+          f"{k2_ms_f:.3f} ms at 2 RHS")
+    if not k12_rel <= KERNEL_TOL:
+        raise AssertionError(f"K1 and K2 disagree at n={n_f}, 2 RHS: "
+                             f"{k12_rel}")
 
     # ---- 8. the at-scale slice through K3
     gen_f = torch.Generator(device=dev).manual_seed(SEED)
@@ -866,8 +938,10 @@ def main():
         raise AssertionError("measure_fp32_peak launched no kernel")
 
     b1 = bound_ms(60 * n * n, 36 * n)
+    b1_2 = bound_ms(90 * n * n, 60 * n)
     b2 = bound_ms(90 * n * n, 84 * n)
-    print(f"K1 {k1_ms:.4f} ms, {k1_ms / b1[0]:.2f}x its bound; K2 "
+    print(f"K1 {k1_ms:.4f} / {k1_ms2:.4f} ms, {k1_ms / b1[0]:.2f}x / "
+          f"{k1_ms2 / b1_2[0]:.2f}x its bounds; K2 "
           f"{k2_ms:.4f} ms, {k2_ms / b2[0]:.2f}x; K3 {k3[1]['ms']:.4f} / "
           f"{k3[2]['ms']:.4f} ms, {k3[1]['ms'] / k3[1]['bound'][0]:.2f}x / "
           f"{k3[2]['ms'] / k3[2]['bound'][0]:.2f}x; K4 {k4[1]['ms']:.4f} / "
@@ -879,14 +953,16 @@ def main():
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:312",
          "launches": counts["pair_sweep_sym"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": b1[0],
-         "bound_by": b1[1], "library_ms": None,
-         "bound_ratio": k1_ms / b1[0]},
+         "bound_by": b1[1], "library_ms": None, "ms_2rhs": k1_ms2,
+         "plain_ms_2rhs": k2_plain_ms, "bound_ms_2rhs": b1_2[0],
+         "bound_ratio": k1_ms / b1[0],
+         "bound_ratio_2rhs": k1_ms2 / b1_2[0], "redesigned_in": 5},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b2[0],
          "bound_by": b2[1], "library_ms": None,
-         "bound_ratio": k2_ms / b2[0]},
+         "bound_ratio": k2_ms / b2[0], "redesigned_in": 5},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],

@@ -30,7 +30,8 @@
 // skips the sub-tiles left of its rows), then the full items in row-major
 // order, so the cheap items lead and the tail is made of equal full ones.
 // At the periodic slice that is 3,321 items for a card that holds ~2,000
-// blocks at once.  The block decodes its item from its index.
+// blocks at once.  The block decodes its item from its index
+// (tile_items.cuh, shared with K1).
 //
 // The Clenshaw loop.  Each chain is a serial run of D dependent FMAs, and
 // a step costs one 8-byte shared read (A_j, B_j) besides the two FADD and
@@ -59,8 +60,8 @@
 // row partial (its 128 rows) and a column partial (its 128 columns), each
 // element written by exactly one block; lane l visits column (l + s) mod
 // 32 at step s, so each warp adds its transposed terms into its own shared
-// column accumulator.  A second pass sums, for every blob, the partials of
-// the items that touch its tile in a fixed order.  No atomics: launches
+// column accumulator.  A second pass (tile_items.cuh) sums, for every
+// blob, the partials of the items that touch its tile in a fixed order.  No atomics: launches
 // are bitwise repeatable.
 //
 // Numerics: rintf (halves to even, as jnp.round), IEEE sqrtf and division
@@ -74,9 +75,14 @@
 
 #include <cuda_runtime.h>
 
+#include "tile_items.cuh"
+
 namespace {
 
-constexpr int kTile = 128;    // rows and columns of an item, one row a thread
+using tile_items::item_tiles;
+
+constexpr int kTile = tile_items::kTile;  // rows and columns of an item,
+                                         // one row a thread
 constexpr int kSub = 32;      // columns per rotation sub-tile
 constexpr int kWarps = kTile / 32;
 constexpr int kPairs = 2;     // pairs a thread evaluates side by side
@@ -90,30 +96,6 @@ struct SweepConsts {
   float lo[3];         // left edge of each segment
   float two_inv_w[3];  // 2 / width of each segment
 };
-
-// Items: (I, I) for I < T at index I, then (I, J > I) row-major.
-__device__ __forceinline__ long long off_diagonal_before(int I, int T) {
-  return (long long)I * (2 * T - I - 1) / 2;
-}
-
-__device__ __forceinline__ int item_index(int I, int J, int T) {
-  return I == J ? I : T + (int)off_diagonal_before(I, T) + (J - I - 1);
-}
-
-__device__ __forceinline__ void item_tiles(int item, int T, int& I, int& J) {
-  if (item < T) {
-    I = J = item;
-    return;
-  }
-  const long long p = item - T;
-  const double b = 2.0 * T - 1.0;
-  int r = (int)((b - sqrt(b * b - 8.0 * (double)p)) * 0.5);
-  r = max(0, min(r, T - 2));
-  while (r > 0 && off_diagonal_before(r, T) > p) --r;
-  while (off_diagonal_before(r + 1, T) <= p) ++r;
-  I = r;
-  J = (int)(p - off_diagonal_before(r, T)) + r + 1;
-}
 
 // A(r), B(r) of P pairs by Clenshaw on their segments' coefficients.
 template <int P>
@@ -294,26 +276,6 @@ ewald_item_kernel(const float* __restrict__ pos,     // (n, 3)
   }
 }
 
-// Second pass: out[k][i][c] = Σ_{J ≥ I} row_part[(I, J)][3k+c][r] +
-// Σ_{I' ≤ I} col_part[(I', I)][3k+c][r] for i = 128·I + r, in that fixed
-// order.
-__global__ void sum_items_kernel(const float* __restrict__ row_part,
-                                 const float* __restrict__ col_part,
-                                 int n, int n_tiles, int nf,
-                                 float* __restrict__ out) {  // (nrhs, n, 3)
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= nf * n) return;
-  const int comp = idx / n;
-  const int i = idx - comp * n;
-  const int I = i / kTile, r = i % kTile;
-  float s = 0.0f;
-  for (int J = I; J < n_tiles; ++J)
-    s += row_part[((size_t)item_index(I, J, n_tiles) * nf + comp) * kTile + r];
-  for (int I2 = 0; I2 <= I; ++I2)
-    s += col_part[((size_t)item_index(I2, I, n_tiles) * nf + comp) * kTile + r];
-  out[((size_t)(comp / 3) * n + i) * 3 + comp % 3] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -357,12 +319,8 @@ int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
         pos, force, n, n_tiles, cst, coef2, deg, row_part, col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nf = 3 * nrhs;
-  const int threads = 256;
-  const int blocks = (nf * n + threads - 1) / threads;
-  sum_items_kernel<<<blocks, threads, 0, stream>>>(row_part, col_part, n,
-                                                   n_tiles, nf, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      tile_items::sum_items(row_part, col_part, n, nrhs, out, stream));
 }
 
 }  // extern "C"

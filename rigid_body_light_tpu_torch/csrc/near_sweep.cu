@@ -61,11 +61,11 @@
 //     grid, so the adjacency test drops them, and with height 1 and zero
 //     force, so their fields stay finite.  The cell test is on int32
 //     indices, exact.
-// Resources (ptxas, sm_90a): 55 / 56 registers with a wall at 1 / 2 RHS
-// (40 / 48 without), no spills; 10.5 / 18 KB of static shared memory, so
-// an SM holds 9 blocks of 4 warps (the earlier design: 36 / 48 KB).  On an
-// H100 at 700 W, at the far-field slice, 2.44 / 3.29 ms, 5.8× / 5.2× the
-// bound (PERF.md §6): per kept pair as fast as K1's full sweep.
+// Resources (ptxas, sm_90a): 56 / 62 registers with a wall at 1 / 2 RHS
+// (48 / 48 without), no spills; 11 / 18.5 KB of static shared memory, so
+// an SM holds 9 / 8 blocks of 4 warps (the earlier design: 36 / 48 KB).
+// On an H100 at 700 W, at the far-field slice, 2.12-2.14 / 2.81-2.83 ms,
+// 5.1× / 4.5× the bound (PERF.md §6).
 //
 // Plain C interface for ctypes; the launches go on the caller's stream,
 // allocate nothing and return cudaGetLastError().
@@ -78,6 +78,7 @@ namespace {
 
 using rpy_fields::Fields;
 using rpy_fields::apply;
+using rpy_fields::floor_height;
 using rpy_fields::pair_fields;
 
 constexpr int kTile = 128;             // blobs per tile (farfield.TILE)
@@ -101,6 +102,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                  float* __restrict__ part) {
   constexpr int NF = 3 * NRHS;
   __shared__ float s_pos[3][kTile];
+  __shared__ float s_zw[kTile];  // floored heights
   __shared__ int s_cell[3][kTile];
   __shared__ float s_f[NF][kTile];
   __shared__ float s_acc[kWarps][NF][kTile];
@@ -122,6 +124,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
       s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
       s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
       s_pos[2][t] = ok ? pos[3 * j + 2] : 1.0f;
+      s_zw[t] = floor_height(s_pos[2][t], h_floor);
       s_cell[0][t] = ok ? cell[3 * j] : kDeadCell;
       s_cell[1][t] = ok ? cell[3 * j + 1] : kDeadCell;
       s_cell[2][t] = ok ? cell[3 * j + 2] : kDeadCell;
@@ -142,6 +145,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
     const float xR = pos[3 * i];
     const float yR = pos[3 * i + 1];
     const float zR = row_live ? pos[3 * i + 2] : 1.0f;
+    const float zRw = floor_height(zR, h_floor);
     const int cxR = cell[3 * i];
     const int cyR = cell[3 * i + 1];
     const int czR = cell[3 * i + 2];
@@ -167,11 +171,10 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                           && abs(czR - s_cell[2][c]) <= 1
                           && (!diag || t < c);
         if (!__any_sync(0xffffffffu, keep)) continue;
-        const float zC = s_pos[2][c];
         const float dx = xR - s_pos[0][c];
         const float dy = yR - s_pos[1][c];
-        const float dz = zR - zC;
-        const Fields p = pair_fields<WALL>(dx, dy, dz, zR, zC, h_floor);
+        const float dz = zR - s_pos[2][c];
+        const Fields p = pair_fields<WALL>(dx, dy, dz, zRw, s_zw[c]);
 #pragma unroll
         for (int k = 0; k < NRHS; ++k) {
           float ux, uy, uz, tx, ty, tz;

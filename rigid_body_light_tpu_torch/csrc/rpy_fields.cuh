@@ -1,7 +1,7 @@
 // RPY + Swan–Brady wall pair fields shared by the pair-sweep kernels
 // (rpy_pair_sweep.cu: K1, K2; near_sweep.cu: K3), float32.
 //
-// They mirror the shared field helpers of the Pallas kernels
+// They compute what the shared field helpers of the Pallas kernels do
 // (rigid_body_light_tpu/ops/rpy_pallas.py: _mono_coeffs, _wall_coeffs), so
 // the three CUDA kernels cannot drift apart either.
 //
@@ -11,6 +11,15 @@
 // r² and R² are floored at 1e-24 and the image height sum at 1e-12 in the
 // h/(z_i+z_j) division.  Callers mask a pair with a select, never a
 // multiply by a mask (the unselected value may hold inf/NaN).
+//
+// Work per pair, kept small because every pair of K1–K3 pays it:
+//   - heights arrive already floored (floor_height, once per blob);
+//   - dx² + dy² is shared by r² and the image distance R²;
+//   - the near/far select is taken on α and β only;
+//   - each wall field is a polynomial in s = 1/R² (Horner) whose
+//     coefficients are linear in ez², the 1/3 multiples folded into them;
+//   - the identity coefficient α + f1 and the ẑẑ coefficient α + f1 + f5
+//     are summed once per pair, so an apply makes 19 operations.
 
 #pragma once
 
@@ -19,57 +28,73 @@
 namespace rpy_fields {
 
 constexpr float kR2Floor = 1e-24f;
-constexpr float kSelfCoef = 4.0f / 3.0f;
 
+// M = aI·I + b·d dᵀ + f2·e eᵀ + f3·e ẑᵀ + f4·ẑ eᵀ + (aZ − aI)·ẑ ẑᵀ, i.e.
+// α I + β d dᵀ plus the wall block C = f1 I + f2 e eᵀ + f3 e ẑᵀ + f4 ẑ eᵀ
+// + f5 ẑ ẑᵀ with aI = α + f1, aZ = α + f1 + f5.  Free space: aI = α, b = β.
 struct Fields {
-  float alpha, beta;               // free-space M = α I + β d dᵀ
+  float aI, aZ, b;
   float ex, ey, ez;                // wall image direction e
-  float f1, f2, f3, f4, f5;        // C = f1 I + f2 e eᵀ + f3 e ẑᵀ + f4 ẑ eᵀ + f5 ẑ ẑᵀ
+  float f2, f3, f4;
 };
 
-// Pair fields at displacement d = r_i − r_j (units of a); zR, zC the row and
-// column heights.
+// A blob's height as the wall fields see it (units of a): floored at
+// h_floor when the floor is on.  Depends on one blob only.
+__device__ __forceinline__ float floor_height(float z, float h_floor) {
+  return h_floor > 0.0f ? fmaxf(z, h_floor) : z;
+}
+
+// Pair fields at displacement d = r_i − r_j (units of a); zRw, zCw the
+// floored row and column heights (floor_height).
 template <bool WALL>
 __device__ __forceinline__ Fields pair_fields(float dx, float dy, float dz,
-                                              float zR, float zC,
-                                              float h_floor) {
+                                              float zRw, float zCw) {
   Fields p;
-  const float r2 = fmaxf(dx * dx + dy * dy + dz * dz, kR2Floor);
+  const float rho2 = fmaf(dx, dx, dy * dy);
+  const float r2 = fmaxf(fmaf(dz, dz, rho2), kR2Floor);
   const float invr = rsqrtf(r2);
   const float invr2 = invr * invr;
   const float r = r2 * invr;
   const bool far = r >= 2.0f;
-  p.alpha = far ? (1.0f + (2.0f / 3.0f) * invr2) * invr
-                : kSelfCoef * (1.0f - 0.28125f * r);
-  p.beta = far ? (1.0f - 2.0f * invr2) * invr2 * invr
-               : (kSelfCoef * 0.09375f) * invr;
+  // far: α = (1 + 2/(3r²))/r, β = (1 − 2/r²)/r³;
+  // overlapping: α = 4/3·(1 − 9r/32), β = 4/3·3/(32r)
+  const float alpha = far ? invr * fmaf(2.0f / 3.0f, invr2, 1.0f)
+                          : fmaf(-0.375f, r, 4.0f / 3.0f);
+  p.b = far ? (invr2 * invr) * fmaf(-2.0f, invr2, 1.0f) : 0.125f * invr;
+  p.aI = p.aZ = alpha;
   if (WALL) {
-    const float zRw = h_floor > 0.0f ? fmaxf(zR, h_floor) : zR;
-    const float zCw = h_floor > 0.0f ? fmaxf(zC, h_floor) : zC;
-    const float dzi = zRw + zCw;
-    const float R2 = fmaxf(dx * dx + dy * dy + dzi * dzi, kR2Floor);
+    const float zs = zRw + zCw;
+    const float R2 = fmaxf(fmaf(zs, zs, rho2), kR2Floor);
     const float invR = rsqrtf(R2);
+    const float s = invR * invR;
     p.ex = dx * invR;
     p.ey = dy * invR;
-    p.ez = dzi * invR;
-    const float ez2 = p.ez * p.ez;
-    const float invR3 = invR * invR * invR;
-    const float invR5 = invR3 * invR * invR;
-    const float h_hat = zCw / fmaxf(dzi, 1e-12f);
-    const float hh = h_hat * (1.0f - h_hat);
-    p.f1 = -(3.0f * (1.0f + 2.0f * hh * ez2) * invR
-             + 2.0f * (1.0f - 3.0f * ez2) * invR3
-             - 2.0f * (1.0f - 5.0f * ez2) * invR5) * (1.0f / 3.0f);
-    p.f2 = -(3.0f * (1.0f - 6.0f * hh * ez2) * invR
-             - 6.0f * (1.0f - 5.0f * ez2) * invR3
-             + 10.0f * (1.0f - 7.0f * ez2) * invR5) * (1.0f / 3.0f);
-    p.f3 = p.ez * (3.0f * h_hat * (1.0f - 6.0f * (1.0f - h_hat) * ez2) * invR
-                   - 6.0f * (1.0f - 5.0f * ez2) * invR3
-                   + 10.0f * (2.0f - 7.0f * ez2) * invR5) * (2.0f / 3.0f);
-    p.f4 = p.ez * (3.0f * h_hat * invR - 10.0f * invR5) * (2.0f / 3.0f);
-    p.f5 = -(3.0f * h_hat * h_hat * ez2 * invR
-             + 3.0f * ez2 * invR3
-             + (2.0f - 15.0f * ez2) * invR5) * (4.0f / 3.0f);
+    p.ez = zs * invR;
+    const float u = p.ez * p.ez;
+    const float h = zCw / fmaxf(zs, 1e-12f);    // ĥ = z_j / (z_i + z_j)
+    const float h2 = h + h;
+    const float hh2 = 2.0f * fmaf(-h, h, h);    // 2ĥ(1 − ĥ)
+    const float ezR = p.ez * invR;
+    // f1 = −[3(1 + 2ĥ(1−ĥ)u)/R + 2(1 − 3u)/R³ − 2(1 − 5u)/R⁵]/3
+    const float f1 = -invR * fmaf(s, fmaf(s, fmaf(10.0f / 3.0f, u, -2.0f / 3.0f),
+                                          fmaf(-2.0f, u, 2.0f / 3.0f)),
+                                  fmaf(hh2, u, 1.0f));
+    // f2 = −[3(1 − 6ĥ(1−ĥ)u)/R − 6(1 − 5u)/R³ + 10(1 − 7u)/R⁵]/3
+    p.f2 = -invR * fmaf(s, fmaf(s, fmaf(-70.0f / 3.0f, u, 10.0f / 3.0f),
+                                fmaf(10.0f, u, -2.0f)),
+                        fmaf(-3.0f * hh2, u, 1.0f));
+    // f3 = 2ez/3·[3ĥ(1 − 6(1−ĥ)u)/R − 6(1 − 5u)/R³ + 10(2 − 7u)/R⁵]
+    p.f3 = ezR * fmaf(s, fmaf(s, fmaf(-140.0f / 3.0f, u, 40.0f / 3.0f),
+                              fmaf(20.0f, u, -4.0f)),
+                      fmaf(-6.0f * hh2, u, h2));
+    // f4 = 2ez/3·[3ĥ/R − 10/R⁵]
+    p.f4 = ezR * fmaf(-20.0f / 3.0f, s * s, h2);
+    // f5 = −4/3·[3ĥ²u/R + 3u/R³ + (2 − 15u)/R⁵]
+    const float f5 = -invR * fmaf(s, fmaf(s, fmaf(-20.0f, u, 8.0f / 3.0f),
+                                          4.0f * u),
+                                  4.0f * (h * h) * u);
+    p.aI = alpha + f1;
+    p.aZ = p.aI + f5;
   }
   return p;
 }
@@ -81,18 +106,19 @@ template <bool WALL, bool TRANSPOSE>
 __device__ __forceinline__ void apply(const Fields& p, float dx, float dy,
                                       float dz, float fx, float fy, float fz,
                                       float& ux, float& uy, float& uz) {
-  const float bdF = p.beta * (dx * fx + dy * fy + dz * fz);
-  ux = p.alpha * fx + bdF * dx;
-  uy = p.alpha * fy + bdF * dy;
-  uz = p.alpha * fz + bdF * dz;
+  const float bdF = p.b * fmaf(dz, fz, fmaf(dy, fy, dx * fx));
   if (WALL) {
-    const float eF = p.ex * fx + p.ey * fy + p.ez * fz;
-    const float f2eF = p.f2 * eF;
+    const float eF = fmaf(p.ez, fz, fmaf(p.ey, fy, p.ex * fx));
     const float fa = TRANSPOSE ? p.f4 : p.f3;   // multiplies fz·e
     const float fb = TRANSPOSE ? p.f3 : p.f4;   // multiplies eF·ẑ
-    ux += p.f1 * fx + f2eF * p.ex + fa * fz * p.ex;
-    uy += p.f1 * fy + f2eF * p.ey + fa * fz * p.ey;
-    uz += p.f1 * fz + f2eF * p.ez + fa * fz * p.ez + fb * eF + p.f5 * fz;
+    const float g = fmaf(p.f2, eF, fa * fz);
+    ux = fmaf(p.aI, fx, fmaf(bdF, dx, g * p.ex));
+    uy = fmaf(p.aI, fy, fmaf(bdF, dy, g * p.ey));
+    uz = fmaf(p.aZ, fz, fmaf(bdF, dz, fmaf(g, p.ez, fb * eF)));
+  } else {
+    ux = fmaf(p.aI, fx, bdF * dx);
+    uy = fmaf(p.aI, fy, bdF * dy);
+    uz = fmaf(p.aI, fz, bdF * dz);
   }
 }
 

@@ -6,7 +6,8 @@
 //   K1 pair_sweep_sym      replaces _kernel_sym (rpy_pallas.py:312): every
 //                          unordered pair i<j once, applied forward
 //                          (M_ij·F_j into row i) and transposed
-//                          (M_ijᵀ·F_i into column j).  Single RHS.
+//                          (M_ijᵀ·F_i into column j).  1 or 2 RHS sharing
+//                          the pair fields.
 //   K2 pair_sweep_ordered  replaces _kernel (rpy_pallas.py:175): an ordered
 //                          rectangular slab, rows × all columns, with global
 //                          row/column offsets masking self pairs.  1 or 2 RHS
@@ -17,23 +18,54 @@
 // 1/(8πηa) scale and the B·M·B damping (rigid_body_light_tpu_torch/ops/
 // rpy_cuda.py), exactly as rpy_pallas.py:821-853 does.
 //
-// What bounds them on the card: arithmetic.  Each pair costs ~25 flops of
-// free-space fields, ~35 more for the five wall fields, two rsqrt and one
-// IEEE division, then ~30 flops per RHS and direction to apply them; the
-// operands are 24-48 bytes per blob, so the sweep is O(N²) compute over
-// O(N) data that lives in shared memory and registers.  The design keeps
-// every pair field in registers, reads column blobs from shared memory
-// (broadcast or conflict-free), and writes O(N) partial sums.
+// What bounds them on the card: arithmetic.  Each pair costs ~20 operations
+// of free-space fields, ~50 more for the five wall fields, two rsqrt and
+// one IEEE division (rpy_fields.cuh), then 19 per RHS and direction to
+// apply them; the operands are 24-48 bytes per blob, so the sweep is O(N²)
+// compute over O(N) data that lives in shared memory and registers.
 //
-// The hazard the TPU kernel did not have: _kernel_sym adds into output
-// columns across grid programs, which is race-free only because TPU grid
-// programs run in sequence.  CUDA blocks run in parallel, so K1 writes
-// per-row-tile column partials and per-column-chunk row partials (each
-// element written by exactly one block) and a second pass sums them in a
-// fixed order.  No atomics: runs are bitwise repeatable.
+// K1.  The earlier design ran a grid of 128-row tiles × 512-column chunks:
+// at 10,272 blobs about half of its 81 × 21 blocks lay below the diagonal
+// and only wrote zero partials, and the ~900 that worked all fitted on the
+// card in one uneven wave, one pair a thread (0.589 ms, 6.2× the bound).
+// Now a block takes one work item, a 128 × 128 tile pair (I, J ≥ I) of the
+// upper triangle, diagonal items first (tile_items.cuh, as K4): 3,321 items
+// at 10,272 blobs.  Thread t owns row 128·I + t and evaluates two pairs a
+// step, columns c and c + 32 of the item, so it has two independent chains
+// through the rsqrt and the division.  Lane l visits column (l + s) mod 32
+// of each 32-column half at step s: the lanes of a warp touch distinct
+// columns, so each warp adds its transposed terms into its own shared
+// column accumulator without conflicts, and the 4 warps' accumulators are
+// summed in a fixed order.  Each item writes its row and column partials
+// (one writer per element); a second pass sums them in a fixed order.
+// 48 / 56 registers with a wall at 1 / 2 RHS, no spills, 12 / 22 KB of
+// shared memory.  On an H100 at 700 W at 10,272 blobs: 0.325-0.331 /
+// 0.436-0.442 ms at 1 / 2 RHS, 3.5× / 3.1× the bound, against the earlier
+// design's 0.577-0.586 ms at 1 RHS in the same runs; one pair a thread
+// took 3% / 3.5% longer (PERF.md §6).
 //
-// Numerics and the pair fields: rpy_fields.cuh, shared with K3
-// (near_sweep.cu).
+// K2.  The earlier design ran ⌈n/32⌉ blocks of 256 threads, one row a
+// thread, all columns a block: 321 blocks at 10,272 blobs on 132 SMs, so
+// 57 SMs carried 3 blocks and 75 carried 2 (0.905 ms, 6.4× the bound).
+// Now a block of 4 warps owns 64 rows (two a lane: lane and lane + 32) and
+// a chunk of 256 columns, 64 a warp; every lane of a warp reads the same
+// column (a shared-memory broadcast) and applies it to both of its rows.
+// The columns are split into chunks because the rows alone give too few
+// blocks (161 of 64 rows at the slice): 64 × 256 blocks make 6,601 at the
+// slice, many waves of the ~1,000 that fit at once, so the launch ends
+// within one short block of balance.  Each chunk writes its rows' partials
+// (one writer per element), and a second pass sums the chunks in order.
+// 56 registers with a wall, no spills, 11 / 18 KB of shared memory at 1 /
+// 2 RHS.  On the same card: 0.542-0.546 ms at 2 RHS, 3.8× the bound,
+// against the earlier design's 0.906-0.907 ms; four rows a lane took
+// 0.6% longer.
+// An ordered sweep evaluates every pair's fields twice, once from each
+// side; its contract (rows × all columns, global offsets) serves the
+// sharded slabs and mobility_apply_rows.
+//
+// Per-blob quantities (the floored height) are computed once per blob, when
+// the blob is loaded, and staged beside its position as a float4.
+// Neither kernel uses atomics: launches are bitwise repeatable.
 //
 // Plain C interface for ctypes; every launch goes on the caller's stream,
 // allocates nothing and returns cudaGetLastError().
@@ -41,296 +73,344 @@
 #include <cuda_runtime.h>
 
 #include "rpy_fields.cuh"
+#include "tile_items.cuh"
 
 namespace {
 
 using rpy_fields::Fields;
 using rpy_fields::apply;
+using rpy_fields::floor_height;
 using rpy_fields::pair_fields;
 
-// K1 tiling: a block owns 128 rows (one per thread, 4 warps) and a chunk of
-// 512 columns, swept in 32-column sub-tiles.
-constexpr int kSymRows = 128;
-constexpr int kSymChunk = 512;
+// K1: one work item of kSymTile × kSymTile a block, one row a thread,
+// kSymPairs columns a step.
+constexpr int kSymTile = tile_items::kTile;
 constexpr int kSymSub = 32;
-constexpr int kSymWarps = kSymRows / 32;
+constexpr int kSymWarps = kSymTile / 32;
+constexpr int kSymPairs = 2;
 
-// K2 tiling: a block owns 32 rows (one per lane); its 8 warps split each
-// 256-column shared tile 8 ways and are summed in a fixed order at the end.
-constexpr int kOrdRows = 32;
-constexpr int kOrdSplit = 8;
-constexpr int kOrdTile = kOrdSplit * 32;
+// K2: a block of kOrdWarps warps owns kOrdRows rows (kOrdRows / 32 a lane)
+// and kOrdChunk columns (kOrdChunk / kOrdWarps a warp).
+constexpr int kOrdWarps = 4;
+constexpr int kOrdRows = 64;
+constexpr int kOrdRowsPerLane = kOrdRows / 32;
+constexpr int kOrdChunk = 256;
+constexpr int kOrdWarpCols = kOrdChunk / kOrdWarps;
 
-// K1.  Grid (row tiles, column chunks).  Thread t owns row i = 128·I + t and
-// keeps its forward sum in registers.  For a 32-column sub-tile, lane l of
-// each warp visits column (l + s) mod 32 at step s, so the 32 lanes of a
-// warp always touch 32 distinct columns: each warp adds its transposed
-// terms into its own shared column accumulator without conflicts
-// (__syncwarp orders the steps), and the 4 warps' accumulators are summed
-// in a fixed order into col_part[I].  Row sums go to row_part[C].
-template <bool WALL>
-__global__ void __launch_bounds__(kSymRows)
+// Blob b of (n, 3) positions as (x, y, z, floored z); a blob past n is a
+// finite stand-in at height 1 (its pairs are masked).
+__device__ __forceinline__ float4 load_blob(const float* __restrict__ pos,
+                                            int b, int n, float h_floor) {
+  const bool ok = b < n;
+  const float z = ok ? pos[3 * b + 2] : 1.0f;
+  return make_float4(ok ? pos[3 * b] : 0.0f, ok ? pos[3 * b + 1] : 0.0f, z,
+                     floor_height(z, h_floor));
+}
+
+// F_k of blob b of (nrhs, n, 3) forces as (fx, fy, fz, 0); 0 past n.
+__device__ __forceinline__ float4 load_force(const float* __restrict__ force,
+                                             int k, int b, int n) {
+  if (b >= n) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float* f = force + ((size_t)k * n + b) * 3;
+  return make_float4(f[0], f[1], f[2], 0.0f);
+}
+
+// K1.  Block = one work item (I, J): rows of tile I, columns of tile J.
+template <bool WALL, int NRHS>
+__global__ void __launch_bounds__(kSymTile)
 pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
-                      const float* __restrict__ force,   // (n, 3)
-                      int n, float h_floor,
-                      float* __restrict__ row_part,      // (n_chunks, 3, n)
-                      float* __restrict__ col_part) {    // (n_row_tiles, 3, n)
-  __shared__ float s_pos[3][kSymSub];
-  __shared__ float s_f[3][kSymSub];
-  __shared__ float s_acc[kSymWarps][3][kSymSub];
+                      const float* __restrict__ force,   // (NRHS, n, 3)
+                      int n, int n_tiles, float h_floor,
+                      float* __restrict__ row_part,      // (items, 3·NRHS, 128)
+                      float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
+  constexpr int NF = 3 * NRHS;
+  __shared__ float4 s_pos[kSymTile];                     // x, y, z, floored z
+  __shared__ float4 s_f[NRHS][kSymTile];                 // fx, fy, fz, 0
+  __shared__ float4 s_acc[kSymWarps][NRHS][kSymTile];    // transposed terms
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int row0 = blockIdx.x * kSymRows;
-  const int i = row0 + t;
+  int I, J;
+  tile_items::item_tiles(blockIdx.x, n_tiles, I, J);
+  const bool diag = I == J;
+
+  s_pos[t] = load_blob(pos, J * kSymTile + t, n, h_floor);
+#pragma unroll
+  for (int k = 0; k < NRHS; ++k) {
+    s_f[k][t] = load_force(force, k, J * kSymTile + t, n);
+#pragma unroll
+    for (int w = 0; w < kSymWarps; ++w)
+      s_acc[w][k][t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+
+  const int i = I * kSymTile + t;
   const bool row_ok = i < n;
-  const int col_begin = blockIdx.y * kSymChunk;
-  const int col_end = min(col_begin + kSymChunk, n);
-
-  float xR = 0.0f, yR = 0.0f, zR = 1.0f, fxR = 0.0f, fyR = 0.0f, fzR = 0.0f;
-  if (row_ok) {
-    xR = pos[3 * i]; yR = pos[3 * i + 1]; zR = pos[3 * i + 2];
-    fxR = force[3 * i]; fyR = force[3 * i + 1]; fzR = force[3 * i + 2];
+  const int n_cols = min(kSymTile, n - J * kSymTile);
+  const float4 R = load_blob(pos, i, n, h_floor);
+  float fR[NF];
+  float acc[NF];
+#pragma unroll
+  for (int k = 0; k < NRHS; ++k) {
+    const float4 f = load_force(force, k, i, n);
+    fR[3 * k] = f.x; fR[3 * k + 1] = f.y; fR[3 * k + 2] = f.z;
   }
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  float* colp = col_part + (size_t)blockIdx.x * 3 * n;
+#pragma unroll
+  for (int q = 0; q < NF; ++q) acc[q] = 0.0f;
+  __syncthreads();  // the stage is written
 
-  for (int c0 = col_begin; c0 < col_end; c0 += kSymSub) {
-    const int c_last = min(c0 + kSymSub, n) - 1;
-    if (c_last <= row0) {
-      // no pair j > i in this sub-tile (block-uniform): its column
-      // partials are zero
-      for (int idx = t; idx < 3 * kSymSub; idx += kSymRows) {
-        const int j = c0 + idx % kSymSub;
-        if (j < n) colp[(size_t)(idx / kSymSub) * n + j] = 0.0f;
-      }
-      continue;
-    }
-    __syncthreads();  // the previous sub-tile's shared reads are done
-    if (t < kSymSub) {
-      const int j = c0 + t;
-      const bool ok = j < n;
-      s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
-      s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
-      s_pos[2][t] = ok ? pos[3 * j + 2] : 1.0f;
-      s_f[0][t] = ok ? force[3 * j] : 0.0f;
-      s_f[1][t] = ok ? force[3 * j + 1] : 0.0f;
-      s_f[2][t] = ok ? force[3 * j + 2] : 0.0f;
-    }
-    for (int idx = t; idx < kSymWarps * 3 * kSymSub; idx += kSymRows)
-      (&s_acc[0][0][0])[idx] = 0.0f;
-    __syncthreads();
-
+  for (int q0 = 0; q0 < kSymTile; q0 += kSymPairs * kSymSub) {
+    // diagonal item: this warp's rows are all right of these columns
+    if (diag && q0 + kSymPairs * kSymSub <= warp * 32) continue;
     for (int s = 0; s < kSymSub; ++s) {
-      const int c = (lane + s) & (kSymSub - 1);
-      const int j = c0 + c;
-      const bool valid = row_ok && j < n && j > i;
-      const float zC = s_pos[2][c];
-      const float dx = xR - s_pos[0][c];
-      const float dy = yR - s_pos[1][c];
-      const float dz = zR - zC;
-      const Fields p = pair_fields<WALL>(dx, dy, dz, zR, zC, h_floor);
-      float ux, uy, uz, tx, ty, tz;
-      apply<WALL, false>(p, dx, dy, dz, s_f[0][c], s_f[1][c], s_f[2][c],
-                         ux, uy, uz);
-      apply<WALL, true>(p, dx, dy, dz, fxR, fyR, fzR, tx, ty, tz);
-      ax += valid ? ux : 0.0f;
-      ay += valid ? uy : 0.0f;
-      az += valid ? uz : 0.0f;
-      s_acc[warp][0][c] += valid ? tx : 0.0f;
-      s_acc[warp][1][c] += valid ? ty : 0.0f;
-      s_acc[warp][2][c] += valid ? tz : 0.0f;
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int idx = t; idx < 3 * kSymSub; idx += kSymRows) {
-      const int comp = idx / kSymSub;
-      const int c = idx % kSymSub;
-      const int j = c0 + c;
-      if (j < n) {
-        float v = 0.0f;
-        for (int w = 0; w < kSymWarps; ++w) v += s_acc[w][comp][c];
-        colp[(size_t)comp * n + j] = v;
+      int c[kSymPairs];
+      bool valid[kSymPairs];
+      bool any = false;
+#pragma unroll
+      for (int p = 0; p < kSymPairs; ++p) {
+        c[p] = q0 + p * kSymSub + ((lane + s) & (kSymSub - 1));
+        valid[p] = row_ok && c[p] < n_cols && (!diag || c[p] > t);
+        any = any || valid[p];
       }
+      if (!__any_sync(0xffffffffu, any)) continue;
+#pragma unroll
+      for (int p = 0; p < kSymPairs; ++p) {
+        const float4 C = s_pos[c[p]];
+        const float dx = R.x - C.x;
+        const float dy = R.y - C.y;
+        const float dz = R.z - C.z;
+        const Fields f = pair_fields<WALL>(dx, dy, dz, R.w, C.w);
+#pragma unroll
+        for (int k = 0; k < NRHS; ++k) {
+          const float4 fC = s_f[k][c[p]];
+          float ux, uy, uz, tx, ty, tz;
+          apply<WALL, false>(f, dx, dy, dz, fC.x, fC.y, fC.z, ux, uy, uz);
+          apply<WALL, true>(f, dx, dy, dz, fR[3 * k], fR[3 * k + 1],
+                            fR[3 * k + 2], tx, ty, tz);
+          acc[3 * k] += valid[p] ? ux : 0.0f;
+          acc[3 * k + 1] += valid[p] ? uy : 0.0f;
+          acc[3 * k + 2] += valid[p] ? uz : 0.0f;
+          float4 a = s_acc[warp][k][c[p]];
+          a.x += valid[p] ? tx : 0.0f;
+          a.y += valid[p] ? ty : 0.0f;
+          a.z += valid[p] ? tz : 0.0f;
+          s_acc[warp][k][c[p]] = a;
+        }
+      }
+      __syncwarp();  // lane l's columns are lane l − 1's at the next step
     }
   }
-  if (row_ok) {
-    float* rowp = row_part + (size_t)blockIdx.y * 3 * n;
-    rowp[i] = ax;
-    rowp[(size_t)n + i] = ay;
-    rowp[(size_t)2 * n + i] = az;
+  __syncthreads();  // every warp's column accumulator is complete
+
+  // thread t: row t of tile I and column t of tile J
+  float* rowp = row_part + (size_t)blockIdx.x * NF * kSymTile;
+  float* colp = col_part + (size_t)blockIdx.x * NF * kSymTile;
+#pragma unroll
+  for (int k = 0; k < NRHS; ++k) {
+    float4 v = s_acc[0][k][t];
+#pragma unroll
+    for (int w = 1; w < kSymWarps; ++w) {
+      const float4 a = s_acc[w][k][t];
+      v.x += a.x; v.y += a.y; v.z += a.z;
+    }
+    rowp[(3 * k) * kSymTile + t] = acc[3 * k];
+    rowp[(3 * k + 1) * kSymTile + t] = acc[3 * k + 1];
+    rowp[(3 * k + 2) * kSymTile + t] = acc[3 * k + 2];
+    colp[(3 * k) * kSymTile + t] = v.x;
+    colp[(3 * k + 1) * kSymTile + t] = v.y;
+    colp[(3 * k + 2) * kSymTile + t] = v.z;
   }
 }
 
-// K1 second pass: out[i] = Σ_C row_part[C][:, i] + Σ_I col_part[I][:, i],
-// in that fixed order.
-__global__ void sum_partials_kernel(const float* __restrict__ row_part,
-                                    int n_chunks,
-                                    const float* __restrict__ col_part,
-                                    int n_row_tiles, int n,
-                                    float* __restrict__ out) {   // (n, 3)
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= 3 * n) return;
-  const int comp = idx / n;
-  const int i = idx - comp * n;
-  float s = 0.0f;
-  for (int c = 0; c < n_chunks; ++c)
-    s += row_part[((size_t)c * 3 + comp) * n + i];
-  for (int r = 0; r < n_row_tiles; ++r)
-    s += col_part[((size_t)r * 3 + comp) * n + i];
-  out[(size_t)i * 3 + comp] = s;
-}
-
-// K2.  Block (32, 8): lane = row within the block's 32 rows, threadIdx.y =
-// which 32 columns of each 256-column shared tile this warp sweeps (every
-// lane of a warp reads the same column: a shared-memory broadcast).  A pair
-// is live iff its global ids differ and the column is in range.
+// K2.  Block (row block blockIdx.x, column chunk blockIdx.y), 4 warps:
+// lane l owns rows l and l + 32 of the row block, warp w sweeps columns
+// [64w, 64w + 64) of the chunk.  A pair is live iff its global ids differ
+// and the column is in range; the 4 warps' sums are added in a fixed order
+// into the chunk's partial.
 template <bool WALL, int NRHS>
-__global__ void __launch_bounds__(kOrdRows * kOrdSplit)
+__global__ void __launch_bounds__(kOrdWarps * 32)
 pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
                           int n_rows, int row_offset,
                           const float* __restrict__ cols_pos,   // (n_cols, 3)
                           const float* __restrict__ cols_force, // (NRHS, n_cols, 3)
                           int n_cols, int col_offset, float h_floor,
-                          float* __restrict__ out) {            // (NRHS, n_rows, 3)
-  __shared__ float s_pos[3][kOrdTile];
-  __shared__ float s_f[3 * NRHS][kOrdTile];
-  __shared__ float s_red[kOrdSplit][3 * NRHS][kOrdRows];
+                          float* __restrict__ part) {  // (chunks, NRHS, n_rows, 3)
+  constexpr int NF = 3 * NRHS;
+  constexpr int RL = kOrdRowsPerLane;
+  __shared__ float4 s_pos[kOrdChunk];
+  __shared__ float4 s_f[NRHS][kOrdChunk];
+  __shared__ float s_red[kOrdWarps][NF][kOrdRows];
 
-  const int lane = threadIdx.x;
-  const int w = threadIdx.y;
-  const int t = w * kOrdRows + lane;
-  const int i = blockIdx.x * kOrdRows + lane;
-  const bool row_ok = i < n_rows;
-  const int gi = row_offset + i;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int c0 = blockIdx.y * kOrdChunk;
+  const int n_c = min(kOrdChunk, n_cols - c0);
 
-  float xR = 0.0f, yR = 0.0f, zR = 1.0f;
-  if (row_ok) {
-    xR = rows_pos[3 * i]; yR = rows_pos[3 * i + 1]; zR = rows_pos[3 * i + 2];
+  for (int c = t; c < kOrdChunk; c += kOrdWarps * 32) {
+    s_pos[c] = load_blob(cols_pos, c0 + c, n_cols, h_floor);
+#pragma unroll
+    for (int k = 0; k < NRHS; ++k)
+      s_f[k][c] = load_force(cols_force, k, c0 + c, n_cols);
   }
-  float acc[3 * NRHS];
+  float4 R[RL];
+  bool row_ok[RL];
+  int gi[RL];
+  float acc[RL][NF];
 #pragma unroll
-  for (int q = 0; q < 3 * NRHS; ++q) acc[q] = 0.0f;
+  for (int r = 0; r < RL; ++r) {
+    const int i = blockIdx.x * kOrdRows + r * 32 + lane;
+    row_ok[r] = i < n_rows;
+    gi[r] = row_offset + i;
+    R[r] = load_blob(rows_pos, i, n_rows, h_floor);
+#pragma unroll
+    for (int q = 0; q < NF; ++q) acc[r][q] = 0.0f;
+  }
+  __syncthreads();  // the stage is written
 
-  for (int c0 = 0; c0 < n_cols; c0 += kOrdTile) {
-    __syncthreads();
-    {
-      const int j = c0 + t;
-      const bool ok = j < n_cols;
-      s_pos[0][t] = ok ? cols_pos[3 * j] : 0.0f;
-      s_pos[1][t] = ok ? cols_pos[3 * j + 1] : 0.0f;
-      s_pos[2][t] = ok ? cols_pos[3 * j + 2] : 1.0f;
+  const int c_end = min(n_c, (w + 1) * kOrdWarpCols);
+  for (int c = w * kOrdWarpCols; c < c_end; ++c) {
+    const float4 C = s_pos[c];
+    const int gj = col_offset + c0 + c;
+    float4 fC[NRHS];
 #pragma unroll
-      for (int k = 0; k < NRHS; ++k) {
-        const float* fk = cols_force + (size_t)k * 3 * n_cols;
-        s_f[3 * k][t] = ok ? fk[3 * j] : 0.0f;
-        s_f[3 * k + 1][t] = ok ? fk[3 * j + 1] : 0.0f;
-        s_f[3 * k + 2][t] = ok ? fk[3 * j + 2] : 0.0f;
-      }
-    }
-    __syncthreads();
-    for (int q = 0; q < 32; ++q) {
-      const int c = w * 32 + q;
-      const int j = c0 + c;
-      const bool valid = row_ok && j < n_cols && gi != col_offset + j;
-      const float zC = s_pos[2][c];
-      const float dx = xR - s_pos[0][c];
-      const float dy = yR - s_pos[1][c];
-      const float dz = zR - zC;
-      const Fields p = pair_fields<WALL>(dx, dy, dz, zR, zC, h_floor);
+    for (int k = 0; k < NRHS; ++k) fC[k] = s_f[k][c];
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      const bool valid = row_ok[r] && gi[r] != gj;
+      const float dx = R[r].x - C.x;
+      const float dy = R[r].y - C.y;
+      const float dz = R[r].z - C.z;
+      const Fields f = pair_fields<WALL>(dx, dy, dz, R[r].w, C.w);
 #pragma unroll
       for (int k = 0; k < NRHS; ++k) {
         float ux, uy, uz;
-        apply<WALL, false>(p, dx, dy, dz, s_f[3 * k][c], s_f[3 * k + 1][c],
-                           s_f[3 * k + 2][c], ux, uy, uz);
-        acc[3 * k] += valid ? ux : 0.0f;
-        acc[3 * k + 1] += valid ? uy : 0.0f;
-        acc[3 * k + 2] += valid ? uz : 0.0f;
+        apply<WALL, false>(f, dx, dy, dz, fC[k].x, fC[k].y, fC[k].z, ux, uy,
+                           uz);
+        acc[r][3 * k] += valid ? ux : 0.0f;
+        acc[r][3 * k + 1] += valid ? uy : 0.0f;
+        acc[r][3 * k + 2] += valid ? uz : 0.0f;
       }
     }
   }
 #pragma unroll
-  for (int q = 0; q < 3 * NRHS; ++q) s_red[w][q][lane] = acc[q];
-  __syncthreads();
-  if (w == 0 && row_ok) {
+  for (int r = 0; r < RL; ++r)
 #pragma unroll
-    for (int q = 0; q < 3 * NRHS; ++q) {
-      float v = 0.0f;
-      for (int s = 0; s < kOrdSplit; ++s) v += s_red[s][q][lane];
-      out[((size_t)(q / 3) * n_rows + i) * 3 + q % 3] = v;
-    }
+    for (int q = 0; q < NF; ++q) s_red[w][q][r * 32 + lane] = acc[r][q];
+  __syncthreads();
+  for (int idx = t; idx < NF * kOrdRows; idx += kOrdWarps * 32) {
+    const int q = idx / kOrdRows;
+    const int rr = idx % kOrdRows;
+    const int i = blockIdx.x * kOrdRows + rr;
+    if (i >= n_rows) continue;
+    float v = s_red[0][q][rr];
+#pragma unroll
+    for (int s = 1; s < kOrdWarps; ++s) v += s_red[s][q][rr];
+    part[(((size_t)blockIdx.y * NRHS + q / 3) * n_rows + i) * 3 + q % 3] = v;
   }
 }
 
+// K2 second pass: out[e] = Σ_chunk part[chunk][e] in chunk order, for the
+// per_chunk = nrhs·n_rows·3 elements e.
+__global__ void sum_chunks_kernel(const float* __restrict__ part,
+                                  int n_chunks, int per_chunk,
+                                  float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= per_chunk) return;
+  float v = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) v += part[(size_t)c * per_chunk + e];
+  out[e] = v;
+}
+
 template <bool WALL>
-void launch_ordered(int nrhs, dim3 grid, dim3 block, cudaStream_t stream,
+void launch_sym(int nrhs, int items, cudaStream_t stream, const float* pos,
+                const float* force, int n, int n_tiles, float h_floor,
+                float* row_part, float* col_part) {
+  if (nrhs == 1)
+    pair_sweep_sym_kernel<WALL, 1><<<items, kSymTile, 0, stream>>>(
+        pos, force, n, n_tiles, h_floor, row_part, col_part);
+  else
+    pair_sweep_sym_kernel<WALL, 2><<<items, kSymTile, 0, stream>>>(
+        pos, force, n, n_tiles, h_floor, row_part, col_part);
+}
+
+template <bool WALL>
+void launch_ordered(int nrhs, dim3 grid, cudaStream_t stream,
                     const float* rows_pos, int n_rows, int row_offset,
                     const float* cols_pos, const float* cols_force,
-                    int n_cols, int col_offset, float h_floor, float* out) {
+                    int n_cols, int col_offset, float h_floor, float* part) {
   if (nrhs == 1)
-    pair_sweep_ordered_kernel<WALL, 1><<<grid, block, 0, stream>>>(
+    pair_sweep_ordered_kernel<WALL, 1><<<grid, kOrdWarps * 32, 0, stream>>>(
         rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, out);
+        col_offset, h_floor, part);
   else
-    pair_sweep_ordered_kernel<WALL, 2><<<grid, block, 0, stream>>>(
+    pair_sweep_ordered_kernel<WALL, 2><<<grid, kOrdWarps * 32, 0, stream>>>(
         rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, out);
+        col_offset, h_floor, part);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes the wrapper needs to size K1's partial buffers.
-int rpy_sym_rows_per_tile() { return kSymRows; }
-int rpy_sym_cols_per_chunk() { return kSymChunk; }
+// The shapes the wrapper sizes its scratch by: K1's item edge, K2's rows
+// and columns a block.
+int rpy_sym_tile() { return kSymTile; }
+int rpy_ordered_rows() { return kOrdRows; }
+int rpy_ordered_chunk() { return kOrdChunk; }
 
-// K1: out (n, 3) = Σ_{j≠i} M_ij F_j over unordered pairs.  row_part holds
-// ⌈n/512⌉·3·n floats, col_part ⌈n/128⌉·3·n floats (scratch, fully
-// overwritten).
-int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int wall,
-                       float h_floor, float* row_part, float* col_part,
-                       float* out, void* stream_ptr) {
+// K1: out (nrhs, n, 3) = Σ_{j≠i} M_ij F_j over unordered pairs.  row_part
+// and col_part hold items·3·nrhs·128 floats each, items = T(T+1)/2 with
+// T = ⌈n/128⌉ (scratch, fully overwritten).
+int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
+                       int wall, float h_floor, float* row_part,
+                       float* col_part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int n_row_tiles = (n + kSymRows - 1) / kSymRows;
-  const int n_chunks = (n + kSymChunk - 1) / kSymChunk;
-  const dim3 grid(n_row_tiles, n_chunks);
+  const int n_tiles = (n + kSymTile - 1) / kSymTile;
+  const int items = n_tiles * (n_tiles + 1) / 2;
   if (wall)
-    pair_sweep_sym_kernel<true><<<grid, kSymRows, 0, stream>>>(
-        pos, force, n, h_floor, row_part, col_part);
+    launch_sym<true>(nrhs, items, stream, pos, force, n, n_tiles, h_floor,
+                     row_part, col_part);
   else
-    pair_sweep_sym_kernel<false><<<grid, kSymRows, 0, stream>>>(
-        pos, force, n, h_floor, row_part, col_part);
+    launch_sym<false>(nrhs, items, stream, pos, force, n, n_tiles, h_floor,
+                      row_part, col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  const int blocks = (3 * n + threads - 1) / threads;
-  sum_partials_kernel<<<blocks, threads, 0, stream>>>(
-      row_part, n_chunks, col_part, n_row_tiles, n, out);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      tile_items::sum_items(row_part, col_part, n, nrhs, out, stream));
 }
 
 // K2: out (nrhs, n_rows, 3) = Σ_j M_ij F_j over all columns j whose global
-// id (col_offset + j) differs from the row's (row_offset + i).
+// id (col_offset + j) differs from the row's (row_offset + i).  part holds
+// ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).
 int rpy_pair_sweep_ordered(const float* rows_pos, int n_rows, int row_offset,
                            const float* cols_pos, const float* cols_force,
                            int n_cols, int col_offset, int nrhs, int wall,
-                           float h_floor, float* out, void* stream_ptr) {
+                           float h_floor, float* part, float* out,
+                           void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
-  const dim3 grid((n_rows + kOrdRows - 1) / kOrdRows);
-  const dim3 block(kOrdRows, kOrdSplit);
-  if (wall)
-    launch_ordered<true>(nrhs, grid, block, stream, rows_pos, n_rows,
-                         row_offset, cols_pos, cols_force, n_cols, col_offset,
-                         h_floor, out);
-  else
-    launch_ordered<false>(nrhs, grid, block, stream, rows_pos, n_rows,
-                          row_offset, cols_pos, cols_force, n_cols,
-                          col_offset, h_floor, out);
+  const int n_chunks = n_cols > 0 ? (n_cols + kOrdChunk - 1) / kOrdChunk : 0;
+  if (n_chunks > 0) {
+    const dim3 grid((n_rows + kOrdRows - 1) / kOrdRows, n_chunks);
+    if (wall)
+      launch_ordered<true>(nrhs, grid, stream, rows_pos, n_rows, row_offset,
+                           cols_pos, cols_force, n_cols, col_offset, h_floor,
+                           part);
+    else
+      launch_ordered<false>(nrhs, grid, stream, rows_pos, n_rows, row_offset,
+                            cols_pos, cols_force, n_cols, col_offset, h_floor,
+                            part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int per_chunk = nrhs * n_rows * 3;
+  const int threads = 256;
+  sum_chunks_kernel<<<(per_chunk + threads - 1) / threads, threads, 0,
+                      stream>>>(part, n_chunks, per_chunk, out);
   return static_cast<int>(cudaGetLastError());
 }
 

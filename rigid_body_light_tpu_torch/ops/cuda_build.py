@@ -28,7 +28,7 @@ SOURCES = {"rpy_pair_sweep": "rpy_pair_sweep.cu",
            "near_sweep": "near_sweep.cu",
            "ewald_real_sweep": "ewald_real_sweep.cu",
            "fma_peak": "fma_peak.cu"}
-HEADERS = ("rpy_fields.cuh",)
+HEADERS = ("rpy_fields.cuh", "tile_items.cuh")
 
 
 def _nvcc():

@@ -42,7 +42,7 @@ import ctypes
 import numpy as np
 import torch
 
-from rigid_body_light_tpu_torch.ops import cuda_build, ewald
+from rigid_body_light_tpu_torch.ops import cuda_build, ewald, tiles
 
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
 sweep_launches = 0
@@ -106,13 +106,9 @@ def coefficient_table(params):
 
 
 def sweep_items(n):
-    """The kernel's work items for n blobs in launch order, as (I, J) tile
-    pairs of 128 blobs: the T = ⌈n/128⌉ diagonal pairs (I, I), then every
-    (I, J > I) row-major — the order the kernel decodes its block index by
-    and the second pass sums in.  (T(T+1)/2, 2) int64 numpy array."""
-    T = -(-n // TILE)
-    diag = np.repeat(np.arange(T), 2).reshape(T, 2)
-    return np.concatenate([diag, np.stack(np.triu_indices(T, 1), axis=1)])
+    """The kernel's work items for n blobs in launch order
+    (:func:`.tiles.upper_tile_items` of 128-blob tiles)."""
+    return tiles.upper_tile_items(n, TILE)
 
 
 def operator_tables(params, dev):

@@ -6,11 +6,17 @@ Kernels (``csrc/rpy_pair_sweep.cu``, built for sm_90a at first use by
 :mod:`.cuda_build`):
 
   K1 ``pair_sweep_sym``      replaces ``rpy_pallas._kernel_sym``: symmetric
-                             unordered-pair sweep, single RHS.
+                             unordered-pair sweep over 128 × 128 work items
+                             of the upper triangle
+                             (:func:`.tiles.upper_tile_items`), 1 or 2 RHS.
   K2 ``pair_sweep_ordered``  replaces ``rpy_pallas._kernel``: ordered slab
-                             with global row/column offsets, 1 or 2 RHS.
+                             with global row/column offsets, 1 or 2 RHS, in
+                             blocks of 64 rows × 256 columns
+                             (:func:`ordered_grid`).
 
-Dispatch in :func:`pair_sum`: k=1 → K1, k=2 → K2, always; anything else
+Dispatch in :func:`pair_sum` follows the JAX package's rule
+(``rpy_pallas.py:59-66``, ``:623``): k=1 → K1; k=2 → K1 once n padded to
+512 reaches 65,536 blobs, else K2 (:func:`uses_sym`).  Anything else
 (k > 2, a box, per-blob radii, image shells) raises NotImplementedError
 naming the ROADMAP item.  A tensor on the CPU takes the plain PyTorch
 version (:mod:`rigid_body_light_tpu_torch.ops.rpy`); a CUDA tensor launches
@@ -36,6 +42,17 @@ import torch
 
 from rigid_body_light_tpu_torch.ops import cuda_build, rpy
 
+# K1's work-item edge and K2's rows and columns a block; build() checks
+# them against the kernels'
+TILE = 128
+ORD_ROWS = 64
+ORD_CHUNK = 256
+# the JAX package's k-routing (rpy_pallas.TC, rpy_pallas._SYM_K2_MIN_NPAD):
+# a 2-RHS square sweep takes the symmetric kernel once n, padded to 512,
+# reaches 65,536
+_PAD = 512
+SYM_K2_MIN_NPAD = 65536
+
 sym_launches = 0
 ordered_launches = 0
 
@@ -53,6 +70,16 @@ def launch_counts():
             "pair_sweep_ordered": ordered_launches}
 
 
+def uses_sym(k, n):
+    """Whether a square k-RHS sweep of n blobs takes K1 (else K2)."""
+    return k == 1 or -(-n // _PAD) * _PAD >= SYM_K2_MIN_NPAD
+
+
+def ordered_grid(n_rows, n_cols):
+    """K2's grid: (row blocks of 64, column chunks of 256)."""
+    return -(-n_rows // ORD_ROWS), -(-n_cols // ORD_CHUNK)
+
+
 def build():
     """Compile ``csrc/rpy_pair_sweep.cu`` (if its build is not current; see
     :mod:`.cuda_build`) and load it.  Returns the ``ctypes`` library."""
@@ -61,43 +88,53 @@ def build():
         return _lib
     lib = cuda_build.load("rpy_pair_sweep")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rpy_sym_rows_per_tile.restype = i
-    lib.rpy_sym_rows_per_tile.argtypes = []
-    lib.rpy_sym_cols_per_chunk.restype = i
-    lib.rpy_sym_cols_per_chunk.argtypes = []
+    shapes = {"rpy_sym_tile": TILE, "rpy_ordered_rows": ORD_ROWS,
+              "rpy_ordered_chunk": ORD_CHUNK}
+    for name, want in shapes.items():
+        fn = getattr(lib, name)
+        fn.restype = i
+        fn.argtypes = []
+        if fn() != want:
+            raise RuntimeError(f"rpy_pair_sweep.cu: {name} is {fn()}, the "
+                               f"wrapper's {want}")
     lib.rpy_pair_sweep_sym.restype = i
-    lib.rpy_pair_sweep_sym.argtypes = [p, p, i, i, f, p, p, p, p]
+    lib.rpy_pair_sweep_sym.argtypes = [p, p, i, i, i, f, p, p, p, p]
     lib.rpy_pair_sweep_ordered.restype = i
-    lib.rpy_pair_sweep_ordered.argtypes = [p, i, i, p, p, i, i, i, i, f, p, p]
+    lib.rpy_pair_sweep_ordered.argtypes = [p, i, i, p, p, i, i, i, i, f, p,
+                                           p, p]
     _lib = lib
     return lib
 
 
 def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float):
     """K1: Σ_{j≠i} M_ij F_j over unordered pairs, on the card.
-    r_over_a, F: (n, 3) float32 CUDA tensors → (n, 3)."""
+    r_over_a (n, 3) and F (n, 3), or (k, n, 3) with k ∈ {1, 2}, float32
+    CUDA tensors → F's shape."""
     global sym_launches
     n = r_over_a.shape[0]
+    Fk = F[None] if F.dim() == 2 else F
+    k = Fk.shape[0]
+    if k not in (1, 2):
+        raise ValueError(f"pair_sweep_sym takes 1 or 2 RHS, got {k}")
     cuda_build.check_tensor(r_over_a, "r_over_a", (n, 3))
-    cuda_build.check_tensor(F, "F", (n, 3))
+    cuda_build.check_tensor(Fk, "F", (k, n, 3))
     lib = build()
-    rows = lib.rpy_sym_rows_per_tile()
-    chunk = lib.rpy_sym_cols_per_chunk()
     dev = r_over_a.device
-    row_part = torch.empty((-(-n // chunk), 3, n), dtype=torch.float32,
-                           device=dev)
-    col_part = torch.empty((-(-n // rows), 3, n), dtype=torch.float32,
-                           device=dev)
-    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    T = -(-n // TILE)
+    # per-item partials: 1.97 GB at 102,480 blobs and 2 RHS
+    row_part = torch.empty((T * (T + 1) // 2, 3 * k, TILE),
+                           dtype=torch.float32, device=dev)
+    col_part = torch.empty_like(row_part)
+    out = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_sym(
-            r_over_a.data_ptr(), F.data_ptr(), n, int(bool(wall)),
+            r_over_a.data_ptr(), Fk.data_ptr(), n, k, int(bool(wall)),
             float(h_floor), row_part.data_ptr(), col_part.data_ptr(),
             out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_sym")
     sym_launches += 1
-    return out
+    return out if F.dim() == 3 else out[0]
 
 
 def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
@@ -115,6 +152,8 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     cuda_build.check_tensor(F_cols, "F_cols", (k, n_cols, 3))
     lib = build()
     dev = r_rows_over_a.device
+    part = torch.empty((ordered_grid(n_rows, n_cols)[1], k, n_rows, 3),
+                       dtype=torch.float32, device=dev)
     out = torch.empty((k, n_rows, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -122,7 +161,7 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
             r_rows_over_a.data_ptr(), n_rows, int(row_offset),
             r_cols_over_a.data_ptr(), F_cols.data_ptr(), n_cols,
             int(col_offset), k, int(bool(wall)), float(h_floor),
-            out.data_ptr(), stream)
+            part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_ordered")
     ordered_launches += 1
     return out
@@ -140,7 +179,7 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
 
     r_over_a: (N, 3) positions in units of the blob radius; F: (N, 3) single
     RHS or (k, N, 3), k ≤ 2.  CPU tensors take the plain sweep, CUDA
-    tensors K1 (k=1) or K2 (k=2).
+    tensors K1 or K2 by :func:`uses_sym`.
     """
     if box_over_a is not None or image_shells:
         raise _not_ported("a periodic box / image shells",
@@ -163,8 +202,8 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
         U = rpy.pair_sum(r_over_a, ids, r_over_a, ids, Fk, a=1.0, wall=wall,
                          h_floor=h_floor)
     elif r_over_a.device.type == "cuda":
-        if k == 1:
-            U = pair_sweep_sym(r_over_a, Fk[0], wall, h_floor)[None]
+        if uses_sym(k, n):
+            U = pair_sweep_sym(r_over_a, Fk, wall, h_floor)
         else:
             U = pair_sweep_ordered(r_over_a, 0, r_over_a, Fk, 0, wall,
                                    h_floor)

@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's pair-sweep kernels of several checkouts in
+turns on one card.
+
+    python3 scripts/torch_sweep_turns.py OUT_DIR CHECKOUT_A CHECKOUT_B ...
+
+Each CHECKOUT is the root of a checkout of this repository (for example
+another commit, unpacked with ``git archive`` into a gitignored
+directory).  The script starts one process per checkout, in the order
+A B ... B A, so that a drift of the card's clock over the call reaches
+every checkout alike.  Each process imports that checkout's
+``rigid_body_light_tpu_torch`` and ``chip_smoke.py``, builds the kernels
+from that checkout's sources, and times them by CUDA events at the shapes
+of the main paths (``chip_smoke``'s slices):
+
+  K1 at 1 and 2 RHS (2 RHS where the checkout's K1 takes it) and K2 at 2
+  RHS at the dense slice's 10,272 positions, wall;
+  K3 at 1 and 2 RHS at the far-field slice's 102,480 positions;
+  K4 at 1 and 2 RHS at the periodic slice's 10,272 positions.
+
+Every process saves its outputs under OUT_DIR; the last lines compare
+each checkout's outputs with the first's (bitwise, and max|ΔU|/max|U|)
+and list the times.  Needs one CUDA card.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+SEED = 0
+REPS = 20
+
+
+def child(out_path):
+    import torch
+
+    import chip_smoke as cs
+    from rigid_body_light_tpu_torch.ops import (cuda_build, ewald_cuda,
+                                                farfield, farfield_cuda,
+                                                kinematics, rpy_cuda, saddle)
+
+    dev = torch.device("cuda", 0)
+    for name, (_, log) in cuda_build.build().items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+    rng = np.random.default_rng(SEED)
+    times, outs = {}, {}
+
+    def timed(key, fn, keep=None):
+        U = fn()
+        outs[key] = (U if keep is None else U[:, keep]).cpu().numpy()
+        times[key] = cs.cuda_ms(torch, fn, REPS)
+
+    cfg, geom, state, _ = cs.slice_setup(torch, dev)
+    h = cfg.wall_h_floor
+    r = (kinematics.blob_positions(geom, state.X, state.Q).reshape(-1, 3)
+         / cfg.a).contiguous()
+    n = r.shape[0]
+    F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    timed("K1 1 RHS", lambda: rpy_cuda.pair_sweep_sym(r, F[0], True, h))
+    try:
+        rpy_cuda.pair_sweep_sym(r, F, True, h)
+    except ValueError:
+        pass    # this checkout's K1 takes one RHS
+    else:
+        timed("K1 2 RHS", lambda: rpy_cuda.pair_sweep_sym(r, F, True, h))
+    timed("K2 2 RHS", lambda: rpy_cuda.pair_sweep_ordered(r, 0, r, F, 0,
+                                                          True, h))
+
+    cfg_f, geom_f, state_f, _ = cs.farfield_setup(torch, dev, cs.FF_BODIES)
+    r_f = kinematics.blob_positions(geom_f, state_f.X, state_f.Q).reshape(
+        -1, 3)
+    ctx = farfield.prepare(r_f, a=cfg_f.a, wall=True, grid=cs.FF_GRID,
+                           p=cs.FF_P)
+    live = (ctx.id_s >= 0).contiguous()
+    F_f = torch.from_numpy(rng.standard_normal(
+        (2, ctx.x_s.shape[0], 3))).to(dev).float()
+    for k in (1, 2):
+        Fk = F_f[:k].contiguous()
+        timed(f"K3 {k} RHS", lambda: farfield_cuda.near_sweep_kernel(
+            ctx.x_s.contiguous(), ctx.ci_s.contiguous(), live, Fk, ctx.nbr,
+            ctx.pairs, ctx.n_pairs, True, h), keep=live)
+
+    cfg_e, geom_e, state_e = cs.ewald_setup(torch, dev)
+    r_e = kinematics.blob_positions(geom_e, state_e.X, state_e.Q).reshape(
+        -1, 3).contiguous()
+    par = saddle._ewald_params(cfg_e.box, cfg_e.a, cfg_e.eta, None,
+                               cfg_e.ewald_tol)
+    F_e = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    for k in (1, 2):
+        Fk = F_e[:k].contiguous()
+        timed(f"K4 {k} RHS", lambda: ewald_cuda.real_sweep_kernel(r_e, Fk,
+                                                                  par))
+    np.savez(out_path, **outs)
+    with open(out_path + ".json", "w") as f:
+        json.dump(times, f)
+    for key, ms in times.items():
+        print(f"  {key}: {ms:.4f} ms")
+
+
+def main():
+    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+        child(sys.argv[2])
+        return 0
+    if len(sys.argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    out_dir = os.path.abspath(sys.argv[1])
+    dirs = [os.path.abspath(d) for d in sys.argv[2:]]
+    os.makedirs(out_dir, exist_ok=True)
+    order = list(range(len(dirs))) + list(range(len(dirs)))[::-1]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(f"card: {card}")
+    runs = []
+    for turn, d in enumerate(order):
+        path = os.path.join(out_dir, f"turn{turn}_{d}")
+        print(f"--- turn {turn}: {dirs[d]}", flush=True)
+        env = dict(os.environ, PYTHONPATH=dirs[d])
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--child", path], cwd=dirs[d], env=env)
+        if proc.returncode != 0:
+            print(f"turn {turn} failed: {proc.returncode}")
+            return 1
+        with open(path + ".json") as f:
+            runs.append((d, json.load(f), dict(np.load(path + ".npz"))))
+    for turn, (d, times, outs) in enumerate(runs):
+        for key, ms in times.items():
+            # the first turn that has this output is the reference
+            t0, ref = next((t, o[key]) for t, (_, _, o) in enumerate(runs)
+                           if key in o)
+            cmp = "the reference"
+            if t0 != turn:
+                same = np.array_equal(outs[key], ref)
+                rel = (np.abs(outs[key].astype(np.float64) - ref).max()
+                       / np.abs(ref).max())
+                cmp = f"bitwise {'equal' if same else 'different'}, " \
+                      f"max|dU|/max|U| {rel:.3e} vs turn {t0}"
+            print(f"turn {turn} checkout {d} {key}: {ms:.4f} ms ({cmp})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

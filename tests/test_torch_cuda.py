@@ -73,8 +73,8 @@ def test_k2_slab_matches_plain(cloud, wall, k):
 
 @pytest.mark.parametrize("n", [1, 2, 31, 33, 129, 515])
 def test_ragged_sizes_match_plain(dev, n):
-    """Sizes off every tile edge (32-column sub-tiles, 128-row tiles,
-    512-column chunks, 32-row and 256-column K2 tiles)."""
+    """Sizes off every tile edge (K1's 32-column sub-tiles and 128 × 128
+    items, K2's 64-row blocks and 256-column chunks)."""
     rng = np.random.default_rng(n)
     r = torch.from_numpy(rng.uniform([-6, -6, 0.3], [6, 6, 5], (n, 3))).to(dev)
     F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev)
@@ -116,6 +116,80 @@ def test_k1_is_repeatable_and_counted(cloud):
     U2 = rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75)
     assert rpy_cuda.sym_launches == before + 2
     assert torch.equal(U1, U2)   # no atomics: bitwise repeatable
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_k1_two_rhs_matches_plain(cloud, wall):
+    """K1 at 2 RHS, the form _kernel_sym has: both RHS share the fields."""
+    r, F = cloud
+    ids = torch.arange(r.shape[0], device=r.device)
+    ref = rpy.pair_sum(r, ids, r, ids, F, wall=wall)
+    before = rpy_cuda.sym_launches
+    U = rpy_cuda.pair_sweep_sym(r.float().contiguous(), F.float().contiguous(),
+                                wall, 0.75)
+    torch.cuda.synchronize()
+    assert rpy_cuda.sym_launches == before + 1
+    assert U.shape == (2, r.shape[0], 3) and U.dtype == torch.float32
+    assert _rel(U, ref) < TOL
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 31, 33, 127, 129, 257, 515])
+def test_ragged_sizes_both_kernels_match_plain(dev, n, k):
+    """K1 and K2 at 1 and 2 RHS off every edge: K1's 32-column halves of
+    its 64-column steps and its 128 × 128 items (257 leaves one blob in the
+    last tile), K2's 32-row lane halves, 64-row blocks and 256-column
+    chunks."""
+    rng = np.random.default_rng(100 + n)
+    r = torch.from_numpy(rng.uniform([-6, -6, 0.3], [6, 6, 5], (n, 3))).to(dev)
+    F = torch.from_numpy(rng.standard_normal((k, n, 3))).to(dev)
+    ids = torch.arange(n, device=dev)
+    r32, F32 = r.float().contiguous(), F.float().contiguous()
+    for wall in (False, True):
+        U1 = rpy_cuda.pair_sweep_sym(r32, F32, wall, 0.75)
+        U2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, wall, 0.75)
+        torch.cuda.synchronize()
+        assert U1.shape == U2.shape == (k, n, 3)
+        if n == 1:   # no pairs: exact zeros
+            assert not U1.any() and not U2.any()
+            continue
+        ref = rpy.pair_sum(r, ids, r, ids, F, wall=wall)
+        assert _rel(U1, ref) < TOL
+        assert _rel(U2, ref) < TOL
+
+
+def test_k1_two_rhs_and_k2_are_repeatable(cloud):
+    r, F = cloud
+    r32, F32 = r.float().contiguous(), F.float().contiguous()
+    for k in (1, 2):
+        Fk = F32[:k].contiguous()
+        assert torch.equal(rpy_cuda.pair_sweep_sym(r32, Fk, True, 0.75),
+                           rpy_cuda.pair_sweep_sym(r32, Fk, True, 0.75))
+        a = rpy_cuda.pair_sweep_ordered(r32[100:400].contiguous(), 100, r32,
+                                        Fk, 0, True, 0.75)
+        b = rpy_cuda.pair_sweep_ordered(r32[100:400].contiguous(), 100, r32,
+                                        Fk, 0, True, 0.75)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, sym", [(65024, False), (65025, True)])
+def test_two_rhs_dispatch_follows_the_pallas_rule(dev, n, sym):
+    """A 2-RHS mobility product goes to K1 once n padded to 512 reaches
+    65,536 (rpy_pallas.py:623), else to K2; the two kernels agree."""
+    rng = np.random.default_rng(12)
+    r = torch.from_numpy(rng.uniform([0, 0, 0.5], [300, 300, 20], (n, 3))
+                         ).to(dev).float()
+    F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    before = rpy_cuda.launch_counts()
+    U = rpy_cuda.mobility_apply_multi(F, r, wall=True)
+    after = rpy_cuda.launch_counts()
+    assert after["pair_sweep_sym"] - before["pair_sweep_sym"] == int(sym)
+    assert (after["pair_sweep_ordered"] - before["pair_sweep_ordered"]
+            == int(not sym))
+    assert U.shape == (2, n, 3) and torch.isfinite(U).all()
+    P1 = rpy_cuda.pair_sweep_sym(r, F, True, 0.75)
+    P2 = rpy_cuda.pair_sweep_ordered(r, 0, r, F, 0, True, 0.75)
+    assert _rel(P1, P2.double()) < TOL
 
 
 def test_kernel_refuses_float64(cloud):

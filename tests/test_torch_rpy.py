@@ -141,6 +141,18 @@ def test_kernel_launchers_require_cuda_tensors():
                                     0.75)
 
 
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("n", [1, 2, 512, 513, 65024, 65025, 65535, 65536,
+                               65537, 102480])
+def test_k_routing_follows_the_pallas_wrapper(k, n):
+    """A square k-RHS sweep takes the symmetric kernel (K1) exactly where
+    rpy_pallas.pair_sum sends it to _kernel_sym (rpy_pallas.py:623)."""
+    n_pad = -(-n // rpy_pallas.TC) * rpy_pallas.TC
+    want = rpy_pallas.USE_SYM and (k == 1
+                                   or n_pad >= rpy_pallas._SYM_K2_MIN_NPAD)
+    assert rpy_cuda.uses_sym(k, n) == want
+
+
 def test_kernel_build_uses_ieee_math():
     """The kernels are built for sm_90a without fast math, and the sources
     use no approximate division (approximate reciprocals floor GMRES)."""

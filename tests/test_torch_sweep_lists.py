@@ -1,12 +1,15 @@
-"""The work lists of the symmetric sweeps K3 and K4, on the CPU.
+"""The work lists of the sweep kernels K1–K4, on the CPU.
 
 K3 (the far field's near sweep) walks the unordered adjacent tile pairs of
 ``farfield._tile_pairs`` and writes each side of a pair into a per-slot
 partial; a plain PyTorch walk of that list, written here, must give the
-plain ordered sweep ``farfield._near_sweep`` in float64.  K4 (the Ewald
-real-space sweep) walks the 128 × 128 tile pairs of ``ewald_cuda.
-sweep_items``, which must cover every unordered pair i < j once.  The
-kernels themselves run on the card (``tests/test_torch_cuda.py``).
+plain ordered sweep ``farfield._near_sweep`` in float64.  K1 (the dense
+symmetric pair sweep) and K4 (the Ewald real-space sweep) walk the 128 ×
+128 tile pairs of ``tiles.upper_tile_items``, which must cover every
+unordered pair i < j once; a mirror of K1's per-thread loop must too.  K2
+(the ordered slab) must visit every ordered pair of a slab with global
+offsets once, and no self pair.  The kernels themselves run on the card
+(``tests/test_torch_cuda.py``).
 """
 
 import numpy as np
@@ -15,7 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import rigid_body_light_tpu_torch as rt  # noqa: E402
-from rigid_body_light_tpu_torch.ops import ewald_cuda, farfield, rpy  # noqa: E402
+from rigid_body_light_tpu_torch.ops import (ewald_cuda, farfield, rpy,  # noqa: E402
+                                            rpy_cuda, tiles)
 
 TILE = farfield.TILE
 H_FLOOR = 0.75
@@ -195,3 +199,61 @@ def test_k4_items_cover_each_unordered_pair_once(n):
         keep = rows[:, None] < cols[None, :]
         count[np.ix_(rows, cols)] += keep
     assert (count == np.triu(np.ones((n, n), np.int64), 1)).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 127, 129, 515])
+def test_k1_items_and_lanes_cover_each_unordered_pair_once(n):
+    """K1's items are K4's, and a mirror of its per-thread loop (thread t
+    owns row t of tile I, two columns a step, c and c + 32 of each 64-column
+    half rotated by the lane, warps skipping the halves left of their rows
+    on a diagonal item) keeps each pair i < j exactly once."""
+    tile = rpy_cuda.TILE
+    items = tiles.upper_tile_items(n, tile)
+    assert np.array_equal(items, ewald_cuda.sweep_items(n))
+    t = np.arange(tile)
+    lane, warp = t % 32, t // 32
+    count = np.zeros((n, n), np.int64)
+    for I, J in items:
+        diag = I == J
+        n_cols = min(tile, n - J * tile)
+        i = I * tile + t
+        for q0 in (0, 64):
+            for s in range(32):
+                for p in range(2):
+                    c = q0 + 32 * p + (lane + s) % 32
+                    valid = (i < n) & (c < n_cols) & (~diag | (c > t))
+                    valid &= ~(diag & (q0 + 64 <= 32 * warp))
+                    np.add.at(count, (i[valid], J * tile + c[valid]), 1)
+    assert (count == np.triu(np.ones((n, n), np.int64), 1)).all()
+
+
+@pytest.mark.parametrize("n_rows, row_offset, n_cols, col_offset", [
+    (1, 0, 1, 0), (2, 0, 2, 0), (70, 100, 515, 0), (129, 250, 300, 200),
+    (300, 0, 257, 40)])
+def test_k2_blocks_cover_each_ordered_pair_of_a_slab_once(
+        n_rows, row_offset, n_cols, col_offset):
+    """A mirror of K2's decomposition: blocks of 64 rows × 256 columns
+    (``ordered_grid``), lane l owning rows l and l + 32, warp w sweeping
+    columns [64w, 64w + 64) of its chunk.  Every (row, column) of the slab
+    is visited once, and kept iff the global ids differ."""
+    n_rb, n_ch = rpy_cuda.ordered_grid(n_rows, n_cols)
+    rows_pb, chunk = rpy_cuda.ORD_ROWS, rpy_cuda.ORD_CHUNK
+    per_warp = chunk // 4
+    count = np.zeros((n_rows, n_cols), np.int64)
+    kept = np.zeros((n_rows, n_cols), np.int64)
+    for bx in range(n_rb):
+        for by in range(n_ch):
+            n_c = min(chunk, n_cols - by * chunk)
+            for w in range(4):
+                cols = np.arange(w * per_warp, min(n_c, (w + 1) * per_warp))
+                for r in range(rows_pb // 32):
+                    i = bx * rows_pb + 32 * r + np.arange(32)
+                    i = i[i < n_rows]
+                    j = by * chunk + cols
+                    np.add.at(count, np.ix_(i, j), 1)
+                    live = (row_offset + i)[:, None] != (col_offset + j)[None]
+                    np.add.at(kept, np.ix_(i, j), live.astype(np.int64))
+    assert (count == 1).all()
+    gi = row_offset + np.arange(n_rows)
+    gj = col_offset + np.arange(n_cols)
+    assert (kept == (gi[:, None] != gj[None, :])).all()
