@@ -69,11 +69,35 @@ Phases (each raises on failure; any failure exits nonzero):
      sweep, from identical draws;
  15. P, the FP32 FMA peak probe (rigid_body_light_tpu_torch/csrc/
      fma_peak.cu), against its plain version, then the card's measured
-     FP32 rate beside the nominal one.
+     FP32 rate beside the nominal one;
+ 16. K1 at 409,600 blobs above a wall (a cloud at the dense slice's blob
+     density; 3,200 tiles in 256 groups of 12 or 13), 1 and 2 RHS, against the
+     float64 plain sweep on 256 sampled rows, two launches bitwise equal,
+     its time, its scratch (O(n): one row and one column partial a tile of
+     each block's groups) and torch.cuda.max_memory_allocated over the
+     launch; K4 over tile groups (65,664 blobs) against its
+     float64 plain sweep on 256 sampled rows, and K4's bitwise repeat
+     there and at the periodic slice;
+ 17. the settled solve: at the geometry of scripts/data/settled_642.npz,
+     one float32 solve with block_free and one with RAS from the same RHS
+     (no slip, the settled forces) at gmres_tol 1e-5; RAS must take fewer
+     iterations, the two U agree to 1e-4 of max|U|;
+ 18. the settled slice: 16 × shell_N_642 = 10,272 blobs from that
+     checkpoint (the JAX package's bench.py::seg_settled configuration:
+     RAS, adaptive Lanczos, gravity and wall repulsion), run_bd for 1
+     warm-up and 20 timed steps through the kernels, with the launch
+     counts read around that run, every residual below 10·gmres_tol;
+ 19. one settled step through the kernels against one through the plain
+     float32 sweep, from identical draws;
+ 20. the step timer (utils/profiling.StepTimer) on the dense, far-field,
+     periodic and settled slices: each part's own ms a step, the GMRES
+     loop's among them; and the dense slice's steps/s with the timer on
+     and off, in turns.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
-(K3), phases 10-14 the triply-periodic path (K4); phase 15 is the probe's
-own entry point.  The kernels are built at first use from the checkout's
+(K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
+path (K1/K2 under the RAS preconditioner); phase 15 is the probe's own
+entry point.  The kernels are built at first use from the checkout's
 sources, one nvcc per source, all started together.
 
 The last line of standard output is
@@ -82,7 +106,9 @@ the line before it holds the per-kernel JSON summary.  Without a CUDA
 device the script exits nonzero and prints no result.
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -135,6 +161,27 @@ EW_WAVE_TOL = 2e-5
 # same number and rounds alike, so the bound is looser there
 P_TOL = 1e-6
 P_TOL_ONES = 5e-6
+# phase 16: K1 at the JAX package's measured size, checked on sampled rows
+SCALE_N = 409_600
+SCALE_ROWS = 256
+# K4 over tile groups (tile_items.cuh: past 65,536 blobs; 513 tiles in 256
+# groups, one of 3), checked on sampled rows
+K4_GROUPED_N = 65_664
+# the settled slice, bench.py::seg_settled: its checkpoint, 1 warm-up and
+# 20 timed steps (its n_set)
+SETTLED_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "scripts", "data", "settled_642.npz")
+ST_WARM_STEPS = 1
+ST_TIMED_STEPS = 20
+# phase 17: both preconditioners from one RHS at this tolerance; the two U
+# agree to 10× it
+ST_SOLVE_TOL = 1e-5
+# the JAX package's TPU records of the settled slice, printed beside the
+# port's mean iterations as a comparison (the draws differ): 8.0 at
+# gmres_tol 3e-4 (bench.py::seg_settled), 9.2 at 1e-4 (BENCH_NOTES.md:140)
+TPU_MEAN_ITERS = {"3e-4": 8.0, "1e-4": 9.2}
+# phase 20: steps a slice runs under the step timer
+SPLIT_STEPS = {"dense": 3, "far-field": 1, "periodic": 3, "settled": 3}
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -268,22 +315,80 @@ def ewald_setup(torch, device):
     return cfg, geom, state
 
 
-def check_ewald_sweep(torch, ewald, ewald_cuda, label, r32, F32, params):
+def settled_setup(torch, device):
+    """bench.py::seg_settled: the checkpoint scripts/data/settled_642.npz
+    (16 × shell_N_642 = 10,272 blobs settled above a wall, read by path),
+    float32, dt 0.01, kBT 1, gmres_tol 3e-4, restart 60, maxiter 60, the
+    RAS preconditioner (halo 8a, at most 64 blobs), adaptive Lanczos (6 to
+    14 iterations, err_tol 1e-3), gravity −ẑ and wall repulsion (strength
+    4, Debye length 0.3, radius 1)."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch import forces
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+    from rigid_body_light_tpu_torch.utils import checkpoint
+
+    params, ref = rt.load_structure(SHELL)
+    cfg = rt.SimulationConfig(
+        a=params["sep"] / 2, dt=0.01, kBT=1.0, wall=True,
+        dtype=torch.float32, lanczos_iters=6, lanczos_precond=True,
+        gmres_tol=3e-4, gmres_restart=60, gmres_maxiter=60,
+        matvec_row_tile=512, pc_mode="ras", pc_halo=8.0, pc_halo_max=64,
+        lanczos_max_iters=14, lanczos_err_tol=1e-3)
+    geom = kin.make_ref_geometry(ref, dtype=torch.float32, device=device)
+    state, _, _, _ = checkpoint.load_checkpoint(
+        SETTLED_CKPT, dtype=torch.float32, device=device)
+    force_fn = forces.sum_forces(
+        forces.gravity(np.array([0, 0, -1.0, 0, 0, 0])),
+        forces.wall_repulsion(strength=4.0, debye_length=0.3, radius=1.0))
+    return cfg, geom, state, force_fn
+
+
+def step_split(torch, profiling, label, run, steps):
+    """Run ``run(steps)`` under the step timer; print and return the split:
+    ms a step by CUDA events, each part's own ms a step (less the parts
+    nested in it), and the GMRES loop's own share (its host iterations)."""
+    with profiling.StepTimer() as timer:
+        run(steps)
+    split = timer.split()
+    step_ms = split["step"]["ms"] / steps
+    own = {k: v["self_ms"] / steps for k, v in split.items()}
+    kernels = sum(own.get(k, 0.0) for k in ("pair_sweep_sym",
+                                             "pair_sweep_ordered",
+                                             "near_sweep", "ewald_real_sweep"))
+    print(f"step split, {label} slice, {steps} step(s): {step_ms:.3f} ms a "
+          f"step; kernels {kernels:.3f}, GMRES loop (own) "
+          f"{own.get('gmres', 0.0):.3f} ms a step; own ms a step by part: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      sorted(own.items(), key=lambda kv: -kv[1])))
+    return {"slice": label, "steps": steps, "step_ms": step_ms,
+            "kernels_ms": kernels, "gmres_own_ms": own.get("gmres", 0.0),
+            "own_ms": own,
+            "count": {k: v["count"] / steps for k, v in split.items()}}
+
+
+def check_ewald_sweep(torch, ewald, ewald_cuda, label, r32, F32, params,
+                      rows=None):
     """K4 (float32) against the plain sweep in float64 on the same
-    float32-representable inputs and the same Chebyshev fit, 1 and 2 RHS;
-    the plain float32 sweep's error is printed beside it (what float32
-    Clenshaw costs whoever evaluates it).  Returns the max absolute error
-    at 1 RHS."""
+    float32-representable inputs and the same Chebyshev fit, 1 and 2 RHS,
+    on every row or on the sampled ``rows``; the plain float32 sweep's
+    error is printed beside it (what float32 Clenshaw costs whoever
+    evaluates it).  Returns the max absolute error at 1 RHS."""
     r64, F64 = r32.double(), F32.double()
+    ids = torch.arange(r32.shape[0], device=r32.device)
+    rows = ids if rows is None else rows
+
+    def plain(r, F, k, cheb):
+        return ewald.real_space_block(r[rows], rows, r, ids, F[:k], params,
+                                      cheb=cheb)
+
     err1 = None
     for k in (1, 2):
-        U = ewald_cuda.real_pair_sum(F32[:k], r32, params)
+        U = ewald_cuda.real_pair_sum(F32[:k], r32, params)[:, rows]
         torch.cuda.synchronize()
-        ref = ewald.real_space_apply(F64[:k], r64, params, cheb=True)
+        ref = plain(r64, F64, k, True)
         err = (U.double() - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        plain = ewald.real_space_apply(F32[:k], r32, params)
-        rel_plain = ((plain.double() - ref).abs().max()
+        rel_plain = ((plain(r32, F32, k, None).double() - ref).abs().max()
                      / ref.abs().max()).item()
         print(f"K4 ewald_real_sweep {label} n={r32.shape[0]} box={params.box}"
               f" degree={params.cheb_A.shape[1] - 1} k={k}: max|dU|={err:.3e}"
@@ -361,7 +466,8 @@ def main():
                                                     ewald_cuda, farfield,
                                                     farfield_cuda, rpy,
                                                     rpy_cuda, saddle)
-        from rigid_body_light_tpu_torch.utils import roofline
+        from rigid_body_light_tpu_torch.ops import solvers, tiles
+        from rigid_body_light_tpu_torch.utils import profiling, roofline
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -937,6 +1043,226 @@ def main():
     if p_launches <= 0:
         raise AssertionError("measure_fp32_peak launched no kernel")
 
+    # ---- 16. K1 at 409,600 blobs (grouped tiles, O(n) scratch); K4 over
+    # grouped tiles and its bitwise repeat at the periodic slice
+    # a cloud at the dense slice's blob density (its bounding box), in a
+    # square slab of its heights above the wall
+    lo, hi = r_slice.min(dim=0).values, r_slice.max(dim=0).values
+    dens = n / torch.prod(hi - lo).item()
+    z_lo, z_hi = lo[2].item(), hi[2].item()
+    side = (SCALE_N / (dens * (z_hi - z_lo))) ** 0.5
+    r_s = torch.from_numpy(rng.uniform([0, 0, z_lo], [side, side, z_hi],
+                                       (SCALE_N, 3))).to(dev).float()
+    r_sa = (r_s / a).contiguous()
+    F_s = torch.from_numpy(rng.standard_normal((2, SCALE_N, 3))).to(
+        dev).float()
+    rows_s = torch.from_numpy(np.sort(rng.choice(SCALE_N, SCALE_ROWS,
+                                                 replace=False))).to(dev)
+    ids_s = torch.arange(SCALE_N, device=dev)
+    groups_s = tiles.sweep_groups(SCALE_N)
+    k1_scale = {}
+    for k in (1, 2):
+        Fk = F_s[:k].contiguous()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        U = rpy_cuda.pair_sweep_sym(r_sa, Fk, True, h)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        scratch = 2 * 4 * int(np.prod(tiles.partial_shape(SCALE_N, k)))
+        ref = rpy.pair_sum(r_sa[rows_s].double(), rows_s, r_sa.double(),
+                           ids_s, Fk.double(), wall=True, row_tile=16,
+                           h_floor=h)
+        err = (U[:, rows_s].double() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        U2 = rpy_cuda.pair_sweep_sym(r_sa, Fk, True, h)
+        torch.cuda.synchronize()
+        same = torch.equal(U, U2)
+        del U, U2, ref
+        ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_sym(
+            r_sa, Fk, True, h), 2)
+        T_s = groups_s[0]
+        old_bytes = 2 * 4 * (T_s * (T_s + 1) // 2) * 3 * k * 128
+        k1_scale[k] = dict(ms=ms, err=err, rel=rel, scratch_bytes=scratch,
+                           peak_bytes=peak)
+        print(f"K1 at n={SCALE_N} (a cloud at the dense slice's density "
+              f"{dens:.1f} blobs per unit volume, {side:.1f} x {side:.1f} x "
+              f"[{z_lo:.2f}, {z_hi:.2f}], wall), {k} RHS: {T_s} tiles in "
+              f"{groups_s[2]} groups of at most {groups_s[1]}, {groups_s[3]} "
+              f"blocks;"
+              f" on {SCALE_ROWS} sampled rows max|dU|={err:.3e} "
+              f"max|dU|/max|U|={rel:.3e} (tol {KERNEL_TOL:g}); two launches "
+              f"bitwise equal: {same}; {ms:.2f} ms; scratch "
+              f"{scratch / 1e9:.3f} GB = "
+              f"{scratch / 4 / (3 * k * SCALE_N):.1f} floats per blob and "
+              f"RHS component (one partial an item would take "
+              f"{old_bytes / 1e9:.1f} GB); torch.cuda.max_memory_allocated "
+              f"over the launch {peak / 1e9:.3f} GB")
+        if not (rel <= KERNEL_TOL and same
+                and peak <= scratch + 12 * k * SCALE_N + 64 * 2**20):
+            raise AssertionError(f"K1 at n={SCALE_N}, k={k}: rel {rel}, "
+                                 f"bitwise {same}, peak {peak} bytes")
+    del r_s, r_sa, F_s
+    r_g = torch.from_numpy(rng.uniform(0, EW_BOX[0], (K4_GROUPED_N, 3))).to(
+        dev).float()
+    F_g = torch.from_numpy(rng.standard_normal((2, K4_GROUPED_N, 3))).to(
+        dev).float()
+    print(f"K4 grouped: n={K4_GROUPED_N}, (tiles, most tiles a group, "
+          f"groups, blocks) = {tiles.sweep_groups(K4_GROUPED_N)}")
+    rows_g = torch.from_numpy(np.sort(rng.choice(
+        K4_GROUPED_N, SCALE_ROWS, replace=False))).to(dev)
+    check_ewald_sweep(torch, ewald, ewald_cuda, "grouped", r_g, F_g, par_e,
+                      rows=rows_g)
+    for k in (1, 2):
+        for r_, F_ in ((r_g, F_g), (r_e, F_e)):
+            Fk = F_[:k].contiguous()
+            U1 = ewald_cuda.real_sweep_kernel(r_, Fk, par_e)
+            U2 = ewald_cuda.real_sweep_kernel(r_, Fk, par_e)
+            torch.cuda.synchronize()
+            if not torch.equal(U1, U2):
+                raise AssertionError(f"two K4 launches differ bitwise at "
+                                     f"n={r_.shape[0]}, k={k}")
+    del r_g, F_g
+    print("K4 launches repeat bitwise at 1 and 2 RHS at the periodic slice "
+          f"and at n={K4_GROUPED_N}")
+
+    # ---- 17. the settled solve: block_free against RAS, one RHS
+    cfg_s, geom_s, state_s, force_fn_s = settled_setup(torch, dev)
+    r_st = kin.blob_positions(geom_s, state_s.X, state_s.Q).reshape(-1, 3)
+    n_st = r_st.shape[0]
+    ops_s = saddle.geometry_ops(geom_s, state_s)
+    # the RHS of a deterministic settled step: no slip, the settled forces
+    slip_s = torch.zeros((n_st, 3), dtype=torch.float32, device=dev)
+    f_s = force_fn_s(state_s, 0)
+    solve = {}
+    for mode in ("block_free", "ras"):
+        cfg_m = cfg_s.replace(pc_mode=mode, gmres_tol=ST_SOLVE_TOL,
+                              gmres_maxiter=300)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res_m = solvers.solve_saddle(ops_s, cfg_m, slip_s, f_s)
+        torch.cuda.synchronize()
+        solve[mode] = (res_m, time.perf_counter() - t0)
+    (res_bf, t_bf), (res_ras, t_ras) = solve["block_free"], solve["ras"]
+    du = ((res_ras.U - res_bf.U).abs().max() / res_bf.U.abs().max()).item()
+    print(f"settled solve at the checkpoint's geometry (n={n_st}), float32, "
+          f"slip 0 and the settled forces, gmres_tol {ST_SOLVE_TOL:g}: "
+          f"block_free {res_bf.iters} iterations "
+          f"(residual {res_bf.residual.item():.3e}, {t_bf * 1e3:.1f} ms), RAS "
+          f"{res_ras.iters} (residual {res_ras.residual.item():.3e}, "
+          f"{t_ras * 1e3:.1f} ms, the halo build included); "
+          f"max|U_ras - U_bf|/max|U_bf| = {du:.3e} (tol "
+          f"{10 * ST_SOLVE_TOL:g})")
+    # both solves converged as far as float32 takes them: each residual
+    # below 10·gmres_tol, the bound every slice holds its steps to
+    if not (res_ras.iters < res_bf.iters and du <= 10 * ST_SOLVE_TOL
+            and res_ras.residual.item() < 10 * ST_SOLVE_TOL
+            and res_bf.residual.item() < 10 * ST_SOLVE_TOL):
+        raise AssertionError("the settled solve: RAS must take fewer "
+                             "iterations than block_free and agree with it")
+
+    # ---- 18. the settled slice through the kernels
+    gen_s = torch.Generator(device=dev).manual_seed(SEED)
+    x0_s = state_s.X.clone()
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    st, tr_sw = run_bd(geom_s, cfg_s, state_s, ST_WARM_STEPS,
+                       generator=gen_s, force_fn=force_fn_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, tr_s = run_bd(geom_s, cfg_s, st, ST_TIMED_STEPS, generator=gen_s,
+                      force_fn=force_fn_s)
+    torch.cuda.synchronize()
+    wall_st = time.perf_counter() - t0
+    counts_s = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                **ewald_cuda.launch_counts()}
+    steps_s = ST_WARM_STEPS + ST_TIMED_STEPS
+    res_s = torch.cat([tr_sw["residual"], tr_s["residual"]])
+    iters_s = torch.cat([tr_sw["iters"], tr_s["iters"]]).double()
+    qn_s = torch.linalg.norm(st.Q, dim=1)
+    settled = dict(steps_per_s=ST_TIMED_STEPS / wall_st,
+                   mean_iters=tr_s["iters"].double().mean().item(),
+                   max_iters=int(tr_s["iters"].max().item()),
+                   max_noise_err=tr_s["noise_err"].max().item(),
+                   k1_per_step=counts_s["pair_sweep_sym"] / steps_s,
+                   k2_per_step=counts_s["pair_sweep_ordered"] / steps_s)
+    print(f"settled slice: {n_st} blobs from {os.path.basename(SETTLED_CKPT)}"
+          f", RAS halo {cfg_s.pc_halo:g}a / {cfg_s.pc_halo_max}, adaptive "
+          f"Lanczos {cfg_s.lanczos_iters}-{cfg_s.lanczos_max_iters}: "
+          f"{ST_TIMED_STEPS} steps in {wall_st:.3f} s = "
+          f"{settled['steps_per_s']:.4f} steps/s; GMRES iterations mean "
+          f"{settled['mean_iters']:.2f}, max {settled['max_iters']} (per "
+          f"step {iters_s.tolist()}; the JAX package's TPU records, another "
+          f"draw: {TPU_MEAN_ITERS['3e-4']} at gmres_tol 3e-4, "
+          f"{TPU_MEAN_ITERS['1e-4']} at 1e-4); max residual "
+          f"{res_s.max().item():.3e}; max noise_err "
+          f"{settled['max_noise_err']:.3e}; max||q|-1| "
+          f"{(qn_s - 1).abs().max().item():.3e}; launches {counts_s} over "
+          f"{steps_s} steps ({settled['k1_per_step']:.1f} K1, "
+          f"{settled['k2_per_step']:.1f} K2 a step)")
+    checks = {
+        "every residual < 10 gmres_tol": res_s.max().item()
+        < 10 * cfg_s.gmres_tol,
+        "state finite": bool(torch.isfinite(st.X).all()
+                             and torch.isfinite(st.Q).all()),
+        "|q| within 1e-5 of 1": (qn_s - 1).abs().max().item() <= 1e-5,
+        "bodies moved": (st.X - x0_s).abs().max().item() > 0,
+        "K1 launched": counts_s["pair_sweep_sym"] > 0,
+        "K2 launched": counts_s["pair_sweep_ordered"] > 0,
+        "K3 not launched": counts_s["near_sweep"] == 0,
+        "K4 not launched": counts_s["ewald_real_sweep"] == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"settled slice check failed: {what}")
+
+    # ---- 19. settled kernel step vs plain step, identical draws
+    draws = make_draws(geom_s, st, gen_s)
+    f_st = force_fn_s(st, 0)
+    s_k, aux_k = stochastic_step(geom_s, cfg_s, st, f_st, draws=draws)
+    s_p, aux_p = stochastic_step(geom_s, cfg_s.replace(use_pallas=False), st,
+                                 f_st, draws=draws)
+    torch.cuda.synchronize()
+    dX_k, dX_p = s_k.X - st.X, s_p.X - st.X
+    rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    print(f"settled step kernel vs plain: max|dX_k - dX_p|/max|dX_p| = "
+          f"{rel:.3e} (tol {STEP_TOL:g}); iters {aux_k.iters} vs "
+          f"{aux_p.iters}; residual {aux_k.residual.item():.3e} vs "
+          f"{aux_p.residual.item():.3e}")
+    if not (rel <= STEP_TOL and torch.isfinite(s_k.X).all()):
+        raise AssertionError(f"settled kernel step disagrees with the plain "
+                             f"step: {rel}")
+
+    # ---- 20. the step timer's split on all four slices, and its cost
+    splits = [
+        step_split(torch, profiling, "dense", lambda k: run_bd(
+            geom, cfg, s, k, generator=gen, force_fn=lambda s_, i: force),
+            SPLIT_STEPS["dense"]),
+        step_split(torch, profiling, "far-field", lambda k: run_bd(
+            geom_f, cfg_f, s_f, k, generator=gen_f,
+            force_fn=lambda s_, i: force_f), SPLIT_STEPS["far-field"]),
+        step_split(torch, profiling, "periodic", lambda k: run_bd(
+            geom_e, cfg_e, s_e, k, generator=gen_e), SPLIT_STEPS["periodic"]),
+        step_split(torch, profiling, "settled", lambda k: run_bd(
+            geom_s, cfg_s, st, k, generator=gen_s, force_fn=force_fn_s),
+            SPLIT_STEPS["settled"]),
+    ]
+    cost = {}
+    for label in ("off", "on", "on", "off"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (profiling.StepTimer() if label == "on"
+              else contextlib.nullcontext()):
+            run_bd(geom, cfg, s, 4, generator=gen,
+                   force_fn=lambda s_, i: force)
+            torch.cuda.synchronize()
+        cost.setdefault(label, []).append(4 / (time.perf_counter() - t0))
+    print(f"step timer cost, dense slice, 4 steps a run in turns (off, on, "
+          f"on, off): {cost['off']} steps/s without it, {cost['on']} with it")
+    print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
+                      "settled": settled,
+                      "k1_409600": {str(k): v for k, v in k1_scale.items()}}))
+
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
     b2 = bound_ms(90 * n * n, 84 * n)
@@ -956,13 +1282,19 @@ def main():
          "bound_by": b1[1], "library_ms": None, "ms_2rhs": k1_ms2,
          "plain_ms_2rhs": k2_plain_ms, "bound_ms_2rhs": b1_2[0],
          "bound_ratio": k1_ms / b1[0],
-         "bound_ratio_2rhs": k1_ms2 / b1_2[0], "redesigned_in": 5},
+         "bound_ratio_2rhs": k1_ms2 / b1_2[0], "redesigned_in": 5,
+         "launches_settled": counts_s["pair_sweep_sym"],
+         "ms_409600": k1_scale[1]["ms"],
+         "ms_2rhs_409600": k1_scale[2]["ms"],
+         "peak_bytes_409600": k1_scale[1]["peak_bytes"],
+         "peak_bytes_2rhs_409600": k1_scale[2]["peak_bytes"]},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b2[0],
          "bound_by": b2[1], "library_ms": None,
-         "bound_ratio": k2_ms / b2[0], "redesigned_in": 5},
+         "bound_ratio": k2_ms / b2[0], "redesigned_in": 5,
+         "launches_settled": counts_s["pair_sweep_ordered"]},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],

@@ -12,7 +12,9 @@ preconditioned fused two-draw Lanczos noise, the midpoint-slip RFD drift
 and a GMRES saddle solve, with three mobility operators: the dense O(N²)
 pair sweep above a wall or in an open domain, the O(N) proxy-grid far
 field (``farfield_grid``), and the triply-periodic positively-split Ewald
-operator (a 3-D ``box``).  Their pair sweeps are hand-written CUDA
+operator (a 3-D ``box``); and the settled-suspension configuration
+(the RAS preconditioner, adaptive Lanczos, :mod:`.forces`, the checkpoint
+reader of :mod:`.utils.checkpoint`).  Their pair sweeps are hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
 probe of :mod:`.utils.roofline`; everything else is eager PyTorch on

@@ -197,11 +197,6 @@ class SimulationConfig:
         if self.farfield_grid is not None and self.farfield_band_p > 0:
             raise _not_ported("the far field's band tier (farfield_band_p "
                               "> 0)", "item 11")
-        if self.pc_mode == "ras":
-            raise _not_ported("pc_mode='ras'", "item 10 (settled slice)")
-        if self.lanczos_max_iters > 0 and self.lanczos_err_tol > 0:
-            raise _not_ported("adaptive Lanczos (lanczos_max_iters with "
-                              "lanczos_err_tol)", "item 10 (settled slice)")
         if self.drift_mode == "em_exact":
             raise _not_ported("drift_mode='em_exact' (rfd.n_rfd_exact)",
                               "item 7 (rfd)")

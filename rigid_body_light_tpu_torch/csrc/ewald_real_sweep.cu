@@ -56,13 +56,16 @@
 // kMaxDeg); the wrapper keeps one device copy per operator, so operators
 // with different boxes never read each other's coefficients.
 //
-// Cross-block accumulation: as K1 (rpy_pair_sweep.cu), each item writes a
-// row partial (its 128 rows) and a column partial (its 128 columns), each
-// element written by exactly one block; lane l visits column (l + s) mod
+// Cross-block accumulation: as K1 (rpy_pair_sweep.cu), a block walks the
+// items of one unit of group pairs and keeps a row partial (128 rows) and
+// a column partial (128 columns) a tile of its groups, each element
+// written by one thread of one block, so the scratch grows as n (one
+// partial an item, before, grew as n²); lane l visits column (l + s) mod
 // 32 at step s, so each warp adds its transposed terms into its own shared
 // column accumulator.  A second pass (tile_items.cuh) sums, for every
-// blob, the partials of the items that touch its tile in a fixed order.  No atomics: launches
-// are bitwise repeatable.
+// blob, the partials of its tile in a fixed order.  No atomics: launches
+// are bitwise repeatable; up to 65,536 blobs a unit is one item and the
+// launch is the one-item-a-block design's, bit for bit.
 //
 // Numerics: rintf (halves to even, as jnp.round), IEEE sqrtf and division
 // (no -use_fast_math), r² floored at 1e-24, x clipped to [−1, 1] (below the
@@ -78,8 +81,6 @@
 #include "tile_items.cuh"
 
 namespace {
-
-using tile_items::item_tiles;
 
 constexpr int kTile = tile_items::kTile;  // rows and columns of an item,
                                          // one row a thread
@@ -146,15 +147,17 @@ __device__ __forceinline__ void clenshaw(const float2* s_coef, int deg,
   }
 }
 
-template <int NRHS>
+// GROUPED = false: the one-item unit of G = T (up to 65,536 blobs),
+// compiled without the walk (as K1).
+template <int NRHS, bool GROUPED>
 __global__ void __launch_bounds__(kTile)
 ewald_item_kernel(const float* __restrict__ pos,     // (n, 3)
                   const float* __restrict__ force,   // (NRHS, n, 3)
-                  int n, int n_tiles, SweepConsts cst,
+                  int n, tile_items::Groups g, SweepConsts cst,
                   const float2* __restrict__ coef,   // (deg+1, 4)
                   int deg,
-                  float* __restrict__ row_part,      // (items, 3·NRHS, 128)
-                  float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
+                  float* __restrict__ row_part,   // (units, S, 3·NRHS, 128)
+                  float* __restrict__ col_part) {  // (units, S, 3·NRHS, 128)
   constexpr int NF = 3 * NRHS;
   __shared__ float2 s_coef[(kMaxDeg + 1) * 4];
   __shared__ float s_pos[3][kTile];
@@ -164,133 +167,158 @@ ewald_item_kernel(const float* __restrict__ pos,     // (n, 3)
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  int I, J;
-  item_tiles(blockIdx.x, n_tiles, I, J);
-  const bool diag = I == J;
+  const tile_items::Unit u = tile_items::unit_of(blockIdx.x, g);
+  const int I1 = GROUPED ? u.I1 : u.I0 + 1;
+  const int J1 = GROUPED ? u.J1 : u.J0 + 1;
 
   for (int idx = t; idx < (deg + 1) * 4; idx += kTile) s_coef[idx] = coef[idx];
-  {
-    const int j = J * kTile + t;
-    const bool ok = j < n;
-    s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
-    s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
-    s_pos[2][t] = ok ? pos[3 * j + 2] : 0.0f;
-#pragma unroll
-    for (int k = 0; k < NRHS; ++k)
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        s_f[3 * k + d][t] = ok ? force[((size_t)k * n + j) * 3 + d] : 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w)
-#pragma unroll
-      for (int q = 0; q < NF; ++q) s_acc[w][q][t] = 0.0f;
-  }
 
-  const int i = I * kTile + t;
-  const bool row_ok = i < n;
-  const int n_cols = min(kTile, n - J * kTile);
-  float xR = 0.0f, yR = 0.0f, zR = 0.0f;
-  float fR[NF];
-  float acc[NF];
+  for (int I = u.I0; I < I1; ++I) {
+    const int i = I * kTile + t;
+    const bool row_ok = i < n;
+    float xR = 0.0f, yR = 0.0f, zR = 0.0f;
+    float fR[NF];
+    float acc[NF];
 #pragma unroll
-  for (int q = 0; q < NF; ++q) { fR[q] = 0.0f; acc[q] = 0.0f; }
-  if (row_ok) {
-    xR = pos[3 * i]; yR = pos[3 * i + 1]; zR = pos[3 * i + 2];
+    for (int q = 0; q < NF; ++q) { fR[q] = 0.0f; acc[q] = 0.0f; }
+    if (row_ok) {
+      xR = pos[3 * i]; yR = pos[3 * i + 1]; zR = pos[3 * i + 2];
 #pragma unroll
-    for (int q = 0; q < NF; ++q) fR[q] = force[((size_t)(q / 3) * n + i) * 3 + q % 3];
-  }
-  __syncthreads();  // the stage and the table are written
+      for (int q = 0; q < NF; ++q)
+        fR[q] = force[((size_t)(q / 3) * n + i) * 3 + q % 3];
+    }
 
-  for (int q0 = 0; q0 < kTile; q0 += kPairs * kSub) {
-    // diagonal item: this warp's rows are all right of these columns
-    if (diag && q0 + kPairs * kSub <= warp * 32) continue;
-    for (int s = 0; s < kSub; ++s) {
-      int c[kPairs], seg[kPairs];
-      bool valid[kPairs];
-      bool any = false;
+    for (int J = GROUPED ? u.first_col(I) : u.J0; J < J1; ++J) {
+      const bool diag = I == J;
+      if (GROUPED) __syncthreads();  // the previous item's stage is read
+      {
+        const int j = J * kTile + t;
+        const bool ok = j < n;
+        s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
+        s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
+        s_pos[2][t] = ok ? pos[3 * j + 2] : 0.0f;
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        c[p] = q0 + p * kSub + ((lane + s) & (kSub - 1));
-        valid[p] = row_ok && c[p] < n_cols && (!diag || c[p] > t);
-        any = any || valid[p];
+        for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            s_f[3 * k + d][t] = ok ? force[((size_t)k * n + j) * 3 + d] : 0.0f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w)
+#pragma unroll
+          for (int q = 0; q < NF; ++q) s_acc[w][q][t] = 0.0f;
       }
-      if (!__any_sync(0xffffffffu, any)) continue;
-      float dx[kPairs], dy[kPairs], dz[kPairs], x[kPairs], inv_r2[kPairs];
+      const int n_cols = min(kTile, n - J * kTile);
+      __syncthreads();  // the stage and the table are written
+
+      for (int q0 = 0; q0 < kTile; q0 += kPairs * kSub) {
+        // diagonal item: this warp's rows are all right of these columns
+        if (diag && q0 + kPairs * kSub <= warp * 32) continue;
+        for (int s = 0; s < kSub; ++s) {
+          int c[kPairs], seg[kPairs];
+          bool valid[kPairs];
+          bool any = false;
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        dx[p] = xR - s_pos[0][c[p]];
-        dy[p] = yR - s_pos[1][c[p]];
-        dz[p] = zR - s_pos[2][c[p]];
-        dx[p] -= cst.box[0] * rintf(dx[p] * cst.inv_box[0]);
-        dy[p] -= cst.box[1] * rintf(dy[p] * cst.inv_box[1]);
-        dz[p] -= cst.box[2] * rintf(dz[p] * cst.inv_box[2]);
-        float r2 = fmaxf(dx[p] * dx[p] + dy[p] * dy[p] + dz[p] * dz[p],
-                         1e-24f);
-        r2 = valid[p] ? r2 : 1.0f;
-        const float r = sqrtf(r2);
-        inv_r2[p] = 1.0f / r2;
-        const bool in1 = r >= cst.b1, in2 = r >= cst.b2;
-        seg[p] = (int)in1 + (int)in2;
-        const float lo = in2 ? cst.lo[2] : (in1 ? cst.lo[1] : cst.lo[0]);
-        const float two_inv_w = in2 ? cst.two_inv_w[2]
-                                    : (in1 ? cst.two_inv_w[1]
-                                           : cst.two_inv_w[0]);
-        x[p] = fminf(fmaxf((r - lo) * two_inv_w - 1.0f, -1.0f), 1.0f);
-      }
-      float A[kPairs], B[kPairs];
-      clenshaw<kPairs>(s_coef, deg, seg, x, A, B);
+          for (int p = 0; p < kPairs; ++p) {
+            c[p] = q0 + p * kSub + ((lane + s) & (kSub - 1));
+            valid[p] = row_ok && c[p] < n_cols && (!diag || c[p] > t);
+            any = any || valid[p];
+          }
+          if (!__any_sync(0xffffffffu, any)) continue;
+          float dx[kPairs], dy[kPairs], dz[kPairs], x[kPairs], inv_r2[kPairs];
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        const float Ap = valid[p] ? A[p] : 0.0f;
-        const float Bh = valid[p] ? B[p] * inv_r2[p] : 0.0f;  // r̂r̂ = d dᵀ/r²
-        const int cp = c[p];
+          for (int p = 0; p < kPairs; ++p) {
+            dx[p] = xR - s_pos[0][c[p]];
+            dy[p] = yR - s_pos[1][c[p]];
+            dz[p] = zR - s_pos[2][c[p]];
+            dx[p] -= cst.box[0] * rintf(dx[p] * cst.inv_box[0]);
+            dy[p] -= cst.box[1] * rintf(dy[p] * cst.inv_box[1]);
+            dz[p] -= cst.box[2] * rintf(dz[p] * cst.inv_box[2]);
+            float r2 = fmaxf(dx[p] * dx[p] + dy[p] * dy[p] + dz[p] * dz[p],
+                             1e-24f);
+            r2 = valid[p] ? r2 : 1.0f;
+            const float r = sqrtf(r2);
+            inv_r2[p] = 1.0f / r2;
+            const bool in1 = r >= cst.b1, in2 = r >= cst.b2;
+            seg[p] = (int)in1 + (int)in2;
+            const float lo = in2 ? cst.lo[2] : (in1 ? cst.lo[1] : cst.lo[0]);
+            const float two_inv_w = in2 ? cst.two_inv_w[2]
+                                        : (in1 ? cst.two_inv_w[1]
+                                               : cst.two_inv_w[0]);
+            x[p] = fminf(fmaxf((r - lo) * two_inv_w - 1.0f, -1.0f), 1.0f);
+          }
+          float A[kPairs], B[kPairs];
+          clenshaw<kPairs>(s_coef, deg, seg, x, A, B);
 #pragma unroll
-        for (int k = 0; k < NRHS; ++k) {
-          const float fx = s_f[3 * k][cp], fy = s_f[3 * k + 1][cp],
-                      fz = s_f[3 * k + 2][cp];
-          const float bdF = Bh * (dx[p] * fx + dy[p] * fy + dz[p] * fz);
-          acc[3 * k] += Ap * fx + bdF * dx[p];
-          acc[3 * k + 1] += Ap * fy + bdF * dy[p];
-          acc[3 * k + 2] += Ap * fz + bdF * dz[p];
-          const float bdR = Bh * (dx[p] * fR[3 * k] + dy[p] * fR[3 * k + 1]
-                                  + dz[p] * fR[3 * k + 2]);
-          s_acc[warp][3 * k][cp] += Ap * fR[3 * k] + bdR * dx[p];
-          s_acc[warp][3 * k + 1][cp] += Ap * fR[3 * k + 1] + bdR * dy[p];
-          s_acc[warp][3 * k + 2][cp] += Ap * fR[3 * k + 2] + bdR * dz[p];
+          for (int p = 0; p < kPairs; ++p) {
+            const float Ap = valid[p] ? A[p] : 0.0f;
+            const float Bh = valid[p] ? B[p] * inv_r2[p] : 0.0f;  // r̂r̂ = d dᵀ/r²
+            const int cp = c[p];
+#pragma unroll
+            for (int k = 0; k < NRHS; ++k) {
+              const float fx = s_f[3 * k][cp], fy = s_f[3 * k + 1][cp],
+                          fz = s_f[3 * k + 2][cp];
+              const float bdF = Bh * (dx[p] * fx + dy[p] * fy + dz[p] * fz);
+              acc[3 * k] += Ap * fx + bdF * dx[p];
+              acc[3 * k + 1] += Ap * fy + bdF * dy[p];
+              acc[3 * k + 2] += Ap * fz + bdF * dz[p];
+              const float bdR = Bh * (dx[p] * fR[3 * k] + dy[p] * fR[3 * k + 1]
+                                      + dz[p] * fR[3 * k + 2]);
+              s_acc[warp][3 * k][cp] += Ap * fR[3 * k] + bdR * dx[p];
+              s_acc[warp][3 * k + 1][cp] += Ap * fR[3 * k + 1] + bdR * dy[p];
+              s_acc[warp][3 * k + 2][cp] += Ap * fR[3 * k + 2] + bdR * dz[p];
+            }
+          }
+          __syncwarp();
         }
       }
-      __syncwarp();
-    }
-  }
-  __syncthreads();  // every warp's column accumulator is complete
+      __syncthreads();  // every warp's column accumulator is complete
 
-  float* rowp = row_part + (size_t)blockIdx.x * NF * kTile;
-  float* colp = col_part + (size_t)blockIdx.x * NF * kTile;
+      // thread t: column t of tile J, written at the unit's first row
+      float* colp = tile_items::slot(col_part, blockIdx.x, J - u.J0, g, NF);
 #pragma unroll
-  for (int q = 0; q < NF; ++q) {
-    float v = 0.0f;
+      for (int q = 0; q < NF; ++q) {
+        float v = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += s_acc[w][q][t];
-    rowp[q * kTile + t] = acc[q];
-    colp[q * kTile + t] = v;
+        for (int w = 0; w < kWarps; ++w) v += s_acc[w][q][t];
+        tile_items::store_col(colp + q * kTile + t, v, !GROUPED || I == u.I0);
+      }
+    }
+
+    // thread t: row t of tile I, once its items are swept
+    float* rowp = tile_items::slot(row_part, blockIdx.x, I - u.I0, g, NF);
+#pragma unroll
+    for (int q = 0; q < NF; ++q) rowp[q * kTile + t] = acc[q];
   }
+}
+
+template <int NRHS>
+void launch_item(const tile_items::Groups& g, cudaStream_t stream,
+                 const float* pos, const float* force, int n,
+                 const SweepConsts& cst, const float2* coef, int deg,
+                 float* row_part, float* col_part) {
+  if (g.n_groups < g.n_tiles)
+    ewald_item_kernel<NRHS, true><<<g.units, kTile, 0, stream>>>(
+        pos, force, n, g, cst, coef, deg, row_part, col_part);
+  else
+    ewald_item_kernel<NRHS, false><<<g.units, kTile, 0, stream>>>(
+        pos, force, n, g, cst, coef, deg, row_part, col_part);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The item edge the wrapper sizes its scratch by, and the largest degree
-// the shared table holds.
+// The item edge and most groups the wrapper sizes its scratch by, and the
+// largest degree the shared table holds.
 int ewald_sweep_tile() { return kTile; }
 int ewald_sweep_max_degree() { return kMaxDeg; }
+int ewald_sweep_max_groups() { return tile_items::kMaxGroups; }
 
 // K4: out (nrhs, n, 3) = Σ_{j≠i} [A·I + B·r̂r̂]·F_j over unordered pairs.
 // consts: 14 host floats (box[3], inv_box[3], b1, b2, lo[3], two_inv_w[3]),
 // passed by value.  coef: device (deg+1, 4, 2) floats, [j][segment] =
-// (A_j, B_j), slot 3 unused.  row_part and col_part hold items·3·nrhs·128
-// floats each, items = T(T+1)/2 with T = ⌈n/128⌉ (scratch, fully
-// overwritten).
+// (A_j, B_j), slot 3 unused.  row_part and col_part hold units·S·3·nrhs·128
+// floats each (tile_items::groups_of; scratch, fully overwritten).
 int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
                      const float* consts, const float* coef, int deg,
                      float* row_part, float* col_part, float* out,
@@ -308,15 +336,14 @@ int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
   }
   cst.b1 = consts[6];
   cst.b2 = consts[7];
-  const int n_tiles = (n + kTile - 1) / kTile;
-  const int items = n_tiles * (n_tiles + 1) / 2;
+  const tile_items::Groups g = tile_items::groups_of(n);
   const float2* coef2 = reinterpret_cast<const float2*>(coef);
   if (nrhs == 1)
-    ewald_item_kernel<1><<<items, kTile, 0, stream>>>(
-        pos, force, n, n_tiles, cst, coef2, deg, row_part, col_part);
+    launch_item<1>(g, stream, pos, force, n, cst, coef2, deg, row_part,
+                   col_part);
   else
-    ewald_item_kernel<2><<<items, kTile, 0, stream>>>(
-        pos, force, n, n_tiles, cst, coef2, deg, row_part, col_part);
+    launch_item<2>(g, stream, pos, force, n, cst, coef2, deg, row_part,
+                   col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(

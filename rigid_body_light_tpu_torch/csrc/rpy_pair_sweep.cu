@@ -28,16 +28,22 @@
 // at 10,272 blobs about half of its 81 × 21 blocks lay below the diagonal
 // and only wrote zero partials, and the ~900 that worked all fitted on the
 // card in one uneven wave, one pair a thread (0.589 ms, 6.2× the bound).
-// Now a block takes one work item, a 128 × 128 tile pair (I, J ≥ I) of the
-// upper triangle, diagonal items first (tile_items.cuh, as K4): 3,321 items
-// at 10,272 blobs.  Thread t owns row 128·I + t and evaluates two pairs a
-// step, columns c and c + 32 of the item, so it has two independent chains
-// through the rsqrt and the division.  Lane l visits column (l + s) mod 32
+// Now the work is 128 × 128 items, tile pairs (I, J ≥ I) of the upper
+// triangle, and a block walks the items of one unit of group pairs,
+// diagonal units first (tile_items.cuh, as K4).  Up to 65,536 blobs a unit
+// is one item (pair_sweep_sym_kernel: 3,321 blocks at 10,272 blobs);
+// beyond, pair_sweep_sym_grouped_kernel walks the ~(T/128)² items of a
+// unit with the same pieces (one kernel with the walk compiled out for
+// G = T took 4% longer at the dense slice, PERF.md §6).  Thread t owns row 128·I + t
+// and evaluates two pairs a step, columns c and c + 32 of the item, so it
+// has two independent chains through the rsqrt and the division.  Lane l visits column (l + s) mod 32
 // of each 32-column half at step s: the lanes of a warp touch distinct
 // columns, so each warp adds its transposed terms into its own shared
 // column accumulator without conflicts, and the 4 warps' accumulators are
-// summed in a fixed order.  Each item writes its row and column partials
-// (one writer per element); a second pass sums them in a fixed order.
+// summed in a fixed order.  A unit keeps one row and one column partial a
+// tile of its groups (one writer per element), so the scratch grows as n,
+// not as the n²/128² items (2.63 GB at 409,600 blobs and 2 RHS, where one
+// partial an item took 31.5 GB); a second pass sums them in a fixed order.
 // 48 / 56 registers with a wall at 1 / 2 RHS, no spills, 12 / 22 KB of
 // shared memory.  On an H100 at 700 W at 10,272 blobs: 0.325-0.331 /
 // 0.436-0.442 ms at 1 / 2 RHS, 3.5× / 3.1× the bound, against the earlier
@@ -82,8 +88,8 @@ using rpy_fields::apply;
 using rpy_fields::floor_height;
 using rpy_fields::pair_fields;
 
-// K1: one work item of kSymTile × kSymTile a block, one row a thread,
-// kSymPairs columns a step.
+// K1: items of kSymTile × kSymTile, one row a thread, kSymPairs columns a
+// step.
 constexpr int kSymTile = tile_items::kTile;
 constexpr int kSymSub = 32;
 constexpr int kSymWarps = kSymTile / 32;
@@ -115,26 +121,15 @@ __device__ __forceinline__ float4 load_force(const float* __restrict__ force,
   return make_float4(f[0], f[1], f[2], 0.0f);
 }
 
-// K1.  Block = one work item (I, J): rows of tile I, columns of tile J.
-template <bool WALL, int NRHS>
-__global__ void __launch_bounds__(kSymTile)
-pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
-                      const float* __restrict__ force,   // (NRHS, n, 3)
-                      int n, int n_tiles, float h_floor,
-                      float* __restrict__ row_part,      // (items, 3·NRHS, 128)
-                      float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
-  constexpr int NF = 3 * NRHS;
-  __shared__ float4 s_pos[kSymTile];                     // x, y, z, floored z
-  __shared__ float4 s_f[NRHS][kSymTile];                 // fx, fy, fz, 0
-  __shared__ float4 s_acc[kSymWarps][NRHS][kSymTile];    // transposed terms
+// K1's pieces, shared by its two kernels.
 
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  int I, J;
-  tile_items::item_tiles(blockIdx.x, n_tiles, I, J);
-  const bool diag = I == J;
-
+// Stage column tile J: positions, forces and zeroed column accumulators.
+template <int NRHS>
+__device__ __forceinline__ void stage_columns(
+    const float* __restrict__ pos, const float* __restrict__ force, int J,
+    int n, float h_floor, int t, float4 (&s_pos)[kSymTile],
+    float4 (&s_f)[NRHS][kSymTile],
+    float4 (&s_acc)[kSymWarps][NRHS][kSymTile]) {
   s_pos[t] = load_blob(pos, J * kSymTile + t, n, h_floor);
 #pragma unroll
   for (int k = 0; k < NRHS; ++k) {
@@ -143,22 +138,34 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
     for (int w = 0; w < kSymWarps; ++w)
       s_acc[w][k][t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
+}
 
-  const int i = I * kSymTile + t;
-  const bool row_ok = i < n;
-  const int n_cols = min(kSymTile, n - J * kSymTile);
+// Row blob i: its position (returned) and forces; its sums zeroed.
+template <int NRHS>
+__device__ __forceinline__ float4 load_row(const float* __restrict__ pos,
+                                           const float* __restrict__ force,
+                                           int i, int n, float h_floor,
+                                           float (&fR)[3 * NRHS],
+                                           float (&acc)[3 * NRHS]) {
   const float4 R = load_blob(pos, i, n, h_floor);
-  float fR[NF];
-  float acc[NF];
 #pragma unroll
   for (int k = 0; k < NRHS; ++k) {
     const float4 f = load_force(force, k, i, n);
     fR[3 * k] = f.x; fR[3 * k + 1] = f.y; fR[3 * k + 2] = f.z;
   }
 #pragma unroll
-  for (int q = 0; q < NF; ++q) acc[q] = 0.0f;
-  __syncthreads();  // the stage is written
+  for (int q = 0; q < 3 * NRHS; ++q) acc[q] = 0.0f;
+  return R;
+}
 
+// One item's pairs: thread t's row (R, fR) against the staged columns,
+// row terms into acc, transposed terms into its warp's column sums.
+template <bool WALL, int NRHS>
+__device__ __forceinline__ void sweep_item(
+    const float4 (&s_pos)[kSymTile], const float4 (&s_f)[NRHS][kSymTile],
+    float4 (&s_acc)[kSymWarps][NRHS][kSymTile], const float4 R,
+    const float (&fR)[3 * NRHS], float (&acc)[3 * NRHS], bool diag,
+    bool row_ok, int n_cols, int t, int lane, int warp) {
   for (int q0 = 0; q0 < kSymTile; q0 += kSymPairs * kSymSub) {
     // diagonal item: this warp's rows are all right of these columns
     if (diag && q0 + kSymPairs * kSymSub <= warp * 32) continue;
@@ -200,6 +207,49 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
       __syncwarp();  // lane l's columns are lane l − 1's at the next step
     }
   }
+}
+
+// Column t of RHS k: the warps' sums in a fixed order.
+template <int NRHS>
+__device__ __forceinline__ float4 column_sum(
+    const float4 (&s_acc)[kSymWarps][NRHS][kSymTile], int k, int t) {
+  float4 v = s_acc[0][k][t];
+#pragma unroll
+  for (int w = 1; w < kSymWarps; ++w) {
+    const float4 a = s_acc[w][k][t];
+    v.x += a.x; v.y += a.y; v.z += a.z;
+  }
+  return v;
+}
+
+// K1, one item (I, J) a block: the launch up to 65,536 blobs (G = T).
+// Partials (items, 3·NRHS, 128), one slot per item.
+template <bool WALL, int NRHS>
+__global__ void __launch_bounds__(kSymTile)
+pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
+                      const float* __restrict__ force,   // (NRHS, n, 3)
+                      int n, int n_tiles, float h_floor,
+                      float* __restrict__ row_part,      // (items, 3·NRHS, 128)
+                      float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
+  constexpr int NF = 3 * NRHS;
+  __shared__ float4 s_pos[kSymTile];                     // x, y, z, floored z
+  __shared__ float4 s_f[NRHS][kSymTile];                 // fx, fy, fz, 0
+  __shared__ float4 s_acc[kSymWarps][NRHS][kSymTile];    // transposed terms
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int I, J;
+  tile_items::item_tiles(blockIdx.x, n_tiles, I, J);
+  stage_columns<NRHS>(pos, force, J, n, h_floor, t, s_pos, s_f, s_acc);
+  const int i = I * kSymTile + t;
+  float fR[NF];
+  float acc[NF];
+  const float4 R = load_row<NRHS>(pos, force, i, n, h_floor, fR, acc);
+  __syncthreads();  // the stage is written
+
+  sweep_item<WALL, NRHS>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
+                         min(kSymTile, n - J * kSymTile), t, lane, warp);
   __syncthreads();  // every warp's column accumulator is complete
 
   // thread t: row t of tile I and column t of tile J
@@ -207,18 +257,63 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
   float* colp = col_part + (size_t)blockIdx.x * NF * kSymTile;
 #pragma unroll
   for (int k = 0; k < NRHS; ++k) {
-    float4 v = s_acc[0][k][t];
-#pragma unroll
-    for (int w = 1; w < kSymWarps; ++w) {
-      const float4 a = s_acc[w][k][t];
-      v.x += a.x; v.y += a.y; v.z += a.z;
-    }
+    const float4 v = column_sum<NRHS>(s_acc, k, t);
     rowp[(3 * k) * kSymTile + t] = acc[3 * k];
     rowp[(3 * k + 1) * kSymTile + t] = acc[3 * k + 1];
     rowp[(3 * k + 2) * kSymTile + t] = acc[3 * k + 2];
     colp[(3 * k) * kSymTile + t] = v.x;
     colp[(3 * k + 1) * kSymTile + t] = v.y;
     colp[(3 * k + 2) * kSymTile + t] = v.z;
+  }
+}
+
+// K1 past 65,536 blobs (G < T): a block walks the items (I, J) of its
+// unit of group pairs row by row (tile_items.cuh).  Thread t carries row t
+// of tile I through the row's items and writes its slot once; column t of
+// tile J's slot is written at the unit's first row and added to after.
+// Partials (units, S, 3·NRHS, 128).
+template <bool WALL, int NRHS>
+__global__ void __launch_bounds__(kSymTile)
+pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
+                              const float* __restrict__ force,   // (NRHS, n, 3)
+                              int n, tile_items::Groups g, float h_floor,
+                              float* __restrict__ row_part,
+                              float* __restrict__ col_part) {
+  constexpr int NF = 3 * NRHS;
+  __shared__ float4 s_pos[kSymTile];
+  __shared__ float4 s_f[NRHS][kSymTile];
+  __shared__ float4 s_acc[kSymWarps][NRHS][kSymTile];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const tile_items::Unit u = tile_items::unit_of(blockIdx.x, g);
+
+  for (int I = u.I0; I < u.I1; ++I) {
+    const int i = I * kSymTile + t;
+    float fR[NF];
+    float acc[NF];
+    const float4 R = load_row<NRHS>(pos, force, i, n, h_floor, fR, acc);
+    for (int J = u.first_col(I); J < u.J1; ++J) {
+      __syncthreads();  // the previous item's stage and sums are read
+      stage_columns<NRHS>(pos, force, J, n, h_floor, t, s_pos, s_f, s_acc);
+      __syncthreads();  // the stage is written
+      sweep_item<WALL, NRHS>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
+                             min(kSymTile, n - J * kSymTile), t, lane, warp);
+      __syncthreads();  // every warp's column accumulator is complete
+      float* colp = tile_items::slot(col_part, blockIdx.x, J - u.J0, g, NF);
+#pragma unroll
+      for (int k = 0; k < NRHS; ++k) {
+        const float4 v = column_sum<NRHS>(s_acc, k, t);
+        float* cq = colp + (3 * k) * kSymTile + t;
+        tile_items::store_col(cq, v.x, I == u.I0);
+        tile_items::store_col(cq + kSymTile, v.y, I == u.I0);
+        tile_items::store_col(cq + 2 * kSymTile, v.z, I == u.I0);
+      }
+    }
+    float* rowp = tile_items::slot(row_part, blockIdx.x, I - u.I0, g, NF);
+#pragma unroll
+    for (int q = 0; q < NF; ++q) rowp[q * kSymTile + t] = acc[q];
   }
 }
 
@@ -322,16 +417,29 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
+template <bool WALL, int NRHS>
+void launch_sym_k(const tile_items::Groups& g, cudaStream_t stream,
+                  const float* pos, const float* force, int n, float h_floor,
+                  float* row_part, float* col_part) {
+  if (g.n_groups < g.n_tiles)
+    pair_sweep_sym_grouped_kernel<WALL, NRHS><<<g.units, kSymTile, 0,
+                                                stream>>>(
+        pos, force, n, g, h_floor, row_part, col_part);
+  else
+    pair_sweep_sym_kernel<WALL, NRHS><<<g.units, kSymTile, 0, stream>>>(
+        pos, force, n, g.n_tiles, h_floor, row_part, col_part);
+}
+
 template <bool WALL>
-void launch_sym(int nrhs, int items, cudaStream_t stream, const float* pos,
-                const float* force, int n, int n_tiles, float h_floor,
+void launch_sym(int nrhs, const tile_items::Groups& g, cudaStream_t stream,
+                const float* pos, const float* force, int n, float h_floor,
                 float* row_part, float* col_part) {
   if (nrhs == 1)
-    pair_sweep_sym_kernel<WALL, 1><<<items, kSymTile, 0, stream>>>(
-        pos, force, n, n_tiles, h_floor, row_part, col_part);
+    launch_sym_k<WALL, 1>(g, stream, pos, force, n, h_floor, row_part,
+                          col_part);
   else
-    pair_sweep_sym_kernel<WALL, 2><<<items, kSymTile, 0, stream>>>(
-        pos, force, n, n_tiles, h_floor, row_part, col_part);
+    launch_sym_k<WALL, 2>(g, stream, pos, force, n, h_floor, row_part,
+                          col_part);
 }
 
 template <bool WALL>
@@ -353,29 +461,29 @@ void launch_ordered(int nrhs, dim3 grid, cudaStream_t stream,
 
 extern "C" {
 
-// The shapes the wrapper sizes its scratch by: K1's item edge, K2's rows
-// and columns a block.
+// The shapes the wrapper sizes its scratch by: K1's item edge and most
+// groups, K2's rows and columns a block.
 int rpy_sym_tile() { return kSymTile; }
+int rpy_sym_max_groups() { return tile_items::kMaxGroups; }
 int rpy_ordered_rows() { return kOrdRows; }
 int rpy_ordered_chunk() { return kOrdChunk; }
 
 // K1: out (nrhs, n, 3) = Σ_{j≠i} M_ij F_j over unordered pairs.  row_part
-// and col_part hold items·3·nrhs·128 floats each, items = T(T+1)/2 with
-// T = ⌈n/128⌉ (scratch, fully overwritten).
+// and col_part hold units·S·3·nrhs·128 floats each (tile_items::groups_of;
+// scratch, fully overwritten).
 int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
                        int wall, float h_floor, float* row_part,
                        float* col_part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  const int n_tiles = (n + kSymTile - 1) / kSymTile;
-  const int items = n_tiles * (n_tiles + 1) / 2;
+  const tile_items::Groups g = tile_items::groups_of(n);
   if (wall)
-    launch_sym<true>(nrhs, items, stream, pos, force, n, n_tiles, h_floor,
-                     row_part, col_part);
+    launch_sym<true>(nrhs, g, stream, pos, force, n, h_floor, row_part,
+                     col_part);
   else
-    launch_sym<false>(nrhs, items, stream, pos, force, n, n_tiles, h_floor,
-                      row_part, col_part);
+    launch_sym<false>(nrhs, g, stream, pos, force, n, h_floor, row_part,
+                      col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(

@@ -26,6 +26,7 @@ from rigid_body_light_tpu_torch.ops import rfd
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.ops import solvers
 from rigid_body_light_tpu_torch.state import BodyState
+from rigid_body_light_tpu_torch.utils import profiling
 from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
 
 
@@ -110,11 +111,19 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
     draws: (W1, W2, W_rfd), or None to draw them from ``generator``.
     x0: optional (λ, U) warm start.  Returns (new_state, StepAux).
     """
+    with profiling.span("step"):
+        return _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0,
+                                pc, noise_pc, mob_multi, draws, generator)
+
+
+def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
+                     noise_pc, mob_multi, draws, generator):
     default_mob = mob_apply is None
     if default_mob:
         mob_apply = saddle_mod.mobility_apply_fn(cfg)
     dtype = state.X.dtype
-    ops = saddle_mod.geometry_ops(geom, state)
+    with profiling.span("kinematics"):
+        ops = saddle_mod.geometry_ops(geom, state)
     # far field: build the kernel lattices once per step and share them
     # across the noise draw, RFD's displaced applies and the half-kick
     # solve (their position sets differ by far less than a cell); no-op
@@ -133,44 +142,20 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
         W1, W2, W_rfd = (torch.as_tensor(w, dtype=dtype,
                                          device=state.X.device)
                          for w in draws)
-        pos = ops.flat_positions
         if noise_pc is None:
             noise_pc = lanczos.make_noise_preconditioner(geom.ref_cfg, cfg.a,
                                                          cfg.eta)
-        L, L_inv = noise_pc
-        if cfg.split_rand:
-            if default_mob or mob_multi is not None:
-                if mob_multi is None:
-                    # the far-field apply is ndim-polymorphic: reuse the
-                    # pinned operator, not a second lattice build
-                    mob_multi = (mob_apply if hasattr(mob_apply, "prepare")
-                                 else saddle_mod.mobility_apply_multi_fn(cfg))
-                mhw1, mhw2, noise_err = lanczos.m_half_w_precond(
-                    mob_multi, pos, ops.rot, L, L_inv, torch.stack([W1, W2]),
-                    iters=cfg.lanczos_iters, multi=True, return_err=True)
-            else:
-                mhw1, e1 = lanczos.m_half_w_precond(
-                    mob_apply, pos, ops.rot, L, L_inv, W1,
-                    iters=cfg.lanczos_iters, return_err=True)
-                mhw2, e2 = lanczos.m_half_w_precond(
-                    mob_apply, pos, ops.rot, L, L_inv, W2,
-                    iters=cfg.lanczos_iters, return_err=True)
-                noise_err = torch.maximum(e1, e2)
-            c1 = 2.0 * math.sqrt(kBT / cfg.dt)
-            c2 = math.sqrt(kBT / cfg.dt)
-            bi = c2 * (mhw1 - mhw2)
-        else:
-            mhw1, noise_err = lanczos.m_half_w_precond(
-                mob_apply, pos, ops.rot, L, L_inv, W1,
-                iters=cfg.lanczos_iters, return_err=True)
-            c1 = c2 = math.sqrt(2.0 * kBT / cfg.dt)
-            bi = c2 * mhw1
-        drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd, mob_apply)
+        with profiling.span("noise"):
+            mhw1, noise_err, c1, bi = _brownian(
+                cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1, W2)
+        with profiling.span("rfd"):
+            drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd, mob_apply)
         slip_eff = slip - (drift + bi)
-        u_half = kin.Kinv_dot((c1 * mhw1).reshape(B, n, 3), ops.offsets,
-                              ops.ktkinv)
-        half_state = _commit(geom, cfg, state, (cfg.dt / 2.0) * u_half)
-        ops_solve = saddle_mod.geometry_ops(geom, half_state)
+        with profiling.span("kinematics"):
+            u_half = kin.Kinv_dot((c1 * mhw1).reshape(B, n, 3), ops.offsets,
+                                  ops.ktkinv)
+            half_state = _commit(geom, cfg, state, (cfg.dt / 2.0) * u_half)
+            ops_solve = saddle_mod.geometry_ops(geom, half_state)
     else:
         slip_eff = slip
         ops_solve = ops
@@ -182,9 +167,46 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
     # box); aux.residual surfaces the event
     dU = torch.where(_residual_ok(res, cfg), res.U,
                      torch.zeros_like(res.U)) * cfg.dt
-    return _commit(geom, cfg, state, dU), StepAux(
+    with profiling.span("kinematics"):
+        new_state = _commit(geom, cfg, state, dU)
+    return new_state, StepAux(
         U=res.U, lam=res.lam, residual=res.residual, iters=res.iters,
         noise_err=noise_err.to(dtype))
+
+
+def _brownian(cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1,
+              W2):
+    """The step's Lanczos draws at q^n → (M^{1/2}W₁, noise_err, c₁, the
+    Brownian increment BI): fused through the 2-RHS product when the
+    operator is the default one or ``mob_multi`` is given."""
+    kBT = cfg.kBT
+    pos = ops.flat_positions
+    L, L_inv = noise_pc
+    lz = dict(iters=cfg.lanczos_iters, max_iters=cfg.lanczos_max_iters,
+              err_tol=cfg.lanczos_err_tol, return_err=True)
+    if not cfg.split_rand:
+        mhw1, noise_err = lanczos.m_half_w_precond(
+            mob_apply, pos, ops.rot, L, L_inv, W1, **lz)
+        c1 = c2 = math.sqrt(2.0 * kBT / cfg.dt)
+        return mhw1, noise_err, c1, c2 * mhw1
+    if default_mob or mob_multi is not None:
+        if mob_multi is None:
+            # the far-field apply is ndim-polymorphic: reuse the pinned
+            # operator, not a second lattice build
+            mob_multi = (mob_apply if hasattr(mob_apply, "prepare")
+                         else saddle_mod.mobility_apply_multi_fn(cfg))
+        mhw1, mhw2, noise_err = lanczos.m_half_w_precond(
+            mob_multi, pos, ops.rot, L, L_inv, torch.stack([W1, W2]),
+            multi=True, **lz)
+    else:
+        mhw1, e1 = lanczos.m_half_w_precond(
+            mob_apply, pos, ops.rot, L, L_inv, W1, **lz)
+        mhw2, e2 = lanczos.m_half_w_precond(
+            mob_apply, pos, ops.rot, L, L_inv, W2, **lz)
+        noise_err = torch.maximum(e1, e2)
+    c1 = 2.0 * math.sqrt(kBT / cfg.dt)
+    c2 = math.sqrt(kBT / cfg.dt)
+    return mhw1, noise_err, c1, c2 * (mhw1 - mhw2)
 
 
 def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
@@ -196,8 +218,9 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
 
     force_fn / slip_fn: (BodyState, step) → (B, 6) force / (N, 3) slip
     (default 0).  draws_fn: step → (W1, W2, W_rfd), else the draws come
-    from ``generator``.  The ``block_free`` PC and the noise-PC factors are
-    built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
+    from ``generator``.  The ``block_free`` PC (the static tier of ``ras``,
+    whose halo coupling each solve builds fresh) and the noise-PC factors
+    are built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
     ``pc_refresh`` steps; each solve is warm-started from the previous
     step's (λ, U), zeroed after a failed solve.  A periodic box too small
     for the body geometry raises ``ValueError`` before the first step.
@@ -211,8 +234,11 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
     if force_fn is None:
         def force_fn(s, i):
             return torch.zeros((B, 6), dtype=dtype, device=dev)
+    # block_free holds only body-frame constants: built once; ras has the
+    # same static tier, and solve_saddle attaches its halo coupling fresh at
+    # each solve's geometry (a lagged halo tier is refused by the config)
     pc_mode = cfg.pc_mode or ("block" if cfg.block_diag_pc else "diag")
-    static_pc = pc_mode == "block_free"
+    static_pc = pc_mode in ("block_free", "ras")
     lagged_pc = cfg.pc_refresh > 1 and not static_pc
     noise_pc = (lanczos.make_noise_preconditioner(geom.ref_cfg, cfg.a, cfg.eta)
                 if (cfg.lanczos_precond and cfg.kBT > 0.0) else None)

@@ -18,9 +18,11 @@ real_space_apply`) for a tensor on the CPU, and launches the kernel or
 raises for a CUDA tensor — there is no fallback.  Like the Pallas wrapper,
 inputs are cast to float32; the kernel itself refuses anything else.
 
-The kernel sweeps 128 × 128 tile pairs of the upper triangle, one block
-each (:func:`sweep_items` lists them in launch order); it replaced a grid
-of 128-row × 512-column blocks that at the periodic slice formed one
+The kernel sweeps 128 × 128 tile pairs of the upper triangle
+(:func:`sweep_items` lists them), a block walking the items of one pair
+of tile groups (:func:`.tiles.group_items`; one item a block up to 65,536
+blobs) into O(n) partials (:func:`.tiles.partial_shape`); it replaced a
+grid of 128-row × 512-column blocks that at the periodic slice formed one
 uneven wave of blocks (4.5–5.2× its bound, PERF.md §6).
 
 Every launch carries its own constants and coefficient table, so
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from rigid_body_light_tpu_torch.ops import cuda_build, ewald, tiles
+from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
 sweep_launches = 0
@@ -68,12 +71,17 @@ def build():
         return _lib
     lib = cuda_build.load("ewald_real_sweep")
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.ewald_sweep_tile, lib.ewald_sweep_max_degree):
+    for fn in (lib.ewald_sweep_tile, lib.ewald_sweep_max_degree,
+               lib.ewald_sweep_max_groups):
         fn.restype = i
         fn.argtypes = []
     if lib.ewald_sweep_tile() != TILE:
         raise RuntimeError(f"ewald_real_sweep.cu tiles {lib.ewald_sweep_tile()}"
                            f" blobs, the wrapper {TILE}")
+    if lib.ewald_sweep_max_groups() != tiles.MAX_GROUPS:
+        raise RuntimeError(f"ewald_real_sweep.cu groups at most "
+                           f"{lib.ewald_sweep_max_groups()} tile groups, the "
+                           f"wrapper {tiles.MAX_GROUPS}")
     lib.ewald_real_sweep.restype = i
     lib.ewald_real_sweep.argtypes = [p, p, i, i, ctypes.POINTER(ctypes.c_float),
                                      p, i, p, p, p, p]
@@ -143,13 +151,11 @@ def real_sweep_kernel(r, Fs, params):
     lib = build()
     dev = r.device
     coef, consts, deg = operator_tables(params, dev)
-    T = -(-n // TILE)
-    items = T * (T + 1) // 2
-    row_part = torch.empty((items, 3 * k, TILE), dtype=torch.float32,
-                           device=dev)
+    row_part = torch.empty(tiles.partial_shape(n, k, TILE),
+                           dtype=torch.float32, device=dev)
     col_part = torch.empty_like(row_part)
     out = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span("ewald_real_sweep"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.ewald_real_sweep(
             r.data_ptr(), Fs.data_ptr(), n, k, consts, coef.data_ptr(), deg,

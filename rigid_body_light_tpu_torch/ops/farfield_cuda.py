@@ -38,6 +38,7 @@ import ctypes
 import torch
 
 from rigid_body_light_tpu_torch.ops import cuda_build
+from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # blobs per tile; build() checks it against the kernel's
 near_launches = 0
@@ -102,7 +103,7 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
     part = torch.empty((max_nbr, k, n_pad, 3), dtype=torch.float32,
                        device=dev)
     out = torch.empty((k, n_pad, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span("near_sweep"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.near_sweep(
             x_s.data_ptr(), ci_s.data_ptr(), live_s.data_ptr(),

@@ -3,8 +3,9 @@ subset of ``rigid_body_light_tpu/ops/lanczos.py``.
 
 m Lanczos iterations with the matrix-free damped mobility product build a
 tridiagonal T and an orthonormal basis V; then
-M^{1/2} W ≈ ‖W‖ · Vᵀ · (V_T √Λ V_Tᵀ) e₁.  Preconditioned with the
-body-frame free-space factor (``make_noise_preconditioner``).
+M^{1/2} W ≈ ‖W‖ · Vᵀ · (V_T √Λ V_Tᵀ) e₁, for a fixed m or, adaptively,
+until the truncation estimate falls to a tolerance.  Preconditioned with
+the body-frame free-space factor (``make_noise_preconditioner``).
 
 The Gaussian draws W are inputs: the caller makes them (from a
 ``torch.Generator``, or the JAX package's keys in the parity tests).
@@ -17,6 +18,7 @@ from typing import Callable
 import torch
 
 from rigid_body_light_tpu_torch.ops import rpy, saddle
+from rigid_body_light_tpu_torch.utils import profiling
 
 
 def _y_coeffs(alphas, betas, s, m):
@@ -51,21 +53,24 @@ def _trunc_err(alphas, betas, s, m):
 
 def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
                         max_iters: int = 0, err_tol: float = 0.0,
-                        return_err: bool = False):
+                        return_err: bool = False, return_iters: bool = False):
     """A^{1/2}·w_k for a batch W (k, sz) with a joint matvec (k, sz) →
-    (k, sz); fixed ``iters`` iterations with full reorthogonalization.
-    Returns (k, sz), or ((k, sz), err (k,)) when ``return_err``.
+    (k, sz), with full reorthogonalization.  Returns (k, sz); with
+    ``return_err`` also the truncation estimate err (k,), with
+    ``return_iters`` also the iterations run (an int), in that order.
+
+    Fixed mode runs ``iters`` iterations.  Adaptive mode (``max_iters >
+    iters`` and ``err_tol > 0``, as in the JAX package) allocates the basis
+    at ``max_iters``, runs at least ``iters`` iterations and goes on, up to
+    ``max_iters``, while the largest estimate exceeds ``err_tol``.
 
     The m×m eigensolves run on the host (they are tiny); the O(sz) basis
     stays on the device of ``W``.
     """
-    if max_iters > iters and err_tol > 0.0:
-        raise NotImplementedError(
-            "adaptive Lanczos is not ported to rigid_body_light_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 10)")
     k, sz = W.shape
     dtype, dev = W.dtype, W.device
-    m = iters
+    adaptive = max_iters > iters and err_tol > 0.0
+    m = max_iters if adaptive else iters
     norm_w = torch.sqrt(torch.sum(W * W, dim=1))
     V = torch.zeros((k, m, sz), dtype=dtype, device=dev)
     V[:, 0] = W / torch.clamp(norm_w, min=1e-30)[:, None]
@@ -73,7 +78,11 @@ def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
     betas = torch.zeros((k, m), dtype=dtype, device=dev)
     v_prev = torch.zeros((k, sz), dtype=dtype, device=dev)
     beta_prev = torch.zeros((k,), dtype=dtype, device=dev)
-    for i in range(m):
+    i = 0
+    while i < iters or (
+            adaptive and i < m
+            and torch.max(_trunc_err(alphas.cpu(), betas.cpu(), i, m))
+            > err_tol):
         v = V[:, i].clone()
         av = matvec(v)
         alpha = torch.einsum("ks,ks->k", v, av)
@@ -88,12 +97,16 @@ def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
         alphas[:, i] = alpha
         betas[:, i] = beta
         v_prev, beta_prev = v, beta
+        i += 1
     a_h, b_h = alphas.cpu(), betas.cpu()
-    y = _y_coeffs(a_h, b_h, m, m).to(dev)
+    y = _y_coeffs(a_h, b_h, i, m).to(dev)
     out = norm_w[:, None] * torch.einsum("km,kms->ks", y, V)
-    if not return_err:
-        return out
-    return out, _trunc_err(a_h, b_h, m, m).to(dev)
+    extra = ()
+    if return_err:
+        extra += (_trunc_err(a_h, b_h, i, m).to(dev),)
+    if return_iters:
+        extra += (i,)
+    return (out,) + extra if extra else out
 
 
 def make_noise_preconditioner(ref_cfg, a, eta):
@@ -115,12 +128,14 @@ def _rot_apply(rot, v, transpose=False):
 
 def m_half_w_precond(mob_apply_or_multi: Callable, positions, rot, L, L_inv,
                      W, iters: int = 10, multi: bool = False,
-                     return_err: bool = False):
+                     return_err: bool = False, max_iters: int = 0,
+                     err_tol: float = 0.0):
     """Preconditioned M^{1/2}W draws from Gaussian draws ``W``: one (B·3n,)
     draw (multi=False) or two, (2, B·3n), through the fused 2-RHS product
     (multi=True).  Returns (N, 3), or a pair of (N, 3); with ``return_err``
     the last element is the max relative truncation estimate (measured in
-    the preconditioned G-space).
+    the preconditioned G-space).  ``max_iters`` / ``err_tol``: the adaptive
+    recurrence of :func:`sqrt_matvec_batched`.
 
     G·v = L⁻¹ R̃ᵀ · M · R̃ L⁻ᵀ v, noise = R̃ L · G^{1/2} W.
     """
@@ -145,13 +160,15 @@ def m_half_w_precond(mob_apply_or_multi: Callable, positions, rot, L, L_inv,
 
     def mv(vk):  # G v
         x = to_world(vk)
-        if multi:
-            mx = mob_apply_or_multi(x, positions)
-        else:
-            mx = mob_apply_or_multi(x[0], positions)[None]
+        with profiling.span("mobility"):
+            if multi:
+                mx = mob_apply_or_multi(x, positions)
+            else:
+                mx = mob_apply_or_multi(x[0], positions)[None]
         return from_world(mx)
 
-    g = sqrt_matvec_batched(mv, W, iters=iters, return_err=return_err)
+    g = sqrt_matvec_batched(mv, W, iters=iters, max_iters=max_iters,
+                            err_tol=err_tol, return_err=return_err)
     err = None
     if return_err:
         g, err = g

@@ -9,6 +9,7 @@ from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.state import BodyState
+from rigid_body_light_tpu_torch.utils import profiling
 
 
 def _displaced_positions(geom, state: BodyState, dU):
@@ -36,4 +37,5 @@ def m_rfd(geom: kin.RefGeometry, state: BodyState,
     r_p = _displaced_positions(geom, state, dU).reshape(-1, 3)
     r_m = _displaced_positions(geom, state, -dU).reshape(-1, 3)
     w_flat = w.reshape(-1, 3)
-    return (mob_apply(w_flat, r_p) - mob_apply(w_flat, r_m)) / delta
+    with profiling.span("mobility"):
+        return (mob_apply(w_flat, r_p) - mob_apply(w_flat, r_m)) / delta

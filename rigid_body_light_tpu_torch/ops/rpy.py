@@ -241,3 +241,44 @@ def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR):
     M = M + keep.logical_not()[:, :, None, None] * self_blocks[:, None, :, :]
     M = M * (1.0 / (8.0 * math.pi * eta * a))
     return M.permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
+
+
+def cross_mobility_blocks(ri, rj, a=1.0, eta=1.0, wall=False,
+                          h_floor=WALL_H_FLOOR, radii_i=None, radii_j=None):
+    """Pair mobility blocks between two position sets, (..., P, Q, 3, 3).
+
+    The physics and scale of :func:`mobility_matrix` (free-space RPY +
+    Swan–Brady wall correction, 1/(8πηa)) for cross pairs of ``ri``
+    (..., P, 3) and ``rj`` (..., Q, 3): no self branch (a coincident pair
+    gets the r → 0 overlap limit) and no damping.  The RAS preconditioner's
+    halo coupling blocks (:func:`.saddle.build_pc_ras`).  Per-blob radii
+    raise: the polydisperse form comes with ROADMAP.md queue 1, item 12.
+    """
+    if radii_i is not None or radii_j is not None:
+        raise NotImplementedError(
+            "per-blob radii are not in the port's cross_mobility_blocks yet "
+            "(ROADMAP.md queue 1, item 12 (polydisperse))")
+    dtype, dev = ri.dtype, ri.device
+    inv_a = 1.0 / a
+    d = (ri[..., :, None, :] - rj[..., None, :, :]) * inv_a     # (..., P, Q, 3)
+    alpha, beta = _free_coeffs(torch.sum(d * d, dim=-1))
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    M = (alpha[..., None, None] * eye3
+         + beta[..., None, None] * d[..., :, None] * d[..., None, :])
+    if wall:
+        zi = ri[..., :, None, 2] * inv_a
+        zj = rj[..., None, :, 2] * inv_a
+        if h_floor > 0:
+            zi = torch.clamp(zi, min=h_floor)
+            zj = torch.clamp(zj, min=h_floor)
+        zj = zj.expand(d.shape[:-1])
+        d_img = torch.cat([d[..., :2], (zi + zj)[..., None]], dim=-1)
+        f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj)
+        e = d_img * invR[..., None]
+        zhat = eye3[2]
+        M = (M + f1[..., None, None] * eye3
+             + f2[..., None, None] * e[..., :, None] * e[..., None, :]
+             + f3[..., None, None] * e[..., :, None] * zhat
+             + f4[..., None, None] * zhat[:, None] * e[..., None, :]
+             + f5[..., None, None] * zhat[:, None] * zhat[None, :])
+    return M * (1.0 / (8.0 * math.pi * eta * a))

@@ -7,8 +7,9 @@ Kernels (``csrc/rpy_pair_sweep.cu``, built for sm_90a at first use by
 
   K1 ``pair_sweep_sym``      replaces ``rpy_pallas._kernel_sym``: symmetric
                              unordered-pair sweep over 128 × 128 work items
-                             of the upper triangle
-                             (:func:`.tiles.upper_tile_items`), 1 or 2 RHS.
+                             of the upper triangle, a block walking one
+                             pair of tile groups (:func:`.tiles.group_items`)
+                             with O(n) partials, 1 or 2 RHS.
   K2 ``pair_sweep_ordered``  replaces ``rpy_pallas._kernel``: ordered slab
                              with global row/column offsets, 1 or 2 RHS, in
                              blocks of 64 rows × 256 columns
@@ -40,7 +41,8 @@ import math
 
 import torch
 
-from rigid_body_light_tpu_torch.ops import cuda_build, rpy
+from rigid_body_light_tpu_torch.ops import cuda_build, rpy, tiles
+from rigid_body_light_tpu_torch.utils import profiling
 
 # K1's work-item edge and K2's rows and columns a block; build() checks
 # them against the kernels'
@@ -88,8 +90,8 @@ def build():
         return _lib
     lib = cuda_build.load("rpy_pair_sweep")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    shapes = {"rpy_sym_tile": TILE, "rpy_ordered_rows": ORD_ROWS,
-              "rpy_ordered_chunk": ORD_CHUNK}
+    shapes = {"rpy_sym_tile": TILE, "rpy_sym_max_groups": tiles.MAX_GROUPS,
+              "rpy_ordered_rows": ORD_ROWS, "rpy_ordered_chunk": ORD_CHUNK}
     for name, want in shapes.items():
         fn = getattr(lib, name)
         fn.restype = i
@@ -120,13 +122,13 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float):
     cuda_build.check_tensor(Fk, "F", (k, n, 3))
     lib = build()
     dev = r_over_a.device
-    T = -(-n // TILE)
-    # per-item partials: 1.97 GB at 102,480 blobs and 2 RHS
-    row_part = torch.empty((T * (T + 1) // 2, 3 * k, TILE),
+    # a row and a column partial a tile of each unit's groups, O(n): 2.63 GB
+    # at 409,600 blobs and 2 RHS
+    row_part = torch.empty(tiles.partial_shape(n, k, TILE),
                            dtype=torch.float32, device=dev)
     col_part = torch.empty_like(row_part)
     out = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span("pair_sweep_sym"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_sym(
             r_over_a.data_ptr(), Fk.data_ptr(), n, k, int(bool(wall)),
@@ -155,7 +157,7 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     part = torch.empty((ordered_grid(n_rows, n_cols)[1], k, n_rows, 3),
                        dtype=torch.float32, device=dev)
     out = torch.empty((k, n_rows, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), profiling.span("pair_sweep_ordered"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_ordered(
             r_rows_over_a.data_ptr(), n_rows, int(row_offset),

@@ -5,8 +5,11 @@ main-path subset of ``rigid_body_light_tpu/ops/saddle.py``.
     [ Kᵀ   0 ] [U] = [−F  ]
 
 The preconditioner approximates M⁻¹ by a per-blob diagonal (``diag``), a
-per-body block inverse (``block``) or the rotation-equivariant free-space
-body-frame inverse (``block_free``), forms Ñ⁻¹ = Kᵀ M̃⁻¹ K per body, then
+per-body block inverse (``block``), the rotation-equivariant free-space
+body-frame inverse (``block_free``), or that inverse coupled to each
+body's halo of nearby blobs of other bodies by a restricted additive
+Schwarz split (``ras``, :func:`build_pc_ras`), forms Ñ⁻¹ = Kᵀ M̃⁻¹ K
+(per body; coupled across bodies for ``ras``), then
 
     U = Ñ (−F − Kᵀ M̃⁻¹ slip),   λ = m_scale · M̃⁻¹ (slip + K U).
 """
@@ -27,6 +30,7 @@ from rigid_body_light_tpu_torch.ops import quaternion as quat
 from rigid_body_light_tpu_torch.ops import rpy
 from rigid_body_light_tpu_torch.ops import rpy_cuda
 from rigid_body_light_tpu_torch.state import BodyState
+from rigid_body_light_tpu_torch.utils import profiling
 
 
 class GeometryOps(NamedTuple):
@@ -190,7 +194,8 @@ def hoist_positions(mob, r):
     prep = getattr(mob, "prepare", None)
     if prep is None:
         return mob
-    ctx = prep(r)
+    with profiling.span("far_setup"):
+        ctx = prep(r)
 
     def bound(F, _r_ignored, ctx2=None):
         return mob(F, _r_ignored, ctx if ctx2 is None else ctx2)
@@ -215,7 +220,8 @@ def pin_geometry(mob, r):
     gp = getattr(mob, "prepare_geometry", None)
     if gp is None:
         return mob
-    geo = gp(r)
+    with profiling.span("lattice_build"):
+        geo = gp(r)
     base_prep = mob.prepare
 
     def pinned(F, r2, ctx=None):
@@ -234,7 +240,8 @@ def apply_saddle(lam, U, ops: GeometryOps, cfg: SimulationConfig,
         mob_apply = mobility_apply_fn(cfg)
     B, n, _ = ops.offsets.shape
     lam_b = lam.reshape(B, n, 3)
-    slip = mob_apply(lam.reshape(-1, 3), ops.flat_positions)
+    with profiling.span("mobility"):
+        slip = mob_apply(lam.reshape(-1, 3), ops.flat_positions)
     slip = slip.reshape(B, n, 3) - kin.K_dot(U, ops.offsets)
     F = kin.KT_dot(lam_b, ops.offsets)
     return slip.reshape(-1, 3), F
@@ -246,8 +253,14 @@ class PCData(NamedTuple):
     inv_m_diag: (N, 3, 3) per-blob inverse self mobilities (diag) or None.
     inv_m_block: (B, 3n, 3n) per-body inverse mobility blocks (block) or None.
     n_mat: (B, 6, 6) Ñ⁻¹ = Kᵀ M̃⁻¹ K blocks, solved per application.
-    minv_ref / n_ref: body-frame constants of ``block_free``: the free-space
-      per-body mobility inverse (3n, 3n) and N̂ = (K̂ᵀ M̂⁻¹ K̂)⁻¹ (6, 6).
+    minv_ref / n_ref: body-frame constants of ``block_free`` (and the static
+      tier of ``ras``): the free-space per-body mobility inverse (3n, 3n)
+      and N̂ = (K̂ᵀ M̂⁻¹ K̂)⁻¹ (6, 6).
+    halo_idx / halo_w / halo_sinv / n_full: the RAS halo coupling, built
+      per solve by :func:`build_pc_ras` (None otherwise): (B, H) global
+      blob ids of each body's halo, W = A⁻¹C (B, 3n, 3H), the Schur inverse
+      (D − CᵀA⁻¹C)⁻¹ (B, 3H, 3H) and the consistent coupled Ñ =
+      (Kᵀ M̃⁻¹ K)⁻¹ (6B, 6B).
     """
 
     inv_m_diag: Optional[torch.Tensor]
@@ -255,6 +268,10 @@ class PCData(NamedTuple):
     n_mat: Optional[torch.Tensor]
     minv_ref: Optional[torch.Tensor] = None
     n_ref: Optional[torch.Tensor] = None
+    halo_idx: Optional[torch.Tensor] = None
+    halo_w: Optional[torch.Tensor] = None
+    halo_sinv: Optional[torch.Tensor] = None
+    n_full: Optional[torch.Tensor] = None
 
 
 # floor (relative to the free 4/3 self mobility) on the diag PC's self blocks
@@ -264,10 +281,12 @@ _PC_SELF_FLOOR = 0.05
 def build_pc(ops: GeometryOps, cfg: SimulationConfig) -> PCData:
     B, n, _ = ops.offsets.shape
     mode = cfg.pc_mode or ("block" if cfg.block_diag_pc else "diag")
-    if mode not in ("diag", "block", "block_free"):
-        raise ValueError(f"unknown pc_mode {mode!r}; use diag, block or "
-                         "block_free")
-    if mode == "block_free":
+    if mode not in ("diag", "block", "block_free", "ras"):
+        raise ValueError(f"unknown pc_mode {mode!r}; use diag, block, "
+                         "block_free or ras")
+    if mode in ("block_free", "ras"):
+        # ras: this is its static tier; solve_saddle attaches the halo
+        # coupling at each solve's geometry (build_pc_ras)
         # body-frame constants, recovered from body 0's rotation
         ref = torch.einsum("ji,kj->ki", ops.rot[0], ops.offsets[0])
         m_ref = rpy.mobility_matrix(ref, cfg.a, cfg.eta, wall=False)
@@ -295,9 +314,175 @@ def build_pc(ops: GeometryOps, cfg: SimulationConfig) -> PCData:
                   inv_m_block=None, n_mat=ninv)
 
 
+def _ns_inverse(S, iters: int):
+    """Batched Newton–Schulz inverse X_{k+1} = X_k(2I − S·X_k) from the
+    Pan–Reif start X₀ = Sᵀ/(‖S‖₁‖S‖∞): matmuls only, at full float32 (the
+    package pins TF32 off), preconditioner-grade after ``iters`` steps."""
+    eye = torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+    n1 = torch.amax(torch.sum(torch.abs(S), dim=-2), dim=-1)
+    ninf = torch.amax(torch.sum(torch.abs(S), dim=-1), dim=-1)
+    X = S.transpose(-1, -2) / (n1 * ninf)[..., None, None]
+    for _ in range(iters):
+        X = X @ (2.0 * eye - S @ X)
+    return X
+
+
+# Newton–Schulz steps of the halo Schur inverses (B, 3H, 3H) and of the
+# coupled body matrix (6B, 6B): the JAX package's counts, which reproduced
+# 30 / 40 steps' iteration counts on the settled checkpoint
+_NS_ITERS_S = 14
+_NS_ITERS_N = 18
+# the consistent Ñ is built by one batched apply to all 6B K columns while
+# they take at most this many bytes, else body by body
+_RAS_BATCH_BYTES = 256 * 2**20
+
+
+def _ras_core_apply(minv_ref, rot, v):
+    """Static body-frame core A⁻¹·v = R̃ M̂⁻¹ R̃ᵀ v; v (..., B, n, 3)."""
+    B, n = v.shape[-3], v.shape[-2]
+    lead = v.shape[:-3]
+    v_body = torch.einsum("bji,...bnj->...bni", rot, v).reshape(
+        *lead, B, 3 * n)
+    w = torch.einsum("pq,...bq->...bp", minv_ref, v_body).reshape(
+        *lead, B, n, 3)
+    return torch.einsum("bij,...bnj->...bni", rot, w)
+
+
+def _ras_apply(v, minv_ref, rot, halo_idx, W, S_inv):
+    """RAS M̃⁻¹·v: per body, the Woodbury solve of its cluster [[A, C],
+    [Cᵀ, D]] (own blobs and halo), own rows kept.  v (..., N, 3) →
+    (..., N, 3)."""
+    B, H = halo_idx.shape
+    N = v.shape[-2]
+    n = N // B
+    lead = v.shape[:-2]
+    v1 = v.reshape(*lead, B, n, 3)
+    y_core = _ras_core_apply(minv_ref, rot, v1)            # A⁻¹ v1
+    v2 = v[..., halo_idx.reshape(-1), :].reshape(*lead, B, 3 * H)
+    v1f = v1.reshape(*lead, B, 3 * n)
+    t = v2 - torch.einsum("bph,...bp->...bh", W, v1f)     # v2 − Cᵀ A⁻¹ v1
+    y2 = torch.einsum("bhg,...bg->...bh", S_inv, t)        # Schur solve
+    y = y_core.reshape(*lead, B, 3 * n) - torch.einsum(
+        "bph,...bh->...bp", W, y2)
+    return y.reshape(*lead, N, 3)
+
+
+def _nearest(d, k):
+    """Indices of the k smallest entries of each row of d, ascending, ties
+    to the lower index (the order of ``lax.top_k`` on −d, which the JAX
+    package selects halos with; ``torch.topk`` promises no tie order)."""
+    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+
+
+def build_pc_ras(ops: GeometryOps, cfg: SimulationConfig,
+                 static_pc: PCData = None) -> PCData:
+    """Attach the configuration-dependent RAS halo coupling to the static
+    ``block_free`` core — the settled-suspension preconditioner (the JAX
+    ``build_pc_ras``, single device).
+
+    Per body, a cluster of its own blobs and the ≤ H = ``pc_halo_max``
+    nearest other-body blobs within ``pc_halo``·a: the exact damped wall
+    mobility on the cluster, split as a Woodbury solve around the static
+    body core A (W = A⁻¹C and the Schur inverse (D − CᵀW)⁻¹, Newton–Schulz),
+    own rows kept; Ñ is the consistent coupled (Kᵀ M̃⁻¹ K)⁻¹.  Returns the
+    static tier alone for one body or ``pc_halo_max`` = 0.
+    """
+    B, n, _ = ops.offsets.shape
+    if static_pc is None or static_pc.minv_ref is None:
+        static_pc = build_pc(ops, cfg.replace(pc_mode="block_free"))
+    H = min(cfg.pc_halo_max, (B - 1) * n)
+    if H <= 0 or B == 1:
+        return static_pc
+    pos = ops.flat_positions                               # (N, 3)
+    N = B * n
+    dtype, dev = pos.dtype, pos.device
+
+    # halo selection: the 2H other-body blobs nearest the body's tracking
+    # point, then the H of them nearest any of its blobs, cut off at
+    # pc_halo·a
+    X = ops.positions[:, 0, :] - ops.offsets[:, 0, :]      # (B, 3)
+    body_of = torch.arange(B, device=dev).repeat_interleave(n)
+    d_c = torch.linalg.norm(pos[None, :, :] - X[:, None, :], dim=-1)
+    d_c = torch.where(body_of[None, :] == torch.arange(B, device=dev)[:, None],
+                      torch.full_like(d_c, float("inf")), d_c)   # (B, N)
+    K2 = min(2 * H, (B - 1) * n)
+    cand = _nearest(d_c, K2)                               # (B, K2)
+    cand_pos = pos[cand.reshape(-1)].reshape(B, K2, 3)
+    d_exact = torch.amin(torch.linalg.norm(
+        ops.positions[:, :, None, :] - cand_pos[:, None, :, :], dim=-1),
+        dim=1)                                             # (B, K2)
+    sel = _nearest(d_exact, H)
+    halo_idx = torch.gather(cand, 1, sel)                  # (B, H)
+    mask = torch.gather(d_exact, 1, sel) < cfg.pc_halo * cfg.a
+    halo_pos = pos[halo_idx.reshape(-1)].reshape(B, H, 3)
+
+    # coupling C (B, 3n, 3H) and halo block D (B, 3H, 3H): the operator's
+    # damped wall pair blocks; masked slots give zero coupling, so an empty
+    # halo reduces the PC to block_free exactly
+    kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, h_floor=cfg.wall_h_floor)
+    Cb = rpy.cross_mobility_blocks(ops.positions, halo_pos, **kw)
+    Db = rpy.cross_mobility_blocks(halo_pos, halo_pos, **kw)
+    if cfg.wall:
+        b_all = rpy.damping_factors(pos, cfg.a)
+        b_body = b_all.reshape(B, n)
+        b_halo = b_all[halo_idx.reshape(-1)].reshape(B, H)
+        Cb = Cb * (b_body[:, :, None] * b_halo[:, None, :])[..., None, None]
+        Db = Db * (b_halo[:, :, None] * b_halo[:, None, :])[..., None, None]
+    mf = mask.to(dtype)
+    Cb = Cb * mf[:, None, :, None, None]
+    Db = Db * (mf[:, :, None] * mf[:, None, :])[..., None, None]
+    # halo self blocks (wall self term and damping² included); ghost slots
+    # get an identity diagonal so the Schur block stays invertible
+    selfb = rpy.self_mobility_blocks(
+        halo_pos.reshape(-1, 3), cfg.a, cfg.eta, cfg.wall,
+        h_floor=cfg.wall_h_floor).reshape(B, H, 3, 3)
+    if cfg.wall:
+        selfb = selfb * (b_halo * b_halo)[:, :, None, None]
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    hh = torch.arange(H, device=dev)
+    Db[:, hh, hh] = torch.where(mask[:, :, None, None], selfb, eye3)
+    C = Cb.permute(0, 1, 3, 2, 4).reshape(B, 3 * n, 3 * H)
+    D = Db.permute(0, 1, 3, 2, 4).reshape(B, 3 * H, 3 * H)
+
+    # Woodbury factors
+    minv_ref, rot = static_pc.minv_ref, ops.rot
+    W = _ras_core_apply(
+        minv_ref, rot, C.reshape(B, n, 3, 3 * H).permute(3, 0, 1, 2)
+    ).permute(1, 2, 3, 0).reshape(B, 3 * n, 3 * H)
+    S_inv = _ns_inverse(D - torch.einsum("bph,bpg->bhg", C, W), _NS_ITERS_S)
+
+    # consistent coupled Ñ = (Kᵀ M̃⁻¹ K)⁻¹ from the RAS inverse of all 6B
+    # K columns: [p, q] = K_pᵀ M̃⁻¹ K_q
+    Kb = body_K_blocks(ops.offsets)                        # (B, n, 3, 6)
+
+    def rows(cols):        # (c, N, 3) columns → (c, B, 6) = Kᵀ M̃⁻¹ cols
+        y = _ras_apply(cols, minv_ref, rot, halo_idx, W, S_inv)
+        return torch.einsum("bnif,cbni->cbf", Kb, y.reshape(-1, B, n, 3))
+
+    if 6 * B * N * 3 * pos.element_size() <= _RAS_BATCH_BYTES:
+        cols = torch.zeros((B, 6, B, n, 3), dtype=dtype, device=dev)
+        idx = torch.arange(B, device=dev)
+        cols[idx, :, idx] = Kb.permute(0, 3, 1, 2)
+        ninv = rows(cols.reshape(6 * B, N, 3))             # (6B, B, 6)
+    else:
+        parts = []
+        for j in range(B):
+            cols = torch.zeros((6, N, 3), dtype=dtype, device=dev)
+            cols[:, j * n:(j + 1) * n] = Kb[j].permute(2, 0, 1)
+            parts.append(rows(cols))
+        ninv = torch.stack(parts)                          # (B, 6, B, 6)
+    ninv = ninv.reshape(6 * B, 6 * B).T
+    return static_pc._replace(halo_idx=halo_idx, halo_w=W, halo_sinv=S_inv,
+                              n_full=_ns_inverse(ninv, _NS_ITERS_N))
+
+
 def _inv_m_apply(pc: PCData, v, ops: GeometryOps):
     """M̃⁻¹ · v for any PC flavor; v and the result (B, n, 3)."""
     B, n, _ = v.shape
+    if pc.halo_w is not None:
+        return _ras_apply(v.reshape(B * n, 3), pc.minv_ref, ops.rot,
+                          pc.halo_idx, pc.halo_w,
+                          pc.halo_sinv).reshape(B, n, 3)
     if pc.minv_ref is not None:
         v_body = torch.einsum("bji,bnj->bni", ops.rot, v).reshape(B, 3 * n)
         w = torch.einsum("pq,bq->bp", pc.minv_ref, v_body).reshape(B, n, 3)
@@ -310,7 +495,10 @@ def _inv_m_apply(pc: PCData, v, ops: GeometryOps):
 
 
 def _n_solve(pc: PCData, rhs, ops: GeometryOps):
-    """Solve Ñ⁻¹ U = rhs per body; rhs (B, 6)."""
+    """Solve Ñ⁻¹ U = rhs per body; rhs (B, 6).  RAS: one dense (6B)²
+    matvec with the coupled Ñ."""
+    if pc.n_full is not None:
+        return (pc.n_full @ rhs.reshape(-1)).reshape(-1, 6)
     if pc.n_ref is not None:
         f_b = torch.einsum("bji,bj->bi", ops.rot, rhs[:, 0:3])
         t_b = torch.einsum("bji,bj->bi", ops.rot, rhs[:, 3:6])

@@ -10,6 +10,7 @@ import torch
 from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
+from rigid_body_light_tpu_torch.utils import profiling
 
 
 class SolveResult(NamedTuple):
@@ -26,6 +27,8 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
                  mob_apply: Callable = None,
                  true_residual: bool = False) -> SolveResult:
     """Solve [M −K; Kᵀ 0][λ; U] = [slip; F] with left-preconditioned GMRES.
+    With ``cfg.pc_mode == "ras"`` and ``pc`` without its halo tier, the
+    halo coupling is built here at ``ops``' geometry.
 
     slip: (N, 3) prescribed blob slip; force: (B, 6) applied force/torque
     (with slip=0 the solve returns U = (KᵀM⁻¹K)⁻¹·F).  x0: optional (λ, U)
@@ -37,8 +40,13 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     # far-field operators: build the position setup once here, not once
     # per GMRES iteration
     mob_apply = saddle_mod.hoist_positions(mob_apply, ops.flat_positions)
-    if pc is None:
-        pc = saddle_mod.build_pc(ops, cfg)
+    with profiling.span("pc_build"):
+        if pc is None:
+            pc = saddle_mod.build_pc(ops, cfg)
+        if cfg.pc_mode == "ras" and pc.halo_w is None:
+            # the RAS halo coupling at this solve's geometry, on the static
+            # block_free tier (run_bd builds that once, a lone call above)
+            pc = saddle_mod.build_pc_ras(ops, cfg, static_pc=pc)
     dtype = ops.positions.dtype
     B, n, _ = ops.offsets.shape
     nb = 3 * B * n
@@ -46,8 +54,9 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     force = force.to(dtype).reshape(-1, 6)
 
     def pc_apply_flat(s, f):
-        lam, U = saddle_mod.apply_pc(pc, s, f, ops, cfg)
-        return torch.cat([lam.reshape(-1), U.reshape(-1)])
+        with profiling.span("pc_apply"):
+            lam, U = saddle_mod.apply_pc(pc, s, f, ops, cfg)
+            return torch.cat([lam.reshape(-1), U.reshape(-1)])
 
     def matvec(x):
         s, f = saddle_mod.apply_saddle(x[:nb].reshape(-1, 3),
@@ -59,9 +68,10 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     if x0 is not None:
         x0 = torch.cat([x0[0].reshape(-1), x0[1].reshape(-1)])
     max_restarts = max(1, -(-cfg.gmres_maxiter // cfg.gmres_restart))
-    result = gmres_mod.gmres(matvec, b, x0=x0, tol=cfg.gmres_tol,
-                             restart=cfg.gmres_restart,
-                             max_restarts=max_restarts)
+    with profiling.span("gmres"):
+        result = gmres_mod.gmres(matvec, b, x0=x0, tol=cfg.gmres_tol,
+                                 restart=cfg.gmres_restart,
+                                 max_restarts=max_restarts)
     lam = result.x[:nb].reshape(-1, 3)
     U = result.x[nb:].reshape(-1, 6)
     tr = None

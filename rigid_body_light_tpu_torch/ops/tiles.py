@@ -1,6 +1,7 @@
 """Cell-snake tile order — the port of ``cell_snake_order`` from
-``rigid_body_light_tpu/ops/tiles.py`` — and the work items of the
-symmetric all-pairs sweeps.
+``rigid_body_light_tpu/ops/tiles.py`` — and the work items, blocks and
+partials of the symmetric all-pairs sweeps (K1, K4; the Python mirror of
+``csrc/tile_items.cuh``).
 
 The far field's near sweep (:mod:`rigid_body_light_tpu_torch.ops.farfield`)
 partitions pairs by cell adjacency; sorting blobs along a serpentine walk
@@ -42,3 +43,65 @@ def upper_tile_items(n, tile=128):
     T = -(-n // tile)
     diag = np.repeat(np.arange(T), 2).reshape(T, 2)
     return np.concatenate([diag, np.stack(np.triu_indices(T, 1), axis=1)])
+
+
+# groups of tiles a grouped symmetric sweep launches over, past 2·MAX_GROUPS
+# tiles (tile_items.cuh's kMaxGroups; the wrappers' build() checks it
+# against the kernels')
+MAX_GROUPS = 256
+
+
+def sweep_groups(n, tile=128, max_groups=MAX_GROUPS):
+    """How K1 and K4 cut n blobs: (T tiles, S slots a unit's partial holds,
+    G groups, U units).  Up to 2·max_groups tiles every tile is a group (G
+    = T, one item a unit); past it G = max_groups groups of consecutive
+    tiles whose sizes differ by at most one (:func:`group_start`), S =
+    ⌈T/G⌉ the largest.  A block walks one unit, a group pair (P, Q ≥ P), in
+    the order of :func:`upper_tile_items` over the G groups."""
+    T = -(-n // tile)
+    G = T if T <= 2 * max_groups else max_groups
+    S = -(-T // G) if G else 1
+    return T, S, G, G * (G + 1) // 2
+
+
+def group_start(p, T, G):
+    """First tile of group p of T tiles in G groups (p = G: T)."""
+    return p * T // G
+
+
+def partial_shape(n, k, tile=128, max_groups=MAX_GROUPS):
+    """Shape of each of K1's and K4's two partials (row and column) for n
+    blobs and k RHS: S slots a unit, (U, S, 3k, tile) floats — O(n), below
+    2·(max_groups + 1)·(n + tile)·3k floats for both."""
+    _, S, _, U = sweep_groups(n, tile, max_groups)
+    return (U, S, 3 * k, tile)
+
+
+def group_items(n, tile=128, max_groups=MAX_GROUPS):
+    """Every block's walk in launch order, as (unit, I, J) rows: unit u =
+    (P, Q) takes I over group P and J over group Q, J ≥ I when P = Q, row by
+    row.  (items, 3) int64 numpy array."""
+    T, _, G, _ = sweep_groups(n, tile, max_groups)
+    out = []
+    for u, (P, Q) in enumerate(upper_tile_items(G * tile, tile)):
+        for I in range(group_start(P, T, G), group_start(P + 1, T, G)):
+            for J in range(I if P == Q else group_start(Q, T, G),
+                           group_start(Q + 1, T, G)):
+                out.append((u, I, J))
+    return np.asarray(out, np.int64).reshape(-1, 3)
+
+
+def sum_order(n, tile=128, max_groups=MAX_GROUPS):
+    """The second pass's order for tile X of group P, slot x = X −
+    group_start(P): [(unit, x) of the row partial, Q = P..G−1] and [(unit,
+    x) of the column partial, P' = 0..P] — one list pair a tile."""
+    T, _, G, _ = sweep_groups(n, tile, max_groups)
+    units = {tuple(p): u for u, p in
+             enumerate(upper_tile_items(G * tile, tile).tolist())}
+    order = []
+    for X in range(T):
+        P = ((X + 1) * G - 1) // T        # tile_items.cuh's group_of
+        x = X - group_start(P, T, G)
+        order.append(([(units[(P, Q)], x) for Q in range(P, G)],
+                      [(units[(P2, P)], x) for P2 in range(P + 1)]))
+    return order

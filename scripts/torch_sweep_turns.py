@@ -16,7 +16,11 @@ of the main paths (``chip_smoke``'s slices):
   K1 at 1 and 2 RHS (2 RHS where the checkout's K1 takes it) and K2 at 2
   RHS at the dense slice's 10,272 positions, wall;
   K3 at 1 and 2 RHS at the far-field slice's 102,480 positions;
-  K4 at 1 and 2 RHS at the periodic slice's 10,272 positions.
+  K4 at 1 and 2 RHS at the periodic slice's 10,272 positions;
+  K1 beyond the slices, up to where its blocks walk groups of tiles, at
+  the sizes of SCALE_K1 (clouds at the dense slice's blob density, as
+  chip_smoke's phase 16), and K4 at 1 and 2 RHS at the sizes of
+  K4_SCALE (uniform clouds in the periodic box).
 
 Every process saves its outputs under OUT_DIR; the last lines compare
 each checkout's outputs with the first's (bitwise, and max|ΔU|/max|U|)
@@ -32,6 +36,30 @@ import numpy as np
 
 SEED = 0
 REPS = 20
+# (blobs, RHS) of K1 beyond the slices: sizes where the earlier grouping
+# (tile_items.cuh) stepped its group size (129 and 161 tiles), the first
+# sizes past 256 and 512 tiles, the far-field slice's size and the JAX
+# package's measured size; calls timed at each (the largest take ~0.5 s a
+# call on an H100)
+SCALE_K1 = [(16_512, 1), (20_544, 1), (33_000, 1), (50_000, 1), (66_000, 1),
+            (66_000, 2), (102_480, 1), (102_480, 2), (409_600, 1),
+            (409_600, 2)]
+SCALE_REPS = {16_512: REPS, 20_544: REPS, 33_000: 10, 50_000: 10,
+              66_000: 10, 102_480: 5, 409_600: 3}
+# K4 beyond the periodic slice, uniform clouds in its box, 1 and 2 RHS
+K4_SCALE = {16_512: REPS, 33_000: 10, 66_000: 5}
+
+
+def dense_cloud(torch, r_slice, n, seed, dev):
+    """n positions at the blob density of ``r_slice`` (its bounding box),
+    uniform in a square slab of its heights."""
+    lo, hi = r_slice.min(dim=0).values, r_slice.max(dim=0).values
+    dens = r_slice.shape[0] / torch.prod(hi - lo).item()
+    z_lo, z_hi = lo[2].item(), hi[2].item()
+    side = (n / (dens * (z_hi - z_lo))) ** 0.5
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform([0, 0, z_lo], [side, side, z_hi],
+                                        (n, 3))).to(dev).float()
 
 
 def child(out_path):
@@ -95,6 +123,31 @@ def child(out_path):
         Fk = F_e[:k].contiguous()
         timed(f"K4 {k} RHS", lambda: ewald_cuda.real_sweep_kernel(r_e, Fk,
                                                                   par))
+    for n_s, k in SCALE_K1:
+        r_s = dense_cloud(torch, r, n_s, SEED + n_s, dev).contiguous()
+        F_s = torch.from_numpy(np.random.default_rng(SEED + n_s + k)
+                               .standard_normal((k, n_s, 3))).to(dev).float()
+        U = rpy_cuda.pair_sweep_sym(r_s, F_s, True, h)
+        outs[f"K1 {k} RHS n={n_s}"] = U.cpu().numpy()
+        del U
+        times[f"K1 {k} RHS n={n_s}"] = cs.cuda_ms(
+            torch, lambda: rpy_cuda.pair_sweep_sym(r_s, F_s, True, h),
+            SCALE_REPS[n_s])
+        del r_s, F_s
+        torch.cuda.empty_cache()
+    for n_g, reps in K4_SCALE.items():
+        rng_g = np.random.default_rng(SEED + n_g)
+        r_g = torch.from_numpy(rng_g.uniform(0, cfg_e.box[0], (n_g, 3))).to(
+            dev).float().contiguous()
+        F_g = torch.from_numpy(rng_g.standard_normal((2, n_g, 3))).to(
+            dev).float()
+        for k in (1, 2):
+            Fk = F_g[:k].contiguous()
+            U = ewald_cuda.real_sweep_kernel(r_g, Fk, par)
+            outs[f"K4 {k} RHS n={n_g}"] = U.cpu().numpy()
+            times[f"K4 {k} RHS n={n_g}"] = cs.cuda_ms(
+                torch, lambda: ewald_cuda.real_sweep_kernel(r_g, Fk, par),
+                reps)
     np.savez(out_path, **outs)
     with open(out_path + ".json", "w") as f:
         json.dump(times, f)

@@ -469,3 +469,53 @@ def test_entry_points_default_to_the_card(dev):
     geom = kinematics.make_ref_geometry(ref)
     assert state.X.device.type == "cuda" and state.Q.device.type == "cuda"
     assert geom.ref_cfg.device.type == "cuda"
+
+
+@pytest.mark.parametrize("n", [65_664, 100_000])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k1_grouped_tiles_match_plain_and_repeat(dev, n, k):
+    """Past 65,536 blobs a K1 block walks a pair of tile groups
+    (``tiles.sweep_groups``: 513 tiles in 256 groups, one of 3; 782 tiles
+    in 256 groups, 14 of 4) into O(n) partials: against the float64 plain
+    sweep on 512 sampled rows, wall, bitwise repeatable, and the scratch
+    the wrapper allocates is ``tiles.partial_shape``'s."""
+    from rigid_body_light_tpu_torch.ops import tiles
+
+    rng = np.random.default_rng(n + k)
+    side = (n / 1.5) ** 0.5
+    r = torch.from_numpy(rng.uniform([0, 0, 0.5], [side, side, 12.0],
+                                     (n, 3))).to(dev)
+    F = torch.from_numpy(rng.standard_normal((k, n, 3))).to(dev)
+    r32, F32 = r.float().contiguous(), F.float().contiguous()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    U = rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75)
+    torch.cuda.synchronize()
+    scratch = 2 * 4 * int(np.prod(tiles.partial_shape(n, k)))
+    assert torch.cuda.max_memory_allocated(dev) - base <= (
+        scratch + 12 * k * n + 4 * 2**20)
+    rows = torch.from_numpy(np.sort(rng.choice(n, 512, replace=False))).to(dev)
+    ids = torch.arange(n, device=dev)
+    ref = rpy.pair_sum(r.float().double()[rows], rows, r32.double(), ids,
+                       F32.double(), wall=True, row_tile=64)
+    assert _rel(U[:, rows], ref) < TOL
+    assert torch.equal(U, rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k4_grouped_tiles_match_plain_and_repeat(dev, ewald_boxes, k):
+    """K4 over tile groups (65,664 blobs in the L = 14 box: 513 tiles in
+    256 groups, one of 3): against the float64 Clenshaw sweep on 256
+    sampled rows, bitwise repeatable."""
+    params = ewald_boxes[1]
+    n = 65_664
+    r, F = _periodic_cloud(dev, params.box, n, 5)
+    U = ewald_cuda.real_pair_sum(F[:k], r, params)
+    torch.cuda.synchronize()
+    rows = torch.from_numpy(np.sort(np.random.default_rng(6).choice(
+        n, 256, replace=False))).to(dev)
+    ref = ewald.real_space_block(r[rows], rows, r, torch.arange(n, device=dev),
+                                 F[:k], params, cheb=True)
+    assert _rel(U[:, rows], ref) < TOL
+    assert torch.equal(U, ewald_cuda.real_pair_sum(F[:k], r, params))

@@ -131,8 +131,8 @@ def test_config_carries_across():
 
 @pytest.mark.parametrize("kw", [
     dict(box=(10.0, 10.0)), dict(farfield_grid="auto", farfield_band_p=4),
-    dict(pc_mode="ras"),
-    dict(lanczos_max_iters=40, lanczos_err_tol=1e-3),
+    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0),
+    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0, ewald_grid_p=16),
     dict(drift_mode="em_exact"), dict(kBT=1.0, lanczos_precond=False),
 ])
 def test_config_refuses_unported_features(kw):

@@ -6,7 +6,12 @@ partial; a plain PyTorch walk of that list, written here, must give the
 plain ordered sweep ``farfield._near_sweep`` in float64.  K1 (the dense
 symmetric pair sweep) and K4 (the Ewald real-space sweep) walk the 128 ×
 128 tile pairs of ``tiles.upper_tile_items``, which must cover every
-unordered pair i < j once; a mirror of K1's per-thread loop must too.  K2
+unordered pair i < j once; a mirror of K1's per-thread loop must too.
+Past 65,536 blobs their blocks walk pairs of tile groups
+(``tiles.group_items``) into one row and one column partial a tile of the
+block's groups: the walks must cover every tile pair once, a float64
+mirror of the partials and the second pass (``tiles.sum_order``) must give
+the plain pair sum, and the partials must grow as n up to 1M blobs.  K2
 (the ordered slab) must visit every ordered pair of a slab with global
 offsets once, and no self pair.  The kernels themselves run on the card
 (``tests/test_torch_cuda.py``).
@@ -257,3 +262,115 @@ def test_k2_blocks_cover_each_ordered_pair_of_a_slab_once(
     gi = row_offset + np.arange(n_rows)
     gj = col_offset + np.arange(n_cols)
     assert (kept == (gi[:, None] != gj[None, :])).all()
+
+
+# (n, max_groups): one item a unit (G = T) up to 2·max_groups tiles, then
+# G = max_groups groups of ⌊T/G⌋ or ⌈T/G⌉ tiles (tiles.sweep_groups): 515
+# blobs in 5 tiles as 2 + 3, 1,000 in 8 as 2 + 3 + 3, 1,200 in 10 as 2 + 3
+# + 2 + 3, 2,049 in 17 as 7·2 + 3 (as 65,664 blobs in 513 tiles: 255·2 +
+# 3) and as 4 + 4 + 4 + 5
+GROUPINGS = [(1, 128), (129, 128), (515, 128), (515, 2), (1000, 3),
+             (1200, 4), (2049, 8), (2049, 4), (2049, 17)]
+# walks only (no partials): the kernels' first grouped size
+WALKS = GROUPINGS + [(65_664, tiles.MAX_GROUPS)]
+
+
+def _starts(T, G):
+    return [tiles.group_start(p, T, G) for p in range(G + 1)]
+
+
+@pytest.mark.parametrize("n, max_groups", WALKS)
+def test_group_walks_cover_each_unordered_tile_pair_once(n, max_groups):
+    """K1's and K4's blocks (one unit of group pairs each, walked row by
+    row) visit every tile pair (I, J ≥ I) exactly once, the items of a row
+    of a unit one after another, and a column slot first at its unit's
+    first row (where the kernels write it before they add to it)."""
+    T, S, G, U = tiles.sweep_groups(n, TILE, max_groups)
+    starts = _starts(T, G)
+    sizes = np.diff(starts)
+    assert G == (T if T <= 2 * max_groups else max_groups)
+    assert starts[0] == 0 and starts[-1] == T
+    assert sizes.min() >= 1 and sizes.max() == S
+    assert sizes.max() - sizes.min() <= 1
+    walk = tiles.group_items(n, TILE, max_groups)
+    pairs = [tuple(p) for p in walk[:, 1:].tolist()]
+    assert sorted(pairs) == [(I, J) for I in range(T) for J in range(I, T)]
+    units = tiles.upper_tile_items(G * TILE, TILE)
+    assert set(walk[:, 0].tolist()) == set(range(U))
+    assert (np.diff(walk[:, 0]) >= 0).all()          # launch order
+    seen_col = set()
+    for u, I, J in walk.tolist():
+        P, Q = units[u]
+        assert starts[P] <= I < starts[P + 1]
+        assert starts[Q] <= J < starts[Q + 1]
+        if (u, J) not in seen_col:
+            assert I == starts[P]
+            seen_col.add((u, J))
+    # row by row: I never falls within a unit
+    assert ((np.diff(walk[:, 0]) > 0) | (np.diff(walk[:, 1]) >= 0)).all()
+
+
+@pytest.mark.parametrize("n, max_groups", GROUPINGS)
+@pytest.mark.parametrize("wall", [True, False])
+def test_group_partials_and_second_pass_give_the_pair_sum(n, max_groups,
+                                                          wall):
+    """A float64 mirror of K1's blocks and second pass: each item adds its
+    M_IJ·F_J into its unit's row slot of tile I and M_IJᵀ·F_I into its
+    column slot of tile J (diagonal items: j > i only); the second pass
+    adds a tile's slots in ``tiles.sum_order``.  The result is the plain
+    pair sum, and every slot a tile reads was written."""
+    rng = np.random.default_rng(n + max_groups)
+    r = torch.from_numpy(rng.uniform([-6, -6, 0.8], [6, 6, 6], (n, 3)))
+    F = torch.from_numpy(rng.standard_normal((n, 3)))
+    M = rpy.mobility_matrix(r, 1.0, 1.0, wall, h_floor=H_FLOOR).reshape(
+        n, 3, n, 3) * (8.0 * np.pi)
+    T, S, G, U = tiles.sweep_groups(n, TILE, max_groups)
+    starts = _starts(T, G)
+    units = tiles.upper_tile_items(G * TILE, TILE)
+    row_slot, col_slot = {}, {}
+    for u, I, J in tiles.group_items(n, TILE, max_groups).tolist():
+        i = torch.arange(I * TILE, min(I * TILE + TILE, n))
+        j = torch.arange(J * TILE, min(J * TILE + TILE, n))
+        keep = (i[:, None] < j[None, :]).double()
+        Mb = M[i][:, :, j] * keep[:, None, :, None]          # (i, 3, j, 3)
+        P, Q = units[u]
+        rk, ck = (u, I - starts[P]), (u, J - starts[Q])
+        assert rk[1] < S and ck[1] < S
+        row_slot[rk] = row_slot.get(rk, 0) + torch.einsum(
+            "iajb,jb->ia", Mb, F[j])
+        col_slot[ck] = col_slot.get(ck, 0) + torch.einsum(
+            "iajb,ia->jb", Mb, F[i])
+    out = torch.zeros((n, 3), dtype=torch.float64)
+    for X, (rows, cols) in enumerate(tiles.sum_order(n, TILE, max_groups)):
+        x = slice(X * TILE, min(X * TILE + TILE, n))
+        for key in rows:
+            out[x] += row_slot[key]
+        for key in cols:
+            out[x] += col_slot[key]
+    ids = torch.arange(n)
+    ref = rpy.pair_sum(r, ids, r, ids, F, wall=wall, h_floor=H_FLOOR)
+    assert (out - ref).abs().max() <= WALK_TOL * ref.abs().max()
+
+
+def test_sweep_scratch_grows_as_n():
+    """K1's and K4's partials, sized on the host without allocating: at
+    most 2·(MAX_GROUPS + 1)·3k·(n + 128) floats for every n up to 1M; the
+    old T(T+1)·128·3k while a unit is one item (up to 2·MAX_GROUPS tiles),
+    less past it; 2.63 GB at 409,600 blobs and 2 RHS, the JAX package's
+    measured size (one partial an item: 31.5 GB)."""
+    ns = np.unique(np.concatenate([
+        np.geomspace(1, 1_000_000, 600).astype(int),
+        [127, 128, 129, 10_272, 16_384, 16_385, 65_536, 65_537, 65_664,
+         102_480, 409_600, 1_000_000]]))
+    c = 2 * (tiles.MAX_GROUPS + 1)
+    for n in ns.tolist():
+        T = -(-n // TILE)
+        for k in (1, 2):
+            floats = 2 * int(np.prod(tiles.partial_shape(n, k, TILE)))
+            assert floats <= c * 3 * k * (n + TILE), (n, k, floats)
+            old = T * (T + 1) * TILE * 3 * k
+            if T <= 2 * tiles.MAX_GROUPS:
+                assert floats == old
+            else:
+                assert floats < old
+    assert 2 * 4 * int(np.prod(tiles.partial_shape(409_600, 2))) < 2.7e9
