@@ -90,15 +90,32 @@ Phases (each raises on failure; any failure exits nonzero):
  19. one settled step through the kernels against one through the plain
      float32 sweep, from identical draws;
  20. the step timer (utils/profiling.StepTimer) on the dense, far-field,
-     periodic and settled slices: each part's own ms a step, the GMRES
-     loop's among them; and the dense slice's steps/s with the timer on
-     and off, in turns.
+     periodic, settled and film (image_shells 2) slices: each part's own
+     ms a step, the GMRES loop's among them; and the dense slice's steps/s
+     with the timer on and off, in turns;
+ 21. K1 and K2's box forms (the pseudo-2D box's minimum-image wrap, and
+     the exact image sum at image_shells 2) against the float64 plain
+     sweep on the same float32 inputs, wall, 1 and 2 RHS: at the film
+     slice's 10,272 positions (blob pairs exactly on the seams), at a
+     ragged 1,000-blob cloud straddling the seams and the wall-height
+     floor, and K1 at 66,000 blobs (its grouped kernel) on 256 sampled
+     rows; two launches bitwise equal; their times at the film slice
+     against the plain float32 sweep and the (2S+1)²-scaled bound;
+ 22. the film slice: the dense slice's 16 × shell_N_642 = 10,272 blobs in
+     a (10, 10) box above the wall (examples/periodic_film.json's physics
+     and solver: kBT 0.3, gravity, wall repulsion, Yukawa pairs, 8 Lanczos
+     iterations), run_bd for 1 warm-up and 8 timed steps at image_shells 2
+     and then 0, with the launch counts read around each run;
+ 23. one image_shells 2 film step through the kernels against one through
+     the plain float32 sweep, from identical draws, at the slice's state
+     after phase 22.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
-path (K1/K2 under the RAS preconditioner); phase 15 is the probe's own
-entry point.  The kernels are built at first use from the checkout's
-sources, one nvcc per source, all started together.
+path (K1/K2 under the RAS preconditioner), phases 21-23 the film path
+(K1/K2 in the box); phase 15 is the probe's own entry point.  The kernels
+are built at first use from the checkout's sources, one nvcc per source,
+all started together.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -181,7 +198,16 @@ ST_SOLVE_TOL = 1e-5
 # gmres_tol 3e-4 (bench.py::seg_settled), 9.2 at 1e-4 (BENCH_NOTES.md:140)
 TPU_MEAN_ITERS = {"3e-4": 8.0, "1e-4": 9.2}
 # phase 20: steps a slice runs under the step timer
-SPLIT_STEPS = {"dense": 3, "far-field": 1, "periodic": 3, "settled": 3}
+SPLIT_STEPS = {"dense": 3, "far-field": 1, "periodic": 3, "settled": 3,
+               "film": 3}
+# the film slice (examples/periodic_film.json at the dense slice's size):
+# the lattice tiles a (10, 10) box exactly
+FILM_SPACING = 2.5
+FILM_WARM_STEPS = 1
+FILM_TIMED_STEPS = 8
+FILM_SHELLS = 2
+# phase 21: K1's grouped kernel in the box, on sampled rows
+FILM_GROUPED_N = 66_000
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -341,6 +367,104 @@ def settled_setup(torch, device):
         forces.gravity(np.array([0, 0, -1.0, 0, 0, 0])),
         forces.wall_repulsion(strength=4.0, debye_length=0.3, radius=1.0))
     return cfg, geom, state, force_fn
+
+
+def film_setup(torch, device, shells):
+    """The pseudo-2D film: 16 × shell_N_642 on the dense slice's 4 × 4
+    lattice (spacing 2.5, heights 2.0-2.4) in the (10, 10) box it tiles
+    exactly, above the wall; examples/periodic_film.json's
+    physics and solver: dt 0.01, kBT 0.3, float32, gravity −ẑ, wall
+    repulsion (4, 0.3), Yukawa pairs (1, 0.5, diameter 2) in the box,
+    GMRES tol 1e-4 / restart 20 / maxiter 60, 8 preconditioned Lanczos
+    iterations, block_free."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch import forces
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    params, ref = rt.load_structure(SHELL)
+    side = int(round(N_BODIES ** 0.5))
+    box = (FILM_SPACING * side, FILM_SPACING * side)
+    xs = np.array([[FILM_SPACING * (i % side), FILM_SPACING * (i // side),
+                    2.0 + 0.2 * (i % 3)] for i in range(N_BODIES)])
+    qs = np.tile([1.0, 0, 0, 0], (N_BODIES, 1))
+    cfg = rt.SimulationConfig(
+        a=params["sep"] / 2, dt=0.01, kBT=0.3, wall=True, box=box,
+        image_shells=shells, dtype=torch.float32, lanczos_iters=8,
+        lanczos_precond=True, gmres_tol=1e-4, gmres_restart=20,
+        gmres_maxiter=60, matvec_row_tile=512, pc_mode="block_free")
+    geom = kin.make_ref_geometry(ref, dtype=torch.float32, device=device)
+    state = rt.make_state(xs, qs, dtype=torch.float32, device=device)
+    force_fn = forces.sum_forces(
+        forces.gravity(np.array([0, 0, -1.0, 0, 0, 0])),
+        forces.wall_repulsion(strength=4.0, debye_length=0.3),
+        forces.pair_yukawa(1.0, 0.5, diameter=2.0, box=box))
+    return cfg, geom, state, force_fn
+
+
+def check_box_sweeps(torch, rpy, rpy_cuda, label, r32, F32, box, h,
+                     kernels=("K1", "K2"), rows=None):
+    """K1 (with the self-image diagonal) and K2 in the box against the
+    float64 plain sweep on the same float32 inputs (so both take the same
+    image of every pair, the seams included), wall, image_shells 0 and
+    FILM_SHELLS, 1 and 2 RHS, on every row or the sampled ``rows``; the
+    plain float32 sweep's error beside.  Returns {(kernel, S, k): max
+    abs err}; raises after printing if one is out of bounds."""
+    n = r32.shape[0]
+    ids = torch.arange(n, device=r32.device)
+    rows = ids if rows is None else rows
+    errs, bad = {}, []
+    for S in (0, FILM_SHELLS):
+        args = rpy_cuda.box_args(box, S)
+        for k in (1, 2):
+            Fk = F32[:k].contiguous()
+            ref = rpy.pair_sum(r32[rows].double(), rows, r32.double(), ids,
+                               Fk.double(), wall=True, row_tile=64,
+                               h_floor=h, box=box, image_shells=S)
+            scale = ref.abs().max().item()
+            plain = rpy.pair_sum(r32[rows], rows, r32, ids, Fk, wall=True,
+                                 row_tile=64, h_floor=h, box=box,
+                                 image_shells=S)
+            rel_plain = (plain.double() - ref).abs().max().item() / scale
+            del plain
+            for name in kernels:
+                if name == "K1":
+                    U = rpy_cuda.pair_sweep_sym(r32, Fk, True, h, box=args)
+                    if S:
+                        U = U + rpy.self_image_sum(r32, Fk, True, box, S,
+                                                   h_floor=h)
+                else:
+                    U = rpy_cuda.pair_sweep_ordered(r32, 0, r32, Fk, 0, True,
+                                                    h, box=args)
+                torch.cuda.synchronize()
+                U = U[:, rows]
+                err = (U.double() - ref).abs().max().item()
+                errs[name, S, k] = err
+                print(f"{name} box form {label} n={n} box={box} "
+                      f"image_shells={S} k={k}: max|dU|={err:.3e} "
+                      f"max|dU|/max|U|={err / scale:.3e} (tol {KERNEL_TOL:g});"
+                      f" the plain float32 sweep {rel_plain:.3e}")
+                if not (err <= KERNEL_TOL * scale
+                        and bool(torch.isfinite(U).all())):
+                    bad.append((name, S, k, err / scale))
+    if bad:
+        raise AssertionError(f"the box forms disagree with the plain sweep "
+                             f"on {label}: {bad}")
+    return errs
+
+
+def box_entries(film_k, film, name, key):
+    """A kernel's box-form keys of the summary line: per image_shells S its
+    time, plain time, bound and max abs error at the film slice, and its
+    launches on the film slice's run."""
+    out = {}
+    for (nm, S), v in film_k.items():
+        if nm == name:
+            out.update({f"ms_box_s{S}": v["ms"],
+                        f"plain_ms_box_s{S}": v["plain_ms"],
+                        f"bound_ms_box_s{S}": v["bound"][0],
+                        f"max_abs_err_box_s{S}": v["err"],
+                        f"launches_film_s{S}": film[S][key]})
+    return out
 
 
 def step_split(torch, profiling, label, run, steps):
@@ -1247,6 +1371,13 @@ def main():
             geom_s, cfg_s, st, k, generator=gen_s, force_fn=force_fn_s),
             SPLIT_STEPS["settled"]),
     ]
+    cfg_fm, geom_fm, state_fm, force_fn_fm = film_setup(torch, dev,
+                                                        FILM_SHELLS)
+    gen_fm = torch.Generator(device=dev).manual_seed(SEED)
+    splits.append(step_split(
+        torch, profiling, f"film (image_shells {FILM_SHELLS})",
+        lambda k: run_bd(geom_fm, cfg_fm, state_fm, k, generator=gen_fm,
+                         force_fn=force_fn_fm), SPLIT_STEPS["film"]))
     cost = {}
     for label in ("off", "on", "on", "off"):
         torch.cuda.synchronize()
@@ -1259,9 +1390,176 @@ def main():
         cost.setdefault(label, []).append(4 / (time.perf_counter() - t0))
     print(f"step timer cost, dense slice, 4 steps a run in turns (off, on, "
           f"on, off): {cost['off']} steps/s without it, {cost['on']} with it")
+
+    # ---- 21. K1 and K2's box forms vs the float64 plain sweep, their times
+    a_fm = cfg_fm.a
+    r_fm = kin.blob_positions(geom_fm, state_fm.X, state_fm.Q).reshape(-1, 3)
+    n_fm = r_fm.shape[0]
+    # the box in units of a as the kernels see it (float32), given to the
+    # plain sweep too
+    box_fm = tuple(float(np.float32(b / a_fm)) for b in cfg_fm.box)
+    r_fma = (r_fm / a_fm).contiguous()
+    rng_fm = np.random.default_rng(SEED + 7)
+    F_fm = torch.from_numpy(rng_fm.standard_normal((2, n_fm, 3))).to(
+        dev).float()
+    box_errs = check_box_sweeps(torch, rpy, rpy_cuda, "film slice", r_fma,
+                                F_fm, box_fm, h)
+    L_fm = cfg_fm.box[0]
+    ragged_fm = torch.from_numpy(rng_fm.uniform(
+        [-0.2 * L_fm, -0.2 * L_fm, 0.3 * a_fm],
+        [1.2 * L_fm, 1.2 * L_fm, 8 * a_fm], (1000, 3)) / a_fm).to(dev).float()
+    check_box_sweeps(torch, rpy, rpy_cuda, "ragged", ragged_fm,
+                     F_fm[:, :1000].contiguous(), box_fm, h)
+    # K1's grouped kernel: a cloud at the film's blob density and heights
+    z_fm = r_fma[:, 2]
+    L_g = L_fm / a_fm * (FILM_GROUPED_N / n_fm) ** 0.5
+    box_g = (float(np.float32(L_g)), float(np.float32(L_g)))
+    r_g = torch.from_numpy(rng_fm.uniform(
+        [0, 0, z_fm.min().item()], [L_g, L_g, z_fm.max().item()],
+        (FILM_GROUPED_N, 3))).to(dev).float()
+    F_g = torch.from_numpy(rng_fm.standard_normal((2, FILM_GROUPED_N, 3))).to(
+        dev).float()
+    rows_g = torch.from_numpy(np.sort(rng_fm.choice(
+        FILM_GROUPED_N, SCALE_ROWS, replace=False))).to(dev)
+    print(f"K1 grouped in the box: n={FILM_GROUPED_N}, (tiles, most tiles a "
+          f"group, groups, blocks) = {tiles.sweep_groups(FILM_GROUPED_N)}")
+    check_box_sweeps(torch, rpy, rpy_cuda, "grouped", r_g, F_g, box_g, h,
+                     kernels=("K1",), rows=rows_g)
+    del r_g, F_g
+    for S in (0, FILM_SHELLS):
+        args = rpy_cuda.box_args(box_fm, S)
+        for k in (1, 2):
+            Fk = F_fm[:k].contiguous()
+            for fn in (lambda: rpy_cuda.pair_sweep_sym(r_fma, Fk, True, h,
+                                                       box=args),
+                       lambda: rpy_cuda.pair_sweep_ordered(
+                           r_fma, 0, r_fma, Fk, 0, True, h, box=args)):
+                U1, U2 = fn(), fn()
+                torch.cuda.synchronize()
+                if not torch.equal(U1, U2):
+                    raise AssertionError(f"two box-form launches differ "
+                                         f"bitwise, image_shells={S}, k={k}")
+    print("K1 and K2 box-form launches repeat bitwise at image_shells 0 and "
+          f"{FILM_SHELLS}, 1 and 2 RHS")
+    ids_fm = torch.arange(n_fm, device=dev)
+    film_k = {}
+    # K1 at 1 RHS (the GMRES and RFD products), K2 at 2 (the noise)
+    for name, k in (("K1", 1), ("K2", 2)):
+        Fk = F_fm[:k].contiguous()
+        for S in (0, FILM_SHELLS):
+            args = rpy_cuda.box_args(box_fm, S)
+            if name == "K1":
+                ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_sym(
+                    r_fma, Fk, True, h, box=args), 10)
+            else:
+                ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_ordered(
+                    r_fma, 0, r_fma, Fk, 0, True, h, box=args), 10)
+            plain = cuda_ms(torch, lambda: rpy.pair_sum(
+                r_fma, ids_fm, r_fma, ids_fm, Fk, wall=True, h_floor=h,
+                box=box_fm, image_shells=S), 1)
+            n_img = (2 * S + 1) ** 2
+            flops = n_img * n_fm * n_fm * (60 + 60 * k) // 2
+            b = bound_ms(flops, n_fm * (12 + 24 * k))
+            film_k[name, S] = dict(ms=ms, plain_ms=plain, bound=b,
+                                   err=box_errs[name, S, k])
+            print(f"{name} box form at the film slice n={n_fm}, "
+                  f"image_shells={S} ({n_img} offsets), {k} RHS: kernel "
+                  f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s), "
+                  f"plain float32 {plain:.4f} ms, bound {b[0]:.4f} ms "
+                  f"({b[1]}), {ms / b[0]:.2f}x the bound")
+
+    # ---- 22. the film slice through the kernels, image_shells 2 then 0
+    film = {}
+    film_states = {}
+    for S in (FILM_SHELLS, 0):
+        cfg_S = cfg_fm.replace(image_shells=S)
+        gen_S = torch.Generator(device=dev).manual_seed(SEED)
+        for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+            mod.reset_launch_counts()
+        sS, tr_w = run_bd(geom_fm, cfg_S, state_fm, FILM_WARM_STEPS,
+                          generator=gen_S, force_fn=force_fn_fm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sS, tr = run_bd(geom_fm, cfg_S, sS, FILM_TIMED_STEPS, generator=gen_S,
+                        force_fn=force_fn_fm)
+        torch.cuda.synchronize()
+        wall_S = time.perf_counter() - t0
+        counts_S = {**rpy_cuda.launch_counts(),
+                    **farfield_cuda.launch_counts(),
+                    **ewald_cuda.launch_counts()}
+        steps_S = FILM_WARM_STEPS + FILM_TIMED_STEPS
+        res_S = torch.cat([tr_w["residual"], tr["residual"]])
+        iters_S = torch.cat([tr_w["iters"], tr["iters"]]).double()
+        qn_S = torch.linalg.norm(sS.Q, dim=1)
+        film[S] = dict(steps_per_s=FILM_TIMED_STEPS / wall_S,
+                       mean_iters=iters_S.mean().item(),
+                       max_iters=int(iters_S.max().item()),
+                       max_residual=res_S.max().item(),
+                       k1=counts_S["pair_sweep_sym"],
+                       k2=counts_S["pair_sweep_ordered"],
+                       k1_per_step=counts_S["pair_sweep_sym"] / steps_S,
+                       k2_per_step=counts_S["pair_sweep_ordered"] / steps_S)
+        film_states[S] = (sS, gen_S)
+        print(f"film slice: {n_fm} blobs in the {cfg_fm.box} box, "
+              f"image_shells={S}: {FILM_TIMED_STEPS} steps in {wall_S:.3f} s"
+              f" = {film[S]['steps_per_s']:.4f} steps/s; GMRES iterations "
+              f"mean {film[S]['mean_iters']:.2f}, max {film[S]['max_iters']} "
+              f"(per step {iters_S.tolist()}); max residual "
+              f"{film[S]['max_residual']:.3e}; max noise_err "
+              f"{tr['noise_err'].max().item():.3e}; max||q|-1| "
+              f"{(qn_S - 1).abs().max().item():.3e}; launches {counts_S} "
+              f"over {steps_S} steps ({film[S]['k1_per_step']:.1f} K1, "
+              f"{film[S]['k2_per_step']:.1f} K2 a step)")
+        checks = {
+            "every residual < 10 gmres_tol": film[S]["max_residual"]
+            < 10 * cfg_S.gmres_tol,
+            "state finite": bool(torch.isfinite(sS.X).all()
+                                 and torch.isfinite(sS.Q).all()),
+            "|q| within 1e-5 of 1": (qn_S - 1).abs().max().item() <= 1e-5,
+            "bodies moved": (sS.X - state_fm.X).abs().max().item() > 0,
+            "K1 launched": counts_S["pair_sweep_sym"] > 0,
+            "K2 launched": counts_S["pair_sweep_ordered"] > 0,
+            "K3 not launched": counts_S["near_sweep"] == 0,
+            "K4 not launched": counts_S["ewald_real_sweep"] == 0,
+        }
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"film slice check failed "
+                                     f"(image_shells={S}): {what}")
+
+    # ---- 23. film step through the kernels vs the plain float32 sweep, at
+    # the slice's state after phase 22 (off the lattice, whose blob pairs
+    # lie exactly on the seams; a 4-body film in a (5, 5) box has an
+    # indefinite operator even at image_shells 2, PERF.md §6)
+    s_23, gen_23 = film_states[FILM_SHELLS]
+    draws = make_draws(geom_fm, s_23, gen_23)
+    f_23 = force_fn_fm(s_23, 0)
+    t0 = time.perf_counter()
+    s_k, aux_k = stochastic_step(geom_fm, cfg_fm, s_23, f_23, draws=draws)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_p, aux_p = stochastic_step(geom_fm, cfg_fm.replace(use_pallas=False),
+                                 s_23, f_23, draws=draws)
+    torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    dX_k, dX_p = s_k.X - s_23.X, s_p.X - s_23.X
+    rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    print(f"film step (image_shells {FILM_SHELLS}) kernel vs plain at the "
+          f"slice's state after phase 22, n={n_fm}: "
+          f"max|dX_k - dX_p|/max|dX_p| = {rel:.3e} (tol {STEP_TOL:g}); "
+          f"iters {aux_k.iters} vs {aux_p.iters}; residual "
+          f"{aux_k.residual.item():.3e} vs {aux_p.residual.item():.3e}; "
+          f"{t_k:.2f} s vs {t_p:.2f} s")
+    if not (rel <= STEP_TOL and torch.isfinite(s_k.X).all()):
+        raise AssertionError(f"film kernel step disagrees with the plain "
+                             f"step: {rel}")
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
-                      "k1_409600": {str(k): v for k, v in k1_scale.items()}}))
+                      "k1_409600": {str(k): v for k, v in k1_scale.items()},
+                      "film": {str(S): v for S, v in film.items()},
+                      "film_step_check": {"rel": rel, "kernel_s": t_k,
+                                          "plain_s": t_p}}))
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
@@ -1284,6 +1582,7 @@ def main():
          "bound_ratio": k1_ms / b1[0],
          "bound_ratio_2rhs": k1_ms2 / b1_2[0], "redesigned_in": 5,
          "launches_settled": counts_s["pair_sweep_sym"],
+         **box_entries(film_k, film, "K1", "k1"),
          "ms_409600": k1_scale[1]["ms"],
          "ms_2rhs_409600": k1_scale[2]["ms"],
          "peak_bytes_409600": k1_scale[1]["peak_bytes"],
@@ -1294,7 +1593,8 @@ def main():
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": b2[0],
          "bound_by": b2[1], "library_ms": None,
          "bound_ratio": k2_ms / b2[0], "redesigned_in": 5,
-         "launches_settled": counts_s["pair_sweep_ordered"]},
+         "launches_settled": counts_s["pair_sweep_ordered"],
+         **box_entries(film_k, film, "K2", "k2")},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],

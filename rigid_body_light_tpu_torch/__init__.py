@@ -12,9 +12,11 @@ preconditioned fused two-draw Lanczos noise, the midpoint-slip RFD drift
 and a GMRES saddle solve, with three mobility operators: the dense O(N²)
 pair sweep above a wall or in an open domain, the O(N) proxy-grid far
 field (``farfield_grid``), and the triply-periodic positively-split Ewald
-operator (a 3-D ``box``); and the settled-suspension configuration
+operator (a 3-D ``box``); the settled-suspension configuration
 (the RAS preconditioner, adaptive Lanczos, :mod:`.forces`, the checkpoint
-reader of :mod:`.utils.checkpoint`).  Their pair sweeps are hand-written CUDA
+reader of :mod:`.utils.checkpoint`); and the pseudo-2D film (a 2-D
+``box`` above the wall: the minimum-image pair sweep, or with
+``image_shells`` the exact doubly-periodic image sum).  Their pair sweeps are hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
 probe of :mod:`.utils.roofline`; everything else is eager PyTorch on

@@ -34,7 +34,11 @@ class SimulationConfig:
     the plain PyTorch sweep.
 
     A 3-D ``box`` is the triply-periodic Ewald operator (monodisperse,
-    classic split: ``ewald_rc`` / ``ewald_grid_p`` are not ported yet).
+    classic split: ``ewald_rc`` / ``ewald_grid_p`` are not ported yet).  A
+    2-D ``(Lx, Ly)`` box is the wall-bounded pseudo-2D film: the minimum
+    image in the plane, or with ``image_shells`` S ≥ 1 the exact
+    doubly-periodic image sum (its far field, ``farfield_grid`` with a 2-D
+    box, is not ported yet).
     """
 
     a: float = 1.0
@@ -186,9 +190,12 @@ class SimulationConfig:
                 f"({self.max_step_residual}) — otherwise every 'converged' solve "
                 "is rejected and the trajectory silently freezes")
         # what the port does not have yet
-        if self.box is not None and len(self.box) == 2:
-            raise _not_ported("a 2-D (pseudo-periodic) box",
-                              "item 12 (pseudo-2D)")
+        if (self.box is not None and len(self.box) == 2
+                and self.farfield_grid is not None):
+            raise _not_ported(
+                "the pseudo-2D far field (farfield_grid with a 2-D box: the "
+                "_kernel_hat_2p lattices and K3's cyclic wrap)",
+                "item 12a (pseudo-2D far field)")
         if self.ewald_rc > 0 or self.ewald_grid_p:
             raise _not_ported(
                 "balanced-split Ewald (ewald_rc: the linked-cell real-space "

@@ -1,5 +1,6 @@
 // RPY + Swan–Brady wall pair fields shared by the pair-sweep kernels
-// (rpy_pair_sweep.cu: K1, K2; near_sweep.cu: K3), float32.
+// (rpy_pair_sweep.cu: K1, K2; near_sweep.cu: K3), float32, and the
+// pseudo-2D box's wrap and image lattice (K1 and K2's box forms).
 //
 // They compute what the shared field helpers of the Pallas kernels do
 // (rigid_body_light_tpu/ops/rpy_pallas.py: _mono_coeffs, _wall_coeffs), so
@@ -120,6 +121,63 @@ __device__ __forceinline__ void apply(const Fields& p, float dx, float dy,
     uy = fmaf(p.aI, fy, bdF * dy);
     uz = fmaf(p.aI, fz, bdF * dz);
   }
+}
+
+// The pseudo-2D (Lx, Ly) box of K1's and K2's box forms (units of a), and
+// the exact doubly-periodic image sum over the (2S+1)² − 1 nonzero in-plane
+// offsets (ix·Lx, iy·Ly) of the wrapped displacement (rpy_pallas.py:369-373,
+// :454-476), with the two-ring Richardson tail weights 1 + α on ring S and
+// 1 + β on ring S − 1 (rpy.tail_coeffs, computed on the host).
+struct Box {
+  float lx, ly;        // box lengths
+  float ilx, ily;      // their reciprocals
+  int shells;          // S; 0 is the minimum image alone
+  float w_outer;       // weight on ring S
+  float w_inner;       // weight on ring S − 1
+};
+
+// Minimum-image wrap of the displacement xi − xj along a box length L:
+// xi − xj − n·L with n = round-half-even((xi − xj)/L) of the exact
+// difference, the image the plain sweep (rpy._wrap_xy) takes in float64
+// from the same float32 inputs, ties at exactly ±L/2 included (they stay,
+// as jnp.round leaves them).  The float32 quotient decides unless it lies
+// within its rounding error of a half-integer; there the float64 quotient
+// of the exact difference does.  Odd in (xi, xj): wrap(xj, xi) =
+// −wrap(xi, xj), so the wrapped operator stays symmetric.
+__device__ __forceinline__ float wrap(float xi, float xj, float L, float iL) {
+  const float d = xi - xj;
+  const float q = d * iL;
+  float n = rintf(q);
+  if (fabsf(fabsf(q - n) - 0.5f) <= 1e-6f * fabsf(q))
+    n = static_cast<float>(rint(
+        (static_cast<double>(xi) - static_cast<double>(xj)) /
+        static_cast<double>(L)));
+  return fmaf(-n, L, d);
+}
+
+// The fields of one image, weighted: every coefficient of M is linear in
+// (aI, aZ, b, f2, f3, f4); e stays a unit vector.
+__device__ __forceinline__ void scale(Fields& p, float w) {
+  p.aI *= w;
+  p.aZ *= w;
+  p.b *= w;
+  p.f2 *= w;
+  p.f3 *= w;
+  p.f4 *= w;
+}
+
+// The nonzero offsets (ix, iy) of the lattice in the JAX package's order
+// (ix major) and their ring's tail weight: fn(ix, iy, w).
+template <typename Fn>
+__device__ __forceinline__ void for_each_offset(const Box& b, Fn&& fn) {
+  const int S = b.shells;
+  for (int ix = -S; ix <= S; ++ix)
+    for (int iy = -S; iy <= S; ++iy) {
+      if (ix == 0 && iy == 0) continue;
+      const int ring = max(abs(ix), abs(iy));
+      fn(static_cast<float>(ix), static_cast<float>(iy),
+         ring == S ? b.w_outer : (ring == S - 1 ? b.w_inner : 1.0f));
+    }
 }
 
 }  // namespace rpy_fields

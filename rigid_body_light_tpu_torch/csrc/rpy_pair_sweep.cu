@@ -44,11 +44,11 @@
 // tile of its groups (one writer per element), so the scratch grows as n,
 // not as the n²/128² items (2.63 GB at 409,600 blobs and 2 RHS, where one
 // partial an item took 31.5 GB); a second pass sums them in a fixed order.
-// 48 / 56 registers with a wall at 1 / 2 RHS, no spills, 12 / 22 KB of
-// shared memory.  On an H100 at 700 W at 10,272 blobs: 0.325-0.331 /
-// 0.436-0.442 ms at 1 / 2 RHS, 3.5× / 3.1× the bound, against the earlier
-// design's 0.577-0.586 ms at 1 RHS in the same runs; one pair a thread
-// took 3% / 3.5% longer (PERF.md §6).
+// 56 / 80 registers with a wall at 1 / 2 RHS (4 bytes spilled at 2 RHS),
+// 12 / 22 KB of shared memory.  On an H100 at 700 W at 10,272 blobs:
+// 0.325-0.331 / 0.433-0.442 ms at 1 / 2 RHS, 3.5× / 3.1× the bound,
+// against the earlier design's 0.577-0.586 ms at 1 RHS in the same runs;
+// one pair a thread took 3% / 3.5% longer (PERF.md §6).
 //
 // K2.  The earlier design ran ⌈n/32⌉ blocks of 256 threads, one row a
 // thread, all columns a block: 321 blocks at 10,272 blobs on 132 SMs, so
@@ -61,13 +61,34 @@
 // slice, many waves of the ~1,000 that fit at once, so the launch ends
 // within one short block of balance.  Each chunk writes its rows' partials
 // (one writer per element), and a second pass sums the chunks in order.
-// 56 registers with a wall, no spills, 11 / 18 KB of shared memory at 1 /
-// 2 RHS.  On the same card: 0.542-0.546 ms at 2 RHS, 3.8× the bound,
+// 56 / 72 registers with a wall, no spills, 11 / 18 KB of shared memory at
+// 1 / 2 RHS.  On the same card: 0.537-0.546 ms at 2 RHS, 3.8× the bound,
 // against the earlier design's 0.906-0.907 ms; four rows a lane took
 // 0.6% longer.
 // An ordered sweep evaluates every pair's fields twice, once from each
 // side; its contract (rows × all columns, global offsets) serves the
 // sharded slabs and mobility_apply_rows.
+//
+// Box forms (template BOX; rpy_pallas.py:369-373, :454-476 for K1, :214-218,
+// :278-300 for K2).  With the pseudo-2D (Lx, Ly) box a pair's dx, dy are
+// wrapped to the minimum image (rpy_fields::wrap: the float64 plain sweep's
+// image on the same float32 inputs, ties at ±L/2 included), and with S ≥ 1
+// shells the pair is evaluated again at each of the (2S+1)² − 1 nonzero
+// offsets (ix·Lx, iy·Ly) of the wrapped displacement, in the JAX package's
+// lattice order, its fields scaled by the ring's tail weight.  A pair sums
+// its offsets' terms in registers first, then adds them through its select
+// (K1: the whole pair; K2: the self pair's offset 0 only, so a blob keeps
+// its own images and K2's image sum arrives complete).  K1 never visits
+// i == i: rpy_cuda.pair_sum adds the self-image diagonal
+// (rpy.self_image_sum).  The work is (2S+1)² times the pair work of the
+// minimum image; the partials do not depend on S.  Free and box forms
+// share one pair body: the wrap and the offset loop (offsets outer, a
+// thread's two pairs or two rows inner) compile in only with BOX.  A body
+// of their own for the box forms, or one with the pair outer, took 6-36%
+// longer at S = 2 (PERF.md §6).  72 / 125 registers for K1 with a wall at
+// 1 / 2 RHS, K2 64 / 80, no spills.  On an H100 at 700 W at the film
+// slice (10,272 blobs): K1 at 1 RHS 0.430-0.441 / 6.41-6.44 ms at S = 0 /
+// 2; K2 at 2 RHS 0.762-0.764 / 12.47 ms (PERF.md §6).
 //
 // Per-blob quantities (the floored height) are computed once per blob, when
 // the blob is loaded, and staged beside its position as a float4.
@@ -83,10 +104,14 @@
 
 namespace {
 
+using rpy_fields::Box;
 using rpy_fields::Fields;
 using rpy_fields::apply;
 using rpy_fields::floor_height;
+using rpy_fields::for_each_offset;
+using rpy_fields::scale;
 using rpy_fields::pair_fields;
+using rpy_fields::wrap;
 
 // K1: items of kSymTile × kSymTile, one row a thread, kSymPairs columns a
 // step.
@@ -158,14 +183,40 @@ __device__ __forceinline__ float4 load_row(const float* __restrict__ pos,
   return R;
 }
 
+// A pair's forward terms M·F_C (u) and transposed terms Mᵀ·F_R (v) for
+// each RHS, from its fields at in-plane displacement (dx, dy); ADD adds
+// them to u and v (an image), else they are the pair's first terms.
+template <bool WALL, int NRHS, bool ADD>
+__device__ __forceinline__ void sym_terms(const Fields& f, float dx, float dy,
+                                          float dz, const float4 (&fC)[NRHS],
+                                          const float (&fR)[3 * NRHS],
+                                          float (&u)[3 * NRHS],
+                                          float (&v)[3 * NRHS]) {
+#pragma unroll
+  for (int k = 0; k < NRHS; ++k) {
+    float ux, uy, uz, tx, ty, tz;
+    apply<WALL, false>(f, dx, dy, dz, fC[k].x, fC[k].y, fC[k].z, ux, uy, uz);
+    apply<WALL, true>(f, dx, dy, dz, fR[3 * k], fR[3 * k + 1], fR[3 * k + 2],
+                      tx, ty, tz);
+    if constexpr (ADD) {
+      u[3 * k] += ux; u[3 * k + 1] += uy; u[3 * k + 2] += uz;
+      v[3 * k] += tx; v[3 * k + 1] += ty; v[3 * k + 2] += tz;
+    } else {
+      u[3 * k] = ux; u[3 * k + 1] = uy; u[3 * k + 2] = uz;
+      v[3 * k] = tx; v[3 * k + 1] = ty; v[3 * k + 2] = tz;
+    }
+  }
+}
+
 // One item's pairs: thread t's row (R, fR) against the staged columns,
 // row terms into acc, transposed terms into its warp's column sums.
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 __device__ __forceinline__ void sweep_item(
     const float4 (&s_pos)[kSymTile], const float4 (&s_f)[NRHS][kSymTile],
     float4 (&s_acc)[kSymWarps][NRHS][kSymTile], const float4 R,
     const float (&fR)[3 * NRHS], float (&acc)[3 * NRHS], bool diag,
-    bool row_ok, int n_cols, int t, int lane, int warp) {
+    bool row_ok, int n_cols, int t, int lane, int warp, const Box& box) {
+  constexpr int NF = 3 * NRHS;
   for (int q0 = 0; q0 < kSymTile; q0 += kSymPairs * kSymSub) {
     // diagonal item: this warp's rows are all right of these columns
     if (diag && q0 + kSymPairs * kSymSub <= warp * 32) continue;
@@ -180,27 +231,45 @@ __device__ __forceinline__ void sweep_item(
         any = any || valid[p];
       }
       if (!__any_sync(0xffffffffu, any)) continue;
+      float dx0[kSymPairs], dy0[kSymPairs], dz[kSymPairs], zC[kSymPairs];
+      float4 fC[kSymPairs][NRHS];
+      float u[kSymPairs][NF], v[kSymPairs][NF];  // forward, transposed
 #pragma unroll
       for (int p = 0; p < kSymPairs; ++p) {
         const float4 C = s_pos[c[p]];
-        const float dx = R.x - C.x;
-        const float dy = R.y - C.y;
-        const float dz = R.z - C.z;
-        const Fields f = pair_fields<WALL>(dx, dy, dz, R.w, C.w);
+        dx0[p] = BOX ? wrap(R.x, C.x, box.lx, box.ilx) : R.x - C.x;
+        dy0[p] = BOX ? wrap(R.y, C.y, box.ly, box.ily) : R.y - C.y;
+        dz[p] = R.z - C.z;
+        zC[p] = C.w;
+#pragma unroll
+        for (int k = 0; k < NRHS; ++k) fC[p][k] = s_f[k][c[p]];
+        sym_terms<WALL, NRHS, false>(
+            pair_fields<WALL>(dx0[p], dy0[p], dz[p], R.w, zC[p]), dx0[p],
+            dy0[p], dz[p], fC[p], fR, u[p], v[p]);
+      }
+      if constexpr (BOX)
+        for_each_offset(box, [&](float ix, float iy, float w) {
+#pragma unroll
+          for (int p = 0; p < kSymPairs; ++p) {
+            const float dx = fmaf(ix, box.lx, dx0[p]);
+            const float dy = fmaf(iy, box.ly, dy0[p]);
+            Fields f = pair_fields<WALL>(dx, dy, dz[p], R.w, zC[p]);
+            scale(f, w);
+            sym_terms<WALL, NRHS, true>(f, dx, dy, dz[p], fC[p], fR, u[p],
+                                        v[p]);
+          }
+        });
+#pragma unroll
+      for (int p = 0; p < kSymPairs; ++p) {
 #pragma unroll
         for (int k = 0; k < NRHS; ++k) {
-          const float4 fC = s_f[k][c[p]];
-          float ux, uy, uz, tx, ty, tz;
-          apply<WALL, false>(f, dx, dy, dz, fC.x, fC.y, fC.z, ux, uy, uz);
-          apply<WALL, true>(f, dx, dy, dz, fR[3 * k], fR[3 * k + 1],
-                            fR[3 * k + 2], tx, ty, tz);
-          acc[3 * k] += valid[p] ? ux : 0.0f;
-          acc[3 * k + 1] += valid[p] ? uy : 0.0f;
-          acc[3 * k + 2] += valid[p] ? uz : 0.0f;
+          acc[3 * k] += valid[p] ? u[p][3 * k] : 0.0f;
+          acc[3 * k + 1] += valid[p] ? u[p][3 * k + 1] : 0.0f;
+          acc[3 * k + 2] += valid[p] ? u[p][3 * k + 2] : 0.0f;
           float4 a = s_acc[warp][k][c[p]];
-          a.x += valid[p] ? tx : 0.0f;
-          a.y += valid[p] ? ty : 0.0f;
-          a.z += valid[p] ? tz : 0.0f;
+          a.x += valid[p] ? v[p][3 * k] : 0.0f;
+          a.y += valid[p] ? v[p][3 * k + 1] : 0.0f;
+          a.z += valid[p] ? v[p][3 * k + 2] : 0.0f;
           s_acc[warp][k][c[p]] = a;
         }
       }
@@ -224,11 +293,11 @@ __device__ __forceinline__ float4 column_sum(
 
 // K1, one item (I, J) a block: the launch up to 65,536 blobs (G = T).
 // Partials (items, 3·NRHS, 128), one slot per item.
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 __global__ void __launch_bounds__(kSymTile)
 pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
                       const float* __restrict__ force,   // (NRHS, n, 3)
-                      int n, int n_tiles, float h_floor,
+                      int n, int n_tiles, float h_floor, Box box,
                       float* __restrict__ row_part,      // (items, 3·NRHS, 128)
                       float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
   constexpr int NF = 3 * NRHS;
@@ -248,8 +317,9 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
   const float4 R = load_row<NRHS>(pos, force, i, n, h_floor, fR, acc);
   __syncthreads();  // the stage is written
 
-  sweep_item<WALL, NRHS>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
-                         min(kSymTile, n - J * kSymTile), t, lane, warp);
+  sweep_item<WALL, NRHS, BOX>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
+                              min(kSymTile, n - J * kSymTile), t, lane, warp,
+                              box);
   __syncthreads();  // every warp's column accumulator is complete
 
   // thread t: row t of tile I and column t of tile J
@@ -272,12 +342,12 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
 // of tile I through the row's items and writes its slot once; column t of
 // tile J's slot is written at the unit's first row and added to after.
 // Partials (units, S, 3·NRHS, 128).
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 __global__ void __launch_bounds__(kSymTile)
 pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
                               const float* __restrict__ force,   // (NRHS, n, 3)
                               int n, tile_items::Groups g, float h_floor,
-                              float* __restrict__ row_part,
+                              Box box, float* __restrict__ row_part,
                               float* __restrict__ col_part) {
   constexpr int NF = 3 * NRHS;
   __shared__ float4 s_pos[kSymTile];
@@ -298,8 +368,9 @@ pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
       __syncthreads();  // the previous item's stage and sums are read
       stage_columns<NRHS>(pos, force, J, n, h_floor, t, s_pos, s_f, s_acc);
       __syncthreads();  // the stage is written
-      sweep_item<WALL, NRHS>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
-                             min(kSymTile, n - J * kSymTile), t, lane, warp);
+      sweep_item<WALL, NRHS, BOX>(s_pos, s_f, s_acc, R, fR, acc, I == J,
+                                  i < n, min(kSymTile, n - J * kSymTile), t,
+                                  lane, warp, box);
       __syncthreads();  // every warp's column accumulator is complete
       float* colp = tile_items::slot(col_part, blockIdx.x, J - u.J0, g, NF);
 #pragma unroll
@@ -321,14 +392,15 @@ pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
 // lane l owns rows l and l + 32 of the row block, warp w sweeps columns
 // [64w, 64w + 64) of the chunk.  A pair is live iff its global ids differ
 // and the column is in range; the 4 warps' sums are added in a fixed order
-// into the chunk's partial.
-template <bool WALL, int NRHS>
+// into the chunk's partial.  Box form: the self pair is masked at offset 0
+// only.
+template <bool WALL, int NRHS, bool BOX>
 __global__ void __launch_bounds__(kOrdWarps * 32)
 pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
                           int n_rows, int row_offset,
                           const float* __restrict__ cols_pos,   // (n_cols, 3)
                           const float* __restrict__ cols_force, // (NRHS, n_cols, 3)
-                          int n_cols, int col_offset, float h_floor,
+                          int n_cols, int col_offset, float h_floor, Box box,
                           float* __restrict__ part) {  // (chunks, NRHS, n_rows, 3)
   constexpr int NF = 3 * NRHS;
   constexpr int RL = kOrdRowsPerLane;
@@ -370,22 +442,49 @@ pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
     float4 fC[NRHS];
 #pragma unroll
     for (int k = 0; k < NRHS; ++k) fC[k] = s_f[k][c];
+    float dx0[RL], dy0[RL], dz[RL];
+    float u[RL][NF];  // the pairs' terms
 #pragma unroll
     for (int r = 0; r < RL; ++r) {
-      const bool valid = row_ok[r] && gi[r] != gj;
-      const float dx = R[r].x - C.x;
-      const float dy = R[r].y - C.y;
-      const float dz = R[r].z - C.z;
-      const Fields f = pair_fields<WALL>(dx, dy, dz, R[r].w, C.w);
+      dx0[r] = BOX ? wrap(R[r].x, C.x, box.lx, box.ilx) : R[r].x - C.x;
+      dy0[r] = BOX ? wrap(R[r].y, C.y, box.ly, box.ily) : R[r].y - C.y;
+      dz[r] = R[r].z - C.z;
+      const Fields f = pair_fields<WALL>(dx0[r], dy0[r], dz[r], R[r].w, C.w);
 #pragma unroll
-      for (int k = 0; k < NRHS; ++k) {
-        float ux, uy, uz;
-        apply<WALL, false>(f, dx, dy, dz, fC[k].x, fC[k].y, fC[k].z, ux, uy,
-                           uz);
-        acc[r][3 * k] += valid ? ux : 0.0f;
-        acc[r][3 * k + 1] += valid ? uy : 0.0f;
-        acc[r][3 * k + 2] += valid ? uz : 0.0f;
+      for (int k = 0; k < NRHS; ++k)
+        apply<WALL, false>(f, dx0[r], dy0[r], dz[r], fC[k].x, fC[k].y,
+                           fC[k].z, u[r][3 * k], u[r][3 * k + 1],
+                           u[r][3 * k + 2]);
+      if constexpr (BOX) {
+        // the self pair is masked at offset 0 only: a blob keeps its images
+#pragma unroll
+        for (int q = 0; q < NF; ++q) u[r][q] = gi[r] != gj ? u[r][q] : 0.0f;
       }
+    }
+    if constexpr (BOX)
+      for_each_offset(box, [&](float ix, float iy, float w) {
+#pragma unroll
+        for (int r = 0; r < RL; ++r) {
+          const float dx = fmaf(ix, box.lx, dx0[r]);
+          const float dy = fmaf(iy, box.ly, dy0[r]);
+          Fields f = pair_fields<WALL>(dx, dy, dz[r], R[r].w, C.w);
+          scale(f, w);
+#pragma unroll
+          for (int k = 0; k < NRHS; ++k) {
+            float ux, uy, uz;
+            apply<WALL, false>(f, dx, dy, dz[r], fC[k].x, fC[k].y, fC[k].z,
+                               ux, uy, uz);
+            u[r][3 * k] += ux;
+            u[r][3 * k + 1] += uy;
+            u[r][3 * k + 2] += uz;
+          }
+        }
+      });
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      const bool valid = row_ok[r] && (BOX || gi[r] != gj);
+#pragma unroll
+      for (int q = 0; q < NF; ++q) acc[r][q] += valid ? u[r][q] : 0.0f;
     }
   }
 #pragma unroll
@@ -417,44 +516,61 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 void launch_sym_k(const tile_items::Groups& g, cudaStream_t stream,
                   const float* pos, const float* force, int n, float h_floor,
-                  float* row_part, float* col_part) {
+                  const Box& box, float* row_part, float* col_part) {
   if (g.n_groups < g.n_tiles)
-    pair_sweep_sym_grouped_kernel<WALL, NRHS><<<g.units, kSymTile, 0,
-                                                stream>>>(
-        pos, force, n, g, h_floor, row_part, col_part);
+    pair_sweep_sym_grouped_kernel<WALL, NRHS, BOX><<<g.units, kSymTile, 0,
+                                                     stream>>>(
+        pos, force, n, g, h_floor, box, row_part, col_part);
   else
-    pair_sweep_sym_kernel<WALL, NRHS><<<g.units, kSymTile, 0, stream>>>(
-        pos, force, n, g.n_tiles, h_floor, row_part, col_part);
+    pair_sweep_sym_kernel<WALL, NRHS, BOX><<<g.units, kSymTile, 0, stream>>>(
+        pos, force, n, g.n_tiles, h_floor, box, row_part, col_part);
 }
 
-template <bool WALL>
+template <bool WALL, bool BOX>
 void launch_sym(int nrhs, const tile_items::Groups& g, cudaStream_t stream,
                 const float* pos, const float* force, int n, float h_floor,
-                float* row_part, float* col_part) {
+                const Box& box, float* row_part, float* col_part) {
   if (nrhs == 1)
-    launch_sym_k<WALL, 1>(g, stream, pos, force, n, h_floor, row_part,
-                          col_part);
+    launch_sym_k<WALL, 1, BOX>(g, stream, pos, force, n, h_floor, box,
+                               row_part, col_part);
   else
-    launch_sym_k<WALL, 2>(g, stream, pos, force, n, h_floor, row_part,
-                          col_part);
+    launch_sym_k<WALL, 2, BOX>(g, stream, pos, force, n, h_floor, box,
+                               row_part, col_part);
 }
 
-template <bool WALL>
+template <bool WALL, bool BOX>
 void launch_ordered(int nrhs, dim3 grid, cudaStream_t stream,
                     const float* rows_pos, int n_rows, int row_offset,
                     const float* cols_pos, const float* cols_force,
-                    int n_cols, int col_offset, float h_floor, float* part) {
+                    int n_cols, int col_offset, float h_floor,
+                    const Box& box, float* part) {
   if (nrhs == 1)
-    pair_sweep_ordered_kernel<WALL, 1><<<grid, kOrdWarps * 32, 0, stream>>>(
+    pair_sweep_ordered_kernel<WALL, 1, BOX><<<grid, kOrdWarps * 32, 0,
+                                              stream>>>(
         rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, part);
+        col_offset, h_floor, box, part);
   else
-    pair_sweep_ordered_kernel<WALL, 2><<<grid, kOrdWarps * 32, 0, stream>>>(
+    pair_sweep_ordered_kernel<WALL, 2, BOX><<<grid, kOrdWarps * 32, 0,
+                                              stream>>>(
         rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, part);
+        col_offset, h_floor, box, part);
+}
+
+// The box of the C interface: none when box_x ≤ 0; the tail weights are
+// 1 + α and 1 + β.
+Box make_box(float box_x, float box_y, int shells, float alpha, float beta) {
+  Box b;
+  b.lx = box_x;
+  b.ly = box_y;
+  b.ilx = box_x > 0.0f ? 1.0f / box_x : 0.0f;
+  b.ily = box_y > 0.0f ? 1.0f / box_y : 0.0f;
+  b.shells = box_x > 0.0f ? shells : 0;
+  b.w_outer = 1.0f + alpha;
+  b.w_inner = 1.0f + beta;
+  return b;
 }
 
 }  // namespace
@@ -471,19 +587,32 @@ int rpy_ordered_chunk() { return kOrdChunk; }
 // K1: out (nrhs, n, 3) = Σ_{j≠i} M_ij F_j over unordered pairs.  row_part
 // and col_part hold units·S·3·nrhs·128 floats each (tile_items::groups_of;
 // scratch, fully overwritten).
+// With box_x > 0 the box form: the (box_x, box_y) box in units of a,
+// ``shells`` image shells with tail coefficients (alpha, beta); K1 leaves
+// out the self images (rpy.self_image_sum).
 int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
-                       int wall, float h_floor, float* row_part,
+                       int wall, float h_floor, float box_x, float box_y,
+                       int shells, float alpha, float beta, float* row_part,
                        float* col_part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   const tile_items::Groups g = tile_items::groups_of(n);
-  if (wall)
-    launch_sym<true>(nrhs, g, stream, pos, force, n, h_floor, row_part,
-                     col_part);
+  const Box box = make_box(box_x, box_y, shells, alpha, beta);
+  const bool boxed = box_x > 0.0f;
+  if (wall && boxed)
+    launch_sym<true, true>(nrhs, g, stream, pos, force, n, h_floor, box,
+                           row_part, col_part);
+  else if (wall)
+    launch_sym<true, false>(nrhs, g, stream, pos, force, n, h_floor, box,
+                            row_part, col_part);
+  else if (boxed)
+    launch_sym<false, true>(nrhs, g, stream, pos, force, n, h_floor, box,
+                            row_part, col_part);
   else
-    launch_sym<false>(nrhs, g, stream, pos, force, n, h_floor, row_part,
-                      col_part);
+    launch_sym<false, false>(nrhs, g, stream, pos, force, n, h_floor, box,
+                             row_part, col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
@@ -492,26 +621,39 @@ int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
 
 // K2: out (nrhs, n_rows, 3) = Σ_j M_ij F_j over all columns j whose global
 // id (col_offset + j) differs from the row's (row_offset + i).  part holds
-// ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).
+// ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).  The box
+// arguments as K1's; the self pair keeps its images.
 int rpy_pair_sweep_ordered(const float* rows_pos, int n_rows, int row_offset,
                            const float* cols_pos, const float* cols_force,
                            int n_cols, int col_offset, int nrhs, int wall,
-                           float h_floor, float* part, float* out,
-                           void* stream_ptr) {
+                           float h_floor, float box_x, float box_y,
+                           int shells, float alpha, float beta, float* part,
+                           float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
   const int n_chunks = n_cols > 0 ? (n_cols + kOrdChunk - 1) / kOrdChunk : 0;
   if (n_chunks > 0) {
     const dim3 grid((n_rows + kOrdRows - 1) / kOrdRows, n_chunks);
-    if (wall)
-      launch_ordered<true>(nrhs, grid, stream, rows_pos, n_rows, row_offset,
-                           cols_pos, cols_force, n_cols, col_offset, h_floor,
-                           part);
+    const Box box = make_box(box_x, box_y, shells, alpha, beta);
+    const bool boxed = box_x > 0.0f;
+    if (wall && boxed)
+      launch_ordered<true, true>(nrhs, grid, stream, rows_pos, n_rows,
+                                 row_offset, cols_pos, cols_force, n_cols,
+                                 col_offset, h_floor, box, part);
+    else if (wall)
+      launch_ordered<true, false>(nrhs, grid, stream, rows_pos, n_rows,
+                                  row_offset, cols_pos, cols_force, n_cols,
+                                  col_offset, h_floor, box, part);
+    else if (boxed)
+      launch_ordered<false, true>(nrhs, grid, stream, rows_pos, n_rows,
+                                  row_offset, cols_pos, cols_force, n_cols,
+                                  col_offset, h_floor, box, part);
     else
-      launch_ordered<false>(nrhs, grid, stream, rows_pos, n_rows, row_offset,
-                            cols_pos, cols_force, n_cols, col_offset, h_floor,
-                            part);
+      launch_ordered<false, false>(nrhs, grid, stream, rows_pos, n_rows,
+                                   row_offset, cols_pos, cols_force, n_cols,
+                                   col_offset, h_floor, box, part);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -1,6 +1,7 @@
 """Rotne–Prager–Yamakawa blob mobility, free space + Swan–Brady single wall —
 the plain PyTorch port of ``rigid_body_light_tpu/ops/rpy.py``
-(monodisperse, open domain).
+(monodisperse; open domain or the pseudo-2D (Lx, Ly) box, with its
+minimum-image wrap and the exact doubly-periodic image sum).
 
 It is the CPU path of the port and the plain version that the CUDA pair
 sweeps (:mod:`rigid_body_light_tpu_torch.ops.rpy_cuda`) are checked against.
@@ -12,8 +13,10 @@ in units of the blob radius ``a``; outputs are scaled by 1/(8πηa).
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 _SELF_COEF = 4.0 / 3.0
@@ -23,6 +26,45 @@ _SELF_COEF = 4.0 / 3.0
 WALL_H_FLOOR = 0.75
 # r² floor: overlapping distinct blobs give finite values instead of NaN
 _R2_FLOOR = 1e-24
+
+
+def _displacement(ri, rj, box_n):
+    """r_i − r_j, (T, 3) × (N, 3) → (T, N, 3), positions in units of a;
+    with a box (None, (Lx, Ly) or (Lx, Ly, Lz) in units of a), x and y
+    (and z for a 3-D box) wrapped to the minimum image.
+
+    The image is that of the exact difference: n = round((r_i − r_j)/L)
+    half to even (a pair at exactly ±L/2 stays, as ``jnp.round`` leaves
+    it), the quotient in float64 with L in the positions' precision, and
+    d − n·L rounded once.  In float64 this is the JAX package's wrap; in
+    float32 it is the kernels' (``csrc/rpy_fields.cuh::wrap``), so the
+    plain float32 sweep and the kernels take the same image of a pair
+    that lies within rounding of a seam (the operator jumps there, and
+    the RFD drift's 1/δ multiplies the jump).
+    """
+    d = ri[:, None, :] - rj[None, :, :]
+    if box_n is None:
+        return d
+    if any(b <= 0 for b in box_n):
+        raise ValueError(f"periodic box lengths must be positive, got {box_n}")
+    comps = list(d.unbind(-1))
+    for ax, L in enumerate(box_n):
+        L = torch.tensor(L, dtype=d.dtype).item()
+        exact = ri[:, None, ax].double() - rj[None, :, ax].double()
+        n = torch.round(exact / L)
+        comps[ax] = (comps[ax].double() - L * n).to(d.dtype)
+    return torch.stack(comps, dim=-1)
+
+
+def _box_n(box, a):
+    return None if box is None else tuple(float(b) / a for b in box)
+
+
+def _check_images(box_n, image_shells):
+    if image_shells and (box_n is None or len(box_n) != 2):
+        raise ValueError(
+            "image_shells needs a 2-D (Lx, Ly) box — the exact image sum is "
+            "the doubly-periodic (pseudo-2D) geometry")
 
 
 def _free_coeffs(r2):
@@ -107,35 +149,126 @@ def damping_factors(r, a=1.0):
     return torch.clamp(r[:, 2] / a, 0.0, 1.0)
 
 
-def _pair_tile(ri, rj, row_ids, col_ids, Fk, inv_a, wall, h_floor):
-    """Σ_j M_ij·F_j of all column blobs onto a tile of row blobs.
+def image_offsets(box_n, shells, dtype=torch.float64, device=None):
+    """Nonzero in-plane lattice offsets n·(Lx, Ly, 0), |n|∞ ≤ shells, (O, 3)
+    in units of a, in the JAX package's order (ix major); the zero offset
+    is the minimum-image sweep itself."""
+    n = np.arange(-shells, shells + 1)
+    nx, ny = np.meshgrid(n, n, indexing="ij")
+    sel = (nx != 0) | (ny != 0)
+    off = np.stack([nx[sel] * float(box_n[0]), ny[sel] * float(box_n[1]),
+                    np.zeros(int(sel.sum()))], axis=-1)
+    return torch.as_tensor(off, dtype=dtype, device=device)
 
-    ri (T, 3), rj (N, 3), Fk (k, N, 3) → (k, T, 3); pair terms only, self
-    pairs (equal global ids) masked out by selects.
+
+@functools.lru_cache(maxsize=None)
+def tail_coeffs(shells):
+    """Two-ring Richardson tail coefficients (α, β) of the image sum, on the
+    host in float64 exactly as the JAX package computes them: the truncated
+    tail Σ_{s>S} ring_s of a ring sum A/s² + B/s³ is α·ring_S + β·ring_{S−1},
+    [α, β] = [T₂, T₃]·M⁻¹, M = [[S⁻², S⁻³], [(S−1)⁻², (S−1)⁻³]], T_m =
+    Σ_{s>S} s⁻ᵐ; S = 1 takes the one-term model, α = π²/6 − 1."""
+    if shells <= 0:
+        return 0.0, 0.0
+    if shells == 1:
+        return np.pi ** 2 / 6.0 - 1.0, 0.0
+    S = float(shells)
+    srange = np.arange(shells + 1, 2_000_000, dtype=np.float64)
+    T = np.array([np.sum(srange ** -2.0), np.sum(srange ** -3.0)])
+    M = np.array([[S ** -2, S ** -3], [(S - 1) ** -2, (S - 1) ** -3]])
+    alpha, beta = T @ np.linalg.inv(M)
+    return float(alpha), float(beta)
+
+
+def image_tail_weights(shells, dtype=torch.float64, device=None):
+    """Per-offset weights in :func:`image_offsets` order: 1 + α on ring S,
+    1 + β on ring S − 1, 1 elsewhere (ring = ‖n‖∞)."""
+    n = np.arange(-shells, shells + 1)
+    nx, ny = np.meshgrid(n, n, indexing="ij")
+    sel = (nx != 0) | (ny != 0)
+    ring = np.maximum(np.abs(nx[sel]), np.abs(ny[sel]))
+    alpha, beta = tail_coeffs(shells)
+    w = np.ones(ring.shape, np.float64)
+    w[ring == shells] += alpha
+    if shells > 1:
+        w[ring == shells - 1] += beta
+    return torch.as_tensor(w, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _image_lattice(box_n, shells, tail, dtype, device):
+    """(offsets, weights) of the image sum, made once per lattice and
+    device: a copy from the host would stall the card's queue at every
+    product."""
+    off = image_offsets(box_n, shells, dtype, device)
+    w = (image_tail_weights(shells, dtype, device) if tail
+         else torch.ones(off.shape[0], dtype=dtype, device=device))
+    return off, w
+
+
+def self_image_sum(r_over_a, F, wall, box_n, shells, h_floor=WALL_H_FLOOR,
+                   tail=True):
+    """Σ_o w_o·M(o; z_i, z_i)·F_i: every blob against its own in-plane
+    periodic images, the diagonal of the exact image sum that a sweep over
+    i ≠ j pairs leaves out.  Pair terms only.  r_over_a (N, 3), box_n
+    (Lx, Ly) in units of a, F (N, 3) or (k, N, 3) → F's shape.  All
+    offsets at once, (O, N) fields: O(N·(2S+1)²) elementwise work."""
+    multi = F.dim() == 3
+    Fk = F if multi else F[None]
+    dtype, dev = Fk.dtype, Fk.device
+    off, w = _image_lattice(box_n, shells, tail, dtype, dev)    # (O, 3), (O,)
+    alpha, beta = _free_coeffs(torch.sum(off * off, dim=-1))    # (O,)
+    dF = torch.einsum("ox,knx->kon", off[:, :2], Fk[..., :2])   # (k, O, N)
+    out = (torch.einsum("o,knx->knx", w * alpha, Fk)
+           + torch.einsum("o,kon,ox->knx", w * beta, dF, off))
+    if wall:
+        zs = r_over_a[:, 2]
+        if h_floor > 0:
+            zs = torch.clamp(zs, min=h_floor)
+        O, N = off.shape[0], zs.shape[0]
+        d_img = torch.cat([off[:, None, :2].expand(O, N, 2),
+                           (2.0 * zs).expand(O, N)[..., None]], dim=-1)
+        f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zs.expand(O, N))
+        e = d_img * invR[..., None]                             # (O, N, 3)
+        eF = torch.einsum("onx,knx->kon", e, Fk)
+        Fz = Fk[..., 2]
+        wf = [w[:, None] * f for f in (f1, f2, f3, f4, f5)]
+        out = out + torch.einsum("on,knx->knx", wf[0], Fk)
+        out = out + torch.einsum("on,kon,onx->knx", wf[1], eF, e)
+        out = out + torch.einsum("on,kn,onx->knx", wf[2], Fz, e)
+        z_part = (torch.einsum("on,kon->kn", wf[3], eF)
+                  + torch.einsum("on,kn->kn", wf[4], Fz))
+        out = out + torch.stack(
+            [torch.zeros_like(z_part), torch.zeros_like(z_part), z_part], dim=-1)
+    return out if multi else out[0]
+
+
+def _pair_field_sum(d, keep, Fk, wall, zi, zj):
+    """Σ_j M(d_ij)·F_j for one displacement set d (T, N, 3) → (k, T, 3).
+
+    keep: (T, N) bool or None; a pair it drops adds an exact 0 (the zero
+    lattice offset masks self pairs; a blob does interact with its own
+    periodic images).  zi / zj: the floored heights (wall only).
     """
-    d = (ri[:, None, :] - rj[None, :, :]) * inv_a                 # (T, N, 3)
-    keep = row_ids[:, None] != col_ids[None, :]
     r2 = torch.sum(d * d, dim=-1)
-    r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
+    if keep is not None:
+        r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
     alpha, beta = _free_coeffs(r2)
-    zero = torch.zeros_like(alpha)
-    alpha = torch.where(keep, alpha, zero)
-    beta = torch.where(keep, beta, zero)
+    if keep is not None:
+        zero = torch.zeros_like(alpha)
+        alpha = torch.where(keep, alpha, zero)
+        beta = torch.where(keep, beta, zero)
     dF = torch.einsum("tnx,knx->ktn", d, Fk)
     out = (torch.einsum("tn,knx->ktx", alpha, Fk)
            + torch.einsum("ktn,tn,tnx->ktx", dF, beta, d))
     if wall:
-        zj = rj[None, :, 2] * inv_a
-        zi = ri[:, None, 2] * inv_a
-        if h_floor > 0:
-            zj = torch.clamp(zj, min=h_floor)
-            zi = torch.clamp(zi, min=h_floor)
         d_img = torch.cat([d[..., :2], (zi + zj).expand(d.shape[:2])[..., None]],
                           dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj.expand(d.shape[:2]))
         e = d_img * invR[..., None]
-        f1, f2, f3, f4, f5 = (torch.where(keep, f, zero)
-                              for f in (f1, f2, f3, f4, f5))
+        if keep is not None:
+            f1, f2, f3, f4, f5 = (torch.where(keep, f, zero)
+                                  for f in (f1, f2, f3, f4, f5))
         eF = torch.einsum("tnx,knx->ktn", e, Fk)
         Fz = Fk[:, :, 2]
         out = out + torch.einsum("tn,knx->ktx", f1, Fk)
@@ -148,21 +281,65 @@ def _pair_tile(ri, rj, row_ids, col_ids, Fk, inv_a, wall, h_floor):
     return out
 
 
+def _floored_heights(ri, rj, wall, h_floor):
+    """Row and column heights (T, 1) / (1, N) in units of a, floored."""
+    if not wall:
+        return None, None
+    zi = ri[:, None, 2]
+    zj = rj[None, :, 2]
+    if h_floor > 0:
+        zi = torch.clamp(zi, min=h_floor)
+        zj = torch.clamp(zj, min=h_floor)
+    return zi, zj
+
+
+def _pair_tile(ri, rj, row_ids, col_ids, Fk, wall, h_floor, box_n=None,
+               images=None):
+    """Σ_j M_ij·F_j of all column blobs onto a tile of row blobs.
+
+    ri (T, 3), rj (N, 3) in units of a, Fk (k, N, 3) → (k, T, 3); pair
+    terms only, self pairs (equal global ids) masked out by selects at the
+    zero offset.  box_n: the periodic box in units of a (minimum image);
+    images: None or the (offsets (O, 3), weights (O,)) of the exact image
+    sum, each offset added to the wrapped displacement, in order.
+    """
+    d = _displacement(ri, rj, box_n)                              # (T, N, 3)
+    keep = row_ids[:, None] != col_ids[None, :]
+    zi, zj = _floored_heights(ri, rj, wall, h_floor)
+    out = _pair_field_sum(d, keep, Fk, wall, zi, zj)
+    if images is not None:
+        for o, wt in zip(*images):
+            out = out + wt * _pair_field_sum(d + o, None, Fk, wall, zi, zj)
+    return out
+
+
 def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
-             row_tile=512, h_floor=WALL_H_FLOOR):
+             row_tile=512, h_floor=WALL_H_FLOOR, box=None, image_shells=0,
+             image_tail=True):
     """Σ_j M_ij·F_j over all column blobs, for a set of row blobs.
 
     Pair terms only — no self term, no 1/(8πηa), no damping.  r_rows (R, 3),
     r_cols (N, 3), F_cols (N, 3) or (k, N, 3); row_ids (R,) / col_ids (N,)
     global indices for self-pair masking (the ordered-slab contract of the
     kernels: a pair is skipped iff its two global ids are equal).
+
+    box: None, or the periodic (Lx, Ly) box (minimum image in the plane;
+    (Lx, Ly, Lz) wraps z too).  image_shells: S ≥ 1 adds the exact
+    doubly-periodic sum over the (2S+1)² − 1 nonzero in-plane lattice
+    images of the wrapped displacement, self images included; image_tail
+    folds in the two-ring Richardson tail weights.
     """
     multi = F_cols.dim() == 3
     Fk = F_cols if multi else F_cols[None]
-    inv_a = 1.0 / a
+    box_n = _box_n(box, a)
+    _check_images(box_n, image_shells)
+    images = (_image_lattice(box_n, int(image_shells), image_tail, Fk.dtype,
+                             Fk.device) if image_shells else None)
+    # positions in units of a, as the kernels' wrapper hands them over
+    r_rows, r_cols = r_rows / a, r_cols / a
     outs = [
         _pair_tile(r_rows[s:s + row_tile], r_cols, row_ids[s:s + row_tile],
-                   col_ids, Fk, inv_a, wall, h_floor)
+                   col_ids, Fk, wall, h_floor, box_n, images)
         for s in range(0, r_rows.shape[0], row_tile)
     ]
     U = torch.cat(outs, dim=1)
@@ -170,18 +347,22 @@ def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, damp=None, row_tile=512,
-                   h_floor=WALL_H_FLOOR):
+                   h_floor=WALL_H_FLOOR, box=None, image_shells=0,
+                   image_tail=True):
     """Matrix-free U = M(r)·F, or B·M·B·F when damped; (N, 3) → (N, 3).
 
-    damp: None → damping iff ``wall`` (reference semantics).
+    damp: None → damping iff ``wall`` (reference semantics).  box /
+    image_shells / image_tail: the pseudo-2D box, see :func:`pair_sum`.
     """
     r = r.reshape(-1, 3)
     return mobility_apply_multi(F.reshape(1, -1, 3), r, a, eta, wall, damp,
-                                row_tile, h_floor)[0]
+                                row_tile, h_floor, box, image_shells,
+                                image_tail)[0]
 
 
 def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
-                         row_tile=512, h_floor=WALL_H_FLOOR):
+                         row_tile=512, h_floor=WALL_H_FLOOR, box=None,
+                         image_shells=0, image_tail=True):
     """Multi-RHS U_k = M(r)·F_k, (k, N, 3) → (k, N, 3); the pair fields are
     shared across the RHS."""
     r = r.reshape(-1, 3)
@@ -193,7 +374,8 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
         Fd = Fs * b[None, :, None]
     ids = torch.arange(r.shape[0], device=r.device)
     U = pair_sum(r, ids, r, ids, Fd, a=a, wall=wall, row_tile=row_tile,
-                 h_floor=h_floor)
+                 h_floor=h_floor, box=box, image_shells=image_shells,
+                 image_tail=image_tail)
     U = U + _self_diag(r, a, wall, h_floor)[None] * Fd
     U = U * (1.0 / (8.0 * math.pi * eta * a))
     if use_damp:
@@ -201,31 +383,23 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
     return U
 
 
-def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR):
-    """Dense (3N, 3N) RPY mobility (undamped), every ordered pair evaluated
-    directly (valid because C_ji = C_ijᵀ).  Small-N path: the PC and noise
-    factor builds."""
-    r = r.reshape(-1, 3)
-    n = r.shape[0]
-    dtype, dev = r.dtype, r.device
-    inv_a = 1.0 / a
-    d = (r[:, None, :] - r[None, :, :]) * inv_a                   # (N, N, 3)
-    keep = ~torch.eye(n, dtype=torch.bool, device=dev)
+def _dense_pair_blocks(d, keep, wall, zi, zj):
+    """(N, N, 3, 3) pair mobility blocks for one displacement set d; a pair
+    that ``keep`` (or None) drops is an exact 0."""
+    dtype, dev = d.dtype, d.device
     r2 = torch.sum(d * d, dim=-1)
-    r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
+    if keep is not None:
+        r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
     alpha, beta = _free_coeffs(r2)
-    zero = torch.zeros_like(alpha)
-    alpha = torch.where(keep, alpha, zero)
-    beta = torch.where(keep, beta, zero)
+    if keep is not None:
+        zero = torch.zeros_like(alpha)
+        alpha = torch.where(keep, alpha, zero)
+        beta = torch.where(keep, beta, zero)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     M = (alpha[:, :, None, None] * eye3
          + beta[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :])
     if wall:
-        zj = r[None, :, 2] * inv_a
-        zi = r[:, None, 2] * inv_a
-        if h_floor > 0:
-            zj = torch.clamp(zj, min=h_floor)
-            zi = torch.clamp(zi, min=h_floor)
+        n = d.shape[0]
         d_img = torch.cat([d[..., :2], (zi + zj)[..., None]], dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj.expand(n, n))
         e = d_img * invR[..., None]
@@ -236,7 +410,31 @@ def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR):
              + f4[:, :, None, None] * zhat[None, None, :, None] * e[:, :, None, :]
              + f5[:, :, None, None] * zhat[None, None, :, None]
              * zhat[None, None, None, :])
-        M = M + torch.where(keep[:, :, None, None], C, torch.zeros_like(C))
+        if keep is not None:
+            C = torch.where(keep[:, :, None, None], C, torch.zeros_like(C))
+        M = M + C
+    return M
+
+
+def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR,
+                    box=None, image_shells=0, image_tail=True):
+    """Dense (3N, 3N) RPY mobility (undamped), every ordered pair evaluated
+    directly (valid because C_ji = C_ijᵀ).  Small-N path: the PC and noise
+    factor builds.  box / image_shells / image_tail: see :func:`pair_sum`."""
+    r = r.reshape(-1, 3)
+    n = r.shape[0]
+    dtype, dev = r.dtype, r.device
+    box_n = _box_n(box, a)
+    _check_images(box_n, image_shells)
+    r_n = r / a
+    d = _displacement(r_n, r_n, box_n)                            # (N, N, 3)
+    keep = ~torch.eye(n, dtype=torch.bool, device=dev)
+    zi, zj = _floored_heights(r_n, r_n, wall, h_floor)
+    M = _dense_pair_blocks(d, keep, wall, zi, zj)
+    if image_shells:
+        for o, wt in zip(*_image_lattice(box_n, int(image_shells), image_tail,
+                                         dtype, dev)):
+            M = M + wt * _dense_pair_blocks(d + o, None, wall, zi, zj)
     self_blocks = torch.diag_embed(_self_diag(r, a, wall, h_floor))  # (N,3,3)
     M = M + keep.logical_not()[:, :, None, None] * self_blocks[:, None, :, :]
     M = M * (1.0 / (8.0 * math.pi * eta * a))
@@ -250,14 +448,15 @@ def cross_mobility_blocks(ri, rj, a=1.0, eta=1.0, wall=False,
     The physics and scale of :func:`mobility_matrix` (free-space RPY +
     Swan–Brady wall correction, 1/(8πηa)) for cross pairs of ``ri``
     (..., P, 3) and ``rj`` (..., Q, 3): no self branch (a coincident pair
-    gets the r → 0 overlap limit) and no damping.  The RAS preconditioner's
-    halo coupling blocks (:func:`.saddle.build_pc_ras`).  Per-blob radii
-    raise: the polydisperse form comes with ROADMAP.md queue 1, item 12.
+    gets the r → 0 overlap limit), no box and no damping.  The RAS
+    preconditioner's halo coupling blocks (:func:`.saddle.build_pc_ras`;
+    the JAX package's halos do not see a box either).  Per-blob radii
+    raise: the polydisperse form comes with ROADMAP.md queue 1, item 12b.
     """
     if radii_i is not None or radii_j is not None:
         raise NotImplementedError(
             "per-blob radii are not in the port's cross_mobility_blocks yet "
-            "(ROADMAP.md queue 1, item 12 (polydisperse))")
+            "(ROADMAP.md queue 1, item 12b (polydisperse))")
     dtype, dev = ri.dtype, ri.device
     inv_a = 1.0 / a
     d = (ri[..., :, None, :] - rj[..., None, :, :]) * inv_a     # (..., P, Q, 3)

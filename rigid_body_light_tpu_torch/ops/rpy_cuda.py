@@ -15,10 +15,18 @@ Kernels (``csrc/rpy_pair_sweep.cu``, built for sm_90a at first use by
                              blocks of 64 rows × 256 columns
                              (:func:`ordered_grid`).
 
+Both take the pseudo-2D (Lx, Ly) box: the minimum-image wrap of a pair's
+in-plane displacement and, with ``image_shells`` S ≥ 1, the exact
+doubly-periodic sum over the (2S+1)² − 1 nonzero lattice offsets of the
+wrapped displacement with the two-ring tail weights (``image_tail``).  K1
+never visits i == i, so :func:`pair_sum` adds the self-image diagonal
+(:func:`.rpy.self_image_sum`, plain PyTorch on the device) as
+``rpy_pallas.pair_sum`` does; K2 keeps a blob's own images.
+
 Dispatch in :func:`pair_sum` follows the JAX package's rule
-(``rpy_pallas.py:59-66``, ``:623``): k=1 → K1; k=2 → K1 once n padded to
-512 reaches 65,536 blobs, else K2 (:func:`uses_sym`).  Anything else
-(k > 2, a box, per-blob radii, image shells) raises NotImplementedError
+(``rpy_pallas.py:59-66``, ``:623``), with or without a box: k=1 → K1; k=2
+→ K1 once n padded to 512 reaches 65,536 blobs, else K2
+(:func:`uses_sym`).  k > 2 and per-blob radii raise NotImplementedError
 naming the ROADMAP item.  A tensor on the CPU takes the plain PyTorch
 version (:mod:`rigid_body_light_tpu_torch.ops.rpy`); a CUDA tensor launches
 the kernel or raises — there is no fallback.  Like the Pallas wrapper,
@@ -99,19 +107,40 @@ def build():
         if fn() != want:
             raise RuntimeError(f"rpy_pair_sweep.cu: {name} is {fn()}, the "
                                f"wrapper's {want}")
+    box = [f, f, i, f, f]
     lib.rpy_pair_sweep_sym.restype = i
-    lib.rpy_pair_sweep_sym.argtypes = [p, p, i, i, i, f, p, p, p, p]
+    lib.rpy_pair_sweep_sym.argtypes = [p, p, i, i, i, f, *box, p, p, p, p]
     lib.rpy_pair_sweep_ordered.restype = i
-    lib.rpy_pair_sweep_ordered.argtypes = [p, i, i, p, p, i, i, i, i, f, p,
-                                           p, p]
+    lib.rpy_pair_sweep_ordered.argtypes = [p, i, i, p, p, i, i, i, i, f,
+                                           *box, p, p, p]
     _lib = lib
     return lib
 
 
-def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float):
+def box_args(box_over_a=None, image_shells=0, image_tail=True):
+    """The kernels' box arguments (Lx, Ly, S, α, β): lengths in units of a
+    (0 = no box), the shells and the tail coefficients, as the Pallas
+    wrapper passes them (``rpy_pallas.py:614-621``)."""
+    if box_over_a is None:
+        if image_shells:
+            raise ValueError("image_shells needs a 2-D box_over_a")
+        return 0.0, 0.0, 0, 0.0, 0.0
+    if len(box_over_a) != 2 or min(box_over_a) <= 0:
+        raise ValueError(f"the pair sweeps' box is a positive (Lx, Ly) pair, "
+                         f"got {box_over_a}")
+    bx, by = float(box_over_a[0]), float(box_over_a[1])
+    S = int(image_shells)
+    if S < 0:
+        raise ValueError(f"image_shells must be ≥ 0, got {S}")
+    alpha, beta = rpy.tail_coeffs(S) if (S and image_tail) else (0.0, 0.0)
+    return bx, by, S, alpha, beta
+
+
+def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None):
     """K1: Σ_{j≠i} M_ij F_j over unordered pairs, on the card.
     r_over_a (n, 3) and F (n, 3), or (k, n, 3) with k ∈ {1, 2}, float32
-    CUDA tensors → F's shape."""
+    CUDA tensors → F's shape.  box: :func:`box_args` (None: no box); the
+    self images are not included."""
     global sym_launches
     n = r_over_a.shape[0]
     Fk = F[None] if F.dim() == 2 else F
@@ -132,18 +161,19 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_sym(
             r_over_a.data_ptr(), Fk.data_ptr(), n, k, int(bool(wall)),
-            float(h_floor), row_part.data_ptr(), col_part.data_ptr(),
-            out.data_ptr(), stream)
+            float(h_floor), *(box or box_args()), row_part.data_ptr(),
+            col_part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_sym")
     sym_launches += 1
     return out if F.dim() == 3 else out[0]
 
 
 def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
-                       col_offset: int, wall: bool, h_floor: float):
+                       col_offset: int, wall: bool, h_floor: float, box=None):
     """K2: Σ_j M_ij F_j over all columns whose global id differs from the
     row's, on the card.  r_rows (R, 3), r_cols (N, 3), F_cols (k, N, 3)
-    float32 CUDA tensors, k ∈ {1, 2} → (k, R, 3)."""
+    float32 CUDA tensors, k ∈ {1, 2} → (k, R, 3).  box: :func:`box_args`
+    (None: no box); a blob's own images are included."""
     global ordered_launches
     n_rows = r_rows_over_a.shape[0]
     k, n_cols = F_cols.shape[0], r_cols_over_a.shape[0]
@@ -163,7 +193,7 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
             r_rows_over_a.data_ptr(), n_rows, int(row_offset),
             r_cols_over_a.data_ptr(), F_cols.data_ptr(), n_cols,
             int(col_offset), k, int(bool(wall)), float(h_floor),
-            part.data_ptr(), out.data_ptr(), stream)
+            *(box or box_args()), part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_ordered")
     ordered_launches += 1
     return out
@@ -176,20 +206,21 @@ def _not_ported(what, item):
 
 
 def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
-             ahat=None, image_shells=0):
+             ahat=None, image_shells=0, image_tail=True):
     """Σ_{j≠i} M_ij F_j (unscaled, undamped pair terms).
 
     r_over_a: (N, 3) positions in units of the blob radius; F: (N, 3) single
-    RHS or (k, N, 3), k ≤ 2.  CPU tensors take the plain sweep, CUDA
-    tensors K1 or K2 by :func:`uses_sym`.
+    RHS or (k, N, 3), k ≤ 2.  box_over_a: None or the pseudo-2D (Lx, Ly)
+    box in units of a; image_shells / image_tail: the exact image sum, self
+    images included (as ``rpy_pallas.pair_sum``).  CPU tensors take the
+    plain sweep, CUDA tensors K1 or K2 by :func:`uses_sym`.
     """
-    if box_over_a is not None or image_shells:
-        raise _not_ported("a periodic box / image shells",
-                          "item 12 (pseudo-2D)")
     if ahat is not None:
-        raise _not_ported("per-blob radii", "item 12 (polydisperse)")
+        raise _not_ported("per-blob radii", "item 12b (polydisperse "
+                          "_poly_coeffs forms of K1/K2/K3)")
     if h_floor is None:
         h_floor = rpy.WALL_H_FLOOR
+    box = box_args(box_over_a, image_shells, image_tail)
     multi = F.dim() == 3
     Fk = F if multi else F[None]
     k = Fk.shape[0]
@@ -199,26 +230,35 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
     r_over_a = r_over_a.to(torch.float32).contiguous()
     Fk = Fk.to(torch.float32).contiguous()
     n = r_over_a.shape[0]
+    S = box[2]
     if r_over_a.device.type == "cpu":
         ids = torch.arange(n)
         U = rpy.pair_sum(r_over_a, ids, r_over_a, ids, Fk, a=1.0, wall=wall,
-                         h_floor=h_floor)
+                         h_floor=h_floor, box=box_over_a, image_shells=S,
+                         image_tail=image_tail)
     elif r_over_a.device.type == "cuda":
         if uses_sym(k, n):
-            U = pair_sweep_sym(r_over_a, Fk, wall, h_floor)
+            U = pair_sweep_sym(r_over_a, Fk, wall, h_floor, box)
+            if S:
+                # K1 never visits i == i: a blob against its own images
+                U = U + rpy.self_image_sum(r_over_a, Fk, wall, box[:2], S,
+                                           h_floor=h_floor, tail=image_tail)
         else:
             U = pair_sweep_ordered(r_over_a, 0, r_over_a, Fk, 0, wall,
-                                   h_floor)
+                                   h_floor, box)
     else:
         raise ValueError(f"no pair sweep for device {r_over_a.device}")
     return U if multi else U[0]
 
 
 def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
-                         h_floor=None, box=None, radii=None, image_shells=0):
+                         h_floor=None, box=None, radii=None, image_shells=0,
+                         image_tail=True):
     """(k, N, 3) forces → (k, N, 3) velocities U_k = M·F_k (B·M·B·F_k when
     damped; damping iff ``wall`` unless ``damp`` says otherwise), float32,
-    sharing the pair fields across the RHS (k ≤ 2)."""
+    sharing the pair fields across the RHS (k ≤ 2).  box: None or the
+    pseudo-2D (Lx, Ly) box; image_shells / image_tail: its exact image
+    sum."""
     if h_floor is None:
         h_floor = rpy.WALL_H_FLOOR
     r = r.to(torch.float32).reshape(-1, 3)
@@ -231,7 +271,7 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
         Fd = Fs * b[None, :, None]
     box_over_a = None if box is None else tuple(x / a for x in box)
     U = pair_sum(r / a, Fd, wall, h_floor=h_floor, box_over_a=box_over_a,
-                 ahat=radii, image_shells=image_shells)
+                 ahat=radii, image_shells=image_shells, image_tail=image_tail)
     U = U + rpy._self_diag(r, a, wall, h_floor)[None] * Fd
     U = U * (1.0 / (8.0 * math.pi * eta * a))
     if use_damp:
@@ -240,8 +280,9 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, damp=None, h_floor=None,
-                   box=None, radii=None, image_shells=0):
+                   box=None, radii=None, image_shells=0, image_tail=True):
     """Drop-in for :func:`rigid_body_light_tpu_torch.ops.rpy.mobility_apply`
     (float32): U = M·F, or B·M·B·F when ``wall``; (N, 3) → (N, 3)."""
     return mobility_apply_multi(F.reshape(1, -1, 3), r, a, eta, wall, damp,
-                                h_floor, box, radii, image_shells)[0]
+                                h_floor, box, radii, image_shells,
+                                image_tail)[0]

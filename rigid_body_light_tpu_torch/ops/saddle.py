@@ -83,22 +83,24 @@ def mobility_apply_fn(cfg: SimulationConfig):
     Ewald operator (:func:`_ewald_apply_fn`).  With ``farfield_grid`` set
     it is the proxy-grid far field (:func:`_farfield_apply_fn`).  Otherwise
     float32 with ``use_pallas`` goes through the CUDA pair-sweep wrappers
-    (kernel K1 on the card), and anything else takes the plain sweep."""
+    (kernel K1 on the card), and anything else takes the plain sweep; a 2-D
+    ``cfg.box`` gives both the pseudo-2D box and ``cfg.image_shells``."""
     if cfg.box is not None and len(cfg.box) == 3:
         return _ewald_apply_fn(cfg, multi=False)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
+    box = _pair_box(cfg)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(F, r):
             return rpy_cuda.mobility_apply(F, r, a=cfg.a, eta=cfg.eta,
                                            wall=cfg.wall,
-                                           h_floor=cfg.wall_h_floor)
+                                           h_floor=cfg.wall_h_floor, **box)
         return apply_kernel
 
     def apply_plain(F, r):
         return rpy.mobility_apply(F, r, a=cfg.a, eta=cfg.eta, wall=cfg.wall,
                                   row_tile=cfg.matvec_row_tile,
-                                  h_floor=cfg.wall_h_floor)
+                                  h_floor=cfg.wall_h_floor, **box)
     return apply_plain
 
 
@@ -111,19 +113,29 @@ def mobility_apply_multi_fn(cfg: SimulationConfig):
         return _ewald_apply_fn(cfg, multi=True)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
+    box = _pair_box(cfg)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(Fs, r):
             return rpy_cuda.mobility_apply_multi(Fs, r, a=cfg.a, eta=cfg.eta,
                                                  wall=cfg.wall,
-                                                 h_floor=cfg.wall_h_floor)
+                                                 h_floor=cfg.wall_h_floor,
+                                                 **box)
         return apply_kernel
 
     def apply_plain(Fs, r):
         return rpy.mobility_apply_multi(Fs, r, a=cfg.a, eta=cfg.eta,
                                         wall=cfg.wall,
                                         row_tile=cfg.matvec_row_tile,
-                                        h_floor=cfg.wall_h_floor)
+                                        h_floor=cfg.wall_h_floor, **box)
     return apply_plain
+
+
+def _pair_box(cfg: SimulationConfig) -> dict:
+    """The pair sweeps' box arguments: the pseudo-2D (Lx, Ly) box and its
+    image shells (a 3-D box never reaches the pair sweeps)."""
+    if cfg.box is None:
+        return {}
+    return dict(box=cfg.box, image_shells=cfg.image_shells)
 
 
 @functools.lru_cache(maxsize=8)
@@ -297,9 +309,12 @@ def build_pc(ops: GeometryOps, cfg: SimulationConfig) -> PCData:
                       minv_ref=minv_ref, n_ref=torch.linalg.inv(ninv_ref))
     Kb = body_K_blocks(ops.offsets)                        # (B, n, 3, 6)
     if mode == "block":
+        # the body's own blobs, minimum image in the box (no shells), as
+        # the JAX package builds them
         inv_m_block = torch.stack([
             torch.linalg.inv(rpy.mobility_matrix(
-                pos_b, cfg.a, cfg.eta, cfg.wall, h_floor=cfg.wall_h_floor))
+                pos_b, cfg.a, cfg.eta, cfg.wall, h_floor=cfg.wall_h_floor,
+                box=cfg.box))
             for pos_b in ops.positions])                   # (B, 3n, 3n)
         Kb_flat = Kb.reshape(B, 3 * n, 6)
         ninv = torch.einsum("bia,bij,bjc->bac", Kb_flat, inv_m_block, Kb_flat)

@@ -15,6 +15,9 @@ of the main paths (``chip_smoke``'s slices):
 
   K1 at 1 and 2 RHS (2 RHS where the checkout's K1 takes it) and K2 at 2
   RHS at the dense slice's 10,272 positions, wall;
+  where the checkout has them, K1's box forms at 1 and 2 RHS and K2's at
+  2 RHS at the pseudo-2D film's 10,272 positions in its (10, 10) box, at
+  image_shells 0 and 2;
   K3 at 1 and 2 RHS at the far-field slice's 102,480 positions;
   K4 at 1 and 2 RHS at the periodic slice's 10,272 positions;
   K1 beyond the slices, up to where its blocks walk groups of tiles, at
@@ -98,6 +101,19 @@ def child(out_path):
         timed("K1 2 RHS", lambda: rpy_cuda.pair_sweep_sym(r, F, True, h))
     timed("K2 2 RHS", lambda: rpy_cuda.pair_sweep_ordered(r, 0, r, F, 0,
                                                           True, h))
+    if hasattr(rpy_cuda, "box_args"):
+        cfg_b, geom_b, state_b, _ = cs.film_setup(torch, dev, 0)
+        r_b = (kinematics.blob_positions(geom_b, state_b.X, state_b.Q)
+               .reshape(-1, 3) / cfg_b.a).contiguous()
+        box_n = tuple(L / cfg_b.a for L in cfg_b.box)
+        for S in (0, 2):
+            b = rpy_cuda.box_args(box_n, S)
+            for k in (1, 2):
+                Fk = F[:k].contiguous()
+                timed(f"K1 {k} RHS box S={S}", lambda: rpy_cuda.pair_sweep_sym(
+                    r_b, Fk, True, h, box=b))
+            timed(f"K2 2 RHS box S={S}", lambda: rpy_cuda.pair_sweep_ordered(
+                r_b, 0, r_b, F, 0, True, h, box=b))
 
     cfg_f, geom_f, state_f, _ = cs.farfield_setup(torch, dev, cs.FF_BODIES)
     r_f = kinematics.blob_positions(geom_f, state_f.X, state_f.Q).reshape(

@@ -519,3 +519,99 @@ def test_k4_grouped_tiles_match_plain_and_repeat(dev, ewald_boxes, k):
                                  F[:k], params, cheb=True)
     assert _rel(U[:, rows], ref) < TOL
     assert torch.equal(U, ewald_cuda.real_pair_sum(F[:k], r, params))
+
+
+@pytest.fixture
+def film(dev):
+    """900 blobs (units of a) spread across the edges of a (40, 36) box and
+    over the 0.75a height floor, two pairs exactly on the seams; float32
+    values and the same values in float64."""
+    rng = np.random.default_rng(8)
+    r = rng.uniform([-6, -6, 0.3], [46, 42, 7], (900, 3)).astype(np.float32)
+    r[1] = (3.0, 5.0, 1.0)
+    r[2] = (23.0, 5.0, 2.0)      # Δx = −20 = −Lx/2
+    r[3] = (7.5, 30.0, 1.5)
+    r[4] = (7.5, 12.0, 0.5)      # Δy = +18 = +Ly/2
+    F = rng.standard_normal((2, 900, 3)).astype(np.float32)
+    r32 = torch.from_numpy(r).to(dev)
+    F32 = torch.from_numpy(F).to(dev)
+    return r32, F32, (40.0, 36.0)
+
+
+def _film_ref(r32, F32, box, shells, rows=None):
+    """The float64 plain sweep on the kernels' own float32 inputs."""
+    n = r32.shape[0]
+    ids = torch.arange(n, device=r32.device)
+    rows = ids if rows is None else rows
+    r64 = r32.double()
+    return rpy.pair_sum(r64[rows], rows, r64, ids, F32.double(), wall=True,
+                        box=box, image_shells=shells, row_tile=64)
+
+
+@pytest.mark.parametrize("shells", [0, 1, 2])
+@pytest.mark.parametrize("k", [1, 2])
+def test_box_forms_match_plain(film, shells, k):
+    """K1 (plus the self-image diagonal) and K2 in the box, minimum image
+    and image lattice, against the float64 plain sweep on the same float32
+    inputs: the kernels' wrap takes the same images, the seams included."""
+    r32, F32, box = film
+    Fk = F32[:k].contiguous()
+    ref = _film_ref(r32, Fk, box, shells)
+    args = rpy_cuda.box_args(box, shells)
+    before = rpy_cuda.launch_counts()
+    U1 = rpy_cuda.pair_sweep_sym(r32, Fk, True, 0.75, box=args)
+    if shells:
+        U1 = U1 + rpy.self_image_sum(r32, Fk, True, box, shells)
+    U2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, Fk, 0, True, 0.75, box=args)
+    torch.cuda.synchronize()
+    after = rpy_cuda.launch_counts()
+    assert after["pair_sweep_sym"] == before["pair_sweep_sym"] + 1
+    assert after["pair_sweep_ordered"] == before["pair_sweep_ordered"] + 1
+    assert _rel(U1, ref) < TOL
+    assert _rel(U2, ref) < TOL
+    assert _rel(rpy_cuda.pair_sum(r32, Fk, True, box_over_a=box,
+                                  image_shells=shells), ref) < TOL
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_box_forms_are_repeatable(film, k):
+    """Two launches of each box form agree bitwise (no atomics)."""
+    r32, F32, box = film
+    Fk = F32[:k].contiguous()
+    for shells in (0, 2):
+        args = rpy_cuda.box_args(box, shells)
+        for fn in (lambda: rpy_cuda.pair_sweep_sym(r32, Fk, True, 0.75,
+                                                   box=args),
+                   lambda: rpy_cuda.pair_sweep_ordered(r32, 0, r32, Fk, 0,
+                                                       True, 0.75, box=args)):
+            assert torch.equal(fn(), fn())
+
+
+def test_k2_box_slab_keeps_self_images(film):
+    """A K2 row slab with its global offset in the box: the self pair is
+    masked at offset 0 only, so its rows match the square plain sweep."""
+    r32, F32, box = film
+    ids = torch.arange(r32.shape[0], device=r32.device)
+    ref = _film_ref(r32, F32, box, 2, rows=ids[100:400])
+    U = rpy_cuda.pair_sweep_ordered(r32[100:400].contiguous(), 100, r32,
+                                    F32, 0, True, 0.75,
+                                    box=rpy_cuda.box_args(box, 2))
+    torch.cuda.synchronize()
+    assert _rel(U, ref) < TOL
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k1_grouped_box_form_matches_plain(dev, k):
+    """K1's grouped kernel (66,000 blobs) in the box at 2 shells, on 256
+    sampled rows."""
+    n = 66_000
+    rng = np.random.default_rng(9)
+    box = (200.0, 200.0)
+    r32 = torch.from_numpy(rng.uniform([0, 0, 0.5], [200, 200, 12], (n, 3))
+                           .astype(np.float32)).to(dev)
+    F32 = torch.from_numpy(rng.standard_normal((k, n, 3))
+                           .astype(np.float32)).to(dev)
+    U = rpy_cuda.pair_sum(r32, F32, True, box_over_a=box, image_shells=2)
+    torch.cuda.synchronize()
+    rows = torch.from_numpy(np.sort(rng.choice(n, 256, replace=False))).to(dev)
+    assert _rel(U[:, rows], _film_ref(r32, F32, box, 2, rows)) < TOL

@@ -106,11 +106,13 @@ def test_k2_wrapper_matches_pallas_kernel(cloud, wall):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(box_over_a=(10.0, 10.0)),
-    dict(image_shells=2),
     dict(ahat=torch.ones(8)),
+    dict(ahat=torch.ones(8), box_over_a=(10.0, 10.0)),
+    dict(ahat=torch.ones(8), box_over_a=(10.0, 10.0), image_shells=2),
 ])
 def test_wrapper_raises_on_unported_options(kwargs):
+    """Per-blob radii raise, with or without the pseudo-2D box (the box
+    and its image shells are ported: tests/test_torch_pseudo2d.py)."""
     r = torch.rand(8, 3) + 1.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rpy_cuda.pair_sum(r, torch.rand(8, 3), True, **kwargs)
