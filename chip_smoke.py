@@ -108,12 +108,35 @@ Phases (each raises on failure; any failure exits nonzero):
      and then 0, with the launch counts read around each run;
  23. one image_shells 2 film step through the kernels against one through
      the plain float32 sweep, from identical draws, at the slice's state
-     after phase 22.
+     after phase 22;
+ 24. K3's box form (the pseudo-2D film's minimum-image wrap of dx, dy and
+     cyclic cell offsets) against the plain near sweep in float64 on the
+     same float32 inputs and box, wall, 1 and 2 RHS, two launches bitwise
+     equal: at the far-field film slice (the far-field slice's 40 ×
+     shell_N_2562 = 102,480 blobs on an 8 × 5 lattice in the (20.8, 13.0)
+     box it tiles, grid (16, 10, 3), p = 4, image_shells 6), at a ragged
+     cloud across both seams and the wall-height floor, at a g = 4 grid
+     with blob pairs on the seam tie and one ulp either side of it, and at
+     a tile that meets itself across the seam; then its time at the slice
+     against the plain float32 sweep, its bound and the open form's;
+ 25. the far-field film operator through K3 against the exact image sweep
+     (K1's box form at image_shells 6 with the tail, plus the self
+     images) at the slice, two of its products bitwise equal, the lattice
+     build's time and peak memory; then
+     run_bd on the slice for 1 warm-up and 2 timed steps, with the launch
+     counts read around that run (K3 launched, K1/K2/K4 not; every
+     residual below 10·gmres_tol), and the step timer's split of one more
+     step (the lattice build's ms a step and share);
+ 26. one far-field film step through K3 against one through the plain
+     float32 near sweep, from identical draws, at 10 × shell_N_2562 =
+     25,620 blobs on a 5 × 2 lattice in the (13.0, 5.2) box, grid
+     (10, 4, 3).
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
 path (K1/K2 under the RAS preconditioner), phases 21-23 the film path
-(K1/K2 in the box); phase 15 is the probe's own entry point.  The kernels
+(K1/K2 in the box), phases 24-26 the far-field film path (K3's box form);
+phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
 
@@ -199,7 +222,7 @@ ST_SOLVE_TOL = 1e-5
 TPU_MEAN_ITERS = {"3e-4": 8.0, "1e-4": 9.2}
 # phase 20: steps a slice runs under the step timer
 SPLIT_STEPS = {"dense": 3, "far-field": 1, "periodic": 3, "settled": 3,
-               "film": 3}
+               "film": 3, "far-field film": 1}
 # the film slice (examples/periodic_film.json at the dense slice's size):
 # the lattice tiles a (10, 10) box exactly
 FILM_SPACING = 2.5
@@ -208,6 +231,17 @@ FILM_TIMED_STEPS = 8
 FILM_SHELLS = 2
 # phase 21: K1's grouped kernel in the box, on sampled rows
 FILM_GROUPED_N = 66_000
+# the far-field film (phases 24-26): the far-field slice's bodies on an
+# 8 × 5 lattice in the (20.8, 13.0) box it tiles, cells of 1.3 × 1.3 in the
+# plane, the image sum at 6 shells (≈ 1e-4 with the tail, DESIGN.md §6a)
+FB_SIDE = 8
+FB_BOX = (20.8, 13.0)
+FB_GRID = (16, 10, 3)
+FB_SHELLS = 6
+# phase 26: 10 bodies on a 5 × 2 lattice in the (13.0, 5.2) box it tiles
+FB_CHECK_SIDE = 5
+FB_CHECK_BOX = (13.0, 5.2)
+FB_CHECK_GRID = (10, 4, 3)
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -289,22 +323,26 @@ def bound_ms(flops, n_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def farfield_setup(torch, device, n_bodies):
+def farfield_setup(torch, device, n_bodies, side=None, box=None,
+                   grid=FF_GRID):
     """bench.py::seg_farfield102k: n_bodies × shell_N_2562 on a lattice
-    ⌈√B⌉ wide, spacing 2.6, heights 2.0-2.4, force −ẑ on every body; its
-    _base_cfg with dt 0.005, GMRES restart 30 / maxiter 90, grid (12, 12,
-    3), p = 4.  Its gmres_tol 1e-4 lies below the p = 4 operator error, so
-    the config warns: the solve converges to the approximate operator."""
+    ``side`` wide (default ⌈√B⌉), spacing 2.6, heights 2.0-2.4, force −ẑ
+    on every body; its _base_cfg with dt 0.005, GMRES restart 30 / maxiter
+    90, p = 4, on ``grid``.  Its gmres_tol 1e-4 lies below the p = 4
+    operator error, so the config warns: the solve converges to the
+    approximate operator.  box: the pseudo-2D film's (Lx, Ly), which the
+    lattice tiles, with image_shells FB_SHELLS."""
     import warnings
 
     import rigid_body_light_tpu_torch as rt
     from rigid_body_light_tpu_torch.ops import kinematics as kin
 
     params, ref = rt.load_structure(FF_SHELL)
-    side = int(np.ceil(np.sqrt(n_bodies)))
+    side = side or int(np.ceil(np.sqrt(n_bodies)))
     xs = np.array([[2.6 * (i % side), 2.6 * (i // side), 2.0 + 0.2 * (i % 3)]
                    for i in range(n_bodies)])
     qs = np.tile([1.0, 0, 0, 0], (n_bodies, 1))
+    film = {} if box is None else dict(box=box, image_shells=FB_SHELLS)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         cfg = rt.SimulationConfig(
@@ -312,7 +350,7 @@ def farfield_setup(torch, device, n_bodies):
             dtype=torch.float32, lanczos_iters=6, lanczos_precond=True,
             gmres_tol=1e-4, gmres_restart=30, gmres_maxiter=90,
             matvec_row_tile=512, pc_mode="block_free",
-            farfield_grid=FF_GRID, farfield_p=FF_P)
+            farfield_grid=grid, farfield_p=FF_P, **film)
     geom = kin.make_ref_geometry(ref, dtype=torch.float32, device=device)
     state = rt.make_state(xs, qs, dtype=torch.float32, device=device)
     force = torch.zeros((n_bodies, 6), dtype=torch.float32, device=device)
@@ -526,10 +564,10 @@ def check_ewald_sweep(torch, ewald, ewald_cuda, label, r32, F32, params,
     return err1
 
 
-def near_pairs(torch, ctx, tile):
+def near_pairs(torch, ctx, tile, wrap_cells=None):
     """The pairs K3 must evaluate on this data: live rows against their
-    neighbor tiles' live columns, cell offset ≤ 1 on every axis, not the
-    self pair."""
+    neighbor tiles' live columns, cell offset ≤ 1 on every axis (cyclic in
+    x/y on ``wrap_cells``), not the self pair."""
     live = ctx.id_s >= 0
     lane = torch.arange(tile, device=live.device)
     total = 0
@@ -541,8 +579,11 @@ def near_pairs(torch, ctx, tile):
                   & live[cols])
         rows = (torch.arange(c0, c0 + ch, device=live.device)[:, None] * tile
                 + lane)
-        dc = ctx.ci_s[rows][:, :, None, :] - ctx.ci_s[cols][:, None, :, :]
-        keep = ((dc.abs() <= 1).all(dim=-1) & col_ok[:, None, :]
+        dc = (ctx.ci_s[rows][:, :, None, :]
+              - ctx.ci_s[cols][:, None, :, :]).abs()
+        for ax, g in enumerate(wrap_cells or ()):
+            dc[..., ax] = torch.minimum(dc[..., ax], g - dc[..., ax])
+        keep = ((dc <= 1).all(dim=-1) & col_ok[:, None, :]
                 & live[rows][:, :, None]
                 & (rows[:, :, None] != cols[:, None, :]))
         total += int(keep.sum())
@@ -576,6 +617,74 @@ def check_near(torch, farfield, farfield_cuda, label, r64, a, grid):
                                      f"{label}, wall={wall}, k={k}: {rel}")
 
 
+def film_near_clouds():
+    """Edge clouds for K3's box form, float32 in units of a, each with its
+    box and grid: "ragged" (1,500 blobs over 1.4 periods in x and y,
+    heights across the 0.75a floor; (24, 20) box, (6, 5, 2) grid); "ties"
+    (a g = 4 grid, 2h = L/2, in a (16, 16) box: blobs at −1e-7 wrap to
+    exactly L, their cell clipped to 3, and pair with blobs at L/2 (cell 2)
+    on the seam tie and one ulp inside it; one ulp past it the cells are
+    not adjacent; x and y, among 400 others); "self" (168 blobs along one
+    y row, 42 a cell, on a (4, 4, 1) grid: the first tile spans every x
+    cell and meets itself across the seam, the second is its neighbor
+    directly and across the seam).  tests/test_torch_cuda.py holds K3's
+    box form on them too."""
+    rng = np.random.default_rng(11)
+    out = {}
+    r = rng.uniform([-4, -4, 0.3], [28, 24, 6], (1500, 3))
+    out["ragged"] = (r, (24.0, 20.0), (6, 5, 2))
+    half = np.float32(8.0)
+    up, down = np.nextafter(half, 9), np.nextafter(half, 7)
+    seam = [(-1e-7, 3.0), (half, 3.0), (-1e-7, 6.0), (up, 6.0),
+            (-1e-7, 9.0), (down, 9.0), (3.0, -1e-7), (3.0, half),
+            (6.0, -1e-7), (6.0, up)]
+    r = rng.uniform([0, 0, 0.3], [16, 16, 4], (400, 3))
+    r = np.concatenate([np.array([(x, y, 1.5) for x, y in seam]), r])
+    out["ties"] = (r, (16.0, 16.0), (4, 4, 1))
+    r = rng.uniform([0, 0.5, 0.3], [16, 3.5, 2], (168, 3))
+    r[:, 0] = (np.arange(168) + 0.5) * (16.0 / 168)
+    out["self"] = (r, (16.0, 16.0), (4, 4, 1))
+    return {k: (v[0].astype(np.float32),) + v[1:] for k, v in out.items()}
+
+
+def check_near_box(torch, farfield, farfield_cuda, label, ctx, box32, wrap,
+                   rng):
+    """K3's box form (float32) against the plain near sweep in float64 on
+    the same float32 inputs and float32 box (so both take the same image
+    of every pair), wall, 1 and 2 RHS, live rows; two launches bitwise
+    equal.  Returns {k: max abs err}."""
+    live = ctx.id_s >= 0
+    F = torch.from_numpy(rng.standard_normal(
+        (2, ctx.x_s.shape[0], 3))).to(ctx.x_s.device).float()
+    errs = {}
+    for k in (1, 2):
+        Fk = F[:k].contiguous()
+        U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, Fk, ctx.nbr,
+                                     True, 0.75,
+                                     pairs=(ctx.pairs, ctx.n_pairs),
+                                     box_over_a=box32, wrap_cells=wrap)
+        torch.cuda.synchronize()
+        ref = farfield._near_sweep(ctx.x_s.double(), ctx.ci_s, ctx.id_s,
+                                   Fk.double(), ctx.nbr, True, 0.75,
+                                   box_n=box32, wrap_xy=wrap)
+        err = (U.double() - ref)[:, live].abs().max().item()
+        rel = err / ref[:, live].abs().max().item()
+        del U, ref
+        args = (ctx.x_s, ctx.ci_s, live, Fk, ctx.nbr, ctx.pairs,
+                ctx.n_pairs, True, 0.75, box32, wrap)
+        same = torch.equal(farfield_cuda.near_sweep_kernel(*args),
+                           farfield_cuda.near_sweep_kernel(*args))
+        print(f"K3 box form {label} n={int(live.sum())} box={box32} "
+              f"cells={wrap} k={k}: max|dU|={err:.3e} max|dU|/max|U|="
+              f"{rel:.3e} (tol {KERNEL_TOL:g}); two launches bitwise equal: "
+              f"{same}")
+        if not (rel <= KERNEL_TOL and same):
+            raise AssertionError(f"K3's box form disagrees with the plain "
+                                 f"sweep on {label}, k={k}: {rel}, {same}")
+        errs[k] = err
+    return errs
+
+
 def main():
     import torch
 
@@ -596,6 +705,7 @@ def main():
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = card_line()
@@ -1554,12 +1664,193 @@ def main():
     if not (rel <= STEP_TOL and torch.isfinite(s_k.X).all()):
         raise AssertionError(f"film kernel step disagrees with the plain "
                              f"step: {rel}")
+    film_step_check = {"rel": rel, "kernel_s": t_k, "plain_s": t_p}
+
+    # ---- 24. K3's box form at the far-field film slice and edge clouds
+    cfg_b, geom_b, state_b, force_b = farfield_setup(
+        torch, dev, FF_BODIES, side=FB_SIDE, box=FB_BOX, grid=FB_GRID)
+    a_b = cfg_b.a
+    r_b = kin.blob_positions(geom_b, state_b.X, state_b.Q).reshape(-1, 3)
+    n_b = r_b.shape[0]
+    fb_kw = dict(a=a_b, eta=cfg_b.eta, wall=True, grid=FB_GRID, p=FF_P,
+                 box=FB_BOX, image_shells=FB_SHELLS)
+    ctx_b = farfield.prepare(r_b, **fb_kw)
+    # the box in units of a as the kernel sees it (float32), given to the
+    # float64 plain sweep too
+    box_b = tuple(float(np.float32(b / a_b)) for b in FB_BOX)
+    wrap_b = FB_GRID[:2]
+    rng_b = np.random.default_rng(SEED + 8)
+    k3b_err = check_near_box(torch, farfield, farfield_cuda, "film slice",
+                             ctx_b, box_b, wrap_b, rng_b)
+    for label, (r_e, box_e, grid_e) in film_near_clouds().items():
+        ctx_e = farfield.prepare(torch.from_numpy(r_e).to(dev), wall=True,
+                                 grid=grid_e, p=3, box=box_e, image_shells=1)
+        check_near_box(torch, farfield, farfield_cuda, label, ctx_e,
+                       tuple(float(np.float32(b)) for b in box_e),
+                       grid_e[:2], rng_b)
+    live_b = ctx_b.id_s >= 0
+    n_pad_b, (t_b, w_b) = ctx_b.x_s.shape[0], ctx_b.nbr.shape
+    slots_b = (ctx_b.nbr >= 0).sum(dim=1).double()
+    pairs_b = near_pairs(torch, ctx_b, farfield.TILE, wrap_cells=wrap_b)
+    F_b = torch.from_numpy(rng_b.standard_normal((2, n_pad_b, 3))).to(
+        dev).float()
+    k3b = {}
+    for k in (1, 2):
+        args = (ctx_b.x_s, ctx_b.ci_s, live_b, F_b[:k].contiguous(),
+                ctx_b.nbr, ctx_b.pairs, ctx_b.n_pairs, True, h, box_b,
+                wrap_b)
+        ms = cuda_ms(torch, lambda: farfield_cuda.near_sweep_kernel(*args),
+                     20)
+        plain = cuda_ms(torch, lambda: farfield._near_sweep(
+            ctx_b.x_s, ctx_b.ci_s, ctx_b.id_s, F_b[:k], ctx_b.nbr, True, h,
+            box_n=box_b, wrap_xy=wrap_b), 2)
+        # as the open form: pair fields once per unordered pair and both
+        # directions' products, the wrap's few operations not counted
+        flops = pairs_b // 2 * (60 + 60 * k)
+        n_bytes = n_pad_b * (12 + 12 + 1 + 24 * k) + 4 * t_b * w_b
+        k3b[k] = dict(ms=ms, plain_ms=plain, flops=flops, err=k3b_err[k],
+                      bound=bound_ms(flops, n_bytes))
+        print(f"K3 box form time at the film slice n={n_b} (n_pad "
+              f"{n_pad_b}, {t_b} tiles, {w_b} slots, "
+              f"{slots_b.mean().item():.1f} used on average, "
+              f"{int(slots_b.max().item())} at most, "
+              f"{int(ctx_b.n_pairs.item())} tile pairs), {k} RHS: kernel "
+              f"{ms:.4f} ms ({flops / (ms * 1e-3) / 1e9:.1f} GFLOP/s over "
+              f"{pairs_b} kept ordered pairs), plain float32 {plain:.4f} ms,"
+              f" bound {k3b[k]['bound'][0]:.4f} ms ({k3b[k]['bound'][1]}), "
+              f"{ms / k3b[k]['bound'][0]:.2f}x the bound; the open form at "
+              f"the far-field slice (phase 6) {k3[k]['ms']:.4f} ms, "
+              f"{k3[k]['ms'] / k3[k]['bound'][0]:.2f}x its bound")
+
+    # ---- 25. the film operator vs the exact S = 6 image sweep; the slice
+    F25 = torch.from_numpy(rng_b.standard_normal((n_b, 3))).to(dev).float()
+    U_fb = farfield.mobility_apply(F25, r_b, ctx=ctx_b, **fb_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U_eb = rpy_cuda.mobility_apply(F25, r_b, a=a_b, eta=cfg_b.eta, wall=True,
+                                   box=FB_BOX, image_shells=FB_SHELLS)
+    torch.cuda.synchronize()
+    ex_b_s = time.perf_counter() - t0
+    fb_rel = ((U_fb - U_eb).abs().max() / U_eb.abs().max()).item()
+    del U_eb
+    fb_same = torch.equal(U_fb, farfield.mobility_apply(F25, r_b, ctx=ctx_b,
+                                                        **fb_kw))
+    fb_ms = cuda_ms(torch, lambda: farfield.mobility_apply(
+        F25, r_b, ctx=ctx_b, **fb_kw), 3)
+    torch.cuda.reset_peak_memory_stats()
+    geo_b_ms = cuda_ms(torch, lambda: farfield.prepare_geometry(
+        r_b, **fb_kw), 2)
+    geo_b_peak = torch.cuda.max_memory_allocated()
+    geo_b = farfield.prepare_geometry(r_b, **fb_kw)
+    prep_b_ms = cuda_ms(torch, lambda: farfield.prepare(
+        r_b, geo=geo_b, **fb_kw), 3)
+    print(f"far-field film vs the exact image sweep (K1's box form at "
+          f"image_shells {FB_SHELLS} with the tail, and the self images) at "
+          f"n={n_b}, box {FB_BOX}, grid {FB_GRID}, p={FF_P}: max|dU|/max|U| "
+          f"= {fb_rel:.3e} (tol {FF_OPERATOR_TOL:g}); two products bitwise "
+          f"equal: {fb_same}; apply {fb_ms:.3f} ms "
+          f"with the setup hoisted, the exact product {ex_b_s:.2f} s; "
+          f"lattice build (prepare_geometry, {(2 * FB_SHELLS + 1) ** 2} "
+          f"shifts) {geo_b_ms:.3f} ms, peak memory "
+          f"{geo_b_peak / 1e9:.3f} GB, lattice "
+          f"{geo_b.khat_wall.numel() * geo_b.khat_wall.element_size() / 1e6:.1f}"
+          f" MB; position setup (prepare with geo) {prep_b_ms:.3f} ms")
+    if not (fb_rel <= FF_OPERATOR_TOL and torch.isfinite(U_fb).all()
+            and fb_same):
+        raise AssertionError(f"the far-field film disagrees with the exact "
+                             f"image sweep ({fb_rel}) or with itself "
+                             f"({fb_same})")
+    del U_fb, geo_b
+    gen_b = torch.Generator(device=dev).manual_seed(SEED)
+    x0_b = state_b.X.clone()
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    s_b, tr_bw = run_bd(geom_b, cfg_b, state_b, FF_WARM_STEPS,
+                        generator=gen_b, force_fn=lambda s_, i: force_b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_b, tr_b = run_bd(geom_b, cfg_b, s_b, FF_TIMED_STEPS, generator=gen_b,
+                       force_fn=lambda s_, i: force_b)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    counts_b = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                **ewald_cuda.launch_counts()}
+    steps_b = FF_WARM_STEPS + FF_TIMED_STEPS
+    res_b = torch.cat([tr_bw["residual"], tr_b["residual"]])
+    iters_b = torch.cat([tr_bw["iters"], tr_b["iters"]]).double()
+    qn_b = torch.linalg.norm(s_b.Q, dim=1)
+    film_ff = dict(steps_per_s=FF_TIMED_STEPS / wall_b,
+                   iters=iters_b.tolist(), max_residual=res_b.max().item(),
+                   k3=counts_b["near_sweep"],
+                   k3_per_step=counts_b["near_sweep"] / steps_b,
+                   operator_rel=fb_rel, lattice_build_ms=geo_b_ms,
+                   lattice_build_peak_bytes=geo_b_peak, apply_ms=fb_ms,
+                   position_setup_ms=prep_b_ms)
+    print(f"far-field film slice: {FF_BODIES} x {FF_SHELL} = {n_b} blobs in "
+          f"the {FB_BOX} box, grid {FB_GRID}, p={FF_P}, image_shells "
+          f"{FB_SHELLS}: {FF_TIMED_STEPS} steps in {wall_b:.3f} s = "
+          f"{film_ff['steps_per_s']:.4f} steps/s; GMRES iters per step "
+          f"{iters_b.tolist()}; max residual {res_b.max().item():.3e}; max "
+          f"noise_err {tr_b['noise_err'].max().item():.3e}; max||q|-1| "
+          f"{(qn_b - 1).abs().max().item():.3e}; launches {counts_b} over "
+          f"{steps_b} steps ({film_ff['k3_per_step']:.1f} K3 per step)")
+    checks = {
+        "every residual < 10 gmres_tol": res_b.max().item()
+        < 10 * cfg_b.gmres_tol,
+        "state finite": bool(torch.isfinite(s_b.X).all()
+                             and torch.isfinite(s_b.Q).all()),
+        "|q| within 1e-5 of 1": (qn_b - 1).abs().max().item() <= 1e-5,
+        "bodies moved": (s_b.X - x0_b).abs().max().item() > 0,
+        "K3 launched": counts_b["near_sweep"] > 0,
+        "K1 not launched": counts_b["pair_sweep_sym"] == 0,
+        "K2 not launched": counts_b["pair_sweep_ordered"] == 0,
+        "K4 not launched": counts_b["ewald_real_sweep"] == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"far-field film slice check failed: {what}")
+    split_b = step_split(torch, profiling, "far-field film", lambda k: run_bd(
+        geom_b, cfg_b, s_b, k, generator=gen_b,
+        force_fn=lambda s_, i: force_b), SPLIT_STEPS["far-field film"])
+    splits.append(split_b)
+    lb = split_b["own_ms"].get("lattice_build", 0.0)
+    film_ff.update(lattice_build_ms_per_step=lb,
+                   lattice_build_share=lb / split_b["step_ms"])
+    print(f"far-field film: lattice_build {lb:.3f} ms a step, "
+          f"{100 * film_ff['lattice_build_share']:.1f}% of the step's "
+          f"{split_b['step_ms']:.3f} ms (the open far-field slice above: "
+          f"{FF_TIMED_STEPS / wall_f:.4f} steps/s)")
+    del ctx_b
+
+    # ---- 26. film far-field step through K3 vs the plain float32 sweep
+    cfg_26, geom_26, state_26, force_26 = farfield_setup(
+        torch, dev, FF_CHECK_BODIES, side=FB_CHECK_SIDE, box=FB_CHECK_BOX,
+        grid=FB_CHECK_GRID)
+    gen_26 = torch.Generator(device=dev).manual_seed(SEED + 9)
+    draws = make_draws(geom_26, state_26, gen_26)
+    s_k, aux_k = stochastic_step(geom_26, cfg_26, state_26, force_26,
+                                 draws=draws)
+    s_p, aux_p = stochastic_step(geom_26, cfg_26.replace(use_pallas=False),
+                                 state_26, force_26, draws=draws)
+    torch.cuda.synchronize()
+    dX_k, dX_p = s_k.X - state_26.X, s_p.X - state_26.X
+    rel26 = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    print(f"far-field film step K3 vs plain at n="
+          f"{FF_CHECK_BODIES * geom_26.n_blobs}, box {FB_CHECK_BOX}, grid "
+          f"{FB_CHECK_GRID}: max|dX_k - dX_p|/max|dX_p| = {rel26:.3e} (tol "
+          f"{STEP_TOL:g}); iters {aux_k.iters} vs {aux_p.iters}; residual "
+          f"{aux_k.residual.item():.3e} vs {aux_p.residual.item():.3e}")
+    if not (rel26 <= STEP_TOL and torch.isfinite(s_k.X).all()):
+        raise AssertionError(f"far-field film step through K3 disagrees with "
+                             f"the plain step: {rel26}")
+    film_ff["step_check_rel"] = rel26
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
                       "film": {str(S): v for S, v in film.items()},
-                      "film_step_check": {"rel": rel, "kernel_s": t_k,
-                                          "plain_s": t_p}}))
+                      "film_step_check": film_step_check,
+                      "film_farfield": film_ff}))
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
@@ -1605,7 +1896,18 @@ def main():
          "bound_ms_2rhs": k3[2]["bound"][0],
          "bound_ratio": k3[1]["ms"] / k3[1]["bound"][0],
          "bound_ratio_2rhs": k3[2]["ms"] / k3[2]["bound"][0],
-         "redesigned_in": 4},
+         "redesigned_in": 4, "box_form_in": 8,
+         "ms_box": k3b[1]["ms"], "ms_2rhs_box": k3b[2]["ms"],
+         "plain_ms_box": k3b[1]["plain_ms"],
+         "plain_ms_2rhs_box": k3b[2]["plain_ms"],
+         "bound_ms_box": k3b[1]["bound"][0],
+         "bound_ms_2rhs_box": k3b[2]["bound"][0],
+         "bound_ratio_box": k3b[1]["ms"] / k3b[1]["bound"][0],
+         "bound_ratio_2rhs_box": k3b[2]["ms"] / k3b[2]["bound"][0],
+         "max_abs_err_box": k3b[1]["err"],
+         "max_abs_err_2rhs_box": k3b[2]["err"],
+         "launches_film_farfield": film_ff["k3"],
+         "launches_per_step_film_farfield": film_ff["k3_per_step"]},
         {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
          "launches": counts_e["ewald_real_sweep"], "max_abs_err": k4_err,
@@ -1624,6 +1926,7 @@ def main():
          "library_ms": None, "measured_tflops": p_tflops,
          "bound_ratio": p_ms / bp[0]},
     ]}
+    print(f"chip_smoke: total wall time {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -37,8 +37,10 @@ class SimulationConfig:
     classic split: ``ewald_rc`` / ``ewald_grid_p`` are not ported yet).  A
     2-D ``(Lx, Ly)`` box is the wall-bounded pseudo-2D film: the minimum
     image in the plane, or with ``image_shells`` S ≥ 1 the exact
-    doubly-periodic image sum (its far field, ``farfield_grid`` with a 2-D
-    box, is not ported yet).
+    doubly-periodic image sum, and with ``farfield_grid`` too its O(N) far
+    field (:mod:`rigid_body_light_tpu_torch.ops.farfield`; S ≥ 1 and the
+    wall, and ≥ 4 cells on x and y, checked at its first apply as in the
+    JAX package).
     """
 
     a: float = 1.0
@@ -189,13 +191,14 @@ class SimulationConfig:
                 f"gmres_tol ({self.gmres_tol}) must be below max_step_residual "
                 f"({self.max_step_residual}) — otherwise every 'converged' solve "
                 "is rejected and the trajectory silently freezes")
+        if (self.box is not None and self.farfield_grid is not None
+                and self.farfield_band_p > 0):
+            # the JAX package's farfield._check_band, raised here
+            raise ValueError(
+                "farfield_band_p does not compose with the pseudo-2D (2-D "
+                "box) far field yet — its lattices are cyclic/image-summed; "
+                "use image_shells for accuracy there")
         # what the port does not have yet
-        if (self.box is not None and len(self.box) == 2
-                and self.farfield_grid is not None):
-            raise _not_ported(
-                "the pseudo-2D far field (farfield_grid with a 2-D box: the "
-                "_kernel_hat_2p lattices and K3's cyclic wrap)",
-                "item 12a (pseudo-2D far field)")
         if self.ewald_rc > 0 or self.ewald_grid_p:
             raise _not_ported(
                 "balanced-split Ewald (ewald_rc: the linked-cell real-space "

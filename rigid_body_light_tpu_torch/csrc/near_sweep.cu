@@ -67,6 +67,26 @@
 // On an H100 at 700 W, at the far-field slice, 2.12-2.14 / 2.81-2.83 ms,
 // 5.1× / 4.5× the bound (PERF.md §6).
 //
+// Box form (template BOX; the pseudo-2D film, rpy_pallas.py:960-963): the
+// blobs arrive wrapped into the (Lx, Ly) box and the neighbor lists are
+// cyclic in x/y (farfield._near_neighbor_lists with wrap_xy).  Compiled in
+// only under BOX:
+//   - dx and dy wrapped to the minimum image by rpy_fields::wrap, the rule
+//     of K1's and K2's box forms and of the plain sweep
+//     (rpy.wrapped_difference), so all of them take one image per pair.
+//     It is odd in (xi, xj), ties included, which the symmetric design
+//     needs: M_ijᵀ·F_i into column j is M_ji·F_i only if the column side's
+//     displacement is the negated row side's;
+//   - the x/y cell offsets wrapped cyclically by (gx, gy) before the ≤ 1
+//     test, on integers, exact (dead columns keep their far z cell, which
+//     is never wrapped, so they stay out);
+//   - the wall image terms on the wrapped dx, dy (pair_fields takes them).
+// No image lattice here: the image shells enter through the far tier
+// only.  A tile the wrapped lists make adjacent to itself through a seam
+// is still swept once, as its diagonal item, and a tile pair adjacent both
+// directly and across a seam is listed once; the per-pair cyclic test then
+// keeps each blob pair once.
+//
 // Plain C interface for ctypes; the launches go on the caller's stream,
 // allocate nothing and return cudaGetLastError().
 
@@ -80,6 +100,7 @@ using rpy_fields::Fields;
 using rpy_fields::apply;
 using rpy_fields::floor_height;
 using rpy_fields::pair_fields;
+using rpy_fields::wrap;
 
 constexpr int kTile = 128;             // blobs per tile (farfield.TILE)
 constexpr int kSub = 32;               // columns per rotation sub-tile
@@ -87,10 +108,23 @@ constexpr int kWarps = kTile / 32;     // one row per thread
 constexpr int kDeadCell = -(1 << 20);  // cell index of dead columns
 constexpr int kMaxDevices = 64;
 
+// The film's box for the box form: lengths in units of a, their
+// reciprocals, and the cell counts of the cyclic axes.
+struct CellBox {
+  float lx, ly, ilx, ily;
+  int gx, gy;
+};
+
+// Cyclic |cell offset| on an axis of g cells, for offsets in (−g, g).
+__device__ __forceinline__ int cyclic_gap(int d, int g) {
+  const int a = abs(d);
+  return min(a, g - a);
+}
+
 // One block per tile pair (persistent).  pairs (cap, 4): a, b ≥ a, slot of
 // b in a's list, slot of a in b's list; the first *n_pairs used.
 // part (max_nbr, NRHS, n_pad, 3): per-slot partial sums.
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 __global__ void __launch_bounds__(kTile)
 near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                  const int* __restrict__ cell,            // (n_pad, 3)
@@ -98,7 +132,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                  const float* __restrict__ force,         // (NRHS, n_pad, 3)
                  const int4* __restrict__ pairs,
                  const int* __restrict__ n_pairs,
-                 int n_pad, float h_floor,
+                 int n_pad, float h_floor, CellBox box,
                  float* __restrict__ part) {
   constexpr int NF = 3 * NRHS;
   __shared__ float s_pos[3][kTile];
@@ -166,13 +200,20 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
       if (diag && q0 < warp * 32) continue;
       for (int s = 0; s < kSub; ++s) {
         const int c = q0 + ((lane + s) & (kSub - 1));
-        const bool keep = row_live && abs(cxR - s_cell[0][c]) <= 1
-                          && abs(cyR - s_cell[1][c]) <= 1
+        int dcx = cxR - s_cell[0][c];
+        int dcy = cyR - s_cell[1][c];
+        if constexpr (BOX) {
+          dcx = cyclic_gap(dcx, box.gx);
+          dcy = cyclic_gap(dcy, box.gy);
+        }
+        const bool keep = row_live && abs(dcx) <= 1 && abs(dcy) <= 1
                           && abs(czR - s_cell[2][c]) <= 1
                           && (!diag || t < c);
         if (!__any_sync(0xffffffffu, keep)) continue;
-        const float dx = xR - s_pos[0][c];
-        const float dy = yR - s_pos[1][c];
+        const float dx = BOX ? wrap(xR, s_pos[0][c], box.lx, box.ilx)
+                             : xR - s_pos[0][c];
+        const float dy = BOX ? wrap(yR, s_pos[1][c], box.ly, box.ily)
+                             : yR - s_pos[1][c];
         const float dz = zR - s_pos[2][c];
         const Fields p = pair_fields<WALL>(dx, dy, dz, zRw, s_zw[c]);
 #pragma unroll
@@ -230,9 +271,9 @@ __global__ void sum_slots_kernel(const float* __restrict__ part,
   out[idx] = v;
 }
 
-// Blocks of near_pair_kernel<WALL, NRHS> that fit on the card at once,
-// per device (0 if the runtime cannot say).
-template <bool WALL, int NRHS>
+// Blocks of near_pair_kernel<WALL, NRHS, BOX> that fit on the card at
+// once, per device (0 if the runtime cannot say).
+template <bool WALL, int NRHS, bool BOX>
 int resident_blocks() {
   static int cache[kMaxDevices] = {0};
   int dev = 0;
@@ -242,7 +283,7 @@ int resident_blocks() {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
             != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, near_pair_kernel<WALL, NRHS>, kTile, 0)
+               &per_sm, near_pair_kernel<WALL, NRHS, BOX>, kTile, 0)
                != cudaSuccess)
       return 0;
     cache[dev] = sms * per_sm;
@@ -250,17 +291,30 @@ int resident_blocks() {
   return cache[dev];
 }
 
-template <bool WALL, int NRHS>
+template <bool WALL, int NRHS, bool BOX>
 int launch(int cap, cudaStream_t stream, const float* pos, const int* cell,
            const unsigned char* live, const float* force, const int* pairs,
-           const int* n_pairs, int n_pad, float h_floor, float* part) {
-  const int resident = resident_blocks<WALL, NRHS>();
+           const int* n_pairs, int n_pad, float h_floor, CellBox box,
+           float* part) {
+  const int resident = resident_blocks<WALL, NRHS, BOX>();
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = cap < resident ? cap : resident;
-  near_pair_kernel<WALL, NRHS><<<grid, kTile, 0, stream>>>(
+  near_pair_kernel<WALL, NRHS, BOX><<<grid, kTile, 0, stream>>>(
       pos, cell, live, force, reinterpret_cast<const int4*>(pairs), n_pairs,
-      n_pad, h_floor, part);
+      n_pad, h_floor, box, part);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool WALL, bool BOX>
+int launch_k(int nrhs, int cap, cudaStream_t stream, const float* pos,
+             const int* cell, const unsigned char* live, const float* force,
+             const int* pairs, const int* n_pairs, int n_pad, float h_floor,
+             CellBox box, float* part) {
+  return nrhs == 1
+      ? launch<WALL, 1, BOX>(cap, stream, pos, cell, live, force, pairs,
+                             n_pairs, n_pad, h_floor, box, part)
+      : launch<WALL, 2, BOX>(cap, stream, pos, cell, live, force, pairs,
+                             n_pairs, n_pad, h_floor, box, part);
 }
 
 }  // namespace
@@ -274,31 +328,39 @@ int near_sweep_tile() { return kTile; }
 // and its neighbor tiles.  n_pad = t·128, nbr (t, max_nbr); pairs (cap, 4)
 // int32 with its used length in device memory at n_pairs; part holds
 // max_nbr·nrhs·n_pad·3 floats of scratch (only the used slots are written
-// and read).
+// and read).  box_x > 0 selects the box form: the film's (box_x, box_y) in
+// units of a and its (gx, gy) cells; box_x = 0 the open form.
 int near_sweep(const float* pos, const int* cell, const unsigned char* live,
                const float* force, const int* nbr, const int* pairs,
                const int* n_pairs, int n_pad, int max_nbr, int cap, int nrhs,
-               int wall, float h_floor, float* part, float* out,
-               void* stream_ptr) {
+               int wall, float h_floor, float box_x, float box_y, int gx,
+               int gy, float* part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad % kTile != 0 || max_nbr < 0 || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool in_box = box_x > 0.0f;
+  if (in_box && !(box_y > 0.0f && gx > 0 && gy > 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad == 0) return 0;
   if (cap > 0) {
+    CellBox box{box_x, box_y, in_box ? 1.0f / box_x : 0.0f,
+                in_box ? 1.0f / box_y : 0.0f, gx, gy};
     int code;
-    if (wall)
-      code = nrhs == 1
-          ? launch<true, 1>(cap, stream, pos, cell, live, force, pairs,
-                            n_pairs, n_pad, h_floor, part)
-          : launch<true, 2>(cap, stream, pos, cell, live, force, pairs,
-                            n_pairs, n_pad, h_floor, part);
+    if (in_box)
+      code = wall ? launch_k<true, true>(nrhs, cap, stream, pos, cell, live,
+                                         force, pairs, n_pairs, n_pad,
+                                         h_floor, box, part)
+                  : launch_k<false, true>(nrhs, cap, stream, pos, cell, live,
+                                          force, pairs, n_pairs, n_pad,
+                                          h_floor, box, part);
     else
-      code = nrhs == 1
-          ? launch<false, 1>(cap, stream, pos, cell, live, force, pairs,
-                             n_pairs, n_pad, h_floor, part)
-          : launch<false, 2>(cap, stream, pos, cell, live, force, pairs,
-                             n_pairs, n_pad, h_floor, part);
+      code = wall ? launch_k<true, false>(nrhs, cap, stream, pos, cell,
+                                          live, force, pairs, n_pairs, n_pad,
+                                          h_floor, box, part)
+                  : launch_k<false, false>(nrhs, cap, stream, pos, cell,
+                                           live, force, pairs, n_pairs,
+                                           n_pad, h_floor, box, part);
     if (code != 0) return code;
   }
   const size_t total = (size_t)nrhs * n_pad * 3;

@@ -1,6 +1,7 @@
 """Proxy-grid far field for the open-domain RPY matvec — the port of
-``rigid_body_light_tpu/ops/farfield.py`` (monodisperse, open domain with or
-without a wall, one device, no band tier).
+``rigid_body_light_tpu/ops/farfield.py`` (monodisperse, one device, no band
+tier): the open domain with or without a wall, and the pseudo-2D film (a
+doubly periodic (Lx, Ly) box above the wall).
 
     M ≈ M_near (exact pairs, adjacent cells)  +  Pᵀ · K · P  (far)
 
@@ -12,26 +13,29 @@ without a wall, one device, no band tier).
     batched (3p³ × 3p³) complex matmul per frequency.  The wall images are
     translation invariant in x/y only, so their lattices couple every
     (target, source) pair of z cells: one (Gz·3p³ × Gz·3p³) matmul per x/y
-    frequency.
-  - M_near: blob pairs in adjacent cells (∞-norm cell offset ≤ 1), swept
-    exactly over cell-snake tiles of ``TILE`` blobs against per-tile
-    neighbor-tile lists, masked pairwise by cell adjacency so near and far
-    partition every pair exactly once.  On a CUDA tensor the sweep is the
-    hand-written kernel K3 (:mod:`.farfield_cuda`), which visits each
-    unordered pair of neighbor tiles once (:func:`_tile_pairs`);
+    frequency.  In the film the x/y convolution is cyclic at box size (no
+    padding: the wrap is the periodicity) over one combined free + wall
+    lattice summed over the in-plane images (:func:`_kernel_hat_2p`).
+  - M_near: blob pairs in adjacent cells (∞-norm cell offset ≤ 1, cyclic in
+    x/y in the film), swept exactly over cell-snake tiles of ``TILE`` blobs
+    against per-tile neighbor-tile lists, masked pairwise by cell adjacency
+    so near and far partition every pair exactly once.  On a CUDA tensor
+    the sweep is the hand-written kernel K3 (:mod:`.farfield_cuda`), which
+    visits each unordered pair of neighbor tiles once (:func:`_tile_pairs`);
     :func:`_near_sweep` is its plain version.
 
-The grid is anchored to the dynamic bounding box.  The neighbor-tile list
-width is the only static bound: overflow NaN-poisons the apply, as does a
-reused geometry tier (:func:`prepare` with ``geo=``) that the positions
-have left by more than half a cell.
+The grid is anchored to the dynamic bounding box (in the film: x/y at 0
+with h·G = box, z to the bounding box).  The neighbor-tile list width is
+the only static bound: overflow NaN-poisons the apply, as does a reused
+geometry tier (:func:`prepare` with ``geo=``) that the positions have left
+by more than half a cell.
 
-Left to later slices (ROADMAP.md queue 1): the pseudo-2D box (item 12a),
-per-blob radii (item 12b), the band tier ``farfield_band_p`` and the
-distributed locals (item 11).  The TPU layout workarounds of the JAX
-module (the ``_flat_outer`` selector matmuls, the packed real/imaginary
-lattices, ``fftsafe``) are not ported: plain outer products, complex
-tensors and ``torch.fft`` compute the same thing.
+Left to later slices (ROADMAP.md queue 1): per-blob radii (item 12b), the
+band tier ``farfield_band_p`` and the distributed locals (item 11).  The
+TPU layout workarounds of the JAX module (the ``_flat_outer`` selector
+matmuls, the packed real/imaginary lattices, ``fftsafe``) are not ported:
+plain outer products, complex tensors and ``torch.fft`` compute the same
+thing.
 """
 
 from __future__ import annotations
@@ -117,6 +121,12 @@ def _signed_offsets(g: int) -> np.ndarray:
     """Signed cell offsets Δ = c_target − c_source on the 2g cyclic pad."""
     o = np.arange(2 * g)
     return np.where(o < g, o, o - 2 * g).astype(np.int64)
+
+
+def _signed_offsets_cyclic(g: int) -> np.ndarray:
+    """Minimum-imaged cell offsets on a g-cyclic (unpadded) axis."""
+    o = np.arange(g)
+    return np.where(o <= g // 2, o, o - g).astype(np.int64)
 
 
 # -------------------------------------------------------- kernel lattices
@@ -242,15 +252,124 @@ def _wall_kernel_hat(lo_z, h, grid, p, h_floor):
         2 * gx * (gy + 1), gz * B, gz * B)
 
 
+# scalar entries of one field of a shift batch in the pseudo-2D lattice
+# build (the batch's temporaries are a few dozen such fields)
+SHIFT_BATCH_ELEMS = 2 ** 25
+
+
+def _kernel_hat_2p(lo_z, h, grid, p, h_floor, shells):
+    """K̂ of the pseudo-2D film (x/y periodic, wall at z = 0): the combined
+    free + wall-image node blocks per (target, source) z-cell pair and
+    cyclic x/y cell offset, summed over the (2S+1)² in-plane images
+    n·(Lx, Ly), then 2-D FFT'd at box size.  Returns (gx·(gy//2+1), gz·B,
+    gz·B) complex, laid out as :func:`_wall_kernel_hat`'s lattice.
+
+    Only the combined sum converges (the free 1/ρ Stokeslet alone diverges
+    over a 2-D lattice; its wall images cancel it to 1/ρ³).  Each shift
+    weighs 1 + the two-ring Richardson tail weight of its ring
+    (:func:`.rpy.tail_coeffs`: α on ring S, β on ring S − 1).  The near
+    exclusion zeroes only the n = 0 term of wrapped-adjacent offsets: a
+    pair's other images, a blob's own included, stay in the far tier.
+    Requires h·(gx, gy) = box (the caller anchors x/y at 0 and wraps the
+    positions).  The shifts are evaluated in batches whose fields hold at
+    most SHIFT_BATCH_ELEMS entries."""
+    gx, gy, gz = grid
+    dtype, dev = h.dtype, h.device
+    p3 = p ** 3
+    B = 3 * p3
+    ox, oy = np.meshgrid(_signed_offsets_cyclic(gx),
+                         _signed_offsets_cyclic(gy), indexing="ij")
+    oxy = np.stack([ox, oy], axis=-1).reshape(-1, 2)         # (m, 2)
+    m = oxy.shape[0]
+    near_xy = torch.as_tensor(np.all(np.abs(oxy) <= 1, axis=-1), device=dev)
+    tn = _node_grid(p, dtype, dev)
+    oxy_t = torch.as_tensor(oxy, dtype=dtype, device=dev)
+    dx0 = (oxy_t[:, None, None, 0] + tn[None, :, None, 0]
+           - tn[None, None, :, 0]) * h[0]                    # (m, p³, p³)
+    dy0 = (oxy_t[:, None, None, 1] + tn[None, :, None, 1]
+           - tn[None, None, :, 1]) * h[1]
+    cz = torch.arange(gz, dtype=dtype, device=dev)
+    zn = lo_z + (cz[:, None] + tn[None, :, 2]) * h[2]        # (gz, p³) raw
+    znf = torch.clamp(zn, min=h_floor) if h_floor > 0 else zn
+    # (batch, z target, z source, offset, target node, source node): the
+    # free part on the raw node heights, the wall part on the floored ones
+    dz = (zn[:, None, None, :, None] - zn[None, :, None, None, :])[None]
+    rz = (znf[:, None, None, :, None] + znf[None, :, None, None, :])[None]
+    zj = znf[None, None, :, None, None, :]
+    iz = torch.arange(gz, device=dev)
+    near0 = (((iz[:, None] - iz[None, :]).abs() <= 1)[:, :, None]
+             & near_xy[None, None, :])                       # (gz, gz, m)
+    # image shifts n·(gx, gy) cells with their tail weights, ix major
+    s_rng = np.arange(-shells, shells + 1)
+    NX, NY = np.meshgrid(s_rng, s_rng, indexing="ij")
+    ring = np.maximum(np.abs(NX), np.abs(NY)).reshape(-1)
+    alpha_t, beta_t = rpy.tail_coeffs(shells)
+    ring_w = np.where(ring == shells, alpha_t,
+                      np.where(ring == shells - 1, beta_t, 0.0))
+    shift = torch.as_tensor(np.stack([NX * gx * 1.0, NY * gy * 1.0],
+                                     axis=-1).reshape(-1, 2),
+                            dtype=dtype, device=dev)
+    wts = 1.0 + torch.as_tensor(ring_w, dtype=dtype, device=dev)
+    zero = torch.as_tensor(ring == 0, device=dev)
+    acc = torch.zeros((3, 3, gz, gz, m, p3, p3), dtype=dtype, device=dev)
+    nb = max(1, SHIFT_BATCH_ELEMS // (gz * gz * m * p3 * p3))
+    for s0 in range(0, len(ring), nb):
+        sl = slice(s0, s0 + nb)
+        dx = (dx0[None] + shift[sl, 0, None, None, None] * h[0])[:, None,
+                                                                  None]
+        dy = (dy0[None] + shift[sl, 1, None, None, None] * h[1])[:, None,
+                                                                  None]
+        keep = ~(zero[sl, None, None, None] & near0[None])
+        w = (wts[sl, None, None, None] * keep.to(dtype))[..., None, None]
+        alpha, beta = rpy._free_coeffs(torch.clamp(
+            dx * dx + dy * dy + dz * dz, min=1e-2))
+        shape = alpha.shape
+        d_img = torch.stack([dx.expand(shape), dy.expand(shape),
+                             rz.expand(shape)], dim=-1)
+        f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(d_img, zj.expand(shape))
+        ex, ey, ez = (d_img * invR[..., None]).unbind(-1)
+        del d_img
+        # α·I + β·d⊗d + f1·I + f2·e⊗e + f3·e⊗ẑ + f4·ẑ⊗e + f5·ẑ⊗ẑ, weighted,
+        # one entry at a time (x↔y symmetric)
+        a_ = (alpha + f1) * w
+        b_, g2, g3, g4, g5 = (f * w for f in (beta, f2, f3, f4, f5))
+        acc[0, 0] += (a_ + b_ * dx * dx + g2 * ex * ex).sum(0)
+        acc[1, 1] += (a_ + b_ * dy * dy + g2 * ey * ey).sum(0)
+        acc[2, 2] += (a_ + b_ * dz * dz + g2 * ez * ez + (g3 + g4) * ez
+                      + g5).sum(0)
+        xy = (b_ * dx * dy + g2 * ex * ey).sum(0)
+        acc[0, 1] += xy
+        acc[1, 0] += xy
+        acc[0, 2] += (b_ * dx * dz + g2 * ex * ez + g3 * ex).sum(0)
+        acc[1, 2] += (b_ * dy * dz + g2 * ey * ez + g3 * ey).sum(0)
+        acc[2, 0] += (b_ * dz * dx + g2 * ez * ex + g4 * ex).sum(0)
+        acc[2, 1] += (b_ * dz * dy + g2 * ez * ey + g4 * ey).sum(0)
+    # (3_i, 3_j, gz_t, gz_s, gx, gy, n_t, n_s) → (gz_t, gz_s, gx, gy, B, B)
+    W = acc.reshape(3, 3, gz, gz, gx, gy, p3, p3).permute(
+        2, 3, 4, 5, 6, 0, 7, 1).reshape(gz, gz, gx, gy, B, B)
+    Kh = torch.fft.fft(torch.fft.rfft(W, dim=3), dim=2)
+    # (gz_t, gz_s, gx, gy//2+1, B, B) → (gx·(gy//2+1), gz_t·B, gz_s·B)
+    return Kh.permute(2, 3, 0, 4, 1, 5).reshape(gx * (gy // 2 + 1), gz * B,
+                                                gz * B)
+
+
 # --------------------------------------------------------------- far part
 def _p2m(W3, cid, Fs, ncell):
     """Anterpolate forces onto the cell nodes: Q (k, ncell, 3p³), column
-    node·3 + component."""
+    node·3 + component.
+
+    Each cell's blobs are summed in blob order by a segmented reduction
+    (as the JAX package's ``segment_sum``), not by atomic adds: on the card
+    an ``index_add_`` sums in a varying order, and the RFD drift's 1/δ
+    turned that roundoff into step differences of ~2e-3·max|ΔX| between
+    runs; this way the far field repeats bitwise, like the kernels."""
     k, n = Fs.shape[0], Fs.shape[1]
-    prod = (W3[None, :, :, None] * Fs[:, :, None, :]).reshape(k, n, -1)
-    Q = torch.zeros((k, ncell, prod.shape[-1]), dtype=Fs.dtype,
-                    device=Fs.device)
-    return Q.index_add_(1, cid, prod)
+    order = torch.argsort(cid, stable=True)
+    prod = (W3[order, None, :, None]
+            * Fs[:, order].transpose(0, 1)[:, :, None, :]).reshape(n, -1)
+    Q = torch.segment_reduce(prod, "sum", axis=0, unsafe=True,
+                             lengths=torch.bincount(cid, minlength=ncell))
+    return Q.reshape(ncell, k, -1).transpose(0, 1)
 
 
 def _l2p(W3, cid, Unodes):
@@ -293,10 +412,28 @@ def _far_wall(Q, grid, khat):
     return Ug[:, :, :gx, :gy].permute(0, 2, 3, 1, 4).reshape(k, -1, B)
 
 
-def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall):
+def _far_2p(Q, grid, khat):
+    """Pseudo-2D far field on the nodes: gz² coupled cyclic x/y
+    convolutions at box size (no padding: the wrap is the periodicity; y
+    half spectrum).  Q (k, ncell, B) → (k, ncell, B)."""
+    gx, gy, gz = grid
+    k, _, B = Q.shape
+    Qg = Q.reshape(k, gx, gy, gz, B).permute(0, 3, 1, 2, 4)
+    Qhat = torch.fft.rfftn(Qg, dim=(2, 3))           # (k, gz, gx, gy//2+1, B)
+    Qf = Qhat.permute(2, 3, 1, 4, 0).reshape(-1, gz * B, k)
+    Uf = torch.matmul(khat, Qf)                              # (nf, gz·B, k)
+    Uhat = Uf.reshape(gx, gy // 2 + 1, gz, B, k).permute(4, 2, 0, 1, 3)
+    Ug = torch.fft.irfftn(Uhat, s=(gx, gy), dim=(2, 3))
+    return Ug.permute(0, 2, 3, 1, 4).reshape(k, -1, B)
+
+
+def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False):
     """Spread → kernel-lattice convolutions → interpolate: the far-tier
-    velocities (k, N, 3) of the (damped) forces Fs (k, N, 3)."""
+    velocities (k, N, 3) of the (damped) forces Fs (k, N, 3).  per: the
+    pseudo-2D film, whose one combined lattice is ``khat_wall``."""
     Q = _p2m(W3, cid, Fs, grid[0] * grid[1] * grid[2])
+    if per:
+        return _l2p(W3, cid, _far_2p(Q, grid, khat_wall))
     Unodes = _far_free(Q, grid, khat_free)
     if wall:
         Unodes = Unodes + _far_wall(Q, grid, khat_wall)
@@ -304,16 +441,30 @@ def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall):
 
 
 # ------------------------------------------------------------- near part
-def _near_neighbor_lists(ci_sorted, t, max_nbr):
+def _near_neighbor_lists(ci_sorted, t, max_nbr, wrap_xy=None):
     """Tile adjacency from per-tile cell-index ranges (gap ≤ 1 on every
     axis), packed live-first: (t, max_nbr) int32 tile ids, −1 = empty, and
-    a () bool tensor, True when some tile has more than max_nbr
-    neighbors."""
+    a () bool tensor, True when some tile has more than max_nbr neighbors.
+
+    wrap_xy: None, or the film's (gx, gy): tiles that touch across a box
+    seam are neighbors too (the range gap tested at shifts −G, 0, +G; the
+    ranges lie in [0, G), so one period each way covers every wrap).  The
+    relation stays symmetric, and a tile pair adjacent both directly and
+    across a seam is listed once."""
     ct = ci_sorted.reshape(t, TILE, 3)
     lo = ct.min(dim=1).values                                # (t, 3)
     hi = ct.max(dim=1).values
-    ok = torch.all((lo[:, None, :] - hi[None, :, :] <= 1)
-                   & (lo[None, :, :] - hi[:, None, :] <= 1), dim=-1)
+
+    def axis_ok(ax, g=None):
+        l, h = lo[:, ax], hi[:, ax]
+        ok = (l[:, None] - h[None, :] <= 1) & (l[None, :] - h[:, None] <= 1)
+        for s in ((-g, g) if g is not None else ()):
+            ok = ok | ((l[:, None] - (h[None, :] + s) <= 1)
+                       & ((l[None, :] + s) - h[:, None] <= 1))
+        return ok
+
+    gx, gy = wrap_xy if wrap_xy is not None else (None, None)
+    ok = axis_ok(0, gx) & axis_ok(1, gy) & axis_ok(2)
     cols = torch.arange(t, device=ci_sorted.device)
     key = torch.where(ok, cols, t + cols)
     packed = torch.sort(key, dim=1).values[:, :max_nbr]
@@ -385,7 +536,8 @@ def _chunk_rows(t: int, max_nbr: int, nrhs: int) -> int:
     return best
 
 
-def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor):
+def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
+                wrap_xy=None):
     """Exact adjacent-cell pair sweep — the plain PyTorch version of K3.
 
     x_s/ci_s/id_s (t·TILE, …) sorted padded positions (units of a), cell
@@ -393,7 +545,10 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor):
     neighbor-tile lists (−1 = empty).  Returns (k, t·TILE, 3) pair
     velocities in sorted order: no self term, scaling or damping.  Only
     the slot columns that some tile uses are swept (an empty slot adds
-    nothing).
+    nothing).  box_n / wrap_xy: the film's (Lx, Ly) in units of a and (gx,
+    gy): displacements wrapped by :func:`.rpy.wrapped_difference` (the
+    image K3's box form takes), cell offsets wrapped cyclically before the
+    adjacency test, the wall images on the wrapped dx, dy.
     """
     t = nbr.shape[0]
     k = F_s.shape[0]
@@ -418,8 +573,11 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor):
         cols_F = Ft[:, nb].permute(1, 0, 2, 3, 4).reshape(
             ch, k, width * TILE, 3)
 
-        d = rows_x[:, :, None, :] - cols_x[:, None, :, :]
+        d = rpy.wrapped_difference(rows_x[:, :, None, :],
+                                   cols_x[:, None, :, :], box_n)
         dc = rows_c[:, :, None, :] - cols_c[:, None, :, :]
+        for ax, g in enumerate(wrap_xy or ()):
+            dc[..., ax] = torch.remainder(dc[..., ax] + g // 2, g) - g // 2
         r2 = torch.sum(d * d, dim=-1)
         keep = (torch.all(dc.abs() <= 1, dim=-1)
                 & (cols_id[:, None, :] >= 0)
@@ -470,10 +628,13 @@ class FarCtx(NamedTuple):
         midpoint half-kick) share it through ``prepare(r, geo=...)``.
       position structures (the rest): exact for the ``r`` that built them;
         one argsort, an O(t²) tile adjacency and K3's tile-pair list.
+    In the film (a 2-D ``box``) the positions are wrapped into the box
+    before binning, ``khat_free`` is None and ``khat_wall`` holds the
+    combined lattice.
     """
     lo: torch.Tensor                  # (3,) grid origin, units of a
     h: torch.Tensor                   # (3,) cell sizes, units of a
-    khat_free: torch.Tensor           # (nf, B, B) free-space lattice
+    khat_free: Optional[torch.Tensor]  # (nf, B, B) free-space lattice
     khat_wall: Optional[torch.Tensor]  # (nf_xy, gz·B, gz·B), or None
     b: Optional[torch.Tensor]         # (N,) damping factors, or None
     cid: torch.Tensor                 # (N,) flat cell ids
@@ -495,8 +656,68 @@ class FarGeo(NamedTuple):
     across a step's position sets."""
     lo: torch.Tensor
     h: torch.Tensor
-    khat_free: torch.Tensor
+    khat_free: Optional[torch.Tensor]
     khat_wall: Optional[torch.Tensor]
+
+
+def _check_2p(wall, box, grid, shells):
+    """Validate a pseudo-2D far-field request (the JAX package's rules and
+    messages): a positive (Lx, Ly) box, image_shells ≥ 1, the wall, and at
+    least 4 cells on each periodic axis."""
+    try:
+        if len(box) != 2:
+            raise ValueError
+        lx, ly = (float(box[0]), float(box[1]))
+    except (TypeError, ValueError, IndexError) as e:
+        raise ValueError(
+            f"box must be a (Lx, Ly) pair of in-plane periods, got {box!r}"
+        ) from e
+    if not (lx > 0 and ly > 0):
+        raise ValueError(f"box periods must be positive, got {box!r}")
+    if shells < 1:
+        raise ValueError(
+            "the pseudo-2D far field needs image_shells ≥ 1: the cyclic "
+            "kernel lattice picks one signed representative per cell "
+            "offset, so with no image sum pairs near the half-box seam are "
+            "evaluated at the wrong-side image (use farfield_grid=None for "
+            "the minimum image, or S ≥ 1 for the exact doubly-periodic "
+            "operator; S=6 ≈ 1e-4 with the tail extrapolation)")
+    if not wall:
+        raise ValueError(
+            "the doubly-periodic far field needs wall=True — the free-space "
+            "Stokeslet's in-plane lattice sum diverges; only the wall-"
+            "screened (1/ρ³) combined kernel is summable")
+    if grid[0] < 4 or grid[1] < 4:
+        # a correctness bound: adjacent-cell pairs span node displacements
+        # up to 2h; the near sweep takes the per-pair minimum image and the
+        # lattice excludes the n = 0 term of the signed representative, and
+        # the two agree only while 2h ≤ box/2
+        raise ValueError(
+            f"pseudo-2D far field needs ≥ 4 cells per periodic axis "
+            f"(minimum-image/representative agreement for adjacent-cell "
+            f"pairs), got {grid}")
+
+
+def _geometry_2p(x, grid, box_n):
+    """Pseudo-2D grid geometry: x/y anchored at 0 with h·G = box (the cyclic
+    convolution is the periodicity), z from the positions' bounds."""
+    z = x[:, 2]
+    span = torch.clamp(z.max() - z.min(), min=1e-6) * (1.0 + 1e-5)
+    lo = torch.zeros(3, dtype=x.dtype, device=x.device)
+    lo[2] = z.min()
+    h = torch.tensor([box_n[0] / grid[0], box_n[1] / grid[1], 0.0],
+                     dtype=x.dtype, device=x.device)
+    h[2] = span / grid[2]
+    return lo, h
+
+
+def _wrap_box(x, box_n):
+    """Wrap positions (units of a) into the 2-D box, x − L·⌊x/L⌋ in x and
+    y: trajectories keep unwrapped coordinates, the grid and the pairs see
+    box coordinates (z stays open: the wall geometry)."""
+    L = torch.tensor(box_n, dtype=x.dtype, device=x.device)
+    xy = x[:, :2]
+    return torch.cat([xy - L * torch.floor(xy / L), x[:, 2:]], dim=1)
 
 
 def _resolve(n, wall, grid, p, max_nbr):
@@ -510,7 +731,11 @@ def _resolve(n, wall, grid, p, max_nbr):
     return grid, max_nbr
 
 
-def _build_geometry(x, grid, p, wall, h_floor):
+def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells):
+    if box_n is not None:
+        lo, h = _geometry_2p(x, grid, box_n)
+        return FarGeo(lo=lo, h=h, khat_free=None, khat_wall=_kernel_hat_2p(
+            lo[2], h, grid, p, h_floor, int(image_shells)))
     lo, h = _grid_geometry(x, grid)
     khat_free = _far_kernel_hat(h, grid, p)
     khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor) if wall
@@ -519,17 +744,26 @@ def _build_geometry(x, grid, p, wall, h_floor):
 
 
 def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
-                     max_nbr=None, h_floor=rpy.WALL_H_FLOOR):
+                     max_nbr=None, h_floor=rpy.WALL_H_FLOOR, box=None,
+                     image_shells=8):
     """Build only the geometry tier (:class:`FarGeo`) for positions ``r``;
     pass it as ``geo=`` to :func:`prepare` to share one kernel-lattice
-    build across several nearby position sets."""
+    build across several nearby position sets.
+
+    box: None (open domain) or the film's (Lx, Ly): the cyclic x/y
+    convolution with the combined lattice summed over the in-plane images
+    to ``image_shells`` with the two-ring tail (:func:`_kernel_hat_2p`)."""
     r = r.reshape(-1, 3)
     grid, _ = _resolve(r.shape[0], wall, grid, p, max_nbr)
-    return _build_geometry(r * (1.0 / a), grid, p, wall, h_floor)
+    if box is not None:
+        _check_2p(wall, box, grid, int(image_shells))
+    return _build_geometry(r * (1.0 / a), grid, p, wall, h_floor,
+                           rpy._box_n(box, a), image_shells)
 
 
 def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
-            h_floor=rpy.WALL_H_FLOOR, geo: FarGeo = None):
+            h_floor=rpy.WALL_H_FLOOR, geo: FarGeo = None, box=None,
+            image_shells=8):
     """Build the :class:`FarCtx` for positions ``r`` (same keywords as
     :func:`mobility_apply`).
 
@@ -537,23 +771,30 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     positions.  It stays valid while the positions stay within about a cell
     fraction of the box that built it; past half a cell the apply is
     NaN-poisoned, like a neighbor-list overflow, so the stepper's rejection
-    path sees it instead of a silently extrapolated basis.
+    path sees it instead of a silently extrapolated basis.  In the film the
+    positions wrap in x/y and never leave the grid there: z alone is
+    guarded.
     """
     r = r.reshape(-1, 3)
     n = r.shape[0]
     dtype = r.dtype
     grid, max_nbr = _resolve(n, wall, grid, p, max_nbr)
+    box_n = rpy._box_n(box, a)
+    if box is not None:
+        _check_2p(wall, box, grid, int(image_shells))
     b = rpy.damping_factors(r, a) if wall else None
     x = r * (1.0 / a)                                        # units of a
+    if box_n is not None:
+        x = _wrap_box(x, box_n)
     geo_bad = None
     if geo is not None:
         u = (x - geo.lo) / geo.h
-        excur = torch.maximum(
-            torch.max(-u), torch.max(u - torch.as_tensor(
-                grid, dtype=dtype, device=r.device)))
-        geo_bad = excur > 0.5
+        hi = torch.as_tensor(grid, dtype=dtype, device=r.device)
+        if box_n is not None:
+            u, hi = u[:, 2], hi[2]
+        geo_bad = torch.maximum(torch.max(-u), torch.max(u - hi)) > 0.5
     else:
-        geo = _build_geometry(x, grid, p, wall, h_floor)
+        geo = _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells)
     lo, h = geo.lo, geo.h
     ci, cid = _cell_indices(x, lo, h, grid)
     W3 = _blob_weights((x - lo) / h - ci.to(dtype), _cheb_nodes(p))
@@ -570,7 +811,8 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     id_s = torch.cat([order.to(torch.int32),
                       torch.full((pad,), -1, dtype=torch.int32,
                                  device=r.device)])
-    nbr, overflow = _near_neighbor_lists(ci_s, t, max_nbr)
+    nbr, overflow = _near_neighbor_lists(
+        ci_s, t, max_nbr, wrap_xy=grid[:2] if box_n is not None else None)
     pairs, n_pairs = _tile_pairs(nbr)
     if geo_bad is not None:
         overflow = overflow | geo_bad
@@ -583,7 +825,8 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                    max_nbr=None, h_floor=rpy.WALL_H_FLOOR,
-                   ctx: FarCtx = None, use_pallas=True):
+                   ctx: FarCtx = None, use_pallas=True, box=None,
+                   image_shells=8):
     """U = M(r)·F by the exact near part plus the proxy-grid far field.
 
     F: (N, 3) or (k, N, 3); r: (N, 3).  grid: int or (gx, gy, gz)
@@ -592,6 +835,12 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     :func:`rigid_body_light_tpu_torch.ops.rpy.mobility_apply`: self term
     included; ``wall`` adds the Swan–Brady correction (near pairs exact,
     far pairs through the image lattices) and the B·M·B damping.
+
+    box: None, or the film's (Lx, Ly): the pseudo-2D doubly periodic wall
+    operator, O(N) an apply at Chebyshev-p and image-tail accuracy (the
+    exact image sum, ``rpy.mobility_apply(image_shells=...)``, is
+    O((2S+1)²·N²)); needs wall=True, image_shells ≥ 1 and ≥ 4 cells on x
+    and y.
 
     ctx: a :func:`prepare` result for this ``r`` (same keywords), so
     repeated applies at fixed positions build the lattices and the tile
@@ -607,25 +856,32 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     k, n = Fs.shape[0], r.shape[0]
     dtype = r.dtype
     grid, max_nbr = _resolve(n, wall, grid, p, max_nbr)
+    per = box is not None
+    if per:
+        _check_2p(wall, box, grid, int(image_shells))
     if ctx is None:
         ctx = prepare(r, a=a, eta=eta, wall=wall, grid=grid, p=p,
-                      max_nbr=max_nbr, h_floor=h_floor)
+                      max_nbr=max_nbr, h_floor=h_floor, box=box,
+                      image_shells=image_shells)
     if wall:
         Fs = Fs * ctx.b[None, :, None]
     U_far = _far_part(Fs, ctx.W3, ctx.cid, grid, wall, ctx.khat_free,
-                      ctx.khat_wall)
+                      ctx.khat_wall, per=per)
 
     pad = ctx.x_s.shape[0] - n
     F_s = torch.cat([Fs[:, ctx.order],
                      torch.zeros((k, pad, 3), dtype=dtype, device=r.device)],
                     dim=1)
+    box_n = rpy._box_n(box, a)
+    wrap_xy = grid[:2] if per else None
     if use_pallas and dtype == torch.float32 and k <= 2:
         U_near_s = farfield_cuda.near_sweep(
             ctx.x_s, ctx.ci_s, ctx.id_s >= 0, F_s, ctx.nbr, wall, h_floor,
-            pairs=(ctx.pairs, ctx.n_pairs))
+            pairs=(ctx.pairs, ctx.n_pairs), box_over_a=box_n,
+            wrap_cells=wrap_xy)
     else:
         U_near_s = _near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F_s, ctx.nbr,
-                               wall, h_floor)
+                               wall, h_floor, box_n=box_n, wrap_xy=wrap_xy)
     U_near = torch.zeros_like(Fs)
     U_near[:, ctx.order] = U_near_s[:, :n].to(dtype)
     U_near = torch.where(ctx.overflow, torch.full_like(U_near, math.nan),

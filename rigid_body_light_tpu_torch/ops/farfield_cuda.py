@@ -9,7 +9,9 @@ Kernel (``csrc/near_sweep.cu``, built for sm_90a at first use by
                      cell-snake-sorted 128-blob tiles that are neighbors,
                      pairs of blobs kept iff their cells are adjacent
                      (offset ≤ 1 on every axis), both are real blobs and it
-                     is not the self pair.  1 or 2 RHS.
+                     is not the self pair.  1 or 2 RHS.  Its box form
+                     (the pseudo-2D film) wraps dx, dy to the minimum
+                     image and the x/y cell offsets cyclically.
 
 The kernel sweeps each unordered tile pair once (the list
 ``farfield._tile_pairs`` builds with the neighbor lists), evaluating each
@@ -66,8 +68,8 @@ def build():
     lib.near_sweep_tile.restype = i
     lib.near_sweep_tile.argtypes = []
     lib.near_sweep.restype = i
-    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, p, p,
-                               p]
+    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f,
+                               i, i, p, p, p]
     if lib.near_sweep_tile() != TILE:
         raise RuntimeError(f"near_sweep.cu tiles {lib.near_sweep_tile()} "
                            f"blobs, the wrapper {TILE}")
@@ -76,12 +78,15 @@ def build():
 
 
 def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
-                      wall: bool, h_floor: float):
+                      wall: bool, h_floor: float, box_over_a=None,
+                      wrap_cells=None):
     """K3 on the card.  x_s (n_pad, 3) float32, ci_s (n_pad, 3) int32,
     live_s (n_pad,) bool, F_s (k, n_pad, 3) float32 with k ∈ {1, 2}, nbr
     (t, max_nbr) int32 with n_pad = t·128, pairs (cap, 4) int32 and n_pairs
     (1,) int32 (:func:`.farfield._tile_pairs`), all contiguous CUDA tensors
-    → (k, n_pad, 3) pair terms in sorted order."""
+    → (k, n_pad, 3) pair terms in sorted order.  box_over_a / wrap_cells:
+    None, or the film's (Lx, Ly) in units of a and (gx, gy), both given
+    (the box form)."""
     global near_launches
     n_pad, k = x_s.shape[0], F_s.shape[0]
     t, max_nbr = nbr.shape
@@ -97,6 +102,14 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
     cuda_build.check_tensor(nbr, "nbr", (t, max_nbr), torch.int32)
     cuda_build.check_tensor(pairs, "pairs", (cap, 4), torch.int32)
     cuda_build.check_tensor(n_pairs, "n_pairs", (1,), torch.int32)
+    if (box_over_a is None) != (wrap_cells is None):
+        raise ValueError("K3's box form takes box_over_a and wrap_cells "
+                         "together")
+    bx, by = (0.0, 0.0) if box_over_a is None else map(float, box_over_a)
+    gx, gy = (0, 0) if wrap_cells is None else map(int, wrap_cells)
+    if box_over_a is not None and min(bx, by, gx, gy) <= 0:
+        raise ValueError(f"K3's box form needs a positive box and cell "
+                         f"counts, got {box_over_a}, {wrap_cells}")
     lib = build()
     dev = x_s.device
     # per-slot partials; only the slots a tile uses are written and read
@@ -109,14 +122,15 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
             x_s.data_ptr(), ci_s.data_ptr(), live_s.data_ptr(),
             F_s.data_ptr(), nbr.data_ptr(), pairs.data_ptr(),
             n_pairs.data_ptr(), n_pad, max_nbr, cap, k, int(bool(wall)),
-            float(h_floor), part.data_ptr(), out.data_ptr(), stream)
+            float(h_floor), bx, by, gx, gy, part.data_ptr(), out.data_ptr(),
+            stream)
     cuda_build.raise_on_error(code, "near_sweep")
     near_launches += 1
     return out
 
 
 def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
-               pairs=None):
+               pairs=None, box_over_a=None, wrap_cells=None):
     """Adjacent-cell pair sweep over the sorted tiles, float32: the contract
     of ``rpy_pallas.near_sweep`` (pair terms only, sorted order, no self
     term, scale or damping).
@@ -126,8 +140,11 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
     forces, k ≤ 2; nbr (t, max_nbr) neighbor-tile ids (−1 = empty); pairs
     the (list, count) of :func:`.farfield._tile_pairs` for ``nbr``
     (``FarCtx.pairs``, ``FarCtx.n_pairs``), which the kernel needs and the
-    plain version does not.  Returns (k, n_pad, 3); rows of pad blobs hold
-    garbage.
+    plain version does not.  box_over_a / wrap_cells: the pseudo-2D film's
+    (Lx, Ly) in units of a and (gx, gy) cyclic cell counts, as in
+    ``rpy_pallas.near_sweep``, displacements wrapped by
+    :func:`.rpy.wrapped_difference`'s rule.  Returns (k, n_pad, 3); rows
+    of pad blobs hold garbage.
     """
     n_pad, k = x_s.shape[0], F_s.shape[0]
     if k > 2:
@@ -139,7 +156,8 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
         # module
         from rigid_body_light_tpu_torch.ops import farfield
         ids = torch.where(live_s, torch.arange(n_pad, dtype=torch.int32), -1)
-        return farfield._near_sweep(x32, ci_s, ids, F32, nbr, wall, h_floor)
+        return farfield._near_sweep(x32, ci_s, ids, F32, nbr, wall, h_floor,
+                                    box_n=box_over_a, wrap_xy=wrap_cells)
     if x_s.device.type == "cuda":
         if pairs is None:
             raise ValueError("K3 needs the tile-pair list of farfield.prepare "
@@ -148,5 +166,5 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
             x32, ci_s.to(torch.int32).contiguous(),
             live_s.to(torch.bool).contiguous(), F32,
             nbr.to(torch.int32).contiguous(), pairs[0].contiguous(),
-            pairs[1].contiguous(), wall, h_floor)
+            pairs[1].contiguous(), wall, h_floor, box_over_a, wrap_cells)
     raise ValueError(f"no near sweep for device {x_s.device}")

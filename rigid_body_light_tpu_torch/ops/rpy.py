@@ -42,7 +42,14 @@ def _displacement(ri, rj, box_n):
     that lies within rounding of a seam (the operator jumps there, and
     the RFD drift's 1/δ multiplies the jump).
     """
-    d = ri[:, None, :] - rj[None, :, :]
+    return wrapped_difference(ri[:, None, :], rj[None, :, :], box_n)
+
+
+def wrapped_difference(xi, xj, box_n):
+    """xi − xj for broadcastable (..., 3) positions in units of a, wrapped
+    by :func:`_displacement`'s rule (the near sweep's pairs, the K3 box
+    form's twin)."""
+    d = xi - xj
     if box_n is None:
         return d
     if any(b <= 0 for b in box_n):
@@ -50,7 +57,7 @@ def _displacement(ri, rj, box_n):
     comps = list(d.unbind(-1))
     for ax, L in enumerate(box_n):
         L = torch.tensor(L, dtype=d.dtype).item()
-        exact = ri[:, None, ax].double() - rj[None, :, ax].double()
+        exact = xi[..., ax].double() - xj[..., ax].double()
         n = torch.round(exact / L)
         comps[ax] = (comps[ax].double() - L * n).to(d.dtype)
     return torch.stack(comps, dim=-1)

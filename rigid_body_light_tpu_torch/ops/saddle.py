@@ -173,7 +173,9 @@ def _farfield_apply_fn(cfg: SimulationConfig):
     """Proxy-grid near + far mobility (:mod:`.farfield`), O(N) at fixed
     density.  It takes (N, 3) or (k, N, 3) forces, so it serves both
     apply-fn entry points; float32 with ``use_pallas`` sweeps the near part
-    through kernel K3.
+    through kernel K3.  A 2-D ``cfg.box`` makes it the pseudo-2D film's far
+    field (cyclic x/y, the combined lattice summed over ``image_shells``
+    in-plane images; K3's box form).
 
     The returned callable carries ``prepare`` / ``prepare_geometry``
     attributes: loop hosts build the position setup once with
@@ -183,6 +185,8 @@ def _farfield_apply_fn(cfg: SimulationConfig):
     max_nbr = cfg.farfield_nbr_tiles if cfg.farfield_nbr_tiles > 0 else None
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, grid=grid,
               p=cfg.farfield_p, max_nbr=max_nbr, h_floor=cfg.wall_h_floor)
+    if cfg.box is not None:
+        kw.update(box=cfg.box, image_shells=cfg.image_shells)
 
     def apply(F, r, ctx=None):
         return farfield.mobility_apply(F, r, ctx=ctx,

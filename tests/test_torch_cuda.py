@@ -306,6 +306,9 @@ def test_far_field_operator_through_k3(near):
     U64 = farfield.mobility_apply(F, r, **kw)
     assert farfield_cuda.near_launches == before + 1
     assert _rel(U32, U64) < 1e-5
+    # no atomic sums anywhere in the operator: it repeats bitwise
+    assert torch.equal(U32, farfield.mobility_apply(F.float(), r.float(),
+                                                    **kw))
     # p = 4 interpolation error on this coarse (5, 5, 3) grid: 1.07e-2 for
     # this draw, and 1.08e-2 with every blob lifted 0.45a, above the 0.75a
     # wall floor, so the floor is not its cause (both float64, the plain
@@ -315,6 +318,91 @@ def test_far_field_operator_through_k3(near):
         rl = r + torch.tensor([0.0, 0.0, lift], dtype=r.dtype, device=r.device)
         exact = rpy.mobility_apply(F, rl, wall=True)
         assert _rel(farfield.mobility_apply(F, rl, **kw), exact) < 2e-2
+
+
+@pytest.fixture
+def film_near(dev):
+    """The edge clouds of chip_smoke.py's phase 24 (across both seams, on
+    the g = 4 seam tie, a tile meeting itself across the seam), each with
+    its far-field context (float32, the main path's), its float32 box as
+    the kernel sees it and forces."""
+    from chip_smoke import film_near_clouds
+
+    farfield_cuda.build()
+    rng = np.random.default_rng(12)
+    out = {}
+    for name, (r, box, grid) in film_near_clouds().items():
+        ctx = farfield.prepare(torch.from_numpy(r).to(dev), wall=True,
+                               grid=grid, p=3, box=box, image_shells=1)
+        F = torch.from_numpy(rng.standard_normal(
+            (2, ctx.x_s.shape[0], 3)).astype(np.float32)).to(dev)
+        out[name] = (ctx, F, tuple(float(np.float32(b)) for b in box),
+                     grid[:2])
+    return out
+
+
+def test_film_tie_cloud_has_its_pairs(film_near):
+    """The tie cloud gives what it is for: blobs wrapped to exactly L in
+    the clipped last cell, and a tile that lists itself across the seam in
+    the self cloud."""
+    ctx, _, box, _ = film_near["ties"]
+    x = ctx.x_s[ctx.id_s >= 0]
+    assert (x[:, 0] == box[0]).sum() == 3 and (x[:, 1] == box[1]).sum() == 2
+    ctx, _, _, _ = film_near["self"]
+    span = ctx.ci_s[:128, 0]
+    assert int(span.min()) == 0 and int(span.max()) == 3
+    assert ctx.nbr.tolist() == [[0, 1], [0, 1]]
+    assert int(ctx.n_pairs.item()) == 3
+
+
+@pytest.mark.parametrize("cloud", ["ragged", "ties", "self"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_box_form_matches_plain(film_near, cloud, k):
+    """K3's box form against the float64 plain near sweep on the same
+    float32 inputs and box (so both take the same image of every pair,
+    the ties included)."""
+    ctx, F, box, wrap = film_near[cloud]
+    live = ctx.id_s >= 0
+    ref = farfield._near_sweep(ctx.x_s.double(), ctx.ci_s, ctx.id_s,
+                               F[:k].double(), ctx.nbr, True, 0.75,
+                               box_n=box, wrap_xy=wrap)
+    before = farfield_cuda.near_launches
+    U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, F[:k], ctx.nbr,
+                                 True, 0.75, pairs=(ctx.pairs, ctx.n_pairs),
+                                 box_over_a=box, wrap_cells=wrap)
+    torch.cuda.synchronize()
+    assert farfield_cuda.near_launches == before + 1
+    assert torch.isfinite(U[:, live]).all()
+    assert _rel(U[:, live], ref[:, live]) < TOL
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_box_form_is_repeatable(film_near, k):
+    for ctx, F, box, wrap in film_near.values():
+        args = (ctx.x_s.contiguous(), ctx.ci_s.contiguous(),
+                (ctx.id_s >= 0).contiguous(), F[:k].contiguous(), ctx.nbr,
+                ctx.pairs, ctx.n_pairs, True, 0.75, box, wrap)
+        assert torch.equal(farfield_cuda.near_sweep_kernel(*args),
+                           farfield_cuda.near_sweep_kernel(*args))
+
+
+def test_film_operator_through_k3(film_near):
+    """The film's far field in float32 through K3's box form against
+    float64 through the plain sweep."""
+    ctx, _, _, _ = film_near["ragged"]
+    r = ctx.x_s[ctx.id_s >= 0].double()
+    F = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tuple(r.shape))).to(r.device)
+    kw = dict(wall=True, grid=(6, 5, 2), p=3, box=(24.0, 20.0),
+              image_shells=2)
+    before = farfield_cuda.near_launches
+    U32 = farfield.mobility_apply(F.float(), r.float(), **kw)
+    U64 = farfield.mobility_apply(F, r, **kw)
+    assert farfield_cuda.near_launches == before + 1
+    assert _rel(U32, U64) < 1e-5
+    # no atomic sums anywhere in the operator: it repeats bitwise
+    assert torch.equal(U32, farfield.mobility_apply(F.float(), r.float(),
+                                                    **kw))
 
 
 @pytest.fixture(scope="module")

@@ -263,9 +263,10 @@ def test_config_dispatch_and_guards():
     box = (10.0, 10.0, 10.0)
     with pytest.raises(ValueError, match="incompatible with"):
         rt.SimulationConfig(box=box, wall=True)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rt.SimulationConfig(box=(10.0, 10.0), wall=True, image_shells=1,
-                            farfield_grid=(4, 4, 2), gmres_tol=5e-3)
+    # a 2-D box with farfield_grid is the film's far field, not Ewald
+    film = rt.SimulationConfig(box=(10.0, 10.0), wall=True, image_shells=1,
+                               farfield_grid=(4, 4, 2), gmres_tol=5e-3)
+    assert film.box == (10.0, 10.0) and film.farfield_grid == (4, 4, 2)
     with pytest.raises(NotImplementedError, match="item 13"):
         rt.SimulationConfig(box=box, ewald_rc=3.0)
     with pytest.raises(NotImplementedError, match="item 13"):

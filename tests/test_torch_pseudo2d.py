@@ -311,6 +311,14 @@ def test_config_takes_the_film_box():
         rt.SimulationConfig(box=(10.0, 10.0, 10.0), image_shells=1)
     with pytest.raises(ValueError, match="incompatible"):
         rt.SimulationConfig(box=(10.0, 10.0, 10.0), wall=True)
-    with pytest.raises(NotImplementedError, match="item 12a"):
-        rt.SimulationConfig(wall=True, box=(10.0, 10.0), image_shells=1,
+    # the film's far field: accepted with the wall and image_shells ≥ 1,
+    # refused without either, as in the JAX package
+    cfg = rt.SimulationConfig(wall=True, box=(10.0, 10.0), image_shells=1,
+                              farfield_grid=(4, 4, 2), gmres_tol=5e-3)
+    assert cfg.farfield_grid == (4, 4, 2) and cfg.image_shells == 1
+    with pytest.raises(ValueError, match="image_shells"):
+        rt.SimulationConfig(wall=True, box=(10.0, 10.0),
+                            farfield_grid=(4, 4, 2), gmres_tol=5e-3)
+    with pytest.raises(ValueError, match="wall"):
+        rt.SimulationConfig(box=(10.0, 10.0), image_shells=1,
                             farfield_grid=(4, 4, 2), gmres_tol=5e-3)
