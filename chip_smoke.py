@@ -130,12 +130,40 @@ Phases (each raises on failure; any failure exits nonzero):
  26. one far-field film step through K3 against one through the plain
      float32 near sweep, from identical draws, at 10 × shell_N_2562 =
      25,620 blobs on a 5 × 2 lattice in the (13.0, 5.2) box, grid
-     (10, 4, 3).
+     (10, 4, 3);
+ 27. K1's and K2's POLY forms (per-blob radii: the polydisperse fields,
+     the wall terms at √(aᵢaⱼ)) against the float64 plain sweep with
+     radii, wall and free, 1 and 2 RHS (K1 at 2 RHS on its pair terms),
+     at the mixture slice's 10,296 positions and radii, at a ragged
+     1,000-blob cloud with radii from {0.6, 1.1}·a straddling the
+     wall-height floor, and at a cloud of near-coincident pairs of unequal
+     radii (the overlap branch and the deep branch r < |aᵢ − aⱼ|); two
+     launches bitwise equal; then both forms' times against their
+     monodisperse forms at the same positions, the plain float32 sweep and
+     their bounds;
+ 28. the mixture slice: 12 × shell_N_642 (blob radius a) + 16 ×
+     shell_N_162 scaled by 0.5 with its own blob radius = 10,296 blobs
+     above the wall (scripts/tpu_mixture_bench.py's mixture, the small
+     species at run.py's per-species radius), multi.run_bd_multi for 1
+     warm-up and 8 timed steps, with the launch counts read around that
+     run (the POLY forms launched, the monodisperse forms not; every
+     residual below 10·gmres_tol), and the step timer's split;
+ 29. one mixture step through the kernels against one through the plain
+     float32 sweep, from identical draws;
+ 30. the JAX package's monodisperse mixture (the small species scaled by
+     sep_642/sep_162 at blob radius a, no radii) and the dense slice, each
+     1 warm-up and 8 timed steps, in the same run: their steps/s and
+     ratio, beside the polydisperse mixture's;
+ 31. the mixture RAS preconditioner on the card (tests/test_multi.py's
+     dense wall mixture, 6 × shell_N_12 + 3 × shell_N_42, float32,
+     gmres_tol 1e-5): RAS takes fewer iterations than block_free and the
+     two U agree within 1e-4 of max|U|.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
 path (K1/K2 under the RAS preconditioner), phases 21-23 the film path
-(K1/K2 in the box), phases 24-26 the far-field film path (K3's box form);
+(K1/K2 in the box), phases 24-26 the far-field film path (K3's box form),
+phases 27-31 the mixture path (K1/K2's POLY forms, multi.run_bd_multi);
 phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
@@ -242,6 +270,26 @@ FB_SHELLS = 6
 FB_CHECK_SIDE = 5
 FB_CHECK_BOX = (13.0, 5.2)
 FB_CHECK_GRID = (10, 4, 3)
+# the mixture slice (phases 27-30), scripts/tpu_mixture_bench.py: 12 big
+# and 16 small bodies, the small species' geometry scaled by 0.5 with its
+# own blob radius (half its scaled blob spacing, run.py's "blob_radius"),
+# the bench's 8 timed steps
+MIX_BIG = 12
+MIX_SMALL = 16
+MIX_SMALL_SHELL = "shell_N_162"
+MIX_SCALE = 0.5
+MIX_WARM_STEPS = 1
+MIX_TIMED_STEPS = 8
+MIX_SPLIT_STEPS = 3
+# phase 31: tests/test_multi.py's dense wall mixture at this tolerance; the
+# two U agree to 10× it
+MIX_RAS_TOL = 1e-5
+# operations a pair of the POLY fields costs beyond the monodisperse 60,
+# counted from rpy_fields.cuh::pair_fields_poly's far branch: aR² + aC²
+# (2), aR + aC, aR − aC, (aR² + aC²)/3, and the wall's 1/√(aR·aC) (3), the
+# two scaled heights (2) floored per pair (2), the scaled ρ² (2) and
+# q = inv_ae/R (1)
+POLY_EXTRA_FLOP = 15
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -439,6 +487,106 @@ def film_setup(torch, device, shells):
     return cfg, geom, state, force_fn
 
 
+def mixture_setup(torch, device, poly=True):
+    """scripts/tpu_mixture_bench.py's mixture: 12 × shell_N_642 at
+    (2.5·(i%4), 2.5·(i//4), 2.0 + 0.2·(i%3)), force −ẑ, and 16 ×
+    shell_N_162 at (1.25 + 2.5·(i%4), 1.25 + 2.5·(i//4), 3.6 + 0.2·(i%3)),
+    force −scale³·ẑ, identity quaternions, above the wall; a = sep_642/2,
+    float32, dt 0.01, kBT 1, 8 preconditioned Lanczos iterations, GMRES
+    tol 1e-4 / restart 20 / maxiter 60, block_free.  poly: the small species
+    scaled by 0.5 with its own blob radius, half its scaled blob spacing
+    (run.py's per-species "blob_radius"); else scaled by sep_642/sep_162 at
+    blob radius a (the bench's own, monodisperse).  Returns (cfg, mgeom,
+    states, forces)."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch import multi
+
+    p642, ref642 = rt.load_structure(SHELL)
+    p162, ref162 = rt.load_structure(MIX_SMALL_SHELL)
+    if poly:
+        scale, radii = MIX_SCALE, [None, MIX_SCALE * p162["sep"] / 2]
+    else:
+        scale, radii = p642["sep"] / p162["sep"], None
+    cfg = rt.SimulationConfig(
+        a=p642["sep"] / 2, dt=0.01, kBT=1.0, wall=True,
+        dtype=torch.float32, lanczos_iters=8, lanczos_precond=True,
+        gmres_tol=1e-4, gmres_restart=20, gmres_maxiter=60,
+        matvec_row_tile=512, pc_mode="block_free")
+    mgeom = multi.MultiGeometry.create([ref642, scale * ref162],
+                                       dtype=torch.float32, radii=radii,
+                                       device=device)
+    xb = np.array([[2.5 * (i % 4), 2.5 * (i // 4), 2.0 + 0.2 * (i % 3)]
+                   for i in range(MIX_BIG)])
+    xs = np.array([[1.25 + 2.5 * (i % 4), 1.25 + 2.5 * (i // 4),
+                    3.6 + 0.2 * (i % 3)] for i in range(MIX_SMALL)])
+    states = tuple(rt.make_state(x, np.tile([1.0, 0, 0, 0], (len(x), 1)),
+                                 dtype=torch.float32, device=device)
+                   for x in (xb, xs))
+    forces = []
+    for b, f in ((MIX_BIG, -1.0), (MIX_SMALL, -scale ** 3)):
+        F = torch.zeros((b, 6), dtype=torch.float32, device=device)
+        F[:, 2] = f
+        forces.append(F)
+    return cfg, mgeom, states, tuple(forces)
+
+
+def check_poly_sweeps(torch, rpy, rpy_cuda, label, r32, ahat32, F32, h):
+    """K1's and K2's POLY forms against the float64 plain sweep with radii
+    on the same float32 inputs, wall and free, 1 and 2 RHS (K1 at 2 RHS on
+    its pair terms).  Returns {(kernel, wall, k): max abs err}; raises after
+    printing if one is out of bounds."""
+    n = r32.shape[0]
+    ids = torch.arange(n, device=r32.device)
+    errs, bad = {}, []
+    for wall in (True, False):
+        ref = rpy.pair_sum(r32.double(), ids, r32.double(), ids, F32.double(),
+                           wall=wall, row_tile=256, h_floor=h,
+                           radii_rows=ahat32.double(),
+                           radii_cols=ahat32.double())
+        for k in (1, 2):
+            Fk = F32[:k].contiguous()
+            scale = ref[:k].abs().max().item()
+            for name in ("K1", "K2"):
+                if name == "K1":
+                    U = rpy_cuda.pair_sweep_sym(r32, Fk, wall, h, ahat=ahat32)
+                else:
+                    U = rpy_cuda.pair_sweep_ordered(r32, 0, r32, Fk, 0, wall,
+                                                    h, ahat_rows=ahat32,
+                                                    ahat_cols=ahat32)
+                torch.cuda.synchronize()
+                err = (U.double() - ref[:k]).abs().max().item()
+                errs[name, wall, k] = err
+                print(f"{name} POLY form {label} n={n} wall={wall} k={k}: "
+                      f"max|dU|={err:.3e} max|dU|/max|U|={err / scale:.3e} "
+                      f"(tol {KERNEL_TOL:g})")
+                if not (err <= KERNEL_TOL * scale
+                        and bool(torch.isfinite(U).all())):
+                    bad.append((name, wall, k, err / scale))
+        del ref
+    if bad:
+        raise AssertionError(f"the POLY forms disagree with the plain sweep "
+                             f"on {label}: {bad}")
+    return errs
+
+
+def poly_pair_clouds(rng, a_small=0.6, a_big=1.1):
+    """Two clouds in units of a with radii from {a_small, a_big}: a ragged
+    1,000-blob cloud whose heights straddle the wall-height floor (0.3a to
+    8a), and 300 blobs in 150 close pairs of unequal radii at distances
+    0.01-1.6 (the deep branch below |aᵢ − aⱼ| = 0.5, the overlap branch up
+    to aᵢ + aⱼ = 1.7).  Returns [(label, r, ahat)]."""
+    ragged = rng.uniform([-12, -12, 0.3], [12, 12, 8], (1000, 3))
+    rag_a = rng.choice([a_small, a_big], 1000)
+    base = rng.uniform([-6, -6, 0.3], [6, 6, 4], (150, 3))
+    dirs = rng.standard_normal((150, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    dist = np.geomspace(0.01, 1.6, 150)
+    pairs = np.stack([base, base + dist[:, None] * dirs], axis=1)
+    pair_a = np.tile([a_small, a_big], (150, 1))
+    return [("ragged", ragged, rag_a),
+            ("close pairs", pairs.reshape(-1, 3), pair_a.reshape(-1))]
+
+
 def check_box_sweeps(torch, rpy, rpy_cuda, label, r32, F32, box, h,
                      kernels=("K1", "K2"), rows=None):
     """K1 (with the self-image diagonal) and K2 in the box against the
@@ -502,6 +650,21 @@ def box_entries(film_k, film, name, key):
                         f"bound_ms_box_s{S}": v["bound"][0],
                         f"max_abs_err_box_s{S}": v["err"],
                         f"launches_film_s{S}": film[S][key]})
+    return out
+
+
+def poly_entries(poly_t, name, launches):
+    """A kernel's POLY-form keys of the summary line, at the mixture slice:
+    its times at 1 and 2 RHS, its monodisperse form's at the same
+    positions, the plain float32 sweep's, the bounds, the max abs errors
+    against float64 (wall), and its launches on the mixture slice's run."""
+    out = {"launches_mixture": launches}
+    for k, tag in ((1, ""), (2, "_2rhs")):
+        v = poly_t[name, k]
+        out.update({f"ms{tag}_poly": v["ms"], f"ms{tag}_mono_at_mixture":
+                    v["ms_mono"], f"plain_ms{tag}_poly": v["plain_ms"],
+                    f"bound_ms{tag}_poly": v["bound"][0],
+                    f"max_abs_err{tag}_poly": v["err"]})
     return out
 
 
@@ -701,6 +864,7 @@ def main():
                                                     rpy_cuda, saddle)
         from rigid_body_light_tpu_torch.ops import solvers, tiles
         from rigid_body_light_tpu_torch.utils import profiling, roofline
+        from rigid_body_light_tpu_torch import multi
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -1845,12 +2009,251 @@ def main():
                              f"the plain step: {rel26}")
     film_ff["step_check_rel"] = rel26
 
+    # ---- 27. K1's and K2's POLY forms vs the float64 plain sweep, times
+    cfg_m, mgeom_m, states_m, forces_m = mixture_setup(torch, dev)
+    opses_m = multi.geometry_ops_multi(mgeom_m, states_m)
+    r_m = multi.concat_positions(opses_m)
+    n_m = r_m.shape[0]
+    rad_m = multi.blob_radii_multi(mgeom_m, opses_m, cfg_m)
+    rm32 = (r_m / cfg_m.a).contiguous()
+    am32 = (rad_m / cfg_m.a).contiguous()
+    h_m = cfg_m.wall_h_floor
+    Fm = torch.from_numpy(rng.standard_normal((2, n_m, 3))).to(dev).float()
+    poly_errs = check_poly_sweeps(torch, rpy, rpy_cuda, "mixture slice", rm32,
+                                  am32, Fm, h_m)
+    rng_p = np.random.default_rng(SEED + 27)
+    for label, r_c, a_c in poly_pair_clouds(rng_p):
+        check_poly_sweeps(
+            torch, rpy, rpy_cuda, label,
+            torch.from_numpy(r_c).to(dev).float().contiguous(),
+            torch.from_numpy(a_c).to(dev).float().contiguous(),
+            torch.from_numpy(rng_p.standard_normal((2, r_c.shape[0], 3))).to(
+                dev).float(), h_m)
+    for k in (1, 2):
+        Fk = Fm[:k].contiguous()
+        for name, fn in (
+                ("K1", lambda: rpy_cuda.pair_sweep_sym(rm32, Fk, True, h_m,
+                                                       ahat=am32)),
+                ("K2", lambda: rpy_cuda.pair_sweep_ordered(
+                    rm32, 0, rm32, Fk, 0, True, h_m, ahat_rows=am32,
+                    ahat_cols=am32))):
+            if not torch.equal(fn(), fn()):
+                raise AssertionError(f"two {name} POLY launches differ "
+                                     f"bitwise, k={k}")
+    print("K1 and K2 POLY launches repeat bitwise at 1 and 2 RHS")
+    ids_m = torch.arange(n_m, device=dev)
+    poly_t = {}
+    for k in (1, 2):
+        Fk = Fm[:k].contiguous()
+        # fields once per unordered pair (60 + POLY_EXTRA_FLOP) and 30 per
+        # RHS and direction, as the monodisperse bounds count
+        b_poly = bound_ms((60 + POLY_EXTRA_FLOP + 60 * k) / 2 * n_m * n_m,
+                          (12 + 4 + 24 * k) * n_m)
+        b_mono = bound_ms((60 + 60 * k) / 2 * n_m * n_m, (12 + 24 * k) * n_m)
+        for name in ("K1", "K2"):
+            if name == "K1":
+                poly_fn = lambda: rpy_cuda.pair_sweep_sym(rm32, Fk, True, h_m,
+                                                          ahat=am32)
+                mono_fn = lambda: rpy_cuda.pair_sweep_sym(rm32, Fk, True, h_m)
+            else:
+                poly_fn = lambda: rpy_cuda.pair_sweep_ordered(
+                    rm32, 0, rm32, Fk, 0, True, h_m, ahat_rows=am32,
+                    ahat_cols=am32)
+                mono_fn = lambda: rpy_cuda.pair_sweep_ordered(
+                    rm32, 0, rm32, Fk, 0, True, h_m)
+            # in turns: mono, poly, poly, mono
+            t = {"mono": [], "poly": []}
+            for form in ("mono", "poly", "poly", "mono"):
+                t[form].append(cuda_ms(
+                    torch, poly_fn if form == "poly" else mono_fn, 20))
+            plain = cuda_ms(torch, lambda: rpy.pair_sum(
+                rm32, ids_m, rm32, ids_m, Fk, wall=True, h_floor=h_m,
+                radii_rows=am32, radii_cols=am32), 2)
+            poly_t[name, k] = dict(ms=min(t["poly"]), ms_mono=min(t["mono"]),
+                                   turns=t, plain_ms=plain, bound=b_poly,
+                                   bound_mono=b_mono,
+                                   err=poly_errs[name, True, k])
+            v = poly_t[name, k]
+            print(f"{name} POLY form time at the mixture slice n={n_m}, wall, "
+                  f"{k} RHS: {v['ms']:.4f} ms (turns mono/poly "
+                  f"{t['mono']} / {t['poly']}), {v['ms'] / v['ms_mono']:.3f}x "
+                  f"its monodisperse form at the same positions; plain float32"
+                  f" {plain:.4f} ms; bound {b_poly[0]:.4f} ms ({b_poly[1]}), "
+                  f"{v['ms'] / b_poly[0]:.2f}x (the mono form "
+                  f"{v['ms_mono'] / b_mono[0]:.2f}x its {b_mono[0]:.4f} ms)")
+    del Fm
+
+    # ---- 28. the mixture slice through the POLY forms
+    gen_m = torch.Generator(device=dev).manual_seed(SEED)
+    x0_m = [st_.X.clone() for st_ in states_m]
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    s_m, tr_mw = multi.run_bd_multi(mgeom_m, cfg_m, states_m, MIX_WARM_STEPS,
+                                    generator=gen_m,
+                                    force_fn=lambda ss, i: forces_m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_m, tr_m = multi.run_bd_multi(mgeom_m, cfg_m, s_m, MIX_TIMED_STEPS,
+                                   generator=gen_m,
+                                   force_fn=lambda ss, i: forces_m)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    counts_m = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                **ewald_cuda.launch_counts()}
+    steps_m = MIX_WARM_STEPS + MIX_TIMED_STEPS
+    res_m = torch.cat([tr_mw["residual"], tr_m["residual"]])
+    iters_m = torch.cat([tr_mw["iters"], tr_m["iters"]])
+    qn_m = torch.cat([torch.linalg.norm(st_.Q, dim=1) for st_ in s_m])
+    mixture = dict(n_blobs=n_m, steps_per_s=MIX_TIMED_STEPS / wall_m,
+                   iters=iters_m.tolist(),
+                   mean_iters=tr_m["iters"].double().mean().item(),
+                   max_residual=res_m.max().item(),
+                   k1_poly=counts_m["pair_sweep_sym_poly"],
+                   k2_poly=counts_m["pair_sweep_ordered_poly"],
+                   k1_poly_per_step=counts_m["pair_sweep_sym_poly"] / steps_m,
+                   k2_poly_per_step=counts_m["pair_sweep_ordered_poly"]
+                   / steps_m)
+    print(f"mixture slice: {MIX_BIG} x {SHELL} + {MIX_SMALL} x "
+          f"{MIX_SMALL_SHELL} scaled {MIX_SCALE} (radii {mgeom_m.radii}, a = "
+          f"{cfg_m.a:.6f}) = {n_m} blobs: {MIX_TIMED_STEPS} steps in "
+          f"{wall_m:.3f} s = {mixture['steps_per_s']:.4f} steps/s; GMRES "
+          f"iters per step {iters_m.tolist()}; max residual "
+          f"{res_m.max().item():.3e}; max||q|-1| "
+          f"{(qn_m - 1).abs().max().item():.3e}; launches {counts_m} over "
+          f"{steps_m} steps")
+    checks = {
+        "every residual < 10 gmres_tol": res_m.max().item()
+        < 10 * cfg_m.gmres_tol,
+        "state finite": all(bool(torch.isfinite(st_.X).all()
+                                 and torch.isfinite(st_.Q).all())
+                            for st_ in s_m),
+        "|q| within 1e-5 of 1": (qn_m - 1).abs().max().item() <= 1e-5,
+        "bodies moved": all((st_.X - x0).abs().max().item() > 0
+                            for st_, x0 in zip(s_m, x0_m)),
+        "K1 POLY launched": counts_m["pair_sweep_sym_poly"] > 0,
+        "K2 POLY launched": counts_m["pair_sweep_ordered_poly"] > 0,
+        "K1/K2 monodisperse forms not launched":
+            counts_m["pair_sweep_sym"] == counts_m["pair_sweep_ordered"] == 0,
+        "K3/K4 not launched": counts_m["near_sweep"]
+        == counts_m["ewald_real_sweep"] == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"mixture slice check failed: {what}")
+    split_m = step_split(torch, profiling, "mixture", lambda k: (
+        multi.run_bd_multi(mgeom_m, cfg_m, s_m, k, generator=gen_m,
+                           force_fn=lambda ss, i: forces_m)),
+        MIX_SPLIT_STEPS)
+    splits.append(split_m)
+
+    # ---- 29. mixture step through the kernels vs the plain float32 sweep
+    draws_m = multi.make_draws_multi(mgeom_m, s_m, gen_m)
+    sk, aux_mk = multi.stochastic_step_multi(mgeom_m, cfg_m, s_m, forces_m,
+                                             draws=draws_m)
+    sp, aux_mp = multi.stochastic_step_multi(
+        mgeom_m, cfg_m.replace(use_pallas=False), s_m, forces_m,
+        draws=draws_m)
+    torch.cuda.synchronize()
+    dX_k = torch.cat([a_.X - b_.X for a_, b_ in zip(sk, s_m)])
+    dX_p = torch.cat([a_.X - b_.X for a_, b_ in zip(sp, s_m)])
+    rel29 = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    print(f"mixture step kernels vs plain: max|dX_k - dX_p|/max|dX_p| = "
+          f"{rel29:.3e} (tol {STEP_TOL:g}); iters {aux_mk.iters} vs "
+          f"{aux_mp.iters}; residual {aux_mk.residual.item():.3e} vs "
+          f"{aux_mp.residual.item():.3e}")
+    if not (rel29 <= STEP_TOL and torch.isfinite(dX_k).all()):
+        raise AssertionError(f"the mixture step through the kernels "
+                             f"disagrees with the plain step: {rel29}")
+    mixture["step_check_rel"] = rel29
+
+    # ---- 30. the monodisperse mixture and the dense slice, same run
+    cfg_u, mgeom_u, states_u, forces_u = mixture_setup(torch, dev,
+                                                       poly=False)
+    gen_u = torch.Generator(device=dev).manual_seed(SEED)
+    rates = {}
+    for label in ("mono mixture", "dense", "poly mixture"):
+        if label == "dense":
+            def run(k, st0):
+                return run_bd(geom, cfg, st0, k, generator=gen,
+                              force_fn=lambda s_, i: force)
+            st0 = state
+        else:
+            mg_, cf_, fo_ = ((mgeom_u, cfg_u, forces_u)
+                             if label == "mono mixture"
+                             else (mgeom_m, cfg_m, forces_m))
+
+            def run(k, st0, mg_=mg_, cf_=cf_, fo_=fo_):
+                return multi.run_bd_multi(mg_, cf_, st0, k, generator=gen_u,
+                                          force_fn=lambda ss, i: fo_)
+            st0 = states_u if label == "mono mixture" else states_m
+        st1, tr_w = run(MIX_WARM_STEPS, st0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st1, tr_t = run(MIX_TIMED_STEPS, st1)
+        torch.cuda.synchronize()
+        rates[label] = dict(
+            steps_per_s=MIX_TIMED_STEPS / (time.perf_counter() - t0),
+            mean_iters=tr_t["iters"].double().mean().item(),
+            max_residual=torch.cat([tr_w["residual"],
+                                    tr_t["residual"]]).max().item())
+        if not rates[label]["max_residual"] < 10 * cfg_m.gmres_tol:
+            raise AssertionError(f"{label}: a residual above 10·gmres_tol")
+    mixture["same_run"] = rates
+    mixture["ratio_mono_mixture_to_dense"] = (
+        rates["mono mixture"]["steps_per_s"] / rates["dense"]["steps_per_s"])
+    mixture["ratio_poly_mixture_to_dense"] = (
+        rates["poly mixture"]["steps_per_s"] / rates["dense"]["steps_per_s"])
+    print("same run, steps/s (mean GMRES iters): " + ", ".join(
+        f"{k} {v['steps_per_s']:.4f} ({v['mean_iters']:.2f})"
+        for k, v in rates.items())
+        + f"; mono mixture / dense "
+        f"{mixture['ratio_mono_mixture_to_dense']:.3f}, poly mixture / "
+        f"dense {mixture['ratio_poly_mixture_to_dense']:.3f}")
+
+    # ---- 31. mixture RAS on the card: tests/test_multi.py's wall mixture
+    import rigid_body_light_tpu_torch as rt
+    _, ref12 = rt.load_structure("shell_N_12")
+    _, ref42 = rt.load_structure("shell_N_42")
+    mgeom_r = multi.MultiGeometry.create([ref12, ref42], dtype=torch.float32,
+                                         device=dev)
+    X12 = np.array([[0, 0, 1.2], [1.4, 0, 1.2], [0, 1.4, 1.1],
+                    [1.4, 1.4, 1.25], [0.7, 0.7, 2.3], [2.1, 0.7, 1.3]])
+    X42 = np.array([[0.7, -1.3, 1.4], [-1.3, 0.7, 1.45], [2.8, 2.2, 1.5]])
+    states_r = tuple(rt.make_state(x, np.tile([1.0, 0, 0, 0], (len(x), 1)),
+                                   dtype=torch.float32, device=dev)
+                     for x in (X12, X42))
+    rng_r = np.random.default_rng(7)
+    F_r = tuple(torch.from_numpy(rng_r.standard_normal((b, 6))).float().to(
+        dev) for b in (6, 3))
+    solve_r = {}
+    for mode in ("block_free", "ras"):
+        cfg_r = rt.SimulationConfig(a=0.24, wall=True, dtype=torch.float32,
+                                    gmres_tol=MIX_RAS_TOL, gmres_maxiter=300,
+                                    pc_mode=mode)
+        solve_r[mode] = multi.solve_saddle_multi(mgeom_r, cfg_r, states_r,
+                                                 None, F_r)
+    rb, rr = solve_r["block_free"], solve_r["ras"]
+    U_b, U_r = torch.cat(rb.Us), torch.cat(rr.Us)
+    du_r = ((U_r - U_b).abs().max() / U_b.abs().max()).item()
+    print(f"mixture RAS (6 x shell_N_12 + 3 x shell_N_42 at the wall, "
+          f"float32, gmres_tol {MIX_RAS_TOL:g}): block_free {rb.iters} "
+          f"iterations (residual {rb.residual.item():.3e}), RAS {rr.iters} "
+          f"(residual {rr.residual.item():.3e}); max|U_ras - U_bf|/max|U_bf|"
+          f" = {du_r:.3e} (tol {10 * MIX_RAS_TOL:g})")
+    if not (rr.iters < rb.iters and du_r <= 10 * MIX_RAS_TOL
+            and rr.residual.item() < 10 * MIX_RAS_TOL
+            and rb.residual.item() < 10 * MIX_RAS_TOL):
+        raise AssertionError("mixture RAS: it must take fewer iterations "
+                             "than block_free and agree with it")
+    mixture["ras"] = dict(iters_block_free=rb.iters, iters_ras=rr.iters,
+                          u_rel=du_r)
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
                       "film": {str(S): v for S, v in film.items()},
                       "film_step_check": film_step_check,
-                      "film_farfield": film_ff}))
+                      "film_farfield": film_ff, "mixture": mixture}))
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
@@ -1877,7 +2280,8 @@ def main():
          "ms_409600": k1_scale[1]["ms"],
          "ms_2rhs_409600": k1_scale[2]["ms"],
          "peak_bytes_409600": k1_scale[1]["peak_bytes"],
-         "peak_bytes_2rhs_409600": k1_scale[2]["peak_bytes"]},
+         "peak_bytes_2rhs_409600": k1_scale[2]["peak_bytes"],
+         **poly_entries(poly_t, "K1", mixture["k1_poly"])},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
@@ -1885,7 +2289,8 @@ def main():
          "bound_by": b2[1], "library_ms": None,
          "bound_ratio": k2_ms / b2[0], "redesigned_in": 5,
          "launches_settled": counts_s["pair_sweep_ordered"],
-         **box_entries(film_k, film, "K2", "k2")},
+         **box_entries(film_k, film, "K2", "k2"),
+         **poly_entries(poly_t, "K2", mixture["k2_poly"])},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],

@@ -16,7 +16,10 @@ operator (a 3-D ``box``); the settled-suspension configuration
 (the RAS preconditioner, adaptive Lanczos, :mod:`.forces`, the checkpoint
 reader of :mod:`.utils.checkpoint`); and the pseudo-2D film (a 2-D
 ``box`` above the wall: the minimum-image pair sweep, or with
-``image_shells`` the exact doubly-periodic image sum).  Their pair sweeps are hand-written CUDA
+``image_shells`` the exact doubly-periodic image sum); and mixtures of
+body species (:mod:`.multi`, ``multi.run_bd_multi``), a species with its
+own blob radius making the coupled pair sweep polydisperse.  Their pair
+sweeps are hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
 probe of :mod:`.utils.roofline`; everything else is eager PyTorch on
@@ -37,5 +40,7 @@ _torch.backends.cudnn.allow_tf32 = False
 from rigid_body_light_tpu_torch.config import SimulationConfig  # noqa: E402
 from rigid_body_light_tpu_torch.state import BodyState, make_state  # noqa: E402
 from rigid_body_light_tpu_torch.structures import load_structure  # noqa: E402
+from rigid_body_light_tpu_torch import multi  # noqa: E402
 
-__all__ = ["SimulationConfig", "BodyState", "make_state", "load_structure"]
+__all__ = ["SimulationConfig", "BodyState", "make_state", "load_structure",
+           "multi"]

@@ -3,8 +3,8 @@
 // pseudo-2D box's wrap and image lattice (K1 and K2's box forms).
 //
 // They compute what the shared field helpers of the Pallas kernels do
-// (rigid_body_light_tpu/ops/rpy_pallas.py: _mono_coeffs, _wall_coeffs), so
-// the three CUDA kernels cannot drift apart either.
+// (rigid_body_light_tpu/ops/rpy_pallas.py: _mono_coeffs, _poly_coeffs,
+// _wall_coeffs), so the three CUDA kernels cannot drift apart either.
 //
 // Numerics: IEEE division and sqrt (no --use_fast_math, no __fdividef —
 // approximate reciprocals floor GMRES convergence, rpy_pallas.py:22-26).
@@ -14,7 +14,8 @@
 // multiply by a mask (the unselected value may hold inf/NaN).
 //
 // Work per pair, kept small because every pair of K1–K3 pays it:
-//   - heights arrive already floored (floor_height, once per blob);
+//   - heights arrive already floored (floor_height, once per blob; the
+//     polydisperse fields floor per pair, pair_fields_poly);
 //   - dx² + dy² is shared by r² and the image distance R²;
 //   - the near/far select is taken on α and β only;
 //   - each wall field is a polynomial in s = 1/R² (Horner) whose
@@ -94,6 +95,94 @@ __device__ __forceinline__ Fields pair_fields(float dx, float dy, float dz,
     const float f5 = -invR * fmaf(s, fmaf(s, fmaf(-20.0f, u, 8.0f / 3.0f),
                                           4.0f * u),
                                   4.0f * (h * h) * u);
+    p.aI = alpha + f1;
+    p.aZ = p.aI + f5;
+  }
+  return p;
+}
+
+// The polydisperse pair fields (rpy_pallas.py: _poly_coeffs, _wall_coeffs
+// with poly), K1's and K2's POLY forms.  aR, aC are the blobs' radii in
+// units of a, zR, zC their raw heights: the wall fields are evaluated in
+// units of the pair's √(aR·aC), so a height is scaled by inv_ae =
+// 1/√(aR·aC) and floored per pair, after the scaling (the monodisperse
+// fields get heights floored once per blob).  Free-space branches (Zuk et
+// al. 2014):
+//   r ≥ aR + aC          α = (1 + (aR² + aC²)/(3r²))/r, β = (1 − (aR² + aC²)/r²)/r³
+//   |aR − aC| ≤ r < aR + aC   α = p·g_I, β = p·g_e/r², p = (4/3)/(aR·aC),
+//                        g_I = (16r³(aR + aC) − ((aR − aC)² + 3r²)²)/(32r³),
+//                        g_e = 3((aR − aC)² − r²)²/(32r³)
+//   r < |aR − aC|        α = (4/3)/max(aR, aC), β = 0
+// p and the deep α are IEEE divisions.  The wall image direction is
+// e = (dx·inv_ae, dy·inv_ae, zs)/R with zs the floored scaled height sum
+// and R² = ρ²·inv_ae² + zs², and f1–f5 are the equal-radius fields there
+// times inv_ae: their common factor 1/R becomes q = inv_ae/R, which also
+// scales ex, ey.  Every quantity is symmetric under R ↔ C except ĥ, as in
+// the monodisperse fields, so apply<WALL, true> stays the transpose.
+template <bool WALL>
+__device__ __forceinline__ Fields pair_fields_poly(float dx, float dy,
+                                                   float dz, float zR,
+                                                   float zC, float aR,
+                                                   float aC, float h_floor) {
+  Fields p;
+  const float rho2 = fmaf(dx, dx, dy * dy);
+  const float r2 = fmaxf(fmaf(dz, dz, rho2), kR2Floor);
+  const float invr = rsqrtf(r2);
+  const float invr2 = invr * invr;
+  const float r = r2 * invr;
+  const float a2s = fmaf(aR, aR, aC * aC);
+  const float asum = aR + aC;
+  const float adiff = aR - aC;
+  float alpha, beta;
+  if (r >= asum) {
+    alpha = invr * fmaf(a2s * (1.0f / 3.0f), invr2, 1.0f);
+    beta = (invr2 * invr) * fmaf(-a2s, invr2, 1.0f);
+  } else if (r < fabsf(adiff)) {
+    alpha = (4.0f / 3.0f) / fmaxf(fmaxf(aR, aC), kR2Floor);
+    beta = 0.0f;
+  } else {
+    const float pref = (4.0f / 3.0f) / fmaxf(aR * aC, kR2Floor);
+    const float invr3_32 = invr * invr2 * (1.0f / 32.0f);
+    const float ad2 = adiff * adiff;
+    const float t = fmaf(3.0f, r2, ad2);
+    const float g_i = fmaf(16.0f * r2 * r, asum, -t * t) * invr3_32;
+    const float v = ad2 - r2;
+    const float g_e = 3.0f * v * v * invr3_32;
+    alpha = pref * g_i;
+    beta = pref * g_e * invr2;
+  }
+  p.b = beta;
+  p.aI = p.aZ = alpha;
+  if (WALL) {
+    const float inv_ae = rsqrtf(fmaxf(aR * aC, kR2Floor));
+    const float zRw = floor_height(zR * inv_ae, h_floor);
+    const float zCw = floor_height(zC * inv_ae, h_floor);
+    const float zs = zRw + zCw;
+    const float R2 = fmaxf(fmaf(zs, zs, rho2 * (inv_ae * inv_ae)), kR2Floor);
+    const float invR = rsqrtf(R2);
+    const float s = invR * invR;
+    const float q = inv_ae * invR;               // 1/R, scaled back by inv_ae
+    p.ex = dx * q;
+    p.ey = dy * q;
+    p.ez = zs * invR;
+    const float u = p.ez * p.ez;
+    const float h = zCw / fmaxf(zs, 1e-12f);
+    const float h2 = h + h;
+    const float hh2 = 2.0f * fmaf(-h, h, h);
+    const float ezq = p.ez * q;
+    const float f1 = -q * fmaf(s, fmaf(s, fmaf(10.0f / 3.0f, u, -2.0f / 3.0f),
+                                       fmaf(-2.0f, u, 2.0f / 3.0f)),
+                               fmaf(hh2, u, 1.0f));
+    p.f2 = -q * fmaf(s, fmaf(s, fmaf(-70.0f / 3.0f, u, 10.0f / 3.0f),
+                             fmaf(10.0f, u, -2.0f)),
+                     fmaf(-3.0f * hh2, u, 1.0f));
+    p.f3 = ezq * fmaf(s, fmaf(s, fmaf(-140.0f / 3.0f, u, 40.0f / 3.0f),
+                              fmaf(20.0f, u, -4.0f)),
+                      fmaf(-6.0f * hh2, u, h2));
+    p.f4 = ezq * fmaf(-20.0f / 3.0f, s * s, h2);
+    const float f5 = -q * fmaf(s, fmaf(s, fmaf(-20.0f, u, 8.0f / 3.0f),
+                                       4.0f * u),
+                               4.0f * (h * h) * u);
     p.aI = alpha + f1;
     p.aZ = p.aI + f5;
   }

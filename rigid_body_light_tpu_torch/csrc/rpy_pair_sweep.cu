@@ -90,8 +90,26 @@
 // slice (10,272 blobs): K1 at 1 RHS 0.430-0.441 / 6.41-6.44 ms at S = 0 /
 // 2; K2 at 2 RHS 0.762-0.764 / 12.47 ms (PERF.md §6).
 //
-// Per-blob quantities (the floored height) are computed once per blob, when
-// the blob is loaded, and staged beside its position as a float4.
+// POLY forms (template POLY; rpy_pallas.py:232-242 for K2, :384-397 for
+// K1): per-blob radii in units of a (ahat), staged as the fourth component
+// of a blob's float4 in place of its floored height, and the polydisperse
+// fields rpy_fields::pair_fields_poly (Zuk et al.'s three branches; the
+// wall terms at the pair's √(aᵢaⱼ), the heights floored per pair after the
+// scaling).  K2's row and column radii come with its row and column
+// slices.  The fields stay symmetric under i ↔ j, so K1's transposed apply
+// holds.  No box: a POLY launch with a box is refused (ROADMAP.md queue 1,
+// item 12b, the poly × box forms).  The far branch costs 15 operations
+// more than the monodisperse fields; the overlap and deep branches, with
+// their two IEEE divisions, run on the few pairs closer than aᵢ + aⱼ.
+// 56 / 80 registers for K1 with a wall at 1 / 2 RHS (4 bytes spilled at
+// 2 RHS, as the monodisperse form), K2 56 / 64.  On an H100 at 700 W at
+// the mixture slice (10,296 blobs): K1 0.381 / 0.496 ms at 1 / 2 RHS,
+// +13% / +11% over its monodisperse form at the same positions; K2 0.520 /
+// 0.628 ms, +18% / +15% (PERF.md §6).
+//
+// Per-blob quantities (the floored height, or a POLY form's radius) are
+// computed once per blob, when the blob is loaded, and staged beside its
+// position as a float4.
 // Neither kernel uses atomics: launches are bitwise repeatable.
 //
 // Plain C interface for ctypes; every launch goes on the caller's stream,
@@ -111,6 +129,7 @@ using rpy_fields::floor_height;
 using rpy_fields::for_each_offset;
 using rpy_fields::scale;
 using rpy_fields::pair_fields;
+using rpy_fields::pair_fields_poly;
 using rpy_fields::wrap;
 
 // K1: items of kSymTile × kSymTile, one row a thread, kSymPairs columns a
@@ -138,6 +157,37 @@ __device__ __forceinline__ float4 load_blob(const float* __restrict__ pos,
                      floor_height(z, h_floor));
 }
 
+// POLY forms: blob b as (x, y, z, radius in units of a); the heights are
+// floored per pair (rpy_fields::pair_fields_poly).  Past n a finite
+// stand-in at height 1 and radius 1 (its pairs are masked).
+__device__ __forceinline__ float4 load_blob_poly(
+    const float* __restrict__ pos, const float* __restrict__ ahat, int b,
+    int n) {
+  const bool ok = b < n;
+  return make_float4(ok ? pos[3 * b] : 0.0f, ok ? pos[3 * b + 1] : 0.0f,
+                     ok ? pos[3 * b + 2] : 1.0f, ok ? ahat[b] : 1.0f);
+}
+
+template <bool POLY>
+__device__ __forceinline__ float4 stage_blob(const float* __restrict__ pos,
+                                             const float* __restrict__ ahat,
+                                             int b, int n, float h_floor) {
+  if constexpr (POLY) return load_blob_poly(pos, ahat, b, n);
+  else return load_blob(pos, b, n, h_floor);
+}
+
+// The fields of the pair (R, C) at displacement (dx, dy, dz): the
+// monodisperse fields from the staged floored heights, or the POLY fields
+// from the raw heights and radii.
+template <bool WALL, bool POLY>
+__device__ __forceinline__ Fields fields_at(float dx, float dy, float dz,
+                                            const float4& R, const float4& C,
+                                            float h_floor) {
+  if constexpr (POLY)
+    return pair_fields_poly<WALL>(dx, dy, dz, R.z, C.z, R.w, C.w, h_floor);
+  else return pair_fields<WALL>(dx, dy, dz, R.w, C.w);
+}
+
 // F_k of blob b of (nrhs, n, 3) forces as (fx, fy, fz, 0); 0 past n.
 __device__ __forceinline__ float4 load_force(const float* __restrict__ force,
                                              int k, int b, int n) {
@@ -149,13 +199,13 @@ __device__ __forceinline__ float4 load_force(const float* __restrict__ force,
 // K1's pieces, shared by its two kernels.
 
 // Stage column tile J: positions, forces and zeroed column accumulators.
-template <int NRHS>
+template <int NRHS, bool POLY>
 __device__ __forceinline__ void stage_columns(
-    const float* __restrict__ pos, const float* __restrict__ force, int J,
-    int n, float h_floor, int t, float4 (&s_pos)[kSymTile],
-    float4 (&s_f)[NRHS][kSymTile],
+    const float* __restrict__ pos, const float* __restrict__ force,
+    const float* __restrict__ ahat, int J, int n, float h_floor, int t,
+    float4 (&s_pos)[kSymTile], float4 (&s_f)[NRHS][kSymTile],
     float4 (&s_acc)[kSymWarps][NRHS][kSymTile]) {
-  s_pos[t] = load_blob(pos, J * kSymTile + t, n, h_floor);
+  s_pos[t] = stage_blob<POLY>(pos, ahat, J * kSymTile + t, n, h_floor);
 #pragma unroll
   for (int k = 0; k < NRHS; ++k) {
     s_f[k][t] = load_force(force, k, J * kSymTile + t, n);
@@ -166,13 +216,14 @@ __device__ __forceinline__ void stage_columns(
 }
 
 // Row blob i: its position (returned) and forces; its sums zeroed.
-template <int NRHS>
+template <int NRHS, bool POLY>
 __device__ __forceinline__ float4 load_row(const float* __restrict__ pos,
                                            const float* __restrict__ force,
+                                           const float* __restrict__ ahat,
                                            int i, int n, float h_floor,
                                            float (&fR)[3 * NRHS],
                                            float (&acc)[3 * NRHS]) {
-  const float4 R = load_blob(pos, i, n, h_floor);
+  const float4 R = stage_blob<POLY>(pos, ahat, i, n, h_floor);
 #pragma unroll
   for (int k = 0; k < NRHS; ++k) {
     const float4 f = load_force(force, k, i, n);
@@ -210,12 +261,13 @@ __device__ __forceinline__ void sym_terms(const Fields& f, float dx, float dy,
 
 // One item's pairs: thread t's row (R, fR) against the staged columns,
 // row terms into acc, transposed terms into its warp's column sums.
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 __device__ __forceinline__ void sweep_item(
     const float4 (&s_pos)[kSymTile], const float4 (&s_f)[NRHS][kSymTile],
     float4 (&s_acc)[kSymWarps][NRHS][kSymTile], const float4 R,
     const float (&fR)[3 * NRHS], float (&acc)[3 * NRHS], bool diag,
-    bool row_ok, int n_cols, int t, int lane, int warp, const Box& box) {
+    bool row_ok, int n_cols, int t, int lane, int warp, float h_floor,
+    const Box& box) {
   constexpr int NF = 3 * NRHS;
   for (int q0 = 0; q0 < kSymTile; q0 += kSymPairs * kSymSub) {
     // diagonal item: this warp's rows are all right of these columns
@@ -231,21 +283,21 @@ __device__ __forceinline__ void sweep_item(
         any = any || valid[p];
       }
       if (!__any_sync(0xffffffffu, any)) continue;
-      float dx0[kSymPairs], dy0[kSymPairs], dz[kSymPairs], zC[kSymPairs];
+      float dx0[kSymPairs], dy0[kSymPairs], dz[kSymPairs];
+      float4 C[kSymPairs];
       float4 fC[kSymPairs][NRHS];
       float u[kSymPairs][NF], v[kSymPairs][NF];  // forward, transposed
 #pragma unroll
       for (int p = 0; p < kSymPairs; ++p) {
-        const float4 C = s_pos[c[p]];
-        dx0[p] = BOX ? wrap(R.x, C.x, box.lx, box.ilx) : R.x - C.x;
-        dy0[p] = BOX ? wrap(R.y, C.y, box.ly, box.ily) : R.y - C.y;
-        dz[p] = R.z - C.z;
-        zC[p] = C.w;
+        C[p] = s_pos[c[p]];
+        dx0[p] = BOX ? wrap(R.x, C[p].x, box.lx, box.ilx) : R.x - C[p].x;
+        dy0[p] = BOX ? wrap(R.y, C[p].y, box.ly, box.ily) : R.y - C[p].y;
+        dz[p] = R.z - C[p].z;
 #pragma unroll
         for (int k = 0; k < NRHS; ++k) fC[p][k] = s_f[k][c[p]];
         sym_terms<WALL, NRHS, false>(
-            pair_fields<WALL>(dx0[p], dy0[p], dz[p], R.w, zC[p]), dx0[p],
-            dy0[p], dz[p], fC[p], fR, u[p], v[p]);
+            fields_at<WALL, POLY>(dx0[p], dy0[p], dz[p], R, C[p], h_floor),
+            dx0[p], dy0[p], dz[p], fC[p], fR, u[p], v[p]);
       }
       if constexpr (BOX)
         for_each_offset(box, [&](float ix, float iy, float w) {
@@ -253,7 +305,7 @@ __device__ __forceinline__ void sweep_item(
           for (int p = 0; p < kSymPairs; ++p) {
             const float dx = fmaf(ix, box.lx, dx0[p]);
             const float dy = fmaf(iy, box.ly, dy0[p]);
-            Fields f = pair_fields<WALL>(dx, dy, dz[p], R.w, zC[p]);
+            Fields f = fields_at<WALL, POLY>(dx, dy, dz[p], R, C[p], h_floor);
             scale(f, w);
             sym_terms<WALL, NRHS, true>(f, dx, dy, dz[p], fC[p], fR, u[p],
                                         v[p]);
@@ -293,15 +345,16 @@ __device__ __forceinline__ float4 column_sum(
 
 // K1, one item (I, J) a block: the launch up to 65,536 blobs (G = T).
 // Partials (items, 3·NRHS, 128), one slot per item.
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 __global__ void __launch_bounds__(kSymTile)
 pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
                       const float* __restrict__ force,   // (NRHS, n, 3)
+                      const float* __restrict__ ahat,    // (n,), POLY only
                       int n, int n_tiles, float h_floor, Box box,
                       float* __restrict__ row_part,      // (items, 3·NRHS, 128)
                       float* __restrict__ col_part) {    // (items, 3·NRHS, 128)
   constexpr int NF = 3 * NRHS;
-  __shared__ float4 s_pos[kSymTile];                     // x, y, z, floored z
+  __shared__ float4 s_pos[kSymTile];   // x, y, z, floored z (POLY: radius)
   __shared__ float4 s_f[NRHS][kSymTile];                 // fx, fy, fz, 0
   __shared__ float4 s_acc[kSymWarps][NRHS][kSymTile];    // transposed terms
 
@@ -310,16 +363,18 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
   const int warp = t >> 5;
   int I, J;
   tile_items::item_tiles(blockIdx.x, n_tiles, I, J);
-  stage_columns<NRHS>(pos, force, J, n, h_floor, t, s_pos, s_f, s_acc);
+  stage_columns<NRHS, POLY>(pos, force, ahat, J, n, h_floor, t, s_pos, s_f,
+                            s_acc);
   const int i = I * kSymTile + t;
   float fR[NF];
   float acc[NF];
-  const float4 R = load_row<NRHS>(pos, force, i, n, h_floor, fR, acc);
+  const float4 R = load_row<NRHS, POLY>(pos, force, ahat, i, n, h_floor, fR,
+                                        acc);
   __syncthreads();  // the stage is written
 
-  sweep_item<WALL, NRHS, BOX>(s_pos, s_f, s_acc, R, fR, acc, I == J, i < n,
-                              min(kSymTile, n - J * kSymTile), t, lane, warp,
-                              box);
+  sweep_item<WALL, NRHS, BOX, POLY>(s_pos, s_f, s_acc, R, fR, acc, I == J,
+                                    i < n, min(kSymTile, n - J * kSymTile), t,
+                                    lane, warp, h_floor, box);
   __syncthreads();  // every warp's column accumulator is complete
 
   // thread t: row t of tile I and column t of tile J
@@ -342,10 +397,11 @@ pair_sweep_sym_kernel(const float* __restrict__ pos,     // (n, 3)
 // of tile I through the row's items and writes its slot once; column t of
 // tile J's slot is written at the unit's first row and added to after.
 // Partials (units, S, 3·NRHS, 128).
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 __global__ void __launch_bounds__(kSymTile)
 pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
                               const float* __restrict__ force,   // (NRHS, n, 3)
+                              const float* __restrict__ ahat,    // (n,), POLY
                               int n, tile_items::Groups g, float h_floor,
                               Box box, float* __restrict__ row_part,
                               float* __restrict__ col_part) {
@@ -363,14 +419,17 @@ pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
     const int i = I * kSymTile + t;
     float fR[NF];
     float acc[NF];
-    const float4 R = load_row<NRHS>(pos, force, i, n, h_floor, fR, acc);
+    const float4 R = load_row<NRHS, POLY>(pos, force, ahat, i, n, h_floor,
+                                          fR, acc);
     for (int J = u.first_col(I); J < u.J1; ++J) {
       __syncthreads();  // the previous item's stage and sums are read
-      stage_columns<NRHS>(pos, force, J, n, h_floor, t, s_pos, s_f, s_acc);
+      stage_columns<NRHS, POLY>(pos, force, ahat, J, n, h_floor, t, s_pos,
+                                s_f, s_acc);
       __syncthreads();  // the stage is written
-      sweep_item<WALL, NRHS, BOX>(s_pos, s_f, s_acc, R, fR, acc, I == J,
-                                  i < n, min(kSymTile, n - J * kSymTile), t,
-                                  lane, warp, box);
+      sweep_item<WALL, NRHS, BOX, POLY>(s_pos, s_f, s_acc, R, fR, acc,
+                                        I == J, i < n,
+                                        min(kSymTile, n - J * kSymTile), t,
+                                        lane, warp, h_floor, box);
       __syncthreads();  // every warp's column accumulator is complete
       float* colp = tile_items::slot(col_part, blockIdx.x, J - u.J0, g, NF);
 #pragma unroll
@@ -394,11 +453,13 @@ pair_sweep_sym_grouped_kernel(const float* __restrict__ pos,     // (n, 3)
 // and the column is in range; the 4 warps' sums are added in a fixed order
 // into the chunk's partial.  Box form: the self pair is masked at offset 0
 // only.
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 __global__ void __launch_bounds__(kOrdWarps * 32)
 pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
+                          const float* __restrict__ rows_ahat,  // (n_rows,), POLY
                           int n_rows, int row_offset,
                           const float* __restrict__ cols_pos,   // (n_cols, 3)
+                          const float* __restrict__ cols_ahat,  // (n_cols,), POLY
                           const float* __restrict__ cols_force, // (NRHS, n_cols, 3)
                           int n_cols, int col_offset, float h_floor, Box box,
                           float* __restrict__ part) {  // (chunks, NRHS, n_rows, 3)
@@ -415,7 +476,8 @@ pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
   const int n_c = min(kOrdChunk, n_cols - c0);
 
   for (int c = t; c < kOrdChunk; c += kOrdWarps * 32) {
-    s_pos[c] = load_blob(cols_pos, c0 + c, n_cols, h_floor);
+    s_pos[c] = stage_blob<POLY>(cols_pos, cols_ahat, c0 + c, n_cols,
+                                h_floor);
 #pragma unroll
     for (int k = 0; k < NRHS; ++k)
       s_f[k][c] = load_force(cols_force, k, c0 + c, n_cols);
@@ -429,7 +491,7 @@ pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
     const int i = blockIdx.x * kOrdRows + r * 32 + lane;
     row_ok[r] = i < n_rows;
     gi[r] = row_offset + i;
-    R[r] = load_blob(rows_pos, i, n_rows, h_floor);
+    R[r] = stage_blob<POLY>(rows_pos, rows_ahat, i, n_rows, h_floor);
 #pragma unroll
     for (int q = 0; q < NF; ++q) acc[r][q] = 0.0f;
   }
@@ -449,7 +511,8 @@ pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
       dx0[r] = BOX ? wrap(R[r].x, C.x, box.lx, box.ilx) : R[r].x - C.x;
       dy0[r] = BOX ? wrap(R[r].y, C.y, box.ly, box.ily) : R[r].y - C.y;
       dz[r] = R[r].z - C.z;
-      const Fields f = pair_fields<WALL>(dx0[r], dy0[r], dz[r], R[r].w, C.w);
+      const Fields f = fields_at<WALL, POLY>(dx0[r], dy0[r], dz[r], R[r], C,
+                                             h_floor);
 #pragma unroll
       for (int k = 0; k < NRHS; ++k)
         apply<WALL, false>(f, dx0[r], dy0[r], dz[r], fC[k].x, fC[k].y,
@@ -467,7 +530,7 @@ pair_sweep_ordered_kernel(const float* __restrict__ rows_pos,   // (n_rows, 3)
         for (int r = 0; r < RL; ++r) {
           const float dx = fmaf(ix, box.lx, dx0[r]);
           const float dy = fmaf(iy, box.ly, dy0[r]);
-          Fields f = pair_fields<WALL>(dx, dy, dz[r], R[r].w, C.w);
+          Fields f = fields_at<WALL, POLY>(dx, dy, dz[r], R[r], C, h_floor);
           scale(f, w);
 #pragma unroll
           for (int k = 0; k < NRHS; ++k) {
@@ -516,47 +579,51 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 void launch_sym_k(const tile_items::Groups& g, cudaStream_t stream,
-                  const float* pos, const float* force, int n, float h_floor,
-                  const Box& box, float* row_part, float* col_part) {
+                  const float* pos, const float* force, const float* ahat,
+                  int n, float h_floor, const Box& box, float* row_part,
+                  float* col_part) {
   if (g.n_groups < g.n_tiles)
-    pair_sweep_sym_grouped_kernel<WALL, NRHS, BOX><<<g.units, kSymTile, 0,
-                                                     stream>>>(
-        pos, force, n, g, h_floor, box, row_part, col_part);
+    pair_sweep_sym_grouped_kernel<WALL, NRHS, BOX, POLY>
+        <<<g.units, kSymTile, 0, stream>>>(pos, force, ahat, n, g, h_floor,
+                                           box, row_part, col_part);
   else
-    pair_sweep_sym_kernel<WALL, NRHS, BOX><<<g.units, kSymTile, 0, stream>>>(
-        pos, force, n, g.n_tiles, h_floor, box, row_part, col_part);
+    pair_sweep_sym_kernel<WALL, NRHS, BOX, POLY>
+        <<<g.units, kSymTile, 0, stream>>>(pos, force, ahat, n, g.n_tiles,
+                                           h_floor, box, row_part, col_part);
 }
 
-template <bool WALL, bool BOX>
+template <bool WALL, bool BOX, bool POLY>
 void launch_sym(int nrhs, const tile_items::Groups& g, cudaStream_t stream,
-                const float* pos, const float* force, int n, float h_floor,
-                const Box& box, float* row_part, float* col_part) {
+                const float* pos, const float* force, const float* ahat,
+                int n, float h_floor, const Box& box, float* row_part,
+                float* col_part) {
   if (nrhs == 1)
-    launch_sym_k<WALL, 1, BOX>(g, stream, pos, force, n, h_floor, box,
-                               row_part, col_part);
+    launch_sym_k<WALL, 1, BOX, POLY>(g, stream, pos, force, ahat, n, h_floor,
+                                     box, row_part, col_part);
   else
-    launch_sym_k<WALL, 2, BOX>(g, stream, pos, force, n, h_floor, box,
-                               row_part, col_part);
+    launch_sym_k<WALL, 2, BOX, POLY>(g, stream, pos, force, ahat, n, h_floor,
+                                     box, row_part, col_part);
 }
 
-template <bool WALL, bool BOX>
+template <bool WALL, bool BOX, bool POLY>
 void launch_ordered(int nrhs, dim3 grid, cudaStream_t stream,
-                    const float* rows_pos, int n_rows, int row_offset,
-                    const float* cols_pos, const float* cols_force,
+                    const float* rows_pos, const float* rows_ahat, int n_rows,
+                    int row_offset, const float* cols_pos,
+                    const float* cols_ahat, const float* cols_force,
                     int n_cols, int col_offset, float h_floor,
                     const Box& box, float* part) {
   if (nrhs == 1)
-    pair_sweep_ordered_kernel<WALL, 1, BOX><<<grid, kOrdWarps * 32, 0,
-                                              stream>>>(
-        rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, box, part);
+    pair_sweep_ordered_kernel<WALL, 1, BOX, POLY>
+        <<<grid, kOrdWarps * 32, 0, stream>>>(
+            rows_pos, rows_ahat, n_rows, row_offset, cols_pos, cols_ahat,
+            cols_force, n_cols, col_offset, h_floor, box, part);
   else
-    pair_sweep_ordered_kernel<WALL, 2, BOX><<<grid, kOrdWarps * 32, 0,
-                                              stream>>>(
-        rows_pos, n_rows, row_offset, cols_pos, cols_force, n_cols,
-        col_offset, h_floor, box, part);
+    pair_sweep_ordered_kernel<WALL, 2, BOX, POLY>
+        <<<grid, kOrdWarps * 32, 0, stream>>>(
+            rows_pos, rows_ahat, n_rows, row_offset, cols_pos, cols_ahat,
+            cols_force, n_cols, col_offset, h_floor, box, part);
 }
 
 // The box of the C interface: none when box_x ≤ 0; the tail weights are
@@ -589,30 +656,40 @@ int rpy_ordered_chunk() { return kOrdChunk; }
 // scratch, fully overwritten).
 // With box_x > 0 the box form: the (box_x, box_y) box in units of a,
 // ``shells`` image shells with tail coefficients (alpha, beta); K1 leaves
-// out the self images (rpy.self_image_sum).
-int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
-                       int wall, float h_floor, float box_x, float box_y,
-                       int shells, float alpha, float beta, float* row_part,
+// out the self images (rpy.self_image_sum).  With ahat (n radii in units
+// of a; NULL for one radius) the POLY form, which takes no box.
+int rpy_pair_sweep_sym(const float* pos, const float* force,
+                       const float* ahat, int n, int nrhs, int wall,
+                       float h_floor, float box_x, float box_y, int shells,
+                       float alpha, float beta, float* row_part,
                        float* col_part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool boxed = box_x > 0.0f;
+  if (ahat != nullptr && boxed)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   const tile_items::Groups g = tile_items::groups_of(n);
   const Box box = make_box(box_x, box_y, shells, alpha, beta);
-  const bool boxed = box_x > 0.0f;
-  if (wall && boxed)
-    launch_sym<true, true>(nrhs, g, stream, pos, force, n, h_floor, box,
-                           row_part, col_part);
+  if (ahat != nullptr && wall)
+    launch_sym<true, false, true>(nrhs, g, stream, pos, force, ahat, n,
+                                  h_floor, box, row_part, col_part);
+  else if (ahat != nullptr)
+    launch_sym<false, false, true>(nrhs, g, stream, pos, force, ahat, n,
+                                   h_floor, box, row_part, col_part);
+  else if (wall && boxed)
+    launch_sym<true, true, false>(nrhs, g, stream, pos, force, ahat, n,
+                                  h_floor, box, row_part, col_part);
   else if (wall)
-    launch_sym<true, false>(nrhs, g, stream, pos, force, n, h_floor, box,
-                            row_part, col_part);
+    launch_sym<true, false, false>(nrhs, g, stream, pos, force, ahat, n,
+                                   h_floor, box, row_part, col_part);
   else if (boxed)
-    launch_sym<false, true>(nrhs, g, stream, pos, force, n, h_floor, box,
-                            row_part, col_part);
+    launch_sym<false, true, false>(nrhs, g, stream, pos, force, ahat, n,
+                                   h_floor, box, row_part, col_part);
   else
-    launch_sym<false, false>(nrhs, g, stream, pos, force, n, h_floor, box,
-                             row_part, col_part);
+    launch_sym<false, false, false>(nrhs, g, stream, pos, force, ahat, n,
+                                    h_floor, box, row_part, col_part);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
@@ -622,9 +699,12 @@ int rpy_pair_sweep_sym(const float* pos, const float* force, int n, int nrhs,
 // K2: out (nrhs, n_rows, 3) = Σ_j M_ij F_j over all columns j whose global
 // id (col_offset + j) differs from the row's (row_offset + i).  part holds
 // ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).  The box
-// arguments as K1's; the self pair keeps its images.
-int rpy_pair_sweep_ordered(const float* rows_pos, int n_rows, int row_offset,
-                           const float* cols_pos, const float* cols_force,
+// arguments as K1's; the self pair keeps its images.  rows_ahat and
+// cols_ahat (radii in units of a of the rows and of the columns, both or
+// neither NULL) select the POLY form, which takes no box.
+int rpy_pair_sweep_ordered(const float* rows_pos, const float* rows_ahat,
+                           int n_rows, int row_offset, const float* cols_pos,
+                           const float* cols_ahat, const float* cols_force,
                            int n_cols, int col_offset, int nrhs, int wall,
                            float h_floor, float box_x, float box_y,
                            int shells, float alpha, float beta, float* part,
@@ -632,28 +712,32 @@ int rpy_pair_sweep_ordered(const float* rows_pos, int n_rows, int row_offset,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool poly = rows_ahat != nullptr;
+  const bool boxed = box_x > 0.0f;
+  if (poly != (cols_ahat != nullptr) || (poly && boxed))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
   const int n_chunks = n_cols > 0 ? (n_cols + kOrdChunk - 1) / kOrdChunk : 0;
   if (n_chunks > 0) {
     const dim3 grid((n_rows + kOrdRows - 1) / kOrdRows, n_chunks);
     const Box box = make_box(box_x, box_y, shells, alpha, beta);
-    const bool boxed = box_x > 0.0f;
-    if (wall && boxed)
-      launch_ordered<true, true>(nrhs, grid, stream, rows_pos, n_rows,
-                                 row_offset, cols_pos, cols_force, n_cols,
-                                 col_offset, h_floor, box, part);
+#define RPY_ORDERED(W, B, P)                                                \
+  launch_ordered<W, B, P>(nrhs, grid, stream, rows_pos, rows_ahat, n_rows,  \
+                          row_offset, cols_pos, cols_ahat, cols_force,      \
+                          n_cols, col_offset, h_floor, box, part)
+    if (poly && wall)
+      RPY_ORDERED(true, false, true);
+    else if (poly)
+      RPY_ORDERED(false, false, true);
+    else if (wall && boxed)
+      RPY_ORDERED(true, true, false);
     else if (wall)
-      launch_ordered<true, false>(nrhs, grid, stream, rows_pos, n_rows,
-                                  row_offset, cols_pos, cols_force, n_cols,
-                                  col_offset, h_floor, box, part);
+      RPY_ORDERED(true, false, false);
     else if (boxed)
-      launch_ordered<false, true>(nrhs, grid, stream, rows_pos, n_rows,
-                                  row_offset, cols_pos, cols_force, n_cols,
-                                  col_offset, h_floor, box, part);
+      RPY_ORDERED(false, true, false);
     else
-      launch_ordered<false, false>(nrhs, grid, stream, rows_pos, n_rows,
-                                   row_offset, cols_pos, cols_force, n_cols,
-                                   col_offset, h_floor, box, part);
+      RPY_ORDERED(false, false, false);
+#undef RPY_ORDERED
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

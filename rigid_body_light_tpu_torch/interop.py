@@ -11,6 +11,15 @@ same numbers.  Tensors go to the card unless ``device`` names another
     pc_t    = pc_from_numpy(np.asarray(pc.minv_ref), np.asarray(pc.n_ref))
     npc_t   = noise_pc_from_numpy(np.asarray(L), np.asarray(L_inv))
     ew_t    = ewald_params_from_numpy(**params_jax._asdict())
+
+and a mixture's (``multi``):
+
+    mgeom_t  = multi_geometry_from_numpy([np.asarray(g.ref_cfg) for g in
+                                          mgeom_j.geoms], mgeom_j.radii)
+    states_t = states_from_numpy([(np.asarray(s.X), np.asarray(s.Q))
+                                  for s in states_j])
+    npcs_t   = noise_pcs_from_numpy([(np.asarray(L), np.asarray(L_inv))
+                                     for L, L_inv in npcs_j])
 """
 
 from __future__ import annotations
@@ -19,6 +28,7 @@ import numpy as np
 import torch
 
 from rigid_body_light_tpu_torch.config import SimulationConfig
+from rigid_body_light_tpu_torch.multi import MultiGeometry
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops.ewald import EwaldParams
 from rigid_body_light_tpu_torch.ops.saddle import PCData
@@ -87,3 +97,24 @@ def noise_pc_from_numpy(L, L_inv, dtype=torch.float32, device="cuda"):
     device = resolve_device(device)
     return (torch.as_tensor(np.array(L), dtype=dtype, device=device),
             torch.as_tensor(np.array(L_inv), dtype=dtype, device=device))
+
+
+def multi_geometry_from_numpy(ref_cfgs, radii=None, dtype=torch.float32,
+                              device="cuda") -> MultiGeometry:
+    """A mixture's geometry from its species' (n_s, 3) reference
+    configurations and per-species blob radii (None entries: the
+    configuration's ``a``)."""
+    return MultiGeometry.create([np.array(c) for c in ref_cfgs], dtype=dtype,
+                                radii=radii, device=device)
+
+
+def states_from_numpy(pairs, dtype=torch.float32, device="cuda"):
+    """A mixture's states from per-species (X, Q) arrays."""
+    return tuple(state_from_numpy(X, Q, dtype=dtype, device=device)
+                 for X, Q in pairs)
+
+
+def noise_pcs_from_numpy(pairs, dtype=torch.float32, device="cuda"):
+    """A mixture's per-species noise factors from (L, L⁻¹) arrays."""
+    return tuple(noise_pc_from_numpy(L, L_inv, dtype=dtype, device=device)
+                 for L, L_inv in pairs)

@@ -30,7 +30,7 @@ the only static bound: overflow NaN-poisons the apply, as does a reused
 geometry tier (:func:`prepare` with ``geo=``) that the positions have left
 by more than half a cell.
 
-Left to later slices (ROADMAP.md queue 1): per-blob radii (item 12b), the
+Left to later slices (ROADMAP.md queue 1): per-blob radii (item 12b-far), the
 band tier ``farfield_band_p`` and the distributed locals (item 11).  The
 TPU layout workarounds of the JAX module (the ``_flat_outer`` selector
 matmuls, the packed real/imaginary lattices, ``fftsafe``) are not ported:

@@ -1,7 +1,9 @@
 """Rotne–Prager–Yamakawa blob mobility, free space + Swan–Brady single wall —
-the plain PyTorch port of ``rigid_body_light_tpu/ops/rpy.py``
-(monodisperse; open domain or the pseudo-2D (Lx, Ly) box, with its
-minimum-image wrap and the exact doubly-periodic image sum).
+the plain PyTorch port of ``rigid_body_light_tpu/ops/rpy.py`` (open domain
+or the pseudo-2D (Lx, Ly) box, with its minimum-image wrap and the exact
+doubly-periodic image sum; one blob radius, or per-blob radii: the
+polydisperse RPY of Zuk et al. with the wall pair terms at the pair's
+√(aᵢaⱼ)).
 
 It is the CPU path of the port and the plain version that the CUDA pair
 sweeps (:mod:`rigid_body_light_tpu_torch.ops.rpy_cuda`) are checked against.
@@ -90,6 +92,45 @@ def _free_coeffs(r2):
             torch.where(far, beta_far, beta_near))
 
 
+def _free_coeffs_poly(r2, ai, aj):
+    """Polydisperse free-space RPY coefficients (α, β), M = α·I + β·d⊗d
+    (Zuk, Wajnryb, Mizerski & Szymczak, J. Fluid Mech. 741 (2014) R5),
+    distances and radii in units of ``a``, ai / aj broadcast against r2:
+
+      r ≥ ai + aj          α = (1 + (ai² + aj²)/3r²)/r, β = (1 − (ai² + aj²)/r²)/r³
+      |ai − aj| ≤ r < ai + aj   the overlap form, prefactor (4/3)/(ai·aj)
+      r < |ai − aj|        the smaller blob inside the larger: α = (4/3)/max(ai, aj), β = 0
+
+    Equal radii ai = aj = 1 give :func:`_free_coeffs`; every branch is
+    symmetric under i ↔ j."""
+    r2s = torch.clamp(r2, min=_R2_FLOOR)
+    r = torch.sqrt(r2s)
+    invr = 1.0 / r
+    invr2 = 1.0 / r2s
+    a2s = ai * ai + aj * aj
+    asum = ai + aj
+    adiff = ai - aj
+    far = r >= asum
+    deep = r < torch.abs(adiff)
+    alpha_far = (1.0 + (a2s / 3.0) * invr2) * invr
+    beta_far = (1.0 - a2s * invr2) * invr2 * invr
+    pref = (4.0 / 3.0) / torch.clamp(ai * aj, min=_R2_FLOOR)
+    invr3 = invr * invr2
+    g_i = (16.0 * r2s * r * asum - (adiff * adiff + 3.0 * r2s) ** 2) * (
+        invr3 / 32.0)
+    g_e = 3.0 * (adiff * adiff - r2s) ** 2 * (invr3 / 32.0)
+    alpha_near = pref * g_i
+    beta_near = pref * g_e * invr2
+    alpha_deep = _SELF_COEF / torch.clamp(torch.maximum(ai, aj),
+                                          min=_R2_FLOOR)
+    alpha = torch.where(far, alpha_far,
+                        torch.where(deep, alpha_deep, alpha_near))
+    beta = torch.where(far, beta_far,
+                       torch.where(deep, torch.zeros_like(beta_near),
+                                   beta_near))
+    return alpha, beta
+
+
 def _wall_coeffs(d_img, hj):
     """Swan–Brady wall-correction coefficients (f1..f5, 1/|d_img|).
 
@@ -121,10 +162,15 @@ def _wall_coeffs(d_img, hj):
     return f1, f2, f3, f4, f5, invR
 
 
-def wall_self_diag(z, a, h_floor=WALL_H_FLOOR):
+def wall_self_diag(z, a, h_floor=WALL_H_FLOOR, radii=None):
     """Per-blob wall self-correction diagonal (N, 3), added to the 4/3 free
-    self term; heights floored at ``h_floor``·a."""
+    self term; heights floored at ``h_floor``·a.  radii: optional (N,)
+    physical radii: the equal-radius expression at z/aᵢ scaled by a/aᵢ,
+    the height floored in units of the blob's own radius."""
     zn = z / a
+    if radii is not None:
+        ahat = radii.to(z.dtype) / a
+        zn = zn / ahat
     if h_floor > 0:
         zn = torch.clamp(zn, min=h_floor)
     invZ = 1.0 / zn
@@ -132,28 +178,36 @@ def wall_self_diag(z, a, h_floor=WALL_H_FLOOR):
     invZ5 = invZ3 * invZ * invZ
     cxx = -(9.0 * invZ - 2.0 * invZ3 + invZ5) / 12.0
     czz = -(9.0 * invZ - 4.0 * invZ3 + invZ5) / 6.0
-    return torch.stack([cxx, cxx, czz], dim=-1)
+    out = torch.stack([cxx, cxx, czz], dim=-1)
+    return out if radii is None else out * (1.0 / ahat)[:, None]
 
 
-def _self_diag(r, a, wall, h_floor):
-    """(N, 3) self-mobility diagonal in units of 1/(8πηa)."""
+def _self_diag(r, a, wall, h_floor, radii=None):
+    """(N, 3) self-mobility diagonal in units of 1/(8πηa); with per-blob
+    ``radii`` the free term is (4/3)·a/aᵢ."""
     diag = torch.full(r.shape, _SELF_COEF, dtype=r.dtype, device=r.device)
+    if radii is not None:
+        diag = diag / (radii.to(r.dtype)[:, None] / a)
     if wall:
-        diag = diag + wall_self_diag(r[:, 2], a, h_floor=h_floor)
+        diag = diag + wall_self_diag(r[:, 2], a, h_floor=h_floor, radii=radii)
     return diag
 
 
-def self_mobility_blocks(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR):
-    """Per-blob 3×3 self mobility (N, 3, 3), scaled by 1/(8πηa)."""
+def self_mobility_blocks(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR,
+                         radii=None):
+    """Per-blob 3×3 self mobility (N, 3, 3), scaled by 1/(8πηa); radii:
+    optional (N,) physical radii."""
     r = r.reshape(-1, 3)
-    diag = _self_diag(r, a, wall, h_floor) / (8.0 * math.pi * eta * a)
+    diag = _self_diag(r, a, wall, h_floor, radii) / (8.0 * math.pi * eta * a)
     return torch.diag_embed(diag)
 
 
-def damping_factors(r, a=1.0):
-    """Wall-overlap damping d_i = clip(z_i/a, 0, 1), shape (N,)."""
+def damping_factors(r, a=1.0, radii=None):
+    """Wall-overlap damping d_i = clip(z_i/aᵢ, 0, 1), shape (N,); aᵢ = a
+    unless per-blob ``radii`` are given."""
     r = r.reshape(-1, 3)
-    return torch.clamp(r[:, 2] / a, 0.0, 1.0)
+    az = a if radii is None else radii.to(r.dtype)
+    return torch.clamp(r[:, 2] / az, 0.0, 1.0)
 
 
 def image_offsets(box_n, shells, dtype=torch.float64, device=None):
@@ -214,28 +268,45 @@ def _image_lattice(box_n, shells, tail, dtype, device):
 
 
 def self_image_sum(r_over_a, F, wall, box_n, shells, h_floor=WALL_H_FLOOR,
-                   tail=True):
+                   tail=True, ahat=None):
     """Σ_o w_o·M(o; z_i, z_i)·F_i: every blob against its own in-plane
     periodic images, the diagonal of the exact image sum that a sweep over
     i ≠ j pairs leaves out.  Pair terms only.  r_over_a (N, 3), box_n
-    (Lx, Ly) in units of a, F (N, 3) or (k, N, 3) → F's shape.  All
-    offsets at once, (O, N) fields: O(N·(2S+1)²) elementwise work."""
+    (Lx, Ly) in units of a, F (N, 3) or (k, N, 3) → F's shape; ahat:
+    optional (N,) radii in units of a (the pair aᵢ, aᵢ: the poly fields,
+    the wall terms at z/aᵢ, scaled by 1/aᵢ).  All offsets at once, (O, N)
+    fields: O(N·(2S+1)²) elementwise work."""
     multi = F.dim() == 3
     Fk = F if multi else F[None]
     dtype, dev = Fk.dtype, Fk.device
     off, w = _image_lattice(box_n, shells, tail, dtype, dev)    # (O, 3), (O,)
-    alpha, beta = _free_coeffs(torch.sum(off * off, dim=-1))    # (O,)
+    poly = ahat is not None
     dF = torch.einsum("ox,knx->kon", off[:, :2], Fk[..., :2])   # (k, O, N)
-    out = (torch.einsum("o,knx->knx", w * alpha, Fk)
-           + torch.einsum("o,kon,ox->knx", w * beta, dF, off))
+    if poly:
+        ahat = ahat.to(dtype)
+        alpha, beta = _free_coeffs_poly(
+            torch.sum(off * off, dim=-1)[:, None], ahat[None], ahat[None])
+        out = (torch.einsum("on,knx->knx", w[:, None] * alpha, Fk)
+               + torch.einsum("on,kon,ox->knx", w[:, None] * beta, dF, off))
+    else:
+        alpha, beta = _free_coeffs(torch.sum(off * off, dim=-1))  # (O,)
+        out = (torch.einsum("o,knx->knx", w * alpha, Fk)
+               + torch.einsum("o,kon,ox->knx", w * beta, dF, off))
     if wall:
         zs = r_over_a[:, 2]
+        if poly:
+            inv_ae = 1.0 / ahat
+            zs = zs * inv_ae
         if h_floor > 0:
             zs = torch.clamp(zs, min=h_floor)
         O, N = off.shape[0], zs.shape[0]
-        d_img = torch.cat([off[:, None, :2].expand(O, N, 2),
-                           (2.0 * zs).expand(O, N)[..., None]], dim=-1)
+        oxy = off[:, None, :2].expand(O, N, 2)
+        if poly:
+            oxy = oxy * inv_ae[None, :, None]
+        d_img = torch.cat([oxy, (2.0 * zs).expand(O, N)[..., None]], dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zs.expand(O, N))
+        if poly:
+            f1, f2, f3, f4, f5 = (f * inv_ae for f in (f1, f2, f3, f4, f5))
         e = d_img * invR[..., None]                             # (O, N, 3)
         eF = torch.einsum("onx,knx->kon", e, Fk)
         Fz = Fk[..., 2]
@@ -250,17 +321,26 @@ def self_image_sum(r_over_a, F, wall, box_n, shells, h_floor=WALL_H_FLOOR,
     return out if multi else out[0]
 
 
-def _pair_field_sum(d, keep, Fk, wall, zi, zj):
+def _pair_field_sum(d, keep, Fk, wall, zi, zj, inv_ae=None, ahat_rows=None,
+                    ahat_cols=None):
     """Σ_j M(d_ij)·F_j for one displacement set d (T, N, 3) → (k, T, 3).
 
     keep: (T, N) bool or None; a pair it drops adds an exact 0 (the zero
     lattice offset masks self pairs; a blob does interact with its own
-    periodic images).  zi / zj: the floored heights (wall only).
+    periodic images).  zi / zj: the floored heights (wall only).  ahat_rows
+    (T,) / ahat_cols (N,): per-blob radii in units of a (both or neither);
+    then inv_ae = 1/√(aᵢaⱼ) (T, N) scales the wall's in-plane displacement
+    and its fields, and zi / zj are the pair's scaled floored heights.
     """
+    poly = ahat_rows is not None
     r2 = torch.sum(d * d, dim=-1)
     if keep is not None:
         r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
-    alpha, beta = _free_coeffs(r2)
+    if poly:
+        alpha, beta = _free_coeffs_poly(r2, ahat_rows[:, None],
+                                        ahat_cols[None, :])
+    else:
+        alpha, beta = _free_coeffs(r2)
     if keep is not None:
         zero = torch.zeros_like(alpha)
         alpha = torch.where(keep, alpha, zero)
@@ -269,9 +349,12 @@ def _pair_field_sum(d, keep, Fk, wall, zi, zj):
     out = (torch.einsum("tn,knx->ktx", alpha, Fk)
            + torch.einsum("ktn,tn,tnx->ktx", dF, beta, d))
     if wall:
-        d_img = torch.cat([d[..., :2], (zi + zj).expand(d.shape[:2])[..., None]],
+        dxy = d[..., :2] * inv_ae[..., None] if poly else d[..., :2]
+        d_img = torch.cat([dxy, (zi + zj).expand(d.shape[:2])[..., None]],
                           dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj.expand(d.shape[:2]))
+        if poly:
+            f1, f2, f3, f4, f5 = (f * inv_ae for f in (f1, f2, f3, f4, f5))
         e = d_img * invR[..., None]
         if keep is not None:
             f1, f2, f3, f4, f5 = (torch.where(keep, f, zero)
@@ -288,20 +371,33 @@ def _pair_field_sum(d, keep, Fk, wall, zi, zj):
     return out
 
 
-def _floored_heights(ri, rj, wall, h_floor):
-    """Row and column heights (T, 1) / (1, N) in units of a, floored."""
+def _floored_heights(ri, rj, wall, h_floor, inv_ae=None):
+    """Row and column heights (T, 1) / (1, N) in units of a, floored; with
+    the polydisperse pair factor inv_ae (T, N) the heights are scaled by it
+    first and floored per pair, (T, N) each."""
     if not wall:
         return None, None
     zi = ri[:, None, 2]
     zj = rj[None, :, 2]
+    if inv_ae is not None:
+        zi = zi * inv_ae
+        zj = zj * inv_ae
     if h_floor > 0:
         zi = torch.clamp(zi, min=h_floor)
         zj = torch.clamp(zj, min=h_floor)
     return zi, zj
 
 
+def _inv_ae(ahat_rows, ahat_cols, wall):
+    """1/√(aᵢaⱼ) (T, N) for the wall terms of a polydisperse pair, or
+    None (monodisperse, or no wall)."""
+    if ahat_rows is None or not wall:
+        return None
+    return 1.0 / torch.sqrt(ahat_rows[:, None] * ahat_cols[None, :])
+
+
 def _pair_tile(ri, rj, row_ids, col_ids, Fk, wall, h_floor, box_n=None,
-               images=None):
+               images=None, ahat_rows=None, ahat_cols=None):
     """Σ_j M_ij·F_j of all column blobs onto a tile of row blobs.
 
     ri (T, 3), rj (N, 3) in units of a, Fk (k, N, 3) → (k, T, 3); pair
@@ -309,20 +405,27 @@ def _pair_tile(ri, rj, row_ids, col_ids, Fk, wall, h_floor, box_n=None,
     zero offset.  box_n: the periodic box in units of a (minimum image);
     images: None or the (offsets (O, 3), weights (O,)) of the exact image
     sum, each offset added to the wrapped displacement, in order.
+    ahat_rows (T,) / ahat_cols (N,): per-blob radii in units of a — the
+    polydisperse fields, the wall terms at the pair's √(aᵢaⱼ) (exact for
+    equal radii; the finite-size image terms of unequal radii are that
+    a_eff approximation, as in the JAX package).
     """
     d = _displacement(ri, rj, box_n)                              # (T, N, 3)
     keep = row_ids[:, None] != col_ids[None, :]
-    zi, zj = _floored_heights(ri, rj, wall, h_floor)
-    out = _pair_field_sum(d, keep, Fk, wall, zi, zj)
+    inv_ae = _inv_ae(ahat_rows, ahat_cols, wall)
+    zi, zj = _floored_heights(ri, rj, wall, h_floor, inv_ae)
+    poly = dict(inv_ae=inv_ae, ahat_rows=ahat_rows, ahat_cols=ahat_cols)
+    out = _pair_field_sum(d, keep, Fk, wall, zi, zj, **poly)
     if images is not None:
         for o, wt in zip(*images):
-            out = out + wt * _pair_field_sum(d + o, None, Fk, wall, zi, zj)
+            out = out + wt * _pair_field_sum(d + o, None, Fk, wall, zi, zj,
+                                             **poly)
     return out
 
 
 def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
              row_tile=512, h_floor=WALL_H_FLOOR, box=None, image_shells=0,
-             image_tail=True):
+             image_tail=True, radii_rows=None, radii_cols=None):
     """Σ_j M_ij·F_j over all column blobs, for a set of row blobs.
 
     Pair terms only — no self term, no 1/(8πηa), no damping.  r_rows (R, 3),
@@ -334,7 +437,9 @@ def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
     (Lx, Ly, Lz) wraps z too).  image_shells: S ≥ 1 adds the exact
     doubly-periodic sum over the (2S+1)² − 1 nonzero in-plane lattice
     images of the wrapped displacement, self images included; image_tail
-    folds in the two-ring Richardson tail weights.
+    folds in the two-ring Richardson tail weights.  radii_rows (R,) /
+    radii_cols (N,): optional per-blob physical radii (both or neither),
+    the polydisperse pair mobility.
     """
     multi = F_cols.dim() == 3
     Fk = F_cols if multi else F_cols[None]
@@ -344,9 +449,15 @@ def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
                              Fk.device) if image_shells else None)
     # positions in units of a, as the kernels' wrapper hands them over
     r_rows, r_cols = r_rows / a, r_cols / a
+    poly = radii_rows is not None
+    if poly:
+        ar = radii_rows.to(r_rows.dtype) / a
+        ac = radii_cols.to(r_rows.dtype) / a
     outs = [
         _pair_tile(r_rows[s:s + row_tile], r_cols, row_ids[s:s + row_tile],
-                   col_ids, Fk, wall, h_floor, box_n, images)
+                   col_ids, Fk, wall, h_floor, box_n, images,
+                   ahat_rows=ar[s:s + row_tile] if poly else None,
+                   ahat_cols=ac if poly else None)
         for s in range(0, r_rows.shape[0], row_tile)
     ]
     U = torch.cat(outs, dim=1)
@@ -355,21 +466,22 @@ def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, damp=None, row_tile=512,
                    h_floor=WALL_H_FLOOR, box=None, image_shells=0,
-                   image_tail=True):
+                   image_tail=True, radii=None):
     """Matrix-free U = M(r)·F, or B·M·B·F when damped; (N, 3) → (N, 3).
 
     damp: None → damping iff ``wall`` (reference semantics).  box /
     image_shells / image_tail: the pseudo-2D box, see :func:`pair_sum`.
+    radii: optional (N,) per-blob physical radii (polydisperse RPY).
     """
     r = r.reshape(-1, 3)
     return mobility_apply_multi(F.reshape(1, -1, 3), r, a, eta, wall, damp,
                                 row_tile, h_floor, box, image_shells,
-                                image_tail)[0]
+                                image_tail, radii)[0]
 
 
 def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
                          row_tile=512, h_floor=WALL_H_FLOOR, box=None,
-                         image_shells=0, image_tail=True):
+                         image_shells=0, image_tail=True, radii=None):
     """Multi-RHS U_k = M(r)·F_k, (k, N, 3) → (k, N, 3); the pair fields are
     shared across the RHS."""
     r = r.reshape(-1, 3)
@@ -377,27 +489,33 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
     use_damp = wall if damp is None else damp
     Fd = Fs
     if use_damp:
-        b = damping_factors(r, a)
+        b = damping_factors(r, a, radii)
         Fd = Fs * b[None, :, None]
     ids = torch.arange(r.shape[0], device=r.device)
     U = pair_sum(r, ids, r, ids, Fd, a=a, wall=wall, row_tile=row_tile,
                  h_floor=h_floor, box=box, image_shells=image_shells,
-                 image_tail=image_tail)
-    U = U + _self_diag(r, a, wall, h_floor)[None] * Fd
+                 image_tail=image_tail, radii_rows=radii, radii_cols=radii)
+    U = U + _self_diag(r, a, wall, h_floor, radii)[None] * Fd
     U = U * (1.0 / (8.0 * math.pi * eta * a))
     if use_damp:
         U = U * b[None, :, None]
     return U
 
 
-def _dense_pair_blocks(d, keep, wall, zi, zj):
+def _dense_pair_blocks(d, keep, wall, zi, zj, inv_ae=None, ahat=None):
     """(N, N, 3, 3) pair mobility blocks for one displacement set d; a pair
-    that ``keep`` (or None) drops is an exact 0."""
+    that ``keep`` (or None) drops is an exact 0.  inv_ae / ahat: the
+    polydisperse pair factor and radii in units of a (see
+    :func:`_pair_field_sum`)."""
     dtype, dev = d.dtype, d.device
+    poly = ahat is not None
     r2 = torch.sum(d * d, dim=-1)
     if keep is not None:
         r2 = torch.where(keep, r2, torch.full_like(r2, 4.0))
-    alpha, beta = _free_coeffs(r2)
+    if poly:
+        alpha, beta = _free_coeffs_poly(r2, ahat[:, None], ahat[None, :])
+    else:
+        alpha, beta = _free_coeffs(r2)
     if keep is not None:
         zero = torch.zeros_like(alpha)
         alpha = torch.where(keep, alpha, zero)
@@ -407,8 +525,11 @@ def _dense_pair_blocks(d, keep, wall, zi, zj):
          + beta[:, :, None, None] * d[:, :, :, None] * d[:, :, None, :])
     if wall:
         n = d.shape[0]
-        d_img = torch.cat([d[..., :2], (zi + zj)[..., None]], dim=-1)
+        dxy = d[..., :2] * inv_ae[..., None] if poly else d[..., :2]
+        d_img = torch.cat([dxy, (zi + zj).expand(n, n)[..., None]], dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj.expand(n, n))
+        if poly:
+            f1, f2, f3, f4, f5 = (f * inv_ae for f in (f1, f2, f3, f4, f5))
         e = d_img * invR[..., None]
         zhat = eye3[2]
         C = (f1[:, :, None, None] * eye3
@@ -424,25 +545,29 @@ def _dense_pair_blocks(d, keep, wall, zi, zj):
 
 
 def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR,
-                    box=None, image_shells=0, image_tail=True):
+                    box=None, image_shells=0, image_tail=True, radii=None):
     """Dense (3N, 3N) RPY mobility (undamped), every ordered pair evaluated
     directly (valid because C_ji = C_ijᵀ).  Small-N path: the PC and noise
-    factor builds.  box / image_shells / image_tail: see :func:`pair_sum`."""
+    factor builds.  box / image_shells / image_tail: see :func:`pair_sum`;
+    radii: optional (N,) per-blob physical radii."""
     r = r.reshape(-1, 3)
     n = r.shape[0]
     dtype, dev = r.dtype, r.device
     box_n = _box_n(box, a)
     _check_images(box_n, image_shells)
     r_n = r / a
+    ahat = None if radii is None else radii.to(dtype) / a
     d = _displacement(r_n, r_n, box_n)                            # (N, N, 3)
     keep = ~torch.eye(n, dtype=torch.bool, device=dev)
-    zi, zj = _floored_heights(r_n, r_n, wall, h_floor)
-    M = _dense_pair_blocks(d, keep, wall, zi, zj)
+    inv_ae = _inv_ae(ahat, ahat, wall)
+    zi, zj = _floored_heights(r_n, r_n, wall, h_floor, inv_ae)
+    M = _dense_pair_blocks(d, keep, wall, zi, zj, inv_ae, ahat)
     if image_shells:
         for o, wt in zip(*_image_lattice(box_n, int(image_shells), image_tail,
                                          dtype, dev)):
-            M = M + wt * _dense_pair_blocks(d + o, None, wall, zi, zj)
-    self_blocks = torch.diag_embed(_self_diag(r, a, wall, h_floor))  # (N,3,3)
+            M = M + wt * _dense_pair_blocks(d + o, None, wall, zi, zj, inv_ae,
+                                            ahat)
+    self_blocks = torch.diag_embed(_self_diag(r, a, wall, h_floor, radii))
     M = M + keep.logical_not()[:, :, None, None] * self_blocks[:, None, :, :]
     M = M * (1.0 / (8.0 * math.pi * eta * a))
     return M.permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
@@ -455,31 +580,48 @@ def cross_mobility_blocks(ri, rj, a=1.0, eta=1.0, wall=False,
     The physics and scale of :func:`mobility_matrix` (free-space RPY +
     Swan–Brady wall correction, 1/(8πηa)) for cross pairs of ``ri``
     (..., P, 3) and ``rj`` (..., Q, 3): no self branch (a coincident pair
-    gets the r → 0 overlap limit), no box and no damping.  The RAS
-    preconditioner's halo coupling blocks (:func:`.saddle.build_pc_ras`;
-    the JAX package's halos do not see a box either).  Per-blob radii
-    raise: the polydisperse form comes with ROADMAP.md queue 1, item 12b.
+    gets the r → 0 overlap limit), no box and no damping.  radii_i (..., P)
+    / radii_j (..., Q): optional physical radii (both or neither), the
+    polydisperse fields with the wall terms at √(aᵢaⱼ).  The RAS
+    preconditioners' halo coupling blocks (:func:`.saddle.build_pc_ras`,
+    ``multi.build_pc_ras_multi``; the JAX package's halos do not see a box
+    either).
     """
-    if radii_i is not None or radii_j is not None:
-        raise NotImplementedError(
-            "per-blob radii are not in the port's cross_mobility_blocks yet "
-            "(ROADMAP.md queue 1, item 12b (polydisperse))")
     dtype, dev = ri.dtype, ri.device
     inv_a = 1.0 / a
+    poly = radii_i is not None
+    if poly != (radii_j is not None):
+        raise ValueError("cross_mobility_blocks takes radii_i and radii_j "
+                         "together")
     d = (ri[..., :, None, :] - rj[..., None, :, :]) * inv_a     # (..., P, Q, 3)
-    alpha, beta = _free_coeffs(torch.sum(d * d, dim=-1))
+    r2 = torch.sum(d * d, dim=-1)
+    if poly:
+        ahat_i = radii_i.to(dtype) * inv_a
+        ahat_j = radii_j.to(dtype) * inv_a
+        alpha, beta = _free_coeffs_poly(r2, ahat_i[..., :, None],
+                                        ahat_j[..., None, :])
+    else:
+        alpha, beta = _free_coeffs(r2)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     M = (alpha[..., None, None] * eye3
          + beta[..., None, None] * d[..., :, None] * d[..., None, :])
     if wall:
         zi = ri[..., :, None, 2] * inv_a
         zj = rj[..., None, :, 2] * inv_a
+        if poly:
+            inv_ae = 1.0 / torch.sqrt(ahat_i[..., :, None]
+                                      * ahat_j[..., None, :])
+            zi = zi * inv_ae
+            zj = zj * inv_ae
         if h_floor > 0:
             zi = torch.clamp(zi, min=h_floor)
             zj = torch.clamp(zj, min=h_floor)
         zj = zj.expand(d.shape[:-1])
-        d_img = torch.cat([d[..., :2], (zi + zj)[..., None]], dim=-1)
+        dxy = d[..., :2] * inv_ae[..., None] if poly else d[..., :2]
+        d_img = torch.cat([dxy, (zi + zj)[..., None]], dim=-1)
         f1, f2, f3, f4, f5, invR = _wall_coeffs(d_img, zj)
+        if poly:
+            f1, f2, f3, f4, f5 = (f * inv_ae for f in (f1, f2, f3, f4, f5))
         e = d_img * invR[..., None]
         zhat = eye3[2]
         M = (M + f1[..., None, None] * eye3

@@ -15,6 +15,12 @@ Kernels (``csrc/rpy_pair_sweep.cu``, built for sm_90a at first use by
                              blocks of 64 rows × 256 columns
                              (:func:`ordered_grid`).
 
+Both have a POLY form (per-blob radii in units of a, ``ahat``: the
+polydisperse fields of ``rpy_pallas._poly_coeffs`` and the wall terms at
+the pair's √(aᵢaⱼ), heights floored per pair), without a box: a poly
+sweep with a box on a CUDA tensor raises NotImplementedError (ROADMAP.md
+queue 1, item 12b, the poly × box forms); the CPU twin computes it.
+
 Both take the pseudo-2D (Lx, Ly) box: the minimum-image wrap of a pair's
 in-plane displacement and, with ``image_shells`` S ≥ 1, the exact
 doubly-periodic sum over the (2S+1)² − 1 nonzero lattice offsets of the
@@ -26,10 +32,10 @@ never visits i == i, so :func:`pair_sum` adds the self-image diagonal
 Dispatch in :func:`pair_sum` follows the JAX package's rule
 (``rpy_pallas.py:59-66``, ``:623``), with or without a box: k=1 → K1; k=2
 → K1 once n padded to 512 reaches 65,536 blobs, else K2
-(:func:`uses_sym`).  k > 2 and per-blob radii raise NotImplementedError
-naming the ROADMAP item.  A tensor on the CPU takes the plain PyTorch
-version (:mod:`rigid_body_light_tpu_torch.ops.rpy`); a CUDA tensor launches
-the kernel or raises — there is no fallback.  Like the Pallas wrapper,
+(:func:`uses_sym`), with or without radii.  k > 2 raises
+NotImplementedError naming the ROADMAP item.  A tensor on the CPU takes
+the plain PyTorch version (:mod:`rigid_body_light_tpu_torch.ops.rpy`); a
+CUDA tensor launches the kernel or raises — there is no fallback.  Like the Pallas wrapper,
 inputs are cast to float32.
 
 The kernels compute pair terms only; the wrappers here apply the self
@@ -37,9 +43,10 @@ term, the 1/(8πηa) scale and the B·M·B damping.  Not differentiable yet:
 the ``custom_vjp`` of ``rpy_pallas.mobility_apply`` is ported with the
 adjoint slice (ROADMAP.md queue 1, item 15).
 
-``sym_launches`` / ``ordered_launches`` count kernel launches (incremented
-where each kernel is launched, nowhere else) so a run can show that its
-main path went through the kernels.
+``sym_launches`` / ``ordered_launches`` (and ``sym_poly_launches`` /
+``ordered_poly_launches`` for the POLY forms) count kernel launches
+(incremented where each kernel is launched, nowhere else) so a run can
+show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -65,19 +72,24 @@ SYM_K2_MIN_NPAD = 65536
 
 sym_launches = 0
 ordered_launches = 0
+sym_poly_launches = 0
+ordered_poly_launches = 0
 
 _lib = None
 
 
 def reset_launch_counts():
-    global sym_launches, ordered_launches
-    sym_launches = 0
-    ordered_launches = 0
+    global sym_launches, ordered_launches, sym_poly_launches
+    global ordered_poly_launches
+    sym_launches = ordered_launches = 0
+    sym_poly_launches = ordered_poly_launches = 0
 
 
 def launch_counts():
     return {"pair_sweep_sym": sym_launches,
-            "pair_sweep_ordered": ordered_launches}
+            "pair_sweep_ordered": ordered_launches,
+            "pair_sweep_sym_poly": sym_poly_launches,
+            "pair_sweep_ordered_poly": ordered_poly_launches}
 
 
 def uses_sym(k, n):
@@ -109,9 +121,9 @@ def build():
                                f"wrapper's {want}")
     box = [f, f, i, f, f]
     lib.rpy_pair_sweep_sym.restype = i
-    lib.rpy_pair_sweep_sym.argtypes = [p, p, i, i, i, f, *box, p, p, p, p]
+    lib.rpy_pair_sweep_sym.argtypes = [p, p, p, i, i, i, f, *box, p, p, p, p]
     lib.rpy_pair_sweep_ordered.restype = i
-    lib.rpy_pair_sweep_ordered.argtypes = [p, i, i, p, p, i, i, i, i, f,
+    lib.rpy_pair_sweep_ordered.argtypes = [p, p, i, i, p, p, p, i, i, i, i, f,
                                            *box, p, p, p]
     _lib = lib
     return lib
@@ -136,12 +148,25 @@ def box_args(box_over_a=None, image_shells=0, image_tail=True):
     return bx, by, S, alpha, beta
 
 
-def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None):
+def _check_poly(ahat, box, n, name):
+    """The POLY form's radii: a float32 CUDA vector of n, and no box."""
+    if ahat is None:
+        return None
+    if box is not None and box[0] > 0:
+        raise _not_ported("a poly sweep with a box", "item 12b (K1's and "
+                          "K2's poly × box forms)")
+    cuda_build.check_tensor(ahat, name, (n,))
+    return ahat.data_ptr()
+
+
+def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
+                   ahat=None):
     """K1: Σ_{j≠i} M_ij F_j over unordered pairs, on the card.
     r_over_a (n, 3) and F (n, 3), or (k, n, 3) with k ∈ {1, 2}, float32
     CUDA tensors → F's shape.  box: :func:`box_args` (None: no box); the
-    self images are not included."""
-    global sym_launches
+    self images are not included.  ahat: (n,) radii in units of a, the
+    POLY form (no box)."""
+    global sym_launches, sym_poly_launches
     n = r_over_a.shape[0]
     Fk = F[None] if F.dim() == 2 else F
     k = Fk.shape[0]
@@ -149,6 +174,7 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None):
         raise ValueError(f"pair_sweep_sym takes 1 or 2 RHS, got {k}")
     cuda_build.check_tensor(r_over_a, "r_over_a", (n, 3))
     cuda_build.check_tensor(Fk, "F", (k, n, 3))
+    ahat_ptr = _check_poly(ahat, box, n, "ahat")
     lib = build()
     dev = r_over_a.device
     # a row and a column partial a tile of each unit's groups, O(n): 2.63 GB
@@ -160,28 +186,40 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None):
     with torch.cuda.device(dev), profiling.span("pair_sweep_sym"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_sym(
-            r_over_a.data_ptr(), Fk.data_ptr(), n, k, int(bool(wall)),
-            float(h_floor), *(box or box_args()), row_part.data_ptr(),
+            r_over_a.data_ptr(), Fk.data_ptr(), ahat_ptr, n, k,
+            int(bool(wall)), float(h_floor), *(box or box_args()),
+            row_part.data_ptr(),
             col_part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_sym")
-    sym_launches += 1
+    if ahat is None:
+        sym_launches += 1
+    else:
+        sym_poly_launches += 1
     return out if F.dim() == 3 else out[0]
 
 
 def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
-                       col_offset: int, wall: bool, h_floor: float, box=None):
+                       col_offset: int, wall: bool, h_floor: float, box=None,
+                       ahat_rows=None, ahat_cols=None):
     """K2: Σ_j M_ij F_j over all columns whose global id differs from the
     row's, on the card.  r_rows (R, 3), r_cols (N, 3), F_cols (k, N, 3)
     float32 CUDA tensors, k ∈ {1, 2} → (k, R, 3).  box: :func:`box_args`
-    (None: no box); a blob's own images are included."""
-    global ordered_launches
+    (None: no box); a blob's own images are included.  ahat_rows (R,) /
+    ahat_cols (N,): the rows' and columns' radii in units of a (both or
+    neither), the POLY form (no box)."""
+    global ordered_launches, ordered_poly_launches
     n_rows = r_rows_over_a.shape[0]
     k, n_cols = F_cols.shape[0], r_cols_over_a.shape[0]
     if k not in (1, 2):
         raise ValueError(f"pair_sweep_ordered takes 1 or 2 RHS, got {k}")
+    if (ahat_rows is None) != (ahat_cols is None):
+        raise ValueError("pair_sweep_ordered takes ahat_rows and ahat_cols "
+                         "together")
     cuda_build.check_tensor(r_rows_over_a, "r_rows_over_a", (n_rows, 3))
     cuda_build.check_tensor(r_cols_over_a, "r_cols_over_a", (n_cols, 3))
     cuda_build.check_tensor(F_cols, "F_cols", (k, n_cols, 3))
+    rows_ptr = _check_poly(ahat_rows, box, n_rows, "ahat_rows")
+    cols_ptr = _check_poly(ahat_cols, box, n_cols, "ahat_cols")
     lib = build()
     dev = r_rows_over_a.device
     part = torch.empty((ordered_grid(n_rows, n_cols)[1], k, n_rows, 3),
@@ -190,12 +228,15 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     with torch.cuda.device(dev), profiling.span("pair_sweep_ordered"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.rpy_pair_sweep_ordered(
-            r_rows_over_a.data_ptr(), n_rows, int(row_offset),
-            r_cols_over_a.data_ptr(), F_cols.data_ptr(), n_cols,
+            r_rows_over_a.data_ptr(), rows_ptr, n_rows, int(row_offset),
+            r_cols_over_a.data_ptr(), cols_ptr, F_cols.data_ptr(), n_cols,
             int(col_offset), k, int(bool(wall)), float(h_floor),
             *(box or box_args()), part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_ordered")
-    ordered_launches += 1
+    if ahat_rows is None:
+        ordered_launches += 1
+    else:
+        ordered_poly_launches += 1
     return out
 
 
@@ -212,12 +253,11 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
     r_over_a: (N, 3) positions in units of the blob radius; F: (N, 3) single
     RHS or (k, N, 3), k ≤ 2.  box_over_a: None or the pseudo-2D (Lx, Ly)
     box in units of a; image_shells / image_tail: the exact image sum, self
-    images included (as ``rpy_pallas.pair_sum``).  CPU tensors take the
-    plain sweep, CUDA tensors K1 or K2 by :func:`uses_sym`.
+    images included (as ``rpy_pallas.pair_sum``).  ahat: optional (N,)
+    per-blob radii in units of a (the POLY forms; with a box only on the
+    CPU).  CPU tensors take the plain sweep, CUDA tensors K1 or K2 by
+    :func:`uses_sym`.
     """
-    if ahat is not None:
-        raise _not_ported("per-blob radii", "item 12b (polydisperse "
-                          "_poly_coeffs forms of K1/K2/K3)")
     if h_floor is None:
         h_floor = rpy.WALL_H_FLOOR
     box = box_args(box_over_a, image_shells, image_tail)
@@ -229,23 +269,31 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
                           "as the Pallas kernels do)")
     r_over_a = r_over_a.to(torch.float32).contiguous()
     Fk = Fk.to(torch.float32).contiguous()
+    if ahat is not None:
+        ahat = ahat.to(torch.float32).contiguous()
     n = r_over_a.shape[0]
     S = box[2]
-    if r_over_a.device.type == "cpu":
+    dev = r_over_a.device.type
+    if dev != "cpu" and ahat is not None and box_over_a is not None:
+        raise _not_ported("a poly sweep with a box", "item 12b (K1's and "
+                          "K2's poly × box forms)")
+    if dev == "cpu":
         ids = torch.arange(n)
         U = rpy.pair_sum(r_over_a, ids, r_over_a, ids, Fk, a=1.0, wall=wall,
                          h_floor=h_floor, box=box_over_a, image_shells=S,
-                         image_tail=image_tail)
-    elif r_over_a.device.type == "cuda":
+                         image_tail=image_tail, radii_rows=ahat,
+                         radii_cols=ahat)
+    elif dev == "cuda":
         if uses_sym(k, n):
-            U = pair_sweep_sym(r_over_a, Fk, wall, h_floor, box)
+            U = pair_sweep_sym(r_over_a, Fk, wall, h_floor, box, ahat=ahat)
             if S:
                 # K1 never visits i == i: a blob against its own images
                 U = U + rpy.self_image_sum(r_over_a, Fk, wall, box[:2], S,
                                            h_floor=h_floor, tail=image_tail)
         else:
             U = pair_sweep_ordered(r_over_a, 0, r_over_a, Fk, 0, wall,
-                                   h_floor, box)
+                                   h_floor, box, ahat_rows=ahat,
+                                   ahat_cols=ahat)
     else:
         raise ValueError(f"no pair sweep for device {r_over_a.device}")
     return U if multi else U[0]
@@ -258,21 +306,27 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
     damped; damping iff ``wall`` unless ``damp`` says otherwise), float32,
     sharing the pair fields across the RHS (k ≤ 2).  box: None or the
     pseudo-2D (Lx, Ly) box; image_shells / image_tail: its exact image
-    sum."""
+    sum.  radii: optional (N,) per-blob physical radii — the kernels take
+    them as ahat = radii/a, the damping is min(z/aᵢ, 1) and the self term
+    (4/3)·a/aᵢ plus the wall self term at the blob's own radius, as
+    ``rpy_pallas.mobility_apply_multi`` (``rpy_pallas.py:856-888``)."""
     if h_floor is None:
         h_floor = rpy.WALL_H_FLOOR
     r = r.to(torch.float32).reshape(-1, 3)
     Fs = Fs.to(torch.float32)
     Fs = Fs.reshape(Fs.shape[0], -1, 3)
+    if radii is not None:
+        radii = torch.as_tensor(radii, dtype=torch.float32, device=r.device)
+    ahat = None if radii is None else radii * (1.0 / a)
     use_damp = wall if damp is None else damp
     Fd = Fs
     if use_damp:
-        b = rpy.damping_factors(r, a)
+        b = rpy.damping_factors(r, a, radii)
         Fd = Fs * b[None, :, None]
     box_over_a = None if box is None else tuple(x / a for x in box)
     U = pair_sum(r / a, Fd, wall, h_floor=h_floor, box_over_a=box_over_a,
-                 ahat=radii, image_shells=image_shells, image_tail=image_tail)
-    U = U + rpy._self_diag(r, a, wall, h_floor)[None] * Fd
+                 ahat=ahat, image_shells=image_shells, image_tail=image_tail)
+    U = U + rpy._self_diag(r, a, wall, h_floor, radii)[None] * Fd
     U = U * (1.0 / (8.0 * math.pi * eta * a))
     if use_damp:
         U = U * b[None, :, None]

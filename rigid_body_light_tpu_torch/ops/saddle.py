@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from rigid_body_light_tpu_torch.config import SimulationConfig
+from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
 from rigid_body_light_tpu_torch.ops import ewald
 from rigid_body_light_tpu_torch.ops import ewald_cuda
 from rigid_body_light_tpu_torch.ops import farfield
@@ -77,57 +77,76 @@ def body_K_blocks(offsets) -> torch.Tensor:
     return torch.cat([eye, neg_skew], dim=-1)
 
 
-def mobility_apply_fn(cfg: SimulationConfig):
+def mobility_apply_fn(cfg: SimulationConfig, radii=None):
     """The blob-space mobility product (F (N,3), r (N,3)) → (N,3), damped
     iff ``cfg.wall``.  A 3-D ``cfg.box`` routes to the triply-periodic
     Ewald operator (:func:`_ewald_apply_fn`).  With ``farfield_grid`` set
     it is the proxy-grid far field (:func:`_farfield_apply_fn`).  Otherwise
     float32 with ``use_pallas`` goes through the CUDA pair-sweep wrappers
     (kernel K1 on the card), and anything else takes the plain sweep; a 2-D
-    ``cfg.box`` gives both the pseudo-2D box and ``cfg.image_shells``."""
+    ``cfg.box`` gives both the pseudo-2D box and ``cfg.image_shells``.
+    radii: optional (N,) per-blob physical radii closed over the returned
+    fn (polydisperse RPY; the pair sweeps only)."""
+    _check_radii(cfg, radii)
     if cfg.box is not None and len(cfg.box) == 3:
         return _ewald_apply_fn(cfg, multi=False)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
-    box = _pair_box(cfg)
+    kw = dict(_pair_box(cfg), radii=radii)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(F, r):
             return rpy_cuda.mobility_apply(F, r, a=cfg.a, eta=cfg.eta,
                                            wall=cfg.wall,
-                                           h_floor=cfg.wall_h_floor, **box)
+                                           h_floor=cfg.wall_h_floor, **kw)
         return apply_kernel
 
     def apply_plain(F, r):
         return rpy.mobility_apply(F, r, a=cfg.a, eta=cfg.eta, wall=cfg.wall,
                                   row_tile=cfg.matvec_row_tile,
-                                  h_floor=cfg.wall_h_floor, **box)
+                                  h_floor=cfg.wall_h_floor, **kw)
     return apply_plain
 
 
-def mobility_apply_multi_fn(cfg: SimulationConfig):
+def mobility_apply_multi_fn(cfg: SimulationConfig, radii=None):
     """Multi-RHS product (Fs (k,N,3), r (N,3)) → (k,N,3) sharing the pair
     fields across RHS (kernel K2 on the card for the fused two-draw
     noise; the far field's ndim-polymorphic apply with ``farfield_grid``;
-    the Ewald operator with a 3-D box)."""
+    the Ewald operator with a 3-D box).  radii: as
+    :func:`mobility_apply_fn`."""
+    _check_radii(cfg, radii)
     if cfg.box is not None and len(cfg.box) == 3:
         return _ewald_apply_fn(cfg, multi=True)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg)
-    box = _pair_box(cfg)
+    kw = dict(_pair_box(cfg), radii=radii)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(Fs, r):
             return rpy_cuda.mobility_apply_multi(Fs, r, a=cfg.a, eta=cfg.eta,
                                                  wall=cfg.wall,
                                                  h_floor=cfg.wall_h_floor,
-                                                 **box)
+                                                 **kw)
         return apply_kernel
 
     def apply_plain(Fs, r):
         return rpy.mobility_apply_multi(Fs, r, a=cfg.a, eta=cfg.eta,
                                         wall=cfg.wall,
                                         row_tile=cfg.matvec_row_tile,
-                                        h_floor=cfg.wall_h_floor, **box)
+                                        h_floor=cfg.wall_h_floor, **kw)
     return apply_plain
+
+
+def _check_radii(cfg: SimulationConfig, radii):
+    """Per-blob radii reach the pair sweeps only: the far field's
+    radius-split lattices and polydisperse Ewald are not ported yet."""
+    if radii is None:
+        return
+    if cfg.farfield_grid is not None:
+        raise _not_ported("per-blob radii with farfield_grid",
+                          "item 12b-far: K3's poly form and the far field's "
+                          "radius-split lattices")
+    if cfg.box is not None and len(cfg.box) == 3:
+        raise _not_ported("per-blob radii with a 3-D box (polydisperse "
+                          "Ewald)", "item 13")
 
 
 def _pair_box(cfg: SimulationConfig) -> dict:
@@ -367,17 +386,20 @@ def _ras_core_apply(minv_ref, rot, v):
     return torch.einsum("bij,...bnj->...bni", rot, w)
 
 
-def _ras_apply(v, minv_ref, rot, halo_idx, W, S_inv):
+def _ras_apply(v, minv_ref, rot, halo_idx, W, S_inv, v_full=None):
     """RAS M̃⁻¹·v: per body, the Woodbury solve of its cluster [[A, C],
     [Cᵀ, D]] (own blobs and halo), own rows kept.  v (..., N, 3) →
-    (..., N, 3)."""
+    (..., N, 3).  v_full: the vector the halo ids index into, default v
+    (a mixture's species reads its halo from the concatenated vector)."""
+    if v_full is None:
+        v_full = v
     B, H = halo_idx.shape
     N = v.shape[-2]
     n = N // B
     lead = v.shape[:-2]
     v1 = v.reshape(*lead, B, n, 3)
     y_core = _ras_core_apply(minv_ref, rot, v1)            # A⁻¹ v1
-    v2 = v[..., halo_idx.reshape(-1), :].reshape(*lead, B, 3 * H)
+    v2 = v_full[..., halo_idx.reshape(-1), :].reshape(*lead, B, 3 * H)
     v1f = v1.reshape(*lead, B, 3 * n)
     t = v2 - torch.einsum("bph,...bp->...bh", W, v1f)     # v2 − Cᵀ A⁻¹ v1
     y2 = torch.einsum("bhg,...bg->...bh", S_inv, t)        # Schur solve

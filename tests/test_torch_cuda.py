@@ -703,3 +703,89 @@ def test_k1_grouped_box_form_matches_plain(dev, k):
     torch.cuda.synchronize()
     rows = torch.from_numpy(np.sort(rng.choice(n, 256, replace=False))).to(dev)
     assert _rel(U[:, rows], _film_ref(r32, F32, box, 2, rows)) < TOL
+
+
+# ---- K1's and K2's POLY forms (per-blob radii in units of a)
+
+@pytest.fixture
+def poly_cloud(cloud):
+    """The 700-blob cloud with radii from {0.6, 1.1}, and 40 blobs in 20
+    close pairs of unequal radii (the deep and overlap branches)."""
+    r, F = cloud
+    rng = np.random.default_rng(2)
+    ahat = torch.from_numpy(rng.choice([0.6, 1.1], 700)).to(r.device)
+    base = rng.uniform([-3, -3, 0.3], [3, 3, 3], (20, 3))
+    d = np.geomspace(0.01, 1.6, 20)[:, None] * np.array([[1.0, 0, 0]])
+    r[:40] = torch.from_numpy(np.stack([base, base + d], 1).reshape(-1, 3))
+    ahat[:40] = torch.tensor([0.6, 1.1] * 20)
+    return r, ahat, F
+
+
+@pytest.mark.parametrize("wall", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+def test_poly_forms_match_plain(poly_cloud, wall, k):
+    """Both POLY forms against the float64 plain sweep with radii; K2 also
+    as a row slab with its global offset (its radii sliced with its
+    rows)."""
+    r, ahat, F = poly_cloud
+    ids = torch.arange(r.shape[0], device=r.device)
+    poly = dict(radii_rows=ahat, radii_cols=ahat)
+    ref = rpy.pair_sum(r, ids, r, ids, F[:k], wall=wall, **poly)
+    r32, a32 = r.float().contiguous(), ahat.float().contiguous()
+    F32 = F[:k].float().contiguous()
+    U1 = rpy_cuda.pair_sweep_sym(r32, F32, wall, 0.75, ahat=a32)
+    U2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, wall, 0.75,
+                                     ahat_rows=a32, ahat_cols=a32)
+    U3 = rpy_cuda.pair_sweep_ordered(r32[100:400].contiguous(), 100, r32, F32,
+                                     0, wall, 0.75,
+                                     ahat_rows=a32[100:400].contiguous(),
+                                     ahat_cols=a32)
+    torch.cuda.synchronize()
+    assert _rel(U1, ref) < TOL and _rel(U2, ref) < TOL
+    assert _rel(U3, ref[:, 100:400]) < TOL
+
+
+def test_poly_forms_repeat_and_count(poly_cloud):
+    """Bitwise repeatable; the POLY launches counted under their own keys,
+    the monodisperse counts unmoved; the product routes radii to them."""
+    r, ahat, F = poly_cloud
+    r32, a32, F32 = (x.float().contiguous() for x in (r, ahat, F))
+    before = rpy_cuda.launch_counts()
+    U1 = rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75, ahat=a32)
+    U2 = rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75, ahat=a32)
+    V1 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, True, 0.75,
+                                     ahat_rows=a32, ahat_cols=a32)
+    V2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, True, 0.75,
+                                     ahat_rows=a32, ahat_cols=a32)
+    assert torch.equal(U1, U2) and torch.equal(V1, V2)
+    rpy_cuda.mobility_apply_multi(F32, r32, wall=True, radii=a32)
+    rpy_cuda.mobility_apply(F32[0], r32, wall=True, radii=a32)
+    after = rpy_cuda.launch_counts()
+    assert after["pair_sweep_sym_poly"] == before["pair_sweep_sym_poly"] + 3
+    assert (after["pair_sweep_ordered_poly"]
+            == before["pair_sweep_ordered_poly"] + 3)
+    assert after["pair_sweep_sym"] == before["pair_sweep_sym"]
+    assert after["pair_sweep_ordered"] == before["pair_sweep_ordered"]
+
+
+def test_poly_product_matches_plain(poly_cloud):
+    """rpy_cuda.mobility_apply(_multi) with physical radii (ahat = radii/a,
+    damping at z/aᵢ, the self term at aᵢ) against the float64 twin."""
+    r, ahat, F = poly_cloud
+    a = 0.7
+    r_p, rad = r * a, ahat * a
+    for k in (1, 2):
+        ref = rpy.mobility_apply_multi(F[:k], r_p, a, 1.3, True, radii=rad)
+        U = rpy_cuda.mobility_apply_multi(F[:k].float(), r_p.float(), a, 1.3,
+                                          True, radii=rad.float())
+        torch.cuda.synchronize()
+        assert _rel(U, ref) < TOL
+
+
+def test_poly_box_form_raises_on_the_card(poly_cloud):
+    r, ahat, F = poly_cloud
+    before = rpy_cuda.launch_counts()
+    with pytest.raises(NotImplementedError, match="12b"):
+        rpy_cuda.pair_sum(r.float(), F[0].float(), True,
+                          box_over_a=(30.0, 30.0), ahat=ahat.float())
+    assert rpy_cuda.launch_counts() == before

@@ -106,16 +106,22 @@ def test_k2_wrapper_matches_pallas_kernel(cloud, wall):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(ahat=torch.ones(8)),
-    dict(ahat=torch.ones(8), box_over_a=(10.0, 10.0)),
-    dict(ahat=torch.ones(8), box_over_a=(10.0, 10.0), image_shells=2),
+    dict(box_over_a=(10.0, 10.0)),
+    dict(box_over_a=(10.0, 10.0), image_shells=2),
+    dict(box_over_a=(10.0, 10.0), image_shells=1, image_tail=False),
 ])
 def test_wrapper_raises_on_unported_options(kwargs):
-    """Per-blob radii raise, with or without the pseudo-2D box (the box
-    and its image shells are ported: tests/test_torch_pseudo2d.py)."""
-    r = torch.rand(8, 3) + 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rpy_cuda.pair_sum(r, torch.rand(8, 3), True, **kwargs)
+    """Per-blob radii with the pseudo-2D box raise off the CPU: K1's and
+    K2's poly forms take no box yet (the radii alone and the box alone are
+    ported: tests/test_torch_poly.py, tests/test_torch_pseudo2d.py; on a
+    CPU tensor the twin computes the poly box form).  A tensor on the meta
+    device stands for one on the card."""
+    r = torch.rand(8, 3, device="meta")
+    before = rpy_cuda.launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
+        rpy_cuda.pair_sum(r, torch.rand(8, 3, device="meta"), True,
+                          ahat=torch.ones(8, device="meta"), **kwargs)
+    assert rpy_cuda.launch_counts() == before
 
 
 def test_wrapper_raises_on_three_rhs():

@@ -105,10 +105,13 @@ def test_cross_mobility_blocks_match(layer, wall):
                                       a, 1.0, wall=wall)
     assert M_t.shape == M_j.shape == (8, 12, 10, 3, 3)
     assert _rel(M_t, M_j) < 1e-12
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rpy_t.cross_mobility_blocks(ops_t.positions, torch.from_numpy(rj),
-                                    radii_i=torch.ones(8, 12),
-                                    radii_j=torch.ones(8, 10))
+    # per-blob radii all equal to a: the polydisperse blocks (the mixture
+    # RAS halos', tests/test_torch_poly.py) reduce to these
+    eq = dict(radii_i=torch.full((8, 12), a, dtype=torch.float64),
+              radii_j=torch.full((8, 10), a, dtype=torch.float64))
+    M_p = rpy_t.cross_mobility_blocks(ops_t.positions, torch.from_numpy(rj),
+                                      a, 1.0, wall=wall, **eq)
+    assert _rel(M_p, M_j) < 1e-12
 
 
 def test_build_pc_ras_matches(layer):
