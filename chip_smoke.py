@@ -157,13 +157,40 @@ Phases (each raises on failure; any failure exits nonzero):
  31. the mixture RAS preconditioner on the card (tests/test_multi.py's
      dense wall mixture, 6 × shell_N_12 + 3 × shell_N_42, float32,
      gmres_tol 1e-5): RAS takes fewer iterations than block_free and the
-     two U agree within 1e-4 of max|U|.
+     two U agree within 1e-4 of max|U|;
+ 32. K3's POLY form (per-blob radii: the polydisperse pair fields, the
+     wall terms at √(aᵢaⱼ)) against the float64 plain near sweep with
+     radii on the same float32 inputs, wall and free, 1 and 2 RHS, two
+     launches bitwise equal: at the far-field mixture slice (the far-field
+     slice's 40 × shell_N_2562 and 40 × shell_N_162 scaled by 0.5 at its
+     own blob radius in the lattice's gaps = 108,960 blobs, grid
+     (12, 12, 3), p = 4), at a ragged cloud with radii {0.6, 1.1}·a and at
+     150 close pairs of unequal radii; its POLY × BOX form at the film
+     check set (10 + 10 bodies = 27,240 blobs in the (13.0, 5.2) box, grid
+     (10, 4, 3)) and at a tile that meets itself across the seam; then both
+     forms' times against their monodisperse forms at the same positions
+     (in turns), the plain float32 sweep and their bounds;
+ 33. the polydisperse far field (the radius-split lattices: 2 free, 3
+     wall) against the exact polydisperse operator (K1's POLY form) at the
+     slice, two of its products bitwise equal, the lattice build's time and
+     peak memory;
+ 34. the far-field mixture slice: multi.run_bd_multi for 1 warm-up and 2
+     timed steps, with the launch counts read around that run (K3's POLY
+     form launched; mono K3, K1, K2 and K4 not; every residual below
+     10·gmres_tol), beside the monodisperse far-field slice's steps/s of
+     phase 8, and the step timer's split of one more step;
+ 35. one far-field mixture step through K3's POLY form against one through
+     the plain float32 sweep, from identical draws, at 10 + 10 bodies =
+     27,240 blobs, in the open domain and in the film (image_shells 6,
+     K3's POLY × BOX form).
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
 path (K1/K2 under the RAS preconditioner), phases 21-23 the film path
 (K1/K2 in the box), phases 24-26 the far-field film path (K3's box form),
-phases 27-31 the mixture path (K1/K2's POLY forms, multi.run_bd_multi);
+phases 27-31 the mixture path (K1/K2's POLY forms, multi.run_bd_multi),
+phases 32-35 the far-field mixture path (K3's POLY form, the radius-split
+lattices, multi.run_bd_multi on the far field);
 phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
@@ -284,6 +311,11 @@ MIX_SPLIT_STEPS = 3
 # phase 31: tests/test_multi.py's dense wall mixture at this tolerance; the
 # two U agree to 10× it
 MIX_RAS_TOL = 1e-5
+# the far-field mixture (phases 32-35): the far-field slice's 40 ×
+# shell_N_2562 and 40 × shell_N_162 scaled by MIX_SCALE at their own blob
+# radius in the lattice's gaps; phase 35 at 10 + 10 bodies, open and in the
+# far-field film's check box
+FM_SPLIT_STEPS = 1
 # operations a pair of the POLY fields costs beyond the monodisperse 60,
 # counted from rpy_fields.cuh::pair_fields_poly's far branch: aR² + aC²
 # (2), aR + aC, aR − aC, (aR² + aC²)/3, and the wall's 1/√(aR·aC) (3), the
@@ -530,6 +562,156 @@ def mixture_setup(torch, device, poly=True):
     return cfg, mgeom, states, tuple(forces)
 
 
+def farfield_mixture_setup(torch, device, n_bodies, side=None, box=None,
+                           grid=FF_GRID):
+    """The far-field mixture: farfield_setup's n_bodies × shell_N_2562 (blob
+    radius a = sep_2562/2, force −ẑ) on its lattice ``side`` wide, and
+    n_bodies × shell_N_162 scaled by MIX_SCALE at its own blob radius
+    MIX_SCALE·sep_162/2 (run.py's per-species "blob_radius"; force
+    −MIX_SCALE³·ẑ) in the lattice's gaps at (1.3 + 2.6·(i%side), 1.3 +
+    2.6·(i//side), 3.6 + 0.2·(i%3)), identity quaternions; the far-field
+    slice's solver settings on ``grid`` (box: the film's, image_shells
+    FB_SHELLS).  Returns (cfg, mgeom, states, forces)."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch import multi
+
+    cfg, _, state, force = farfield_setup(torch, device, n_bodies,
+                                          side=side, box=box, grid=grid)
+    side = side or int(np.ceil(np.sqrt(n_bodies)))
+    _, ref2562 = rt.load_structure(FF_SHELL)
+    p162, ref162 = rt.load_structure(MIX_SMALL_SHELL)
+    mgeom = multi.MultiGeometry.create(
+        [ref2562, MIX_SCALE * ref162], dtype=torch.float32,
+        radii=[None, MIX_SCALE * p162["sep"] / 2], device=device)
+    xs = np.array([[1.3 + 2.6 * (i % side), 1.3 + 2.6 * (i // side),
+                    3.6 + 0.2 * (i % 3)] for i in range(n_bodies)])
+    small = rt.make_state(xs, np.tile([1.0, 0, 0, 0], (n_bodies, 1)),
+                          dtype=torch.float32, device=device)
+    f_small = torch.zeros((n_bodies, 6), dtype=torch.float32, device=device)
+    f_small[:, 2] = -MIX_SCALE ** 3
+    return cfg, mgeom, (state, small), (force, f_small)
+
+
+def check_near_forms(torch, farfield, farfield_cuda, label, ctx, rng,
+                     walls=(True, False), box=None, wrap=None, poly=True):
+    """K3's box, POLY or POLY × BOX form (float32; poly: the radii of
+    ctx.ah_s) against the plain near sweep in float64 on the same float32
+    inputs (and float32 box, so both take the same image of every pair),
+    1 and 2 RHS, live rows; two launches bitwise equal.  Returns {(wall,
+    k): max abs err}."""
+    live = ctx.id_s >= 0
+    x32 = ctx.x_s.float().contiguous()
+    a32 = ctx.ah_s.float().contiguous() if poly else None
+    form = " x ".join((["POLY"] if poly else []) + (["BOX"] if box else []))
+    F = torch.from_numpy(rng.standard_normal(
+        (2, ctx.x_s.shape[0], 3))).to(ctx.x_s.device).float()
+    errs = {}
+    for wall in walls:
+        # the sweep is linear in F, each RHS apart: 2 RHS is both references
+        ref = farfield._near_sweep(
+            x32.double(), ctx.ci_s, ctx.id_s, F.double(), ctx.nbr, wall, 0.75,
+            box_n=box, wrap_xy=wrap,
+            ah_s=a32.double() if poly else None)[:, live]
+        for k in (1, 2):
+            args = (x32, ctx.ci_s, live, F[:k].contiguous(), ctx.nbr,
+                    ctx.pairs, ctx.n_pairs, wall, 0.75, box, wrap, a32)
+            U = farfield_cuda.near_sweep_kernel(*args)
+            torch.cuda.synchronize()
+            err = (U[:, live].double() - ref[:k]).abs().max().item()
+            rel = err / ref[:k].abs().max().item()
+            same = torch.equal(U, farfield_cuda.near_sweep_kernel(*args))
+            del U
+            print(f"K3 {form} form {label} n={int(live.sum())} box={box} "
+                  f"cells={wrap} wall={wall} k={k}: max|dU|={err:.3e} "
+                  f"max|dU|/max|U|={rel:.3e} (tol {KERNEL_TOL:g}); two "
+                  f"launches bitwise equal: {same}")
+            if not (rel <= KERNEL_TOL and same):
+                raise AssertionError(f"K3's {form} form disagrees with the "
+                                     f"plain sweep on {label}, wall={wall}, "
+                                     f"k={k}: {rel}, {same}")
+            errs[wall, k] = err
+        del ref
+    return errs
+
+
+def k3_poly_times(torch, farfield, farfield_cuda, label, ctx, rng,
+                  box=None, wrap=None):
+    """K3's POLY form against its monodisperse form at the same positions,
+    in turns (mono, poly, poly, mono), wall, 1 and 2 RHS; the plain float32
+    sweep with radii; the bound over this data's kept pairs.  Returns {k:
+    dict}."""
+    live = ctx.id_s >= 0
+    x32, a32 = ctx.x_s.float().contiguous(), ctx.ah_s.float().contiguous()
+    n_pad, (t, w) = ctx.x_s.shape[0], ctx.nbr.shape
+    pairs = near_pairs(torch, ctx, farfield.TILE, wrap_cells=wrap)
+    F = torch.from_numpy(rng.standard_normal((2, n_pad, 3))).to(
+        ctx.x_s.device).float()
+    out = {}
+    for k in (1, 2):
+        Fk = F[:k].contiguous()
+        args = (x32, ctx.ci_s, live, Fk, ctx.nbr, ctx.pairs, ctx.n_pairs,
+                True, 0.75, box, wrap)
+        turns = {"mono": [], "poly": []}
+        for form in ("mono", "poly", "poly", "mono"):
+            turns[form].append(cuda_ms(
+                torch, lambda: farfield_cuda.near_sweep_kernel(
+                    *args, a32 if form == "poly" else None), 20))
+        plain = cuda_ms(torch, lambda: farfield._near_sweep(
+            x32, ctx.ci_s, ctx.id_s, Fk, ctx.nbr, True, 0.75, box_n=box,
+            wrap_xy=wrap, ah_s=a32), 1)
+        flops = pairs // 2 * (60 + POLY_EXTRA_FLOP + 60 * k)
+        b = bound_ms(flops, n_pad * (12 + 12 + 1 + 4 + 24 * k) + 4 * t * w)
+        b_mono = bound_ms(pairs // 2 * (60 + 60 * k),
+                          n_pad * (12 + 12 + 1 + 24 * k) + 4 * t * w)
+        v = dict(ms=min(turns["poly"]), ms_mono=min(turns["mono"]),
+                 turns=turns, plain_ms=plain, bound=b, bound_mono=b_mono,
+                 pairs=pairs)
+        out[k] = v
+        print(f"K3 POLY{' x BOX' if box else ''} form time at {label} "
+              f"n={int(live.sum())} (n_pad {n_pad}, {t} tiles, "
+              f"{int(ctx.n_pairs.item())} tile pairs, {pairs} kept ordered "
+              f"pairs), wall, {k} RHS: {v['ms']:.4f} ms (turns mono/poly "
+              f"{turns['mono']} / {turns['poly']}), "
+              f"{v['ms'] / v['ms_mono']:.3f}x its monodisperse form at the "
+              f"same positions; plain float32 {plain:.4f} ms; bound "
+              f"{b[0]:.4f} ms ({b[1]}), {v['ms'] / b[0]:.2f}x (the mono form "
+              f"{v['ms_mono'] / b_mono[0]:.2f}x its {b_mono[0]:.4f} ms)")
+    return out
+
+
+def mixture_step_check(torch, multi, label, cfg, mgeom, states, forces,
+                       gen, counters):
+    """One mixture step through the kernels against one through the plain
+    float32 sweep, from identical draws; the launch counts of the kernel
+    step.  Returns (max|ΔX_k − ΔX_p| / max|ΔX_p|, launch counts)."""
+    draws = multi.make_draws_multi(mgeom, states, gen)
+    for mod in counters:
+        mod.reset_launch_counts()
+    sk, aux_k = multi.stochastic_step_multi(mgeom, cfg, states, forces,
+                                            draws=draws)
+    torch.cuda.synchronize()
+    counts = {}
+    for mod in counters:
+        counts.update(mod.launch_counts())
+    sp, aux_p = multi.stochastic_step_multi(
+        mgeom, cfg.replace(use_pallas=False), states, forces, draws=draws)
+    torch.cuda.synchronize()
+    dX_k = torch.cat([a_.X - b_.X for a_, b_ in zip(sk, states)])
+    dX_p = torch.cat([a_.X - b_.X for a_, b_ in zip(sp, states)])
+    rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+    n = sum(g.n_blobs * s_.X.shape[0] for g, s_ in zip(mgeom.geoms, states))
+    print(f"far-field mixture step {label} kernels vs plain at n={n}: "
+          f"max|dX_k - dX_p|/max|dX_p| = {rel:.3e} (tol {STEP_TOL:g}); iters "
+          f"{aux_k.iters} vs {aux_p.iters}; residual "
+          f"{aux_k.residual.item():.3e} vs {aux_p.residual.item():.3e}; "
+          f"launches of the kernel step {counts}")
+    if not (rel <= STEP_TOL and torch.isfinite(dX_k).all()):
+        raise AssertionError(f"the far-field mixture step ({label}) through "
+                             f"the kernels disagrees with the plain step: "
+                             f"{rel}")
+    return rel, counts
+
+
 def check_poly_sweeps(torch, rpy, rpy_cuda, label, r32, ahat32, F32, h):
     """K1's and K2's POLY forms against the float64 plain sweep with radii
     on the same float32 inputs, wall and free, 1 and 2 RHS (K1 at 2 RHS on
@@ -665,6 +847,27 @@ def poly_entries(poly_t, name, launches):
                     v["ms_mono"], f"plain_ms{tag}_poly": v["plain_ms"],
                     f"bound_ms{tag}_poly": v["bound"][0],
                     f"max_abs_err{tag}_poly": v["err"]})
+    return out
+
+
+def k3_poly_entries(k3p, errs, k3pb, errs_box, ff_mix):
+    """K3's POLY keys of the summary line: at the far-field mixture slice
+    (POLY) and its film check set (POLY × BOX), 1 and 2 RHS, its time, its
+    monodisperse form's at the same positions, the plain float32 sweep's,
+    the bound and the ratio, the max abs error against float64 (wall); its
+    launches on the slice's run and on the film check step."""
+    out = {"poly_form_in": 10, "launches_farfield_mixture": ff_mix["k3_poly"],
+           "launches_film_mixture_step": ff_mix["k3_poly_box_film_step"]}
+    for tag, times, err in (("poly", k3p, errs), ("poly_box", k3pb,
+                                                  errs_box)):
+        for k, rhs in ((1, ""), (2, "_2rhs")):
+            v = times[k]
+            out.update({f"ms{rhs}_{tag}": v["ms"],
+                        f"ms{rhs}_mono_at_{tag}": v["ms_mono"],
+                        f"plain_ms{rhs}_{tag}": v["plain_ms"],
+                        f"bound_ms{rhs}_{tag}": v["bound"][0],
+                        f"bound_ratio{rhs}_{tag}": v["ms"] / v["bound"][0],
+                        f"max_abs_err{rhs}_{tag}": err[True, k]})
     return out
 
 
@@ -808,44 +1011,6 @@ def film_near_clouds():
     r[:, 0] = (np.arange(168) + 0.5) * (16.0 / 168)
     out["self"] = (r, (16.0, 16.0), (4, 4, 1))
     return {k: (v[0].astype(np.float32),) + v[1:] for k, v in out.items()}
-
-
-def check_near_box(torch, farfield, farfield_cuda, label, ctx, box32, wrap,
-                   rng):
-    """K3's box form (float32) against the plain near sweep in float64 on
-    the same float32 inputs and float32 box (so both take the same image
-    of every pair), wall, 1 and 2 RHS, live rows; two launches bitwise
-    equal.  Returns {k: max abs err}."""
-    live = ctx.id_s >= 0
-    F = torch.from_numpy(rng.standard_normal(
-        (2, ctx.x_s.shape[0], 3))).to(ctx.x_s.device).float()
-    errs = {}
-    for k in (1, 2):
-        Fk = F[:k].contiguous()
-        U = farfield_cuda.near_sweep(ctx.x_s, ctx.ci_s, live, Fk, ctx.nbr,
-                                     True, 0.75,
-                                     pairs=(ctx.pairs, ctx.n_pairs),
-                                     box_over_a=box32, wrap_cells=wrap)
-        torch.cuda.synchronize()
-        ref = farfield._near_sweep(ctx.x_s.double(), ctx.ci_s, ctx.id_s,
-                                   Fk.double(), ctx.nbr, True, 0.75,
-                                   box_n=box32, wrap_xy=wrap)
-        err = (U.double() - ref)[:, live].abs().max().item()
-        rel = err / ref[:, live].abs().max().item()
-        del U, ref
-        args = (ctx.x_s, ctx.ci_s, live, Fk, ctx.nbr, ctx.pairs,
-                ctx.n_pairs, True, 0.75, box32, wrap)
-        same = torch.equal(farfield_cuda.near_sweep_kernel(*args),
-                           farfield_cuda.near_sweep_kernel(*args))
-        print(f"K3 box form {label} n={int(live.sum())} box={box32} "
-              f"cells={wrap} k={k}: max|dU|={err:.3e} max|dU|/max|U|="
-              f"{rel:.3e} (tol {KERNEL_TOL:g}); two launches bitwise equal: "
-              f"{same}")
-        if not (rel <= KERNEL_TOL and same):
-            raise AssertionError(f"K3's box form disagrees with the plain "
-                                 f"sweep on {label}, k={k}: {rel}, {same}")
-        errs[k] = err
-    return errs
 
 
 def main():
@@ -1844,14 +2009,16 @@ def main():
     box_b = tuple(float(np.float32(b / a_b)) for b in FB_BOX)
     wrap_b = FB_GRID[:2]
     rng_b = np.random.default_rng(SEED + 8)
-    k3b_err = check_near_box(torch, farfield, farfield_cuda, "film slice",
-                             ctx_b, box_b, wrap_b, rng_b)
+    k3b_err = check_near_forms(torch, farfield, farfield_cuda, "film slice",
+                               ctx_b, rng_b, walls=(True,), box=box_b,
+                               wrap=wrap_b, poly=False)
     for label, (r_e, box_e, grid_e) in film_near_clouds().items():
         ctx_e = farfield.prepare(torch.from_numpy(r_e).to(dev), wall=True,
                                  grid=grid_e, p=3, box=box_e, image_shells=1)
-        check_near_box(torch, farfield, farfield_cuda, label, ctx_e,
-                       tuple(float(np.float32(b)) for b in box_e),
-                       grid_e[:2], rng_b)
+        check_near_forms(torch, farfield, farfield_cuda, label, ctx_e, rng_b,
+                         walls=(True,),
+                         box=tuple(float(np.float32(b)) for b in box_e),
+                         wrap=grid_e[:2], poly=False)
     live_b = ctx_b.id_s >= 0
     n_pad_b, (t_b, w_b) = ctx_b.x_s.shape[0], ctx_b.nbr.shape
     slots_b = (ctx_b.nbr >= 0).sum(dim=1).double()
@@ -1872,7 +2039,8 @@ def main():
         # directions' products, the wrap's few operations not counted
         flops = pairs_b // 2 * (60 + 60 * k)
         n_bytes = n_pad_b * (12 + 12 + 1 + 24 * k) + 4 * t_b * w_b
-        k3b[k] = dict(ms=ms, plain_ms=plain, flops=flops, err=k3b_err[k],
+        k3b[k] = dict(ms=ms, plain_ms=plain, flops=flops,
+                      err=k3b_err[True, k],
                       bound=bound_ms(flops, n_bytes))
         print(f"K3 box form time at the film slice n={n_b} (n_pad "
               f"{n_pad_b}, {t_b} tiles, {w_b} slots, "
@@ -2248,12 +2416,189 @@ def main():
     mixture["ras"] = dict(iters_block_free=rb.iters, iters_ras=rr.iters,
                           u_rel=du_r)
 
+    # ---- 32. K3's POLY form vs the float64 plain near sweep, its times
+    cfg_x, mgeom_x, states_x, forces_x = farfield_mixture_setup(
+        torch, dev, FF_BODIES)
+    opses_x = multi.geometry_ops_multi(mgeom_x, states_x)
+    r_x = multi.concat_positions(opses_x)
+    n_x = r_x.shape[0]
+    rad_x = multi.blob_radii_multi(mgeom_x, opses_x, cfg_x)
+    a_x = cfg_x.a
+    fx_kw = dict(a=a_x, eta=cfg_x.eta, wall=True, grid=FF_GRID, p=FF_P,
+                 radii=rad_x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_x = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    geo_x = farfield.prepare_geometry(r_x, **fx_kw)
+    torch.cuda.synchronize()
+    geo_x_ms = (time.perf_counter() - t0) * 1e3
+    geo_x_peak = torch.cuda.max_memory_allocated() - base_x
+    lat_x = sum(t_.numel() * t_.element_size()
+                for t_ in (geo_x.khat_free, geo_x.khat_wall))
+    ctx_x = farfield.prepare(r_x, geo=geo_x, **fx_kw)
+    rng_x = np.random.default_rng(SEED + 32)
+    k3p_err = check_near_forms(torch, farfield, farfield_cuda,
+                              "far-field mixture slice", ctx_x, rng_x)
+    for label, r_c, a_c in poly_pair_clouds(rng_x):
+        grid_c = (6, 6, 2) if label == "ragged" else (3, 3, 1)
+        ctx_c = farfield.prepare(torch.from_numpy(r_c).to(dev).float(),
+                                 wall=True, grid=grid_c, p=FF_P,
+                                 radii=torch.from_numpy(a_c).to(dev).float())
+        check_near_forms(torch, farfield, farfield_cuda, label, ctx_c, rng_x)
+    cfg_xb, mgeom_xb, states_xb, forces_xb = farfield_mixture_setup(
+        torch, dev, FF_CHECK_BODIES, side=FB_CHECK_SIDE, box=FB_CHECK_BOX,
+        grid=FB_CHECK_GRID)
+    opses_xb = multi.geometry_ops_multi(mgeom_xb, states_xb)
+    r_xb = multi.concat_positions(opses_xb)
+    rad_xb = multi.blob_radii_multi(mgeom_xb, opses_xb, cfg_xb)
+    xb_kw = dict(a=a_x, eta=cfg_xb.eta, wall=True, grid=FB_CHECK_GRID,
+                 p=FF_P, box=FB_CHECK_BOX, image_shells=FB_SHELLS,
+                 radii=rad_xb)
+    ctx_xb = farfield.prepare(r_xb, **xb_kw)
+    box_xb = tuple(float(np.float32(b / a_x)) for b in FB_CHECK_BOX)
+    k3pb_err = check_near_forms(torch, farfield, farfield_cuda,
+                               "far-field mixture film check set", ctx_xb,
+                               rng_x, walls=(True,), box=box_xb,
+                               wrap=FB_CHECK_GRID[:2])
+    r_s, box_s, grid_s = film_near_clouds()["self"]
+    ctx_s = farfield.prepare(
+        torch.from_numpy(r_s).to(dev), wall=True, grid=grid_s, p=3,
+        box=box_s, image_shells=1, radii=torch.from_numpy(
+            rng_x.choice([0.6, 1.1], r_s.shape[0])).to(dev).float())
+    check_near_forms(torch, farfield, farfield_cuda, "self (a tile meeting "
+                    "itself across the seam)", ctx_s, rng_x, walls=(True,),
+                    box=tuple(float(np.float32(b)) for b in box_s),
+                    wrap=grid_s[:2])
+    k3p = k3_poly_times(torch, farfield, farfield_cuda,
+                        "the far-field mixture slice", ctx_x, rng_x)
+    k3pb = k3_poly_times(torch, farfield, farfield_cuda,
+                         "the far-field mixture film check set", ctx_xb,
+                         rng_x, box=box_xb, wrap=FB_CHECK_GRID[:2])
+    del ctx_c, ctx_s
+
+    # ---- 33. the polydisperse far field vs the exact POLY operator (K1)
+    F33 = torch.from_numpy(rng_x.standard_normal((n_x, 3))).to(dev).float()
+    U_fx = farfield.mobility_apply(F33, r_x, ctx=ctx_x, **fx_kw)
+    U_ex = rpy_cuda.mobility_apply(F33, r_x, a=a_x, eta=cfg_x.eta, wall=True,
+                                   radii=rad_x)
+    torch.cuda.synchronize()
+    fx_rel = ((U_fx - U_ex).abs().max() / U_ex.abs().max()).item()
+    fx_same = torch.equal(U_fx, farfield.mobility_apply(F33, r_x, ctx=ctx_x,
+                                                        **fx_kw))
+    fx_ms = cuda_ms(torch, lambda: farfield.mobility_apply(
+        F33, r_x, ctx=ctx_x, **fx_kw), 3)
+    ex_x_ms = cuda_ms(torch, lambda: rpy_cuda.mobility_apply(
+        F33, r_x, a=a_x, eta=cfg_x.eta, wall=True, radii=rad_x), 2)
+    prep_x_ms = cuda_ms(torch, lambda: farfield.prepare(
+        r_x, geo=geo_x, **fx_kw), 3)
+    print(f"polydisperse far field vs the exact POLY operator (K1) at "
+          f"n={n_x}, wall, grid {FF_GRID}, p={FF_P}: max|dU|/max|U| = "
+          f"{fx_rel:.3e} (tol {FF_OPERATOR_TOL:g}); two products bitwise "
+          f"equal: {fx_same}; apply {fx_ms:.3f} ms with the setup hoisted, "
+          f"the exact K1 POLY apply {ex_x_ms:.3f} ms; lattice build "
+          f"(prepare_geometry, 2 free + 3 wall lattices, "
+          f"{lat_x / 1e9:.3f} GB) {geo_x_ms:.3f} ms, its peak memory "
+          f"{geo_x_peak / 1e9:.3f} GB above what was held; position setup "
+          f"(prepare with geo) {prep_x_ms:.3f} ms")
+    if not (fx_rel <= FF_OPERATOR_TOL and torch.isfinite(U_fx).all()
+            and fx_same):
+        raise AssertionError(f"the polydisperse far field disagrees with the "
+                             f"exact operator ({fx_rel}) or with itself "
+                             f"({fx_same})")
+    del U_fx, U_ex, ctx_x, geo_x
+
+    # ---- 34. the far-field mixture slice through K3's POLY form
+    gen_x = torch.Generator(device=dev).manual_seed(SEED)
+    x0_x = [st_.X.clone() for st_ in states_x]
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    s_x, tr_xw = multi.run_bd_multi(mgeom_x, cfg_x, states_x, FF_WARM_STEPS,
+                                    generator=gen_x,
+                                    force_fn=lambda ss, i: forces_x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_x, tr_x = multi.run_bd_multi(mgeom_x, cfg_x, s_x, FF_TIMED_STEPS,
+                                   generator=gen_x,
+                                   force_fn=lambda ss, i: forces_x)
+    torch.cuda.synchronize()
+    wall_x = time.perf_counter() - t0
+    counts_x = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                **ewald_cuda.launch_counts()}
+    steps_x = FF_WARM_STEPS + FF_TIMED_STEPS
+    res_x = torch.cat([tr_xw["residual"], tr_x["residual"]])
+    iters_x = torch.cat([tr_xw["iters"], tr_x["iters"]])
+    qn_x = torch.cat([torch.linalg.norm(st_.Q, dim=1) for st_ in s_x])
+    ff_mix = dict(n_blobs=n_x, steps_per_s=FF_TIMED_STEPS / wall_x,
+                  mono_farfield_steps_per_s=FF_TIMED_STEPS / wall_f,
+                  iters=iters_x.tolist(), max_residual=res_x.max().item(),
+                  k3_poly=counts_x["near_sweep_poly"],
+                  k3_poly_per_step=counts_x["near_sweep_poly"] / steps_x,
+                  operator_rel=fx_rel, apply_ms=fx_ms,
+                  exact_apply_ms=ex_x_ms, lattice_build_ms=geo_x_ms,
+                  lattice_build_peak_bytes=geo_x_peak, lattice_bytes=lat_x,
+                  position_setup_ms=prep_x_ms)
+    print(f"far-field mixture slice: {FF_BODIES} x {FF_SHELL} + {FF_BODIES} "
+          f"x {MIX_SMALL_SHELL} scaled {MIX_SCALE} (radii {mgeom_x.radii}, "
+          f"a = {a_x:.6f}) = {n_x} blobs, grid {FF_GRID}, p={FF_P}: "
+          f"{FF_TIMED_STEPS} steps in {wall_x:.3f} s = "
+          f"{ff_mix['steps_per_s']:.4f} steps/s (the monodisperse far-field "
+          f"slice, phase 8 of this run: {ff_mix['mono_farfield_steps_per_s']:.4f}"
+          f"); GMRES iters per step {iters_x.tolist()}; max residual "
+          f"{res_x.max().item():.3e}; max||q|-1| "
+          f"{(qn_x - 1).abs().max().item():.3e}; launches {counts_x} over "
+          f"{steps_x} steps ({ff_mix['k3_poly_per_step']:.1f} K3 POLY per "
+          f"step)")
+    checks = {
+        "every residual < 10 gmres_tol": res_x.max().item()
+        < 10 * cfg_x.gmres_tol,
+        "state finite": all(bool(torch.isfinite(st_.X).all()
+                                 and torch.isfinite(st_.Q).all())
+                            for st_ in s_x),
+        "|q| within 1e-5 of 1": (qn_x - 1).abs().max().item() <= 1e-5,
+        "bodies moved": all((st_.X - x0).abs().max().item() > 0
+                            for st_, x0 in zip(s_x, x0_x)),
+        "K3 POLY launched": counts_x["near_sweep_poly"] > 0,
+        "mono K3 not launched": counts_x["near_sweep"] == 0,
+        "K1/K2 not launched (mono or POLY)": sum(
+            counts_x[k_] for k_ in ("pair_sweep_sym", "pair_sweep_ordered",
+                                    "pair_sweep_sym_poly",
+                                    "pair_sweep_ordered_poly")) == 0,
+        "K4 not launched": counts_x["ewald_real_sweep"] == 0,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"far-field mixture slice check failed: "
+                                 f"{what}")
+    split_x = step_split(torch, profiling, "far-field mixture", lambda k: (
+        multi.run_bd_multi(mgeom_x, cfg_x, s_x, k, generator=gen_x,
+                           force_fn=lambda ss, i: forces_x)), FM_SPLIT_STEPS)
+    splits.append(split_x)
+
+    # ---- 35. far-field mixture steps through K3 vs the plain float32 sweep
+    cfg_xc, mgeom_xc, states_xc, forces_xc = farfield_mixture_setup(
+        torch, dev, FF_CHECK_BODIES)
+    counters = (rpy_cuda, farfield_cuda, ewald_cuda)
+    ff_mix["step_check_rel"], _ = mixture_step_check(
+        torch, multi, "(open)", cfg_xc, mgeom_xc, states_xc, forces_xc,
+        torch.Generator(device=dev).manual_seed(SEED + 35), counters)
+    ff_mix["film_step_check_rel"], counts_xb = mixture_step_check(
+        torch, multi, f"(film, image_shells {FB_SHELLS})", cfg_xb, mgeom_xb,
+        states_xb, forces_xb,
+        torch.Generator(device=dev).manual_seed(SEED + 36), counters)
+    ff_mix["k3_poly_box_film_step"] = counts_xb["near_sweep_poly"]
+    if not (counts_xb["near_sweep_poly"] > 0
+            and counts_xb["near_sweep"] == 0):
+        raise AssertionError(f"the film mixture step did not go through K3's "
+                             f"POLY x BOX form: {counts_xb}")
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
                       "film": {str(S): v for S, v in film.items()},
                       "film_step_check": film_step_check,
-                      "film_farfield": film_ff, "mixture": mixture}))
+                      "film_farfield": film_ff, "mixture": mixture,
+                      "farfield_mixture": ff_mix}))
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
@@ -2312,7 +2657,8 @@ def main():
          "max_abs_err_box": k3b[1]["err"],
          "max_abs_err_2rhs_box": k3b[2]["err"],
          "launches_film_farfield": film_ff["k3"],
-         "launches_per_step_film_farfield": film_ff["k3_per_step"]},
+         "launches_per_step_film_farfield": film_ff["k3_per_step"],
+         **k3_poly_entries(k3p, k3p_err, k3pb, k3pb_err, ff_mix)},
         {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
          "launches": counts_e["ewald_real_sweep"], "max_abs_err": k4_err,

@@ -18,8 +18,9 @@ reader of :mod:`.utils.checkpoint`); and the pseudo-2D film (a 2-D
 ``box`` above the wall: the minimum-image pair sweep, or with
 ``image_shells`` the exact doubly-periodic image sum); and mixtures of
 body species (:mod:`.multi`, ``multi.run_bd_multi``), a species with its
-own blob radius making the coupled pair sweep polydisperse.  Their pair
-sweeps are hand-written CUDA
+own blob radius making the coupled product polydisperse, on the dense
+sweeps or the far field (open or in the film).  Their pair sweeps are
+hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
 probe of :mod:`.utils.roofline`; everything else is eager PyTorch on

@@ -87,6 +87,25 @@
 // directly and across a seam is listed once; the per-pair cyclic test then
 // keeps each blob pair once.
 //
+// POLY form (template POLY; per-blob radii, rpy_pallas.py:977-988, which
+// takes poly and box together, so POLY combines with BOX): the radii in
+// units of a arrive sorted beside the positions (farfield.prepare's ah_s,
+// dead blobs at 1).  Compiled in only under POLY:
+//   - the tile's radii are staged in the shared slot that holds the
+//     floored heights in the monodisperse form, and the heights stay raw:
+//     the POLY wall fields floor z/√(aᵢaⱼ), a per-pair quantity;
+//   - the pair fields are rpy_fields::pair_fields_poly, which K1's and
+//     K2's POLY forms share (Zuk et al.'s far, overlap and deep branches;
+//     the wall terms in units of √(aᵢaⱼ)), so the three cannot drift
+//     apart.  They are symmetric under i ↔ j except ĥ, as the monodisperse
+//     fields, so apply<WALL, true> still gives M_ji·F_i for the column side.
+// Dead columns sit at radius 1 and height 1, so their fields stay finite
+// (a 0 radius would divide by zero before the select).  Registers with a
+// wall at 1 / 2 RHS: 56 / 56 (open), 55 / 56 (box), no spills, the same
+// shared memory.  On an H100 at 700 W, at the far-field mixture (108,960
+// blobs), 3.11 / 3.96 ms, +10% / +6% over the mono form at the same
+// positions, 4.8× / 4.3× its bound (PERF.md §6).
+//
 // Plain C interface for ctypes; the launches go on the caller's stream,
 // allocate nothing and return cudaGetLastError().
 
@@ -100,6 +119,7 @@ using rpy_fields::Fields;
 using rpy_fields::apply;
 using rpy_fields::floor_height;
 using rpy_fields::pair_fields;
+using rpy_fields::pair_fields_poly;
 using rpy_fields::wrap;
 
 constexpr int kTile = 128;             // blobs per tile (farfield.TILE)
@@ -121,22 +141,33 @@ __device__ __forceinline__ int cyclic_gap(int d, int g) {
   return min(a, g - a);
 }
 
+// A blob's per-blob quantity beside its position: the floored height
+// (monodisperse fields) or the radius in units of a (POLY).
+template <bool POLY>
+__device__ __forceinline__ float blob_aux(const float* __restrict__ ahat,
+                                          int j, bool ok, float z,
+                                          float h_floor) {
+  if constexpr (POLY) return ok ? ahat[j] : 1.0f;
+  return floor_height(z, h_floor);
+}
+
 // One block per tile pair (persistent).  pairs (cap, 4): a, b ≥ a, slot of
 // b in a's list, slot of a in b's list; the first *n_pairs used.
 // part (max_nbr, NRHS, n_pad, 3): per-slot partial sums.
-template <bool WALL, int NRHS, bool BOX>
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 __global__ void __launch_bounds__(kTile)
 near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                  const int* __restrict__ cell,            // (n_pad, 3)
                  const unsigned char* __restrict__ live,  // (n_pad,)
                  const float* __restrict__ force,         // (NRHS, n_pad, 3)
+                 const float* __restrict__ ahat,          // (n_pad,), POLY
                  const int4* __restrict__ pairs,
                  const int* __restrict__ n_pairs,
                  int n_pad, float h_floor, CellBox box,
                  float* __restrict__ part) {
   constexpr int NF = 3 * NRHS;
   __shared__ float s_pos[3][kTile];
-  __shared__ float s_zw[kTile];  // floored heights
+  __shared__ float s_aux[kTile];  // floored heights (POLY: radii)
   __shared__ int s_cell[3][kTile];
   __shared__ float s_f[NF][kTile];
   __shared__ float s_acc[kWarps][NF][kTile];
@@ -158,7 +189,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
       s_pos[0][t] = ok ? pos[3 * j] : 0.0f;
       s_pos[1][t] = ok ? pos[3 * j + 1] : 0.0f;
       s_pos[2][t] = ok ? pos[3 * j + 2] : 1.0f;
-      s_zw[t] = floor_height(s_pos[2][t], h_floor);
+      s_aux[t] = blob_aux<POLY>(ahat, j, ok, s_pos[2][t], h_floor);
       s_cell[0][t] = ok ? cell[3 * j] : kDeadCell;
       s_cell[1][t] = ok ? cell[3 * j + 1] : kDeadCell;
       s_cell[2][t] = ok ? cell[3 * j + 2] : kDeadCell;
@@ -179,7 +210,7 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
     const float xR = pos[3 * i];
     const float yR = pos[3 * i + 1];
     const float zR = row_live ? pos[3 * i + 2] : 1.0f;
-    const float zRw = floor_height(zR, h_floor);
+    const float auxR = blob_aux<POLY>(ahat, i, row_live, zR, h_floor);
     const int cxR = cell[3 * i];
     const int cyR = cell[3 * i + 1];
     const int czR = cell[3 * i + 2];
@@ -215,7 +246,12 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
         const float dy = BOX ? wrap(yR, s_pos[1][c], box.ly, box.ily)
                              : yR - s_pos[1][c];
         const float dz = zR - s_pos[2][c];
-        const Fields p = pair_fields<WALL>(dx, dy, dz, zRw, s_zw[c]);
+        Fields p;
+        if constexpr (POLY)
+          p = pair_fields_poly<WALL>(dx, dy, dz, zR, s_pos[2][c], auxR,
+                                     s_aux[c], h_floor);
+        else
+          p = pair_fields<WALL>(dx, dy, dz, auxR, s_aux[c]);
 #pragma unroll
         for (int k = 0; k < NRHS; ++k) {
           float ux, uy, uz, tx, ty, tz;
@@ -271,9 +307,9 @@ __global__ void sum_slots_kernel(const float* __restrict__ part,
   out[idx] = v;
 }
 
-// Blocks of near_pair_kernel<WALL, NRHS, BOX> that fit on the card at
-// once, per device (0 if the runtime cannot say).
-template <bool WALL, int NRHS, bool BOX>
+// Blocks of near_pair_kernel<WALL, NRHS, BOX, POLY> that fit on the card
+// at once, per device (0 if the runtime cannot say).
+template <bool WALL, int NRHS, bool BOX, bool POLY>
 int resident_blocks() {
   static int cache[kMaxDevices] = {0};
   int dev = 0;
@@ -283,7 +319,7 @@ int resident_blocks() {
     if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
             != cudaSuccess
         || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-               &per_sm, near_pair_kernel<WALL, NRHS, BOX>, kTile, 0)
+               &per_sm, near_pair_kernel<WALL, NRHS, BOX, POLY>, kTile, 0)
                != cudaSuccess)
       return 0;
     cache[dev] = sms * per_sm;
@@ -291,30 +327,44 @@ int resident_blocks() {
   return cache[dev];
 }
 
-template <bool WALL, int NRHS, bool BOX>
-int launch(int cap, cudaStream_t stream, const float* pos, const int* cell,
-           const unsigned char* live, const float* force, const int* pairs,
-           const int* n_pairs, int n_pad, float h_floor, CellBox box,
-           float* part) {
-  const int resident = resident_blocks<WALL, NRHS, BOX>();
+// The inputs of one launch.
+struct Args {
+  const float* pos;
+  const int* cell;
+  const unsigned char* live;
+  const float* force;
+  const float* ahat;
+  const int* pairs;
+  const int* n_pairs;
+  int n_pad;
+  float h_floor;
+  CellBox box;
+  float* part;
+};
+
+template <bool WALL, int NRHS, bool BOX, bool POLY>
+int launch(int cap, cudaStream_t stream, const Args& g) {
+  const int resident = resident_blocks<WALL, NRHS, BOX, POLY>();
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int grid = cap < resident ? cap : resident;
-  near_pair_kernel<WALL, NRHS, BOX><<<grid, kTile, 0, stream>>>(
-      pos, cell, live, force, reinterpret_cast<const int4*>(pairs), n_pairs,
-      n_pad, h_floor, box, part);
+  near_pair_kernel<WALL, NRHS, BOX, POLY><<<grid, kTile, 0, stream>>>(
+      g.pos, g.cell, g.live, g.force, g.ahat,
+      reinterpret_cast<const int4*>(g.pairs), g.n_pairs, g.n_pad, g.h_floor,
+      g.box, g.part);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool WALL, bool BOX, bool POLY>
+int launch_k(int nrhs, int cap, cudaStream_t stream, const Args& g) {
+  return nrhs == 1 ? launch<WALL, 1, BOX, POLY>(cap, stream, g)
+                   : launch<WALL, 2, BOX, POLY>(cap, stream, g);
+}
+
 template <bool WALL, bool BOX>
-int launch_k(int nrhs, int cap, cudaStream_t stream, const float* pos,
-             const int* cell, const unsigned char* live, const float* force,
-             const int* pairs, const int* n_pairs, int n_pad, float h_floor,
-             CellBox box, float* part) {
-  return nrhs == 1
-      ? launch<WALL, 1, BOX>(cap, stream, pos, cell, live, force, pairs,
-                             n_pairs, n_pad, h_floor, box, part)
-      : launch<WALL, 2, BOX>(cap, stream, pos, cell, live, force, pairs,
-                             n_pairs, n_pad, h_floor, box, part);
+int launch_poly(bool poly, int nrhs, int cap, cudaStream_t stream,
+                const Args& g) {
+  return poly ? launch_k<WALL, BOX, true>(nrhs, cap, stream, g)
+              : launch_k<WALL, BOX, false>(nrhs, cap, stream, g);
 }
 
 }  // namespace
@@ -329,12 +379,14 @@ int near_sweep_tile() { return kTile; }
 // int32 with its used length in device memory at n_pairs; part holds
 // max_nbr·nrhs·n_pad·3 floats of scratch (only the used slots are written
 // and read).  box_x > 0 selects the box form: the film's (box_x, box_y) in
-// units of a and its (gx, gy) cells; box_x = 0 the open form.
+// units of a and its (gx, gy) cells; box_x = 0 the open form.  ahat: the
+// n_pad radii in units of a (the POLY form), or NULL for one radius.
 int near_sweep(const float* pos, const int* cell, const unsigned char* live,
-               const float* force, const int* nbr, const int* pairs,
-               const int* n_pairs, int n_pad, int max_nbr, int cap, int nrhs,
-               int wall, float h_floor, float box_x, float box_y, int gx,
-               int gy, float* part, float* out, void* stream_ptr) {
+               const float* force, const float* ahat, const int* nbr,
+               const int* pairs, const int* n_pairs, int n_pad, int max_nbr,
+               int cap, int nrhs, int wall, float h_floor, float box_x,
+               float box_y, int gx, int gy, float* part, float* out,
+               void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad % kTile != 0 || max_nbr < 0 || cap < 0)
@@ -344,23 +396,18 @@ int near_sweep(const float* pos, const int* cell, const unsigned char* live,
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad == 0) return 0;
   if (cap > 0) {
-    CellBox box{box_x, box_y, in_box ? 1.0f / box_x : 0.0f,
-                in_box ? 1.0f / box_y : 0.0f, gx, gy};
+    const CellBox box{box_x, box_y, in_box ? 1.0f / box_x : 0.0f,
+                      in_box ? 1.0f / box_y : 0.0f, gx, gy};
+    const Args g{pos, cell, live, force, ahat, pairs, n_pairs, n_pad,
+                 h_floor, box, part};
+    const bool poly = ahat != nullptr;
     int code;
     if (in_box)
-      code = wall ? launch_k<true, true>(nrhs, cap, stream, pos, cell, live,
-                                         force, pairs, n_pairs, n_pad,
-                                         h_floor, box, part)
-                  : launch_k<false, true>(nrhs, cap, stream, pos, cell, live,
-                                          force, pairs, n_pairs, n_pad,
-                                          h_floor, box, part);
+      code = wall ? launch_poly<true, true>(poly, nrhs, cap, stream, g)
+                  : launch_poly<false, true>(poly, nrhs, cap, stream, g);
     else
-      code = wall ? launch_k<true, false>(nrhs, cap, stream, pos, cell,
-                                          live, force, pairs, n_pairs, n_pad,
-                                          h_floor, box, part)
-                  : launch_k<false, false>(nrhs, cap, stream, pos, cell,
-                                           live, force, pairs, n_pairs,
-                                           n_pad, h_floor, box, part);
+      code = wall ? launch_poly<true, false>(poly, nrhs, cap, stream, g)
+                  : launch_poly<false, false>(poly, nrhs, cap, stream, g);
     if (code != 0) return code;
   }
   const size_t total = (size_t)nrhs * n_pad * 3;

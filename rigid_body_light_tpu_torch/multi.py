@@ -7,7 +7,8 @@ blob of every species through one mobility product over the concatenated
 blocks and the quaternion updates stay batched within each species.  A
 species may have its own blob radius (``MultiGeometry.radii``): the coupled
 product is then the polydisperse one (per-blob radii closed over the
-apply-fns, kernels K1/K2's POLY forms on the card), and the species' PC and
+apply-fns: K1/K2's POLY forms on the card, or with ``farfield_grid`` the
+radius-split far field and K3's POLY form), and the species' PC and
 noise factors are built at its radius.
 
     mgeom   = MultiGeometry.create([ref_a, ref_b], radii=[None, 0.065])

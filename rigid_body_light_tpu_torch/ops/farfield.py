@@ -30,8 +30,27 @@ the only static bound: overflow NaN-poisons the apply, as does a reused
 geometry tier (:func:`prepare` with ``geo=``) that the positions have left
 by more than half a cell.
 
-Left to later slices (ROADMAP.md queue 1): per-blob radii (item 12b-far), the
-band tier ``farfield_band_p`` and the distributed locals (item 11).  The
+Per-blob radii (the polydisperse operator) keep the far field translation
+invariant by splitting the pair kernel over its radius dependence, which is
+a low-order polynomial (the JAX module's split):
+
+  - free space (far branch): M = K₀(r) + (âᵢ² + âⱼ²)·K₂(r), two lattices
+    (:func:`_free_split_coeffs`); the â²-weighted forces ride the same
+    spread and FFTs as extra right-hand sides;
+  - wall images (the √(aᵢaⱼ) convention of the pair sweeps): the
+    Swan–Brady coefficients split by image-distance power, G₀ + âᵢâⱼ·G₁ +
+    (âᵢâⱼ)²·G₂, three lattices (:func:`_wall_coeffs_split`);
+  - the film: four lattices [K₀ + G₀, G₁, G₂, K₂].
+
+Moments go in as [F, â²F] (free) or [F, âF, â²F] (wall, film); outputs
+come back with weights [1, âᵢ²] or [1, âᵢ², âᵢ] (:func:`_far_part`).  The
+near sweep takes the polydisperse pair fields (K3's POLY form).  As in the
+JAX package, cells no smaller than the largest contact distance max(âᵢ +
+âⱼ) are required and not checked: every far pair is then in the
+non-overlapping branch.
+
+Left to later slices (ROADMAP.md queue 1): the band tier
+``farfield_band_p`` and the distributed locals (item 11).  The
 TPU layout workarounds of the JAX module (the ``_flat_outer`` selector
 matmuls, the packed real/imaginary lattices, ``fftsafe``) are not ported:
 plain outer products, complex tensors and ``torch.fft`` compute the same
@@ -130,48 +149,74 @@ def _signed_offsets_cyclic(g: int) -> np.ndarray:
 
 
 # -------------------------------------------------------- kernel lattices
-def _far_kernel_hat(h, grid, p):
+def _free_split_coeffs(r2):
+    """The far-branch free-space RPY split by radius dependence: α = 1/r +
+    (âᵢ² + âⱼ²)/(3r³), β = 1/r³ − (âᵢ² + âⱼ²)/r⁵ (the far branch of
+    :func:`.rpy._free_coeffs_poly`) is K₀ + (âᵢ² + âⱼ²)·K₂ with K₀: (α, β)
+    = (1/r, 1/r³) and K₂: (1/(3r³), −1/r⁵), both translation invariant.
+    Returns ((α₀, β₀), (α₂, β₂)).  r² is floored at 1e-2 (far node pairs
+    are a cell apart; the floor only keeps the masked near offsets
+    finite)."""
+    r2s = torch.clamp(r2, min=1e-2)
+    invr2 = 1.0 / r2s
+    invr = torch.sqrt(invr2)
+    invr3 = invr * invr2
+    invr5 = invr3 * invr2
+    return (invr, invr3), (invr3 / 3.0, -invr5)
+
+
+def _far_kernel_hat(h, grid, p, poly=False):
     """K̂: half-spectrum FFT over the offset grid of the free-space RPY node
     blocks between non-adjacent cells, (2gx·2gy·(gz+1), B, B) complex with
-    B = 3p³ (row = target node·3 + component, column = source).
+    B = 3p³ (row = target node·3 + component, column = source); ``poly``:
+    the two lattices [K₀, K₂] of :func:`_free_split_coeffs`, stacked as
+    (2, 2gx·2gy·(gz+1), B, B).
 
     Built one x-offset slab at a time, so the temporaries stay a 2gx-th of
     the lattice."""
     gx, gy, gz = grid
     dtype, dev = h.dtype, h.device
     B = 3 * p ** 3
+    nk = 2 if poly else 1
     tn = _node_grid(p, dtype, dev)
     dn = tn[:, None, :] - tn[None, :, :]                     # (p³, p³, 3)
     oyz = np.stack(np.meshgrid(_signed_offsets(gy), _signed_offsets(gz),
                                indexing="ij"), axis=-1).reshape(-1, 2)
     far_yz = np.any(np.abs(oyz) > 1, axis=-1)                # (2gy·2gz,)
     eye = torch.eye(3, dtype=dtype, device=dev)
-    slabs = []
-    for ox in _signed_offsets(gx):
+    Kh = torch.empty((nk, 2 * gx, 2 * gy, gz + 1, B, B),
+                     dtype=torch.promote_types(dtype, torch.complex64),
+                     device=dev)
+    for ix, ox in enumerate(_signed_offsets(gx)):
         off = torch.as_tensor(
             np.concatenate([np.full((len(oyz), 1), float(ox)), oyz], axis=1),
             dtype=dtype, device=dev)                         # (m, 3)
         # d = node_n(target) − node_m(source) = (t_n − t_m + Δ)·h
         d = (dn[None] + off[:, None, None, :]) * h           # (m, p³, p³, 3)
-        alpha, beta = rpy._free_coeffs(torch.sum(d * d, dim=-1))
+        r2 = torch.sum(d * d, dim=-1)
+        coeffs = _free_split_coeffs(r2) if poly else (rpy._free_coeffs(r2),)
         far = torch.as_tensor(far_yz | (abs(ox) > 1),
                               device=dev)[:, None, None]
-        alpha = torch.where(far, alpha, torch.zeros_like(alpha))
-        beta = torch.where(far, beta, torch.zeros_like(beta))
-        K = (alpha[..., None, None] * eye
-             + beta[..., None, None] * d[..., :, None] * d[..., None, :])
-        K = K.permute(0, 1, 3, 2, 4).reshape(2 * gy, 2 * gz, B, B)
-        slabs.append(torch.fft.fft(torch.fft.rfft(K, dim=1), dim=0))
-    Kh = torch.fft.fft(torch.stack(slabs), dim=0)    # (2gx, 2gy, gz+1, B, B)
-    return Kh.reshape(-1, B, B)
+        for c, (alpha, beta) in enumerate(coeffs):
+            alpha = torch.where(far, alpha, torch.zeros_like(alpha))
+            beta = torch.where(far, beta, torch.zeros_like(beta))
+            K = (alpha[..., None, None] * eye
+                 + beta[..., None, None] * d[..., :, None] * d[..., None, :])
+            K = K.permute(0, 1, 3, 2, 4).reshape(2 * gy, 2 * gz, B, B)
+            Kh[c, ix] = torch.fft.fft(torch.fft.rfft(K, dim=1), dim=0)
+    Kh = torch.fft.fft(Kh, dim=1).reshape(nk, -1, B, B)
+    return Kh if poly else Kh[0]
 
 
 def _wall_coeffs_split(d_img, hj):
     """Swan–Brady wall coefficients split by image-distance power: three
     channels (f1..f5) of the 1/R, 1/R³ and 1/R⁵ terms, whose sum is the
     equal-radius correction (f = f1·I + f2·e⊗e + f3·e⊗ẑ + f4·ẑ⊗e + f5·ẑ⊗ẑ),
-    and 1/R.  R² is floored at 1e-2: far node pairs are at least a cell
-    apart."""
+    and 1/R.  In the √(aᵢaⱼ) convention of the polydisperse pair sweeps the
+    correction is parts[0] + âᵢâⱼ·parts[1] + (âᵢâⱼ)²·parts[2]: ĥ and e are
+    scale invariant, and the 1/a_eff prefactor times (a_eff/R)^m leaves
+    (âᵢâⱼ)^((m−1)/2) for m = 1, 3, 5.  R² is floored at 1e-2: far node
+    pairs are at least a cell apart."""
     rz = d_img[..., 2]
     h_hat = hj / torch.clamp(rz, min=1e-12)
     r2 = torch.sum(d_img * d_img, dim=-1)
@@ -199,17 +244,20 @@ def _wall_coeffs_split(d_img, hj):
     return (p0, p1, p2), invR
 
 
-def _wall_kernel_hat(lo_z, h, grid, p, h_floor):
+def _wall_kernel_hat(lo_z, h, grid, p, h_floor, poly=False):
     """K̂_wall: the Swan–Brady image node blocks, translation invariant in
     x/y only, so the z cells pair explicitly; 2-D FFT'd over the padded x/y
     offsets.  Returns (2gx·(gy+1), gz·B, gz·B) complex: per x/y frequency,
     rows (target z cell, target node·3 + component), columns (source z
     cell, source node·3 + component).  Offsets that can hold a near pair
     (every cell-offset component within 1) are zeroed, matching the near
-    sweep's partition.  Built one target z cell at a time."""
+    sweep's partition.  ``poly``: the three power channels [G₀, G₁, G₂] of
+    :func:`_wall_coeffs_split` apart, (3, 2gx·(gy+1), gz·B, gz·B).  Built
+    one target z cell at a time."""
     gx, gy, gz = grid
     dtype, dev = h.dtype, h.device
     B = 3 * p ** 3
+    nk = 3 if poly else 1
     ox = _signed_offsets(gx)
     oy = _signed_offsets(gy)
     near_xy = torch.as_tensor((np.abs(ox) <= 1)[:, None]
@@ -226,30 +274,36 @@ def _wall_kernel_hat(lo_z, h, grid, p, h_floor):
     eye = torch.eye(3, dtype=dtype, device=dev)
     zhat = eye[2]
     shape = (2 * gx, gz, 2 * gy, p ** 3, p ** 3)
-    slabs = []
+    Kh = torch.empty((nk, gz, 2 * gx, gz, gy + 1, B, B),
+                     dtype=torch.promote_types(dtype, torch.complex64),
+                     device=dev)
     for ci in range(gz):
         zj = znf[None, :, None, None, :].expand(shape)       # source nodes
         rz = znf[ci][None, None, None, :, None] + zj
         d_img = torch.stack([dx[:, None, None].expand(shape),
                              dy[None, None].expand(shape), rz], dim=-1)
         parts, invR = _wall_coeffs_split(d_img, zj)
-        fs = tuple(a + b + c for a, b, c in zip(*parts))
+        if not poly:
+            parts = (tuple(a + b + c for a, b, c in zip(*parts)),)
         near_z = (torch.arange(gz, device=dev) - ci).abs() <= 1
         far = ~(near_xy[:, None, :] & near_z[None, :, None])[..., None, None]
-        f1, f2, f3, f4, f5 = (torch.where(far, f, torch.zeros_like(f))
-                              for f in fs)
         e = d_img * invR[..., None]
-        W = (f1[..., None, None] * eye
-             + f2[..., None, None] * e[..., :, None] * e[..., None, :]
-             + f3[..., None, None] * e[..., :, None] * zhat[None, :]
-             + f4[..., None, None] * zhat[:, None] * e[..., None, :]
-             + f5[..., None, None] * zhat[:, None] * zhat[None, :])
-        # (2gx, gz_s, 2gy, p³, p³, 3, 3) → (2gx, gz_s, 2gy, B, B)
-        W = W.permute(0, 1, 2, 3, 5, 4, 6).reshape(2 * gx, gz, 2 * gy, B, B)
-        slabs.append(torch.fft.fft(torch.fft.rfft(W, dim=2), dim=0))
-    Kh = torch.stack(slabs)                  # (gz_t, 2gx, gz_s, gy+1, B, B)
-    return Kh.permute(1, 3, 0, 4, 2, 5).reshape(
-        2 * gx * (gy + 1), gz * B, gz * B)
+        for c, fs in enumerate(parts):
+            f1, f2, f3, f4, f5 = (torch.where(far, f, torch.zeros_like(f))
+                                  for f in fs)
+            W = (f1[..., None, None] * eye
+                 + f2[..., None, None] * e[..., :, None] * e[..., None, :]
+                 + f3[..., None, None] * e[..., :, None] * zhat[None, :]
+                 + f4[..., None, None] * zhat[:, None] * e[..., None, :]
+                 + f5[..., None, None] * zhat[:, None] * zhat[None, :])
+            # (2gx, gz_s, 2gy, p³, p³, 3, 3) → (2gx, gz_s, 2gy, B, B)
+            W = W.permute(0, 1, 2, 3, 5, 4, 6).reshape(2 * gx, gz, 2 * gy,
+                                                        B, B)
+            Kh[c, ci] = torch.fft.fft(torch.fft.rfft(W, dim=2), dim=0)
+    # (nk, gz_t, 2gx, gz_s, gy+1, B, B) → (nk, 2gx·(gy+1), gz_t·B, gz_s·B)
+    Kh = Kh.permute(0, 2, 4, 1, 5, 3, 6).reshape(
+        nk, 2 * gx * (gy + 1), gz * B, gz * B)
+    return Kh if poly else Kh[0]
 
 
 # scalar entries of one field of a shift batch in the pseudo-2D lattice
@@ -257,26 +311,60 @@ def _wall_kernel_hat(lo_z, h, grid, p, h_floor):
 SHIFT_BATCH_ELEMS = 2 ** 25
 
 
-def _kernel_hat_2p(lo_z, h, grid, p, h_floor, shells):
+def _add_blocks(acc, w, d, e, free=None, wall=None):
+    """acc (3, 3, ...) += the node blocks α·I + β·d⊗d + f1·I + f2·e⊗e +
+    f3·e⊗ẑ + f4·ẑ⊗e + f5·ẑ⊗ẑ weighted by w, summed over the shift batch
+    (dim 0), one entry at a time.  d, e: the (x, y, z) components of the
+    free displacement and of the unit image direction; free: (α, β) or
+    None; wall: (f1, ..., f5) or None."""
+    if free is not None:
+        a_, b_ = (f * w for f in free)
+    if wall is not None:
+        g1, g2, g3, g4, g5 = (f * w for f in wall)
+    for i in range(3):
+        for j in range(3):
+            t = 0.0
+            if free is not None:
+                t = b_ * d[i] * d[j] + (a_ if i == j else 0.0)
+            if wall is not None:
+                t = t + g2 * e[i] * e[j]
+                if i == j:
+                    t = t + g1
+                if j == 2:
+                    t = t + g3 * e[i]
+                if i == 2:
+                    t = t + g4 * e[j]
+                if i == j == 2:
+                    t = t + g5
+            acc[i, j] += t.sum(0)
+
+
+def _kernel_hat_2p(lo_z, h, grid, p, h_floor, shells, poly=False):
     """K̂ of the pseudo-2D film (x/y periodic, wall at z = 0): the combined
     free + wall-image node blocks per (target, source) z-cell pair and
     cyclic x/y cell offset, summed over the (2S+1)² in-plane images
     n·(Lx, Ly), then 2-D FFT'd at box size.  Returns (gx·(gy//2+1), gz·B,
-    gz·B) complex, laid out as :func:`_wall_kernel_hat`'s lattice.
+    gz·B) complex, laid out as :func:`_wall_kernel_hat`'s lattice;
+    ``poly``: four lattices [K₀ + G₀, G₁, G₂, K₂] (the free split of
+    :func:`_free_split_coeffs`, the wall powers of
+    :func:`_wall_coeffs_split`), stacked as (4, gx·(gy//2+1), gz·B, gz·B).
 
     Only the combined sum converges (the free 1/ρ Stokeslet alone diverges
-    over a 2-D lattice; its wall images cancel it to 1/ρ³).  Each shift
+    over a 2-D lattice; its wall images cancel it to 1/ρ³; each poly
+    channel decays as fast, so the same tail weights apply).  Each shift
     weighs 1 + the two-ring Richardson tail weight of its ring
     (:func:`.rpy.tail_coeffs`: α on ring S, β on ring S − 1).  The near
     exclusion zeroes only the n = 0 term of wrapped-adjacent offsets: a
     pair's other images, a blob's own included, stay in the far tier.
     Requires h·(gx, gy) = box (the caller anchors x/y at 0 and wraps the
     positions).  The shifts are evaluated in batches whose fields hold at
-    most SHIFT_BATCH_ELEMS entries."""
+    most SHIFT_BATCH_ELEMS entries a lattice, so the four poly lattices
+    take batches a quarter the size."""
     gx, gy, gz = grid
     dtype, dev = h.dtype, h.device
     p3 = p ** 3
     B = 3 * p3
+    nk = 4 if poly else 1
     ox, oy = np.meshgrid(_signed_offsets_cyclic(gx),
                          _signed_offsets_cyclic(gy), indexing="ij")
     oxy = np.stack([ox, oy], axis=-1).reshape(-1, 2)         # (m, 2)
@@ -311,8 +399,8 @@ def _kernel_hat_2p(lo_z, h, grid, p, h_floor, shells):
                             dtype=dtype, device=dev)
     wts = 1.0 + torch.as_tensor(ring_w, dtype=dtype, device=dev)
     zero = torch.as_tensor(ring == 0, device=dev)
-    acc = torch.zeros((3, 3, gz, gz, m, p3, p3), dtype=dtype, device=dev)
-    nb = max(1, SHIFT_BATCH_ELEMS // (gz * gz * m * p3 * p3))
+    acc = torch.zeros((nk, 3, 3, gz, gz, m, p3, p3), dtype=dtype, device=dev)
+    nb = max(1, SHIFT_BATCH_ELEMS // (nk * gz * gz * m * p3 * p3))
     for s0 in range(0, len(ring), nb):
         sl = slice(s0, s0 + nb)
         dx = (dx0[None] + shift[sl, 0, None, None, None] * h[0])[:, None,
@@ -321,36 +409,33 @@ def _kernel_hat_2p(lo_z, h, grid, p, h_floor, shells):
                                                                   None]
         keep = ~(zero[sl, None, None, None] & near0[None])
         w = (wts[sl, None, None, None] * keep.to(dtype))[..., None, None]
-        alpha, beta = rpy._free_coeffs(torch.clamp(
-            dx * dx + dy * dy + dz * dz, min=1e-2))
-        shape = alpha.shape
+        r2 = dx * dx + dy * dy + dz * dz
+        shape = r2.shape
         d_img = torch.stack([dx.expand(shape), dy.expand(shape),
                              rz.expand(shape)], dim=-1)
-        f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(d_img, zj.expand(shape))
-        ex, ey, ez = (d_img * invR[..., None]).unbind(-1)
+        if poly:
+            parts, invR = _wall_coeffs_split(d_img, zj.expand(shape))
+            k0, k2 = _free_split_coeffs(r2)
+            chans = ((k0, parts[0]), (None, parts[1]), (None, parts[2]),
+                     (k2, None))
+        else:
+            f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(d_img,
+                                                        zj.expand(shape))
+            chans = ((rpy._free_coeffs(torch.clamp(r2, min=1e-2)),
+                      (f1, f2, f3, f4, f5)),)
+        e = (d_img * invR[..., None]).unbind(-1)
         del d_img
-        # α·I + β·d⊗d + f1·I + f2·e⊗e + f3·e⊗ẑ + f4·ẑ⊗e + f5·ẑ⊗ẑ, weighted,
-        # one entry at a time (x↔y symmetric)
-        a_ = (alpha + f1) * w
-        b_, g2, g3, g4, g5 = (f * w for f in (beta, f2, f3, f4, f5))
-        acc[0, 0] += (a_ + b_ * dx * dx + g2 * ex * ex).sum(0)
-        acc[1, 1] += (a_ + b_ * dy * dy + g2 * ey * ey).sum(0)
-        acc[2, 2] += (a_ + b_ * dz * dz + g2 * ez * ez + (g3 + g4) * ez
-                      + g5).sum(0)
-        xy = (b_ * dx * dy + g2 * ex * ey).sum(0)
-        acc[0, 1] += xy
-        acc[1, 0] += xy
-        acc[0, 2] += (b_ * dx * dz + g2 * ex * ez + g3 * ex).sum(0)
-        acc[1, 2] += (b_ * dy * dz + g2 * ey * ez + g3 * ey).sum(0)
-        acc[2, 0] += (b_ * dz * dx + g2 * ez * ex + g4 * ex).sum(0)
-        acc[2, 1] += (b_ * dz * dy + g2 * ez * ey + g4 * ey).sum(0)
-    # (3_i, 3_j, gz_t, gz_s, gx, gy, n_t, n_s) → (gz_t, gz_s, gx, gy, B, B)
-    W = acc.reshape(3, 3, gz, gz, gx, gy, p3, p3).permute(
-        2, 3, 4, 5, 6, 0, 7, 1).reshape(gz, gz, gx, gy, B, B)
-    Kh = torch.fft.fft(torch.fft.rfft(W, dim=3), dim=2)
-    # (gz_t, gz_s, gx, gy//2+1, B, B) → (gx·(gy//2+1), gz_t·B, gz_s·B)
-    return Kh.permute(2, 3, 0, 4, 1, 5).reshape(gx * (gy // 2 + 1), gz * B,
-                                                gz * B)
+        for c, (free, wall) in enumerate(chans):
+            _add_blocks(acc[c], w, (dx, dy, dz), e, free, wall)
+    # (nk, 3_i, 3_j, gz_t, gz_s, gx, gy, n_t, n_s)
+    #   → (nk, gz_t, gz_s, gx, gy, B, B)
+    W = acc.reshape(nk, 3, 3, gz, gz, gx, gy, p3, p3).permute(
+        0, 3, 4, 5, 6, 7, 1, 8, 2).reshape(nk, gz, gz, gx, gy, B, B)
+    Kh = torch.fft.fft(torch.fft.rfft(W, dim=4), dim=3)
+    # (nk, gz_t, gz_s, gx, gy//2+1, B, B) → (nk, gx·(gy//2+1), gz_t·B, gz_s·B)
+    Kh = Kh.permute(0, 3, 4, 1, 5, 2, 6).reshape(
+        nk, gx * (gy // 2 + 1), gz * B, gz * B)
+    return Kh if poly else Kh[0]
 
 
 # --------------------------------------------------------------- far part
@@ -380,64 +465,126 @@ def _l2p(W3, cid, Unodes):
     return torch.einsum("nq,knqx->knx", W3, local)
 
 
-def _far_free(Q, grid, khat):
+def _far_free(Qm, grid, khat):
     """Free-space far field on the nodes: 3-D FFT convolution over the
     cells, zero-padded to 2G per axis (half spectrum: K and Q are real).
-    Q (k, ncell, B) → (k, ncell, B)."""
+    Qm (nm, k, ncell, B) moment channels: [F] with khat (nf, B, B), or
+    (poly) [F, â²F] with khat [K₀, K₂] → (nout, k, ncell, B) output
+    channels of weight [1] or [1, âᵢ²]:  U₀ = K₀*F + K₂*(â²F), U₂ = K₂*F."""
     gx, gy, gz = grid
-    k, _, B = Q.shape
-    Qg = torch.zeros((k, 2 * gx, 2 * gy, 2 * gz, B), dtype=Q.dtype,
-                     device=Q.device)
-    Qg[:, :gx, :gy, :gz] = Q.reshape(k, gx, gy, gz, B)
-    Qf = torch.fft.rfftn(Qg, dim=(1, 2, 3)).reshape(k, -1, B)
-    Uf = torch.matmul(khat, Qf.permute(1, 2, 0))             # (nf, B, k)
-    Uhat = Uf.permute(2, 0, 1).reshape(k, 2 * gx, 2 * gy, gz + 1, B)
+    nm, k, _, B = Qm.shape
+    Qg = torch.zeros((nm * k, 2 * gx, 2 * gy, 2 * gz, B), dtype=Qm.dtype,
+                     device=Qm.device)
+    Qg[:, :gx, :gy, :gz] = Qm.reshape(nm * k, gx, gy, gz, B)
+    Qf = torch.fft.rfftn(Qg, dim=(1, 2, 3)).reshape(nm, k, -1, B).permute(
+        0, 2, 3, 1)                                          # (nm, nf, B, k)
+    if nm == 1:
+        Uf = torch.matmul(khat, Qf[0])[None]
+    else:
+        K0, K2 = khat
+        Uf = torch.stack([torch.matmul(K0, Qf[0]) + torch.matmul(K2, Qf[1]),
+                          torch.matmul(K2, Qf[0])])
+    nout = Uf.shape[0]
+    Uhat = Uf.permute(0, 3, 1, 2).reshape(nout * k, 2 * gx, 2 * gy, gz + 1,
+                                          B)
     Ug = torch.fft.irfftn(Uhat, s=(2 * gx, 2 * gy, 2 * gz), dim=(1, 2, 3))
-    return Ug[:, :gx, :gy, :gz].reshape(k, -1, B)
+    return Ug[:, :gx, :gy, :gz].reshape(nout, k, -1, B)
 
 
-def _far_wall(Q, grid, khat):
+def _far_wall(Qm, grid, khat):
     """Wall-image far field on the nodes: gz² coupled 2-D x/y convolutions
-    (y half spectrum).  Q (k, ncell, B) → (k, ncell, B)."""
+    (y half spectrum).  Qm (nm, k, ncell, B) moment channels: [F] with
+    khat (nf, gz·B, gz·B), or (poly) [F, âF, â²F], each against its own
+    power lattice [G₀, G₁, G₂] → (nm, k, ncell, B) output channels of
+    weight [1] or [1, âᵢ, âᵢ²]."""
     gx, gy, gz = grid
-    k, _, B = Q.shape
-    Qp = torch.zeros((k, gz, 2 * gx, 2 * gy, B), dtype=Q.dtype,
-                     device=Q.device)
-    Qp[:, :, :gx, :gy] = Q.reshape(k, gx, gy, gz, B).permute(0, 3, 1, 2, 4)
-    Qhat = torch.fft.rfftn(Qp, dim=(2, 3))           # (k, gz, 2gx, gy+1, B)
-    Qf = Qhat.permute(2, 3, 1, 4, 0).reshape(-1, gz * B, k)
-    Uf = torch.matmul(khat, Qf)                              # (nf, gz·B, k)
-    Uhat = Uf.reshape(2 * gx, gy + 1, gz, B, k).permute(4, 2, 0, 1, 3)
+    nm, k, _, B = Qm.shape
+    khat = khat if nm > 1 else khat[None]
+    Qp = torch.zeros((nm * k, gz, 2 * gx, 2 * gy, B), dtype=Qm.dtype,
+                     device=Qm.device)
+    Qp[:, :, :gx, :gy] = Qm.reshape(nm * k, gx, gy, gz, B).permute(
+        0, 3, 1, 2, 4)
+    Qhat = torch.fft.rfftn(Qp, dim=(2, 3))      # (nm·k, gz, 2gx, gy+1, B)
+    Qf = Qhat.reshape(nm, k, gz, -1, B).permute(0, 3, 2, 4, 1).reshape(
+        nm, -1, gz * B, k)                                   # (nm, nf, gz·B, k)
+    Uf = torch.matmul(khat, Qf)                              # (nm, nf, gz·B, k)
+    Uhat = Uf.reshape(nm, 2 * gx, gy + 1, gz, B, k).permute(
+        0, 5, 3, 1, 2, 4).reshape(nm * k, gz, 2 * gx, gy + 1, B)
     Ug = torch.fft.irfftn(Uhat, s=(2 * gx, 2 * gy), dim=(2, 3))
-    return Ug[:, :, :gx, :gy].permute(0, 2, 3, 1, 4).reshape(k, -1, B)
+    return Ug[:, :, :gx, :gy].permute(0, 2, 3, 1, 4).reshape(nm, k, -1, B)
 
 
-def _far_2p(Q, grid, khat):
+def _far_2p(Qm, grid, khat):
     """Pseudo-2D far field on the nodes: gz² coupled cyclic x/y
     convolutions at box size (no padding: the wrap is the periodicity; y
-    half spectrum).  Q (k, ncell, B) → (k, ncell, B)."""
+    half spectrum).  Qm (nm, k, ncell, B) moment channels: [F] with khat
+    (nf, gz·B, gz·B), or (poly) [F, âF, â²F] with khat [A, G₁, G₂, K₂]
+    (:func:`_kernel_hat_2p`) → (nout, k, ncell, B) output channels of
+    weight [1] or [1, âᵢ², âᵢ]:  U₀ = A*F + K₂*(â²F), U₂ = G₂*(â²F) + K₂*F,
+    U₁ = G₁*(âF)."""
     gx, gy, gz = grid
-    k, _, B = Q.shape
-    Qg = Q.reshape(k, gx, gy, gz, B).permute(0, 3, 1, 2, 4)
-    Qhat = torch.fft.rfftn(Qg, dim=(2, 3))           # (k, gz, gx, gy//2+1, B)
-    Qf = Qhat.permute(2, 3, 1, 4, 0).reshape(-1, gz * B, k)
-    Uf = torch.matmul(khat, Qf)                              # (nf, gz·B, k)
-    Uhat = Uf.reshape(gx, gy // 2 + 1, gz, B, k).permute(4, 2, 0, 1, 3)
+    nm, k, _, B = Qm.shape
+    Qg = Qm.reshape(nm * k, gx, gy, gz, B).permute(0, 3, 1, 2, 4)
+    Qhat = torch.fft.rfftn(Qg, dim=(2, 3))      # (nm·k, gz, gx, gy//2+1, B)
+    Qf = Qhat.reshape(nm, k, gz, -1, B).permute(0, 3, 2, 4, 1).reshape(
+        nm, -1, gz * B, k)                                   # (nm, nf, gz·B, k)
+    if nm == 1:
+        Uf = torch.matmul(khat, Qf[0])[None]
+    else:
+        A, G1, G2, K2 = khat
+        Uf = torch.stack([
+            torch.matmul(A, Qf[0]) + torch.matmul(K2, Qf[2]),
+            torch.matmul(G2, Qf[2]) + torch.matmul(K2, Qf[0]),
+            torch.matmul(G1, Qf[1])])
+    nout = Uf.shape[0]
+    Uhat = Uf.reshape(nout, gx, gy // 2 + 1, gz, B, k).permute(
+        0, 5, 3, 1, 2, 4).reshape(nout * k, gz, gx, gy // 2 + 1, B)
     Ug = torch.fft.irfftn(Uhat, s=(gx, gy), dim=(2, 3))
-    return Ug.permute(0, 2, 3, 1, 4).reshape(k, -1, B)
+    return Ug.permute(0, 2, 3, 1, 4).reshape(nout, k, -1, B)
 
 
-def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False):
+def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
+              ahat=None):
     """Spread → kernel-lattice convolutions → interpolate: the far-tier
     velocities (k, N, 3) of the (damped) forces Fs (k, N, 3).  per: the
-    pseudo-2D film, whose one combined lattice is ``khat_wall``."""
-    Q = _p2m(W3, cid, Fs, grid[0] * grid[1] * grid[2])
+    pseudo-2D film, whose one combined lattice is ``khat_wall``.  ahat:
+    None, or the (N,) radii in units of a: the â^m-weighted forces ride
+    the spread and the FFTs as extra channels, [F, â²F] in the open domain
+    without a wall, [F, âF, â²F] with the wall or in the film, and the
+    output channels come back with weights [1, âᵢ², âᵢ]."""
+    k, n = Fs.shape[0], Fs.shape[1]
+    poly = ahat is not None
+    if not poly:
+        scales = [None]
+    elif wall or per:
+        scales = [None, ahat, ahat * ahat]
+    else:
+        scales = [None, ahat * ahat]
+    nm = len(scales)
+    ncell = grid[0] * grid[1] * grid[2]
+    Fm = torch.cat([Fs if c is None else Fs * c[None, :, None]
+                    for c in scales])                        # (nm·k, N, 3)
+    Q = _p2m(W3, cid, Fm, ncell)
+    Q = Q.reshape(nm, k, ncell, Q.shape[-1])
     if per:
-        return _l2p(W3, cid, _far_2p(Q, grid, khat_wall))
-    Unodes = _far_free(Q, grid, khat_free)
-    if wall:
-        Unodes = Unodes + _far_wall(Q, grid, khat_wall)
-    return _l2p(W3, cid, Unodes)
+        chans = _far_2p(Q, grid, khat_wall)
+    else:
+        Un = _far_free(Q[[0, nm - 1]] if poly else Q, grid, khat_free)
+        if not wall:
+            chans = Un
+        else:
+            Uw = _far_wall(Q, grid, khat_wall)
+            chans = (torch.stack([Un[0] + Uw[0], Un[1] + Uw[2], Uw[1]])
+                     if poly else Un + Uw)
+    nout = chans.shape[0]
+    L = _l2p(W3, cid, chans.reshape(nout * k, ncell, -1)).reshape(
+        nout, k, n, 3)
+    if not poly:
+        return L[0]
+    U = L[0] + (ahat * ahat)[None, :, None] * L[1]
+    if nout == 3:
+        U = U + ahat[None, :, None] * L[2]
+    return U
 
 
 # ------------------------------------------------------------- near part
@@ -498,15 +645,17 @@ def _tile_pairs(nbr):
             upper.sum().to(torch.int32).reshape(1))
 
 
-def auto_grid(n: int, p: int, wall: bool) -> int:
+def auto_grid(n: int, p: int, wall: bool, poly: bool = False) -> int:
     """Density-targeted supercell count (cells of ~CELL_TARGET blobs),
-    capped so the kernel lattices stay under KHAT_BUDGET bytes."""
+    capped so the kernel lattices stay under KHAT_BUDGET bytes; ``poly``
+    counts the radius-split lattices (two free, three wall)."""
     g = max(2, int(round((n / CELL_TARGET) ** (1.0 / 3.0))))
     b2 = (3 * p ** 3) ** 2
     while g > 2:
-        freqs = 4 * g * g * (g + 1)            # free-space half spectrum
+        # free-space half spectrum, z pairs × x/y half spectrum
+        freqs = (2 if poly else 1) * 4 * g * g * (g + 1)
         if wall:
-            freqs += 2 * g ** 3 * (g + 1)      # z pairs × x/y half spectrum
+            freqs += (3 if poly else 1) * 2 * g ** 3 * (g + 1)
         if 8 * freqs * b2 <= KHAT_BUDGET:
             break
         g -= 1
@@ -537,7 +686,7 @@ def _chunk_rows(t: int, max_nbr: int, nrhs: int) -> int:
 
 
 def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
-                wrap_xy=None):
+                wrap_xy=None, ah_s=None):
     """Exact adjacent-cell pair sweep — the plain PyTorch version of K3.
 
     x_s/ci_s/id_s (t·TILE, …) sorted padded positions (units of a), cell
@@ -548,7 +697,10 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
     nothing).  box_n / wrap_xy: the film's (Lx, Ly) in units of a and (gx,
     gy): displacements wrapped by :func:`.rpy.wrapped_difference` (the
     image K3's box form takes), cell offsets wrapped cyclically before the
-    adjacency test, the wall images on the wrapped dx, dy.
+    adjacency test, the wall images on the wrapped dx, dy.  ah_s: None, or
+    the (t·TILE,) sorted radii in units of a (pads 1): the polydisperse
+    fields (:func:`.rpy._free_coeffs_poly`), the wall terms in units of
+    √(aᵢaⱼ) with the scaled heights floored per pair (K3's POLY form).
     """
     t = nbr.shape[0]
     k = F_s.shape[0]
@@ -561,6 +713,7 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
     ct = ci_s.reshape(t, TILE, 3)
     it = id_s.reshape(t, TILE)
     Ft = F_s.reshape(k, t, TILE, 3)
+    at = None if ah_s is None else ah_s.to(x_s.dtype).reshape(t, TILE)
     outs = []
     for c0 in range(0, t, ch):
         rows_x, rows_c = xt[c0:c0 + ch], ct[c0:c0 + ch]
@@ -583,7 +736,12 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
                 & (cols_id[:, None, :] >= 0)
                 & (rows_id[:, :, None] != cols_id[:, None, :]))
         r2 = torch.where(keep, r2, torch.full_like(r2, 16.0))
-        alpha, beta = rpy._free_coeffs(r2)
+        if at is None:
+            alpha, beta = rpy._free_coeffs(r2)
+        else:
+            rows_a = at[c0:c0 + ch][:, :, None]
+            cols_a = at[nb].reshape(ch, 1, width * TILE)
+            alpha, beta = rpy._free_coeffs_poly(r2, rows_a, cols_a)
         zero = torch.zeros_like(alpha)
         alpha = torch.where(keep, alpha, zero)
         beta = torch.where(keep, beta, zero)
@@ -591,14 +749,21 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
         out = (torch.einsum("cpn,cknx->ckpx", alpha, cols_F)
                + torch.einsum("ckpn,cpn,cpnx->ckpx", dF, beta, d))
         if wall:
-            zi, zj = rows_x[:, :, 2], cols_x[:, :, 2]
+            zi, zj = rows_x[:, :, 2, None], cols_x[:, None, :, 2]
+            dxy = d[..., :2]
+            if at is not None:
+                # in units of a_eff = √(aᵢaⱼ), the fields scaled by 1/a_eff
+                inv_ae = 1.0 / torch.sqrt(rows_a * cols_a)
+                zi, zj, dxy = zi * inv_ae, zj * inv_ae, dxy * inv_ae[..., None]
             if h_floor > 0:
                 zi = torch.clamp(zi, min=h_floor)
                 zj = torch.clamp(zj, min=h_floor)
-            rz = zi[:, :, None] + zj[:, None, :]
-            d_img = torch.cat([d[..., :2], rz[..., None]], dim=-1)
-            f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(
-                d_img, zj[:, None, :].expand(rz.shape))
+            rz = zi + zj
+            d_img = torch.cat([dxy, rz[..., None]], dim=-1)
+            f1, f2, f3, f4, f5, invR = rpy._wall_coeffs(d_img,
+                                                        zj.expand(rz.shape))
+            if at is not None:
+                f1, f2, f3, f4, f5 = (f * inv_ae for f in (f1, f2, f3, f4, f5))
             f1, f2, f3, f4, f5 = (torch.where(keep, f, zero)
                                   for f in (f1, f2, f3, f4, f5))
             e = d_img * invR[..., None]
@@ -630,12 +795,15 @@ class FarCtx(NamedTuple):
         one argsort, an O(t²) tile adjacency and K3's tile-pair list.
     In the film (a 2-D ``box``) the positions are wrapped into the box
     before binning, ``khat_free`` is None and ``khat_wall`` holds the
-    combined lattice.
+    combined lattice.  With per-blob radii the lattices carry a leading
+    channel axis (2 free, 3 wall, 4 film) and ``ahat`` / ``ah_s`` hold the
+    radii; the geometry tier depends on whether there are radii, not on
+    their values.
     """
     lo: torch.Tensor                  # (3,) grid origin, units of a
     h: torch.Tensor                   # (3,) cell sizes, units of a
-    khat_free: Optional[torch.Tensor]  # (nf, B, B) free-space lattice
-    khat_wall: Optional[torch.Tensor]  # (nf_xy, gz·B, gz·B), or None
+    khat_free: Optional[torch.Tensor]  # ([nk,] nf, B, B) free-space lattice
+    khat_wall: Optional[torch.Tensor]  # ([nk,] nf_xy, gz·B, gz·B), or None
     b: Optional[torch.Tensor]         # (N,) damping factors, or None
     cid: torch.Tensor                 # (N,) flat cell ids
     W3: torch.Tensor                  # (N, p³) spread/interp weights
@@ -648,6 +816,8 @@ class FarCtx(NamedTuple):
     pairs: torch.Tensor               # (t·max_nbr, 4) K3's tile-pair list
     n_pairs: torch.Tensor             # (1,) int32: its used length
     overflow: torch.Tensor            # () bool: poison the apply
+    ahat: Optional[torch.Tensor] = None  # (N,) radii / a, or None (mono)
+    ah_s: Optional[torch.Tensor] = None  # (t·TILE,) sorted, pads 1, or None
 
 
 class FarGeo(NamedTuple):
@@ -720,9 +890,9 @@ def _wrap_box(x, box_n):
     return torch.cat([xy - L * torch.floor(xy / L), x[:, 2:]], dim=1)
 
 
-def _resolve(n, wall, grid, p, max_nbr):
+def _resolve(n, wall, grid, p, max_nbr, poly=False):
     if grid is None:
-        grid = auto_grid(n, p, wall)
+        grid = auto_grid(n, p, wall, poly)
     if np.isscalar(grid):
         grid = (int(grid),) * 3
     grid = tuple(int(g) for g in grid)
@@ -731,39 +901,42 @@ def _resolve(n, wall, grid, p, max_nbr):
     return grid, max_nbr
 
 
-def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells):
+def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly):
     if box_n is not None:
         lo, h = _geometry_2p(x, grid, box_n)
         return FarGeo(lo=lo, h=h, khat_free=None, khat_wall=_kernel_hat_2p(
-            lo[2], h, grid, p, h_floor, int(image_shells)))
+            lo[2], h, grid, p, h_floor, int(image_shells), poly=poly))
     lo, h = _grid_geometry(x, grid)
-    khat_free = _far_kernel_hat(h, grid, p)
-    khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor) if wall
-                 else None)
+    khat_free = _far_kernel_hat(h, grid, p, poly=poly)
+    khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor, poly=poly)
+                 if wall else None)
     return FarGeo(lo=lo, h=h, khat_free=khat_free, khat_wall=khat_wall)
 
 
 def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                      max_nbr=None, h_floor=rpy.WALL_H_FLOOR, box=None,
-                     image_shells=8):
+                     image_shells=8, radii=None):
     """Build only the geometry tier (:class:`FarGeo`) for positions ``r``;
     pass it as ``geo=`` to :func:`prepare` to share one kernel-lattice
     build across several nearby position sets.
 
     box: None (open domain) or the film's (Lx, Ly): the cyclic x/y
     convolution with the combined lattice summed over the in-plane images
-    to ``image_shells`` with the two-ring tail (:func:`_kernel_hat_2p`)."""
+    to ``image_shells`` with the two-ring tail (:func:`_kernel_hat_2p`).
+    radii: None, or per-blob radii: the radius-split lattices (their
+    values do not enter the geometry tier)."""
     r = r.reshape(-1, 3)
-    grid, _ = _resolve(r.shape[0], wall, grid, p, max_nbr)
+    poly = radii is not None
+    grid, _ = _resolve(r.shape[0], wall, grid, p, max_nbr, poly)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
     return _build_geometry(r * (1.0 / a), grid, p, wall, h_floor,
-                           rpy._box_n(box, a), image_shells)
+                           rpy._box_n(box, a), image_shells, poly)
 
 
 def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
             h_floor=rpy.WALL_H_FLOOR, geo: FarGeo = None, box=None,
-            image_shells=8):
+            image_shells=8, radii=None):
     """Build the :class:`FarCtx` for positions ``r`` (same keywords as
     :func:`mobility_apply`).
 
@@ -778,11 +951,15 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     r = r.reshape(-1, 3)
     n = r.shape[0]
     dtype = r.dtype
-    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr)
+    poly = radii is not None
+    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr, poly)
     box_n = rpy._box_n(box, a)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
-    b = rpy.damping_factors(r, a) if wall else None
+    if poly:
+        radii = radii.reshape(-1).to(dtype)
+    ahat = radii * (1.0 / a) if poly else None
+    b = rpy.damping_factors(r, a, radii) if wall else None
     x = r * (1.0 / a)                                        # units of a
     if box_n is not None:
         x = _wrap_box(x, box_n)
@@ -794,7 +971,8 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
             u, hi = u[:, 2], hi[2]
         geo_bad = torch.maximum(torch.max(-u), torch.max(u - hi)) > 0.5
     else:
-        geo = _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells)
+        geo = _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells,
+                              poly)
     lo, h = geo.lo, geo.h
     ci, cid = _cell_indices(x, lo, h, grid)
     W3 = _blob_weights((x - lo) / h - ci.to(dtype), _cheb_nodes(p))
@@ -811,6 +989,11 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     id_s = torch.cat([order.to(torch.int32),
                       torch.full((pad,), -1, dtype=torch.int32,
                                  device=r.device)])
+    # pad radii 1: the pads are masked, but a 0 would divide by zero in the
+    # pair fields before the select
+    ah_s = (torch.cat([ahat[order], torch.ones(pad, dtype=dtype,
+                                               device=r.device)])
+            if poly else None)
     nbr, overflow = _near_neighbor_lists(
         ci_s, t, max_nbr, wrap_xy=grid[:2] if box_n is not None else None)
     pairs, n_pairs = _tile_pairs(nbr)
@@ -818,15 +1001,16 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
         overflow = overflow | geo_bad
     return FarCtx(lo=lo, h=h, khat_free=geo.khat_free,
                   khat_wall=geo.khat_wall, b=b, cid=cid, W3=W3,
-                  self_diag=rpy._self_diag(r, a, wall, h_floor),
+                  self_diag=rpy._self_diag(r, a, wall, h_floor, radii),
                   order=order, x_s=x_s, ci_s=ci_s, id_s=id_s, nbr=nbr,
-                  pairs=pairs, n_pairs=n_pairs, overflow=overflow)
+                  pairs=pairs, n_pairs=n_pairs, overflow=overflow,
+                  ahat=ahat, ah_s=ah_s)
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                    max_nbr=None, h_floor=rpy.WALL_H_FLOOR,
                    ctx: FarCtx = None, use_pallas=True, box=None,
-                   image_shells=8):
+                   image_shells=8, radii=None):
     """U = M(r)·F by the exact near part plus the proxy-grid far field.
 
     F: (N, 3) or (k, N, 3); r: (N, 3).  grid: int or (gx, gy, gz)
@@ -842,6 +1026,11 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     O((2S+1)²·N²)); needs wall=True, image_shells ≥ 1 and ≥ 4 cells on x
     and y.
 
+    radii: None, or (N,) per-blob physical radii: the polydisperse
+    operator (the radius-split lattices, K3's POLY form for the near
+    pairs, the self term (4/3)·a/aᵢ plus the wall's at aᵢ, damping at
+    z/aᵢ), the convention of ``rpy.mobility_apply(radii=...)``.
+
     ctx: a :func:`prepare` result for this ``r`` (same keywords), so
     repeated applies at fixed positions build the lattices and the tile
     structures once.  use_pallas (the configuration's name for the
@@ -855,18 +1044,18 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     Fs = Fs if multi else Fs[None]
     k, n = Fs.shape[0], r.shape[0]
     dtype = r.dtype
-    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr)
+    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr, radii is not None)
     per = box is not None
     if per:
         _check_2p(wall, box, grid, int(image_shells))
     if ctx is None:
         ctx = prepare(r, a=a, eta=eta, wall=wall, grid=grid, p=p,
                       max_nbr=max_nbr, h_floor=h_floor, box=box,
-                      image_shells=image_shells)
+                      image_shells=image_shells, radii=radii)
     if wall:
         Fs = Fs * ctx.b[None, :, None]
     U_far = _far_part(Fs, ctx.W3, ctx.cid, grid, wall, ctx.khat_free,
-                      ctx.khat_wall, per=per)
+                      ctx.khat_wall, per=per, ahat=ctx.ahat)
 
     pad = ctx.x_s.shape[0] - n
     F_s = torch.cat([Fs[:, ctx.order],
@@ -878,10 +1067,11 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
         U_near_s = farfield_cuda.near_sweep(
             ctx.x_s, ctx.ci_s, ctx.id_s >= 0, F_s, ctx.nbr, wall, h_floor,
             pairs=(ctx.pairs, ctx.n_pairs), box_over_a=box_n,
-            wrap_cells=wrap_xy)
+            wrap_cells=wrap_xy, ahat_s=ctx.ah_s)
     else:
         U_near_s = _near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F_s, ctx.nbr,
-                               wall, h_floor, box_n=box_n, wrap_xy=wrap_xy)
+                               wall, h_floor, box_n=box_n, wrap_xy=wrap_xy,
+                               ah_s=ctx.ah_s)
     U_near = torch.zeros_like(Fs)
     U_near[:, ctx.order] = U_near_s[:, :n].to(dtype)
     U_near = torch.where(ctx.overflow, torch.full_like(U_near, math.nan),

@@ -11,7 +11,9 @@ Kernel (``csrc/near_sweep.cu``, built for sm_90a at first use by
                      (offset ≤ 1 on every axis), both are real blobs and it
                      is not the self pair.  1 or 2 RHS.  Its box form
                      (the pseudo-2D film) wraps dx, dy to the minimum
-                     image and the x/y cell offsets cyclically.
+                     image and the x/y cell offsets cyclically; its POLY
+                     form (per-blob radii, open or in the box) takes the
+                     polydisperse pair fields of K1's and K2's POLY forms.
 
 The kernel sweeps each unordered tile pair once (the list
 ``farfield._tile_pairs`` builds with the neighbor lists), evaluating each
@@ -28,9 +30,10 @@ on the CPU, and launches the kernel or raises for a CUDA tensor — there is
 no fallback.  Like the Pallas wrapper, it computes in float32 and raises
 for more than 2 RHS.
 
-``near_launches`` counts kernel launches (incremented where the kernel is
-launched, nowhere else) so a run can show that its main path went through
-the kernel.
+``near_launches`` and ``near_poly_launches`` count launches of the
+monodisperse and the POLY form (incremented where the kernel is launched,
+nowhere else) so a run can show that its main path went through the
+kernel.
 """
 
 from __future__ import annotations
@@ -44,17 +47,18 @@ from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # blobs per tile; build() checks it against the kernel's
 near_launches = 0
+near_poly_launches = 0
 
 _lib = None
 
 
 def reset_launch_counts():
-    global near_launches
-    near_launches = 0
+    global near_launches, near_poly_launches
+    near_launches = near_poly_launches = 0
 
 
 def launch_counts():
-    return {"near_sweep": near_launches}
+    return {"near_sweep": near_launches, "near_sweep_poly": near_poly_launches}
 
 
 def build():
@@ -68,8 +72,8 @@ def build():
     lib.near_sweep_tile.restype = i
     lib.near_sweep_tile.argtypes = []
     lib.near_sweep.restype = i
-    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, f, f,
-                               i, i, p, p, p]
+    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f,
+                               f, i, i, p, p, p]
     if lib.near_sweep_tile() != TILE:
         raise RuntimeError(f"near_sweep.cu tiles {lib.near_sweep_tile()} "
                            f"blobs, the wrapper {TILE}")
@@ -79,15 +83,16 @@ def build():
 
 def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
                       wall: bool, h_floor: float, box_over_a=None,
-                      wrap_cells=None):
+                      wrap_cells=None, ahat_s=None):
     """K3 on the card.  x_s (n_pad, 3) float32, ci_s (n_pad, 3) int32,
     live_s (n_pad,) bool, F_s (k, n_pad, 3) float32 with k ∈ {1, 2}, nbr
     (t, max_nbr) int32 with n_pad = t·128, pairs (cap, 4) int32 and n_pairs
     (1,) int32 (:func:`.farfield._tile_pairs`), all contiguous CUDA tensors
     → (k, n_pad, 3) pair terms in sorted order.  box_over_a / wrap_cells:
     None, or the film's (Lx, Ly) in units of a and (gx, gy), both given
-    (the box form)."""
-    global near_launches
+    (the box form).  ahat_s: None, or the (n_pad,) float32 sorted radii in
+    units of a (the POLY form; the kernel stages dead blobs at radius 1)."""
+    global near_launches, near_poly_launches
     n_pad, k = x_s.shape[0], F_s.shape[0]
     t, max_nbr = nbr.shape
     cap = pairs.shape[0]
@@ -102,6 +107,8 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
     cuda_build.check_tensor(nbr, "nbr", (t, max_nbr), torch.int32)
     cuda_build.check_tensor(pairs, "pairs", (cap, 4), torch.int32)
     cuda_build.check_tensor(n_pairs, "n_pairs", (1,), torch.int32)
+    if ahat_s is not None:
+        cuda_build.check_tensor(ahat_s, "ahat_s", (n_pad,))
     if (box_over_a is None) != (wrap_cells is None):
         raise ValueError("K3's box form takes box_over_a and wrap_cells "
                          "together")
@@ -120,17 +127,21 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.near_sweep(
             x_s.data_ptr(), ci_s.data_ptr(), live_s.data_ptr(),
-            F_s.data_ptr(), nbr.data_ptr(), pairs.data_ptr(),
+            F_s.data_ptr(), None if ahat_s is None else ahat_s.data_ptr(),
+            nbr.data_ptr(), pairs.data_ptr(),
             n_pairs.data_ptr(), n_pad, max_nbr, cap, k, int(bool(wall)),
             float(h_floor), bx, by, gx, gy, part.data_ptr(), out.data_ptr(),
             stream)
     cuda_build.raise_on_error(code, "near_sweep")
-    near_launches += 1
+    if ahat_s is None:
+        near_launches += 1
+    else:
+        near_poly_launches += 1
     return out
 
 
 def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
-               pairs=None, box_over_a=None, wrap_cells=None):
+               pairs=None, box_over_a=None, wrap_cells=None, ahat_s=None):
     """Adjacent-cell pair sweep over the sorted tiles, float32: the contract
     of ``rpy_pallas.near_sweep`` (pair terms only, sorted order, no self
     term, scale or damping).
@@ -143,21 +154,27 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
     plain version does not.  box_over_a / wrap_cells: the pseudo-2D film's
     (Lx, Ly) in units of a and (gx, gy) cyclic cell counts, as in
     ``rpy_pallas.near_sweep``, displacements wrapped by
-    :func:`.rpy.wrapped_difference`'s rule.  Returns (k, n_pad, 3); rows
-    of pad blobs hold garbage.
+    :func:`.rpy.wrapped_difference`'s rule.  ahat_s: None, or the (n_pad,)
+    sorted radii in units of a: the POLY form (``ahat_s`` of
+    ``rpy_pallas.near_sweep``; dead blobs at radius 1).  Returns (k, n_pad,
+    3); rows of pad blobs hold garbage.
     """
     n_pad, k = x_s.shape[0], F_s.shape[0]
     if k > 2:
         raise ValueError(f"near_sweep supports at most 2 RHS, got k={k}")
     x32 = x_s.to(torch.float32).contiguous()
     F32 = F_s.to(torch.float32).contiguous()
+    a32 = None
+    if ahat_s is not None:
+        a32 = torch.where(live_s, ahat_s.to(torch.float32), 1.0).contiguous()
     if x_s.device.type == "cpu":
         # the plain version lives with the far field, which imports this
         # module
         from rigid_body_light_tpu_torch.ops import farfield
         ids = torch.where(live_s, torch.arange(n_pad, dtype=torch.int32), -1)
         return farfield._near_sweep(x32, ci_s, ids, F32, nbr, wall, h_floor,
-                                    box_n=box_over_a, wrap_xy=wrap_cells)
+                                    box_n=box_over_a, wrap_xy=wrap_cells,
+                                    ah_s=a32)
     if x_s.device.type == "cuda":
         if pairs is None:
             raise ValueError("K3 needs the tile-pair list of farfield.prepare "
@@ -166,5 +183,6 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
             x32, ci_s.to(torch.int32).contiguous(),
             live_s.to(torch.bool).contiguous(), F32,
             nbr.to(torch.int32).contiguous(), pairs[0].contiguous(),
-            pairs[1].contiguous(), wall, h_floor, box_over_a, wrap_cells)
+            pairs[1].contiguous(), wall, h_floor, box_over_a, wrap_cells,
+            a32)
     raise ValueError(f"no near sweep for device {x_s.device}")

@@ -86,12 +86,12 @@ def mobility_apply_fn(cfg: SimulationConfig, radii=None):
     (kernel K1 on the card), and anything else takes the plain sweep; a 2-D
     ``cfg.box`` gives both the pseudo-2D box and ``cfg.image_shells``.
     radii: optional (N,) per-blob physical radii closed over the returned
-    fn (polydisperse RPY; the pair sweeps only)."""
+    fn (polydisperse RPY: the pair sweeps and the far field)."""
     _check_radii(cfg, radii)
     if cfg.box is not None and len(cfg.box) == 3:
         return _ewald_apply_fn(cfg, multi=False)
     if cfg.farfield_grid is not None:
-        return _farfield_apply_fn(cfg)
+        return _farfield_apply_fn(cfg, radii)
     kw = dict(_pair_box(cfg), radii=radii)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(F, r):
@@ -117,7 +117,7 @@ def mobility_apply_multi_fn(cfg: SimulationConfig, radii=None):
     if cfg.box is not None and len(cfg.box) == 3:
         return _ewald_apply_fn(cfg, multi=True)
     if cfg.farfield_grid is not None:
-        return _farfield_apply_fn(cfg)
+        return _farfield_apply_fn(cfg, radii)
     kw = dict(_pair_box(cfg), radii=radii)
     if cfg.use_pallas and cfg.dtype == torch.float32:
         def apply_kernel(Fs, r):
@@ -136,14 +136,10 @@ def mobility_apply_multi_fn(cfg: SimulationConfig, radii=None):
 
 
 def _check_radii(cfg: SimulationConfig, radii):
-    """Per-blob radii reach the pair sweeps only: the far field's
-    radius-split lattices and polydisperse Ewald are not ported yet."""
+    """Per-blob radii reach the pair sweeps and the far field: polydisperse
+    Ewald is not ported yet."""
     if radii is None:
         return
-    if cfg.farfield_grid is not None:
-        raise _not_ported("per-blob radii with farfield_grid",
-                          "item 12b-far: K3's poly form and the far field's "
-                          "radius-split lattices")
     if cfg.box is not None and len(cfg.box) == 3:
         raise _not_ported("per-blob radii with a 3-D box (polydisperse "
                           "Ewald)", "item 13")
@@ -188,13 +184,15 @@ def _ewald_apply_fn(cfg: SimulationConfig, multi: bool):
     return apply_plain
 
 
-def _farfield_apply_fn(cfg: SimulationConfig):
+def _farfield_apply_fn(cfg: SimulationConfig, radii=None):
     """Proxy-grid near + far mobility (:mod:`.farfield`), O(N) at fixed
     density.  It takes (N, 3) or (k, N, 3) forces, so it serves both
     apply-fn entry points; float32 with ``use_pallas`` sweeps the near part
     through kernel K3.  A 2-D ``cfg.box`` makes it the pseudo-2D film's far
     field (cyclic x/y, the combined lattice summed over ``image_shells``
-    in-plane images; K3's box form).
+    in-plane images; K3's box form).  radii: per-blob radii (the
+    radius-split lattices and K3's POLY form), seen by the apply, the
+    position setup and the lattice build alike.
 
     The returned callable carries ``prepare`` / ``prepare_geometry``
     attributes: loop hosts build the position setup once with
@@ -203,7 +201,8 @@ def _farfield_apply_fn(cfg: SimulationConfig):
     grid = None if cfg.farfield_grid == "auto" else cfg.farfield_grid
     max_nbr = cfg.farfield_nbr_tiles if cfg.farfield_nbr_tiles > 0 else None
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, grid=grid,
-              p=cfg.farfield_p, max_nbr=max_nbr, h_floor=cfg.wall_h_floor)
+              p=cfg.farfield_p, max_nbr=max_nbr, h_floor=cfg.wall_h_floor,
+              radii=radii)
     if cfg.box is not None:
         kw.update(box=cfg.box, image_shells=cfg.image_shells)
 

@@ -789,3 +789,129 @@ def test_poly_box_form_raises_on_the_card(poly_cloud):
         rpy_cuda.pair_sum(r.float(), F[0].float(), True,
                           box_over_a=(30.0, 30.0), ahat=ahat.float())
     assert rpy_cuda.launch_counts() == before
+
+
+# ---- K3's POLY form (per-blob radii in units of a), open and in the box
+
+def _with_close_pairs(r, rng, n_pairs=20, lo=(-3, -3, 0.3), hi=(3, 3, 3)):
+    """r (n, 3) with its first 2·n_pairs blobs replaced by close pairs at
+    distances 0.01-1.6 (radii 0.6 and 1.1: the deep and overlap branches);
+    returns (r, radii)."""
+    n = r.shape[0]
+    ahat = rng.choice([0.6, 1.1], n)
+    base = rng.uniform(lo, hi, (n_pairs, 3))
+    d = np.geomspace(0.01, 1.6, n_pairs)[:, None] * np.array([[0.6, 0.8, 0]])
+    r = r.copy()
+    r[:2 * n_pairs] = np.stack([base, base + d], 1).reshape(-1, 3)
+    ahat[:2 * n_pairs] = [0.6, 1.1] * n_pairs
+    return r, ahat
+
+
+@pytest.fixture
+def near_poly(dev):
+    """The near-sweep fixture's two-clump cloud with radii {0.6, 1.1} and
+    close pairs of unequal radii, prepared with radii (float64 on the
+    card)."""
+    farfield_cuda.build()
+    rng = np.random.default_rng(13)
+    r = np.concatenate([rng.uniform([0, 0, 0.3], [8, 8, 6], (800, 3)),
+                        rng.uniform([14, 14, 0.3], [20, 20, 6], (700, 3))])
+    r, ahat = _with_close_pairs(r, rng, lo=(1, 1, 0.3), hi=(7, 7, 3))
+    ctx = farfield.prepare(torch.from_numpy(r).to(dev), wall=True,
+                           grid=(5, 5, 3), p=4,
+                           radii=torch.from_numpy(ahat).to(dev))
+    F = torch.from_numpy(rng.standard_normal(
+        (2, ctx.x_s.shape[0], 3))).to(dev)
+    return ctx, F
+
+
+def _poly_near_check(ctx, F, k, wall, box=None, wrap=None):
+    """K3's POLY form (float32) against the float64 plain near sweep on the
+    same float32 inputs; the launch counted under its own key."""
+    live = ctx.id_s >= 0
+    x32, a32 = ctx.x_s.float(), ctx.ah_s.float()
+    F32 = F[:k].float()
+    ref = farfield._near_sweep(x32.double(), ctx.ci_s, ctx.id_s,
+                               F32.double(), ctx.nbr, wall, 0.75,
+                               box_n=box, wrap_xy=wrap, ah_s=a32.double())
+    before = farfield_cuda.launch_counts()
+    U = farfield_cuda.near_sweep(x32, ctx.ci_s, live, F32, ctx.nbr, wall,
+                                 0.75, pairs=(ctx.pairs, ctx.n_pairs),
+                                 box_over_a=box, wrap_cells=wrap,
+                                 ahat_s=a32)
+    torch.cuda.synchronize()
+    after = farfield_cuda.launch_counts()
+    assert after["near_sweep_poly"] == before["near_sweep_poly"] + 1
+    assert after["near_sweep"] == before["near_sweep"]
+    assert torch.isfinite(U[:, live]).all()
+    assert _rel(U[:, live], ref[:, live]) < TOL
+
+
+@pytest.mark.parametrize("wall", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_poly_form_matches_plain(near_poly, wall, k):
+    ctx, F = near_poly
+    _poly_near_check(ctx, F, k, wall)
+
+
+@pytest.mark.parametrize("cloud", ["ragged", "ties", "self"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_poly_box_form_matches_plain(film_near, cloud, k):
+    """The POLY × BOX form on the film's edge clouds (across both seams,
+    the seam tie, a tile meeting itself across the seam) with radii."""
+    ctx, F, box, wrap = film_near[cloud]
+    rng = np.random.default_rng(14)
+    ahat = torch.from_numpy(rng.choice([0.6, 1.1], ctx.x_s.shape[0])).to(
+        ctx.x_s.device)
+    _poly_near_check(ctx._replace(ah_s=ahat), F, k, True, box, wrap)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_poly_forms_are_repeatable(near_poly, film_near, k):
+    ctx, F = near_poly
+    args = (ctx.x_s.float().contiguous(), ctx.ci_s.contiguous(),
+            (ctx.id_s >= 0).contiguous(), F[:k].float().contiguous(),
+            ctx.nbr, ctx.pairs, ctx.n_pairs, True, 0.75)
+    a32 = ctx.ah_s.float().contiguous()
+    assert torch.equal(farfield_cuda.near_sweep_kernel(*args, ahat_s=a32),
+                       farfield_cuda.near_sweep_kernel(*args, ahat_s=a32))
+    ctx, F, box, wrap = film_near["ragged"]
+    a32 = torch.full((ctx.x_s.shape[0],), 0.6, device=ctx.x_s.device)
+    a32[::3] = 1.1
+    args = (ctx.x_s.contiguous(), ctx.ci_s.contiguous(),
+            (ctx.id_s >= 0).contiguous(), F[:k].contiguous(), ctx.nbr,
+            ctx.pairs, ctx.n_pairs, True, 0.75, box, wrap, a32)
+    assert torch.equal(farfield_cuda.near_sweep_kernel(*args),
+                       farfield_cuda.near_sweep_kernel(*args))
+
+
+@pytest.mark.parametrize("film", [False, True])
+def test_far_field_poly_operator_through_k3(near_poly, film):
+    """The polydisperse far field in float32 through K3's POLY form (and
+    POLY × BOX in a film) against float64 through the plain sweep;
+    bitwise repeatable; radii equal to a give the monodisperse operator."""
+    ctx, _ = near_poly
+    live = ctx.id_s >= 0
+    r, rad = ctx.x_s[live] * 0.7, ctx.ah_s[live] * 0.7
+    order = torch.argsort(ctx.id_s[live])
+    r, rad = r[order], rad[order]
+    F = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        tuple(r.shape))).to(r.device)
+    kw = dict(a=0.7, eta=1.3, wall=True, grid=(5, 5, 3), p=4)
+    if film:
+        kw.update(box=(14.7, 14.7), grid=(4, 4, 3), image_shells=2)
+    before = farfield_cuda.launch_counts()
+    U32 = farfield.mobility_apply(F.float(), r.float(), radii=rad.float(),
+                                  **kw)
+    U64 = farfield.mobility_apply(F, r, radii=rad, **kw)
+    after = farfield_cuda.launch_counts()
+    assert after["near_sweep_poly"] == before["near_sweep_poly"] + 1
+    assert after["near_sweep"] == before["near_sweep"]
+    assert _rel(U32, U64) < 1e-5
+    assert torch.equal(U32, farfield.mobility_apply(
+        F.float(), r.float(), radii=rad.float(), **kw))
+    U_eq = farfield.mobility_apply(F.float(), r.float(),
+                                   radii=torch.full_like(rad.float(), 0.7),
+                                   **kw)
+    U_mono = farfield.mobility_apply(F.float(), r.float(), **kw)
+    assert _rel(U_eq, U_mono.double()) < 2e-6

@@ -215,7 +215,10 @@ def test_wrapper_poly_box_runs_the_twin_on_the_cpu():
 def test_apply_fns_close_over_radii_and_refuse_unported_operators():
     """saddle's apply-fns with radii: the plain and the kernels' wrapper
     (CPU) paths equal the twin's poly apply; radii with the far field
-    raise naming 12b-far, with a 3-D box naming item 13."""
+    compute the polydisperse operator (on a (2, 2, 2) grid every pair is a
+    near pair, so it is the twin's to roundoff, in float64 and through
+    K3's wrapper in float32; on (3, 3, 2) within p = 4's interpolation
+    error at cells of 3.3a); radii with a 3-D box raise naming item 13."""
     r, radii, F = poly_cloud()
     r_t, F_t, rad = (torch.from_numpy(x) for x in (r, F[0], radii))
     cfg = SimulationConfig(a=A, eta=ETA, wall=True, dtype=torch.float64)
@@ -229,9 +232,14 @@ def test_apply_fns_close_over_radii_and_refuse_unported_operators():
     U3 = saddle.mobility_apply_fn(cfg32, radii=rad.float())(F_t.float(),
                                                             r_t.float())
     assert _rel(U3, ref.numpy()) < 1e-5
-    with pytest.raises(NotImplementedError, match="12b-far"):
-        saddle.mobility_apply_fn(cfg.replace(farfield_grid=(4, 4, 2),
-                                             gmres_tol=5e-3), radii=rad)
+    for grid, dtype, tol in (((2, 2, 2), torch.float64, 1e-12),
+                             ((2, 2, 2), torch.float32, 1e-5),
+                             ((3, 3, 2), torch.float64, 2e-2)):
+        cfg_ff = cfg.replace(farfield_grid=grid, farfield_p=4, gmres_tol=5e-3,
+                             dtype=dtype)
+        U_ff = saddle.mobility_apply_fn(cfg_ff, radii=rad.to(dtype))(
+            F_t.to(dtype), r_t.to(dtype))
+        assert _rel(U_ff, ref.numpy()) < tol, (grid, dtype)
     with pytest.raises(NotImplementedError, match="item 13"):
         saddle.mobility_apply_multi_fn(
             SimulationConfig(a=A, box=(20.0, 20.0, 20.0),
