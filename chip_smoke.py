@@ -182,7 +182,38 @@ Phases (each raises on failure; any failure exits nonzero):
  35. one far-field mixture step through K3's POLY form against one through
      the plain float32 sweep, from identical draws, at 10 + 10 bodies =
      27,240 blobs, in the open domain and in the film (image_shells 6,
-     K3's POLY × BOX form).
+     K3's POLY × BOX form);
+ 36. K1's and K2's POLY × BOX forms (per-blob radii in the pseudo-2D box,
+     K1 with the self images at each blob's radius) against the float64
+     plain sweep with radii, box and images on the same float32 inputs,
+     wall and free, image_shells 0 and 2, 1 and 2 RHS, two launches
+     bitwise equal: at the polydisperse film (the mixture slice's 10,296
+     blobs in the film slice's (10, 10) box), at the ragged cloud and the
+     150 close pairs of unequal radii in boxes they overfill (pairs across
+     both seams); then their times at the film, in turns with the box and
+     POLY forms at the same positions, the plain float32 sweep and their
+     bounds;
+ 37. the polydisperse film through the run driver
+     (rigid_body_light_tpu_torch.run.main on a JSON config with "species",
+     "blob_radius", "file" placements, the box and image_shells 2): a
+     warm-up chunk and a timed chunk of 8 steps, steps/s from the driver's
+     own line, the launch counts read around it (the POLY × BOX forms
+     launched, no other kernel form), every residual below 10·gmres_tol,
+     |q| within 1e-5 of 1, the trajectory read back with every frame; then
+     a resume from the chunk's checkpoint that appends a chunk with no gap;
+ 38. one polydisperse film step through the kernels against one through
+     the plain float32 sweep, from identical draws, at the driver's final
+     state, and the step timer's split there; the far-field mixture's
+     film operator (phase 32's 27,240-blob
+     film check set, image_shells 6) against the exact polydisperse image
+     operator through K1's POLY × BOX form;
+ 39. drift_mode="em_exact" and lanczos_precond=False (the fused 2-RHS
+     unpreconditioned noise) on the dense slice (run_bd) and the mixture
+     (run_bd_multi): a step through the kernels against one through the
+     plain float32 sweep from identical draws, and 1 + 3 steps with their
+     steps/s; then the driver on examples/periodic_film.json and
+     examples/sedimenting_suspension.json (copied, output_dir in a
+     temporary directory, n_steps cut to one checkpoint chunk).
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -190,7 +221,9 @@ path (K1/K2 under the RAS preconditioner), phases 21-23 the film path
 (K1/K2 in the box), phases 24-26 the far-field film path (K3's box form),
 phases 27-31 the mixture path (K1/K2's POLY forms, multi.run_bd_multi),
 phases 32-35 the far-field mixture path (K3's POLY form, the radius-split
-lattices, multi.run_bd_multi on the far field);
+lattices, multi.run_bd_multi on the far field), phases 36-38 the
+polydisperse film path (K1/K2's POLY × BOX forms through the run driver),
+phase 39 the exact-drift and unpreconditioned stepper modes;
 phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
@@ -204,8 +237,10 @@ device the script exits nonzero and prints no result.
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -322,6 +357,20 @@ FM_SPLIT_STEPS = 1
 # two scaled heights (2) floored per pair (2), the scaled ρ² (2) and
 # q = inv_ae/R (1)
 POLY_EXTRA_FLOP = 15
+# the polydisperse film (phases 36-38): the mixture slice in the film
+# slice's (10, 10) box at image_shells 2, through the driver in chunks of 8
+# steps (one warm-up chunk, one timed, one resumed), a frame every 4
+PF_BOX = (10.0, 10.0)
+PF_SHELLS = 2
+PF_CHUNK = 8
+PF_SAVE_EVERY = 4
+# phase 39: timed steps of each stepper mode, and the example configs the
+# driver runs for one checkpoint chunk
+MODE_TIMED_STEPS = 3
+EXAMPLES = ("periodic_film.json", "sedimenting_suspension.json")
+# the examples' max_step_residual (the SimulationConfig default): a step
+# whose solve ends above it is not committed
+EXAMPLE_MAX_RESIDUAL = 1e-2
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -700,15 +749,14 @@ def mixture_step_check(torch, multi, label, cfg, mgeom, states, forces,
     dX_p = torch.cat([a_.X - b_.X for a_, b_ in zip(sp, states)])
     rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
     n = sum(g.n_blobs * s_.X.shape[0] for g, s_ in zip(mgeom.geoms, states))
-    print(f"far-field mixture step {label} kernels vs plain at n={n}: "
+    print(f"mixture step {label} kernels vs plain at n={n}: "
           f"max|dX_k - dX_p|/max|dX_p| = {rel:.3e} (tol {STEP_TOL:g}); iters "
           f"{aux_k.iters} vs {aux_p.iters}; residual "
           f"{aux_k.residual.item():.3e} vs {aux_p.residual.item():.3e}; "
           f"launches of the kernel step {counts}")
     if not (rel <= STEP_TOL and torch.isfinite(dX_k).all()):
-        raise AssertionError(f"the far-field mixture step ({label}) through "
-                             f"the kernels disagrees with the plain step: "
-                             f"{rel}")
+        raise AssertionError(f"the mixture step ({label}) through the "
+                             f"kernels disagrees with the plain step: {rel}")
     return rel, counts
 
 
@@ -868,6 +916,135 @@ def k3_poly_entries(k3p, errs, k3pb, errs_box, ff_mix):
                         f"bound_ms{rhs}_{tag}": v["bound"][0],
                         f"bound_ratio{rhs}_{tag}": v["ms"] / v["bound"][0],
                         f"max_abs_err{rhs}_{tag}": err[True, k]})
+    return out
+
+
+def check_poly_box_sweeps(torch, rpy, rpy_cuda, label, r32, ahat32, F32, box,
+                          h, walls=(True, False)):
+    """K1's (with the self images at each blob's radius) and K2's POLY × BOX
+    forms against the float64 plain sweep with radii, box and images on the
+    same float32 inputs and box, wall and free, image_shells 0 and
+    PF_SHELLS, 1 and 2 RHS; two launches bitwise equal.  Returns {(kernel,
+    wall, S, k): max abs err}; raises after printing if one is out of
+    bounds."""
+    n = r32.shape[0]
+    ids = torch.arange(n, device=r32.device)
+    errs, bad = {}, []
+    for wall in walls:
+        for S in (0, PF_SHELLS):
+            args = rpy_cuda.box_args(box, S)
+            ref = rpy.pair_sum(r32.double(), ids, r32.double(), ids,
+                               F32.double(), wall=wall, row_tile=256,
+                               h_floor=h, box=box, image_shells=S,
+                               radii_rows=ahat32.double(),
+                               radii_cols=ahat32.double())
+            for k in (1, 2):
+                Fk = F32[:k].contiguous()
+                scale = ref[:k].abs().max().item()
+                for name in ("K1", "K2"):
+                    def launch():
+                        if name == "K1":
+                            return rpy_cuda.pair_sweep_sym(
+                                r32, Fk, wall, h, box=args, ahat=ahat32)
+                        return rpy_cuda.pair_sweep_ordered(
+                            r32, 0, r32, Fk, 0, wall, h, box=args,
+                            ahat_rows=ahat32, ahat_cols=ahat32)
+                    U, U2 = launch(), launch()
+                    torch.cuda.synchronize()
+                    same = torch.equal(U, U2)
+                    if name == "K1" and S:
+                        U = U.double() + rpy.self_image_sum(
+                            r32.double(), Fk.double(), wall, box, S,
+                            h_floor=h, ahat=ahat32.double())
+                    err = (U.double() - ref[:k]).abs().max().item()
+                    errs[name, wall, S, k] = err
+                    print(f"{name} POLY x BOX form {label} n={n} box={box} "
+                          f"wall={wall} image_shells={S} k={k}: max|dU|="
+                          f"{err:.3e} max|dU|/max|U|={err / scale:.3e} (tol "
+                          f"{KERNEL_TOL:g}); two launches bitwise equal: "
+                          f"{same}")
+                    if not (err <= KERNEL_TOL * scale and same
+                            and bool(torch.isfinite(U).all())):
+                        bad.append((name, wall, S, k, err / scale, same))
+            del ref
+    if bad:
+        raise AssertionError(f"the POLY x BOX forms disagree with the plain "
+                             f"sweep or with themselves on {label}: {bad}")
+    return errs
+
+
+def poly_film_config(out_dir, n_steps, checkpoint_every, save_every):
+    """The polydisperse film through the driver: mixture_setup's bodies,
+    forces and solver (scripts/tpu_mixture_bench.py's mixture, the small
+    species at its own "blob_radius") from "file" placements, in the film
+    slice's (10, 10) box above the wall at image_shells PF_SHELLS.  Writes
+    the placements beside the config; returns (config path, config)."""
+    import rigid_body_light_tpu_torch as rt
+
+    p642, _ = rt.load_structure(SHELL)
+    p162, _ = rt.load_structure(MIX_SMALL_SHELL)
+    xb = np.array([[2.5 * (i % 4), 2.5 * (i // 4), 2.0 + 0.2 * (i % 3)]
+                   for i in range(MIX_BIG)])
+    xs = np.array([[1.25 + 2.5 * (i % 4), 1.25 + 2.5 * (i // 4),
+                    3.6 + 0.2 * (i % 3)] for i in range(MIX_SMALL)])
+    species = []
+    for name, X, struct, extra, fz in (
+            ("big", xb, SHELL, {}, -1.0),
+            ("small", xs, MIX_SMALL_SHELL,
+             {"scale": MIX_SCALE, "blob_radius": MIX_SCALE * p162["sep"] / 2},
+             -MIX_SCALE ** 3)):
+        path = os.path.join(out_dir, f"{name}.npz")
+        np.savez(path, X=X, Q=np.tile([1.0, 0, 0, 0], (len(X), 1)))
+        species.append({"structure": struct, "n_bodies": len(X),
+                        "placement": {"type": "file", "path": path},
+                        "forces": [{"type": "gravity",
+                                    "value": [0, 0, fz, 0, 0, 0]}], **extra})
+    conf = {"species": species, "a": p642["sep"] / 2, "eta": 1.0,
+            "dt": 0.01, "kBT": 1.0, "wall": True, "box": list(PF_BOX),
+            "dtype": "float32", "n_steps": n_steps,
+            "save_every": save_every, "checkpoint_every": checkpoint_every,
+            "seed": SEED, "output_dir": os.path.join(out_dir, "run"),
+            "solver": {"gmres_tol": 1e-4, "gmres_restart": 20,
+                       "gmres_maxiter": 60, "lanczos_iters": 8,
+                       "pc_mode": "block_free", "image_shells": PF_SHELLS,
+                       "matvec_row_tile": 512}}
+    path = os.path.join(out_dir, f"film_{n_steps}.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    return path, conf
+
+
+def run_driver(run, argv):
+    """``run.main(argv)`` with its standard output captured and echoed;
+    returns its JSON lines."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run.main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+
+
+def poly_box_entries(pf_t, pf_errs, name, launches, launches_per_step):
+    """A kernel's POLY × BOX keys of the summary line, at the polydisperse
+    film (10,296 blobs, (10, 10) box): its time at image_shells 0 and
+    PF_SHELLS and the main path's RHS, its box and POLY forms' in turns at
+    the same positions, the plain float32 sweep's, the bound, the max abs
+    error against float64 (wall), and its launches on the driver's run."""
+    out = {"poly_box_form_in": 11, "launches_poly_film": launches,
+           "launches_per_step_poly_film": launches_per_step}
+    for S, v in pf_t[name].items():
+        out.update({f"ms_poly_box_s{S}": v["ms"],
+                    f"plain_ms_poly_box_s{S}": v["plain_ms"],
+                    f"bound_ms_poly_box_s{S}": v["bound"][0],
+                    f"bound_ratio_poly_box_s{S}": v["ms"] / v["bound"][0],
+                    f"max_abs_err_poly_box_s{S}":
+                        pf_errs[name, True, S, v["k"]]})
+        if "ms_box" in v:
+            out.update({f"ms_box_at_poly_film_s{S}": v["ms_box"],
+                        f"ms_poly_at_poly_film_s{S}": v["ms_poly"]})
     return out
 
 
@@ -2592,13 +2769,305 @@ def main():
         raise AssertionError(f"the film mixture step did not go through K3's "
                              f"POLY x BOX form: {counts_xb}")
 
+    # ---- 36. K1's and K2's POLY x BOX forms vs the float64 plain sweep
+    box_pf = tuple(float(np.float32(b / cfg_m.a)) for b in PF_BOX)
+    rng_pf = np.random.default_rng(SEED + 36)
+    F_pf = torch.from_numpy(rng_pf.standard_normal((2, n_m, 3))).to(
+        dev).float()
+    pf_errs = check_poly_box_sweeps(torch, rpy, rpy_cuda,
+                                    "polydisperse film", rm32, am32, F_pf,
+                                    box_pf, h_m)
+    for label, r_c, a_c in poly_pair_clouds(rng_pf):
+        # a box the cloud overfills, so its pairs cross both seams
+        L_c = float(np.float32(0.8 * (r_c[:, 0].max() - r_c[:, 0].min())))
+        check_poly_box_sweeps(
+            torch, rpy, rpy_cuda, label,
+            torch.from_numpy(r_c).to(dev).float().contiguous(),
+            torch.from_numpy(a_c).to(dev).float().contiguous(),
+            torch.from_numpy(rng_pf.standard_normal(
+                (2, r_c.shape[0], 3))).to(dev).float(), (L_c, L_c), h_m)
+    pf_t = {"K1": {}, "K2": {}}
+    # K1 at 1 RHS (the GMRES and RFD products), K2 at 2 (the fused noise)
+    for name, k in (("K1", 1), ("K2", 2)):
+        Fk = F_pf[:k].contiguous()
+        for S in (0, PF_SHELLS):
+            args = rpy_cuda.box_args(box_pf, S)
+            if name == "K1":
+                forms = {
+                    "poly_box": lambda: rpy_cuda.pair_sweep_sym(
+                        rm32, Fk, True, h_m, box=args, ahat=am32),
+                    "box": lambda: rpy_cuda.pair_sweep_sym(
+                        rm32, Fk, True, h_m, box=args),
+                    "poly": lambda: rpy_cuda.pair_sweep_sym(
+                        rm32, Fk, True, h_m, ahat=am32)}
+            else:
+                forms = {
+                    "poly_box": lambda: rpy_cuda.pair_sweep_ordered(
+                        rm32, 0, rm32, Fk, 0, True, h_m, box=args,
+                        ahat_rows=am32, ahat_cols=am32),
+                    "box": lambda: rpy_cuda.pair_sweep_ordered(
+                        rm32, 0, rm32, Fk, 0, True, h_m, box=args),
+                    "poly": lambda: rpy_cuda.pair_sweep_ordered(
+                        rm32, 0, rm32, Fk, 0, True, h_m, ahat_rows=am32,
+                        ahat_cols=am32)}
+            # in turns: box, poly, poly x box, poly x box, poly, box
+            t = {f: [] for f in forms}
+            for form in ("box", "poly", "poly_box", "poly_box", "poly",
+                         "box"):
+                t[form].append(cuda_ms(torch, forms[form],
+                                       20 if S == 0 else 5))
+            plain = cuda_ms(torch, lambda: rpy.pair_sum(
+                rm32, ids_m, rm32, ids_m, Fk, wall=True, h_floor=h_m,
+                box=box_pf, image_shells=S, radii_rows=am32,
+                radii_cols=am32), 1)
+            n_img = (2 * S + 1) ** 2
+            flops = n_img * (60 + POLY_EXTRA_FLOP + 60 * k) / 2 * n_m * n_m
+            b = bound_ms(flops, (12 + 4 + 24 * k) * n_m)
+            v = dict(k=k, ms=min(t["poly_box"]), ms_box=min(t["box"]),
+                     ms_poly=min(t["poly"]), turns=t, plain_ms=plain,
+                     bound=b)
+            pf_t[name][S] = v
+            print(f"{name} POLY x BOX form at the polydisperse film n={n_m}, "
+                  f"box {PF_BOX}, image_shells={S} ({n_img} offsets), {k} "
+                  f"RHS: {v['ms']:.4f} ms ({flops / (v['ms'] * 1e-3) / 1e9:.1f}"
+                  f" GFLOP/s), {v['ms'] / v['ms_box']:.3f}x its box form "
+                  f"({v['ms_box']:.4f} ms) and {v['ms'] / v['ms_poly']:.3f}x "
+                  f"its POLY form ({v['ms_poly']:.4f} ms) at the same "
+                  f"positions, turns {t}; plain float32 {plain:.4f} ms; bound "
+                  f"{b[0]:.4f} ms ({b[1]}), {v['ms'] / b[0]:.2f}x the bound")
+    del F_pf
+
+    # ---- 37. the polydisperse film through the driver (run.main)
+    from rigid_body_light_tpu_torch import run as run_mod
+    from rigid_body_light_tpu_torch.runtime import read_trajectory
+    from rigid_body_light_tpu_torch.utils import checkpoint as ckpt_mod
+
+    pf_dir = tempfile.mkdtemp(prefix="chip_smoke_film_")
+    pf_path, pf_conf = poly_film_config(pf_dir, 2 * PF_CHUNK, PF_CHUNK,
+                                        PF_SAVE_EVERY)
+    for mod in (rpy_cuda, farfield_cuda, ewald_cuda):
+        mod.reset_launch_counts()
+    pf_lines = run_driver(run_mod, [pf_path])
+    counts_pf = {**rpy_cuda.launch_counts(), **farfield_cuda.launch_counts(),
+                 **ewald_cuda.launch_counts()}
+    pf_out = pf_conf["output_dir"]
+    steps_pf, _, X_pf, Q_pf = read_trajectory(
+        os.path.join(pf_out, "trajectory.rblt"))
+    pf_res = max(ln["max_residual"] for ln in pf_lines[:-1])
+    qn_pf = np.linalg.norm(Q_pf.astype(np.float64), axis=-1)
+    poly_film = dict(
+        n_blobs=n_m, steps_per_s=pf_lines[1]["steps_per_sec"],
+        warmup_steps_per_s=pf_lines[0]["steps_per_sec"],
+        mean_gmres_iters=[ln["mean_gmres_iters"] for ln in pf_lines[:-1]],
+        max_residual=pf_res,
+        k1_poly_box=counts_pf["pair_sweep_sym_poly_box"],
+        k2_poly_box=counts_pf["pair_sweep_ordered_poly_box"],
+        k1_poly_box_per_step=counts_pf["pair_sweep_sym_poly_box"]
+        / (2 * PF_CHUNK),
+        k2_poly_box_per_step=counts_pf["pair_sweep_ordered_poly_box"]
+        / (2 * PF_CHUNK))
+    print(f"polydisperse film through the driver: {MIX_BIG} x {SHELL} + "
+          f"{MIX_SMALL} x {MIX_SMALL_SHELL} scaled {MIX_SCALE} = {n_m} blobs "
+          f"in the {PF_BOX} box, image_shells {PF_SHELLS}: the timed chunk "
+          f"of {PF_CHUNK} steps at {poly_film['steps_per_s']} steps/s (the "
+          f"warm-up chunk {poly_film['warmup_steps_per_s']}); max residual "
+          f"{pf_res:.3e}; frames {steps_pf.tolist()}; max||q|-1| "
+          f"{np.abs(qn_pf - 1).max():.3e}; launches {counts_pf} over "
+          f"{2 * PF_CHUNK} steps")
+    no_other = [k_ for k_ in ("pair_sweep_sym", "pair_sweep_ordered",
+                              "pair_sweep_sym_poly",
+                              "pair_sweep_ordered_poly", "near_sweep",
+                              "near_sweep_poly", "ewald_real_sweep")
+                if counts_pf.get(k_, 0)]
+    want_frames = list(range(PF_SAVE_EVERY, 2 * PF_CHUNK + 1, PF_SAVE_EVERY))
+    checks = {
+        "every residual < 10 gmres_tol": pf_res < 10 * 1e-4,
+        "frames read back": steps_pf.tolist() == want_frames,
+        "state finite": bool(np.isfinite(X_pf).all()
+                             and np.isfinite(Q_pf).all()),
+        "|q| within 1e-5 of 1": np.abs(qn_pf - 1).max() <= 1e-5,
+        "bodies moved": np.abs(X_pf[-1] - X_pf[0]).max() > 0,
+        "K1 POLY x BOX launched": counts_pf["pair_sweep_sym_poly_box"] > 0,
+        "K2 POLY x BOX launched": counts_pf["pair_sweep_ordered_poly_box"]
+        > 0,
+        f"no other kernel launched ({no_other})": not no_other,
+        "a done line": pf_lines[-1].get("done") is True
+        and pf_lines[-1]["frames"] == len(want_frames),
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"polydisperse film driver check failed: "
+                                 f"{what}")
+    # resume from the chunk's checkpoint: one more chunk, appended
+    pf_ckpt = os.path.join(pf_out, "checkpoint.npz")
+    states_37, _, _, _ = ckpt_mod.load_checkpoint(pf_ckpt, device=dev)
+    pf_path2, _ = poly_film_config(pf_dir, PF_CHUNK, PF_CHUNK, PF_SAVE_EVERY)
+    pf_lines2 = run_driver(run_mod, [pf_path2, "--resume", pf_ckpt])
+    steps_pf2, _, X_pf2, _ = read_trajectory(
+        os.path.join(pf_out, "trajectory.rblt"))
+    want2 = list(range(PF_SAVE_EVERY, 3 * PF_CHUNK + 1, PF_SAVE_EVERY))
+    poly_film["resume_steps_per_s"] = pf_lines2[0]["steps_per_sec"]
+    poly_film["resume_max_residual"] = pf_lines2[0]["max_residual"]
+    print(f"polydisperse film resumed at step {2 * PF_CHUNK}: frames "
+          f"{steps_pf2.tolist()}")
+    if not (steps_pf2.tolist() == want2
+            and np.array_equal(X_pf2[:len(want_frames)], X_pf)
+            and pf_lines2[0]["max_residual"] < 10 * 1e-4):
+        raise AssertionError(f"the resumed film run left a gap or changed "
+                             f"earlier frames: {steps_pf2.tolist()}")
+
+    # ---- 38. a polydisperse film step through the kernels vs the plain
+    # float32 sweep (at the driver's state after phase 37, off the lattice
+    # whose pairs lie on the seams); the far-field mixture's film operator
+    # vs the exact polydisperse image operator (K1's POLY x BOX form)
+    cfg_pf = cfg_m.replace(box=PF_BOX, image_shells=PF_SHELLS)
+    poly_film["step_check_rel"], counts_38 = mixture_step_check(
+        torch, multi, f"(polydisperse film, image_shells {PF_SHELLS})",
+        cfg_pf, mgeom_m, states_37, forces_m,
+        torch.Generator(device=dev).manual_seed(SEED + 38),
+        (rpy_cuda, farfield_cuda, ewald_cuda))
+    if not (counts_38["pair_sweep_sym_poly_box"] > 0
+            and counts_38["pair_sweep_ordered_poly_box"] > 0):
+        raise AssertionError(f"the polydisperse film step did not go "
+                             f"through the POLY x BOX forms: {counts_38}")
+    gen_38 = torch.Generator(device=dev).manual_seed(SEED + 38)
+    splits.append(step_split(
+        torch, profiling, f"polydisperse film (image_shells {PF_SHELLS})",
+        lambda k: multi.run_bd_multi(mgeom_m, cfg_pf, states_37, k,
+                                     generator=gen_38,
+                                     force_fn=lambda ss, i: forces_m),
+        MIX_SPLIT_STEPS))
+    F38 = torch.from_numpy(rng_x.standard_normal(
+        (r_xb.shape[0], 3))).to(dev).float()
+    U_fxb = farfield.mobility_apply(F38, r_xb, ctx=ctx_xb, **xb_kw)
+    rpy_cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    U_exb = rpy_cuda.mobility_apply(F38, r_xb, a=a_x, eta=cfg_xb.eta,
+                                    wall=True, box=FB_CHECK_BOX,
+                                    image_shells=FB_SHELLS, radii=rad_xb)
+    torch.cuda.synchronize()
+    ex_xb_ms = (time.perf_counter() - t0) * 1e3
+    k1_38 = rpy_cuda.launch_counts()["pair_sweep_sym_poly_box"]
+    fxb_rel = ((U_fxb - U_exb).abs().max() / U_exb.abs().max()).item()
+    print(f"far-field mixture film operator vs the exact polydisperse image "
+          f"operator (K1's POLY x BOX form at image_shells {FB_SHELLS}, the "
+          f"self images at each blob's radius; {k1_38} launch, "
+          f"{ex_xb_ms:.1f} ms) at n={r_xb.shape[0]}, box {FB_CHECK_BOX}: "
+          f"max|dU|/max|U| = {fxb_rel:.3e} (tol {FF_OPERATOR_TOL:g})")
+    if not (fxb_rel <= FF_OPERATOR_TOL and k1_38 == 1
+            and torch.isfinite(U_fxb).all()):
+        raise AssertionError(f"the far-field mixture film disagrees with the "
+                             f"exact polydisperse image operator: {fxb_rel}")
+    ff_mix["film_operator_rel"] = fxb_rel
+    del U_fxb, U_exb, ctx_xb
+
+    # ---- 39. drift_mode="em_exact" and the unpreconditioned fused noise,
+    # on the dense slice (run_bd) and the mixture (run_bd_multi); the driver
+    # on the repo's example configs
+    modes = {"em_exact": dict(drift_mode="em_exact"),
+             "unpreconditioned": dict(lanczos_precond=False)}
+    stepper_modes = {}
+    for mode, kw in modes.items():
+        for sl in ("dense", "mixture"):
+            counters = (rpy_cuda, farfield_cuda, ewald_cuda)
+            gen_39 = torch.Generator(device=dev).manual_seed(SEED + 39)
+            if sl == "dense":
+                cfg_39 = cfg.replace(**kw)
+                draws_39 = make_draws(geom, s, gen_39, cfg_39)
+                s_k, aux_k = stochastic_step(geom, cfg_39, s, force,
+                                             draws=draws_39)
+                s_p, aux_p = stochastic_step(
+                    geom, cfg_39.replace(use_pallas=False), s, force,
+                    draws=draws_39)
+                torch.cuda.synchronize()
+                dX_k, dX_p = s_k.X - s.X, s_p.X - s.X
+                run = lambda k_, g_: run_bd(  # noqa: E731
+                    geom, cfg_39, s, k_, generator=g_,
+                    force_fn=lambda s_, i: force)
+            else:
+                cfg_39 = cfg_m.replace(**kw)
+                draws_39 = multi.make_draws_multi(mgeom_m, s_m, gen_39,
+                                                  cfg_39)
+                sk_, aux_k = multi.stochastic_step_multi(
+                    mgeom_m, cfg_39, s_m, forces_m, draws=draws_39)
+                sp_, aux_p = multi.stochastic_step_multi(
+                    mgeom_m, cfg_39.replace(use_pallas=False), s_m, forces_m,
+                    draws=draws_39)
+                torch.cuda.synchronize()
+                dX_k = torch.cat([a_.X - b_.X for a_, b_ in zip(sk_, s_m)])
+                dX_p = torch.cat([a_.X - b_.X for a_, b_ in zip(sp_, s_m)])
+                run = lambda k_, g_: multi.run_bd_multi(  # noqa: E731
+                    mgeom_m, cfg_39, s_m, k_, generator=g_,
+                    force_fn=lambda ss, i: forces_m)
+            rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
+            for mod in counters:
+                mod.reset_launch_counts()
+            run(1, gen_39)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, tr_39 = run(MODE_TIMED_STEPS, gen_39)
+            torch.cuda.synchronize()
+            sps = MODE_TIMED_STEPS / (time.perf_counter() - t0)
+            cnt = {}
+            for mod in counters:
+                cnt.update({k_: v_ for k_, v_ in mod.launch_counts().items()
+                            if v_})
+            stepper_modes[f"{mode} {sl}"] = dict(
+                step_check_rel=rel, steps_per_s=sps,
+                iters=tr_39["iters"].tolist(),
+                max_residual=tr_39["residual"].max().item(), launches=cnt)
+            print(f"{mode} on the {sl} slice: step through the kernels vs "
+                  f"the plain float32 sweep max|dX_k - dX_p|/max|dX_p| = "
+                  f"{rel:.3e} (tol {STEP_TOL:g}), iters {aux_k.iters} vs "
+                  f"{aux_p.iters}; 1 + {MODE_TIMED_STEPS} steps at "
+                  f"{sps:.4f} steps/s, iters {tr_39['iters'].tolist()}, max "
+                  f"residual {tr_39['residual'].max().item():.3e}; launches "
+                  f"{cnt}")
+            if not (rel <= STEP_TOL and torch.isfinite(dX_k).all()
+                    and tr_39["residual"].max().item() < 10 * cfg_39.gmres_tol
+                    and cnt):
+                raise AssertionError(f"{mode} on the {sl} slice failed: "
+                                     f"step {rel}, launches {cnt}")
+    examples = {}
+    repo = os.path.dirname(os.path.abspath(__file__))
+    for ex in EXAMPLES:
+        with open(os.path.join(repo, "examples", ex)) as f:
+            conf_ex = json.load(f)
+        conf_ex["output_dir"] = os.path.join(pf_dir, ex[:-5])
+        conf_ex["n_steps"] = conf_ex["checkpoint_every"]
+        ex_path = os.path.join(pf_dir, ex)
+        with open(ex_path, "w") as f:
+            json.dump(conf_ex, f)
+        rpy_cuda.reset_launch_counts()
+        ex_lines = run_driver(run_mod, [ex_path])
+        ex_steps = read_trajectory(os.path.join(conf_ex["output_dir"],
+                                                "trajectory.rblt"))[0]
+        cnt = {k_: v_ for k_, v_ in rpy_cuda.launch_counts().items() if v_}
+        examples[ex] = dict(steps=conf_ex["n_steps"],
+                            steps_per_s=ex_lines[0]["steps_per_sec"],
+                            max_residual=ex_lines[0]["max_residual"],
+                            launches=cnt)
+        print(f"the driver on examples/{ex}, {conf_ex['n_steps']} steps: "
+              f"{ex_lines[0]}; frames {len(ex_steps)}; launches {cnt}")
+        # every step committed: its residual below the configuration's
+        # max_step_residual (the examples' minimum-image film is
+        # indefinite and its GMRES can stop above gmres_tol at maxiter)
+        if not (ex_lines[0]["max_residual"] < EXAMPLE_MAX_RESIDUAL
+                and len(ex_steps) == conf_ex["n_steps"]
+                // conf_ex["save_every"]
+                and cnt.get("pair_sweep_sym", 0) > 0):
+            raise AssertionError(f"the driver on examples/{ex} failed")
+    shutil.rmtree(pf_dir)
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
                       "film": {str(S): v for S, v in film.items()},
                       "film_step_check": film_step_check,
                       "film_farfield": film_ff, "mixture": mixture,
-                      "farfield_mixture": ff_mix}))
+                      "farfield_mixture": ff_mix, "poly_film": poly_film,
+                      "stepper_modes": stepper_modes,
+                      "examples": examples}))
 
     b1 = bound_ms(60 * n * n, 36 * n)
     b1_2 = bound_ms(90 * n * n, 60 * n)
@@ -2626,7 +3095,9 @@ def main():
          "ms_2rhs_409600": k1_scale[2]["ms"],
          "peak_bytes_409600": k1_scale[1]["peak_bytes"],
          "peak_bytes_2rhs_409600": k1_scale[2]["peak_bytes"],
-         **poly_entries(poly_t, "K1", mixture["k1_poly"])},
+         **poly_entries(poly_t, "K1", mixture["k1_poly"]),
+         **poly_box_entries(pf_t, pf_errs, "K1", poly_film["k1_poly_box"],
+                            poly_film["k1_poly_box_per_step"])},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
@@ -2635,7 +3106,9 @@ def main():
          "bound_ratio": k2_ms / b2[0], "redesigned_in": 5,
          "launches_settled": counts_s["pair_sweep_ordered"],
          **box_entries(film_k, film, "K2", "k2"),
-         **poly_entries(poly_t, "K2", mixture["k2_poly"])},
+         **poly_entries(poly_t, "K2", mixture["k2_poly"]),
+         **poly_box_entries(pf_t, pf_errs, "K2", poly_film["k2_poly_box"],
+                            poly_film["k2_poly_box_per_step"])},
         {"name": "near_sweep", "route": "cuda", "source": K3_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
          "launches": counts_f["near_sweep"], "max_abs_err": k3[1]["err"],

@@ -19,7 +19,10 @@ reader of :mod:`.utils.checkpoint`); and the pseudo-2D film (a 2-D
 ``image_shells`` the exact doubly-periodic image sum); and mixtures of
 body species (:mod:`.multi`, ``multi.run_bd_multi``), a species with its
 own blob radius making the coupled product polydisperse, on the dense
-sweeps or the far field (open or in the film).  Their pair sweeps are
+sweeps or the far field (open or in the film); the ``em_exact`` drift and
+the unpreconditioned noise in both steppers; and the run driver
+(``python -m rigid_body_light_tpu_torch.run``, :mod:`.run`) with its
+trajectory writer (:mod:`.runtime`) and checkpoints.  Their pair sweeps are
 hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak

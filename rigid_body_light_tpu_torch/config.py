@@ -207,13 +207,6 @@ class SimulationConfig:
         if self.farfield_grid is not None and self.farfield_band_p > 0:
             raise _not_ported("the far field's band tier (farfield_band_p "
                               "> 0)", "item 11")
-        if self.drift_mode == "em_exact":
-            raise _not_ported("drift_mode='em_exact' (rfd.n_rfd_exact)",
-                              "item 7 (rfd)")
-        if self.kBT > 0 and not self.lanczos_precond:
-            raise _not_ported("unpreconditioned Lanczos noise "
-                              "(lanczos.m_half_w / m_half_w_pair)",
-                              "item 6 (lanczos)")
 
     def replace(self, **kw) -> "SimulationConfig":
         return dataclasses.replace(self, **kw)

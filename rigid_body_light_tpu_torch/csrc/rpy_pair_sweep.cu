@@ -97,8 +97,7 @@
 // wall terms at the pair's √(aᵢaⱼ), the heights floored per pair after the
 // scaling).  K2's row and column radii come with its row and column
 // slices.  The fields stay symmetric under i ↔ j, so K1's transposed apply
-// holds.  No box: a POLY launch with a box is refused (ROADMAP.md queue 1,
-// item 12b, the poly × box forms).  The far branch costs 15 operations
+// holds.  The far branch costs 15 operations
 // more than the monodisperse fields; the overlap and deep branches, with
 // their two IEEE divisions, run on the few pairs closer than aᵢ + aⱼ.
 // 56 / 80 registers for K1 with a wall at 1 / 2 RHS (4 bytes spilled at
@@ -106,6 +105,19 @@
 // the mixture slice (10,296 blobs): K1 0.381 / 0.496 ms at 1 / 2 RHS,
 // +13% / +11% over its monodisperse form at the same positions; K2 0.520 /
 // 0.628 ms, +18% / +15% (PERF.md §6).
+//
+// POLY × BOX forms (POLY and BOX together; rpy_pallas.py:592-640 with
+// box_over_a and ahat): the box forms' wrap and offset loop around the
+// POLY fields, the same pair body.  A pair's radii and raw heights do not
+// change across its images, so the offset loop adds no per-blob values,
+// only the POLY fields' per-pair ones.  K1 leaves out a blob's own images
+// as in the box form; rpy_cuda.pair_sum adds them with the blob's radius
+// (rpy.self_image_sum with ahat).  80 / 121 registers for K1 with a wall
+// at 1 / 2 RHS (12 bytes spilled at 1 RHS, 28 in the grouped kernel), K2
+// 80 / 96, no spills.  On an H100 at 700 W at the polydisperse film
+// (10,296 blobs in a (10, 10) box): K1 at 1 RHS 0.522 / 8.26 ms at S = 0 /
+// 2, +17% / +28% over its box form at the same positions; K2 at 2 RHS
+// 0.945 / 16.35 ms, +22% / +30% (PERF.md §6).
 //
 // Per-blob quantities (the floored height, or a POLY form's radius) are
 // computed once per blob, when the blob is loaded, and staged beside its
@@ -656,8 +668,9 @@ int rpy_ordered_chunk() { return kOrdChunk; }
 // scratch, fully overwritten).
 // With box_x > 0 the box form: the (box_x, box_y) box in units of a,
 // ``shells`` image shells with tail coefficients (alpha, beta); K1 leaves
-// out the self images (rpy.self_image_sum).  With ahat (n radii in units
-// of a; NULL for one radius) the POLY form, which takes no box.
+// out the self images (rpy.self_image_sum, with the radii in the POLY
+// form).  With ahat (n radii in units of a; NULL for one radius) the POLY
+// form, with or without the box.
 int rpy_pair_sweep_sym(const float* pos, const float* force,
                        const float* ahat, int n, int nrhs, int wall,
                        float h_floor, float box_x, float box_y, int shells,
@@ -667,12 +680,16 @@ int rpy_pair_sweep_sym(const float* pos, const float* force,
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool boxed = box_x > 0.0f;
-  if (ahat != nullptr && boxed)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
   const tile_items::Groups g = tile_items::groups_of(n);
   const Box box = make_box(box_x, box_y, shells, alpha, beta);
-  if (ahat != nullptr && wall)
+  if (ahat != nullptr && wall && boxed)
+    launch_sym<true, true, true>(nrhs, g, stream, pos, force, ahat, n,
+                                 h_floor, box, row_part, col_part);
+  else if (ahat != nullptr && boxed)
+    launch_sym<false, true, true>(nrhs, g, stream, pos, force, ahat, n,
+                                  h_floor, box, row_part, col_part);
+  else if (ahat != nullptr && wall)
     launch_sym<true, false, true>(nrhs, g, stream, pos, force, ahat, n,
                                   h_floor, box, row_part, col_part);
   else if (ahat != nullptr)
@@ -701,7 +718,7 @@ int rpy_pair_sweep_sym(const float* pos, const float* force,
 // ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).  The box
 // arguments as K1's; the self pair keeps its images.  rows_ahat and
 // cols_ahat (radii in units of a of the rows and of the columns, both or
-// neither NULL) select the POLY form, which takes no box.
+// neither NULL) select the POLY form, with or without the box.
 int rpy_pair_sweep_ordered(const float* rows_pos, const float* rows_ahat,
                            int n_rows, int row_offset, const float* cols_pos,
                            const float* cols_ahat, const float* cols_force,
@@ -714,7 +731,7 @@ int rpy_pair_sweep_ordered(const float* rows_pos, const float* rows_ahat,
   if (shells < 0) return static_cast<int>(cudaErrorInvalidValue);
   const bool poly = rows_ahat != nullptr;
   const bool boxed = box_x > 0.0f;
-  if (poly != (cols_ahat != nullptr) || (poly && boxed))
+  if (poly != (cols_ahat != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows <= 0) return 0;
   const int n_chunks = n_cols > 0 ? (n_cols + kOrdChunk - 1) / kOrdChunk : 0;
@@ -725,7 +742,11 @@ int rpy_pair_sweep_ordered(const float* rows_pos, const float* rows_ahat,
   launch_ordered<W, B, P>(nrhs, grid, stream, rows_pos, rows_ahat, n_rows,  \
                           row_offset, cols_pos, cols_ahat, cols_force,      \
                           n_cols, col_offset, h_floor, box, part)
-    if (poly && wall)
+    if (poly && wall && boxed)
+      RPY_ORDERED(true, true, true);
+    else if (poly && boxed)
+      RPY_ORDERED(false, true, true);
+    else if (poly && wall)
       RPY_ORDERED(true, false, true);
     else if (poly)
       RPY_ORDERED(false, false, true);

@@ -4,12 +4,22 @@
 The fluctuating step is the EM–midpoint scheme with RFD drift (Sprinkle et
 al. 2017): Lanczos M^{1/2}W draws at q^n, the midpoint-slip RFD drift, a
 predictor half-kick, the saddle solve at the half-kicked configuration,
-and a guarded commit.  Loops are Python loops; there is no ``jit``.
+and a guarded commit; or, with ``drift_mode="em_exact"``, plain
+Euler–Maruyama with the solved-mobility RFD drift kBT·∂·N added to the
+solve's U.  Loops are Python loops; there is no ``jit``.
 
 PyTorch generators do not reproduce ``jax.random``, so the Gaussian draws
-are inputs: ``stochastic_step`` takes ``draws=(W1, W2, W_rfd)`` — W1, W2
-(B·3n,) in the body-frame layout of the preconditioned Lanczos, W_rfd
-(B, n, 3) — or makes them from an explicit ``torch.Generator``.
+are inputs: ``stochastic_step`` takes ``draws=(W1, W2, W_rfd)`` or makes
+them from an explicit ``torch.Generator`` (:func:`make_draws`).  Their
+shapes by mode:
+
+- W1, W2: (B·3n,) each — in the body-frame layout of the preconditioned
+  Lanczos (``lanczos_precond``), else in the blob layout of
+  ``lanczos.m_half_w``.  W2 is None where the step takes one draw
+  (``split_rand`` off, or ``em_exact``, whose single √(2kBT/dt) draw has
+  the split pair's distribution).
+- W_rfd: (B, n, 3), the blob-space draw of the midpoint scheme's M-RFD;
+  (B, 6), the body-space draw of ``em_exact``'s N-RFD.
 """
 
 from __future__ import annotations
@@ -79,12 +89,21 @@ def deterministic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
         U=res.U, lam=res.lam, residual=res.residual, iters=res.iters)
 
 
+def uses_split(cfg: SimulationConfig) -> bool:
+    """Whether a step draws two Lanczos draws (the split increment of the
+    midpoint scheme) or one."""
+    return cfg.split_rand and cfg.drift_mode != "em_exact"
+
+
 def make_draws(geom: kin.RefGeometry, state: BodyState,
-               generator: torch.Generator):
+               generator: torch.Generator, cfg: SimulationConfig = None):
     """The step's Gaussian draws (W1, W2, W_rfd) from ``generator``, on the
-    state's device and in its dtype."""
+    state's device and in its dtype, in the shapes of ``cfg``'s mode (the
+    module docstring; no cfg: the midpoint scheme's)."""
     B, n = state.X.shape[0], geom.n_blobs
     kw = dict(generator=generator, dtype=state.X.dtype, device=state.X.device)
+    if cfg is not None and cfg.drift_mode == "em_exact":
+        return torch.randn(B * 3 * n, **kw), None, torch.randn((B, 6), **kw)
     return (torch.randn(B * 3 * n, **kw), torch.randn(B * 3 * n, **kw),
             torch.randn((B, n, 3), **kw))
 
@@ -94,22 +113,27 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
                     mob_apply: Callable = None, x0=None, pc=None,
                     noise_pc=None, mob_multi: Callable = None, draws=None,
                     generator: torch.Generator = None):
-    """One fluctuating BD step (EM–midpoint with RFD drift).
+    """One fluctuating BD step (EM–midpoint with RFD drift, or
+    ``em_exact``).
 
-      1. M^{1/2}W₁ (and W₂ with ``split_rand``) by preconditioned Lanczos
-         at q^n — fused through the 2-RHS product when the operator is the
-         default one or ``mob_multi`` is given.
-      2. Drift D = kBT·M_RFD at q^n; Brownian increment
-         BI = c₂(M^{1/2}W₁ − M^{1/2}W₂) [split] or c₂·M^{1/2}W₁, with
-         c₁ = 2√(kBT/dt), c₂ = √(kBT/dt) [split], else c₁ = c₂ = √(2kBT/dt).
-      3. Predictor half-kick q^{n+1/2} = q^n + (dt/2)·K⁺(c₁ M^{1/2}W₁),
-         guarded like a commit.
-      4. Saddle solve at q^{n+1/2} with RHS [slip − (D + BI); F].
-      5. Commit q^{n+1} = q^n + U·dt, unless the solve residual exceeds
+      1. M^{1/2}W₁ (and W₂ with ``split_rand``) by Lanczos at q^n,
+         preconditioned with ``lanczos_precond`` — the two draws fused
+         through the 2-RHS product when the operator is the default one or
+         ``mob_multi`` is given.
+      2. Brownian increment BI = c₂(M^{1/2}W₁ − M^{1/2}W₂) [split] or
+         c₂·M^{1/2}W₁, with c₁ = 2√(kBT/dt), c₂ = √(kBT/dt) [split], else
+         c₁ = c₂ = √(2kBT/dt).
+      3. Midpoint: drift D = kBT·M_RFD at q^n; predictor half-kick
+         q^{n+1/2} = q^n + (dt/2)·K⁺(c₁ M^{1/2}W₁), guarded like a commit;
+         saddle solve at q^{n+1/2} with RHS [slip − (D + BI); F].
+         ``em_exact``: saddle solve at q^n with RHS [slip − BI; F], then
+         U += kBT·N_RFD (:func:`rfd.n_rfd_exact`, two more solves).
+      4. Commit q^{n+1} = q^n + U·dt, unless the solve residual exceeds
          ``max_step_residual``.
 
-    draws: (W1, W2, W_rfd), or None to draw them from ``generator``.
-    x0: optional (λ, U) warm start.  Returns (new_state, StepAux).
+    draws: (W1, W2, W_rfd) in the shapes of the module docstring, or None
+    to draw them from ``generator``.  x0: optional (λ, U) warm start.
+    Returns (new_state, StepAux).
     """
     with profiling.span("step"):
         return _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0,
@@ -134,28 +158,41 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
         slip = torch.zeros_like(ops.flat_positions)
 
     kBT = cfg.kBT
+    drift_U = None
     if kBT > 0.0:
         if draws is None:
             if generator is None:
                 raise ValueError("stochastic_step needs draws or a generator")
-            draws = make_draws(geom, state, generator)
-        W1, W2, W_rfd = (torch.as_tensor(w, dtype=dtype,
+            draws = make_draws(geom, state, generator, cfg)
+        W1, W2, W_rfd = (None if w is None else
+                         torch.as_tensor(w, dtype=dtype,
                                          device=state.X.device)
                          for w in draws)
-        if noise_pc is None:
+        if cfg.lanczos_precond and noise_pc is None:
             noise_pc = lanczos.make_noise_preconditioner(geom.ref_cfg, cfg.a,
                                                          cfg.eta)
         with profiling.span("noise"):
             mhw1, noise_err, c1, bi = _brownian(
                 cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1, W2)
-        with profiling.span("rfd"):
-            drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd, mob_apply)
-        slip_eff = slip - (drift + bi)
-        with profiling.span("kinematics"):
-            u_half = kin.Kinv_dot((c1 * mhw1).reshape(B, n, 3), ops.offsets,
-                                  ops.ktkinv)
-            half_state = _commit(geom, cfg, state, (cfg.dt / 2.0) * u_half)
-            ops_solve = saddle_mod.geometry_ops(geom, half_state)
+        if cfg.drift_mode == "em_exact":
+            # plain EM: solve at q^n, add the solved-mobility divergence
+            # drift afterwards — no midpoint kick (it would double count)
+            slip_eff = slip - bi
+            ops_solve = ops
+            with profiling.span("rfd"):
+                drift_U = kBT * rfd.n_rfd_exact(geom, state, cfg, W_rfd,
+                                                mob_apply, pc=pc)
+        else:
+            with profiling.span("rfd"):
+                drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd,
+                                        mob_apply)
+            slip_eff = slip - (drift + bi)
+            with profiling.span("kinematics"):
+                u_half = kin.Kinv_dot((c1 * mhw1).reshape(B, n, 3),
+                                      ops.offsets, ops.ktkinv)
+                half_state = _commit(geom, cfg, state,
+                                     (cfg.dt / 2.0) * u_half)
+                ops_solve = saddle_mod.geometry_ops(geom, half_state)
     else:
         slip_eff = slip
         ops_solve = ops
@@ -163,30 +200,37 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
 
     res = solvers.solve_saddle(ops_solve, cfg, slip_eff, force,
                                mob_apply=mob_apply, x0=x0, pc=pc)
+    U_total = res.U if drift_U is None else res.U + drift_U
     # a failed solve moves nothing (a garbage U launches bodies across the
     # box); aux.residual surfaces the event
-    dU = torch.where(_residual_ok(res, cfg), res.U,
-                     torch.zeros_like(res.U)) * cfg.dt
+    dU = torch.where(_residual_ok(res, cfg), U_total,
+                     torch.zeros_like(U_total)) * cfg.dt
     with profiling.span("kinematics"):
         new_state = _commit(geom, cfg, state, dU)
     return new_state, StepAux(
-        U=res.U, lam=res.lam, residual=res.residual, iters=res.iters,
+        U=U_total, lam=res.lam, residual=res.residual, iters=res.iters,
         noise_err=noise_err.to(dtype))
 
 
 def _brownian(cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1,
               W2):
     """The step's Lanczos draws at q^n → (M^{1/2}W₁, noise_err, c₁, the
-    Brownian increment BI): fused through the 2-RHS product when the
+    Brownian increment BI): preconditioned with ``cfg.lanczos_precond``
+    (``noise_pc`` = (L, L⁻¹)), and fused through the 2-RHS product when the
     operator is the default one or ``mob_multi`` is given."""
     kBT = cfg.kBT
     pos = ops.flat_positions
-    L, L_inv = noise_pc
     lz = dict(iters=cfg.lanczos_iters, max_iters=cfg.lanczos_max_iters,
               err_tol=cfg.lanczos_err_tol, return_err=True)
-    if not cfg.split_rand:
-        mhw1, noise_err = lanczos.m_half_w_precond(
-            mob_apply, pos, ops.rot, L, L_inv, W1, **lz)
+
+    def one(mob, W):
+        if cfg.lanczos_precond:
+            return lanczos.m_half_w_precond(mob, pos, ops.rot, *noise_pc, W,
+                                            **lz)
+        return lanczos.m_half_w(mob, pos, W, **lz)
+
+    if not uses_split(cfg):
+        mhw1, noise_err = one(mob_apply, W1)
         c1 = c2 = math.sqrt(2.0 * kBT / cfg.dt)
         return mhw1, noise_err, c1, c2 * mhw1
     if default_mob or mob_multi is not None:
@@ -195,14 +239,16 @@ def _brownian(cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1,
             # operator, not a second lattice build
             mob_multi = (mob_apply if hasattr(mob_apply, "prepare")
                          else saddle_mod.mobility_apply_multi_fn(cfg))
-        mhw1, mhw2, noise_err = lanczos.m_half_w_precond(
-            mob_multi, pos, ops.rot, L, L_inv, torch.stack([W1, W2]),
-            multi=True, **lz)
+        if cfg.lanczos_precond:
+            mhw1, mhw2, noise_err = lanczos.m_half_w_precond(
+                mob_multi, pos, ops.rot, *noise_pc, torch.stack([W1, W2]),
+                multi=True, **lz)
+        else:
+            mhw1, mhw2, noise_err = lanczos.m_half_w_pair(
+                mob_multi, pos, torch.stack([W1, W2]), **lz)
     else:
-        mhw1, e1 = lanczos.m_half_w_precond(
-            mob_apply, pos, ops.rot, L, L_inv, W1, **lz)
-        mhw2, e2 = lanczos.m_half_w_precond(
-            mob_apply, pos, ops.rot, L, L_inv, W2, **lz)
+        mhw1, e1 = one(mob_apply, W1)
+        mhw2, e2 = one(mob_apply, W2)
         noise_err = torch.maximum(e1, e2)
     c1 = 2.0 * math.sqrt(kBT / cfg.dt)
     c2 = math.sqrt(kBT / cfg.dt)
@@ -217,10 +263,10 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
     """Run a BD trajectory of ``n_steps`` stochastic steps.
 
     force_fn / slip_fn: (BodyState, step) → (B, 6) force / (N, 3) slip
-    (default 0).  draws_fn: step → (W1, W2, W_rfd), else the draws come
-    from ``generator``.  The ``block_free`` PC (the static tier of ``ras``,
-    whose halo coupling each solve builds fresh) and the noise-PC factors
-    are built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
+    (default 0).  draws_fn: step → (W1, W2, W_rfd) in the shapes of the
+    module docstring, else the draws come from ``generator``.  The
+    ``block_free`` PC (the static tier of ``ras``, whose halo coupling each
+    solve builds fresh) and the noise-PC factors are built once; a lagged PC (``pc_refresh`` > 1) is rebuilt every
     ``pc_refresh`` steps; each solve is warm-started from the previous
     step's (λ, U), zeroed after a failed solve.  A periodic box too small
     for the body geometry raises ``ValueError`` before the first step.

@@ -17,13 +17,15 @@ noise factors are built at its radius.
     states', res = stochastic_step_multi(mgeom, cfg, states, forces,
                                          draws=(W1, W2, W_rfd))
 
-As in the single-species stepper, the Gaussian draws are inputs: W1 and W2
-(3·N_total,) in the species-major body-frame layout of
-:func:`m_half_w_precond_multi`, W_rfd (N_total, 3); or they come from an
-explicit ``torch.Generator`` (:func:`make_draws_multi`).  Not ported: the
-distributed mode (``axis_name``, ROADMAP.md queue 1, item 16); the
-configuration refuses ``drift_mode="em_exact"`` (item 7) and the
-unpreconditioned noise (item 6) for every stepper.
+As in the single-species stepper, the Gaussian draws are inputs, or they
+come from an explicit ``torch.Generator`` (:func:`make_draws_multi`):
+W1 and W2 (3·N_total,) — in the species-major body-frame layout of
+:func:`m_half_w_precond_multi` with ``lanczos_precond``, else in the blob
+layout of ``lanczos.m_half_w`` — W2 None where the step takes one draw
+(``split_rand`` off, or ``em_exact``); W_rfd (N_total, 3) for the
+midpoint scheme, (B_total, 6) species-major for ``em_exact``'s
+:func:`n_rfd_exact_multi`.  Not ported: the distributed mode
+(``axis_name``, ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -34,10 +36,11 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
-from rigid_body_light_tpu_torch.dynamics.stepper import _commit
+from rigid_body_light_tpu_torch.dynamics.stepper import _commit, uses_split
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import lanczos
+from rigid_body_light_tpu_torch.ops import rfd
 from rigid_body_light_tpu_torch.ops import rpy
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.state import BodyState
@@ -461,16 +464,46 @@ def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
 
 
 def make_draws_multi(mgeom: MultiGeometry, states: Sequence[BodyState],
-                     generator: torch.Generator):
-    """A mixture step's Gaussian draws (W1, W2, W_rfd) from ``generator``:
-    W1, W2 (3·N_total,), W_rfd (N_total, 3), on the states' device and in
-    their dtype."""
+                     generator: torch.Generator,
+                     cfg: SimulationConfig = None):
+    """A mixture step's Gaussian draws (W1, W2, W_rfd) from ``generator``,
+    on the states' device and in their dtype, in the shapes of ``cfg``'s
+    mode (the module docstring; no cfg: the midpoint scheme's)."""
     n_total = sum(g.n_blobs * s.X.shape[0]
                   for g, s in zip(mgeom.geoms, states))
     kw = dict(generator=generator, dtype=states[0].X.dtype,
               device=states[0].X.device)
+    if cfg is not None and cfg.drift_mode == "em_exact":
+        b_total = sum(s.X.shape[0] for s in states)
+        return (torch.randn(3 * n_total, **kw), None,
+                torch.randn((b_total, 6), **kw))
     return (torch.randn(3 * n_total, **kw), torch.randn(3 * n_total, **kw),
             torch.randn((n_total, 3), **kw))
+
+
+def n_rfd_exact_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
+                      states: Sequence[BodyState], w,
+                      mob_apply: Callable = None, pcs=None):
+    """The mixture's body-space divergence drift ∂·N per species by a
+    centered RFD on the solved mixture body mobility (two extra mixture
+    saddle solves), as :func:`rigid_body_light_tpu_torch.ops.rfd
+    .n_rfd_exact`, for a Gaussian draw ``w`` (B_total, 6), species-major.
+    Returns a tuple of per-species (B_s, 6); multiply by kBT at the call
+    site.  δ is floored at 1e-2 in float32 (``rfd.rfd_delta``)."""
+    dtype = states[0].X.dtype
+    ws = tuple(torch.split(w.reshape(-1, 6).to(dtype),
+                           [s.X.shape[0] for s in states]))
+    delta = rfd.rfd_delta(cfg, dtype)
+
+    def n_dot_w(sign):
+        displaced = tuple(
+            BodyState(*kin.update_X_Q(s.X, s.Q, sign * (delta / 2.0) * w_s))
+            for s, w_s in zip(states, ws))
+        return solve_saddle_multi(mgeom, cfg, displaced, None, ws,
+                                  mob_apply=mob_apply, pcs=pcs).Us
+
+    up, um = n_dot_w(1.0), n_dot_w(-1.0)
+    return tuple((p - m) / delta for p, m in zip(up, um))
 
 
 def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
@@ -479,14 +512,16 @@ def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
                           noise_pcs=None, mob_multi: Callable = None,
                           draws=None, generator: torch.Generator = None,
                           axis_name=None):
-    """One fluctuating BD step of the mixture (EM–midpoint with RFD drift,
-    as :func:`rigid_body_light_tpu_torch.dynamics.stochastic_step`): fused
-    2-RHS preconditioned Lanczos noise with ``split_rand`` (per-species
-    body-frame factors, ``noise_pcs``), the midpoint-slip RFD drift, a
-    per-species predictor half-kick, the saddle solve at the half-kicked
-    configuration, and a guarded per-species commit.  draws: (W1, W2,
-    W_rfd), or None to draw them from ``generator``.  Returns (new_states,
-    MultiSolveResult)."""
+    """One fluctuating BD step of the mixture, the modes of
+    :func:`rigid_body_light_tpu_torch.dynamics.stochastic_step`: fused
+    2-RHS Lanczos noise with ``split_rand`` (preconditioned by per-species
+    body-frame factors, ``noise_pcs``, with ``lanczos_precond``), the
+    midpoint-slip RFD drift, a per-species predictor half-kick and the
+    saddle solve at the half-kicked configuration; or ``em_exact``, one
+    draw, the solve at q^n and :func:`n_rfd_exact_multi`; a guarded
+    per-species commit.  draws: (W1, W2, W_rfd) in the shapes of the module
+    docstring, or None to draw them from ``generator``.  Returns
+    (new_states, MultiSolveResult), its Us the committed velocities."""
     with profiling.span("step"):
         return _stochastic_step_multi(mgeom, cfg, tuple(states), forces, slip,
                                       mob_apply, x0, pcs, noise_pcs,
@@ -510,15 +545,17 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
         slip = torch.zeros((n_total, 3), dtype=dtype, device=dev)
 
     kBT = cfg.kBT
+    drift_Us = None
     if kBT > 0.0:
         if draws is None:
             if generator is None:
                 raise ValueError("stochastic_step_multi needs draws or a "
                                  "generator")
-            draws = make_draws_multi(mgeom, states, generator)
-        W1, W2, W_rfd = (torch.as_tensor(w, dtype=dtype, device=dev)
+            draws = make_draws_multi(mgeom, states, generator, cfg)
+        W1, W2, W_rfd = (None if w is None else
+                         torch.as_tensor(w, dtype=dtype, device=dev)
                          for w in draws)
-        if noise_pcs is None:
+        if cfg.lanczos_precond and noise_pcs is None:
             noise_pcs = make_noise_preconditioner_multi(mgeom, cfg.a, cfg.eta)
         if mob_multi is None:
             if hasattr(mob_apply, "prepare"):
@@ -528,19 +565,38 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
             else:
                 def mob_multi(xk, r):
                     return torch.stack([mob_apply(x, r) for x in xk])
+        pos = concat_positions(opses)
         with profiling.span("noise"):
-            if cfg.split_rand:
-                mhw1, mhw2 = m_half_w_precond_multi(
-                    mob_multi, opses, noise_pcs, torch.stack([W1, W2]),
-                    iters=cfg.lanczos_iters)
+            if uses_split(cfg):
+                if cfg.lanczos_precond:
+                    mhw1, mhw2 = m_half_w_precond_multi(
+                        mob_multi, opses, noise_pcs, torch.stack([W1, W2]),
+                        iters=cfg.lanczos_iters)
+                else:
+                    mhw1, mhw2 = lanczos.m_half_w_pair(
+                        mob_multi, pos, torch.stack([W1, W2]),
+                        iters=cfg.lanczos_iters)
                 c1 = 2.0 * math.sqrt(kBT / cfg.dt)
                 bi = math.sqrt(kBT / cfg.dt) * (mhw1 - mhw2)
             else:
-                (mhw1,) = m_half_w_precond_multi(
-                    mob_multi, opses, noise_pcs, W1[None],
-                    iters=cfg.lanczos_iters)
+                if cfg.lanczos_precond:
+                    (mhw1,) = m_half_w_precond_multi(
+                        mob_multi, opses, noise_pcs, W1[None],
+                        iters=cfg.lanczos_iters)
+                else:
+                    mhw1 = lanczos.m_half_w(mob_apply, pos, W1,
+                                            iters=cfg.lanczos_iters)
                 c1 = math.sqrt(2.0 * kBT / cfg.dt)
                 bi = c1 * mhw1
+    if kBT > 0.0 and cfg.drift_mode == "em_exact":
+        # plain EM: solve at q^n, add the solved-mobility divergence drift
+        # afterwards — no midpoint kick
+        slip_eff = slip - bi
+        opses_solve = opses
+        with profiling.span("rfd"):
+            drift_Us = tuple(kBT * d for d in n_rfd_exact_multi(
+                mgeom, cfg, states, W_rfd, mob_apply=mob_apply, pcs=pcs))
+    elif kBT > 0.0:
         with profiling.span("rfd"):
             # drift: centered RFD of M along the rigid direction u = K⁺W
             w_parts = split_blobs(W_rfd.reshape(-1, 3), opses)
@@ -571,6 +627,8 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
     res = solve_saddle_multi(mgeom, cfg, states, slip_eff, forces,
                              mob_apply=mob_apply, opses=opses_solve, x0=x0,
                              pcs=pcs)
+    if drift_Us is not None:
+        res = res._replace(Us=tuple(U + d for U, d in zip(res.Us, drift_Us)))
     ok = res.residual < cfg.max_step_residual
     with profiling.span("kinematics"):
         new_states = tuple(
@@ -608,7 +666,8 @@ def run_bd_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
 
     force_fn: (states, step) → tuple of per-species (B_s, 6) (default 0).
     slip_fn: (states, step) → (N_total, 3).  draws_fn: step → (W1, W2,
-    W_rfd), else the draws come from ``generator``.  Returns (final_states,
+    W_rfd) in the shapes of the module docstring, else the draws come from
+    ``generator``.  Returns (final_states,
     trajectory) with per-species stacked snapshots every ``save_every``
     steps: trajectory["X"][s] has shape (n_saved, B_s, 3); "residual" and
     "iters" (n_saved,).

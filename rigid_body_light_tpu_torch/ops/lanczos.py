@@ -1,11 +1,13 @@
-"""Brownian increments M^{1/2}·W by Lanczos — the port of the main-path
-subset of ``rigid_body_light_tpu/ops/lanczos.py``.
+"""Brownian increments M^{1/2}·W by Lanczos — the port of
+``rigid_body_light_tpu/ops/lanczos.py`` (one device).
 
 m Lanczos iterations with the matrix-free damped mobility product build a
 tridiagonal T and an orthonormal basis V; then
 M^{1/2} W ≈ ‖W‖ · Vᵀ · (V_T √Λ V_Tᵀ) e₁, for a fixed m or, adaptively,
 until the truncation estimate falls to a tolerance.  Preconditioned with
-the body-frame free-space factor (``make_noise_preconditioner``).
+the body-frame free-space factor (``m_half_w_precond``,
+``make_noise_preconditioner``), or on the plain blob space (``m_half_w``,
+and ``m_half_w_pair`` for two draws through the fused 2-RHS product).
 
 The Gaussian draws W are inputs: the caller makes them (from a
 ``torch.Generator``, or the JAX package's keys in the parity tests).
@@ -107,6 +109,63 @@ def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
     if return_iters:
         extra += (i,)
     return (out,) + extra if extra else out
+
+
+def sqrt_matvec(matvec: Callable, w, iters: int = 30):
+    """A^{1/2}·w for an SPD operator ``matvec`` on (sz,) vectors."""
+    return sqrt_matvec_batched(lambda vk: matvec(vk[0])[None], w[None],
+                               iters=iters)[0]
+
+
+def m_half_w(mob_apply: Callable, positions, W, iters: int = 30,
+             max_iters: int = 0, err_tol: float = 0.0,
+             return_err: bool = False):
+    """M^{1/2}W on the blob space from a Gaussian draw ``W`` (3N,) in the
+    blob layout (x, y, z of blob 0, then blob 1, …), without the body-frame
+    preconditioner.  mob_apply: (F (N,3), r (N,3)) → (N,3), the damped
+    product.  Returns (N, 3), or ((N, 3), the truncation estimate) with
+    ``return_err``; ``max_iters`` / ``err_tol``: the adaptive recurrence of
+    :func:`sqrt_matvec_batched`."""
+    positions = positions.reshape(-1, 3)
+    mob_apply = saddle.hoist_positions(mob_apply, positions)
+
+    def mv(vk):
+        with profiling.span("mobility"):
+            return mob_apply(vk[0].reshape(-1, 3), positions).reshape(1, -1)
+
+    out = sqrt_matvec_batched(mv, W.reshape(1, -1).to(positions.dtype),
+                              iters=iters, max_iters=max_iters,
+                              err_tol=err_tol, return_err=return_err)
+    if return_err:
+        out, err = out
+        return out[0].reshape(-1, 3), err[0]
+    return out[0].reshape(-1, 3)
+
+
+def m_half_w_pair(mob_apply_multi: Callable, positions, W, iters: int = 30,
+                  max_iters: int = 0, err_tol: float = 0.0,
+                  return_err: bool = False):
+    """Two independent M^{1/2}W draws from ``W`` (2, 3N) (blob layout, as
+    :func:`m_half_w`), both recurrences through one 2-RHS product
+    ``mob_apply_multi`` ((2, N, 3), r) → (2, N, 3) a step.  Returns
+    ((N, 3), (N, 3)), plus the larger truncation estimate with
+    ``return_err``."""
+    positions = positions.reshape(-1, 3)
+    mob_apply_multi = saddle.hoist_positions(mob_apply_multi, positions)
+
+    def mv2(vk):
+        with profiling.span("mobility"):
+            return mob_apply_multi(vk.reshape(2, -1, 3),
+                                   positions).reshape(2, -1)
+
+    out = sqrt_matvec_batched(mv2, W.reshape(2, -1).to(positions.dtype),
+                              iters=iters, max_iters=max_iters,
+                              err_tol=err_tol, return_err=return_err)
+    if return_err:
+        out, err = out
+        return (out[0].reshape(-1, 3), out[1].reshape(-1, 3),
+                torch.max(err))
+    return out[0].reshape(-1, 3), out[1].reshape(-1, 3)
 
 
 def make_noise_preconditioner(ref_cfg, a, eta):

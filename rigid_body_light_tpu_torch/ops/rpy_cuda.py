@@ -17,17 +17,17 @@ Kernels (``csrc/rpy_pair_sweep.cu``, built for sm_90a at first use by
 
 Both have a POLY form (per-blob radii in units of a, ``ahat``: the
 polydisperse fields of ``rpy_pallas._poly_coeffs`` and the wall terms at
-the pair's √(aᵢaⱼ), heights floored per pair), without a box: a poly
-sweep with a box on a CUDA tensor raises NotImplementedError (ROADMAP.md
-queue 1, item 12b, the poly × box forms); the CPU twin computes it.
+the pair's √(aᵢaⱼ), heights floored per pair), with or without the box
+below (the POLY × box forms).
 
 Both take the pseudo-2D (Lx, Ly) box: the minimum-image wrap of a pair's
 in-plane displacement and, with ``image_shells`` S ≥ 1, the exact
 doubly-periodic sum over the (2S+1)² − 1 nonzero lattice offsets of the
 wrapped displacement with the two-ring tail weights (``image_tail``).  K1
 never visits i == i, so :func:`pair_sum` adds the self-image diagonal
-(:func:`.rpy.self_image_sum`, plain PyTorch on the device) as
-``rpy_pallas.pair_sum`` does; K2 keeps a blob's own images.
+(:func:`.rpy.self_image_sum`, plain PyTorch on the device, with the
+blob's radius in the POLY form) as ``rpy_pallas.pair_sum`` does; K2 keeps
+a blob's own images.
 
 Dispatch in :func:`pair_sum` follows the JAX package's rule
 (``rpy_pallas.py:59-66``, ``:623``), with or without a box: k=1 → K1; k=2
@@ -43,10 +43,11 @@ term, the 1/(8πηa) scale and the B·M·B damping.  Not differentiable yet:
 the ``custom_vjp`` of ``rpy_pallas.mobility_apply`` is ported with the
 adjoint slice (ROADMAP.md queue 1, item 15).
 
-``sym_launches`` / ``ordered_launches`` (and ``sym_poly_launches`` /
-``ordered_poly_launches`` for the POLY forms) count kernel launches
-(incremented where each kernel is launched, nowhere else) so a run can
-show that its main path went through the kernels.
+``sym_launches`` / ``ordered_launches`` (``sym_poly_launches`` /
+``ordered_poly_launches`` for the POLY forms, ``sym_poly_box_launches`` /
+``ordered_poly_box_launches`` for the POLY × box forms) count kernel
+launches (incremented where each kernel is launched, nowhere else) so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -74,22 +75,28 @@ sym_launches = 0
 ordered_launches = 0
 sym_poly_launches = 0
 ordered_poly_launches = 0
+sym_poly_box_launches = 0
+ordered_poly_box_launches = 0
 
 _lib = None
 
 
 def reset_launch_counts():
     global sym_launches, ordered_launches, sym_poly_launches
-    global ordered_poly_launches
+    global ordered_poly_launches, sym_poly_box_launches
+    global ordered_poly_box_launches
     sym_launches = ordered_launches = 0
     sym_poly_launches = ordered_poly_launches = 0
+    sym_poly_box_launches = ordered_poly_box_launches = 0
 
 
 def launch_counts():
     return {"pair_sweep_sym": sym_launches,
             "pair_sweep_ordered": ordered_launches,
             "pair_sweep_sym_poly": sym_poly_launches,
-            "pair_sweep_ordered_poly": ordered_poly_launches}
+            "pair_sweep_ordered_poly": ordered_poly_launches,
+            "pair_sweep_sym_poly_box": sym_poly_box_launches,
+            "pair_sweep_ordered_poly_box": ordered_poly_box_launches}
 
 
 def uses_sym(k, n):
@@ -148,15 +155,16 @@ def box_args(box_over_a=None, image_shells=0, image_tail=True):
     return bx, by, S, alpha, beta
 
 
-def _check_poly(ahat, box, n, name):
-    """The POLY form's radii: a float32 CUDA vector of n, and no box."""
+def _check_poly(ahat, n, name):
+    """The POLY form's radii: a float32 CUDA vector of n."""
     if ahat is None:
         return None
-    if box is not None and box[0] > 0:
-        raise _not_ported("a poly sweep with a box", "item 12b (K1's and "
-                          "K2's poly × box forms)")
     cuda_build.check_tensor(ahat, name, (n,))
     return ahat.data_ptr()
+
+
+def _boxed(box):
+    return box is not None and box[0] > 0
 
 
 def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
@@ -165,8 +173,8 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
     r_over_a (n, 3) and F (n, 3), or (k, n, 3) with k ∈ {1, 2}, float32
     CUDA tensors → F's shape.  box: :func:`box_args` (None: no box); the
     self images are not included.  ahat: (n,) radii in units of a, the
-    POLY form (no box)."""
-    global sym_launches, sym_poly_launches
+    POLY form (with a box the POLY × box form)."""
+    global sym_launches, sym_poly_launches, sym_poly_box_launches
     n = r_over_a.shape[0]
     Fk = F[None] if F.dim() == 2 else F
     k = Fk.shape[0]
@@ -174,7 +182,7 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
         raise ValueError(f"pair_sweep_sym takes 1 or 2 RHS, got {k}")
     cuda_build.check_tensor(r_over_a, "r_over_a", (n, 3))
     cuda_build.check_tensor(Fk, "F", (k, n, 3))
-    ahat_ptr = _check_poly(ahat, box, n, "ahat")
+    ahat_ptr = _check_poly(ahat, n, "ahat")
     lib = build()
     dev = r_over_a.device
     # a row and a column partial a tile of each unit's groups, O(n): 2.63 GB
@@ -193,6 +201,8 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
     cuda_build.raise_on_error(code, "pair_sweep_sym")
     if ahat is None:
         sym_launches += 1
+    elif _boxed(box):
+        sym_poly_box_launches += 1
     else:
         sym_poly_launches += 1
     return out if F.dim() == 3 else out[0]
@@ -206,8 +216,8 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     float32 CUDA tensors, k ∈ {1, 2} → (k, R, 3).  box: :func:`box_args`
     (None: no box); a blob's own images are included.  ahat_rows (R,) /
     ahat_cols (N,): the rows' and columns' radii in units of a (both or
-    neither), the POLY form (no box)."""
-    global ordered_launches, ordered_poly_launches
+    neither), the POLY form (with a box the POLY × box form)."""
+    global ordered_launches, ordered_poly_launches, ordered_poly_box_launches
     n_rows = r_rows_over_a.shape[0]
     k, n_cols = F_cols.shape[0], r_cols_over_a.shape[0]
     if k not in (1, 2):
@@ -218,8 +228,8 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     cuda_build.check_tensor(r_rows_over_a, "r_rows_over_a", (n_rows, 3))
     cuda_build.check_tensor(r_cols_over_a, "r_cols_over_a", (n_cols, 3))
     cuda_build.check_tensor(F_cols, "F_cols", (k, n_cols, 3))
-    rows_ptr = _check_poly(ahat_rows, box, n_rows, "ahat_rows")
-    cols_ptr = _check_poly(ahat_cols, box, n_cols, "ahat_cols")
+    rows_ptr = _check_poly(ahat_rows, n_rows, "ahat_rows")
+    cols_ptr = _check_poly(ahat_cols, n_cols, "ahat_cols")
     lib = build()
     dev = r_rows_over_a.device
     part = torch.empty((ordered_grid(n_rows, n_cols)[1], k, n_rows, 3),
@@ -235,6 +245,8 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
     cuda_build.raise_on_error(code, "pair_sweep_ordered")
     if ahat_rows is None:
         ordered_launches += 1
+    elif _boxed(box):
+        ordered_poly_box_launches += 1
     else:
         ordered_poly_launches += 1
     return out
@@ -254,8 +266,8 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
     RHS or (k, N, 3), k ≤ 2.  box_over_a: None or the pseudo-2D (Lx, Ly)
     box in units of a; image_shells / image_tail: the exact image sum, self
     images included (as ``rpy_pallas.pair_sum``).  ahat: optional (N,)
-    per-blob radii in units of a (the POLY forms; with a box only on the
-    CPU).  CPU tensors take the plain sweep, CUDA tensors K1 or K2 by
+    per-blob radii in units of a (the POLY forms, with or without the
+    box).  CPU tensors take the plain sweep, CUDA tensors K1 or K2 by
     :func:`uses_sym`.
     """
     if h_floor is None:
@@ -274,9 +286,6 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
     n = r_over_a.shape[0]
     S = box[2]
     dev = r_over_a.device.type
-    if dev != "cpu" and ahat is not None and box_over_a is not None:
-        raise _not_ported("a poly sweep with a box", "item 12b (K1's and "
-                          "K2's poly × box forms)")
     if dev == "cpu":
         ids = torch.arange(n)
         U = rpy.pair_sum(r_over_a, ids, r_over_a, ids, Fk, a=1.0, wall=wall,
@@ -289,7 +298,8 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
             if S:
                 # K1 never visits i == i: a blob against its own images
                 U = U + rpy.self_image_sum(r_over_a, Fk, wall, box[:2], S,
-                                           h_floor=h_floor, tail=image_tail)
+                                           h_floor=h_floor, tail=image_tail,
+                                           ahat=ahat)
         else:
             U = pair_sweep_ordered(r_over_a, 0, r_over_a, Fk, 0, wall,
                                    h_floor, box, ahat_rows=ahat,

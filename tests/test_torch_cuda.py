@@ -782,13 +782,70 @@ def test_poly_product_matches_plain(poly_cloud):
         assert _rel(U, ref) < TOL
 
 
+def _poly_box_ref(r32, a32, F32, box, shells, wall=True):
+    """The float64 plain sweep with radii, box and images (the self images
+    included) on the float32 inputs."""
+    ids = torch.arange(r32.shape[0], device=r32.device)
+    return rpy.pair_sum(r32.double(), ids, r32.double(), ids, F32.double(),
+                        wall=wall, box=box, image_shells=shells,
+                        radii_rows=a32.double(), radii_cols=a32.double())
+
+
 def test_poly_box_form_raises_on_the_card(poly_cloud):
+    """The POLY × box forms through ``pair_sum`` (once refused here): K1
+    with the self images at each blob's radius at 1 RHS, K2 at 2 RHS, at
+    image_shells 0 and 2 in a box the cloud crosses, wall and free, against
+    the float64 plain sweep; counted under their own launch keys only."""
     r, ahat, F = poly_cloud
-    before = rpy_cuda.launch_counts()
-    with pytest.raises(NotImplementedError, match="12b"):
-        rpy_cuda.pair_sum(r.float(), F[0].float(), True,
-                          box_over_a=(30.0, 30.0), ahat=ahat.float())
-    assert rpy_cuda.launch_counts() == before
+    box = (float(np.float32(17.0)), float(np.float32(15.0)))
+    r32, a32 = r.float().contiguous(), ahat.float().contiguous()
+    for shells in (0, 2):
+        for wall in (True, False):
+            for k in (1, 2):
+                F32 = F[:k].float().contiguous()
+                before = rpy_cuda.launch_counts()
+                U = rpy_cuda.pair_sum(r32, F32, wall, box_over_a=box,
+                                      ahat=a32, image_shells=shells)
+                torch.cuda.synchronize()
+                after = rpy_cuda.launch_counts()
+                assert _rel(U, _poly_box_ref(r32, a32, F32, box, shells,
+                                             wall)) < TOL
+                key = ("pair_sweep_sym_poly_box" if k == 1
+                       else "pair_sweep_ordered_poly_box")
+                moved = {n: after[n] - before[n] for n in after
+                         if after[n] != before[n]}
+                assert moved == {key: 1}
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_poly_box_sweeps_match_plain_and_repeat(poly_cloud, k):
+    """K1 (its pair terms, no self images) and K2 (a blob's own images
+    kept) in their POLY × box forms at image_shells 2, and K2 as a row slab
+    with its global offset, against the float64 plain sweep; two launches
+    bitwise equal."""
+    r, ahat, F = poly_cloud
+    box = (float(np.float32(17.0)), float(np.float32(15.0)))
+    args = rpy_cuda.box_args(box, 2)
+    r32, a32 = r.float().contiguous(), ahat.float().contiguous()
+    F32 = F[:k].float().contiguous()
+    ref = _poly_box_ref(r32, a32, F32, box, 2)
+    self_img = rpy.self_image_sum(r32.double(), F32.double(), True, box, 2,
+                                  ahat=a32.double())
+    U1 = rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75, box=args, ahat=a32)
+    U2 = rpy_cuda.pair_sweep_ordered(r32, 0, r32, F32, 0, True, 0.75,
+                                     box=args, ahat_rows=a32, ahat_cols=a32)
+    U3 = rpy_cuda.pair_sweep_ordered(r32[100:400].contiguous(), 100, r32, F32,
+                                     0, True, 0.75, box=args,
+                                     ahat_rows=a32[100:400].contiguous(),
+                                     ahat_cols=a32)
+    torch.cuda.synchronize()
+    assert _rel(U1.double() + self_img, ref) < TOL
+    assert _rel(U2, ref) < TOL and _rel(U3, ref[:, 100:400]) < TOL
+    assert torch.equal(U1, rpy_cuda.pair_sweep_sym(r32, F32, True, 0.75,
+                                                   box=args, ahat=a32))
+    assert torch.equal(U2, rpy_cuda.pair_sweep_ordered(
+        r32, 0, r32, F32, 0, True, 0.75, box=args, ahat_rows=a32,
+        ahat_cols=a32))
 
 
 # ---- K3's POLY form (per-blob radii in units of a), open and in the box

@@ -111,16 +111,36 @@ def test_k2_wrapper_matches_pallas_kernel(cloud, wall):
     dict(box_over_a=(10.0, 10.0), image_shells=1, image_tail=False),
 ])
 def test_wrapper_raises_on_unported_options(kwargs):
-    """Per-blob radii with the pseudo-2D box raise off the CPU: K1's and
-    K2's poly forms take no box yet (the radii alone and the box alone are
-    ported: tests/test_torch_poly.py, tests/test_torch_pseudo2d.py; on a
-    CPU tensor the twin computes the poly box form).  A tensor on the meta
-    device stands for one on the card."""
-    r = torch.rand(8, 3, device="meta")
+    """Per-blob radii with the pseudo-2D box, the options the wrapper
+    refused before K1's and K2's POLY × box forms: on a CPU tensor, 1 and 2
+    RHS, the float32 wrapper against the JAX package's float64 XLA sweep
+    with the same radii, box and images, within the kernels' bound, with
+    no kernel launch counted.  (The card's forms:
+    tests/test_torch_cuda.py; the Pallas kernels in interpret mode:
+    tests/test_torch_poly_film.py.)"""
+    from rigid_body_light_tpu.ops import rpy as rpy_j
+
+    rng = np.random.default_rng(3)
+    r = rng.uniform([0.5, 0.5, 0.4], [9.5, 9.5, 4.0], (40, 3))
+    ahat = rng.choice([0.6, 1.1], 40)
+    F = rng.standard_normal((2, 40, 3))
+    r32, a32, F32 = (x.astype(np.float32).astype(np.float64)
+                     for x in (r, ahat, F))
+    ids = jnp.arange(40)
+    box = kwargs["box_over_a"]
+    S = kwargs.get("image_shells", 0)
     before = rpy_cuda.launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP.*12b"):
-        rpy_cuda.pair_sum(r, torch.rand(8, 3, device="meta"), True,
-                          ahat=torch.ones(8, device="meta"), **kwargs)
+    for k in (1, 2):
+        Fk = F32[:k] if k == 2 else F32[0]
+        U = rpy_cuda.pair_sum(torch.from_numpy(r32), torch.from_numpy(Fk),
+                              True, ahat=torch.from_numpy(a32), **kwargs)
+        Uref = np.asarray(rpy_j.pair_sum(
+            jnp.asarray(r32), ids, jnp.asarray(r32), ids,
+            jnp.asarray(F32[:k]), wall=True, box=box, radii_rows=a32,
+            radii_cols=a32, image_shells=S,
+            image_tail=kwargs.get("image_tail", True)))
+        assert U.dtype == torch.float32 and U.shape == Fk.shape
+        assert _rel(U.reshape(k, 40, 3), Uref) < KERNEL_TOL
     assert rpy_cuda.launch_counts() == before
 
 
