@@ -213,7 +213,22 @@ Phases (each raises on failure; any failure exits nonzero):
      plain float32 sweep from identical draws, and 1 + 3 steps with their
      steps/s; then the driver on examples/periodic_film.json and
      examples/sedimenting_suspension.json (copied, output_dir in a
-     temporary directory, n_steps cut to one checkpoint chunk).
+     temporary directory, n_steps cut to one checkpoint chunk);
+ 40. the RigidBody API (numpy in and out) at the dense slice, config= its
+     configuration with validate_config on: construction and the overlap
+     diagnose's ms; each operator's ms a numpy call beside the same
+     function's on device tensors, and the launches of one call (K1 alone
+     under apply_M, apply_saddle, solve_mobility and solve_resistance, no
+     plain sweep); apply_M against apply_M_dense in float64 (30,816²
+     entries) and the plain float32 sweep; the resistance solve inverting
+     the mobility solve within 10·gmres_tol; stochastic_step from given
+     draws bitwise the stepper's (K1 and K2 launched); RigidBody.run
+     against run_bd in turns; the below-wall RuntimeError on the card;
+     a float64 instance's solve with no kernel launched;
+ 41. the RigidBody API at the far-field slice (102,480 blobs): the overlap
+     diagnose's ms, apply_M, solve_mobility and one deterministic_step
+     through K3 alone (K1 and K2 not launched), apply_M within 1e-2 of
+     the exact operator (K1).
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -223,7 +238,8 @@ phases 27-31 the mixture path (K1/K2's POLY forms, multi.run_bd_multi),
 phases 32-35 the far-field mixture path (K3's POLY form, the radius-split
 lattices, multi.run_bd_multi on the far field), phases 36-38 the
 polydisperse film path (K1/K2's POLY × BOX forms through the run driver),
-phase 39 the exact-drift and unpreconditioned stepper modes;
+phase 39 the exact-drift and unpreconditioned stepper modes, phases
+40-41 the RigidBody API over the dense (K1/K2) and far-field (K3) paths;
 phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
@@ -371,6 +387,11 @@ EXAMPLES = ("periodic_film.json", "sedimenting_suspension.json")
 # the examples' max_step_residual (the SimulationConfig default): a step
 # whose solve ends above it is not committed
 EXAMPLE_MAX_RESIDUAL = 1e-2
+# phase 40: solve_resistance(solve_mobility(F).U) against F, in units of
+# gmres_tol · max|F|: each solve stops at relative residual gmres_tol, the
+# two errors add, and the operators' conditioning multiplies them (1.2-1.7
+# gmres_tol at 16 × shell_N_162 on the CPU, float32 and float64)
+ROUNDTRIP_TOL = 10.0
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -385,6 +406,14 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def slice_placements():
+    """bench.py::seg_dispersed's bodies: a 4 × 4 lattice, spacing 2.5, at
+    heights 2.0-2.4, unrotated."""
+    xs = np.array([[2.5 * (i % 4), 2.5 * (i // 4), 2.0 + 0.2 * (i % 3)]
+                   for i in range(N_BODIES)])
+    return xs, np.tile([1.0, 0, 0, 0], (N_BODIES, 1))
+
+
 def slice_setup(torch, device):
     """bench.py::seg_dispersed: 16 × shell_N_642 on a 4 × 4 lattice at
     heights 2.0-2.4, force −ẑ on every body, its _base_cfg settings."""
@@ -392,9 +421,7 @@ def slice_setup(torch, device):
     from rigid_body_light_tpu_torch.ops import kinematics as kin
 
     params, ref = rt.load_structure(SHELL)
-    xs = np.array([[2.5 * (i % 4), 2.5 * (i // 4), 2.0 + 0.2 * (i % 3)]
-                   for i in range(N_BODIES)])
-    qs = np.tile([1.0, 0, 0, 0], (N_BODIES, 1))
+    xs, qs = slice_placements()
     cfg = rt.SimulationConfig(
         a=params["sep"] / 2, dt=0.01, kBT=1.0, wall=True,
         dtype=torch.float32, lanczos_iters=6, lanczos_precond=True,
@@ -452,6 +479,15 @@ def bound_ms(flops, n_bytes):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def farfield_placements(n_bodies, side=None):
+    """bench.py::seg_farfield102k's bodies: a lattice ``side`` wide
+    (default ⌈√B⌉), spacing 2.6, at heights 2.0-2.4, unrotated."""
+    side = side or int(np.ceil(np.sqrt(n_bodies)))
+    xs = np.array([[2.6 * (i % side), 2.6 * (i // side), 2.0 + 0.2 * (i % 3)]
+                   for i in range(n_bodies)])
+    return xs, np.tile([1.0, 0, 0, 0], (n_bodies, 1))
+
+
 def farfield_setup(torch, device, n_bodies, side=None, box=None,
                    grid=FF_GRID):
     """bench.py::seg_farfield102k: n_bodies × shell_N_2562 on a lattice
@@ -467,10 +503,7 @@ def farfield_setup(torch, device, n_bodies, side=None, box=None,
     from rigid_body_light_tpu_torch.ops import kinematics as kin
 
     params, ref = rt.load_structure(FF_SHELL)
-    side = side or int(np.ceil(np.sqrt(n_bodies)))
-    xs = np.array([[2.6 * (i % side), 2.6 * (i // side), 2.0 + 0.2 * (i % 3)]
-                   for i in range(n_bodies)])
-    qs = np.tile([1.0, 0, 0, 0], (n_bodies, 1))
+    xs, qs = farfield_placements(n_bodies, side)
     film = {} if box is None else dict(box=box, image_shells=FB_SHELLS)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
@@ -734,8 +767,7 @@ def mixture_step_check(torch, multi, label, cfg, mgeom, states, forces,
     float32 sweep, from identical draws; the launch counts of the kernel
     step.  Returns (max|ΔX_k − ΔX_p| / max|ΔX_p|, launch counts)."""
     draws = multi.make_draws_multi(mgeom, states, gen)
-    for mod in counters:
-        mod.reset_launch_counts()
+    reset_launches(counters)
     sk, aux_k = multi.stochastic_step_multi(mgeom, cfg, states, forces,
                                             draws=draws)
     torch.cuda.synchronize()
@@ -1188,6 +1220,382 @@ def film_near_clouds():
     r[:, 0] = (np.arange(168) + 0.5) * (16.0 / 168)
     out["self"] = (r, (16.0, 16.0), (4, 4, 1))
     return {k: (v[0].astype(np.float32),) + v[1:] for k, v in out.items()}
+
+
+def host_ms(torch, fn, reps):
+    """Mean host-clock milliseconds per call over ``reps`` calls after one
+    warm-up, the calls ending in a device synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def launches(counters):
+    """The nonzero launch counts of the kernel wrappers ``counters``."""
+    out = {}
+    for mod in counters:
+        out.update({k: v for k, v in mod.launch_counts().items() if v})
+    return out
+
+
+def reset_launches(counters):
+    for mod in counters:
+        mod.reset_launch_counts()
+
+
+@contextlib.contextmanager
+def plain_sweep_calls(rpy):
+    """Count the plain pair sweep's calls (``rpy.pair_sum``, which every
+    plain mobility product goes through) inside the block."""
+    calls = [0]
+    orig = rpy.pair_sum
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        return orig(*args, **kw)
+
+    rpy.pair_sum = counting
+    try:
+        yield calls
+    finally:
+        rpy.pair_sum = orig
+
+
+def raises_below_wall(fn):
+    """Whether ``fn`` raises the reference's below-the-wall RuntimeError."""
+    try:
+        fn()
+    except RuntimeError as e:
+        return "below the wall" in str(e)
+    return False
+
+
+def rigid_body_dense(torch, dev, cfg, force, counters):
+    """Phase 40: the RigidBody API at the dense slice (10,272 blobs,
+    ``config=`` the slice's configuration, validate_config on).  Returns
+    the phase's readings."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch.dynamics import (make_draws, run_bd,
+                                                     stochastic_step)
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+    from rigid_body_light_tpu_torch.ops import rpy, saddle, solvers
+    from rigid_body_light_tpu_torch.utils import validation
+
+    out = {}
+    params, ref = rt.load_structure(SHELL)
+    xs, qs = slice_placements()
+    cfg = cfg.replace(validate_config=True)
+    for key in ("construct_first_ms", "construct_ms"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rb = rt.RigidBody(ref, xs, qs, cfg.a, cfg.eta, cfg.dt, config=cfg)
+        torch.cuda.synchronize()
+        out[key] = (time.perf_counter() - t0) * 1e3
+    r = rb._ops.flat_positions
+    q1 = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
+    out["diagnose_ms"] = host_ms(torch, lambda: float(validation.diagnose(
+        r, q1, a=cfg.a).min_separation), 3)
+    out["min_separation"] = float(validation.diagnose(
+        r, q1, a=cfg.a).min_separation)
+    n, B = rb.total_blobs, rb.N_bodies
+    print(f"RigidBody at the dense slice: {B} x {SHELL} = {n} blobs, "
+          f"construction {out['construct_ms']:.2f} ms (first "
+          f"{out['construct_first_ms']:.2f} ms; the overlap diagnose alone "
+          f"{out['diagnose_ms']:.2f} ms, min separation "
+          f"{out['min_separation']:.4f} a)")
+
+    # each operator: ms a call with numpy in and out, the same function on
+    # device tensors, the launches of one numpy call
+    rng = np.random.default_rng(SEED + 40)
+    n_sys = 3 * n + 6 * B
+    U_np = rng.standard_normal(6 * B)
+    lam_np = rng.standard_normal(3 * n)
+    x_np = rng.standard_normal(n_sys)
+    F_np = rng.standard_normal(3 * n)
+    pos = rb.get_blob_positions()
+    force_np = force.cpu().numpy().astype(np.float64)
+    U_res_np = rb.solve_mobility(force_np)[0]
+    ops, pc = rb._ops, rb._pc
+    d = dict(device=dev, dtype=torch.float32)
+    U_d = torch.tensor(U_np, **d).reshape(-1, 6)
+    lam_d = torch.tensor(lam_np, **d).reshape(-1, 3)
+    x_d = torch.tensor(x_np, **d)
+    F_d = torch.tensor(F_np, **d).reshape(-1, 3)
+    U_res_d = torch.tensor(U_res_np, **d)
+    slip0 = torch.zeros((n, 3), **d)
+    mob = saddle.mobility_apply_fn(cfg)
+    calls = {
+        "K_dot": (lambda: rb.K_dot(U_np),
+                  lambda: kin.K_dot(U_d, ops.offsets)),
+        "KT_dot": (lambda: rb.KT_dot(lam_np),
+                   lambda: kin.KT_dot(lam_d.reshape(B, -1, 3), ops.offsets)),
+        "apply_PC": (lambda: rb.apply_PC(x_np),
+                     lambda: saddle.apply_pc(pc, x_d[:3 * n].reshape(-1, 3),
+                                             x_d[3 * n:].reshape(-1, 6), ops,
+                                             cfg)),
+        "apply_M": (lambda: rb.apply_M(F_np, pos),
+                    lambda: mob(F_d, ops.flat_positions)),
+        "apply_saddle": (lambda: rb.apply_saddle(x_np),
+                         lambda: saddle.apply_saddle(
+                             x_d[:3 * n].reshape(-1, 3),
+                             x_d[3 * n:].reshape(-1, 6), ops, cfg)),
+        "solve_mobility": (lambda: rb.solve_mobility(force_np),
+                           lambda: solvers.solve_saddle(ops, cfg, slip0, force,
+                                                        pc=pc)),
+        "solve_resistance": (
+            lambda: solvers.solve_resistance(rb._ops, cfg, U_res_np)[0]
+            .cpu().numpy(),
+            lambda: solvers.solve_resistance(ops, cfg, U_res_d)),
+    }
+    reps = {"solve_mobility": 3, "solve_resistance": 3}
+    ops_out = {}
+    with plain_sweep_calls(rpy) as plain:
+        for name, (api_fn, dev_fn) in calls.items():
+            k = reps.get(name, 20)
+            api = host_ms(torch, api_fn, k)
+            raw = host_ms(torch, dev_fn, k)
+            reset_launches(counters)
+            plain[0] = 0
+            api_fn()
+            torch.cuda.synchronize()
+            cnt = launches(counters)
+            ops_out[name] = dict(api_ms=api, device_ms=raw, launches=cnt,
+                                 plain_sweep_calls=plain[0])
+            print(f"  {name}: {api:.4f} ms a numpy call, {raw:.4f} ms on "
+                  f"device tensors; launches of one call {cnt}, plain "
+                  f"sweep calls {plain[0]}")
+    out["operators"] = ops_out
+    for name in ("apply_M", "apply_saddle", "solve_mobility",
+                 "solve_resistance"):
+        o = ops_out[name]
+        if not (o["launches"].get("pair_sweep_sym", 0) > 0
+                and o["plain_sweep_calls"] == 0
+                and "pair_sweep_ordered" not in o["launches"]):
+            raise AssertionError(f"RigidBody {name} did not go through K1 "
+                                 f"alone: {o}")
+
+    # apply_M against the dense float64 operator and the plain float32 sweep
+    U_api = rb.apply_M(F_np, pos)
+    F32 = torch.tensor(F_np, **d).reshape(-1, 3)
+    r32 = torch.from_numpy(pos).to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    U_dense = rpy.apply_M_dense(F32.double(), r32.double(), a=cfg.a,
+                                eta=cfg.eta, wall=True,
+                                h_floor=cfg.wall_h_floor)
+    torch.cuda.synchronize()
+    out["apply_M_dense_ms"] = (time.perf_counter() - t0) * 1e3
+    out["apply_M_dense_peak_bytes"] = torch.cuda.max_memory_allocated()
+    U_dense = U_dense.cpu().numpy().ravel()
+    torch.cuda.empty_cache()
+    U_plain = saddle.mobility_apply_fn(cfg.replace(use_pallas=False))(
+        F32, r32).cpu().numpy().ravel()
+    scale = np.abs(U_dense).max()
+    out["apply_M_vs_dense"] = float(np.abs(U_api - U_dense).max() / scale)
+    out["apply_M_vs_plain"] = float(np.abs(U_api - U_plain).max()
+                                    / np.abs(U_plain).max())
+    print(f"  apply_M vs apply_M_dense (float64, {3 * n}^2 entries, "
+          f"{out['apply_M_dense_ms']:.1f} ms, peak "
+          f"{out['apply_M_dense_peak_bytes'] / 1e9:.2f} GB): max|dU|/max|U| "
+          f"= {out['apply_M_vs_dense']:.3e}; vs the plain float32 sweep "
+          f"{out['apply_M_vs_plain']:.3e} (tol {KERNEL_TOL:g})")
+    if not (out["apply_M_vs_dense"] <= KERNEL_TOL
+            and out["apply_M_vs_plain"] <= KERNEL_TOL):
+        raise AssertionError(f"RigidBody.apply_M disagrees: {out}")
+
+    # the resistance solve inverts the mobility solve
+    U_s, _, res_s = rb.solve_mobility(force_np)
+    F_back, _, res_r = solvers.solve_resistance(rb._ops, cfg, U_s)
+    F_back = F_back.cpu().numpy()
+    out["roundtrip_rel"] = float(np.abs(F_back - force_np).max()
+                                 / np.abs(force_np).max())
+    out["solve_residuals"] = [res_s, float(res_r)]
+    print(f"  solve_resistance(solve_mobility(F).U) vs F: max|dF|/max|F| = "
+          f"{out['roundtrip_rel']:.3e} (tol {ROUNDTRIP_TOL * cfg.gmres_tol:g}"
+          f"); residuals {res_s:.3e}, {float(res_r):.3e}")
+    if not (out["roundtrip_rel"] <= ROUNDTRIP_TOL * cfg.gmres_tol
+            and max(out["solve_residuals"]) < 10 * cfg.gmres_tol):
+        raise AssertionError(f"the resistance round trip failed: {out}")
+
+    # a step from given draws: bitwise the stepper's, K1 and K2 launched
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    st0 = rb.state
+    draws = make_draws(rb._geom, st0, gen)
+    reset_launches(counters)
+    U_step = rb.stochastic_step(force_np, draws=draws)
+    torch.cuda.synchronize()
+    cnt = launches(counters)
+    st_ref, aux_ref = stochastic_step(rb._geom, cfg, st0, force, draws=draws)
+    bitwise = (torch.equal(rb.state.X, st_ref.X)
+               and torch.equal(rb.state.Q, st_ref.Q)
+               and np.array_equal(U_step, aux_ref.U.cpu().numpy()))
+    out["step"] = dict(bitwise=bitwise, launches=cnt)
+    print(f"  stochastic_step from given draws bitwise equal to "
+          f"dynamics.stochastic_step: {bitwise}; launches {cnt}")
+    if not (bitwise and cnt.get("pair_sweep_sym", 0) > 0
+            and cnt.get("pair_sweep_ordered", 0) > 0):
+        raise AssertionError(f"RigidBody.stochastic_step failed: {out['step']}")
+
+    # RigidBody.run against run_bd in turns, 1 warm-up then the timed steps
+    rb.run(WARM_STEPS, generator=gen, force_fn=lambda s_, i: force)
+    sps = {"run_bd": [], "RigidBody.run": []}
+    res_all, cnt_run = [], {}
+    for who in ("run_bd", "RigidBody.run", "RigidBody.run", "run_bd"):
+        torch.cuda.synchronize()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        if who == "run_bd":
+            _, tr = run_bd(rb._geom, cfg, rb.state, TIMED_STEPS, generator=gen,
+                           force_fn=lambda s_, i: force)
+            tr = {k: v.cpu().numpy() for k, v in tr.items()}
+        else:
+            tr = rb.run(TIMED_STEPS, generator=gen,
+                        force_fn=lambda s_, i: force)
+        torch.cuda.synchronize()
+        sps[who].append(TIMED_STEPS / (time.perf_counter() - t0))
+        if who == "RigidBody.run":
+            res_all.append(tr["residual"])
+            for k_, v_ in launches(counters).items():
+                cnt_run[k_] = cnt_run.get(k_, 0) + v_
+    res_all = np.concatenate(res_all)
+    qerr = float(np.abs(np.linalg.norm(rb.get_config()[1], axis=1) - 1).max())
+    out["run"] = dict(steps_per_s=sps, max_residual=float(res_all.max()),
+                      max_quat_err=qerr, launches=cnt_run)
+    print(f"  RigidBody.run vs run_bd in turns (run_bd, run, run, run_bd), "
+          f"{TIMED_STEPS} steps each: {sps} steps/s; max residual "
+          f"{res_all.max():.3e}; ||q|-1| {qerr:.2e}; launches over the two "
+          f"runs {cnt_run}")
+    if not (res_all.max() < 10 * cfg.gmres_tol and qerr <= 1e-5
+            and cnt_run.get("pair_sweep_sym", 0) > 0
+            and cnt_run.get("pair_sweep_ordered", 0) > 0):
+        raise AssertionError(f"RigidBody.run failed: {out['run']}")
+
+    # a body moved below the wall: the wall RuntimeError on the card
+    X_keep, Q_keep = rb.get_config()
+    X_low = X_keep.copy()
+    X_low[0, 2] = 0.5
+    rb.set_config(X_low, Q_keep)
+    raised = {
+        "apply_PC": raises_below_wall(lambda: rb.apply_PC(x_np)),
+        "apply_saddle": raises_below_wall(lambda: rb.apply_saddle(x_np)),
+        "apply_M": raises_below_wall(
+            lambda: rb.apply_M(F_np, rb.get_blob_positions())),
+    }
+    print(f"  below the wall raises: {raised}")
+    if not all(raised.values()):
+        raise AssertionError(f"the below-wall contract failed: {raised}")
+
+    # float64: the plain sweep, as the JAX package routes it (the kernels
+    # are float32 only)
+    p42, ref42 = rt.load_structure("shell_N_42")
+    X42 = np.array([[2.5 * (i % 2), 2.5 * (i // 2), 2.0 + 0.2 * i]
+                    for i in range(4)])
+    rb64 = rt.RigidBody(ref42, X42, np.tile([1.0, 0, 0, 0], (4, 1)),
+                        p42["sep"] / 2, cfg.eta, cfg.dt,
+                        config=cfg.replace(dtype=torch.float64))
+    F42 = np.zeros((4, 6))
+    F42[:, 2] = -1.0
+    reset_launches(counters)
+    U64, _, res64 = rb64.solve_mobility(F42)
+    cnt64 = launches(counters)
+    out["float64"] = dict(residual=res64, launches=cnt64)
+    print(f"  float64 RigidBody (4 x shell_N_42) solve_mobility: residual "
+          f"{res64:.3e}, launches {cnt64}")
+    if not (res64 < cfg.gmres_tol and not cnt64 and np.isfinite(U64).all()):
+        raise AssertionError(f"the float64 RigidBody failed: {out['float64']}")
+    return out
+
+
+def rigid_body_farfield(torch, dev, counters):
+    """Phase 41: the RigidBody API at the far-field slice (102,480 blobs,
+    ``config=`` its configuration, validate_config on).  Returns the
+    phase's readings."""
+    import warnings
+
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch.ops import rpy_cuda
+    from rigid_body_light_tpu_torch.utils import validation
+
+    out = {}
+    cfg_f, _, _, force_f = farfield_setup(torch, dev, FF_BODIES)
+    xs, qs = farfield_placements(FF_BODIES)
+    _, ref = rt.load_structure(FF_SHELL)
+    with warnings.catch_warnings():
+        # the slice's gmres_tol lies below the p = 4 operator error
+        warnings.simplefilter("ignore", UserWarning)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rb = rt.RigidBody(ref, xs, qs, cfg_f.a, cfg_f.eta, cfg_f.dt,
+                          config=cfg_f)
+        torch.cuda.synchronize()
+    out["construct_ms"] = (time.perf_counter() - t0) * 1e3
+    cfg = rb.config
+    r = rb._ops.flat_positions
+    n = r.shape[0]
+    q1 = torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=dev)
+    out["diagnose_ms"] = host_ms(torch, lambda: float(validation.diagnose(
+        r, q1, a=cfg.a).min_separation), 2)
+    print(f"RigidBody at the far-field slice: {FF_BODIES} x {FF_SHELL} = {n} "
+          f"blobs, construction {out['construct_ms']:.1f} ms (the overlap "
+          f"diagnose over {n * (n - 1) / 1e9:.2f}e9 ordered pairs alone "
+          f"{out['diagnose_ms']:.1f} ms)")
+    rng = np.random.default_rng(SEED + 41)
+    F_np = rng.standard_normal(3 * n)
+    pos = rb.get_blob_positions()
+    force_np = force_f.cpu().numpy().astype(np.float64)
+    calls = {
+        "apply_M": lambda: rb.apply_M(F_np, pos),
+        "solve_mobility": lambda: rb.solve_mobility(force_np),
+        "deterministic_step": lambda: rb.deterministic_step(force_np),
+    }
+    X0 = rb.get_config()[0]
+    res = {}
+    for name, fn in calls.items():
+        # the launches and time of the first call, then (but for the step)
+        # the time of a second
+        times = []
+        for _ in range(1 if name == "deterministic_step" else 2):
+            reset_launches(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if len(times) == 1:
+                cnt = launches(counters)
+        out[name] = dict(api_ms=times[-1], first_ms=times[0], launches=cnt)
+        print(f"  {name}: {times[-1]:.2f} ms a numpy call (first call "
+              f"{times[0]:.2f} ms; the far field's setup included); launches "
+              f"of one call {cnt}")
+        if not (cnt.get("near_sweep", 0) > 0
+                and "pair_sweep_sym" not in cnt
+                and "pair_sweep_ordered" not in cnt):
+            raise AssertionError(f"RigidBody {name} at the far-field slice "
+                                 f"did not go through K3 alone: {cnt}")
+    U_ex = rpy_cuda.mobility_apply(
+        torch.tensor(F_np, device=dev, dtype=torch.float32).reshape(-1, 3),
+        torch.from_numpy(pos).to(dev), a=cfg.a, eta=cfg.eta,
+        wall=True).cpu().numpy().ravel()
+    out["apply_M_vs_exact"] = float(np.abs(res["apply_M"] - U_ex).max()
+                                    / np.abs(U_ex).max())
+    out["solve_residual"] = res["solve_mobility"][2]
+    moved = float(np.abs(rb.get_config()[0] - X0).max())
+    print(f"  apply_M vs the exact operator (K1): max|dU|/max|U| = "
+          f"{out['apply_M_vs_exact']:.3e} (tol {FF_OPERATOR_TOL:g}); "
+          f"solve_mobility residual {out['solve_residual']:.3e}; the step "
+          f"moved a body by {moved:.3e}")
+    if not (out["apply_M_vs_exact"] <= FF_OPERATOR_TOL
+            and out["solve_residual"] < 10 * cfg.gmres_tol
+            and np.isfinite(res["deterministic_step"]).all() and moved > 0):
+        raise AssertionError(f"RigidBody at the far-field slice failed: "
+                             f"{out}")
+    return out
 
 
 def main():
@@ -2967,9 +3375,9 @@ def main():
     modes = {"em_exact": dict(drift_mode="em_exact"),
              "unpreconditioned": dict(lanczos_precond=False)}
     stepper_modes = {}
+    counters = (rpy_cuda, farfield_cuda, ewald_cuda)
     for mode, kw in modes.items():
         for sl in ("dense", "mixture"):
-            counters = (rpy_cuda, farfield_cuda, ewald_cuda)
             gen_39 = torch.Generator(device=dev).manual_seed(SEED + 39)
             if sl == "dense":
                 cfg_39 = cfg.replace(**kw)
@@ -3000,18 +3408,14 @@ def main():
                     mgeom_m, cfg_39, s_m, k_, generator=g_,
                     force_fn=lambda ss, i: forces_m)
             rel = ((dX_k - dX_p).abs().max() / dX_p.abs().max()).item()
-            for mod in counters:
-                mod.reset_launch_counts()
+            reset_launches(counters)
             run(1, gen_39)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             _, tr_39 = run(MODE_TIMED_STEPS, gen_39)
             torch.cuda.synchronize()
             sps = MODE_TIMED_STEPS / (time.perf_counter() - t0)
-            cnt = {}
-            for mod in counters:
-                cnt.update({k_: v_ for k_, v_ in mod.launch_counts().items()
-                            if v_})
+            cnt = launches(counters)
             stepper_modes[f"{mode} {sl}"] = dict(
                 step_check_rel=rel, steps_per_s=sps,
                 iters=tr_39["iters"].tolist(),
@@ -3059,6 +3463,15 @@ def main():
             raise AssertionError(f"the driver on examples/{ex} failed")
     shutil.rmtree(pf_dir)
 
+    # ---- 40. the RigidBody API (numpy in and out) at the dense slice
+    torch.cuda.empty_cache()
+    rigid = rigid_body_dense(torch, dev, cfg, force, counters)
+
+    # ---- 41. the RigidBody API at the far-field slice
+    torch.cuda.empty_cache()
+    rigid_ff = rigid_body_farfield(torch, dev, counters)
+    print(json.dumps({"rigid_body": rigid, "rigid_body_farfield": rigid_ff}))
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
@@ -3090,6 +3503,8 @@ def main():
          "bound_ratio": k1_ms / b1[0],
          "bound_ratio_2rhs": k1_ms2 / b1_2[0], "redesigned_in": 5,
          "launches_settled": counts_s["pair_sweep_sym"],
+         "launches_rigid_body_run": rigid["run"]["launches"].get(
+             "pair_sweep_sym", 0),
          **box_entries(film_k, film, "K1", "k1"),
          "ms_409600": k1_scale[1]["ms"],
          "ms_2rhs_409600": k1_scale[2]["ms"],
@@ -3105,6 +3520,8 @@ def main():
          "bound_by": b2[1], "library_ms": None,
          "bound_ratio": k2_ms / b2[0], "redesigned_in": 5,
          "launches_settled": counts_s["pair_sweep_ordered"],
+         "launches_rigid_body_run": rigid["run"]["launches"].get(
+             "pair_sweep_ordered", 0),
          **box_entries(film_k, film, "K2", "k2"),
          **poly_entries(poly_t, "K2", mixture["k2_poly"]),
          **poly_box_entries(pf_t, pf_errs, "K2", poly_film["k2_poly_box"],
@@ -3129,6 +3546,8 @@ def main():
          "bound_ratio_2rhs_box": k3b[2]["ms"] / k3b[2]["bound"][0],
          "max_abs_err_box": k3b[1]["err"],
          "max_abs_err_2rhs_box": k3b[2]["err"],
+         "launches_rigid_body_step": rigid_ff["deterministic_step"][
+             "launches"].get("near_sweep", 0),
          "launches_film_farfield": film_ff["k3"],
          "launches_per_step_film_farfield": film_ff["k3_per_step"],
          **k3_poly_entries(k3p, k3p_err, k3pb, k3pb_err, ff_mix)},

@@ -20,10 +20,13 @@ reader of :mod:`.utils.checkpoint`); and the pseudo-2D film (a 2-D
 body species (:mod:`.multi`, ``multi.run_bd_multi``), a species with its
 own blob radius making the coupled product polydisperse, on the dense
 sweeps or the far field (open or in the film); the ``em_exact`` drift and
-the unpreconditioned noise in both steppers; and the run driver
+the unpreconditioned noise in both steppers; the run driver
 (``python -m rigid_body_light_tpu_torch.run``, :mod:`.run`) with its
-trajectory writer (:mod:`.runtime`) and checkpoints.  Their pair sweeps are
-hand-written CUDA
+trajectory writer (:mod:`.runtime`) and checkpoints; and the
+reference-compatible :class:`RigidBody` API (:mod:`.api`, numpy in and
+out) with the state diagnostics of :mod:`.utils.validation`, the
+resistance solve, the ambient flows of :mod:`.flows` and the trajectory
+observables of :mod:`.analysis`.  Their pair sweeps are hand-written CUDA
 kernels for sm_90a (``csrc/``, wrapped by :mod:`.ops.rpy_cuda`,
 :mod:`.ops.farfield_cuda` and :mod:`.ops.ewald_cuda`), as is the FP32 peak
 probe of :mod:`.utils.roofline`; everything else is eager PyTorch on
@@ -43,8 +46,11 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from rigid_body_light_tpu_torch.config import SimulationConfig  # noqa: E402
 from rigid_body_light_tpu_torch.state import BodyState, make_state  # noqa: E402
-from rigid_body_light_tpu_torch.structures import load_structure  # noqa: E402
-from rigid_body_light_tpu_torch import multi  # noqa: E402
+from rigid_body_light_tpu_torch.structures import (  # noqa: E402
+    load_structure, structure_path)
+from rigid_body_light_tpu_torch import analysis, flows, forces, multi  # noqa: E402
+from rigid_body_light_tpu_torch.api import RigidBody  # noqa: E402
 
-__all__ = ["SimulationConfig", "BodyState", "make_state", "load_structure",
+__all__ = ["RigidBody", "SimulationConfig", "BodyState", "make_state",
+           "load_structure", "structure_path", "analysis", "flows", "forces",
            "multi"]

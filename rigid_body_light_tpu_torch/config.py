@@ -83,7 +83,7 @@ class SimulationConfig:
     matvec_row_tile: int = 512
     use_pallas: bool = True
     wall_h_floor: float = 0.75
-    validate_config: bool = True
+    validate_config: bool = True   # RigidBody's O(N²) overlap check
 
     def __post_init__(self):
         if not isinstance(self.dtype, torch.dtype):

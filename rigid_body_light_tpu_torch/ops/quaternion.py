@@ -59,3 +59,8 @@ def from_rotation_vector(om):
     # sin(n/2)/n with series fallback: 1/2 - n^2/48 + O(n^4)
     factor = torch.where(small, 0.5 - norm2 / 48.0, torch.sin(half) / norm)
     return normalize(torch.cat([w, factor * om], dim=-1))
+
+
+def rotate(q, v):
+    """Rotate vectors v (..., 3) by quaternions q (..., 4)."""
+    return torch.einsum("...ij,...j->...i", to_rotation_matrix(q), v)

@@ -573,6 +573,21 @@ def mobility_matrix(r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR,
     return M.permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
 
 
+def apply_M_dense(F, r, a=1.0, eta=1.0, wall=False, h_floor=WALL_H_FLOOR,
+                  box=None, radii=None):
+    """Dense-path U = B·M·B·F (damping iff wall) through
+    :func:`mobility_matrix`, (N, 3) → (N, 3): for small N and validation
+    (the (3N, 3N) matrix is formed)."""
+    r = r.reshape(-1, 3)
+    F = torch.as_tensor(F, dtype=r.dtype, device=r.device).reshape(-1)
+    M = mobility_matrix(r, a, eta, wall, h_floor=h_floor, box=box,
+                        radii=radii)
+    if wall:
+        b = torch.repeat_interleave(damping_factors(r, a, radii=radii), 3)
+        return (b * (M @ (b * F))).reshape(-1, 3)
+    return (M @ F).reshape(-1, 3)
+
+
 def cross_mobility_blocks(ri, rj, a=1.0, eta=1.0, wall=False,
                           h_floor=WALL_H_FLOOR, radii_i=None, radii_j=None):
     """Pair mobility blocks between two position sets, (..., P, Q, 3, 3).

@@ -308,6 +308,86 @@ class PCData(NamedTuple):
     n_full: Optional[torch.Tensor] = None
 
 
+def _rot6(rot):
+    """Block-diagonal 6×6 rotations diag(R, R), shape (B, 6, 6)."""
+    R6 = torch.zeros((rot.shape[0], 6, 6), dtype=rot.dtype, device=rot.device)
+    R6[:, 0:3, 0:3] = rot
+    R6[:, 3:6, 3:6] = rot
+    return R6
+
+
+def grand_body_mobility(ops: GeometryOps, cfg: SimulationConfig, n_ref,
+                        include_rot: bool = True) -> torch.Tensor:
+    """Coupled (6B, 6B) far-field grand body mobility (Stokesian-dynamics
+    far field): exact single-body diagonal blocks + RPY-at-Rh_eff pair
+    blocks (wall-corrected trans-trans; free-space rotlet couplings when
+    ``include_rot``).  n_ref: the body-frame (6, 6) single-body mobility
+    (``PCData.n_ref`` of ``block_free``).
+
+    **Measured negative result (with the JAX package,
+    ``scripts/pc_dense_study.py``):** used as the U-block Ñ of the saddle
+    preconditioner while M̃⁻¹ stays body-diagonal, this makes convergence
+    dramatically WORSE (dispersed 9→30 iters, settled 13→35): with a
+    block-diagonal M̃ the exact Schur inverse is itself block-diagonal, so
+    injecting coupling only at the Schur level breaks the PC's
+    exact-inverse structure — Ñ must stay consistent with M̃ (the
+    inconsistent-Ñ Neumann variant shows the same failure, 38 vs 15
+    iters).  Kept as the documented dead end; it is NOT wired into
+    :func:`build_pc`.
+    """
+    rot = ops.rot
+    B = rot.shape[0]
+    dtype, dev = rot.dtype, rot.device
+    # effective hydrodynamic radius from the exact single-body mobility:
+    # n_ref[:3,:3] ≈ I/(6πη·Rh_eff)
+    mu_t = torch.trace(n_ref[0:3, 0:3]) / 3.0
+    rh = float(1.0 / (6.0 * torch.pi * cfg.eta * mu_t))
+    X = ops.positions[:, 0, :] - ops.offsets[:, 0, :]   # (B, 3) tracking points
+
+    # trans-trans: body-level wall-corrected RPY at radius Rh_eff
+    m_tt = rpy.mobility_matrix(
+        X, a=rh, eta=cfg.eta, wall=cfg.wall, h_floor=cfg.wall_h_floor,
+        box=cfg.box).reshape(B, 3, B, 3)
+    grand = torch.zeros((B, 6, B, 6), dtype=dtype, device=dev)
+    grand[:, 0:3, :, 0:3] = m_tt
+
+    if include_rot and B > 1:
+        d = (X[:, None, :] - X[None, :, :]) / rh
+        box_n = (None if cfg.box is None
+                 else (cfg.box[0] / rh, cfg.box[1] / rh))
+        d = rpy.wrapped_difference(d, torch.zeros_like(d), box_n)
+        r = torch.sqrt(torch.clamp(torch.sum(d * d, dim=-1), min=1e-24))
+        rcl = torch.clamp(r, min=2.0)    # clamp at contact: 2·Rh_eff
+        e = d / r[..., None]
+        # normalized by rh: physical r_phys = r·rh
+        g = 1.0 / (8.0 * torch.pi * cfg.eta * (rcl * rh) ** 2)    # (B, B)
+        ex, ey, ez = e.unbind(-1)
+        zero = torch.zeros_like(ex)
+        skew = torch.stack(
+            [
+                torch.stack([zero, -ez, ey], dim=-1),
+                torch.stack([ez, zero, -ex], dim=-1),
+                torch.stack([-ey, ex, zero], dim=-1),
+            ],
+            dim=-2,
+        )                                                # (B, B, 3, 3) = [e]ₓ
+        c_ut = -g[..., None, None] * skew
+        grr = 1.0 / (16.0 * torch.pi * cfg.eta * (rcl * rh) ** 3)
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        c_rr = grr[..., None, None] * (
+            3.0 * e[..., :, None] * e[..., None, :] - eye3)
+        grand[:, 0:3, :, 3:6] = c_ut.permute(0, 2, 1, 3)
+        grand[:, 3:6, :, 0:3] = c_ut.permute(0, 2, 1, 3)
+        grand[:, 3:6, :, 3:6] = c_rr.permute(0, 2, 1, 3)
+
+    # every diagonal block is the exact single-body mobility
+    R6 = _rot6(rot)
+    diag = torch.einsum("bij,jk,blk->bil", R6, n_ref, R6)     # (B, 6, 6)
+    idx = torch.arange(B, device=dev)
+    grand[idx, :, idx, :] = diag
+    return grand.reshape(6 * B, 6 * B)
+
+
 # floor (relative to the free 4/3 self mobility) on the diag PC's self blocks
 _PC_SELF_FLOOR = 0.05
 

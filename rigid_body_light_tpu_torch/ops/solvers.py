@@ -1,5 +1,6 @@
-"""Preconditioned GMRES solve of the rigid multiblob saddle system — the
-port of ``solve_saddle`` from ``rigid_body_light_tpu/ops/solvers.py``."""
+"""GMRES solves of the rigid multiblob system — the port of
+``solve_saddle`` (the preconditioned saddle solve) and
+``solve_resistance`` from ``rigid_body_light_tpu/ops/solvers.py``."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ import torch
 
 from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
+from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.utils import profiling
 
@@ -83,3 +85,37 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
               / torch.clamp(torch.sqrt(torch.sum(bvec * bvec)), min=1e-30))
     return SolveResult(lam=lam, U=U, residual=result.residual,
                        iters=result.iters, true_residual=tr)
+
+
+def solve_resistance(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, U,
+                     slip=None, mob_apply: Callable = None):
+    """Resistance problem: given body velocities U (B, 6), find the applied
+    force/torque F = Kᵀλ with M·λ = K·U + slip.
+
+    The blob-space system M·λ = rhs is SPD and well-conditioned after
+    damping, so it is solved by unpreconditioned GMRES on M alone, with the
+    operator's position setup built once (:func:`.saddle.hoist_positions`).
+    Returns (F (B, 6), λ (N, 3), residual).
+    """
+    if mob_apply is None:
+        mob_apply = saddle_mod.mobility_apply_fn(cfg)
+    mob_apply = saddle_mod.hoist_positions(mob_apply, ops.flat_positions)
+    dtype, dev = ops.positions.dtype, ops.positions.device
+    B, n, _ = ops.offsets.shape
+    U = torch.as_tensor(U, dtype=dtype, device=dev).reshape(-1, 6)
+    rhs = kin.K_dot(U, ops.offsets).reshape(-1, 3)
+    if slip is not None:
+        rhs = rhs + torch.as_tensor(slip, dtype=dtype,
+                                    device=dev).reshape(-1, 3)
+    pos = ops.flat_positions
+
+    def matvec(x):
+        return mob_apply(x.reshape(-1, 3), pos).reshape(-1)
+
+    max_restarts = max(1, -(-cfg.gmres_maxiter // cfg.gmres_restart))
+    result = gmres_mod.gmres(matvec, rhs.reshape(-1), tol=cfg.gmres_tol,
+                             restart=cfg.gmres_restart,
+                             max_restarts=max_restarts)
+    lam = result.x.reshape(B, n, 3)
+    F = kin.KT_dot(lam, ops.offsets)
+    return F, lam.reshape(-1, 3), result.residual

@@ -18,6 +18,8 @@ _STRUCT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "rigid_body_light_tpu", "structures")
 
+SHELLS = (12, 42, 162, 642, 2562)
+
 
 def structure_path(name: str) -> str:
     """Path to a shipped structure file, e.g. ``structure_path('shell_N_12')``."""
@@ -44,3 +46,10 @@ def load_structure(file_name: str) -> Tuple[Dict, np.ndarray]:
             f"Structure file {file_name} declares N={n} blobs but has shape "
             f"{cfg.shape}")
     return params, cfg
+
+
+def shell(n_blobs: int) -> Tuple[Dict, np.ndarray]:
+    """Load one of the shipped icosphere shells by blob count."""
+    if n_blobs not in SHELLS:
+        raise ValueError(f"No shipped shell with {n_blobs} blobs; have {SHELLS}")
+    return load_structure(structure_path(f"shell_N_{n_blobs}"))

@@ -1,6 +1,6 @@
 """The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
 near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
-against their plain PyTorch versions.
+against their plain PyTorch versions; and the RigidBody API through K1.
 
 Marked ``cuda``: they skip without a CUDA device.  The GPU machine has no
 JAX, so run them there without the JAX test harness's conftest:
@@ -972,3 +972,58 @@ def test_far_field_poly_operator_through_k3(near_poly, film):
                                    **kw)
     U_mono = farfield.mobility_apply(F.float(), r.float(), **kw)
     assert _rel(U_eq, U_mono.double()) < 2e-6
+
+
+@pytest.fixture
+def rigid(dev):
+    """The port's RigidBody on the card: 4 × shell_N_162 above the wall,
+    float32 (the kernels' path), block_free at GMRES tol 1e-4."""
+    params, ref = rt.load_structure("shell_N_162")
+    X = np.array([[2.5 * (i % 2), 2.5 * (i // 2), 2.0 + 0.2 * i]
+                  for i in range(4)])
+    Q = np.random.default_rng(21).standard_normal((4, 4))
+    cfg = rt.SimulationConfig(wall=True, pc_mode="block_free",
+                              gmres_tol=1e-4, gmres_restart=20,
+                              gmres_maxiter=60)
+    return rt.RigidBody(ref, X, Q, params["sep"] / 2, 1.0, 0.01, config=cfg)
+
+
+def test_rigid_body_apply_M_through_k1(rigid):
+    """RigidBody.apply_M (numpy in and out) launches K1 once and agrees with
+    the float64 plain operator at the same positions."""
+    pos = rigid.get_blob_positions()
+    F = np.random.default_rng(22).standard_normal(pos.size)
+    before = rpy_cuda.launch_counts()
+    U = rigid.apply_M(F, pos)
+    after = rpy_cuda.launch_counts()
+    assert after["pair_sweep_sym"] == before["pair_sweep_sym"] + 1
+    assert U.dtype == np.float32 and U.shape == F.shape
+    ref = rpy.mobility_apply(
+        torch.from_numpy(F).to(rigid.device).reshape(-1, 3),
+        torch.from_numpy(pos).to(rigid.device).double(), a=rigid.config.a,
+        wall=True)
+    ref = ref.cpu().numpy().ravel()
+    assert np.abs(U - ref).max() / np.abs(ref).max() < TOL
+
+
+def test_rigid_body_solve_mobility_launches_k1(rigid):
+    F = np.zeros((4, 6))
+    F[:, 2] = -1.0
+    before = rpy_cuda.launch_counts()["pair_sweep_sym"]
+    U, lam, res = rigid.solve_mobility(F)
+    assert rpy_cuda.launch_counts()["pair_sweep_sym"] > before
+    assert res < rigid.config.gmres_tol
+    assert U.shape == (4, 6) and np.isfinite(U).all() and U[:, 2].max() < 0
+
+
+@pytest.mark.parametrize("op", ["apply_PC", "apply_saddle", "apply_M"])
+def test_rigid_body_raises_below_the_wall_on_the_card(rigid, op):
+    X, Q = rigid.get_config()
+    rigid.set_config(X - [0.0, 0.0, 2.0], Q)
+    n_sys = 3 * rigid.total_blobs + 6 * rigid.N_bodies
+    with pytest.raises(RuntimeError, match="below the wall"):
+        if op == "apply_M":
+            rigid.apply_M(np.ones(3 * rigid.total_blobs),
+                          rigid.get_blob_positions())
+        else:
+            getattr(rigid, op)(np.ones(n_sys))
