@@ -228,7 +228,36 @@ Phases (each raises on failure; any failure exits nonzero):
  41. the RigidBody API at the far-field slice (102,480 blobs): the overlap
      diagnose's ms, apply_M, solve_mobility and one deterministic_step
      through K3 alone (K1 and K2 not launched), apply_M within 1e-2 of
-     the exact operator (K1).
+     the exact operator (K1);
+ 42. the balanced split (ewald_rc 3.5: the tile sweep of
+     rigid_body_light_tpu_torch/ops/ewald_cells.py, plain PyTorch as the
+     JAX package runs it outside Pallas) at the periodic slice's 10,272
+     positions, with the dense wave part and with the gridded wave part
+     (ops/ewald_pme.py, p = 4), against the classic split through K4 at 1
+     and 2 RHS within 2e-4 of max|U|; the tile sweep against the float64
+     all-pairs sweep with the same cut, bitwise repeatable; the ms of the
+     tile sweep, the gridded and dense wave parts, K4's classic operator
+     and the balanced one; the neighbor widths, tiles, G and k-vectors;
+ 43. the JAX package's PME bench case (scripts/tpu_ewald_pme_bench.py,
+     case 1: 102,400 uniform points in L = 30, a = 0.243553) at rc 3.5 and
+     4.5 with p = 4 against the classic split through K4 (ROADMAP queue 3,
+     fault 3): each operator's rel err, ms and peak memory, and its parts
+     apart — the tile sweep on 256 sampled rows against the float64
+     all-pairs sweep with the cut, the gridded wave part against the dense
+     (K-chunked) wave sum;
+ 44. the balanced-split slice: 180 x shell_N_642 = 115,560 blobs on a
+     6 x 6 x 5 lattice in a cubic L = 30 box (ewald_rc 3.5, ewald_grid_p
+     4, the periodic slice's solver settings), run_bd for 1 warm-up and 2
+     timed steps (every residual below 10·gmres_tol, |q| within 1e-5 of 1,
+     no kernel launched), the step timer's split of one more step with the
+     mobility span divided into the tile sweep, the gridded wave part and
+     the rest; then RigidBody.apply_M (numpy in and out) at the slice's
+     positions beside the device function;
+ 45. the polydisperse periodic mixture: the mixture slice's 10,296 blobs
+     and forces in a cubic L = 14 box with no wall (ewald_rc 3.5,
+     ewald_grid_p 4): the operator with radii against the classic split
+     with radii (the plain all-pairs sweep) at 1 and 2 RHS, then
+     multi.run_bd_multi for 1 warm-up and 4 timed steps.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -239,7 +268,9 @@ phases 32-35 the far-field mixture path (K3's POLY form, the radius-split
 lattices, multi.run_bd_multi on the far field), phases 36-38 the
 polydisperse film path (K1/K2's POLY × BOX forms through the run driver),
 phase 39 the exact-drift and unpreconditioned stepper modes, phases
-40-41 the RigidBody API over the dense (K1/K2) and far-field (K3) paths;
+40-41 the RigidBody API over the dense (K1/K2) and far-field (K3) paths,
+phases 42-45 the balanced-split periodic path (the tile sweep and the
+gridded wave part, no kernel; K4 as the classic split's yardstick);
 phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
@@ -392,6 +423,28 @@ EXAMPLE_MAX_RESIDUAL = 1e-2
 # two errors add, and the operators' conditioning multiplies them (1.2-1.7
 # gmres_tol at 16 × shell_N_162 on the CPU, float32 and float64)
 ROUNDTRIP_TOL = 10.0
+# the balanced split (phases 42-45): rc and the gridded wave part's nodes a
+# cell, and each balanced-split operator's bound against the classic split
+# through K4, max|dU| / max|U| (both truncate at ewald_tol 1e-4)
+BAL_RC = 3.5
+BAL_P = 4
+BAL_OPERATOR_TOL = 2e-4
+# phase 43: scripts/tpu_ewald_pme_bench.py's case 1 (102,400 uniform points
+# in L = 30, a = 0.243553), both cutoffs, and the rows sampled to hold the
+# tile sweep against the float64 all-pairs sweep with the same cut
+PME_BENCH_N = 102_400
+PME_BENCH_L = 30.0
+PME_BENCH_A = 0.243553
+PME_BENCH_RCS = (3.5, 4.5)
+# phase 44: 180 x shell_N_642 on a 6 x 6 x 5 lattice in a cubic L = 30 box
+# (spacing 5.0, 5.0, 6.0, offset 0.5 as ewald_setup)
+BS_SIDE = (6, 6, 5)
+BS_SPACING = (5.0, 5.0, 6.0)
+BS_BOX = (30.0, 30.0, 30.0)
+BS_WARM_STEPS = 1
+BS_TIMED_STEPS = 2
+# phase 45: the mixture slice in a cubic L = 14 box with no wall
+BM_TIMED_STEPS = 4
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -1595,6 +1648,346 @@ def rigid_body_farfield(torch, dev, counters):
             and np.isfinite(res["deterministic_step"]).all() and moved > 0):
         raise AssertionError(f"RigidBody at the far-field slice failed: "
                              f"{out}")
+    return out
+
+
+def op_rel(U, ref):
+    """max|U − ref| / max|ref| in float64."""
+    U, ref = U.double(), ref.double()
+    return ((U - ref).abs().max() / ref.abs().max()).item()
+
+
+def nbr_tiles(ewald_cells, r):
+    """The neighbor-list width of the balanced-split phases: the tile
+    count, which no tile can overflow.  On a lattice of bodies a tile whose
+    column clips two bodies spans the gap between them, so the most
+    neighbors a tile has (ewald_cells.neighbor_width, printed by phases 42
+    and 44) lies far above the uniform-density default and moves a lot
+    with the bodies; the sweep's cost follows the live tile pairs, not the
+    width."""
+    return -(-r.shape[0] // ewald_cells.TILE)
+
+
+def balanced_split_setup(torch, device):
+    """The balanced-split slice: 180 x shell_N_642 at the points of a
+    6 x 6 x 5 lattice (spacing 5.0, 5.0, 6.0, offset 0.5), identity
+    quaternions, in a cubic L = 30 box; a = sep/2, float32, no wall, no
+    force, dt 0.01, kBT 1, ewald_tol 1e-4, ewald_rc 3.5, ewald_grid_p 4,
+    block_free, 6 preconditioned Lanczos iterations, GMRES tol 1e-4,
+    restart 60 / maxiter 60 (the periodic slice's settings,
+    scripts/tpu_ewald_bench.py:89-93).  Returns (cfg, geom, state)."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    params, ref = rt.load_structure(SHELL)
+    nx, ny, nz = BS_SIDE
+    xs = np.array([[BS_SPACING[0] * i + 0.5, BS_SPACING[1] * j + 0.5,
+                    BS_SPACING[2] * k + 0.5]
+                   for i in range(nx) for j in range(ny) for k in range(nz)])
+    qs = np.tile([1.0, 0, 0, 0], (len(xs), 1))
+    cfg = rt.SimulationConfig(
+        a=params["sep"] / 2, dt=0.01, kBT=1.0, box=BS_BOX, wall=False,
+        dtype=torch.float32, lanczos_iters=6, gmres_tol=1e-4,
+        gmres_restart=60, gmres_maxiter=60, pc_mode="block_free",
+        ewald_tol=EW_TOL, ewald_rc=BAL_RC, ewald_grid_p=BAL_P)
+    geom = kin.make_ref_geometry(ref, dtype=torch.float32, device=device)
+    state = rt.make_state(xs, qs, dtype=torch.float32, device=device)
+    return cfg, geom, state
+
+
+def balanced_split_phases(torch, dev, counters):
+    """Phases 42-45: the balanced split (the tile sweep of ops/ewald_cells,
+    the gridded wave part of ops/ewald_pme, per-blob radii), plain PyTorch
+    on the card as the JAX package runs it outside any Pallas kernel.
+    Returns the phases' readings."""
+    import rigid_body_light_tpu_torch as rt
+    from rigid_body_light_tpu_torch import multi
+    from rigid_body_light_tpu_torch.dynamics import run_bd
+    from rigid_body_light_tpu_torch.ops import (ewald, ewald_cells,
+                                                ewald_cuda, ewald_pme,
+                                                kinematics as kin, saddle)
+    from rigid_body_light_tpu_torch.utils import profiling
+
+    out = {}
+    rng = np.random.default_rng(SEED + 42)
+
+    # ---- 42. the balanced split against the classic split through K4 at
+    # the periodic slice's positions
+    torch.cuda.empty_cache()
+    cfg_e, geom_e, state_e = ewald_setup(torch, dev)
+    r = kin.blob_positions(geom_e, state_e.X, state_e.Q).reshape(-1, 3)
+    n = r.shape[0]
+    F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    par_c = ewald.make_params(EW_BOX, cfg_e.a, cfg_e.eta, tol=EW_TOL)
+    par_b = ewald.make_params(EW_BOX, cfg_e.a, cfg_e.eta, tol=EW_TOL,
+                              rc=BAL_RC)
+    g_b = ewald_pme.make_grid(par_b, p=BAL_P)
+    max_nbr = nbr_tiles(ewald_cells, r)
+    ph42 = dict(n=n, rc=BAL_RC, p=BAL_P, max_nbr=max_nbr,
+                neighbor_width=ewald_cells.neighbor_width(r, par_b),
+                default_max_nbr=ewald_cells.default_max_nbr(n, par_b),
+                tiles=-(-n // ewald_cells.TILE), grid=list(g_b.grid),
+                k_vectors=len(par_b.kvecs),
+                k_vectors_classic=len(par_c.kvecs))
+    for k in (1, 2):
+        Fk = F[:k]
+        U_c = ewald_cuda.mobility_apply_multi(Fk, r, par_c)
+        U_d = ewald.mobility_apply_multi(Fk, r, par_b, max_nbr=max_nbr)
+        U_g = ewald.mobility_apply_multi(Fk, r, par_b, max_nbr=max_nbr,
+                                         grid=g_b)
+        if k == 1:
+            U_g1 = ewald.mobility_apply(F[0], r, par_b, max_nbr=max_nbr,
+                                        grid=g_b)
+            ph42["single_vs_multi"] = op_rel(U_g1, U_g[0])
+        ph42[f"dense_rel_{k}"] = op_rel(U_d, U_c)
+        ph42[f"grid_rel_{k}"] = op_rel(U_g, U_c)
+    # the tile sweep against the float64 all-pairs sweep with the same cut
+    # on the same float32 inputs (the float64 Clenshaw of the same fit)
+    U_cells = ewald_cells.real_space_apply_cells(F, r, par_b, max_nbr)
+    U_all64 = ewald.real_space_apply(F.double(), r.double(), par_b,
+                                     cheb=True)
+    U_all32 = ewald.real_space_apply(F, r, par_b)
+    ph42["cells_vs_allpairs64"] = op_rel(U_cells, U_all64)
+    ph42["allpairs32_vs_allpairs64"] = op_rel(U_all32, U_all64)
+    ph42["cells_repeat_bitwise"] = bool(torch.equal(
+        U_cells, ewald_cells.real_space_apply_cells(F, r, par_b, max_nbr)))
+    del U_all64, U_all32
+    for k in (1, 2):
+        Fk = F[:k].contiguous()
+        ph42[f"cells_ms_{k}"] = cuda_ms(
+            torch, lambda: ewald_cells.real_space_apply_cells(
+                Fk, r, par_b, max_nbr), 5)
+        ph42[f"pme_ms_{k}"] = cuda_ms(
+            torch, lambda: ewald_pme.wave_space_apply_grid(Fk, r, par_b, g_b),
+            5)
+        ph42[f"dense_wave_ms_{k}"] = cuda_ms(
+            torch, lambda: ewald.wave_space_apply(Fk, r, par_b), 5)
+        ph42[f"k4_operator_ms_{k}"] = cuda_ms(
+            torch, lambda: ewald_cuda.mobility_apply_multi(Fk, r, par_c), 5)
+        ph42[f"balanced_operator_ms_{k}"] = cuda_ms(
+            torch, lambda: ewald.mobility_apply_multi(
+                Fk, r, par_b, max_nbr=max_nbr, grid=g_b), 5)
+    print(f"phase 42, the balanced split at the periodic slice's {n} "
+          f"positions (L = {EW_BOX[0]:g}, rc {BAL_RC}, p {BAL_P}): "
+          + json.dumps(ph42))
+    checks = {
+        "dense wave within the bound of K4's classic split, 1 and 2 RHS":
+            max(ph42["dense_rel_1"], ph42["dense_rel_2"]) <= BAL_OPERATOR_TOL,
+        "gridded wave within the bound, 1 and 2 RHS":
+            max(ph42["grid_rel_1"], ph42["grid_rel_2"]) <= BAL_OPERATOR_TOL,
+        "the tile sweep is the all-pairs sweep with the rc cut":
+            ph42["cells_vs_allpairs64"] <= KERNEL_TOL,
+        "the tile sweep repeats bitwise": ph42["cells_repeat_bitwise"],
+        "1-RHS and 2-RHS applies agree": ph42["single_vs_multi"] <= 1e-6,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"phase 42 failed: {what}: {ph42}")
+    out["phase42"] = ph42
+    del U_cells, U_c, U_d, U_g
+
+    # ---- 43. the JAX package's PME bench case at L = 30 (ROADMAP queue 3,
+    # fault 3): both cutoffs against the classic split through K4, and the
+    # operator split into its parts
+    torch.cuda.empty_cache()
+    rng0 = np.random.default_rng(0)
+    L = PME_BENCH_L
+    r43 = torch.from_numpy(rng0.uniform(0, L, (PME_BENCH_N, 3))).to(
+        dev).float()
+    F43 = torch.from_numpy(rng0.standard_normal((PME_BENCH_N, 3))).to(
+        dev).float()
+    par_c43 = ewald.make_params((L, L, L), PME_BENCH_A, 1.0, tol=EW_TOL)
+    U_c43 = ewald_cuda.mobility_apply(F43, r43, par_c43)
+    ph43 = dict(n=PME_BENCH_N, L=L, a=PME_BENCH_A,
+                k4_operator_ms=cuda_ms(torch, lambda: ewald_cuda.mobility_apply(
+                    F43, r43, par_c43), 3))
+    rows = torch.from_numpy(np.sort(rng.choice(
+        PME_BENCH_N, SCALE_ROWS, replace=False))).to(dev)
+    ids43 = torch.arange(PME_BENCH_N, device=dev)
+    for rc in PME_BENCH_RCS:
+        par = ewald.make_params((L, L, L), PME_BENCH_A, 1.0, tol=EW_TOL,
+                                rc=rc)
+        g = ewald_pme.make_grid(par, p=BAL_P)
+        w = nbr_tiles(ewald_cells, r43)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        U = ewald.mobility_apply(F43, r43, par, max_nbr=w, grid=g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        rec = dict(k_vectors=len(par.kvecs), grid=list(g.grid), max_nbr=w,
+                   neighbor_width=ewald_cells.neighbor_width(r43, par),
+                   default_max_nbr=ewald_cells.default_max_nbr(PME_BENCH_N,
+                                                               par),
+                   rel_err=op_rel(U, U_c43), peak_bytes=peak,
+                   operator_ms=cuda_ms(torch, lambda: ewald.mobility_apply(
+                       F43, r43, par, max_nbr=w, grid=g), 3))
+        # the parts: the tile sweep on sampled rows against the float64
+        # all-pairs sweep with the same cut, the gridded wave part against
+        # the dense (K-chunked) wave sum, and the classic split's own
+        # parts beside them
+        U_cells = ewald_cells.real_space_apply_cells(F43, r43, par, w)
+        ref_rows = ewald.real_space_block(
+            r43.double()[rows], rows, r43.double(), ids43, F43.double(),
+            par, cheb=True)
+        rec["cells_rows_vs_allpairs64"] = op_rel(U_cells[rows], ref_rows)
+        U_pme = ewald_pme.wave_space_apply_grid(F43, r43, par, g)
+        U_dw = ewald.wave_space_apply(F43, r43, par)
+        rec["pme_vs_dense_wave"] = op_rel(U_pme, U_dw)
+        rec["pme_ms"] = cuda_ms(torch, lambda: ewald_pme.wave_space_apply_grid(
+            F43, r43, par, g), 3)
+        rec["cells_ms"] = cuda_ms(
+            torch, lambda: ewald_cells.real_space_apply_cells(F43, r43, par,
+                                                              w), 3)
+        ph43[f"rc{rc}"] = rec
+        print(f"phase 43, rc = {rc} at {PME_BENCH_N} blobs in L = {L:g}: "
+              + json.dumps(rec))
+        del U, U_cells, U_pme, U_dw, ref_rows
+        torch.cuda.empty_cache()
+    out["phase43"] = ph43
+    bad = [rc for rc in PME_BENCH_RCS
+           if not ph43[f"rc{rc}"]["rel_err"] <= BAL_OPERATOR_TOL]
+    if bad:
+        raise AssertionError(f"phase 43: the balanced split departs from "
+                             f"the classic split at rc {bad}: {ph43}")
+    del r43, F43, U_c43
+
+    # ---- 44. the balanced-split slice at 115,560 blobs through run_bd
+    torch.cuda.empty_cache()
+    cfg_s, geom_s, state_s = balanced_split_setup(torch, dev)
+    n_s = geom_s.ref_cfg.shape[0] * state_s.X.shape[0]
+    par_s = saddle._ewald_params(BS_BOX, cfg_s.a, cfg_s.eta, None, EW_TOL,
+                                 BAL_RC)
+    r_s = kin.blob_positions(geom_s, state_s.X, state_s.Q).reshape(-1, 3)
+    cfg_s = cfg_s.replace(ewald_nbr_tiles=nbr_tiles(ewald_cells, r_s))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 44)
+    x0 = state_s.X.clone()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches(counters)
+    s1, tr_w = run_bd(geom_s, cfg_s, state_s, BS_WARM_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s1, tr_s = run_bd(geom_s, cfg_s, s1, BS_TIMED_STEPS, generator=gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cnt = launches(counters)
+    res = torch.cat([tr_w["residual"], tr_s["residual"]])
+    qn = torch.linalg.norm(s1.Q, dim=1)
+    ph44 = dict(n=n_s, bodies=state_s.X.shape[0], box=list(BS_BOX),
+                steps_per_s=BS_TIMED_STEPS / wall,
+                iters=torch.cat([tr_w["iters"], tr_s["iters"]]).tolist(),
+                residuals=res.tolist(), max_residual=res.max().item(),
+                max_q_dev=(qn - 1).abs().max().item(), launches=cnt,
+                peak_bytes=torch.cuda.max_memory_allocated(dev),
+                max_nbr=cfg_s.ewald_nbr_tiles,
+                neighbor_width=ewald_cells.neighbor_width(r_s, par_s),
+                default_max_nbr=ewald_cells.default_max_nbr(n_s, par_s))
+    with profiling.StepTimer(dev) as timer:
+        run_bd(geom_s, cfg_s, s1, 1, generator=gen)
+    split = timer.split()
+    own = {k: v["self_ms"] for k, v in split.items()}
+    ph44["step_ms"] = split["step"]["ms"]
+    ph44["own_ms"] = own
+    ph44["mobility_split_ms"] = {
+        "cells sweep": own.get("ewald_cells", 0.0),
+        "PME wave part": own.get("ewald_pme", 0.0),
+        "rest": own.get("mobility", 0.0)}
+    print(f"phase 44, the balanced-split slice: {ph44['bodies']} x {SHELL} ="
+          f" {n_s} blobs in L = {BS_BOX[0]:g}, rc {BAL_RC}, p {BAL_P}: "
+          + json.dumps(ph44))
+    checks = {
+        "max residual < 10 gmres_tol": ph44["max_residual"]
+        < 10 * cfg_s.gmres_tol,
+        "state finite": bool(torch.isfinite(s1.X).all()
+                             and torch.isfinite(s1.Q).all()),
+        "|q| within 1e-5 of 1": ph44["max_q_dev"] <= 1e-5,
+        "bodies moved": (s1.X - x0).abs().max().item() > 0,
+        "no kernel launched (K4 serves the classic split only)": not cnt,
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"phase 44 failed: {what}: {ph44}")
+    # the RigidBody API at these positions: apply_M with numpy in and out
+    # beside the device function
+    _, ref = rt.load_structure(SHELL)
+    rb = rt.RigidBody(ref, s1.X.cpu().numpy(), s1.Q.cpu().numpy(), cfg_s.a,
+                      cfg_s.eta, cfg_s.dt, config=cfg_s, device=dev)
+    pos = rb.get_blob_positions()
+    F_np = rng.standard_normal(pos.size)
+    U_api = rb.apply_M(F_np, pos)
+    api_ms = host_ms(torch, lambda: rb.apply_M(F_np, pos), 2)
+    mob = saddle.mobility_apply_fn(rb.config)
+    F_dev = torch.tensor(F_np, device=dev, dtype=torch.float32).reshape(-1, 3)
+    r_dev = torch.from_numpy(pos).to(dev).float().reshape(-1, 3)
+    dev_ms = host_ms(torch, lambda: mob(F_dev, r_dev), 2)
+    U_dev = mob(F_dev, r_dev).cpu().numpy().ravel()
+    api_rel = float(np.abs(U_api - U_dev).max() / np.abs(U_dev).max())
+    ph44["rigid_body_apply_M"] = dict(api_ms=api_ms, device_ms=dev_ms,
+                                      rel_vs_device=api_rel)
+    print(f"  RigidBody.apply_M at {n_s} blobs: {api_ms:.2f} ms a numpy call "
+          f"(the overlap diagnose included), the device function "
+          f"{dev_ms:.2f} ms; max|dU|/max|U| {api_rel:.3e}")
+    if not api_rel <= KERNEL_TOL:
+        raise AssertionError(f"RigidBody.apply_M departs from the device "
+                             f"function: {api_rel}")
+    out["phase44"] = ph44
+    del rb, s1, state_s
+
+    # ---- 45. the polydisperse periodic mixture through run_bd_multi
+    torch.cuda.empty_cache()
+    cfg_m, mgeom, states, forces = mixture_setup(torch, dev, poly=True)
+    cfg_45 = cfg_m.replace(wall=False, box=EW_BOX, ewald_tol=EW_TOL,
+                           ewald_rc=BAL_RC, ewald_grid_p=BAL_P)
+    opses = multi.geometry_ops_multi(mgeom, states)
+    radii = multi.blob_radii_multi(mgeom, opses, cfg_45)
+    r45 = multi.concat_positions(opses)
+    cfg_45 = cfg_45.replace(ewald_nbr_tiles=nbr_tiles(ewald_cells, r45))
+    n45 = r45.shape[0]
+    F45 = torch.from_numpy(rng.standard_normal((2, n45, 3))).to(dev).float()
+    cfg_cl = cfg_45.replace(ewald_rc=0.0, ewald_grid_p=0)
+    U_cl = saddle.mobility_apply_multi_fn(cfg_cl, radii=radii)(F45, r45)
+    U_b2 = saddle.mobility_apply_multi_fn(cfg_45, radii=radii)(F45, r45)
+    U_b1 = saddle.mobility_apply_fn(cfg_45, radii=radii)(F45[0], r45)
+    ph45 = dict(n=n45, radii=sorted({round(float(v), 6)
+                                     for v in radii.unique()}),
+                max_nbr=cfg_45.ewald_nbr_tiles,
+                rel_1=op_rel(U_b1, U_cl[0]), rel_2=op_rel(U_b2, U_cl))
+    x0_m = torch.cat([s.X for s in states])
+    reset_launches(counters)
+    gen_m = torch.Generator(device=dev).manual_seed(SEED + 45)
+    ss, tr_mw = multi.run_bd_multi(mgeom, cfg_45, states, 1,
+                                   force_fn=lambda s_, i: forces,
+                                   generator=gen_m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss, tr_m = multi.run_bd_multi(mgeom, cfg_45, ss, BM_TIMED_STEPS,
+                                  force_fn=lambda s_, i: forces,
+                                  generator=gen_m)
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    res_m = torch.cat([tr_mw["residual"], tr_m["residual"]])
+    qn_m = torch.cat([torch.linalg.norm(s.Q, dim=1) for s in ss])
+    ph45.update(steps_per_s=BM_TIMED_STEPS / wall_m,
+                iters=torch.cat([tr_mw["iters"], tr_m["iters"]]).tolist(),
+                residuals=res_m.tolist(), max_residual=res_m.max().item(),
+                max_q_dev=(qn_m - 1).abs().max().item(),
+                launches=launches(counters))
+    print(f"phase 45, the polydisperse periodic mixture ({n45} blobs, L = "
+          f"{EW_BOX[0]:g}, rc {BAL_RC}, p {BAL_P}): " + json.dumps(ph45))
+    checks = {
+        "the operator with radii within the bound of the classic split, "
+        "1 and 2 RHS": max(ph45["rel_1"], ph45["rel_2"]) <= BAL_OPERATOR_TOL,
+        "max residual < 10 gmres_tol": ph45["max_residual"]
+        < 10 * cfg_45.gmres_tol,
+        "|q| within 1e-5 of 1": ph45["max_q_dev"] <= 1e-5,
+        "bodies moved": (torch.cat([s.X for s in ss]) - x0_m).abs().max()
+        .item() > 0,
+        "no kernel launched": not ph45["launches"],
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"phase 45 failed: {what}: {ph45}")
+    out["phase45"] = ph45
     return out
 
 
@@ -3472,6 +3865,13 @@ def main():
     rigid_ff = rigid_body_farfield(torch, dev, counters)
     print(json.dumps({"rigid_body": rigid, "rigid_body_farfield": rigid_ff}))
 
+    # ---- 42-45. the balanced split: the tile sweep, the gridded wave part,
+    # polydisperse Ewald
+    t_bal = time.perf_counter()
+    balanced = balanced_split_phases(torch, dev, counters)
+    balanced["seconds"] = time.perf_counter() - t_bal
+    print(json.dumps({"balanced_split": balanced}))
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
@@ -3561,7 +3961,9 @@ def main():
          "bound_ms_2rhs": k4[2]["bound"][0],
          "bound_ratio": k4[1]["ms"] / k4[1]["bound"][0],
          "bound_ratio_2rhs": k4[2]["ms"] / k4[2]["bound"][0],
-         "redesigned_in": 4},
+         "redesigned_in": 4,
+         "launches_balanced_split_slice": balanced["phase44"][
+             "launches"].get("ewald_real_sweep", 0)},
         {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
          "replaces": "scripts/tpu_kernel_roofline.py:53",
          "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,

@@ -33,9 +33,10 @@ class SimulationConfig:
     ``ewald_cuda``) for float32 mobility products; False, or float64, takes
     the plain PyTorch sweep.
 
-    A 3-D ``box`` is the triply-periodic Ewald operator (monodisperse,
-    classic split: ``ewald_rc`` / ``ewald_grid_p`` are not ported yet).  A
-    2-D ``(Lx, Ly)`` box is the wall-bounded pseudo-2D film: the minimum
+    A 3-D ``box`` is the triply-periodic Ewald operator: the classic split,
+    or with ``ewald_rc`` the balanced split (its real part over sorted
+    tiles, its wave part dense or, with ``ewald_grid_p``, on the
+    cell-spectral grid), with or without per-blob radii.  A 2-D ``(Lx, Ly)`` box is the wall-bounded pseudo-2D film: the minimum
     image in the plane, or with ``image_shells`` S ≥ 1 the exact
     doubly-periodic image sum, and with ``farfield_grid`` too its O(N) far
     field (:mod:`rigid_body_light_tpu_torch.ops.farfield`; S ≥ 1 and the
@@ -199,11 +200,6 @@ class SimulationConfig:
                 "box) far field yet — its lattices are cyclic/image-summed; "
                 "use image_shells for accuracy there")
         # what the port does not have yet
-        if self.ewald_rc > 0 or self.ewald_grid_p:
-            raise _not_ported(
-                "balanced-split Ewald (ewald_rc: the linked-cell real-space "
-                "sweep; ewald_grid_p: the cell-spectral wave part)",
-                "item 13 (ewald_cells, ewald_pme)")
         if self.farfield_grid is not None and self.farfield_band_p > 0:
             raise _not_ported("the far field's band tier (farfield_band_p "
                               "> 0)", "item 11")

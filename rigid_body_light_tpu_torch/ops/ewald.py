@@ -1,5 +1,5 @@
 """Triply-periodic RPY mobility via positively-split Ewald — the port of
-the monodisperse, classic-split part of ``rigid_body_light_tpu/ops/ewald.py``.
+the single-device part of ``rigid_body_light_tpu/ops/ewald.py``.
 
 The exact periodic RPY operator, split with the positively-split screen
 
@@ -21,12 +21,14 @@ The real-space part is A(r)·I + B(r)·r̂r̂ under 3-D minimum image, with
             + (√πα/96ξ³)e^{−α²ξ²} + (π/64ξ⁴)erf(αξ)
 
 (J_n odd in α), S', S'' by forward-mode differentiation of the closed
-form.  **float32 never evaluates these closed forms**: their J-combination
-differences cancel catastrophically in float32 (~1e-2 operator errors
-that diverge GMRES and break the M^{1/2} sampling).  float32 evaluates
-the host-fitted float64 piecewise-Chebyshev representation of A and B
-(``EwaldParams.cheb_*``) by Clenshaw instead; float64 evaluates the closed
-forms.
+form.  Per-blob radii (polydisperse) shift the same J-cascade to
+r ± (aᵢ − aⱼ), r ± (aᵢ + aⱼ), and the wave symbol becomes
+sinc(kaᵢ)·sinc(kaⱼ)/(ηk²).  **float32 never evaluates these closed
+forms**: their J-combination differences cancel catastrophically in
+float32 (~1e-2 operator errors that diverge GMRES and break the M^{1/2}
+sampling).  float32 evaluates the host-fitted float64 piecewise-Chebyshev
+representation of A and B (``EwaldParams.cheb_*``) by Clenshaw instead;
+float64 evaluates the closed forms.
 
 The wave part is dense matmuls against the (N, K) phase matrices cos/sin
 of r·k: ``torch.matmul`` / ``einsum`` at full float32 precision (the
@@ -37,9 +39,11 @@ sweep (:mod:`.ewald_cuda`, ``csrc/ewald_real_sweep.cu``) and the CPU
 path.  The host fits (:func:`make_params`, numpy + scipy) are copied from
 the JAX package so that both build identical arrays.
 
-Not here yet (each raises ``NotImplementedError``): the balanced split
-(``rc``: linked cells; ``grid``: the cell-spectral wave part) and per-blob
-radii (ROADMAP.md queue 1, item 13).
+The balanced split (``make_params(rc=)``) cuts the real part at rc < L/2:
+:func:`mobility_apply` then sweeps it over sorted tiles
+(:mod:`.ewald_cells`), and with a ``grid`` evaluates the wave part on the
+cell-spectral grid (:mod:`.ewald_pme`).  float32 with per-blob radii
+evaluates per-species-pair Chebyshev fits (:class:`PolyTables`).
 """
 
 from __future__ import annotations
@@ -51,13 +55,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rigid_body_light_tpu_torch.utils import profiling
+
 _SQPI = math.sqrt(math.pi)
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported to rigid_body_light_tpu_torch yet "
-        "(ROADMAP.md queue 1, item 13)")
 
 
 # ------------------------------------------------------ float64 closed forms
@@ -83,40 +83,59 @@ def _j_odd(j_fn, al, xi):
     return torch.sign(al) * j_fn(torch.abs(al), xi)
 
 
-def _s0(r, a, xi, eta):
-    c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
-    return c / r * (2.0 * _j3(r, xi) - _j3(r + 2 * a, xi)
-                    - _j_odd(_j3, r - 2 * a, xi))
+def _s0(r, a, xi, eta, ai=None, aj=None):
+    if ai is None:
+        c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
+        return c / r * (2.0 * _j3(r, xi) - _j3(r + 2 * a, xi)
+                        - _j_odd(_j3, r - 2 * a, xi))
+    # polydisperse: sin(kaᵢ)sin(kaⱼ)sin(kr) product-to-sum — the same
+    # J-cascade with shifts r ± (aᵢ − aⱼ), r ± (aᵢ + aⱼ)
+    c = 1.0 / (8.0 * math.pi**2 * eta * ai * aj)
+    d, sm = ai - aj, ai + aj
+    return c / r * (_j_odd(_j3, r + d, xi) + _j_odd(_j3, r - d, xi)
+                    - _j3(r + sm, xi) - _j_odd(_j3, r - sm, xi))
 
 
-def _s(r, a, xi, eta):
-    c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
-    return c / r * (2.0 * _j5(r, xi) - _j5(r + 2 * a, xi)
-                    - _j_odd(_j5, r - 2 * a, xi))
+def _s(r, a, xi, eta, ai=None, aj=None):
+    if ai is None:
+        c = 1.0 / (8.0 * math.pi**2 * eta * a**2)
+        return c / r * (2.0 * _j5(r, xi) - _j5(r + 2 * a, xi)
+                        - _j_odd(_j5, r - 2 * a, xi))
+    c = 1.0 / (8.0 * math.pi**2 * eta * ai * aj)
+    d, sm = ai - aj, ai + aj
+    return c / r * (_j_odd(_j5, r + d, xi) + _j_odd(_j5, r - d, xi)
+                    - _j5(r + sm, xi) - _j_odd(_j5, r - sm, xi))
 
 
-def real_space_ab(r, a, xi, eta=1.0):
+def real_space_ab(r, a, xi, eta=1.0, ai=None, aj=None):
     """Real-space Ewald scalars (A, B) with M_real = A·I + B·r̂r̂, from the
     closed forms; elementwise over any-shape ``r`` (physical units).  S'
     and S'' by forward-mode differentiation of the closed-form S, as the
-    JAX package takes them.  float64 only in practice (see module doc)."""
+    JAX package takes them.  ai, aj: per-pair radii broadcast against
+    ``r`` (polydisperse, exact).  float64 only in practice (see module
+    doc)."""
     def s_fn(rr):
-        return _s(rr, a, xi, eta)
+        return _s(rr, a, xi, eta, ai=ai, aj=aj)
 
     def sp_fn(rr):
         return torch.func.jvp(s_fn, (rr,), (torch.ones_like(rr),))[1]
 
     sp, spp = torch.func.jvp(sp_fn, (r,), (torch.ones_like(r),))
-    A = _s0(r, a, xi, eta) + sp / r
+    A = _s0(r, a, xi, eta, ai=ai, aj=aj) + sp / r
     B = spp - sp / r
     return A, B
 
 
 def self_coeff(a, xi, eta=1.0):
     """A_self = lim_{r→0} A(r): the real-space part of the screened
-    periodic self mobility (a Python float)."""
-    return ((1.0 - math.erf(2.0 * a * xi)) / (6.0 * math.pi * eta * a)
-            + (1.0 - math.exp(-4.0 * a**2 * xi**2))
+    periodic self mobility — a Python float for a float ``a``, elementwise
+    for a tensor of per-blob radii."""
+    if not torch.is_tensor(a):
+        return ((1.0 - math.erf(2.0 * a * xi)) / (6.0 * math.pi * eta * a)
+                + (1.0 - math.exp(-4.0 * a**2 * xi**2))
+                / (24.0 * math.pi**1.5 * a**2 * eta * xi))
+    return ((1.0 - torch.special.erf(2.0 * a * xi)) / (6.0 * math.pi * eta * a)
+            + (1.0 - torch.exp(-4.0 * a**2 * xi**2))
             / (24.0 * math.pi**1.5 * a**2 * eta * xi))
 
 
@@ -150,17 +169,18 @@ class EwaldParams(NamedTuple):
     nvecs: np.ndarray = None
 
 
-_KEPT = 32
+_KEPT = 64
 _kept = OrderedDict()
 
 
 def per_operator(params: EwaldParams, key, make):
-    """``make()`` once per operator ``params`` and ``key``, then kept: the
-    device copies of an operator's tables, so an apply neither rebuilds
-    nor uploads them (a blocking upload from pageable memory also waits
-    for the stream).  The last ``_KEPT`` entries are kept; an entry holds
-    its params, so that id cannot be reused while the entry lives, and a
-    hit checks identity — operators with equal contents keep their own."""
+    """``make()`` once per operator ``params`` (or grid, or species-pair
+    table set) and ``key``, then kept: the device copies of an operator's
+    tables, so an apply neither rebuilds nor uploads them (a blocking
+    upload from pageable memory also waits for the stream).  The last
+    ``_KEPT`` entries are kept; an entry holds its params, so that id
+    cannot be reused while the entry lives, and a hit checks identity —
+    operators with equal contents keep their own."""
     k = (id(params), key)
     hit = _kept.get(k)
     if hit is not None and hit[0] is params:
@@ -306,9 +326,8 @@ def make_params(box, a, eta=1.0, xi=None, tol=1e-6, rc=None) -> EwaldParams:
     and kmax puts the wave truncation at the same ``tol``.
 
     rc: balanced-splitting real-space cutoff (2a < rc ≤ min(L)/2): ξ = s/rc,
-    pairs beyond rc excluded.  The params are built as the JAX package
-    builds them, but the port's operators raise for them (the linked-cell
-    sweep is not ported).  Explicit ``xi`` is incompatible with ``rc``.
+    pairs beyond rc excluded, and the real part swept over sorted tiles
+    (:mod:`.ewald_cells`).  Explicit ``xi`` is incompatible with ``rc``.
     """
     box = tuple(float(b) for b in box)
     if len(box) != 3:
@@ -337,7 +356,8 @@ def make_params(box, a, eta=1.0, xi=None, tol=1e-6, rc=None) -> EwaldParams:
     kvecs = kvecs[keep]
     wk_raw, wk = wave_weights(kvecs, a, eta, box, xi)
     # the fit covers every distance the sweep can see: rc with cells, else
-    # half the box diagonal (minimum image)
+    # half the box diagonal (minimum image); a short-range (rc) fit starts
+    # at a low degree, escalated until it validates as the long one does
     rmax = (rc if rc is not None
             else 0.5 * float(np.linalg.norm(box))) * 1.001
     deg0 = 12 if rc is not None else _CHEB_DEG
@@ -351,24 +371,70 @@ def make_params(box, a, eta=1.0, xi=None, tol=1e-6, rc=None) -> EwaldParams:
                        nvecs=n_all[keep].astype(np.int32))
 
 
+class PolyTables(NamedTuple):
+    """Species-pair Chebyshev fits for the float32 polydisperse path.
+
+    The float32 closed forms cancel as badly with radii as without, so each
+    unique unordered (aᵢ, aⱼ) radius pair gets its own host-fitted
+    piecewise Chebyshev; blobs carry a species index and ``pair_map``
+    assigns each (sᵢ, sⱼ) its fit, applied by masked Clenshaw sweeps.
+    """
+
+    sidx: np.ndarray       # (N,) int32 species index per blob
+    n_species: int
+    pair_map: np.ndarray   # (S, S) int32 → pair-fit index (symmetric)
+    bounds: np.ndarray     # (P, 4)
+    coefA: np.ndarray      # (P, 3, D+1)
+    coefB: np.ndarray
+
+
+def make_poly_tables(params: EwaldParams, radii) -> PolyTables:
+    """Per-species-pair Chebyshev fits for per-blob radii (host float64;
+    a tensor is read back to the host)."""
+    if torch.is_tensor(radii):
+        radii = radii.detach().cpu().numpy()
+    rad = np.asarray(radii, np.float64)
+    uniq, sidx = np.unique(rad, return_inverse=True)
+    S = len(uniq)
+    rmax = 0.5 * float(np.linalg.norm(params.box)) * 1.001
+    pair_map = np.zeros((S, S), np.int32)
+    bounds, coefA, coefB = [], [], []
+    p = 0
+    for i in range(S):
+        for j in range(i, S):
+            b, cA, cB = _fit_pair_cheb(params.eta, params.xi, rmax,
+                                       float(uniq[i]), float(uniq[j]))
+            bounds.append(b)
+            coefA.append(cA)
+            coefB.append(cB)
+            pair_map[i, j] = pair_map[j, i] = p
+            p += 1
+    # degree escalation is per pair: pad to the common maximum
+    dmax = max(c.shape[1] for c in coefA)
+    coefA = [np.pad(c, ((0, 0), (0, dmax - c.shape[1]))) for c in coefA]
+    coefB = [np.pad(c, ((0, 0), (0, dmax - c.shape[1]))) for c in coefB]
+    return PolyTables(sidx=sidx.astype(np.int32), n_species=S,
+                      pair_map=pair_map, bounds=np.stack(bounds),
+                      coefA=np.stack(coefA), coefB=np.stack(coefB))
+
+
 # ------------------------------------------------------------- real space
 def _cheb_ab(rr, bounds, coefA, coefB):
     """Evaluate the piecewise fit elementwise in ``rr``'s dtype: the segment
     is chosen once per element, the coefficients are read per Clenshaw step
     by that index, and the two recurrences are the JAX package's
     (``c_j + 2x·b₁ − b₂``).  Below ``bounds[0]`` the fit is held constant
-    (x clipped to −1)."""
+    (x clipped to −1).  The tables may be numpy arrays or tensors on
+    ``rr``'s device (:func:`cheb_tables`)."""
     dtype, dev = rr.dtype, rr.device
-    b = torch.as_tensor(np.asarray(bounds, np.float64), dtype=dtype,
-                        device=dev)
+    b = torch.as_tensor(bounds, dtype=dtype, device=dev)
     seg = (rr >= b[1]).long() + (rr >= b[2]).long()
     lo, hi = b[:3][seg], b[1:][seg]
     x = torch.clamp(2.0 * (rr - lo) / (hi - lo) - 1.0, -1.0, 1.0)
     two_x = 2.0 * x
 
     def clenshaw(coef):
-        c = torch.as_tensor(np.asarray(coef, np.float64), dtype=dtype,
-                            device=dev)
+        c = torch.as_tensor(coef, dtype=dtype, device=dev)
         bk1 = torch.zeros_like(x)
         bk2 = torch.zeros_like(x)
         for j in range(c.shape[1] - 1, 0, -1):
@@ -378,6 +444,53 @@ def _cheb_ab(rr, bounds, coefA, coefB):
     return clenshaw(coefA), clenshaw(coefB)
 
 
+def cheb_tables(params: EwaldParams, dtype, dev):
+    """params' monodisperse fit (bounds (4,), coefA, coefB (3, D+1)) as
+    tensors on ``dev``, kept per operator (:func:`per_operator`)."""
+    return per_operator(params, ("cheb tables", dtype, dev), lambda: tuple(
+        torch.as_tensor(np.asarray(v, np.float64), dtype=dtype, device=dev)
+        for v in (params.cheb_bounds, params.cheb_A, params.cheb_B)))
+
+
+def poly_device_tables(pt: PolyTables, dtype, dev):
+    """(sidx (N,), pair_map (S, S), bounds (P, 4), coefA, coefB (P, 3,
+    D+1)) of ``pt`` as tensors on ``dev``, kept per table set."""
+    def make():
+        return (torch.as_tensor(pt.sidx.astype(np.int64), device=dev),
+                torch.as_tensor(pt.pair_map.astype(np.int64), device=dev),
+                *(torch.as_tensor(np.asarray(v, np.float64), dtype=dtype,
+                                  device=dev)
+                  for v in (pt.bounds, pt.coefA, pt.coefB)))
+    return per_operator(pt, ("poly tables", dtype, dev), make)
+
+
+def pair_scalars(rr, params: EwaldParams, cheb, ai=None, aj=None, si=None,
+                 sj=None, pt: PolyTables = None):
+    """(A, B) at distances ``rr``, as the JAX package's sweeps pick them:
+    with ``pt`` (float32 polydisperse) the species-pair fits selected per
+    pair by the species indices si, sj; with radii ai, aj (float64
+    polydisperse) the shifted closed forms; else the monodisperse fit
+    (``cheb``) or closed forms.  The index and radius arguments broadcast
+    against ``rr``."""
+    if pt is not None:
+        # each species pair's fit on its own pairs only (the JAX package
+        # evaluates every fit on every pair and selects: the same values)
+        _, pmap, bnd, cA, cB = poly_device_tables(pt, rr.dtype, rr.device)
+        pair = torch.broadcast_to(pmap[si, sj], rr.shape)
+        A = torch.zeros_like(rr)
+        B = torch.zeros_like(rr)
+        for p in range(bnd.shape[0]):
+            m = (pair == p).nonzero(as_tuple=True)
+            A[m], B[m] = _cheb_ab(rr[m], bnd[p], cA[p], cB[p])
+        return A, B
+    if ai is not None:
+        return real_space_ab(rr, params.a, params.xi, params.eta, ai=ai,
+                             aj=aj)
+    if cheb:
+        return _cheb_ab(rr, *cheb_tables(params, rr.dtype, rr.device))
+    return real_space_ab(rr, params.a, params.xi, params.eta)
+
+
 def _wrap3(d, box):
     """3-D minimum image of displacements d (..., 3); halves round to
     even, as ``jnp.round`` does."""
@@ -385,19 +498,47 @@ def _wrap3(d, box):
     return d - L * torch.round(d / L)
 
 
+def _sweep(r_rows, row_ids, r_cols, col_ids, Fk, params: EwaldParams,
+           row_tile, scalars):
+    """Σ_j [A·I + B·r̂r̂]·F_j over row tiles of ``row_tile`` rows, 3-D
+    minimum image, the self pair (equal ids) and, with ``params.rc``, the
+    pairs beyond rc set to an exact 0.  scalars(rr, rows) → (A, B) for the
+    row slice ``rows``.  Fk (k, N_c, 3) → (k, N_r, 3)."""
+    outs = []
+    for s in range(0, r_rows.shape[0], row_tile):
+        ri, rid = r_rows[s:s + row_tile], row_ids[s:s + row_tile]
+        d = _wrap3(ri[:, None, :] - r_cols[None, :, :], params.box)
+        r2 = torch.sum(d * d, dim=-1)
+        self_mask = rid[:, None] == col_ids[None, :]
+        rr = torch.sqrt(torch.where(self_mask, torch.ones_like(r2),
+                                    torch.clamp(r2, min=1e-24)))
+        A, B = scalars(rr, slice(s, s + row_tile))
+        # balanced split: pairs beyond rc are excluded by contract (the
+        # tile sweep's pair set)
+        drop = self_mask if params.rc is None else self_mask | ~(
+            rr <= params.rc)
+        zero = torch.zeros_like(A)
+        A = torch.where(drop, zero, A)
+        B = torch.where(drop, zero, B)
+        e = d / rr[..., None]
+        eF = torch.einsum("tnx,knx->ktn", e, Fk)
+        outs.append(torch.einsum("tn,knx->ktx", A, Fk)
+                    + torch.einsum("ktn,tn,tnx->ktx", eF, B, e))
+    return torch.cat(outs, dim=1)
+
+
 def real_space_block(r_rows, row_ids, r_cols, col_ids, F_cols,
                      params: EwaldParams, row_tile=512, cheb=None):
     """Screened real-space pair terms of a (rows × column-block) slab,
     Σ_j [A·I + B·r̂r̂]·F_j with 3-D minimum image; global ids mask the self
-    pair.  F_cols (N_c, 3) or (k, N_c, 3) sharing the pair fields.
+    pair, and with ``params.rc`` pairs beyond rc are excluded.  F_cols
+    (N_c, 3) or (k, N_c, 3) sharing the pair fields.  Monodisperse.
 
     cheb: evaluate A, B from the Chebyshev fit (True) or the closed forms
     (False); None → the fit in float32, the closed forms in float64.
     ``cheb=True`` in float64 is the float64 Clenshaw that the CUDA sweep is
     held against.
     """
-    if params.rc is not None:
-        raise _not_ported("the balanced split's real-space sweep (rc)")
     multi = F_cols.dim() == 3
     Fk = F_cols if multi else F_cols[None]
     dtype = r_rows.dtype
@@ -407,40 +548,44 @@ def real_space_block(r_rows, row_ids, r_cols, col_ids, F_cols,
         raise ValueError("the closed-form Ewald scalars cancel "
                          "catastrophically in float32: use the Chebyshev "
                          "fit (cheb=True) or float64")
-    outs = []
-    for s in range(0, r_rows.shape[0], row_tile):
-        ri, rid = r_rows[s:s + row_tile], row_ids[s:s + row_tile]
-        d = _wrap3(ri[:, None, :] - r_cols[None, :, :], params.box)
-        r2 = torch.sum(d * d, dim=-1)
-        self_mask = rid[:, None] == col_ids[None, :]
-        rr = torch.sqrt(torch.where(self_mask, torch.ones_like(r2),
-                                    torch.clamp(r2, min=1e-24)))
-        if cheb:
-            A, B = _cheb_ab(rr, params.cheb_bounds, params.cheb_A,
-                            params.cheb_B)
-        else:
-            A, B = real_space_ab(rr, params.a, params.xi, params.eta)
-        zero = torch.zeros_like(A)
-        A = torch.where(self_mask, zero, A)
-        B = torch.where(self_mask, zero, B)
-        e = d / rr[..., None]
-        eF = torch.einsum("tnx,knx->ktn", e, Fk)
-        outs.append(torch.einsum("tn,knx->ktx", A, Fk)
-                    + torch.einsum("ktn,tn,tnx->ktx", eF, B, e))
-    U = torch.cat(outs, dim=1)
+    U = _sweep(r_rows, row_ids, r_cols, col_ids, Fk, params, row_tile,
+               lambda rr, rows: pair_scalars(rr, params, cheb))
     return U if multi else U[0]
 
 
 def real_space_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
-                     cheb=None):
+                     poly_tables: PolyTables = None, cheb=None):
     """Streamed U_real = Σ_{j≠i} [A·I + B·r̂r̂]·F_j with 3-D minimum image,
-    (N, 3) or (k, N, 3) forces.  No cutoff mask: A, B ≤ tol beyond
-    min(L)/2 by the choice of ξ.  The plain version of the CUDA sweep."""
-    if radii is not None:
-        raise _not_ported("polydisperse Ewald (per-blob radii)")
+    (N, 3) or (k, N, 3) forces.  Classic split: no cutoff mask, A, B ≤ tol
+    beyond min(L)/2 by the choice of ξ; balanced split (``params.rc``):
+    pairs beyond rc excluded, the tile sweep's pair set.  The plain version
+    of the CUDA sweep.
+
+    radii: (N,) per-blob radii (polydisperse, exact): float32 evaluates the
+    species-pair fits of ``poly_tables`` (built here from the radii when
+    not given), float64 the shifted closed forms.
+    """
     ids = torch.arange(r.shape[0], device=r.device)
-    return real_space_block(r, ids, r, ids, F, params, row_tile=row_tile,
-                            cheb=cheb)
+    if radii is None:
+        return real_space_block(r, ids, r, ids, F, params, row_tile=row_tile,
+                                cheb=cheb)
+    multi = F.dim() == 3
+    Fk = F if multi else F[None]
+    rad = torch.as_tensor(radii, dtype=r.dtype, device=r.device)
+    if r.dtype == torch.float32:
+        pt = (poly_tables if poly_tables is not None
+              else make_poly_tables(params, rad))
+        sidx = poly_device_tables(pt, r.dtype, r.device)[0]
+
+        def scalars(rr, rows):
+            return pair_scalars(rr, params, True, si=sidx[rows, None],
+                                sj=sidx[None, :], pt=pt)
+    else:
+        def scalars(rr, rows):
+            return pair_scalars(rr, params, False, ai=rad[rows, None],
+                                aj=rad[None, :])
+    U = _sweep(r, ids, r, ids, Fk, params, row_tile, scalars)
+    return U if multi else U[0]
 
 
 # ------------------------------------------------------------- wave space
@@ -449,13 +594,12 @@ def wave_space_apply(F, r, params: EwaldParams, radii=None):
     against the (N, K) phase matrices C/S = cos/sin(r·kᵀ).  The k-sum
     includes the i = j term (the wave part of the self mobility).  Above a
     memory threshold the k-sum runs in K-chunks so the phase matrices never
-    exist whole."""
-    if radii is not None:
-        raise _not_ported("polydisperse Ewald (per-blob radii)")
+    exist whole.  radii: per-blob sinc(|k|aᵢ) weights on the spread and
+    the readback (the weights then carry no sinc²)."""
     K = len(params.kvecs)
     if K * r.shape[0] > 2**27 and K > 4096:
-        return _wave_space_chunked(F, r, params)
-    return _wave_space_dense(F, r, params)
+        return _wave_space_chunked(F, r, params, radii=radii)
+    return _wave_space_dense(F, r, params, radii=radii)
 
 
 def _nmax3(nvecs):
@@ -493,7 +637,7 @@ def _phases_from_tables(tables, nvecs, nmax3):
     return cxy * czg - sxy * szg, cxy * szg + sxy * czg
 
 
-def _wave_space_chunked(F, r, params: EwaldParams, kc=4096):
+def _wave_space_chunked(F, r, params: EwaldParams, radii=None, kc=4096):
     """The k-sum in chunks of ``kc`` wavevectors, sharing the per-axis
     phase tables."""
     K = len(params.kvecs)
@@ -508,27 +652,31 @@ def _wave_space_chunked(F, r, params: EwaldParams, kc=4096):
                               wk_raw=params.wk_raw[sl], nvecs=None)
         phases = (_phases_from_tables(tables, params.nvecs[sl], nmax3)
                   if tables is not None else None)
-        U = U + _wave_space_dense(F, r, sub, phases=phases, keep=False)
+        U = U + _wave_space_dense(F, r, sub, radii=radii, phases=phases,
+                                  keep=False)
     return U
 
 
 def _wave_tables(params: EwaldParams, dtype, dev):
-    """(K, 3) wavevectors, (K,) weights and (K, 3) unit wavevectors."""
+    """(K, 3) wavevectors, (K,) weights with and without the sinc², and
+    (K, 3) unit wavevectors."""
     kv = torch.as_tensor(params.kvecs, dtype=dtype, device=dev)
     wk = torch.as_tensor(params.wk, dtype=dtype, device=dev)
-    return kv, wk, kv / torch.linalg.norm(kv, dim=1, keepdim=True)
+    wk_raw = torch.as_tensor(params.wk_raw, dtype=dtype, device=dev)
+    return kv, wk, wk_raw, kv / torch.linalg.norm(kv, dim=1, keepdim=True)
 
 
-def _wave_space_dense(F, r, params: EwaldParams, phases=None, keep=True):
+def _wave_space_dense(F, r, params: EwaldParams, radii=None, phases=None,
+                      keep=True):
     """keep: the wave tables are kept per operator (:func:`per_operator`);
     the chunked sum's per-chunk operators are temporaries, not kept."""
     dtype, dev = r.dtype, r.device
     if keep:
-        kv, wk, khat = per_operator(
+        kv, wk, wk_raw, khat = per_operator(
             params, ("wave tables", dtype, dev),
             lambda: _wave_tables(params, dtype, dev))
     else:
-        kv, wk, khat = _wave_tables(params, dtype, dev)
+        kv, wk, wk_raw, khat = _wave_tables(params, dtype, dev)
     if phases is None and params.nvecs is not None and len(kv) >= 1024:
         nmax3 = _nmax3(params.nvecs)
         phases = _phases_from_tables(_phase_tables(r, params.box, nmax3),
@@ -539,6 +687,14 @@ def _wave_space_dense(F, r, params: EwaldParams, phases=None, keep=True):
         theta = r @ kv.T                                           # (N, K)
         C = torch.cos(theta)
         S = torch.sin(theta)
+    if radii is not None:
+        # per-blob sinc(|k|aᵢ) on the spread and the readback
+        wk = wk_raw
+        ka = torch.linalg.norm(kv, dim=1)[None, :] * torch.as_tensor(
+            radii, dtype=dtype, device=dev)[:, None]               # (N, K)
+        sinc = torch.sin(ka) / ka
+        C = C * sinc
+        S = S * sinc
 
     def project(X):
         # transverse projection + weight, X (..., K, 3)
@@ -556,39 +712,64 @@ def _wave_space_dense(F, r, params: EwaldParams, phases=None, keep=True):
 
 
 # --------------------------------------------------------------- operator
-def _check_classic_mono(params, radii, grid):
-    if params.rc is not None:
-        raise _not_ported("the balanced split (ewald_rc: the linked-cell "
-                          "real-space sweep)")
-    if grid is not None:
-        raise _not_ported("the gridded wave part (ewald_grid_p)")
+def _operator(Fs, r, params: EwaldParams, row_tile, radii, poly_tables,
+              max_nbr, grid, cheb):
+    """M_per·Fs for (N, 3) or (k, N, 3) forces: the real part (all pairs,
+    or the tile sweep under ``params.rc``), the self term and the wave part
+    (dense, or on ``grid``)."""
+    if grid is not None and (radii is None) != (grid.sidx is None):
+        raise ValueError("gridded wave part: build the grid with the "
+                         "same radii= as the apply (polydisperse needs "
+                         "species sinc tables)")
     if radii is not None:
-        raise _not_ported("polydisperse Ewald (per-blob radii)")
+        radii = torch.as_tensor(radii, dtype=r.dtype, device=r.device)
+    if params.rc is not None:
+        from rigid_body_light_tpu_torch.ops import ewald_cells
+
+        with profiling.span("ewald_cells"):
+            U = ewald_cells.real_space_apply_cells(
+                Fs, r, params, max_nbr=max_nbr, radii=radii,
+                poly_tables=poly_tables)
+    else:
+        U = real_space_apply(Fs, r, params, row_tile=row_tile, radii=radii,
+                             poly_tables=poly_tables, cheb=cheb)
+    a_self = params.a if radii is None else radii[:, None]
+    U = U + self_coeff(a_self, params.xi, params.eta) * Fs
+    if grid is not None:
+        from rigid_body_light_tpu_torch.ops import ewald_pme
+
+        with profiling.span("ewald_pme"):
+            return U + ewald_pme.wave_space_apply_grid(Fs, r, params, grid)
+    return U + wave_space_apply(Fs, r, params, radii=radii)
 
 
 def mobility_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
-                   grid=None, cheb=None):
+                   poly_tables: PolyTables = None, max_nbr=None, grid=None,
+                   cheb=None):
     """Full periodic RPY product U = M_per(r)·F, SPD by construction;
-    (N, 3) → (N, 3) in ``r``'s dtype."""
-    _check_classic_mono(params, radii, grid)
+    (N, 3) → (N, 3) in ``r``'s dtype.
+
+    radii: (N,) per-blob radii (polydisperse; float32 through
+    ``poly_tables``, built from the radii when not given).  With
+    ``params.rc`` the real part is the tile sweep (:mod:`.ewald_cells`,
+    ``max_nbr`` its neighbor-list width); ``grid``: the gridded wave part
+    (:mod:`.ewald_pme`), built with the same ``radii=`` as the apply.
+    """
     r = r.reshape(-1, 3)
     F = F.to(r.dtype).reshape(-1, 3)
-    U = real_space_apply(F, r, params, row_tile=row_tile, cheb=cheb)
-    U = U + self_coeff(params.a, params.xi, params.eta) * F
-    return U + wave_space_apply(F, r, params)
+    return _operator(F, r, params, row_tile, radii, poly_tables, max_nbr,
+                     grid, cheb)
 
 
 def mobility_apply_multi(Fs, r, params: EwaldParams, row_tile=512,
-                         radii=None, grid=None, cheb=None):
+                         radii=None, poly_tables: PolyTables = None,
+                         max_nbr=None, grid=None, cheb=None):
     """Multi-RHS periodic product (k, N, 3) → (k, N, 3) sharing the pair
     fields: the real-space (A, B) sweep and the wave-space phase matrices
-    are computed once for all RHS."""
-    _check_classic_mono(params, radii, grid)
+    (or the grid's spread weights) are computed once for all RHS."""
     r = r.reshape(-1, 3)
-    Fs = Fs.to(r.dtype)
-    U = real_space_apply(Fs, r, params, row_tile=row_tile, cheb=cheb)
-    U = U + self_coeff(params.a, params.xi, params.eta) * Fs
-    return U + wave_space_apply(Fs, r, params)
+    return _operator(Fs.to(r.dtype), r, params, row_tile, radii,
+                     poly_tables, max_nbr, grid, cheb)
 
 
 def mobility_matrix(r, params: EwaldParams, radii=None):

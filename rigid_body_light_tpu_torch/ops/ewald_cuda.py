@@ -12,7 +12,9 @@ Kernel (``csrc/ewald_real_sweep.cu``, built for sm_90a at first use by
                            representation, never the closed forms), applied
                            forward and transposed.  1 or 2 RHS.
 
-Monodisperse float32, classic split only.  :func:`real_pair_sum` takes the
+Monodisperse float32, classic split only: the balanced split (``rc``) and
+per-blob radii take the plain PyTorch operator (:mod:`.ewald`), as the JAX
+package's dispatch skips its Pallas kernel for them.  :func:`real_pair_sum` takes the
 plain PyTorch sweep (:func:`rigid_body_light_tpu_torch.ops.ewald.
 real_space_apply`) for a tensor on the CPU, and launches the kernel or
 raises for a CUDA tensor — there is no fallback.  Like the Pallas wrapper,
@@ -167,10 +169,10 @@ def real_sweep_kernel(r, Fs, params):
 
 def _check(params, k):
     if params.rc is not None:
-        raise NotImplementedError(
-            "the balanced split (ewald_rc) is not in the CUDA Ewald sweep: "
-            "its real part is the linked-cell sweep (ROADMAP.md queue 1, "
-            "item 13)")
+        raise ValueError(
+            "K4 sweeps the classic split's real part; the balanced split "
+            "(params built with rc=) sweeps its real part over sorted tiles "
+            "(ewald.mobility_apply routes it to ewald_cells)")
     if k > 2:
         raise NotImplementedError(
             f"a {k}-RHS sweep is not in the CUDA Ewald sweep (K4 takes "

@@ -19,11 +19,13 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
-from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
+from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import ewald
 from rigid_body_light_tpu_torch.ops import ewald_cuda
+from rigid_body_light_tpu_torch.ops import ewald_pme
 from rigid_body_light_tpu_torch.ops import farfield
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import quaternion as quat
@@ -86,10 +88,10 @@ def mobility_apply_fn(cfg: SimulationConfig, radii=None):
     (kernel K1 on the card), and anything else takes the plain sweep; a 2-D
     ``cfg.box`` gives both the pseudo-2D box and ``cfg.image_shells``.
     radii: optional (N,) per-blob physical radii closed over the returned
-    fn (polydisperse RPY: the pair sweeps and the far field)."""
-    _check_radii(cfg, radii)
+    fn (polydisperse RPY: the pair sweeps, the far field and the Ewald
+    operator)."""
     if cfg.box is not None and len(cfg.box) == 3:
-        return _ewald_apply_fn(cfg, multi=False)
+        return _ewald_apply_fn(cfg, radii, multi=False)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg, radii)
     kw = dict(_pair_box(cfg), radii=radii)
@@ -113,9 +115,8 @@ def mobility_apply_multi_fn(cfg: SimulationConfig, radii=None):
     noise; the far field's ndim-polymorphic apply with ``farfield_grid``;
     the Ewald operator with a 3-D box).  radii: as
     :func:`mobility_apply_fn`."""
-    _check_radii(cfg, radii)
     if cfg.box is not None and len(cfg.box) == 3:
-        return _ewald_apply_fn(cfg, multi=True)
+        return _ewald_apply_fn(cfg, radii, multi=True)
     if cfg.farfield_grid is not None:
         return _farfield_apply_fn(cfg, radii)
     kw = dict(_pair_box(cfg), radii=radii)
@@ -135,16 +136,6 @@ def mobility_apply_multi_fn(cfg: SimulationConfig, radii=None):
     return apply_plain
 
 
-def _check_radii(cfg: SimulationConfig, radii):
-    """Per-blob radii reach the pair sweeps and the far field: polydisperse
-    Ewald is not ported yet."""
-    if radii is None:
-        return
-    if cfg.box is not None and len(cfg.box) == 3:
-        raise _not_ported("per-blob radii with a 3-D box (polydisperse "
-                          "Ewald)", "item 13")
-
-
 def _pair_box(cfg: SimulationConfig) -> dict:
     """The pair sweeps' box arguments: the pseudo-2D (Lx, Ly) box and its
     image shells (a 3-D box never reaches the pair sweeps)."""
@@ -154,33 +145,75 @@ def _pair_box(cfg: SimulationConfig) -> dict:
 
 
 @functools.lru_cache(maxsize=8)
-def _ewald_params(box, a, eta, xi, tol):
+def _ewald_params(box, a, eta, xi, tol, rc=None):
     """``ewald.make_params`` (the host Chebyshev fit, tens of milliseconds
     and more) once per configuration: a step asks for the operator anew,
     and the arrays of the result are never written to."""
-    return ewald.make_params(box, a, eta, xi=xi, tol=tol)
+    return ewald.make_params(box, a, eta, xi=xi, tol=tol, rc=rc)
 
 
-def _ewald_apply_fn(cfg: SimulationConfig, multi: bool):
+def _radii_key(radii):
+    """The bytes of per-blob radii as float64 on the host: the cache key
+    of the tables built from them (None without radii)."""
+    if radii is None:
+        return None
+    rad = (radii.detach().cpu().numpy() if torch.is_tensor(radii)
+           else np.asarray(radii))
+    return np.ascontiguousarray(rad, np.float64).tobytes()
+
+
+@functools.lru_cache(maxsize=8)
+def _ewald_grid(params_key, p, radii_key):
+    """``ewald_pme.make_grid`` once per (operator, p, radii); its device
+    tables are kept per grid (``ewald.per_operator``).  params_key: the
+    arguments of :func:`_ewald_params`."""
+    radii = None if radii_key is None else np.frombuffer(radii_key)
+    return ewald_pme.make_grid(_ewald_params(*params_key), p=p, radii=radii)
+
+
+@functools.lru_cache(maxsize=8)
+def _poly_tables(params_key, radii_key):
+    """``ewald.make_poly_tables`` (one host fit per species pair) once per
+    (operator, radii)."""
+    return ewald.make_poly_tables(_ewald_params(*params_key),
+                                  np.frombuffer(radii_key))
+
+
+def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
     """Triply-periodic positively-split Ewald operator (:mod:`.ewald`) for a
-    3-D ``cfg.box``.  Monodisperse float32 with ``use_pallas`` sweeps the
-    real-space part through kernel K4 (:mod:`.ewald_cuda`); anything else
-    takes the plain sweep (closed-form scalars in float64).  The config
-    already refuses the balanced split (``ewald_rc``, ``ewald_grid_p``)."""
-    params = _ewald_params(cfg.box, cfg.a, cfg.eta,
-                           cfg.ewald_xi if cfg.ewald_xi > 0 else None,
-                           cfg.ewald_tol)
-    if cfg.use_pallas and cfg.dtype == torch.float32:
+    3-D ``cfg.box``, as the JAX package's ``saddle._ewald_apply_fn`` builds
+    it: ``ewald_rc`` the balanced split (the tile sweep of
+    :mod:`.ewald_cells`, ``ewald_nbr_tiles`` its neighbor-list width),
+    ``ewald_grid_p`` its gridded wave part (:mod:`.ewald_pme`, built with
+    the radii).  Monodisperse float32 with ``use_pallas`` and no ``rc``
+    sweeps the real part through kernel K4 (:mod:`.ewald_cuda`); anything
+    else takes the plain PyTorch operator on the tensors' device
+    (closed-form scalars in float64; float32 radii through species-pair
+    fits built once).  radii: (N,) per-blob radii."""
+    rc = cfg.ewald_rc if cfg.ewald_rc > 0 else None
+    params_key = (cfg.box, cfg.a, cfg.eta,
+                  cfg.ewald_xi if cfg.ewald_xi > 0 else None, cfg.ewald_tol,
+                  rc)
+    params = _ewald_params(*params_key)
+    if (cfg.use_pallas and cfg.dtype == torch.float32 and radii is None
+            and rc is None):
         kernel = (ewald_cuda.mobility_apply_multi if multi
                   else ewald_cuda.mobility_apply)
 
         def apply_kernel(F, r):
             return kernel(F, r, params)
         return apply_kernel
+    key = _radii_key(radii)
+    grid = (_ewald_grid(params_key, cfg.ewald_grid_p, key)
+            if cfg.ewald_grid_p else None)
+    pt = (_poly_tables(params_key, key)
+          if radii is not None and cfg.dtype == torch.float32 else None)
     plain = ewald.mobility_apply_multi if multi else ewald.mobility_apply
+    max_nbr = cfg.ewald_nbr_tiles if cfg.ewald_nbr_tiles > 0 else None
 
     def apply_plain(F, r):
-        return plain(F, r, params, row_tile=cfg.matvec_row_tile)
+        return plain(F, r, params, row_tile=cfg.matvec_row_tile, radii=radii,
+                     poly_tables=pt, max_nbr=max_nbr, grid=grid)
     return apply_plain
 
 

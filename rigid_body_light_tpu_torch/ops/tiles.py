@@ -1,4 +1,4 @@
-"""Cell-snake tile order — the port of ``cell_snake_order`` from
+"""Equal-population spatial tiles — the port of
 ``rigid_body_light_tpu/ops/tiles.py`` — and the work items, blocks and
 partials of the symmetric all-pairs sweeps (K1, K4; the Python mirror of
 ``csrc/tile_items.cuh``).
@@ -8,12 +8,53 @@ partitions pairs by cell adjacency; sorting blobs along a serpentine walk
 over the cell lattice keeps every run of ``farfield.TILE`` blobs inside a
 few consecutive, face-adjacent cells, so the per-tile neighbor lists stay
 narrow.
+
+The balanced-split Ewald sweep (:mod:`.ewald_cells`) sorts blobs by a 3-D
+serpentine column order (:func:`serpentine_order`) so that every run of
+:data:`TILE` = 32 consecutive blobs is spatially compact, then sweeps
+each tile against a padded list of the tiles whose bounding boxes come
+within the cutoff (:func:`bbox_adjacency`, :func:`pack_neighbor_lists`).
+Tiles hold equal populations, not equal volumes: a rigid body's hundreds
+of blobs in one place make spatially small tiles, not an overfull cell.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+
+# blobs a tile of the balanced-split Ewald sweep holds, as in the JAX
+# package; K1's and K4's work items are 128-blob tiles (their ``tile``
+# arguments), K3's ``farfield_cuda.TILE``
+TILE = 32
+
+
+def column_width(n: int, volume_est: float) -> float:
+    """Column side h ≈ (V·TILE/N)^{1/3}: cubes of ~TILE blobs at uniform
+    density."""
+    return max((volume_est * TILE / max(n, 1)) ** (1.0 / 3.0), 1e-6)
+
+
+def serpentine_order(x, h):
+    """Sorting permutation (N,) for tight equal-population tiles.
+
+    x: (N, 3) positions (folded into the box for periodic domains); h: the
+    column side.  Columns of side h in x and y, serpentine across columns,
+    z sorted within each column in alternating directions.  Both sorts are
+    stable, so the permutation is the JAX package's, integer for integer.
+    """
+    h = torch.as_tensor(h, dtype=x.dtype, device=x.device)
+    lo = x.min(dim=0).values
+    cx = ((x[:, 0] - lo[0]) / h).to(torch.int32)
+    cy = ((x[:, 1] - lo[1]) / h).to(torch.int32)
+    ymax = cy.max() + 1
+    cy_s = torch.where(cx % 2 == 0, cy, ymax - 1 - cy)
+    zdir = torch.where((cx + cy) % 2 == 0, 1.0, -1.0).to(x.dtype)
+    o1 = torch.argsort(x[:, 2] * zdir, stable=True)
+    col = cx.long() * (1 << 16) + cy_s
+    return o1[torch.argsort(col[o1], stable=True)]
 
 
 def cell_snake_order(ci, grid):
@@ -30,6 +71,54 @@ def cell_snake_order(ci, grid):
     colpos = cx * gy + cy_s
     cz_s = torch.where(colpos % 2 == 0, cz, gz - 1 - cz)
     return torch.argsort(colpos * gz + cz_s, stable=True)
+
+
+def bbox_adjacency(r_pad, t, radius, box=None):
+    """(t, t) bool: can any pair between two tiles be within ``radius``?
+
+    Per-tile axis-aligned boxes; the distance is the centre delta less the
+    summed half-extents, the delta wrapped by the minimum image when
+    ``box`` is given (valid while extents stay below L/2).
+    """
+    rt = r_pad.reshape(t, TILE, 3)
+    lo = rt.min(dim=1).values
+    hi = rt.max(dim=1).values
+    c = 0.5 * (lo + hi)
+    e = 0.5 * (hi - lo)
+    d = c[:, None, :] - c[None, :, :]
+    if box is not None:
+        L = torch.as_tensor(box, dtype=r_pad.dtype, device=r_pad.device)
+        d = d - L * torch.round(d / L)
+    gap = torch.clamp(d.abs() - (e[:, None, :] + e[None, :, :]), min=0.0)
+    return torch.sum(gap * gap, dim=-1) <= torch.as_tensor(
+        radius, dtype=r_pad.dtype) ** 2
+
+
+def pack_neighbor_lists(adj, max_nbr):
+    """Pack each row's adjacent tile ids into (t, max_nbr), −1 unused.
+
+    Returns (nbr, overflow): ``overflow`` is a bool tensor, true when some
+    row has more than ``max_nbr`` adjacent tiles; the caller poisons its
+    output with it (a silently truncated list would be wrong physics).
+    """
+    t = adj.shape[0]
+    cols = torch.arange(t, device=adj.device)
+    key = torch.where(adj, cols, t + cols)
+    packed = torch.sort(key, dim=1).values[:, :max_nbr]
+    overflow = torch.any(adj.sum(dim=1) > max_nbr)
+    return torch.where(packed < t, packed, -1), overflow
+
+
+def default_max_nbr(n: int, volume: float, radius: float) -> int:
+    """Neighbor-list width: 2.2× the bounding-box ball estimate + 8, at
+    most the tile count.  Tiles are cubes of side s = (V·TILE/N)^{1/3},
+    adjacent within the cutoff plus about s; the margin covers the max /
+    mean ratio of uniform clouds with room for clustering, and an overflow
+    still poisons rather than truncates."""
+    t = max(1, -(-n // TILE))
+    s = (volume * TILE / max(n, 1)) ** (1.0 / 3.0)
+    est = 4.19 * (radius + s) ** 3 / (volume / t)
+    return int(min(t, math.ceil(2.2 * est) + 8))
 
 
 def upper_tile_items(n, tile=128):

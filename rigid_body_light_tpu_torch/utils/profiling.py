@@ -13,8 +13,9 @@ profiling.py``, with a per-part step timer.
   untimed by default.  The parts (:data:`PARTS`) are the kernels (by their
   launch-count names), the mobility products around them, the GMRES loop,
   the Lanczos recurrence, the RFD drift, the preconditioner's build and
-  applies, kinematics and the far field's lattice build and position
-  setup.  A span's time runs from the card reaching its start to the card
+  applies, kinematics, the far field's lattice build and position setup,
+  and the balanced-split Ewald operator's tile sweep and gridded wave
+  part.  A span's time runs from the card reaching its start to the card
   reaching its end, so it holds the card's idle time while the host works
   inside it; :meth:`StepTimer.split` subtracts the spans nested in a span
   to give each part's own time.
@@ -39,8 +40,8 @@ logger = logging.getLogger("rigid_body_light_tpu_torch")
 # the parts the step marks, outermost first
 PARTS = ("step", "noise", "rfd", "kinematics", "pc_build", "gmres",
          "pc_apply", "mobility", "lattice_build", "far_setup",
-         "pair_sweep_sym", "pair_sweep_ordered", "near_sweep",
-         "ewald_real_sweep")
+         "ewald_cells", "ewald_pme", "pair_sweep_sym", "pair_sweep_ordered",
+         "near_sweep", "ewald_real_sweep")
 
 _ACTIVE = contextvars.ContextVar("rigid_body_light_tpu_torch_step_timer",
                                  default=None)

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
 near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
-against their plain PyTorch versions; and the RigidBody API through K1.
+against their plain PyTorch versions; the RigidBody API through K1; and
+the balanced-split Ewald operator (plain PyTorch, no kernel) on the card
+against the CPU.
 
 Marked ``cuda``: they skip without a CUDA device.  The GPU machine has no
 JAX, so run them there without the JAX test harness's conftest:
@@ -15,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import rigid_body_light_tpu_torch as rt  # noqa: E402
 from rigid_body_light_tpu_torch.ops import ewald, ewald_cuda  # noqa: E402
+from rigid_body_light_tpu_torch.ops import ewald_cells, ewald_pme  # noqa: E402
 from rigid_body_light_tpu_torch.ops import farfield, farfield_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import kinematics, rpy, rpy_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.utils import roofline  # noqa: E402
@@ -1027,3 +1030,34 @@ def test_rigid_body_raises_below_the_wall_on_the_card(rigid, op):
                           rigid.get_blob_positions())
         else:
             getattr(rigid, op)(np.ones(n_sys))
+
+
+@pytest.mark.parametrize("poly", [False, True], ids=["mono", "poly"])
+def test_balanced_split_on_the_card_matches_the_cpu(dev, poly):
+    """The balanced split (the tile sweep and the gridded wave part, with
+    and without radii) in float32 on the card against float64 on the CPU
+    from the same float32 inputs, within 2e-4 of max|U| (the JAX package's
+    float32 bound for the grid); two applies bitwise equal; no kernel
+    launched."""
+    rng = np.random.default_rng(13)
+    n, L = 1500, 10.0
+    r = torch.from_numpy(rng.uniform(0, L, (n, 3))).float()
+    F = torch.from_numpy(rng.standard_normal((2, n, 3))).float()
+    radii = (torch.from_numpy(rng.choice([0.2, 0.3], n)).float() if poly
+             else None)
+    par = ewald.make_params((L, L, L), 0.3, tol=1e-4, rc=3.0)
+    g = ewald_pme.make_grid(par, p=4, radii=radii)
+    on_card = dict(radii=None if radii is None else radii.to(dev), grid=g)
+    before = ewald_cuda.launch_counts()
+    U = ewald.mobility_apply_multi(F.to(dev), r.to(dev), par, **on_card)
+    U2 = ewald.mobility_apply_multi(F.to(dev), r.to(dev), par, **on_card)
+    torch.cuda.synchronize()
+    assert ewald_cuda.launch_counts() == before
+    assert torch.equal(U, U2)
+    ref = ewald.mobility_apply_multi(
+        F.double(), r.double(), par, grid=g,
+        radii=None if radii is None else radii.double())
+    assert _rel(U.cpu(), ref) < 2e-4
+    w = ewald_cells.neighbor_width(r.to(dev), par)
+    assert w == ewald_cells.neighbor_width(r, par)
+

@@ -34,6 +34,7 @@ from rigid_body_light_tpu_torch import interop  # noqa: E402
 from rigid_body_light_tpu_torch.dynamics import run_bd  # noqa: E402
 from rigid_body_light_tpu_torch.ops import ewald as ewald_t  # noqa: E402
 from rigid_body_light_tpu_torch.ops import ewald_cuda  # noqa: E402
+from rigid_body_light_tpu_torch.ops import ewald_pme  # noqa: E402
 from rigid_body_light_tpu_torch.ops import kinematics as kin_t  # noqa: E402
 from rigid_body_light_tpu_torch.ops import saddle as saddle_t  # noqa: E402
 
@@ -267,10 +268,10 @@ def test_config_dispatch_and_guards():
     film = rt.SimulationConfig(box=(10.0, 10.0), wall=True, image_shells=1,
                                farfield_grid=(4, 4, 2), gmres_tol=5e-3)
     assert film.box == (10.0, 10.0) and film.farfield_grid == (4, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        rt.SimulationConfig(box=box, ewald_rc=3.0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        rt.SimulationConfig(box=box, ewald_rc=3.0, ewald_grid_p=4)
+    # the balanced split and its grid, once refused, are configurations
+    assert rt.SimulationConfig(box=box, ewald_rc=3.0).ewald_rc == 3.0
+    assert rt.SimulationConfig(box=box, ewald_rc=3.0,
+                               ewald_grid_p=4).ewald_grid_p == 4
     # the JAX configuration carries across, box and all
     cfg_j = ConfigJ(a=0.25, eta=1.3, box=box, dtype=jnp.float64,
                     ewald_tol=1e-8)
@@ -299,15 +300,22 @@ def test_config_dispatch_and_guards():
     U32 = mob32(F[0].float(), r.float())
     assert U32.dtype == torch.float32
     assert _rel(U32, ref[0]) < 1e-4   # ewald_tol 1e-8, fit 3e-6, float32
-    # operators that are not ported raise, whatever built the params
+    # the balanced split, radii and the grid, once refused, are dispatched:
+    # rc to the tile sweep (K4's wrapper keeps the classic split only),
+    # radii to the polydisperse sweeps, a grid to the gridded wave part
     p_rc = ewald_t.make_params(box, 0.25, 1.3, rc=3.0)
-    for fn in (ewald_t.mobility_apply, ewald_cuda.mobility_apply):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn(F[0], r, p_rc)
-    with pytest.raises(NotImplementedError, match="radii"):
-        ewald_t.mobility_apply(F[0], r, p, radii=np.ones(8))
-    with pytest.raises(NotImplementedError, match="grid"):
-        ewald_t.mobility_apply(F[0], r, p, grid=object())
+    U_rc = ewald_t.mobility_apply(F[0], r, p_rc)
+    assert _rel(U_rc, ref[0]) < 5e-5   # both splits truncate by 1e-6
+    with pytest.raises(ValueError, match="classic split"):
+        ewald_cuda.mobility_apply(F[0], r, p_rc)
+    U_one = ewald_t.mobility_apply(F[0], r, p, radii=torch.full((8,), 0.25,
+                                                                 dtype=torch.float64))
+    assert _rel(U_one, ref[0]) < 1e-12   # equal radii: the mono operator
+    g = ewald_pme.make_grid(p_rc, p=4)
+    assert _rel(ewald_t.mobility_apply(F[0], r, p_rc, grid=g), U_rc) < 1e-3
+    with pytest.raises(ValueError, match="same radii"):
+        ewald_t.mobility_apply(F[0], r, p_rc, radii=torch.full(
+            (8,), 0.25, dtype=torch.float64), grid=g)
     with pytest.raises(NotImplementedError, match="RHS"):
         ewald_cuda.real_pair_sum(torch.cat([F, F[:1]]), r, p)
 

@@ -132,12 +132,26 @@ def test_config_carries_across():
 @pytest.mark.parametrize("kw", [
     dict(farfield_grid=(4, 4, 2), farfield_band_p=3, gmres_tol=5e-3),
     dict(farfield_grid="auto", farfield_band_p=4),
-    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0),
-    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0, ewald_grid_p=16),
 ])
 def test_config_refuses_unported_features(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CfgT(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0),
+    dict(box=(12.0, 12.0, 12.0), ewald_rc=4.0, ewald_grid_p=16),
+])
+def test_config_takes_the_balanced_split(kw):
+    """The balanced split and its gridded wave part, once refused: the
+    port's config carries them as the JAX package's does, field by
+    field."""
+    cfg_j = SimulationConfig(dtype=jnp.float64, **kw)
+    cfg_t = interop.config_from_dict(dataclasses.asdict(cfg_j))
+    for f in dataclasses.fields(CfgT):
+        if f.name != "dtype":
+            assert getattr(cfg_t, f.name) == getattr(cfg_j, f.name), f.name
+    assert cfg_t == CfgT(dtype=torch.float64, **kw)
 
 
 @pytest.mark.parametrize("kw", [

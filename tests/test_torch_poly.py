@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from rigid_body_light_tpu.ops import rpy as rpy_j  # noqa: E402
 from rigid_body_light_tpu.ops import rpy_pallas  # noqa: E402
 from rigid_body_light_tpu_torch import SimulationConfig  # noqa: E402
-from rigid_body_light_tpu_torch.ops import rpy, rpy_cuda, saddle  # noqa: E402
+from rigid_body_light_tpu_torch.ops import ewald, rpy, rpy_cuda, saddle  # noqa: E402
 
 A, ETA = 0.4, 1.3
 # float64 twin against the JAX package, relative to the largest entry
@@ -218,7 +218,8 @@ def test_apply_fns_close_over_radii_and_refuse_unported_operators():
     compute the polydisperse operator (on a (2, 2, 2) grid every pair is a
     near pair, so it is the twin's to roundoff, in float64 and through
     K3's wrapper in float32; on (3, 3, 2) within p = 4's interpolation
-    error at cells of 3.3a); radii with a 3-D box raise naming item 13."""
+    error at cells of 3.3a); radii with a 3-D box give the polydisperse
+    Ewald operator."""
     r, radii, F = poly_cloud()
     r_t, F_t, rad = (torch.from_numpy(x) for x in (r, F[0], radii))
     cfg = SimulationConfig(a=A, eta=ETA, wall=True, dtype=torch.float64)
@@ -240,7 +241,12 @@ def test_apply_fns_close_over_radii_and_refuse_unported_operators():
         U_ff = saddle.mobility_apply_fn(cfg_ff, radii=rad.to(dtype))(
             F_t.to(dtype), r_t.to(dtype))
         assert _rel(U_ff, ref.numpy()) < tol, (grid, dtype)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        saddle.mobility_apply_multi_fn(
-            SimulationConfig(a=A, box=(20.0, 20.0, 20.0),
-                             dtype=torch.float64), radii=rad)
+    # radii with a 3-D box, once refused: the polydisperse Ewald operator
+    cfg_3d = SimulationConfig(a=A, box=(20.0, 20.0, 20.0),
+                              dtype=torch.float64)
+    U_3d = saddle.mobility_apply_multi_fn(cfg_3d, radii=rad)(
+        torch.from_numpy(F), r_t)
+    ref_3d = ewald.mobility_apply_multi(
+        torch.from_numpy(F), r_t, ewald.make_params((20.0, 20.0, 20.0), A),
+        radii=rad)
+    assert _rel(U_3d, ref_3d.numpy()) < 1e-14
