@@ -257,7 +257,35 @@ Phases (each raises on failure; any failure exits nonzero):
      and forces in a cubic L = 14 box with no wall (ewald_rc 3.5,
      ewald_grid_p 4): the operator with radii against the classic split
      with radii (the plain all-pairs sweep) at 1 and 2 RHS, then
-     multi.run_bd_multi for 1 warm-up and 4 timed steps.
+     multi.run_bd_multi for 1 warm-up and 4 timed steps;
+ 46. the far field's band tier (farfield_band_p: cell offsets 2-3 at a
+     higher order as batched float32 matmuls, no TF32) at
+     scripts/tpu_farfield_bench.py's band case, 102,400 points: the slab
+     above the wall, grid (10, 10, 5), at p = 4 + band 6, p = 4 and plain
+     p = 6, and the free cube of side 30 (auto grid) at p = 4 + band 6
+     and p = 4; each variant's prepare ms, ms an apply at 1 and 2 RHS and
+     its far_band part, lattice and band bytes, peak memory, and
+     max|dU|/max|U| against the exact product through K1; the band at
+     least 4x tighter than p = 4 in both set-ups;
+ 47. the far-field slice with farfield_band_p 6 through run_bd (1 warm-up
+     and 2 timed steps at gmres_tol 3e-4, which the two-tier estimate does
+     not warn about) beside the same slice at p = 4 in the same run: steps/s,
+     K3's launches a step, GMRES iterations and residuals (each below
+     10·gmres_tol), the step timer's split with the far_band span; one
+     band step through K3 against one through the plain near sweep, from
+     the same draws, at 25,620 blobs;
+ 48. the polydisperse band at the far-field mixture (108,960 blobs): the
+     operator against K1's exact POLY product beside p = 4's, and a
+     run_bd_multi step after a warm-up;
+ 49. the adjoints at the dense slice: K1's autograd Function
+     (rpy_cuda.MobilityApply) against autograd through the plain float32
+     sweep at 4 bodies (F-bar within 5e-6, r-bar within 1e-5 of max), its
+     forward and backward ms, launches and peak memory at 10,272 blobs;
+     the symmetry identity d(v·U)/dF = N·v of
+     solvers.make_differentiable_solver within 10·gmres_tol; a 3-step
+     dynamics.make_differentiable_step trajectory, the gradient of the sum
+     of the final heights in F and X0 along two directions against
+     central differences; a gradient through K2, K3 or K4 raises.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -270,8 +298,10 @@ polydisperse film path (K1/K2's POLY × BOX forms through the run driver),
 phase 39 the exact-drift and unpreconditioned stepper modes, phases
 40-41 the RigidBody API over the dense (K1/K2) and far-field (K3) paths,
 phases 42-45 the balanced-split periodic path (the tile sweep and the
-gridded wave part, no kernel; K4 as the classic split's yardstick);
-phase 15 is the probe's own entry point.  The kernels
+gridded wave part, no kernel; K4 as the classic split's yardstick),
+phases 46-48 the far field's band tier (K3 and the band's matmuls),
+phase 49 the adjoints (K1 under autograd); phase 15 is the probe's own
+entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
 
@@ -445,6 +475,28 @@ BS_WARM_STEPS = 1
 BS_TIMED_STEPS = 2
 # phase 45: the mixture slice in a cubic L = 14 box with no wall
 BM_TIMED_STEPS = 4
+# phases 46-48: the far field's band tier.  Phase 46 is
+# scripts/tpu_farfield_bench.py's band case (102,400 points, a = 0.243553:
+# the slab above the wall and the free cube of side 30); the band must be
+# at least 4x tighter than p = 4 there (the ratio of the JAX package's
+# tests/test_farfield.py::test_band_tier_tightens_free).  Phases 47-48 run
+# at the two-tier estimate's own tolerance, max(2e-4, 3e-4) at p = 4 +
+# band 6, which the configuration does not warn about
+BAND_BENCH_N = 102_400
+BAND_CUBE_L = 30.0
+BAND_GAIN = 4.0
+BAND_GMRES_TOL = 3e-4
+# phase 49: the adjoints at the dense slice.  The Function's r-bar against
+# autograd through the plain float32 sweep: the same computation, so a
+# float32 roundoff bound; the 3-step trajectory's two directional
+# derivatives against central differences, relative to |grad|, at steps
+# where float32 and the solves' gmres_tol leave the difference quotient
+# ~1e-4 of it (the loss is nearly linear in F; X0's is near the identity)
+ADJ_RBAR_TOL = 1e-5
+ADJ_STEPS = 3
+ADJ_EPS_F = 0.5
+ADJ_EPS_X = 1e-2
+ADJ_DIR_TOL = 1e-2
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -1989,6 +2041,448 @@ def balanced_split_phases(torch, dev, counters):
             raise AssertionError(f"phase 45 failed: {what}: {ph45}")
     out["phase45"] = ph45
     return out
+
+
+def band_bench_positions(rng, a):
+    """scripts/tpu_farfield_bench.py:37-45's two clouds of 102,400 points:
+    the slab above the wall (xy over ±12·√(n/10240), z over [1, 40]) and
+    the free cube of side 30 (both physical, a = 0.243553)."""
+    n = BAND_BENCH_N
+    side = 12.0 * np.sqrt(n / 10240.0)
+    slab = rng.uniform([-side, -side, 1.0], [side, side, 40.0], (n, 3))
+    cube = rng.uniform(0, BAND_CUBE_L, (n, 3)) * a / 0.243553
+    return slab, cube
+
+
+def band_operator(torch, farfield, profiling, label, r, F2, U_ex, kw):
+    """One variant of phases 46 and 48: the far field with ``kw`` (grid, p,
+    band_p)
+    at positions r, its prepare ms, apply ms at 1 and 2 RHS and their
+    far_band part, the lattices' and band blocks' bytes, the peak memory
+    above what was held, and max|dU|/max|U| against the exact product."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ctx = farfield.prepare(r, **kw)
+    torch.cuda.synchronize()
+    prep_ms = (time.perf_counter() - t0) * 1e3
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+    U = farfield.mobility_apply(F2[0], r, ctx=ctx, **kw)
+    torch.cuda.synchronize()
+    rel = ((U - U_ex).abs().max() / U_ex.abs().max()).item()
+    finite = bool(torch.isfinite(U).all())
+    del U
+    rec = dict(grid=list(kw["grid"]), p=kw["p"], band_p=kw["band_p"],
+               prepare_ms=prep_ms, rel=rel,
+               lattice_bytes=nbytes(ctx.khat_free, ctx.khat_wall),
+               band_bytes=nbytes(ctx.band_free, ctx.band_wall))
+    for k in (1, 2):
+        Fk = F2[0] if k == 1 else F2
+        rec[f"ms_{k}"] = cuda_ms(torch, lambda: farfield.mobility_apply(
+            Fk, r, ctx=ctx, **kw), 3)
+        with profiling.StepTimer() as timer:
+            farfield.mobility_apply(Fk, r, ctx=ctx, **kw)
+        split = timer.split()
+        rec[f"far_band_ms_{k}"] = split.get("far_band", {}).get("ms", 0.0)
+    torch.cuda.synchronize()
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    del ctx
+    print(f"{label}: " + json.dumps(rec))
+    if not finite:
+        raise AssertionError(f"{label}: non-finite product")
+    return rec
+
+
+def band_phases(torch, dev, counters):
+    """Phases 46-48: the far field's band tier (farfield_band_p: cell
+    offsets 2..3 at a higher order as batched matmuls over the offsets,
+    the FFT lattices masked beyond).  Returns the phases' readings."""
+    import warnings
+
+    from rigid_body_light_tpu_torch import multi
+    from rigid_body_light_tpu_torch.dynamics import (make_draws, run_bd,
+                                                     stochastic_step)
+    from rigid_body_light_tpu_torch.ops import farfield, rpy_cuda
+    from rigid_body_light_tpu_torch.utils import profiling
+
+    out = {}
+    rng = np.random.default_rng(SEED + 46)
+    # the band's matmuls in full float32: TF32 would cost ~1e-3
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise AssertionError("float32 matmuls are set to TF32")
+
+    # ---- 46. the band operator at the JAX bench's own case
+    a = 0.243553
+    slab, cube = band_bench_positions(rng, a)
+    ph46 = {}
+    for label, pos, wall, variants in (
+            ("slab above the wall", slab, True,
+             [((10, 10, 5), 4, 6), ((10, 10, 5), 4, 0),
+              ((10, 10, 5), 6, 0)]),
+            (f"free cube L = {BAND_CUBE_L:g}", cube, False,
+             [(None, 4, 6), (None, 4, 0)])):
+        r = torch.from_numpy(pos).to(dev).float()
+        F2 = torch.from_numpy(rng.standard_normal((2, len(pos), 3))).to(
+            dev).float()
+        U_ex = rpy_cuda.mobility_apply(F2[0], r, a=a, eta=1.0, wall=wall)
+        recs = []
+        for grid, p, bp in variants:
+            grid = grid or farfield.auto_grid(len(pos), p, wall)
+            grid = (grid,) * 3 if isinstance(grid, int) else grid
+            kw = dict(a=a, eta=1.0, wall=wall, grid=grid, p=p, band_p=bp)
+            recs.append(band_operator(
+                torch, farfield, profiling,
+                f"phase 46, {label}, grid {grid}, p = {p}, band {bp}", r, F2,
+                U_ex, kw))
+        ratio = recs[1]["rel"] / recs[0]["rel"]
+        ph46[label] = dict(n=len(pos), variants=recs, band_gain=ratio)
+        print(f"phase 46, {label}: p = 4 + band 6 {recs[0]['rel']:.3e}, "
+              f"p = 4 {recs[1]['rel']:.3e}: {ratio:.1f}x tighter (at least "
+              f"{BAND_GAIN:g}x)")
+        if not ratio >= BAND_GAIN:
+            raise AssertionError(f"phase 46, {label}: the band tier is "
+                                 f"only {ratio:.2f}x tighter than p = 4")
+        del r, F2, U_ex
+    out["phase46"] = ph46
+
+    # ---- 47. the far-field slice with the band tier through run_bd
+    torch.cuda.empty_cache()
+    cfg_f, geom_f, state_f, force_f = farfield_setup(torch, dev, FF_BODIES)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        cfg_p4 = cfg_f.replace(gmres_tol=BAND_GMRES_TOL)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")        # the estimate must not warn
+        cfg_b = cfg_f.replace(gmres_tol=BAND_GMRES_TOL, farfield_band_p=6)
+    ph47 = {"gmres_tol": BAND_GMRES_TOL}
+    for label, cfg_ in (("p = 4 + band 6", cfg_b), ("p = 4", cfg_p4)):
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        reset_launches(counters)
+        s, tr_w = run_bd(geom_f, cfg_, state_f, FF_WARM_STEPS, generator=gen,
+                         force_fn=lambda s_, i: force_f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, tr = run_bd(geom_f, cfg_, s, FF_TIMED_STEPS, generator=gen,
+                       force_fn=lambda s_, i: force_f)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        cnt = launches(counters)
+        steps = FF_WARM_STEPS + FF_TIMED_STEPS
+        res = torch.cat([tr_w["residual"], tr["residual"]])
+        qn = torch.linalg.norm(s.Q, dim=1)
+        rec = dict(steps_per_s=FF_TIMED_STEPS / wall_s,
+                   iters=torch.cat([tr_w["iters"], tr["iters"]]).tolist(),
+                   residuals=res.tolist(), launches=cnt,
+                   k3_per_step=cnt.get("near_sweep", 0) / steps,
+                   max_q_dev=(qn - 1).abs().max().item())
+        print(f"phase 47, the far-field slice at {label} (gmres_tol "
+              f"{BAND_GMRES_TOL:g}): " + json.dumps(rec))
+        checks = {
+            "every residual < 10 gmres_tol": res.max().item()
+            < 10 * BAND_GMRES_TOL,
+            "state finite": bool(torch.isfinite(s.X).all()),
+            "|q| within 1e-5 of 1": rec["max_q_dev"] <= 1e-5,
+            "K3 alone launched": set(cnt) == {"near_sweep"},
+        }
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"phase 47, {label}: {what}: {rec}")
+        ph47[label] = rec
+        if cfg_ is cfg_b:
+            s_b, gen_b = s, gen
+    ph47["split"] = step_split(
+        torch, profiling, "far-field, band 6",
+        lambda k: run_bd(geom_f, cfg_b, s_b, k, generator=gen_b,
+                         force_fn=lambda s_, i: force_f), 1)
+    # one step through K3 against one through the plain near sweep, from
+    # the same draws, at phase 9's 25,620 blobs
+    cfg_c, geom_c, state_c, force_c = farfield_setup(torch, dev,
+                                                     FF_CHECK_BODIES)
+    cfg_cb = cfg_c.replace(gmres_tol=BAND_GMRES_TOL, farfield_band_p=6)
+    draws = make_draws(geom_c, state_c,
+                       torch.Generator(device=dev).manual_seed(SEED + 47))
+    s_k, aux_k = stochastic_step(geom_c, cfg_cb, state_c, force_c,
+                                 draws=draws)
+    s_p, aux_p = stochastic_step(geom_c, cfg_cb.replace(use_pallas=False),
+                                 state_c, force_c, draws=draws)
+    torch.cuda.synchronize()
+    dX_k, dX_p = s_k.X - state_c.X, s_p.X - state_c.X
+    ph47["step_check_rel"] = ((dX_k - dX_p).abs().max()
+                              / dX_p.abs().max()).item()
+    print(f"phase 47, a band step through K3 against the plain near sweep "
+          f"at {FF_CHECK_BODIES} x {FF_SHELL}: max|dX_k - dX_p|/max|dX_p| = "
+          f"{ph47['step_check_rel']:.3e} (tol {STEP_TOL:g}); iters "
+          f"{aux_k.iters} vs {aux_p.iters}")
+    if not (ph47["step_check_rel"] <= STEP_TOL
+            and torch.isfinite(s_k.X).all()):
+        raise AssertionError(f"phase 47: the band step through K3 "
+                             f"disagrees with the plain one: {ph47}")
+    out["phase47"] = ph47
+    del s_b, s_k, s_p
+
+    # ---- 48. the polydisperse band at the far-field mixture
+    torch.cuda.empty_cache()
+    cfg_x, mgeom_x, states_x, forces_x = farfield_mixture_setup(
+        torch, dev, FF_BODIES)
+    opses_x = multi.geometry_ops_multi(mgeom_x, states_x)
+    r_x = multi.concat_positions(opses_x)
+    rad_x = multi.blob_radii_multi(mgeom_x, opses_x, cfg_x)
+    F_x = torch.from_numpy(rng.standard_normal((2, r_x.shape[0], 3))).to(
+        dev).float()
+    U_ex = rpy_cuda.mobility_apply(F_x[0], r_x, a=cfg_x.a, eta=cfg_x.eta,
+                                   wall=True, radii=rad_x)
+    ph48 = dict(n=r_x.shape[0])
+    for bp in (6, 0):
+        kw = dict(a=cfg_x.a, eta=cfg_x.eta, wall=True, grid=FF_GRID, p=FF_P,
+                  band_p=bp, radii=rad_x)
+        ph48[f"band_{bp}"] = band_operator(
+            torch, farfield, profiling,
+            f"phase 48, the far-field mixture, band {bp}", r_x, F_x, U_ex,
+            kw)
+    ph48["band_gain"] = ph48["band_0"]["rel"] / ph48["band_6"]["rel"]
+    del U_ex, F_x
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        cfg_xb = cfg_x.replace(gmres_tol=BAND_GMRES_TOL, farfield_band_p=6)
+    gen_x = torch.Generator(device=dev).manual_seed(SEED)
+    reset_launches(counters)
+    s_x, tr_w = multi.run_bd_multi(mgeom_x, cfg_xb, states_x, 1,
+                                   generator=gen_x,
+                                   force_fn=lambda ss, i: forces_x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_x, tr = multi.run_bd_multi(mgeom_x, cfg_xb, s_x, 1, generator=gen_x,
+                                 force_fn=lambda ss, i: forces_x)
+    torch.cuda.synchronize()
+    wall_x = time.perf_counter() - t0
+    res = torch.cat([tr_w["residual"], tr["residual"]])
+    ph48.update(steps_per_s=1.0 / wall_x, launches=launches(counters),
+                iters=torch.cat([tr_w["iters"], tr["iters"]]).tolist(),
+                residuals=res.tolist())
+    print(f"phase 48, the far-field mixture with band 6: operator "
+          f"{ph48['band_6']['rel']:.3e} against p = 4's "
+          f"{ph48['band_0']['rel']:.3e} ({ph48['band_gain']:.1f}x); one "
+          f"run_bd_multi step after a warm-up: {ph48['steps_per_s']:.4f} "
+          f"steps/s, iters {ph48['iters']}, residuals {ph48['residuals']}, "
+          f"launches {ph48['launches']}")
+    checks = {
+        "the band tighter than p = 4": ph48["band_gain"] > 1.0,
+        "every residual < 10 gmres_tol": res.max().item()
+        < 10 * BAND_GMRES_TOL,
+        "state finite": all(bool(torch.isfinite(s_.X).all()) for s_ in s_x),
+        "K3's POLY form alone launched": set(ph48["launches"])
+        == {"near_sweep_poly"},
+    }
+    for what, ok in checks.items():
+        if not ok:
+            raise AssertionError(f"phase 48: {what}: {ph48}")
+    out["phase48"] = ph48
+    return out
+
+
+def adjoint_phases(torch, dev, counters):
+    """Phase 49: the adjoints at the dense slice — K1's autograd Function
+    (rpy_cuda.MobilityApply), solvers.make_differentiable_solver and
+    dynamics.make_differentiable_step — and the raises of the kernels
+    without a backward.  Returns the phase's readings."""
+    from rigid_body_light_tpu_torch.dynamics import make_differentiable_step
+    from rigid_body_light_tpu_torch.ops import (ewald, ewald_cuda, farfield,
+                                                kinematics as kin, rpy,
+                                                rpy_cuda, saddle, solvers)
+    from rigid_body_light_tpu_torch.state import BodyState
+
+    ph = {}
+    rng = np.random.default_rng(SEED + 49)
+    cfg, geom, state, force = slice_setup(torch, dev)
+    a, eta, h = cfg.a, cfg.eta, cfg.wall_h_floor
+
+    # 49.1 the Function's backward against autograd through the plain
+    # float32 sweep, at 4 bodies of the slice
+    r4 = kin.blob_positions(geom, state.X[:4], state.Q[:4]).reshape(-1, 3)
+    F4 = torch.from_numpy(rng.standard_normal((2, r4.shape[0], 3))).to(
+        dev).float()
+    grads = []
+    for fn in (rpy_cuda.mobility_apply, rpy.mobility_apply):
+        rr, FF = r4.clone().requires_grad_(), F4[0].clone().requires_grad_()
+        U = fn(FF, rr, a=a, eta=eta, wall=True, h_floor=h)
+        grads.append(torch.autograd.grad(U, (FF, rr), F4[1]))
+    (gF_k, gr_k), (gF_p, gr_p) = grads
+    ph["function_F_bar_rel"] = ((gF_k - gF_p).abs().max()
+                                / gF_p.abs().max()).item()
+    ph["function_r_bar_rel"] = ((gr_k - gr_p).abs().max()
+                                / gr_p.abs().max()).item()
+    print(f"phase 49.1, K1's autograd Function at n={r4.shape[0]}: F-bar "
+          f"{ph['function_F_bar_rel']:.3e} (tol {KERNEL_TOL:g}), r-bar "
+          f"{ph['function_r_bar_rel']:.3e} (tol {ADJ_RBAR_TOL:g}) of max "
+          f"from autograd through the plain float32 sweep")
+    if not (ph["function_F_bar_rel"] <= KERNEL_TOL
+            and ph["function_r_bar_rel"] <= ADJ_RBAR_TOL):
+        raise AssertionError(f"phase 49.1: the Function's backward "
+                             f"disagrees with the plain path: {ph}")
+
+    # 49.4 at full width: the Function's forward and backward ms, launches
+    # and the backward's peak memory (the plain sweep's r-bar recomputes
+    # its row tiles)
+    r = kin.blob_positions(geom, state.X, state.Q).reshape(-1, 3)
+    n = r.shape[0]
+    F2 = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    rr, FF = r.clone().requires_grad_(), F2[0].clone().requires_grad_()
+    reset_launches(counters)
+    U = rpy_cuda.mobility_apply(FF, rr, a=a, eta=eta, wall=True)
+    torch.cuda.synchronize()
+    fwd_launches = launches(counters)
+    reset_launches(counters)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gF, gr = torch.autograd.grad(U, (FF, rr), F2[1], retain_graph=True)
+    torch.cuda.synchronize()
+    ph["backward_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    bwd_launches = launches(counters)
+    ph["forward_ms"] = cuda_ms(torch, lambda: rpy_cuda.mobility_apply(
+        FF, rr, a=a, eta=eta, wall=True), 5)
+    ph["backward_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        U, (FF, rr), F2[1], retain_graph=True), 2)
+    # the force cotangent alone, on a graph where r needs none
+    U_f = rpy_cuda.mobility_apply(FF, r, a=a, eta=eta, wall=True)
+    ph["backward_force_only_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        U_f, FF, F2[1], retain_graph=True), 5)
+    ph.update(n=n, forward_launches=fwd_launches,
+              backward_launches=bwd_launches)
+    print(f"phase 49.4, the Function at n={n}: forward {ph['forward_ms']:.3f}"
+          f" ms ({fwd_launches}), backward {ph['backward_ms']:.3f} ms "
+          f"({bwd_launches}; F-bar alone {ph['backward_force_only_ms']:.3f} "
+          f"ms), the backward's peak {ph['backward_peak_bytes'] / 1e9:.3f} "
+          f"GB above what was held")
+    if not (fwd_launches == {"pair_sweep_sym": 1}
+            and bwd_launches == {"pair_sweep_sym": 1}
+            and bool(torch.isfinite(gr).all())):
+        raise AssertionError(f"phase 49.4: the Function's launches: {ph}")
+    del U, U_f, gF, gr, rr, FF
+
+    # 49.2 the symmetry identity: ∂(v·U)/∂F = N·v at full width
+    solve = solvers.make_differentiable_solver(cfg)
+    ops = saddle.geometry_ops(geom, state)
+    slip = torch.zeros_like(ops.flat_positions)
+    v = torch.from_numpy(rng.standard_normal((N_BODIES, 6))).to(dev).float()
+    Fg = force.clone().requires_grad_()
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, U_s = solve(ops, slip, Fg)
+    torch.cuda.synchronize()
+    solve_fwd_ms = (time.perf_counter() - t0) * 1e3
+    solve_fwd_launches = launches(counters)
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(torch.sum(U_s * v), Fg)
+    torch.cuda.synchronize()
+    solve_bwd_ms = (time.perf_counter() - t0) * 1e3
+    solve_bwd_launches = launches(counters)
+    _, Nv = solve(ops, slip, v)
+    ph["symmetry_rel"] = ((g - Nv).abs().max() / Nv.abs().max()).item()
+    ph.update(solve_forward_ms=solve_fwd_ms, solve_backward_ms=solve_bwd_ms,
+              solve_forward_launches=solve_fwd_launches,
+              solve_backward_launches=solve_bwd_launches)
+    print(f"phase 49.2, the differentiable solve at n={n}: d(v.U)/dF "
+          f"against N.v {ph['symmetry_rel']:.3e} (tol "
+          f"{10 * cfg.gmres_tol:g}); forward {solve_fwd_ms:.1f} ms "
+          f"({solve_fwd_launches}), backward {solve_bwd_ms:.1f} ms "
+          f"({solve_bwd_launches})")
+    if not ph["symmetry_rel"] <= 10 * cfg.gmres_tol:
+        raise AssertionError(f"phase 49.2: the symmetry identity: {ph}")
+
+    # 49.3 a 3-step differentiable trajectory: the loss Σ final heights,
+    # its gradient in F and X₀ against central differences
+    step = make_differentiable_step(geom, cfg)
+
+    def loss(X0, F):
+        s = BodyState(X=X0, Q=state.Q)
+        for _ in range(ADJ_STEPS):
+            s = step(s, F)
+        return torch.sum(s.X[:, 2].double())
+
+    X0 = state.X.clone().requires_grad_()
+    Fg = force.clone().requires_grad_()
+    reset_launches(counters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    L = loss(X0, Fg)
+    torch.cuda.synchronize()
+    traj_fwd_ms = (time.perf_counter() - t0) * 1e3
+    traj_fwd_launches = launches(counters)
+    reset_launches(counters)
+    t0 = time.perf_counter()
+    gX, gF = torch.autograd.grad(L, (X0, Fg))
+    torch.cuda.synchronize()
+    traj_bwd_ms = (time.perf_counter() - t0) * 1e3
+    traj_bwd_launches = launches(counters)
+    traj_peak = torch.cuda.max_memory_allocated() - base
+    dirs = {}
+    with torch.no_grad():
+        for name, eps, grad, delta in (
+                ("F", ADJ_EPS_F, gF, torch.from_numpy(
+                    rng.standard_normal((N_BODIES, 6))).to(dev).float()),
+                ("X0", ADJ_EPS_X, gX, torch.from_numpy(
+                    rng.standard_normal((N_BODIES, 3))).to(dev).float())):
+            d = delta / delta.norm()
+            if name == "F":
+                fd = (loss(state.X, force + eps * d)
+                      - loss(state.X, force - eps * d)) / (2 * eps)
+            else:
+                fd = (loss(state.X + eps * d, force)
+                      - loss(state.X - eps * d, force)) / (2 * eps)
+            ad = torch.sum(grad.double() * d.double())
+            # relative to the largest a unit direction can give, ‖grad‖
+            dirs[name] = dict(adjoint=ad.item(), central=fd.item(), eps=eps,
+                              grad_norm=grad.norm().item(),
+                              rel=abs(ad - fd).item() / grad.norm().item())
+    ph.update(trajectory_loss=L.item(), trajectory_forward_ms=traj_fwd_ms,
+              trajectory_backward_ms=traj_bwd_ms,
+              trajectory_forward_launches=traj_fwd_launches,
+              trajectory_backward_launches=traj_bwd_launches,
+              trajectory_peak_bytes=traj_peak, directional=dirs)
+    print(f"phase 49.3, a {ADJ_STEPS}-step differentiable trajectory at "
+          f"n={n}: loss {L.item():.6f}; forward {traj_fwd_ms:.1f} ms "
+          f"({traj_fwd_launches}), backward {traj_bwd_ms:.1f} ms "
+          f"({traj_bwd_launches}), peak {traj_peak / 1e9:.3f} GB above what "
+          f"was held; directional derivatives against central differences "
+          f"(tol {ADJ_DIR_TOL:g}): " + json.dumps(dirs))
+    if not all(d_["rel"] <= ADJ_DIR_TOL for d_ in dirs.values()):
+        raise AssertionError(f"phase 49.3: a directional derivative "
+                             f"disagrees: {dirs}")
+
+    # 49.5 a gradient through K2 (or K1 at 2 RHS), K3 or K4 raises
+    raised = {}
+    rr = r.clone().requires_grad_()
+    for name, fn in (
+            ("K2", lambda: rpy_cuda.mobility_apply_multi(
+                F2, rr, a=a, eta=eta, wall=True)),
+            ("K3", lambda: farfield.mobility_apply(
+                F2[0], rr, a=a, eta=eta, wall=True, grid=(4, 4, 2), p=3)),
+            ("K4", lambda: ewald_cuda.mobility_apply(
+                F2[0, :700].clone().requires_grad_(),
+                torch.from_numpy(rng.uniform(0, 9.0, (700, 3))).to(
+                    dev).float(), ewald.make_params((9.0, 9.0, 9.0), 0.45)))):
+        try:
+            fn()
+            raised[name] = False
+        except RuntimeError as e:
+            raised[name] = "item 15" in str(e)
+    ph["raises"] = raised
+    print(f"phase 49.5, a gradient through a kernel without a backward "
+          f"raises: {raised}")
+    if not all(raised.values()):
+        raise AssertionError(f"phase 49.5: a gradient went through a kernel "
+                             f"without a backward: {raised}")
+    return ph
 
 
 def main():
@@ -3872,6 +4366,21 @@ def main():
     balanced["seconds"] = time.perf_counter() - t_bal
     print(json.dumps({"balanced_split": balanced}))
 
+    # ---- 46-48. the far field's band tier
+    torch.cuda.empty_cache()
+    t_band = time.perf_counter()
+    band = band_phases(torch, dev, counters)
+    band["seconds"] = time.perf_counter() - t_band
+    print(json.dumps({"band_tier": band}))
+
+    # ---- 49. the adjoints
+    torch.cuda.empty_cache()
+    t_adj = time.perf_counter()
+    adj = adjoint_phases(torch, dev, counters)
+    adj["seconds"] = time.perf_counter() - t_adj
+    print(json.dumps({"adjoints": adj}))
+    band47 = band["phase47"]["p = 4 + band 6"]
+
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
                       "settled": settled,
                       "k1_409600": {str(k): v for k, v in k1_scale.items()},
@@ -3912,7 +4421,22 @@ def main():
          "peak_bytes_2rhs_409600": k1_scale[2]["peak_bytes"],
          **poly_entries(poly_t, "K1", mixture["k1_poly"]),
          **poly_box_entries(pf_t, pf_errs, "K1", poly_film["k1_poly_box"],
-                            poly_film["k1_poly_box_per_step"])},
+                            poly_film["k1_poly_box_per_step"]),
+         "ms_function_forward": adj["forward_ms"],
+         "ms_function_backward": adj["backward_ms"],
+         "ms_function_backward_force_only": adj["backward_force_only_ms"],
+         "function_backward_peak_bytes": adj["backward_peak_bytes"],
+         "launches_function_backward": adj["backward_launches"].get(
+             "pair_sweep_sym", 0),
+         "launches_adjoint_solve_forward": adj["solve_forward_launches"].get(
+             "pair_sweep_sym", 0),
+         "launches_adjoint_solve_backward": adj[
+             "solve_backward_launches"].get("pair_sweep_sym", 0),
+         "launches_adjoint_trajectory_forward": adj[
+             "trajectory_forward_launches"].get("pair_sweep_sym", 0),
+         "launches_adjoint_trajectory_backward": adj[
+             "trajectory_backward_launches"].get("pair_sweep_sym", 0),
+         "ms_adjoint_trajectory_backward": adj["trajectory_backward_ms"]},
         {"name": "pair_sweep_ordered", "route": "cuda", "source": SOURCE,
          "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
          "launches": counts["pair_sweep_ordered"], "max_abs_err": k2_err,
@@ -3950,6 +4474,8 @@ def main():
              "launches"].get("near_sweep", 0),
          "launches_film_farfield": film_ff["k3"],
          "launches_per_step_film_farfield": film_ff["k3_per_step"],
+         "launches_band_slice": band47["launches"].get("near_sweep", 0),
+         "launches_per_step_band_slice": band47["k3_per_step"],
          **k3_poly_entries(k3p, k3p_err, k3pb, k3pb_err, ff_mix)},
         {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",

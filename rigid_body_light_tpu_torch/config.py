@@ -1,10 +1,10 @@
 """Simulation configuration — the port of ``rigid_body_light_tpu/config.py``.
 
 Same field names, defaults and ``__post_init__`` checks as the JAX
-``SimulationConfig``, with ``dtype`` a ``torch.dtype``.  Fields whose
-feature the port does not have yet raise ``NotImplementedError`` naming the
-ROADMAP.md queue-1 item that will add it, instead of silently running
-something else.
+``SimulationConfig``, with ``dtype`` a ``torch.dtype``.  The far field's
+band tier with a 2-D box raises here already (the JAX package raises at
+the first apply).  ``_not_ported`` names the ROADMAP.md queue-1 item of a
+feature the port does not have yet where a module refuses it.
 """
 
 from __future__ import annotations
@@ -150,10 +150,16 @@ class SimulationConfig:
             # operator error reports residuals the physics cannot honor.
             # The JAX package's measured operator errors (monodisperse wall,
             # the worst case): p=4 ≈ 5e-3, p=6 ≈ 5e-4.
-            # (The band tier, which changes the estimate, is not ported:
-            # farfield_band_p > 0 raises below.)
             est = {3: 2e-2, 4: 5e-3, 5: 1.5e-3, 6: 5e-4}.get(
                 self.farfield_p, 1e-4 if self.farfield_p > 6 else 5e-2)
+            if self.farfield_band_p:
+                # two tiers: the larger of the band order's error at offset
+                # 2 and the FFT order's at offsets ≥ 4 (the JAX package's
+                # measured per-offset interpolation errors)
+                band_tbl = {3: 2e-2, 4: 6e-3, 5: 1.6e-3, 6: 2e-4, 7: 1e-4}
+                far4_tbl = {3: 1e-3, 4: 3e-4, 5: 2e-5, 6: 3e-6}
+                est = max(band_tbl.get(self.farfield_band_p, 5e-5),
+                          far4_tbl.get(self.farfield_p, 1e-6))
             if self.gmres_tol < est:
                 warnings.warn(
                     f"gmres_tol={self.gmres_tol:g} is below the proxy-grid "
@@ -199,10 +205,6 @@ class SimulationConfig:
                 "farfield_band_p does not compose with the pseudo-2D (2-D "
                 "box) far field yet — its lattices are cyclic/image-summed; "
                 "use image_shells for accuracy there")
-        # what the port does not have yet
-        if self.farfield_grid is not None and self.farfield_band_p > 0:
-            raise _not_ported("the far field's band tier (farfield_band_p "
-                              "> 0)", "item 11")
 
     def replace(self, **kw) -> "SimulationConfig":
         return dataclasses.replace(self, **kw)

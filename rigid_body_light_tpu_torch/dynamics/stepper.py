@@ -89,6 +89,30 @@ def deterministic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
         U=res.U, lam=res.lam, residual=res.residual, iters=res.iters)
 
 
+def make_differentiable_step(geom: kin.RefGeometry, cfg: SimulationConfig):
+    """A differentiable deterministic BD step ``step(state, force,
+    slip=None) → BodyState``: :func:`.saddle.geometry_ops`, the
+    implicit-adjoint solve (:func:`.solvers.make_differentiable_solver`)
+    and :func:`.kinematics.update_X_Q` (whose axis-angle exponential keeps
+    a finite gradient at ω = 0) chained, so autograd runs through X, Q,
+    ``force`` and ``slip``, and through trajectories of such steps.
+
+    The production guards (below-wall and oversized-move rejection, the
+    residual check) are left out: they are piecewise-constant masks whose
+    gradients vanish; keep the steps inside their range instead."""
+    solve = solvers.make_differentiable_solver(cfg)
+
+    def step(state: BodyState, force, slip=None):
+        ops = saddle_mod.geometry_ops(geom, state)
+        if slip is None:
+            slip = torch.zeros_like(ops.flat_positions)
+        lam, U = solve(ops, slip, force)
+        X_new, Q_new = kin.update_X_Q(state.X, state.Q, U * cfg.dt)
+        return BodyState(X=X_new, Q=Q_new)
+
+    return step
+
+
 def uses_split(cfg: SimulationConfig) -> bool:
     """Whether a step draws two Lanczos draws (the split increment of the
     midpoint scheme) or one."""

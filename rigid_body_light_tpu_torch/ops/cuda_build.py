@@ -101,6 +101,22 @@ def check_tensor(t, name, shape, dtype=torch.float32):
                          f"{tuple(shape)}")
 
 
+def refuse_grad(kernel, *tensors):
+    """Raise where a kernel without a backward would be differentiated: its
+    output comes from ``torch.empty`` through ``ctypes`` and carries no
+    ``grad_fn``, so a gradient through it would silently miss its pair
+    terms.  The plain PyTorch version (a tensor on the CPU, float64, or
+    ``use_pallas=False``) differentiates."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward: a gradient through it on the card "
+            f"would miss its pair terms.  Only K1 at one RHS "
+            f"(rpy_cuda.mobility_apply) is differentiable (ROADMAP.md queue "
+            f"1, item 15); take the plain PyTorch version for this "
+            f"gradient (float64 or use_pallas=False)")
+
+
 def raise_on_error(code, kernel):
     """A launch's ``cudaGetLastError()`` code, 0 or an exception."""
     if code != 0:

@@ -32,7 +32,8 @@ operators with different boxes can be alive at once.  Both are built once
 per operator (``params``) and kept: the table on the device, the constants
 on the host as the launch's by-value argument (:func:`operator_tables`),
 so a launch does no host arithmetic and no host→device copy.  Not
-differentiable (neither is the Pallas kernel).
+differentiable (neither is the Pallas kernel): a CUDA tensor that requires
+grad raises (:func:`.cuda_build.refuse_grad`).
 
 ``sweep_launches`` counts kernel launches (incremented where the kernel is
 launched, nowhere else) so a run can show that its main path went through
@@ -186,6 +187,8 @@ def real_pair_sum(Fs, r, params):
     tensors take the plain sweep, CUDA tensors K4.  Returns (k, N, 3).
     """
     _check(params, Fs.shape[0])
+    if r.device.type == "cuda":
+        cuda_build.refuse_grad("K4 ewald_real_sweep", Fs, r)
     r = r.to(torch.float32).contiguous()
     Fs = Fs.to(torch.float32).contiguous()
     if r.device.type == "cpu":

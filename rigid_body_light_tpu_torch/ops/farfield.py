@@ -1,7 +1,7 @@
 """Proxy-grid far field for the open-domain RPY matvec — the port of
-``rigid_body_light_tpu/ops/farfield.py`` (monodisperse, one device, no band
-tier): the open domain with or without a wall, and the pseudo-2D film (a
-doubly periodic (Lx, Ly) box above the wall).
+``rigid_body_light_tpu/ops/farfield.py`` on one device: the open domain
+with or without a wall, and the pseudo-2D film (a doubly periodic (Lx, Ly)
+box above the wall).
 
     M ≈ M_near (exact pairs, adjacent cells)  +  Pᵀ · K · P  (far)
 
@@ -49,16 +49,23 @@ JAX package, cells no smaller than the largest contact distance max(âᵢ +
 âⱼ) are required and not checked: every far pair is then in the
 non-overlapping branch.
 
-Left to later slices (ROADMAP.md queue 1): the band tier
-``farfield_band_p`` and the distributed locals (item 11).  The
-TPU layout workarounds of the JAX module (the ``_flat_outer`` selector
-matmuls, the packed real/imaginary lattices, ``fftsafe``) are not ported:
-plain outer products, complex tensors and ``torch.fft`` compute the same
-thing.
+The band tier (``band_p``, the configuration's ``farfield_band_p``; open
+domain only) re-evaluates the cell offsets of ∞-norm 2.._BAND_MAX at a
+higher Chebyshev order as a direct block convolution (batched matmuls over
+the offsets, :func:`_band_apply_free` / :func:`_band_apply_wall`, the
+span ``far_band``) and masks the FFT lattices to the offsets beyond; it
+takes the same moment and output channels, with or without radii.
+
+Left to a later slice (ROADMAP.md queue 1, item 16): the distributed
+locals.  The TPU layout workarounds of the JAX module (the ``_flat_outer``
+selector matmuls, the packed real/imaginary lattices, ``fftsafe``) are not
+ported: plain outer products, complex tensors and ``torch.fft`` compute
+the same thing.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -66,6 +73,7 @@ import numpy as np
 import torch
 
 from rigid_body_light_tpu_torch.ops import farfield_cuda, rpy, tiles
+from rigid_body_light_tpu_torch.utils import profiling
 
 # near-sweep tile: cell-snake runs of TILE blobs (the JAX module's TILE),
 # the row and column tile of kernel K3
@@ -165,12 +173,14 @@ def _free_split_coeffs(r2):
     return (invr, invr3), (invr3 / 3.0, -invr5)
 
 
-def _far_kernel_hat(h, grid, p, poly=False):
+def _far_kernel_hat(h, grid, p, poly=False, near_excl=1):
     """K̂: half-spectrum FFT over the offset grid of the free-space RPY node
     blocks between non-adjacent cells, (2gx·2gy·(gz+1), B, B) complex with
     B = 3p³ (row = target node·3 + component, column = source); ``poly``:
     the two lattices [K₀, K₂] of :func:`_free_split_coeffs`, stacked as
-    (2, 2gx·2gy·(gz+1), B, B).
+    (2, 2gx·2gy·(gz+1), B, B).  near_excl: the cell offsets zeroed are
+    those with ∞-norm ≤ near_excl (1, the near pairs; _BAND_MAX with the
+    band tier, which takes offsets 2.._BAND_MAX).
 
     Built one x-offset slab at a time, so the temporaries stay a 2gx-th of
     the lattice."""
@@ -182,7 +192,7 @@ def _far_kernel_hat(h, grid, p, poly=False):
     dn = tn[:, None, :] - tn[None, :, :]                     # (p³, p³, 3)
     oyz = np.stack(np.meshgrid(_signed_offsets(gy), _signed_offsets(gz),
                                indexing="ij"), axis=-1).reshape(-1, 2)
-    far_yz = np.any(np.abs(oyz) > 1, axis=-1)                # (2gy·2gz,)
+    far_yz = np.any(np.abs(oyz) > near_excl, axis=-1)        # (2gy·2gz,)
     eye = torch.eye(3, dtype=dtype, device=dev)
     Kh = torch.empty((nk, 2 * gx, 2 * gy, gz + 1, B, B),
                      dtype=torch.promote_types(dtype, torch.complex64),
@@ -195,7 +205,7 @@ def _far_kernel_hat(h, grid, p, poly=False):
         d = (dn[None] + off[:, None, None, :]) * h           # (m, p³, p³, 3)
         r2 = torch.sum(d * d, dim=-1)
         coeffs = _free_split_coeffs(r2) if poly else (rpy._free_coeffs(r2),)
-        far = torch.as_tensor(far_yz | (abs(ox) > 1),
+        far = torch.as_tensor(far_yz | (abs(ox) > near_excl),
                               device=dev)[:, None, None]
         for c, (alpha, beta) in enumerate(coeffs):
             alpha = torch.where(far, alpha, torch.zeros_like(alpha))
@@ -244,24 +254,26 @@ def _wall_coeffs_split(d_img, hj):
     return (p0, p1, p2), invR
 
 
-def _wall_kernel_hat(lo_z, h, grid, p, h_floor, poly=False):
+def _wall_kernel_hat(lo_z, h, grid, p, h_floor, poly=False, near_excl=1):
     """K̂_wall: the Swan–Brady image node blocks, translation invariant in
     x/y only, so the z cells pair explicitly; 2-D FFT'd over the padded x/y
     offsets.  Returns (2gx·(gy+1), gz·B, gz·B) complex: per x/y frequency,
     rows (target z cell, target node·3 + component), columns (source z
     cell, source node·3 + component).  Offsets that can hold a near pair
     (every cell-offset component within 1) are zeroed, matching the near
-    sweep's partition.  ``poly``: the three power channels [G₀, G₁, G₂] of
-    :func:`_wall_coeffs_split` apart, (3, 2gx·(gy+1), gz·B, gz·B).  Built
-    one target z cell at a time."""
+    sweep's partition; with the band tier, every offset whose components
+    are all within near_excl = _BAND_MAX.  ``poly``: the three power
+    channels [G₀, G₁, G₂] of :func:`_wall_coeffs_split` apart, (3,
+    2gx·(gy+1), gz·B, gz·B).  Built one target z cell at a time."""
     gx, gy, gz = grid
     dtype, dev = h.dtype, h.device
     B = 3 * p ** 3
     nk = 3 if poly else 1
     ox = _signed_offsets(gx)
     oy = _signed_offsets(gy)
-    near_xy = torch.as_tensor((np.abs(ox) <= 1)[:, None]
-                              & (np.abs(oy) <= 1)[None, :], device=dev)
+    near_xy = torch.as_tensor((np.abs(ox) <= near_excl)[:, None]
+                              & (np.abs(oy) <= near_excl)[None, :],
+                              device=dev)
     tn = _node_grid(p, dtype, dev)
     dx = ((torch.as_tensor(ox, dtype=dtype, device=dev)[:, None, None]
            + tn[None, :, None, 0] - tn[None, None, :, 0]) * h[0])  # (2gx,p³,p³)
@@ -285,7 +297,7 @@ def _wall_kernel_hat(lo_z, h, grid, p, h_floor, poly=False):
         parts, invR = _wall_coeffs_split(d_img, zj)
         if not poly:
             parts = (tuple(a + b + c for a, b, c in zip(*parts)),)
-        near_z = (torch.arange(gz, device=dev) - ci).abs() <= 1
+        near_z = (torch.arange(gz, device=dev) - ci).abs() <= near_excl
         far = ~(near_xy[:, None, :] & near_z[None, :, None])[..., None, None]
         e = d_img * invR[..., None]
         for c, fs in enumerate(parts):
@@ -304,6 +316,211 @@ def _wall_kernel_hat(lo_z, h, grid, p, h_floor, poly=False):
     Kh = Kh.permute(0, 2, 4, 1, 5, 3, 6).reshape(
         nk, 2 * gx * (gy + 1), gz * B, gz * B)
     return Kh if poly else Kh[0]
+
+
+# -------------------------------------------------------------- band tier
+# The p = 4 operator's error comes mostly from the closest non-adjacent
+# cells (the JAX package's measured interpolation error by cell offset:
+# p = 4 → 6e-3 at offset 2, 1e-3 at 3, 2.3e-4 at ≥ 4; p = 6 → 1.7e-4 at
+# 2).  With ``band_p`` the cell offsets of ∞-norm 2.._BAND_MAX are
+# evaluated at that order as a direct block convolution over the cells
+# (batched matmuls; storage ∝ the band offsets, no spectrum), and the FFT
+# tier is masked to the offsets beyond (``near_excl=_BAND_MAX``): p = 6-class
+# operator error at the p = 4 lattices' memory.
+_BAND_MAX = 3
+# scalar entries of one field of a band-block batch at build time, and of
+# one gathered operand at apply time (float32: 256 MiB)
+BAND_BATCH_ELEMS = 2 ** 26
+
+
+def _band_offsets_free() -> np.ndarray:
+    """All 3-D cell offsets with ∞-norm in [2, _BAND_MAX]: (316, 3)."""
+    rng_ = np.arange(-_BAND_MAX, _BAND_MAX + 1)
+    O = np.stack(np.meshgrid(rng_, rng_, rng_, indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+    m = np.abs(O).max(axis=1)
+    return O[(m >= 2) & (m <= _BAND_MAX)].astype(np.int64)
+
+
+def _band_offsets_xy() -> np.ndarray:
+    """All x/y cell offsets with ∞-norm ≤ _BAND_MAX: (49, 2).  The wall
+    band pairs the z cells explicitly; its blocks carry the band test."""
+    rng_ = np.arange(-_BAND_MAX, _BAND_MAX + 1)
+    OX, OY = np.meshgrid(rng_, rng_, indexing="ij")
+    return np.stack([OX, OY], axis=-1).reshape(-1, 2).astype(np.int64)
+
+
+def _band_sources(grid, off):
+    """For cell offsets ``off`` (n, d) on the first d axes of ``grid``:
+    the (n, ncell_d) flat source cell c − o of every target cell c (0 where
+    out of range) and the in-range mask, as numpy."""
+    g = np.asarray(grid[:off.shape[1]])
+    cells = np.stack(np.meshgrid(*[np.arange(v) for v in g],
+                                 indexing="ij"), axis=-1).reshape(-1, len(g))
+    src = cells[None, :, :] - off[:, None, :]
+    ok = np.all((src >= 0) & (src < g), axis=-1)
+    flat = src[..., 0]
+    for ax in range(1, len(g)):
+        flat = flat * g[ax] + src[..., ax]
+    return np.where(ok, flat, 0), ok
+
+
+@functools.lru_cache(maxsize=16)
+def _band_plan(grid, device):
+    """The band offsets that reach some target cell of ``grid`` (the
+    others add only zeros: |oz| = 3 with gz = 3, say), with their source
+    cells and masks on ``device``: ((off_free, idx, ok), (off_xy, idx,
+    ok)), idx int64 and ok bool tensors of (n_live, ncell) and (n_live,
+    gx·gy)."""
+    plans = []
+    for off in (_band_offsets_free(), _band_offsets_xy()):
+        idx, ok = _band_sources(grid, off)
+        live = ok.any(axis=1)
+        plans.append((off[live],
+                      torch.as_tensor(idx[live], device=device),
+                      torch.as_tensor(ok[live], device=device)))
+    return tuple(plans)
+
+
+def _band_blocks_free(h, bp, poly=False, offsets=None):
+    """Free-space node blocks K_o at the band offsets: (nk, n_off, B6, B6)
+    with B6 = 3·bp³, row = target node·3 + component, column = source (the
+    lattices' convention); nk = 2 with ``poly`` ([K₀, K₂] of
+    :func:`_free_split_coeffs`).  offsets: (n_off, 3) cell offsets, by
+    default all of :func:`_band_offsets_free`."""
+    off = _band_offsets_free() if offsets is None else offsets
+    dtype, dev = h.dtype, h.device
+    p3 = bp ** 3
+    B6 = 3 * p3
+    tn = _node_grid(bp, dtype, dev)
+    dn = tn[:, None, :] - tn[None, :, :]                     # (p³, p³, 3)
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    Kb = torch.empty((2 if poly else 1, len(off), B6, B6), dtype=dtype,
+                     device=dev)
+    nb = max(1, BAND_BATCH_ELEMS // (9 * p3 * p3))
+    for o0 in range(0, len(off), nb):
+        o = torch.as_tensor(off[o0:o0 + nb], dtype=dtype, device=dev)
+        # d = node_n(target) − node_m(source) = (t_n − t_m + o)·h
+        d = (dn[None] + o[:, None, None, :]) * h             # (b, p³, p³, 3)
+        r2 = torch.sum(d * d, dim=-1)
+        coeffs = _free_split_coeffs(r2) if poly else (rpy._free_coeffs(r2),)
+        for c, (alpha, beta) in enumerate(coeffs):
+            K = (alpha[..., None, None] * eye
+                 + beta[..., None, None] * d[..., :, None] * d[..., None, :])
+            Kb[c, o0:o0 + len(o)] = K.permute(0, 1, 3, 2, 4).reshape(
+                -1, B6, B6)
+    return Kb
+
+
+def _band_blocks_wall(lo_z, h, grid, bp, h_floor, poly=False, offsets=None):
+    """Wall-image band blocks: (nk, n_oxy, gz·B6, gz·B6) per x/y offset,
+    rows (target z cell, target node·3 + component) and columns (source z
+    cell, ...), as :func:`_wall_kernel_hat` lays out a frequency; zero
+    outside the band 2 ≤ max(|o_xy|∞, |cz_t − cz_s|) ≤ _BAND_MAX.  nk = 3
+    with ``poly`` (the power channels of :func:`_wall_coeffs_split`).
+    offsets: (n_oxy, 2), by default all of :func:`_band_offsets_xy`.
+    Built one target z cell at a time."""
+    gz = grid[2]
+    oxy = _band_offsets_xy() if offsets is None else offsets
+    m = len(oxy)
+    dtype, dev = h.dtype, h.device
+    p3 = bp ** 3
+    B6 = 3 * p3
+    tn = _node_grid(bp, dtype, dev)
+    oxy_t = torch.as_tensor(oxy, dtype=dtype, device=dev)
+    dx = (oxy_t[:, None, None, 0] + tn[None, :, None, 0]
+          - tn[None, None, :, 0]) * h[0]                     # (m, p³, p³)
+    dy = (oxy_t[:, None, None, 1] + tn[None, :, None, 1]
+          - tn[None, None, :, 1]) * h[1]
+    cz = torch.arange(gz, dtype=dtype, device=dev)
+    zn = lo_z + (cz[:, None] + tn[None, :, 2]) * h[2]        # (gz, p³)
+    znf = torch.clamp(zn, min=h_floor) if h_floor > 0 else zn
+    eye = torch.eye(3, dtype=dtype, device=dev)
+    zhat = eye[2]
+    oxy_norm = np.abs(oxy).max(axis=1)
+    nk = 3 if poly else 1
+    Kw = torch.empty((nk, m, gz, B6, gz, B6), dtype=dtype, device=dev)
+    shape = (gz, m, p3, p3)                    # (source z cell, offset, n_t, n_s)
+    for ci in range(gz):
+        zj = znf[:, None, None, :].expand(shape)
+        rz = znf[ci][None, None, :, None] + zj
+        d_img = torch.stack([dx[None].expand(shape), dy[None].expand(shape),
+                             rz], dim=-1)
+        parts, invR = _wall_coeffs_split(d_img, zj)
+        if not poly:
+            parts = (tuple(a + b + c for a, b, c in zip(*parts)),)
+        mnorm = np.maximum(np.abs(np.arange(gz) - ci)[:, None],
+                           oxy_norm[None, :])
+        band = torch.as_tensor((mnorm >= 2) & (mnorm <= _BAND_MAX),
+                               device=dev)[..., None, None]  # (gz, m, 1, 1)
+        e = d_img * invR[..., None]
+        for c, fs in enumerate(parts):
+            f1, f2, f3, f4, f5 = (torch.where(band, f, torch.zeros_like(f))
+                                  for f in fs)
+            W = (f1[..., None, None] * eye
+                 + f2[..., None, None] * e[..., :, None] * e[..., None, :]
+                 + f3[..., None, None] * e[..., :, None] * zhat[None, :]
+                 + f4[..., None, None] * zhat[:, None] * e[..., None, :]
+                 + f5[..., None, None] * zhat[:, None] * zhat[None, :])
+            # (gz_s, m, p³_t, p³_s, 3, 3) → (m, p³_t·3, gz_s, p³_s·3)
+            Kw[c, :, ci] = W.permute(1, 2, 4, 0, 3, 5).reshape(m, B6, gz, B6)
+    return Kw.reshape(nk, m, gz * B6, gz * B6)
+
+
+def _band_conv(K, Qs, okf, idx, chans):
+    """Σ_o K_o·Q[source_o(c)] over offset chunks.  K (nk, n_off, R, R);
+    Qs (nm, nc, rows, R) the moments with cells on axis 1; idx / okf
+    (n_off, ncell) source cells and masks (each gathered source is scaled
+    by its mask, so a masked one adds an exact 0); chans: per output
+    channel the (kernel, moment) pairs it sums → (nout, ncell, rows, R)."""
+    nm, _, rows, R = Qs.shape
+    n_off, ncell = idx.shape
+    out = torch.zeros((len(chans), ncell, rows, R), dtype=Qs.dtype,
+                      device=Qs.device)
+    nb = max(1, BAND_BATCH_ELEMS // (nm * ncell * rows * R))
+    for o0 in range(0, n_off, nb):
+        sl = slice(o0, o0 + nb)
+        G = Qs[:, idx[sl]] * okf[None, sl, :, None, None]    # (nm, b, nc, rows, R)
+        G = G.reshape(nm, -1, ncell * rows, R)
+        for u, terms in enumerate(chans):
+            for c, mo in terms:
+                out[u] += torch.matmul(G[mo], K[c, sl].transpose(1, 2)).sum(
+                    0).reshape(ncell, rows, R)
+    return out
+
+
+def _band_apply_free(Kb, Q, grid, idx=None, ok=None):
+    """Direct banded block convolution of the free kernel: Q (nm, k, ncell,
+    B6) moment channels ([F], or [F, â²F] with Kb [K₀, K₂]) × Kb (nk,
+    n_off, B6, B6) → (nout, k, ncell, B6) with :func:`_far_free`'s channel
+    conventions (U₀ = K₀*F + K₂*(â²F), U₂ = K₂*F).  idx / ok: the source
+    cells and masks of Kb's offsets (:func:`_band_sources`); by default
+    those of all of :func:`_band_offsets_free`."""
+    if idx is None:
+        idx, ok = (torch.as_tensor(a, device=Q.device) for a in
+                   _band_sources(grid, _band_offsets_free()))
+    nm, k = Q.shape[:2]
+    chans = ([((0, 0), (1, 1)), ((1, 0),)] if nm == 2 else [((0, 0),)])
+    U = _band_conv(Kb, Q.transpose(1, 2), ok.to(Q.dtype), idx, chans)
+    return U.transpose(1, 2)
+
+
+def _band_apply_wall(Kw, Q, grid, idx=None, ok=None):
+    """Direct banded block convolution of the wall images: Q (nm, k, ncell,
+    B6) moment channels ([F], or [F, âF, â²F], each against its own power
+    channel of Kw) × Kw (nk, n_oxy, gz·B6, gz·B6) → (nm, k, ncell, B6)
+    output channels of weight [1] or [1, âᵢ, âᵢ²] (:func:`_far_wall`'s).
+    idx / ok: the x/y source cells and masks of Kw's offsets; by default
+    those of all of :func:`_band_offsets_xy`."""
+    gx, gy, gz = grid
+    if idx is None:
+        idx, ok = (torch.as_tensor(a, device=Q.device) for a in
+                   _band_sources(grid, _band_offsets_xy()))
+    nm, k, ncell, B6 = Q.shape
+    Qz = Q.reshape(nm, k, gx * gy, gz * B6).transpose(1, 2)  # (nm, nxy, k, gz·B6)
+    U = _band_conv(Kw, Qz, ok.to(Q.dtype), idx,
+                   [((c, c),) for c in range(nm)])
+    return U.transpose(1, 2).reshape(nm, k, ncell, B6)
 
 
 # scalar entries of one field of a shift batch in the pseudo-2D lattice
@@ -543,15 +760,45 @@ def _far_2p(Qm, grid, khat):
     return Ug.permute(0, 2, 3, 1, 4).reshape(nout, k, -1, B)
 
 
+def _interpolate(chans, W, cid, ahat):
+    """Output channels (nout, k, ncell, B) on the nodes → (k, N, 3) blob
+    velocities with the weights [1] (mono) or [1, âᵢ², âᵢ] (poly), shared
+    by the FFT and band tiers."""
+    nout, k, ncell = chans.shape[:3]
+    n = W.shape[0]
+    L = _l2p(W, cid, chans.reshape(nout * k, ncell, -1)).reshape(
+        nout, k, n, 3)
+    if ahat is None:
+        return L[0]
+    U = L[0] + (ahat * ahat)[None, :, None] * L[1]
+    if nout == 3:
+        U = U + ahat[None, :, None] * L[2]
+    return U
+
+
+def _open_channels(Un, Uw, poly):
+    """The open domain's output channels from the free tier's [1, âᵢ²] and
+    the wall tier's [1, âᵢ, âᵢ²] (or None): [1] mono, [1, âᵢ²(, âᵢ)]
+    poly."""
+    if Uw is None:
+        return Un
+    return torch.stack([Un[0] + Uw[0], Un[1] + Uw[2], Uw[1]]) if poly \
+        else Un + Uw
+
+
 def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
-              ahat=None):
+              ahat=None, band=None):
     """Spread → kernel-lattice convolutions → interpolate: the far-tier
     velocities (k, N, 3) of the (damped) forces Fs (k, N, 3).  per: the
     pseudo-2D film, whose one combined lattice is ``khat_wall``.  ahat:
     None, or the (N,) radii in units of a: the â^m-weighted forces ride
     the spread and the FFTs as extra channels, [F, â²F] in the open domain
     without a wall, [F, âF, â²F] with the wall or in the film, and the
-    output channels come back with weights [1, âᵢ², âᵢ]."""
+    output channels come back with weights [1, âᵢ², âᵢ].  band: None, or
+    (W6, band_free, band_wall, plan) of the band tier (open domain only):
+    the same moment channels spread at the band order and convolved over
+    the band offsets (:func:`_band_apply_free`, :func:`_band_apply_wall`),
+    ``plan`` the grid's :func:`_band_plan`."""
     k, n = Fs.shape[0], Fs.shape[1]
     poly = ahat is not None
     if not poly:
@@ -567,23 +814,22 @@ def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
     Q = _p2m(W3, cid, Fm, ncell)
     Q = Q.reshape(nm, k, ncell, Q.shape[-1])
     if per:
-        chans = _far_2p(Q, grid, khat_wall)
-    else:
-        Un = _far_free(Q[[0, nm - 1]] if poly else Q, grid, khat_free)
-        if not wall:
-            chans = Un
-        else:
-            Uw = _far_wall(Q, grid, khat_wall)
-            chans = (torch.stack([Un[0] + Uw[0], Un[1] + Uw[2], Uw[1]])
-                     if poly else Un + Uw)
-    nout = chans.shape[0]
-    L = _l2p(W3, cid, chans.reshape(nout * k, ncell, -1)).reshape(
-        nout, k, n, 3)
-    if not poly:
-        return L[0]
-    U = L[0] + (ahat * ahat)[None, :, None] * L[1]
-    if nout == 3:
-        U = U + ahat[None, :, None] * L[2]
+        return _interpolate(_far_2p(Q, grid, khat_wall), W3, cid, ahat)
+    free = [0, nm - 1] if poly else [0]
+    Un = _far_free(Q[free], grid, khat_free)
+    Uw = _far_wall(Q, grid, khat_wall) if wall else None
+    U = _interpolate(_open_channels(Un, Uw, poly), W3, cid, ahat)
+    if band is not None:
+        W6, band_free, band_wall, plan = band
+        (_, idx_f, ok_f), (_, idx_w, ok_w) = plan
+        with profiling.span("far_band"):
+            Qb = _p2m(W6, cid, Fm, ncell)
+            Qb = Qb.reshape(nm, k, ncell, Qb.shape[-1])
+            Unb = _band_apply_free(band_free, Qb[free], grid, idx_f, ok_f)
+            Uwb = (_band_apply_wall(band_wall, Qb, grid, idx_w, ok_w)
+                   if wall else None)
+            U = U + _interpolate(_open_channels(Unb, Uwb, poly), W6, cid,
+                                 ahat)
     return U
 
 
@@ -798,7 +1044,9 @@ class FarCtx(NamedTuple):
     combined lattice.  With per-blob radii the lattices carry a leading
     channel axis (2 free, 3 wall, 4 film) and ``ahat`` / ``ah_s`` hold the
     radii; the geometry tier depends on whether there are radii, not on
-    their values.
+    their values.  With the band tier (``band_p``), ``band_free`` /
+    ``band_wall`` hold its blocks (geometry tier) and ``W6`` its spread
+    weights; else all three are None.
     """
     lo: torch.Tensor                  # (3,) grid origin, units of a
     h: torch.Tensor                   # (3,) cell sizes, units of a
@@ -818,6 +1066,9 @@ class FarCtx(NamedTuple):
     overflow: torch.Tensor            # () bool: poison the apply
     ahat: Optional[torch.Tensor] = None  # (N,) radii / a, or None (mono)
     ah_s: Optional[torch.Tensor] = None  # (t·TILE,) sorted, pads 1, or None
+    W6: Optional[torch.Tensor] = None    # (N, band_p³) band spread weights
+    band_free: Optional[torch.Tensor] = None  # (nk, n_off, B6, B6)
+    band_wall: Optional[torch.Tensor] = None  # (nk, n_oxy, gz·B6, gz·B6)
 
 
 class FarGeo(NamedTuple):
@@ -828,6 +1079,26 @@ class FarGeo(NamedTuple):
     h: torch.Tensor
     khat_free: Optional[torch.Tensor]
     khat_wall: Optional[torch.Tensor]
+    band_free: Optional[torch.Tensor] = None
+    band_wall: Optional[torch.Tensor] = None
+
+
+def _check_band(band_p, per):
+    """The band tier's order (the JAX package's rules and messages): 0 is
+    off, otherwise at least 3; the film's image-summed cyclic lattices
+    take no band."""
+    band_p = int(band_p)
+    if band_p == 0:
+        return 0
+    if band_p < 3:
+        raise ValueError(f"farfield_band_p must be 0 (off) or >= 3, got "
+                         f"{band_p}")
+    if per:
+        raise ValueError(
+            "farfield_band_p does not compose with the pseudo-2D (2-D "
+            "box) far field yet — its lattices are cyclic/image-summed; "
+            "use image_shells for accuracy there")
+    return band_p
 
 
 def _check_2p(wall, box, grid, shells):
@@ -901,21 +1172,32 @@ def _resolve(n, wall, grid, p, max_nbr, poly=False):
     return grid, max_nbr
 
 
-def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly):
+def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly,
+                    band_p=0):
     if box_n is not None:
         lo, h = _geometry_2p(x, grid, box_n)
         return FarGeo(lo=lo, h=h, khat_free=None, khat_wall=_kernel_hat_2p(
             lo[2], h, grid, p, h_floor, int(image_shells), poly=poly))
+    ne = _BAND_MAX if band_p else 1
     lo, h = _grid_geometry(x, grid)
-    khat_free = _far_kernel_hat(h, grid, p, poly=poly)
-    khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor, poly=poly)
+    khat_free = _far_kernel_hat(h, grid, p, poly=poly, near_excl=ne)
+    khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor, poly=poly,
+                                  near_excl=ne)
                  if wall else None)
-    return FarGeo(lo=lo, h=h, khat_free=khat_free, khat_wall=khat_wall)
+    band_free = band_wall = None
+    if band_p:
+        (off_f, _, _), (off_w, _, _) = _band_plan(grid, x.device)
+        band_free = _band_blocks_free(h, band_p, poly=poly, offsets=off_f)
+        band_wall = (_band_blocks_wall(lo[2], h, grid, band_p, h_floor,
+                                       poly=poly, offsets=off_w)
+                     if wall else None)
+    return FarGeo(lo=lo, h=h, khat_free=khat_free, khat_wall=khat_wall,
+                  band_free=band_free, band_wall=band_wall)
 
 
 def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                      max_nbr=None, h_floor=rpy.WALL_H_FLOOR, box=None,
-                     image_shells=8, radii=None):
+                     image_shells=8, radii=None, band_p=0):
     """Build only the geometry tier (:class:`FarGeo`) for positions ``r``;
     pass it as ``geo=`` to :func:`prepare` to share one kernel-lattice
     build across several nearby position sets.
@@ -924,19 +1206,21 @@ def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     convolution with the combined lattice summed over the in-plane images
     to ``image_shells`` with the two-ring tail (:func:`_kernel_hat_2p`).
     radii: None, or per-blob radii: the radius-split lattices (their
-    values do not enter the geometry tier)."""
+    values do not enter the geometry tier).  band_p: the band tier's order
+    (0: off), whose blocks belong to this tier."""
     r = r.reshape(-1, 3)
     poly = radii is not None
     grid, _ = _resolve(r.shape[0], wall, grid, p, max_nbr, poly)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
+    band_p = _check_band(band_p, box is not None)
     return _build_geometry(r * (1.0 / a), grid, p, wall, h_floor,
-                           rpy._box_n(box, a), image_shells, poly)
+                           rpy._box_n(box, a), image_shells, poly, band_p)
 
 
 def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
             h_floor=rpy.WALL_H_FLOOR, geo: FarGeo = None, box=None,
-            image_shells=8, radii=None):
+            image_shells=8, radii=None, band_p=0):
     """Build the :class:`FarCtx` for positions ``r`` (same keywords as
     :func:`mobility_apply`).
 
@@ -956,6 +1240,7 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     box_n = rpy._box_n(box, a)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
+    band_p = _check_band(band_p, box is not None)
     if poly:
         radii = radii.reshape(-1).to(dtype)
     ahat = radii * (1.0 / a) if poly else None
@@ -972,10 +1257,12 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
         geo_bad = torch.maximum(torch.max(-u), torch.max(u - hi)) > 0.5
     else:
         geo = _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells,
-                              poly)
+                              poly, band_p)
     lo, h = geo.lo, geo.h
     ci, cid = _cell_indices(x, lo, h, grid)
-    W3 = _blob_weights((x - lo) / h - ci.to(dtype), _cheb_nodes(p))
+    t3 = (x - lo) / h - ci.to(dtype)
+    W3 = _blob_weights(t3, _cheb_nodes(p))
+    W6 = _blob_weights(t3, _cheb_nodes(band_p)) if band_p else None
 
     order = tiles.cell_snake_order(ci, grid)
     t = -(-n // TILE)
@@ -1004,13 +1291,14 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
                   self_diag=rpy._self_diag(r, a, wall, h_floor, radii),
                   order=order, x_s=x_s, ci_s=ci_s, id_s=id_s, nbr=nbr,
                   pairs=pairs, n_pairs=n_pairs, overflow=overflow,
-                  ahat=ahat, ah_s=ah_s)
+                  ahat=ahat, ah_s=ah_s, W6=W6, band_free=geo.band_free,
+                  band_wall=geo.band_wall)
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                    max_nbr=None, h_floor=rpy.WALL_H_FLOOR,
                    ctx: FarCtx = None, use_pallas=True, box=None,
-                   image_shells=8, radii=None):
+                   image_shells=8, radii=None, band_p=0):
     """U = M(r)·F by the exact near part plus the proxy-grid far field.
 
     F: (N, 3) or (k, N, 3); r: (N, 3).  grid: int or (gx, gy, gz)
@@ -1031,6 +1319,10 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     pairs, the self term (4/3)·a/aᵢ plus the wall's at aᵢ, damping at
     z/aᵢ), the convention of ``rpy.mobility_apply(radii=...)``.
 
+    band_p: 0, or the band tier's order (≥ 3; open domain only): cell
+    offsets of ∞-norm 2.._BAND_MAX at that order through the band blocks,
+    the FFT tier beyond.
+
     ctx: a :func:`prepare` result for this ``r`` (same keywords), so
     repeated applies at fixed positions build the lattices and the tile
     structures once.  use_pallas (the configuration's name for the
@@ -1048,14 +1340,21 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     per = box is not None
     if per:
         _check_2p(wall, box, grid, int(image_shells))
+    band_p = _check_band(band_p, per)
     if ctx is None:
         ctx = prepare(r, a=a, eta=eta, wall=wall, grid=grid, p=p,
                       max_nbr=max_nbr, h_floor=h_floor, box=box,
-                      image_shells=image_shells, radii=radii)
+                      image_shells=image_shells, radii=radii, band_p=band_p)
+    band = None
+    if band_p:
+        if ctx.W6 is None or ctx.W6.shape[1] != band_p ** 3:
+            raise ValueError(f"ctx was not prepared with band_p={band_p}")
+        band = (ctx.W6, ctx.band_free, ctx.band_wall,
+                _band_plan(grid, r.device))
     if wall:
         Fs = Fs * ctx.b[None, :, None]
     U_far = _far_part(Fs, ctx.W3, ctx.cid, grid, wall, ctx.khat_free,
-                      ctx.khat_wall, per=per, ahat=ctx.ahat)
+                      ctx.khat_wall, per=per, ahat=ctx.ahat, band=band)
 
     pad = ctx.x_s.shape[0] - n
     F_s = torch.cat([Fs[:, ctx.order],

@@ -28,7 +28,8 @@ bitwise.
 (:func:`rigid_body_light_tpu_torch.ops.farfield._near_sweep`) for a tensor
 on the CPU, and launches the kernel or raises for a CUDA tensor — there is
 no fallback.  Like the Pallas wrapper, it computes in float32 and raises
-for more than 2 RHS.
+for more than 2 RHS.  It has no backward: a CUDA tensor that requires grad
+raises (:func:`.cuda_build.refuse_grad`).
 
 ``near_launches`` and ``near_poly_launches`` count launches of the
 monodisperse and the POLY form (incremented where the kernel is launched,
@@ -176,6 +177,7 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
                                     box_n=box_over_a, wrap_xy=wrap_cells,
                                     ah_s=a32)
     if x_s.device.type == "cuda":
+        cuda_build.refuse_grad("K3 near_sweep", x_s, F_s, ahat_s)
         if pairs is None:
             raise ValueError("K3 needs the tile-pair list of farfield.prepare "
                              "(pairs=(ctx.pairs, ctx.n_pairs))")

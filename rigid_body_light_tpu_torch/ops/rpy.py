@@ -20,6 +20,7 @@ import math
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 _SELF_COEF = 4.0 / 3.0
 # blob-height floor (units of a) for the wall correction — see the JAX
@@ -453,13 +454,19 @@ def pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=1.0, wall=False,
     if poly:
         ar = radii_rows.to(r_rows.dtype) / a
         ac = radii_cols.to(r_rows.dtype) / a
-    outs = [
-        _pair_tile(r_rows[s:s + row_tile], r_cols, row_ids[s:s + row_tile],
-                   col_ids, Fk, wall, h_floor, box_n, images,
-                   ahat_rows=ar[s:s + row_tile] if poly else None,
-                   ahat_cols=ac if poly else None)
-        for s in range(0, r_rows.shape[0], row_tile)
-    ]
+    # under autograd each row tile is recomputed in the backward pass, so
+    # the gradient's memory stays O(row_tile·N) like the product's
+    ckpt = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r_rows, r_cols, Fk)
+        + ((ar, ac) if poly else ()))
+    outs = []
+    for s in range(0, r_rows.shape[0], row_tile):
+        args = (r_rows[s:s + row_tile], r_cols, row_ids[s:s + row_tile],
+                col_ids, Fk, wall, h_floor, box_n, images,
+                ar[s:s + row_tile] if poly else None, ac if poly else None)
+        outs.append(torch.utils.checkpoint.checkpoint(
+            _pair_tile, *args, use_reentrant=False, preserve_rng_state=False)
+            if ckpt else _pair_tile(*args))
     U = torch.cat(outs, dim=1)
     return U if multi else U[0]
 

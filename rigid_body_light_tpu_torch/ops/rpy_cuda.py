@@ -39,9 +39,14 @@ CUDA tensor launches the kernel or raises — there is no fallback.  Like the Pa
 inputs are cast to float32.
 
 The kernels compute pair terms only; the wrappers here apply the self
-term, the 1/(8πηa) scale and the B·M·B damping.  Not differentiable yet:
-the ``custom_vjp`` of ``rpy_pallas.mobility_apply`` is ported with the
-adjoint slice (ROADMAP.md queue 1, item 15).
+term, the 1/(8πηa) scale and the B·M·B damping.  :func:`mobility_apply`
+(one RHS) is differentiable through :class:`MobilityApply`, the port of
+``rpy_pallas._mobility_apply_diff``: the force cotangent is one more K1
+sweep (B·M·B is symmetric, the image sums too), the position cotangent
+autograd of the plain sweep at the same arguments.  Any other launch on a
+tensor that requires grad raises (:func:`.cuda_build.refuse_grad`): the
+kernels' outputs carry no ``grad_fn``, and a gradient through them would
+miss the pair terms.
 
 ``sym_launches`` / ``ordered_launches`` (``sym_poly_launches`` /
 ``ordered_poly_launches`` for the POLY forms, ``sym_poly_box_launches`` /
@@ -293,6 +298,8 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
                          image_tail=image_tail, radii_rows=ahat,
                          radii_cols=ahat)
     elif dev == "cuda":
+        cuda_build.refuse_grad(f"K{1 if uses_sym(k, n) else 2} at {k} RHS",
+                               r_over_a, Fk, ahat)
         if uses_sym(k, n):
             U = pair_sweep_sym(r_over_a, Fk, wall, h_floor, box, ahat=ahat)
             if S:
@@ -319,14 +326,28 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
     sum.  radii: optional (N,) per-blob physical radii — the kernels take
     them as ahat = radii/a, the damping is min(z/aᵢ, 1) and the self term
     (4/3)·a/aᵢ plus the wall self term at the blob's own radius, as
-    ``rpy_pallas.mobility_apply_multi`` (``rpy_pallas.py:856-888``)."""
-    if h_floor is None:
-        h_floor = rpy.WALL_H_FLOOR
+    ``rpy_pallas.mobility_apply_multi`` (``rpy_pallas.py:856-888``).  A
+    gradient at one RHS goes through :class:`MobilityApply`; at two RHS on
+    the card it raises."""
     r = r.to(torch.float32).reshape(-1, 3)
     Fs = Fs.to(torch.float32)
     Fs = Fs.reshape(Fs.shape[0], -1, 3)
     if radii is not None:
         radii = torch.as_tensor(radii, dtype=torch.float32, device=r.device)
+    kw = dict(a=a, eta=eta, wall=wall, damp=damp, h_floor=h_floor, box=box,
+              image_shells=image_shells, image_tail=image_tail)
+    if Fs.shape[0] == 1 and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (Fs, r, radii)):
+        return MobilityApply.apply(Fs[0], r, radii, kw)[None]
+    return _apply_multi(Fs, r, radii, **kw)
+
+
+def _apply_multi(Fs, r, radii, a, eta, wall, damp, h_floor, box,
+                 image_shells, image_tail):
+    """The product of :func:`mobility_apply_multi` on float32 (k, N, 3)
+    forces, (N, 3) positions and (N,) radii or None."""
+    if h_floor is None:
+        h_floor = rpy.WALL_H_FLOOR
     ahat = None if radii is None else radii * (1.0 / a)
     use_damp = wall if damp is None else damp
     Fd = Fs
@@ -343,10 +364,59 @@ def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,
     return U
 
 
+class MobilityApply(torch.autograd.Function):
+    """U = (B·)M(·B)·F at one RHS through the kernels, differentiable — the
+    port of ``rpy_pallas._mobility_apply_diff`` (``rpy_pallas.py:779-818``).
+
+    forward(F (N, 3), r (N, 3), radii (N,) or None, kw): the product of
+    :func:`mobility_apply_multi` (K1 on the card, its plain version on the
+    CPU), float32 inputs.  backward: F̄ = (B·M·B)ᵀ·Ū = B·M·B·Ū, one more
+    launch of the same kernel (the damped operator is symmetric, and so are
+    the image sums: their offsets come in ± pairs); r̄ = autograd of the
+    plain :func:`.rpy.mobility_apply` at the same arguments (∂M/∂r has no
+    kernel; the plain sweep recomputes each row tile, so its memory stays
+    O(row_tile·N)); the radii a zero cotangent, as the JAX package's."""
+
+    @staticmethod
+    def forward(ctx, F, r, radii, kw):
+        ctx.save_for_backward(F, r, radii)
+        ctx.kw = kw
+        return _apply_multi(F[None], r, radii, **kw)[0]
+
+    @staticmethod
+    def backward(ctx, U_bar):
+        F, r, radii = ctx.saved_tensors
+        kw = ctx.kw
+        F_bar = r_bar = radii_bar = None
+        if ctx.needs_input_grad[0]:
+            with torch.no_grad():
+                F_bar = _apply_multi(U_bar[None].contiguous(), r, radii,
+                                     **kw)[0]
+        if ctx.needs_input_grad[1]:
+            h_floor = (rpy.WALL_H_FLOOR if kw["h_floor"] is None
+                       else kw["h_floor"])
+            with torch.enable_grad():
+                rr = r.detach().requires_grad_()
+                U = rpy.mobility_apply(
+                    F.detach(), rr, a=kw["a"], eta=kw["eta"],
+                    wall=kw["wall"], damp=kw["damp"], h_floor=h_floor,
+                    box=kw["box"], image_shells=kw["image_shells"],
+                    image_tail=kw["image_tail"], radii=radii)
+                (r_bar,) = torch.autograd.grad(U, rr, U_bar)
+        if ctx.needs_input_grad[2]:
+            radii_bar = torch.zeros_like(radii)
+        return F_bar, r_bar, radii_bar, None
+
+
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, damp=None, h_floor=None,
                    box=None, radii=None, image_shells=0, image_tail=True):
     """Drop-in for :func:`rigid_body_light_tpu_torch.ops.rpy.mobility_apply`
-    (float32): U = M·F, or B·M·B·F when ``wall``; (N, 3) → (N, 3)."""
-    return mobility_apply_multi(F.reshape(1, -1, 3), r, a, eta, wall, damp,
-                                h_floor, box, radii, image_shells,
-                                image_tail)[0]
+    (float32): U = M·F, or B·M·B·F when ``wall``; (N, 3) → (N, 3).
+    Differentiable in F and r (:class:`MobilityApply`)."""
+    r = r.to(torch.float32).reshape(-1, 3)
+    if radii is not None:
+        radii = torch.as_tensor(radii, dtype=torch.float32, device=r.device)
+    kw = dict(a=a, eta=eta, wall=wall, damp=damp, h_floor=h_floor, box=box,
+              image_shells=image_shells, image_tail=image_tail)
+    return MobilityApply.apply(F.to(torch.float32).reshape(-1, 3), r, radii,
+                               kw)

@@ -221,9 +221,10 @@ def _farfield_apply_fn(cfg: SimulationConfig, radii=None):
     """Proxy-grid near + far mobility (:mod:`.farfield`), O(N) at fixed
     density.  It takes (N, 3) or (k, N, 3) forces, so it serves both
     apply-fn entry points; float32 with ``use_pallas`` sweeps the near part
-    through kernel K3.  A 2-D ``cfg.box`` makes it the pseudo-2D film's far
-    field (cyclic x/y, the combined lattice summed over ``image_shells``
-    in-plane images; K3's box form).  radii: per-blob radii (the
+    through kernel K3.  ``farfield_band_p`` adds the band tier (its blocks
+    built with the lattices).  A 2-D ``cfg.box`` makes it the pseudo-2D
+    film's far field (cyclic x/y, the combined lattice summed over
+    ``image_shells`` in-plane images; K3's box form).  radii: per-blob radii (the
     radius-split lattices and K3's POLY form), seen by the apply, the
     position setup and the lattice build alike.
 
@@ -235,7 +236,7 @@ def _farfield_apply_fn(cfg: SimulationConfig, radii=None):
     max_nbr = cfg.farfield_nbr_tiles if cfg.farfield_nbr_tiles > 0 else None
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, grid=grid,
               p=cfg.farfield_p, max_nbr=max_nbr, h_floor=cfg.wall_h_floor,
-              radii=radii)
+              radii=radii, band_p=cfg.farfield_band_p)
     if cfg.box is not None:
         kw.update(box=cfg.box, image_shells=cfg.image_shells)
 

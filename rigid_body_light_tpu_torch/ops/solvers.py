@@ -1,5 +1,6 @@
 """GMRES solves of the rigid multiblob system — the port of
-``solve_saddle`` (the preconditioned saddle solve) and
+``solve_saddle`` (the preconditioned saddle solve), the differentiable
+solve ``make_differentiable_solver`` (implicit adjoints) and
 ``solve_resistance`` from ``rigid_body_light_tpu/ops/solvers.py``."""
 
 from __future__ import annotations
@@ -85,6 +86,79 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
               / torch.clamp(torch.sqrt(torch.sum(bvec * bvec)), min=1e-30))
     return SolveResult(lam=lam, U=U, residual=result.residual,
                        iters=result.iters, true_residual=tr)
+
+
+class _SaddleSolve(torch.autograd.Function):
+    """(offsets, positions, slip, force) → (λ, U) of the saddle solve,
+    differentiated by the implicit-function theorem (see
+    :func:`make_differentiable_solver`)."""
+
+    @staticmethod
+    def forward(ctx, offsets, positions, slip, force, ktkinv, rot, cfg):
+        ops = saddle_mod.GeometryOps(offsets=offsets, positions=positions,
+                                     ktkinv=ktkinv, rot=rot)
+        res = solve_saddle(ops, cfg, slip, force)
+        ctx.save_for_backward(offsets, positions, ktkinv, rot, res.lam,
+                              res.U)
+        ctx.cfg = cfg
+        ctx.shapes = (slip.shape, force.shape)
+        return res.lam, res.U
+
+    @staticmethod
+    def backward(ctx, lam_bar, U_bar):
+        offsets, positions, ktkinv, rot, lam, U = ctx.saved_tensors
+        cfg = ctx.cfg
+        ops = saddle_mod.GeometryOps(offsets=offsets, positions=positions,
+                                     ktkinv=ktkinv, rot=rot)
+        # Aᵀ = S·A·S with S = diag(I, −I): the adjoint solve is the same
+        # solver on sign-flipped blocks, y = (λ_adj, −U_adj)
+        with torch.no_grad():
+            adj = solve_saddle(ops, cfg, lam_bar, -U_bar)
+        y0, y1 = adj.lam, -adj.U
+        off_bar = pos_bar = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            # θ̄ = vjp_θ[A(θ)·x](−y) at the solution x = (λ, U)
+            with torch.enable_grad():
+                o = offsets.detach().requires_grad_()
+                p = positions.detach().requires_grad_()
+                s, f = saddle_mod.apply_saddle(
+                    lam, U, saddle_mod.GeometryOps(offsets=o, positions=p,
+                                                   ktkinv=ktkinv, rot=rot),
+                    cfg, saddle_mod.mobility_apply_fn(cfg))
+                off_bar, pos_bar = torch.autograd.grad(
+                    (s, f), (o, p), (-y0, -y1), allow_unused=True)
+        slip_shape, force_shape = ctx.shapes
+        return (off_bar, pos_bar, y0.reshape(slip_shape),
+                y1.reshape(force_shape), None, None, None)
+
+
+def make_differentiable_solver(cfg: SimulationConfig) -> Callable:
+    """A differentiable mobility solve ``solve(ops, slip, force) → (λ, U)``.
+
+    The forward pass is the preconditioned GMRES of :func:`solve_saddle`
+    (under ``torch.no_grad``: its loop is not differentiated).  Gradients
+    come from the implicit-function theorem: with A·x = b,
+
+        solve Aᵀ·y = x̄,   b̄ = y,   θ̄ = vjp_θ[A(θ)·x](−y).
+
+    The saddle operator satisfies Aᵀ = S·A·S with S = diag(I, −I) on
+    (λ, U), so the adjoint solve is the same solver with slip λ̄ and force
+    −Ū.  The operator's vjp differentiates :func:`.saddle.apply_saddle`
+    with the configuration's mobility product: through K1 on the card
+    (:class:`.rpy_cuda.MobilityApply`: its position cotangent by autograd
+    of the plain sweep), the plain sweep otherwise; a kernel without a
+    backward (K2, K3, K4) raises there.  The block preconditioner is built
+    inside the solve and carries no gradient, which the implicit-function
+    theorem allows: the solution does not depend on it.
+
+    Differentiable inputs: ``ops.offsets`` and ``ops.positions`` (chain
+    through :func:`.saddle.geometry_ops` for ∂/∂X and ∂/∂Q), ``slip`` (N, 3)
+    and ``force`` (B, 6); ``ops.ktkinv`` and ``ops.rot`` feed only the
+    preconditioner and get none."""
+    def solve(ops: saddle_mod.GeometryOps, slip, force):
+        return _SaddleSolve.apply(ops.offsets, ops.positions, slip, force,
+                                  ops.ktkinv, ops.rot, cfg)
+    return solve
 
 
 def solve_resistance(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, U,

@@ -39,7 +39,7 @@ logger = logging.getLogger("rigid_body_light_tpu_torch")
 
 # the parts the step marks, outermost first
 PARTS = ("step", "noise", "rfd", "kinematics", "pc_build", "gmres",
-         "pc_apply", "mobility", "lattice_build", "far_setup",
+         "pc_apply", "mobility", "lattice_build", "far_setup", "far_band",
          "ewald_cells", "ewald_pme", "pair_sweep_sym", "pair_sweep_ordered",
          "near_sweep", "ewald_real_sweep")
 

@@ -1,8 +1,9 @@
 """The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
 near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
-against their plain PyTorch versions; the RigidBody API through K1; and
-the balanced-split Ewald operator (plain PyTorch, no kernel) on the card
-against the CPU.
+against their plain PyTorch versions; the RigidBody API through K1; the
+balanced-split Ewald operator (plain PyTorch, no kernel) on the card
+against the CPU; and the adjoints: K1's autograd Function against autograd
+through the plain sweep, and the raises of the kernels without a backward.
 
 Marked ``cuda``: they skip without a CUDA device.  The GPU machine has no
 JAX, so run them there without the JAX test harness's conftest:
@@ -1061,3 +1062,58 @@ def test_balanced_split_on_the_card_matches_the_cpu(dev, poly):
     w = ewald_cells.neighbor_width(r.to(dev), par)
     assert w == ewald_cells.neighbor_width(r, par)
 
+
+
+# ------------------------------------------------- the adjoints (item 15)
+@pytest.mark.parametrize("case", ["wall", "box", "radii"])
+def test_k1_function_backward_matches_plain(cloud, case):
+    """``rpy_cuda.MobilityApply`` on the card: F̄ through one more K1
+    launch, r̄ through the plain sweep, against ``torch.autograd`` through
+    the plain float32 sweep on the same inputs."""
+    r, F = cloud
+    r32, F32, Ub = r.float(), F[0].float(), F[1].float()
+    kw = dict(a=1.0, eta=1.0, wall=True)
+    if case == "box":
+        kw.update(box=(20.0, 20.0), image_shells=1)
+    if case == "radii":
+        kw["radii"] = torch.where(torch.arange(r.shape[0], device=r.device)
+                                  % 2 == 0, 0.6, 1.0).float()
+    grads = []
+    for fn in (rpy_cuda.mobility_apply, rpy.mobility_apply):
+        rr, FF = r32.clone().requires_grad_(), F32.clone().requires_grad_()
+        U = fn(FF, rr, **kw)
+        grads.append(torch.autograd.grad(U, (FF, rr), Ub))
+    (gF_k, gr_k), (gF_p, gr_p) = grads
+    torch.cuda.synchronize()
+    assert _rel(gF_k, gF_p.double()) < TOL
+    assert _rel(gr_k, gr_p.double()) < 1e-6
+
+
+def test_k1_function_launches_k1_for_the_force_cotangent(cloud):
+    r, F = cloud
+    FF = F[0].float().clone().requires_grad_()
+    U = rpy_cuda.mobility_apply(FF, r.float(), wall=True)
+    rpy_cuda.reset_launch_counts()
+    (g,) = torch.autograd.grad(U, FF, F[1].float())
+    assert rpy_cuda.launch_counts()["pair_sweep_sym"] == 1
+    assert torch.isfinite(g).all()
+
+
+def test_kernels_without_backward_raise(dev, cloud, ewald_boxes):
+    """A gradient through K2 (or K1 at 2 RHS), K3 or K4 on the card raises
+    instead of silently missing the pair terms."""
+    r, F = cloud
+    r32 = r.float().clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="K2 at 2 RHS.*item 15"):
+        rpy_cuda.mobility_apply_multi(F.float(), r32, wall=True)
+    with pytest.raises(RuntimeError, match="K3 near_sweep.*item 15"):
+        farfield.mobility_apply(F[0].float(), r32, wall=True,
+                                grid=(4, 4, 2), p=3)
+    params = ewald_boxes[0]
+    rp, Fp = _periodic_cloud(dev, params.box, 300, 4)
+    with pytest.raises(RuntimeError, match="K4 ewald_real_sweep.*item 15"):
+        ewald_cuda.mobility_apply(Fp[0].float().requires_grad_(),
+                                  rp.float(), params)
+    # without autograd the same calls run
+    with torch.no_grad():
+        rpy_cuda.mobility_apply_multi(F.float(), r32, wall=True)

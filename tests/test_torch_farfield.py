@@ -263,8 +263,22 @@ def test_config_checks_match_jax():
                max_step_residual=1e-1)
     assert cfg.farfield_grid == (4, 4, 2)
     hash(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CfgT(farfield_grid=4, farfield_band_p=4, gmres_tol=1e-2,
+    # the band tier's order and its refusal of the film, as the JAX
+    # package's tests/test_farfield.py::test_band_validation checks them
+    r8 = np.zeros((8, 3))
+    with pytest.raises(ValueError, match="band_p"):
+        ff_j.mobility_apply(jnp.asarray(r8), jnp.asarray(r8), grid=4, p=3,
+                            band_p=2)
+    with pytest.raises(ValueError, match="band_p"):
+        ff_t.mobility_apply(torch.from_numpy(r8), torch.from_numpy(r8),
+                            grid=4, p=3, band_p=2)
+    for ff, arr in ((ff_j, jnp.asarray), (ff_t, torch.from_numpy)):
+        with pytest.raises(ValueError, match="does not compose"):
+            ff.prepare(arr(np.ones((8, 3))), wall=True, grid=(4, 4, 2), p=3,
+                       band_p=4, box=(10.0, 10.0), image_shells=1)
+    with pytest.raises(ValueError, match="pseudo-2D"):
+        CfgT(farfield_grid=4, farfield_band_p=4, box=(10.0, 10.0),
+             wall=True, image_shells=1, gmres_tol=1e-2,
              max_step_residual=1e-1)
 
 

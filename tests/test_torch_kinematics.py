@@ -133,9 +133,19 @@ def test_config_carries_across():
     dict(farfield_grid=(4, 4, 2), farfield_band_p=3, gmres_tol=5e-3),
     dict(farfield_grid="auto", farfield_band_p=4),
 ])
-def test_config_refuses_unported_features(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CfgT(**kw)
+def test_config_takes_the_band_tier(kw):
+    """The far field's band tier, once refused: the port's config carries
+    it as the JAX package's does, field by field, and both warn alike (each
+    gmres_tol lies below the two-tier operator-error estimate)."""
+    with pytest.warns(UserWarning, match="operator error") as w_j:
+        cfg_j = SimulationConfig(dtype=jnp.float64, **kw)
+    with pytest.warns(UserWarning, match="operator error") as w_t:
+        cfg_t = CfgT(dtype=torch.float64, **kw)
+    assert ([str(w.message) for w in w_t]
+            == [str(w.message) for w in w_j])
+    for f in dataclasses.fields(CfgT):
+        if f.name != "dtype":
+            assert getattr(cfg_t, f.name) == getattr(cfg_j, f.name), f.name
 
 
 @pytest.mark.parametrize("kw", [
