@@ -285,7 +285,42 @@ Phases (each raises on failure; any failure exits nonzero):
      solvers.make_differentiable_solver within 10·gmres_tol; a 3-step
      dynamics.make_differentiable_step trajectory, the gradient of the sum
      of the final heights in F and X0 along two directions against
-     central differences; a gradient through K2, K3 or K4 raises.
+     central differences; a gradient through K2, K3 or K4 raises;
+ 50. K2's slab entries (rpy_cuda.pair_sum_slab) at the dense slice's
+     10,272 positions split over 4 ranks in this one process: the 1-D
+     gather, the ring in the JAX package's order and SUMMA on 2 x 2, at 1
+     and 2 RHS, each assembled product against the float64 plain sweep
+     (KERNEL_TOL) and the single-device K1/K2 product; the film's box form
+     at image_shells 2 and the mixture's POLY form through the ring; ms a
+     slab launch (the ring's, the gather's, one rank's) against the plain
+     float32 slab and the bound;
+ 51. K3's row-tile slice (farfield_cuda.near_sweep with t0, nt) at the
+     far-field slice's 102,480 blobs, the tiles padded for 1, 2 and 4
+     ranks as the distributed context pads them: every slice at 1 and 2
+     RHS, the concatenated slices against the float64 plain near sweep
+     (KERNEL_TOL) and one whole K3 launch, two launches bitwise equal, the
+     slices' listed pairs and the boundary pairs whose fields are
+     evaluated twice, ms a slice at 1 and 4 ranks against its bound (a
+     boundary pair's in-slice side alone); the POLY form at the
+     far-field mixture and the box form at the far-field film's check
+     set, over 4 ranks;
+ 52. the distributed stepper (parallel.make_distributed_step /
+     make_distributed_run_bd) on a process group of this one process
+     (NCCL, world size 1) at the dense slice and the far-field slice at
+     p = 4 and with band 6: deterministic and stochastic steps against
+     the single-device step from the same draws (STEP_TOL, GMRES
+     iterations ±1, residuals below 10·gmres_tol), the far-field
+     operator's first DIST_EXACT_ROWS rows against the exact operator's
+     streamed through K2's slab (FF_OPERATOR_TOL), steps/s in turns with
+     run_bd, K2 slab / K3 slice launches a step, the step timer's split
+     with its collective span; the gather mode
+     (parallel.sharded_mobility_apply_fn) through run_bd;
+ 53. not run: no backend carries every collective the port uses with
+     four ranks on one card (PERF.md);
+ 54. the run driver with a "mesh" key: examples/distributed_suspension.json
+     at shape [1], mode "distributed", 10 steps, through python -m
+     torch.distributed.run --nproc_per_node 1, then resumed for 10 more:
+     the frames and the checkpoint rank 0 wrote, no gap.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -300,8 +335,10 @@ phase 39 the exact-drift and unpreconditioned stepper modes, phases
 phases 42-45 the balanced-split periodic path (the tile sweep and the
 gridded wave part, no kernel; K4 as the classic split's yardstick),
 phases 46-48 the far field's band tier (K3 and the band's matmuls),
-phase 49 the adjoints (K1 under autograd); phase 15 is the probe's own
-entry point.  The kernels
+phase 49 the adjoints (K1 under autograd), phases 50-54 the
+distributed path (K2's slab entries, K3's row-tile slice, the
+distributed stepper and driver); phase 15 is the probe's own entry
+point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
 
@@ -497,6 +534,19 @@ ADJ_STEPS = 3
 ADJ_EPS_F = 0.5
 ADJ_EPS_X = 1e-2
 ADJ_DIR_TOL = 1e-2
+# phases 50-54: distribution.  Phases 50-51 split the sweeps over DIST_D
+# ranks in this one process (a 2 x 2 SUMMA mesh); phase 52 runs the
+# distributed stepper on a process group of this one process, 1 warm-up
+# and DIST_TIMED_STEPS timed steps at the dense slice (FF_TIMED_STEPS at
+# the far field) in turns with run_bd; phase 54 runs the run driver for
+# DRIVER_MESH_STEPS steps and resumes it for as many
+DIST_D = 4
+DIST_WARM_STEPS = 1
+DIST_TIMED_STEPS = 8
+# phase 52: rows of the distributed far-field operator held against the
+# exact operator's, streamed through K2's slab (rpy_cuda.mobility_apply_rows)
+DIST_EXACT_ROWS = 8192
+DRIVER_MESH_STEPS = 10
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -1196,7 +1246,8 @@ def step_split(torch, profiling, label, run, steps):
     own = {k: v["self_ms"] / steps for k, v in split.items()}
     kernels = sum(own.get(k, 0.0) for k in ("pair_sweep_sym",
                                              "pair_sweep_ordered",
-                                             "near_sweep", "ewald_real_sweep"))
+                                             "near_sweep", "near_sweep_slice",
+                                             "ewald_real_sweep"))
     print(f"step split, {label} slice, {steps} step(s): {step_ms:.3f} ms a "
           f"step; kernels {kernels:.3f}, GMRES loop (own) "
           f"{own.get('gmres', 0.0):.3f} ms a step; own ms a step by part: "
@@ -2483,6 +2534,705 @@ def adjoint_phases(torch, dev, counters):
         raise AssertionError(f"phase 49.5: a gradient went through a kernel "
                              f"without a backward: {raised}")
     return ph
+
+
+def slab_bound(rows, cols, k, extra=0, images=1):
+    """Bound of one slab of the pair sum: rows [r0, r0 + R) against columns
+    [c0, c0 + C) (global ids).  The pairs of the slab's overlap with its
+    own rows are unordered pairs the function evaluates once (fields 60
+    flop + 30 per RHS and direction, both directions), the rest ordered
+    pairs (fields + one direction); ``extra`` flop a field (the POLY form),
+    ``images`` fields a pair (the box's (2S+1)²).  Bytes: positions and
+    forces read once, the rows' output written once."""
+    (r0, R), (c0, C) = rows, cols
+    o = max(0, min(r0 + R, c0 + C) - max(r0, c0))
+    unordered = o * (o - 1) // 2
+    ordered = R * C - o * o
+    field = (60 + extra) * images
+    flops = unordered * (field + 60 * k * images) + ordered * (
+        field + 30 * k * images)
+    return bound_ms(flops, 12 * (R + C) + 12 * k * (R + C))
+
+
+def decompositions(n, d):
+    """The slabs of the three decompositions of an n-blob sweep over d
+    ranks, as ((rows start, rows), (cols start, cols)) lists in the order
+    each rank sums them: the 1-D gather (each rank its rows against all
+    columns), the ring in the JAX package's order (rank idx at step s the
+    block of rank (idx − s) mod d) and SUMMA on a √d × √d mesh (the row
+    block's column blocks, closed by the column group's sum)."""
+    n_loc = n // d
+    gather = [[((i * n_loc, n_loc), (0, n))] for i in range(d)]
+    ring = [[((i * n_loc, n_loc), (((i - s) % d) * n_loc, n_loc))
+             for s in range(d)] for i in range(d)]
+    q = int(round(d ** 0.5))
+    m = n // q
+    summa = [[((i * m, m), (j * m, m)) for j in range(q)] for i in range(q)]
+    return {"gather": gather, "ring": ring, "summa": summa}
+
+
+def assemble(torch, rpy_cuda, plan, r_over_a, F, wall, h, box=None,
+             shells=0, ahat=None):
+    """Run every slab of a decomposition through K2's slab entry and
+    assemble the product: each rank's slabs summed in its order."""
+    rows_out = []
+    for slabs in plan:
+        acc = None
+        for (r0, R), (c0, C) in slabs:
+            part = rpy_cuda.pair_sum_slab(
+                r_over_a[r0:r0 + R], r0, r_over_a[c0:c0 + C],
+                F[:, c0:c0 + C], wall, col_offset=c0, h_floor=h,
+                box_over_a=box, image_shells=shells,
+                ahat_rows=None if ahat is None else ahat[r0:r0 + R],
+                ahat_cols=None if ahat is None else ahat[c0:c0 + C])
+            acc = part if acc is None else acc + part
+        rows_out.append(acc)
+    return torch.cat(rows_out, dim=1)
+
+
+def check_slabs(torch, rpy, rpy_cuda, label, r_over_a, F2, h, box=None,
+                shells=0, ahat=None, decomps=("gather", "ring", "summa")):
+    """Phase 50's check at one set of positions: each decomposition at 1
+    and 2 RHS against the float64 plain sweep on the same float32 inputs
+    (within KERNEL_TOL of max|U|) and against the single-device product
+    (K1 at 1 RHS, K2 at 2; with the box and shells, K1/K2's box forms)."""
+    n = r_over_a.shape[0]
+    ids = torch.arange(n, device=r_over_a.device)
+    ref = rpy.pair_sum(r_over_a.double(), ids, r_over_a.double(), ids,
+                       F2.double(), wall=True, h_floor=h, box=box,
+                       image_shells=shells,
+                       radii_rows=None if ahat is None else ahat.double(),
+                       radii_cols=None if ahat is None else ahat.double())
+    scale = ref.abs().max().item()
+    plans = decompositions(n, DIST_D)
+    errs = {}
+    for k in (1, 2):
+        single = rpy_cuda.pair_sum(r_over_a, F2[0] if k == 1 else F2[:k],
+                                   True, h_floor=h, box_over_a=box,
+                                   image_shells=shells, ahat=ahat)
+        single = single[None] if k == 1 else single
+        for name in decomps:
+            U = assemble(torch, rpy_cuda, plans[name], r_over_a, F2[:k], True,
+                         h, box=box, shells=shells, ahat=ahat)
+            torch.cuda.synchronize()
+            err = (U.double() - ref[:k]).abs().max().item()
+            vs_single = (U - single).abs().max().item() / scale
+            print(f"phase 50, {label}, {name} over {DIST_D}, {k} RHS: "
+                  f"max|dU|={err:.3e}, /max|U|={err / scale:.3e} (tol "
+                  f"{KERNEL_TOL:g}); against the single-device product "
+                  f"{vs_single:.3e} of max|U|")
+            if not (err / scale <= KERNEL_TOL and torch.isfinite(U).all()):
+                raise AssertionError(f"phase 50, {label}, {name}, k={k}: "
+                                     f"{err / scale}")
+            errs[(name, k)] = dict(err=err, rel=err / scale,
+                                   vs_single=vs_single)
+    return errs
+
+
+def slab_times(torch, rpy, rpy_cuda, r_over_a, F2, h):
+    """ms a slab launch at 1 and 2 RHS: the ring's n/D × n/D slab, the
+    gather's n/D × n slab and the main path's n × n slab at one rank;
+    each against the plain float32 sweep of the same slab and its bound."""
+    n = r_over_a.shape[0]
+    n_loc = n // DIST_D
+    shapes = {"ring": ((n_loc, n_loc), (0, n_loc)),    # off the diagonal
+              "gather": ((0, n_loc), (0, n)),
+              "one_rank": ((0, n), (0, n))}
+    out = {}
+    for label, ((r0, R), (c0, C)) in shapes.items():
+        rows = r_over_a[r0:r0 + R].contiguous()
+        cols = r_over_a[c0:c0 + C].contiguous()
+        ids_r = torch.arange(r0, r0 + R, device=rows.device)
+        ids_c = torch.arange(c0, c0 + C, device=rows.device)
+        for k in (1, 2):
+            Fk = F2[:k, c0:c0 + C].contiguous()
+            ms = cuda_ms(torch, lambda: rpy_cuda.pair_sweep_ordered(
+                rows, r0, cols, Fk, c0, True, h), 20)
+            plain = cuda_ms(torch, lambda: rpy.pair_sum(
+                rows, ids_r, cols, ids_c, Fk, wall=True, h_floor=h), 2)
+            b = slab_bound((r0, R), (c0, C), k)
+            out[(label, k)] = dict(ms=ms, plain_ms=plain, bound_ms=b[0],
+                                   bound_by=b[1], ratio=ms / b[0])
+            print(f"phase 50, K2 slab {label} ({R} x {C} at offsets {r0}, "
+                  f"{c0}), n={n}, {k} RHS: {ms:.4f} ms "
+                  f"a launch, plain float32 {plain:.4f} ms, bound "
+                  f"{b[0]:.4f} ms ({b[1]}), {ms / b[0]:.2f}x")
+    return out
+
+
+def slice_kept_pairs(torch, x_ci, live, pairs, count, tile, t0, nt,
+                     wrap=None):
+    """Kept blob pairs of a K3 work list for the slice of tiles
+    [t0, t0 + nt): each listed tile pair's live pairs with cell offset ≤ 1
+    on every axis (cyclic in x/y on ``wrap``), i < j on a diagonal tile
+    pair — the pairs whose fields the launch evaluates — and how many of
+    them lie in a tile pair that crosses the slice's edge (the slice
+    needs only their in-slice side)."""
+    ci = x_ci
+    lane = torch.arange(tile, device=ci.device)
+    total = crossing = 0
+    rows_all = pairs[:count].long()
+    for c0 in range(0, count, 2048):
+        pr = rows_all[c0:c0 + 2048]
+        a = pr[:, 0:1] * tile + lane
+        b = pr[:, 1:2] * tile + lane
+        dc = (ci[a][:, :, None, :] - ci[b][:, None, :, :]).abs()
+        for ax, g in enumerate(wrap or ()):
+            dc[..., ax] = torch.minimum(dc[..., ax], g - dc[..., ax])
+        keep = ((dc <= 1).all(dim=-1) & live[a][:, :, None]
+                & live[b][:, None, :])
+        diag = (pr[:, 0] == pr[:, 1])[:, None, None]
+        keep &= ~diag | (lane[:, None] < lane[None, :])
+        per_pair = keep.sum(dim=(1, 2))
+        a_in = (pr[:, 0] >= t0) & (pr[:, 0] < t0 + nt)
+        b_in = (pr[:, 1] >= t0) & (pr[:, 1] < t0 + nt)
+        total += int(per_pair.sum())
+        crossing += int(per_pair[a_in ^ b_in].sum())
+    return total, crossing
+
+
+def check_slices(torch, farfield, farfield_cuda, label, x, ci, grid, n_real,
+                 h, wall=True, ahat=None, box=None, wrap=None,
+                 slices=(1, 2, 4), timed=(), extra=0):
+    """Phase 51 at one set of positions (x (N, 3) float32 in units of a,
+    ci their cells): the sorted tiles as the distributed context builds
+    them for D ranks (padded to a multiple of D), every slice of each D
+    through K3's slice (float32, 1 and 2 RHS), the concatenated slices'
+    real rows against the float64 plain near sweep within KERNEL_TOL and
+    against one whole K3 launch; two slice launches bitwise equal; the
+    slices' listed pairs and the boundary pairs evaluated twice; at the D
+    in ``timed`` each slice's ms against its bound (and at D = 1 the plain
+    slice's)."""
+    rng = np.random.default_rng(SEED + 51)
+    out = {}
+    ref = whole = None
+    for D in slices:
+        _, w, _, t_pad = farfield._resolve_local(
+            n_real, wall, grid, FF_P, None, ahat is not None, D)
+        order, x_s, ci_s, id_s, ah_s, nbr, overflow = farfield.sorted_tiles(
+            x, ci, grid, t_pad, w, ahat=ahat, wrap_xy=wrap)
+        if bool(overflow):
+            raise AssertionError(f"phase 51, {label}: the neighbor lists "
+                                 f"overflow at D = {D}")
+        live = id_s >= 0
+        full_pairs, full_count = farfield._tile_pairs(nbr)
+        if ref is None:
+            F = torch.from_numpy(rng.standard_normal((2, n_real, 3))).to(
+                x.device).float()
+            F_s = torch.zeros((2, x_s.shape[0], 3), device=x.device)
+            F_s[:, :n_real] = F[:, order]
+            ref = farfield._near_sweep(
+                x_s.double(), ci_s, id_s, F_s.double(), nbr, wall, h,
+                box_n=box, wrap_xy=wrap,
+                ah_s=None if ah_s is None else ah_s.double())[:, :n_real]
+            whole = farfield_cuda.near_sweep(
+                x_s, ci_s, live, F_s, nbr, wall, h,
+                pairs=(full_pairs, full_count), box_over_a=box,
+                wrap_cells=wrap, ahat_s=ah_s)[:, :n_real]
+        else:
+            F_s = torch.zeros((2, x_s.shape[0], 3), device=x.device)
+            F_s[:, :n_real] = F[:, order]
+        scale = ref.abs().max().item()
+        nt = t_pad // D
+        lists = [farfield._slice_pairs(full_pairs, full_count, d * nt, nt)
+                 for d in range(D)]
+        counts = [int(c) for _, c, _ in lists]
+        boundary = sum(int(b) for _, _, b in lists) // 2
+        rec = dict(t_pad=t_pad, listed_pairs=counts,
+                   total_pairs=int(full_count), boundary_pairs=boundary)
+        for k in (1, 2):
+            Fk = F_s[:k].contiguous()
+            parts = []
+            for d, (pl, cnt, _) in enumerate(lists):
+                args = (x_s, ci_s, live, Fk, nbr, wall, h)
+                kw = dict(pairs=(pl, cnt), box_over_a=box, wrap_cells=wrap,
+                          ahat_s=ah_s, t0=d * nt, nt=nt)
+                U = farfield_cuda.near_sweep(*args, **kw)
+                if d == 0 and not torch.equal(
+                        U, farfield_cuda.near_sweep(*args, **kw)):
+                    raise AssertionError(f"phase 51, {label}: two slice "
+                                         f"launches differ, D={D}, k={k}")
+                parts.append(U)
+            U = torch.cat(parts, dim=1)[:, :n_real]
+            torch.cuda.synchronize()
+            err = (U.double() - ref[:k]).abs().max().item()
+            vs_whole = (U - whole[:k]).abs().max().item() / scale
+            print(f"phase 51, {label}, D = {D} ({nt} of {t_pad} tiles a "
+                  f"slice, listed pairs {counts}, {boundary} boundary pairs "
+                  f"evaluated twice), {k} RHS: max|dU|={err:.3e}, "
+                  f"/max|U|={err / scale:.3e} (tol {KERNEL_TOL:g}); against "
+                  f"one whole K3 launch {vs_whole:.3e} of max|U|")
+            if not (err / scale <= KERNEL_TOL and torch.isfinite(U).all()):
+                raise AssertionError(f"phase 51, {label}, D={D}, k={k}: "
+                                     f"{err / scale}")
+            rec[k] = dict(err=err, rel=err / scale, vs_whole=vs_whole)
+            if D in timed:
+                rec[k]["slices"] = []
+                for d, (pl, cnt, _) in enumerate(lists):
+                    args = (x_s, ci_s, live, Fk, nbr, wall, h)
+                    kw = dict(pairs=(pl, cnt), box_over_a=box,
+                              wrap_cells=wrap, ahat_s=ah_s, t0=d * nt, nt=nt)
+                    ms = cuda_ms(torch, lambda: farfield_cuda.near_sweep(
+                        *args, **kw), 10)
+                    # the plain slice at the main path's D = 1 only: the
+                    # whole plain sweep takes seconds
+                    plain = (cuda_ms(torch, lambda: farfield._near_sweep(
+                        x_s, ci_s, id_s, Fk, nbr, wall, h, box_n=box,
+                        wrap_xy=wrap, ah_s=ah_s, t0=d * nt, nt=nt), 1)
+                        if D == 1 else None)
+                    kept, crossing = slice_kept_pairs(
+                        torch, ci_s, live, pl, int(cnt), farfield.TILE,
+                        d * nt, nt, wrap)
+                    # what the slice needs: a pair's fields and both
+                    # sides inside it, the in-slice side alone across its
+                    # edge (the kernel applies the other there too, and
+                    # drops it)
+                    flops = (kept * (60 + extra + 60 * k)
+                             - crossing * 30 * k)
+                    n_bytes = (x_s.shape[0] * (12 + 12 + 1 + 12 * k)
+                               + nt * farfield.TILE * 12 * k
+                               + 4 * nbr.numel())
+                    b = bound_ms(flops, n_bytes)
+                    rec[k]["slices"].append(dict(
+                        ms=ms, plain_ms=plain, kept_pairs=kept,
+                        kept_crossing=crossing,
+                        bound_ms=b[0], bound_by=b[1], ratio=ms / b[0]))
+                    print(f"phase 51, {label}, D = {D}, slice {d}, {k} RHS: "
+                          f"{ms:.4f} ms, plain float32 {plain} ms, "
+                          f"{kept} kept pairs ({crossing} across its "
+                          f"edge), bound {b[0]:.4f} ms "
+                          f"({b[1]}), {ms / b[0]:.2f}x")
+        out[D] = rec
+    return out
+
+
+def far_rows_check(torch, parallel, rpy_cuda, kin, label, cfg, geom,
+                   state, group):
+    """Phase 52: the distributed far-field operator on the process group
+    (its one rank's rows, :func:`parallel.farfield_mobility_apply_local_fn`)
+    against rows [0, DIST_EXACT_ROWS) of the exact operator streamed
+    through K2's slab (``rpy_cuda.mobility_apply_rows``), max|dU|/max|U|
+    over those rows within FF_OPERATOR_TOL."""
+    r = kin.blob_positions(geom, state.X, state.Q).reshape(-1, 3)
+    F = torch.from_numpy(np.random.default_rng(SEED + 52).standard_normal(
+        tuple(r.shape))).to(device=r.device, dtype=r.dtype)
+    U = parallel.farfield_mobility_apply_local_fn(cfg, group)(F, r)
+    U = U[:DIST_EXACT_ROWS]
+    U_ex = rpy_cuda.mobility_apply_rows(F, r, 0, DIST_EXACT_ROWS, a=cfg.a,
+                                        eta=cfg.eta, wall=cfg.wall,
+                                        h_floor=cfg.wall_h_floor)
+    torch.cuda.synchronize()
+    rel = (U - U_ex).abs().max().item() / U_ex.abs().max().item()
+    print(f"phase 52, {label}: the distributed operator against rows "
+          f"[0, {DIST_EXACT_ROWS}) of the exact operator (K2's slab): "
+          f"max|dU|/max|U| = {rel:.3e} (tol {FF_OPERATOR_TOL:g})")
+    if not (rel <= FF_OPERATOR_TOL and bool(torch.isfinite(U).all())):
+        raise AssertionError(f"phase 52, {label}: the distributed operator "
+                             f"against the exact rows: {rel}")
+    return rel
+
+
+def init_process_group(torch):
+    """A process group of this one process on the card (NCCL), its
+    address on localhost at a free port."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+
+
+def step_pair(torch, stepper, parallel, geom, cfg, mesh, state, force, seed,
+              deterministic=False):
+    """One single-device step and one distributed step (world size 1) from
+    the same draws: the max |ΔX| difference over max|ΔX|, the Q
+    difference, both GMRES iterations and residuals."""
+    gen = torch.Generator(device=state.X.device).manual_seed(seed)
+    draws = stepper.make_draws(geom, state, gen, cfg)
+    if deterministic:
+        s1, a1 = stepper.deterministic_step(geom, cfg, state, force)
+    else:
+        s1, a1 = stepper.stochastic_step(geom, cfg, state, force, draws=draws)
+    step = parallel.make_distributed_step(geom, cfg, mesh,
+                                          deterministic=deterministic)
+    s2, a2 = step(state, force, draws=None if deterministic else draws)
+    torch.cuda.synchronize()
+    dx = (s1.X - state.X).abs().max().item()
+    rel = (s2.X - s1.X).abs().max().item() / dx
+    dq = (s2.Q - s1.Q).abs().max().item()
+    return dict(rel_dx=rel, max_dx=dx, dq=dq, iters=(a1.iters, a2.iters),
+                residuals=(a1.residual.item(), a2.residual.item()))
+
+
+def distributed_phases(torch, dev, counters):
+    """Phases 50-54: distribution (ROADMAP item 16's first slice).  K2's
+    slab entries and K3's row-tile slice at full width in this process;
+    the distributed stepper on a real process group (NCCL, world size 1);
+    the run driver with a "mesh" key through torch.distributed.run.
+    Returns the phases' readings."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.dynamics import run_bd
+    from rigid_body_light_tpu_torch.dynamics import stepper
+    from rigid_body_light_tpu_torch.ops import (farfield, farfield_cuda,
+                                                kinematics as kin, rpy,
+                                                rpy_cuda)
+    from rigid_body_light_tpu_torch.utils import profiling
+
+    out = {}
+    rng = np.random.default_rng(SEED + 50)
+    h = 0.75
+
+    # ---- 50. K2's slab entries at the dense slice, D = 4
+    t50 = time.perf_counter()
+    cfg, geom, state, force = slice_setup(torch, dev)
+    r = kin.blob_positions(geom, state.X, state.Q).reshape(-1, 3)
+    n = r.shape[0]
+    r_a = (r / cfg.a).float().contiguous()
+    F2 = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    ph50 = {"dense": check_slabs(torch, rpy, rpy_cuda, "dense slice", r_a,
+                                 F2, h)}
+    ph50["times"] = slab_times(torch, rpy, rpy_cuda, r_a, F2, h)
+    cfg_film, geom_film, state_film, _ = film_setup(torch, dev, FILM_SHELLS)
+    r_film = kin.blob_positions(geom_film, state_film.X,
+                                state_film.Q).reshape(-1, 3)
+    box_a = tuple(float(np.float32(b / cfg_film.a)) for b in cfg_film.box)
+    ph50["film ring, S = 2"] = check_slabs(
+        torch, rpy, rpy_cuda, f"film ring (box {cfg_film.box}, S = "
+        f"{FILM_SHELLS})", (r_film / cfg_film.a).float().contiguous(), F2,
+        h, box=box_a, shells=FILM_SHELLS, decomps=("ring",))
+    cfg_m, mgeom, states_m, _ = mixture_setup(torch, dev)
+    r_m = torch.cat([kin.blob_positions(g, s.X, s.Q).reshape(-1, 3)
+                     for g, s in zip(mgeom.geoms, states_m)])
+    radii = torch.cat([torch.full((s.X.shape[0] * g.n_blobs,),
+                                  float(a_s or cfg_m.a), device=dev)
+                       for g, s, a_s in zip(mgeom.geoms, states_m,
+                                            mgeom.radii)])
+    Fm = torch.from_numpy(rng.standard_normal((2, r_m.shape[0], 3))).to(
+        dev).float()
+    ph50["mixture POLY ring"] = check_slabs(
+        torch, rpy, rpy_cuda, f"mixture ring (POLY, n={r_m.shape[0]})",
+        (r_m / cfg_m.a).float().contiguous(), Fm, h,
+        ahat=(radii / cfg_m.a).float().contiguous(), decomps=("ring",))
+    ph50["seconds"] = time.perf_counter() - t50
+    out["phase50"] = ph50
+    del F2, Fm, r_film, r_m
+    torch.cuda.empty_cache()
+
+    # ---- 51. K3's row-tile slice at the far-field slice, D = 1, 2, 4
+    t51 = time.perf_counter()
+    cfg_f, geom_f, state_f, force_f = farfield_setup(torch, dev, FF_BODIES)
+    r_f = kin.blob_positions(geom_f, state_f.X, state_f.Q).reshape(-1, 3)
+    x_f = (r_f / cfg_f.a).float()
+    lo, hgrid = farfield._grid_geometry(x_f, FF_GRID)
+    ci_f, _ = farfield._cell_indices(x_f, lo, hgrid, FF_GRID)
+    ph51 = {"far-field slice": check_slices(
+        torch, farfield, farfield_cuda, f"far-field slice (n={x_f.shape[0]})",
+        x_f, ci_f, FF_GRID, x_f.shape[0], h, timed=(1, 4))}
+    cfg_fm, mgeom_fm, states_fm, _ = farfield_mixture_setup(
+        torch, dev, FF_BODIES)
+    r_fm = torch.cat([kin.blob_positions(g, s.X, s.Q).reshape(-1, 3)
+                      for g, s in zip(mgeom_fm.geoms, states_fm)])
+    a_fm = torch.cat([torch.full((s.X.shape[0] * g.n_blobs,),
+                                 float(a_s or cfg_fm.a), device=dev)
+                      for g, s, a_s in zip(mgeom_fm.geoms, states_fm,
+                                           mgeom_fm.radii)])
+    x_fm = (r_fm / cfg_fm.a).float()
+    lo, hgrid = farfield._grid_geometry(x_fm, FF_GRID)
+    ci_fm, _ = farfield._cell_indices(x_fm, lo, hgrid, FF_GRID)
+    ph51["far-field mixture POLY"] = check_slices(
+        torch, farfield, farfield_cuda,
+        f"far-field mixture POLY (n={x_fm.shape[0]})", x_fm, ci_fm, FF_GRID,
+        x_fm.shape[0], h, ahat=(a_fm / cfg_fm.a).float(), slices=(4,))
+    cfg_b, geom_b, state_b, _ = farfield_setup(
+        torch, dev, FF_CHECK_BODIES, side=FB_CHECK_SIDE, box=FB_CHECK_BOX,
+        grid=FB_CHECK_GRID)
+    r_b = kin.blob_positions(geom_b, state_b.X, state_b.Q).reshape(-1, 3)
+    box_b = tuple(float(np.float32(b / cfg_b.a)) for b in FB_CHECK_BOX)
+    x_b = farfield._wrap_box((r_b / cfg_b.a).float(), box_b)
+    lo, hgrid = farfield._geometry_2p(x_b, FB_CHECK_GRID, box_b)
+    ci_b, _ = farfield._cell_indices(x_b, lo, hgrid, FB_CHECK_GRID)
+    ph51["far-field film check set (box)"] = check_slices(
+        torch, farfield, farfield_cuda,
+        f"far-field film check set (box {FB_CHECK_BOX}, n={x_b.shape[0]})",
+        x_b, ci_b, FB_CHECK_GRID, x_b.shape[0], h, box=box_b,
+        wrap=FB_CHECK_GRID[:2], slices=(4,))
+    ph51["seconds"] = time.perf_counter() - t51
+    out["phase51"] = ph51
+    torch.cuda.empty_cache()
+
+    # ---- 52. the distributed stepper on a real process group
+    t52 = time.perf_counter()
+    init_process_group(torch)
+    try:
+        mesh = parallel.make_mesh(1)
+        ph52 = {"group": {"backend": dist.get_backend(),
+                          "world_size": dist.get_world_size()}}
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            cfg_band = cfg_f.replace(gmres_tol=BAND_GMRES_TOL,
+                                     farfield_band_p=6)
+        slices_ = (("dense", cfg, geom, state, force, DIST_TIMED_STEPS),
+                   ("far field p = 4", cfg_f, geom_f, state_f, force_f,
+                    FF_TIMED_STEPS),
+                   ("far field band 6", cfg_band, geom_f, state_f, force_f,
+                    FF_TIMED_STEPS))
+        for label, cfg_, geom_, st_, f_, timed in slices_:
+            rec = {}
+            for mode in ("deterministic", "stochastic"):
+                p = step_pair(torch, stepper, parallel, geom_, cfg_, mesh,
+                              st_, f_, SEED + 52,
+                              deterministic=mode == "deterministic")
+                rec[mode] = p
+                print(f"phase 52, {label}, {mode} step: distributed against "
+                      f"single-device {p['rel_dx']:.3e} of max|dX| (tol "
+                      f"{STEP_TOL:g}), |dQ| {p['dq']:.3e}, GMRES {p['iters']}"
+                      f", residuals {p['residuals']}")
+                ok = (p["rel_dx"] <= STEP_TOL
+                      and abs(p["iters"][0] - p["iters"][1]) <= 1
+                      and max(p["residuals"]) < 10 * cfg_.gmres_tol)
+                if not ok:
+                    raise AssertionError(f"phase 52, {label}, {mode}: {p}")
+            if label != "dense":
+                rec["vs_exact_rows"] = far_rows_check(
+                    torch, parallel, rpy_cuda, kin, label, cfg_, geom_, st_,
+                    parallel.mesh_group(mesh))
+            run_d = parallel.make_distributed_run_bd(
+                geom_, cfg_, mesh, DIST_WARM_STEPS, force_fn=lambda s, i: f_)
+            run_t = parallel.make_distributed_run_bd(
+                geom_, cfg_, mesh, timed, force_fn=lambda s, i: f_)
+            rates = {}
+            for which in ("run_bd", "distributed", "distributed", "run_bd"):
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                if which == "run_bd":
+                    s_, _ = run_bd(geom_, cfg_, st_, DIST_WARM_STEPS,
+                                   generator=gen, force_fn=lambda s, i: f_)
+                    torch.cuda.synchronize()
+                    reset_launches(counters)
+                    t0 = time.perf_counter()
+                    s_, tr = run_bd(geom_, cfg_, s_, timed, generator=gen,
+                                    force_fn=lambda s, i: f_)
+                else:
+                    s_, _ = run_d(st_, generator=gen)
+                    torch.cuda.synchronize()
+                    reset_launches(counters)
+                    t0 = time.perf_counter()
+                    s_, tr = run_t(s_, generator=gen)
+                torch.cuda.synchronize()
+                rates.setdefault(which, []).append(
+                    timed / (time.perf_counter() - t0))
+                cnt = launches(counters)
+                res = tr["residual"].max().item()
+                if not (res < 10 * cfg_.gmres_tol
+                        and bool(torch.isfinite(s_.X).all())):
+                    raise AssertionError(f"phase 52, {label}, {which}: "
+                                         f"residual {res}")
+                rec[f"{which} launches"] = cnt
+                rec[f"{which} iters"] = tr["iters"].tolist()
+            rec["steps_per_s"] = rates
+            per_step = {k: v / timed for k, v in
+                        rec["distributed launches"].items()}
+            rec["distributed launches per step"] = per_step
+            print(f"phase 52, {label}: make_distributed_run_bd "
+                  f"{rates['distributed']} steps/s, run_bd {rates['run_bd']} "
+                  f"(in turns); distributed launches a step {per_step}; "
+                  f"run_bd's {rec['run_bd launches']}")
+            want = "pair_sweep_slab" if label == "dense" else \
+                "near_sweep_slice"
+            if not per_step.get(want):
+                raise AssertionError(f"phase 52, {label}: the distributed "
+                                     f"run launched no {want}: {per_step}")
+            for key in ("pair_sweep_sym", "pair_sweep_ordered", "near_sweep"):
+                if per_step.get(key):
+                    raise AssertionError(f"phase 52, {label}: the "
+                                         f"distributed run launched the "
+                                         f"single-device {key}")
+            rec["split"] = step_split(
+                torch, profiling, f"{label} distributed",
+                lambda n_: parallel.make_distributed_run_bd(
+                    geom_, cfg_, mesh, n_, force_fn=lambda s, i: f_)(
+                    st_, generator=torch.Generator(device=dev).manual_seed(
+                        SEED)), 1)
+            ph52[label] = rec
+        # the gather mode: the sharded mobility product through run_bd
+        mob = parallel.sharded_mobility_apply_fn(cfg, mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        run_bd(geom, cfg, state, DIST_WARM_STEPS, generator=gen,
+               force_fn=lambda s, i: force, mob_apply=mob)
+        torch.cuda.synchronize()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        s_, tr = run_bd(geom, cfg, state, DIST_TIMED_STEPS, generator=gen,
+                        force_fn=lambda s, i: force, mob_apply=mob)
+        torch.cuda.synchronize()
+        cnt = launches(counters)
+        rec = dict(steps_per_s=DIST_TIMED_STEPS / (time.perf_counter() - t0),
+                   launches=cnt, iters=tr["iters"].tolist(),
+                   max_residual=tr["residual"].max().item())
+        print(f"phase 52, gather mode (sharded_mobility_apply_fn) through "
+              f"run_bd at the dense slice: " + json.dumps(rec))
+        if not (cnt.get("pair_sweep_slab") and rec["max_residual"]
+                < 10 * cfg.gmres_tol and bool(torch.isfinite(s_.X).all())):
+            raise AssertionError(f"phase 52, gather mode: {rec}")
+        ph52["gather mode"] = rec
+    finally:
+        dist.destroy_process_group()
+    ph52["seconds"] = time.perf_counter() - t52
+    out["phase52"] = ph52
+
+    # ---- 53. D = 4 ranks on the one card: not run (see PERF.md: NCCL
+    # refuses four ranks on one GPU, gloo's CUDA send/recv fails)
+    print("phase 53: not run: no backend carries every collective of the "
+          "port (NCCL: 'Duplicate GPU detected' at four ranks on one card; "
+          "gloo: its ring send/recv of CUDA tensors fails)")
+
+    # ---- 54. the run driver with a "mesh" key
+    t54 = time.perf_counter()
+    out["phase54"] = driver_mesh_phase()
+    out["phase54"]["seconds"] = time.perf_counter() - t54
+    return out
+
+
+def driver_mesh_phase():
+    """Phase 54: examples/distributed_suspension.json with mesh shape [1],
+    mode "distributed", 10 steps (a frame and a checkpoint every 5),
+    through python -m torch.distributed.run --nproc_per_node 1 (NCCL), then
+    resumed for 10 more: the frames and the checkpoint rank 0 wrote, the
+    steps without a gap, every residual below 10·gmres_tol."""
+    from rigid_body_light_tpu_torch.runtime import read_trajectory
+    from rigid_body_light_tpu_torch.utils.checkpoint import load_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples",
+                           "distributed_suspension.json")) as f:
+        conf = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        conf.update(n_steps=DRIVER_MESH_STEPS, save_every=5,
+                    checkpoint_every=5, output_dir=os.path.join(tmp, "out"),
+                    mesh={"shape": [1], "mode": "distributed"})
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        env = dict(os.environ, PYTHONPATH=here)
+        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m",
+                "rigid_body_light_tpu_torch.run", path]
+        ckpt = os.path.join(conf["output_dir"], "checkpoint.npz")
+        lines, times = [], []
+        for argv in (base, base + ["--resume", ckpt]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=here, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            times.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 54: {' '.join(argv[2:])} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            lines.append([json.loads(ln) for ln in proc.stdout.splitlines()
+                          if ln.startswith("{")])
+        steps, _, X, Q = read_trajectory(os.path.join(conf["output_dir"],
+                                                      "trajectory.rblt"))
+        _, _, step, meta = load_checkpoint(ckpt, device="cuda")
+        chunks = [ln for run in lines for ln in run if "step" in ln]
+        rec = dict(first_line=lines[0][0], steps=steps.tolist(),
+                   checkpoint_step=step, launch_s=times,
+                   steps_per_s=[ln["steps_per_sec"] for ln in chunks],
+                   max_residual=max(ln["max_residual"] for ln in chunks),
+                   rank_generator_states=len(meta["rank_generator_states"]))
+        print("phase 54, the run driver with a mesh key through "
+              "torch.distributed.run: " + json.dumps(rec))
+        want = list(range(5, 2 * DRIVER_MESH_STEPS + 1, 5))
+        checks = {
+            "first line": rec["first_line"] == {"mesh": {"blobs": 1},
+                                                "mode": "distributed"},
+            "frames without a gap": rec["steps"] == want,
+            "checkpoint at the end": step == 2 * DRIVER_MESH_STEPS,
+            "finite": bool(np.isfinite(X).all() and np.isfinite(Q).all()),
+            "residuals": rec["max_residual"]
+            < 10 * conf["solver"]["gmres_tol"],
+        }
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"phase 54: {what}: {rec}")
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def jsonable(x):
+    """x with every mapping key a string (tuple keys joined by spaces)."""
+    if isinstance(x, dict):
+        return {(" ".join(map(str, k)) if isinstance(k, tuple) else str(k)):
+                jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [jsonable(v) for v in x]
+    return x
+
+
+def distributed_entries(d):
+    """The kernels line's entry of K2's slab entries (phases 50 and 52):
+    launches on the distributed dense run (phase 52), the slab's error at
+    the dense slice (phase 50, the worst decomposition at 2 RHS), its ms at
+    the main path's one-rank n × n slab and the decompositions' slabs."""
+    t = d["phase50"]["times"]
+    main_ = t[("one_rank", 1)]
+    errs = d["phase50"]["dense"]
+    dense = d["phase52"]["dense"]
+    return {
+        "name": "pair_sweep_slab", "route": "cuda", "source": SOURCE,
+        "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:175",
+        "entry_replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:648",
+        "launches": dense["distributed launches"].get("pair_sweep_slab", 0),
+        "max_abs_err": max(v["err"] for v in errs.values()),
+        "ms": main_["ms"], "plain_ms": main_["plain_ms"],
+        "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
+        "library_ms": None,
+        **{f"ms_{key}_{k}rhs": v["ms"] for (key, k), v in t.items()},
+        **{f"bound_ms_{key}_{k}rhs": v["bound_ms"] for (key, k), v in
+           t.items()},
+        "launches_per_step": dense["distributed launches per step"].get(
+            "pair_sweep_slab", 0),
+        "launches_gather_mode": d["phase52"]["gather mode"]["launches"].get(
+            "pair_sweep_slab", 0)}
+
+
+def slice_entry(d):
+    """The kernels line's entry of K3's row-tile slice (phases 51 and 52):
+    launches on the distributed far-field run (phase 52), its error at the
+    far-field slice (phase 51), its ms at the main path's one-rank slice
+    (D = 1) and at D = 4's slowest slice."""
+    ff = d["phase51"]["far-field slice"]
+    one = ff[1][1]["slices"][0]
+    four = max(ff[4][1]["slices"], key=lambda v: v["ms"])
+    far = d["phase52"]["far field p = 4"]
+    return {
+        "name": "near_sweep_slice", "route": "cuda", "source": K3_SOURCE,
+        "replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:908",
+        "entry_replaces": "rigid_body_light_tpu/ops/rpy_pallas.py:1094",
+        "launches": far["distributed launches"].get("near_sweep_slice", 0),
+        "max_abs_err": max(ff[D][k]["err"] for D in ff for k in (1, 2)),
+        "ms": one["ms"], "plain_ms": one["plain_ms"],
+        "bound_ms": one["bound_ms"], "bound_by": one["bound_by"],
+        "library_ms": None,
+        "ms_2rhs": ff[1][2]["slices"][0]["ms"],
+        "bound_ms_2rhs": ff[1][2]["slices"][0]["bound_ms"],
+        "ms_d4_slowest_slice": four["ms"],
+        "bound_ms_d4_slowest_slice": four["bound_ms"],
+        "boundary_pairs_d4": ff[4]["boundary_pairs"],
+        "launches_per_step": far["distributed launches per step"].get(
+            "near_sweep_slice", 0),
+        "launches_per_step_band6": d["phase52"]["far field band 6"][
+            "distributed launches per step"].get("near_sweep_slice", 0)}
 
 
 def main():
@@ -4379,6 +5129,13 @@ def main():
     adj = adjoint_phases(torch, dev, counters)
     adj["seconds"] = time.perf_counter() - t_adj
     print(json.dumps({"adjoints": adj}))
+
+    # ---- 50-54. distribution
+    torch.cuda.empty_cache()
+    t_dist = time.perf_counter()
+    dist_ = distributed_phases(torch, dev, counters)
+    dist_["seconds"] = time.perf_counter() - t_dist
+    print(json.dumps({"distribution": jsonable(dist_)}))
     band47 = band["phase47"]["p = 4 + band 6"]
 
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
@@ -4477,6 +5234,7 @@ def main():
          "launches_band_slice": band47["launches"].get("near_sweep", 0),
          "launches_per_step_band_slice": band47["k3_per_step"],
          **k3_poly_entries(k3p, k3p_err, k3pb, k3pb_err, ff_mix)},
+        distributed_entries(dist_),
         {"name": "ewald_real_sweep", "route": "cuda", "source": K4_SOURCE,
          "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
          "launches": counts_e["ewald_real_sweep"], "max_abs_err": k4_err,
@@ -4490,6 +5248,7 @@ def main():
          "redesigned_in": 4,
          "launches_balanced_split_slice": balanced["phase44"][
              "launches"].get("ewald_real_sweep", 0)},
+        slice_entry(dist_),
         {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
          "replaces": "scripts/tpu_kernel_roofline.py:53",
          "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,

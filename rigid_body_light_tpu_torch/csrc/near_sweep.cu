@@ -106,6 +106,21 @@
 // blobs), 3.11 / 3.96 ms, +10% / +6% over the mono form at the same
 // positions, 4.8× / 4.3× its bound (PERF.md §6).
 //
+// Row-tile slice (near_sweep's t0 / nt; the Pallas kernel's t0 / nt
+// arguments, rpy_pallas.py:1094-1108, which the distributed far field
+// gives each device, farfield.py:1672-1676): the output rows of tiles
+// [t0, t0 + nt) alone.  The work list is the full list's unordered pairs
+// with at least one tile in the slice, in list order
+// (farfield._slice_pairs, built on the device).  The kernel is the same
+// kernel: a pair's fields are evaluated once, and a side is written only
+// where its tile lies in the slice, into partials and an output indexed
+// from the slice's first row.  One writer per slot, no atomics, launches
+// repeat bitwise.  A pair with one tile on each side of the slice's edge
+// is evaluated by both slices that hold one of its tiles; each applies
+// both sides and drops the other slice's.  A block-uniform guard around
+// the two applies would skip that side, but it measured the whole sweep,
+// the slice (0, t), 4-5% slower on an H100 (PERF.md §6).
+//
 // Plain C interface for ctypes; the launches go on the caller's stream,
 // allocate nothing and return cudaGetLastError().
 
@@ -153,7 +168,9 @@ __device__ __forceinline__ float blob_aux(const float* __restrict__ ahat,
 
 // One block per tile pair (persistent).  pairs (cap, 4): a, b ≥ a, slot of
 // b in a's list, slot of a in b's list; the first *n_pairs used.
-// part (max_nbr, NRHS, n_pad, 3): per-slot partial sums.
+// part (max_nbr, NRHS, nt·128, 3): per-slot partial sums of the rows of
+// tiles [t0, t0 + nt); a side of a pair outside that range is not
+// written.
 template <bool WALL, int NRHS, bool BOX, bool POLY>
 __global__ void __launch_bounds__(kTile)
 near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
@@ -163,9 +180,10 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
                  const float* __restrict__ ahat,          // (n_pad,), POLY
                  const int4* __restrict__ pairs,
                  const int* __restrict__ n_pairs,
-                 int n_pad, float h_floor, CellBox box,
+                 int n_pad, int t0, int nt, float h_floor, CellBox box,
                  float* __restrict__ part) {
   constexpr int NF = 3 * NRHS;
+  const int n_out = nt * kTile;
   __shared__ float s_pos[3][kTile];
   __shared__ float s_aux[kTile];  // floored heights (POLY: radii)
   __shared__ int s_cell[3][kTile];
@@ -271,36 +289,44 @@ near_pair_kernel(const float* __restrict__ pos,           // (n_pad, 3)
     }
     __syncthreads();  // every warp's column accumulator is complete
 
-    // thread t: row t of tile a and column t of tile b
-    float* row_out = part + (((size_t)pr.z * NRHS) * n_pad + i) * 3;
-    float* col_out = part + (((size_t)pr.w * NRHS) * n_pad + b * kTile + t) * 3;
+    // thread t: row t of tile a and column t of tile b, each written only
+    // where its tile lies in the slice
+    const bool a_in = a >= t0 && a < t0 + nt;
+    const bool b_in = b >= t0 && b < t0 + nt;
+    const int ra = a_in ? a - t0 : 0;  // the tiles' places in the slice
+    const int rb = b_in ? b - t0 : 0;
+    float* row_out =
+        part + (((size_t)pr.z * NRHS) * n_out + ra * kTile + t) * 3;
+    float* col_out =
+        part + (((size_t)pr.w * NRHS) * n_out + rb * kTile + t) * 3;
 #pragma unroll
     for (int q = 0; q < NF; ++q) {
       float col = 0.0f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) col += s_acc[w][q][t];
-      const size_t off = (size_t)(q / 3) * n_pad * 3 + q % 3;
+      const size_t off = (size_t)(q / 3) * n_out * 3 + q % 3;
       if (diag) {
         row_out[off] = acc[q] + col;
       } else {
-        row_out[off] = acc[q];
-        col_out[off] = col;
+        if (a_in) row_out[off] = acc[q];
+        if (b_in) col_out[off] = col;
       }
     }
   }
 }
 
-// Second pass: out[k][i][d] = Σ over the used slots s of i's tile, in list
-// order, of part[s][k][i][d].
+// Second pass: out[k][i][d] = Σ over the used slots s of the tile of row
+// i (the slice's i-th row, of tile t0 + i / 128), in list order, of
+// part[s][k][i][d].
 __global__ void sum_slots_kernel(const float* __restrict__ part,
-                                 const int* __restrict__ nbr,
-                                 int n_pad, int max_nbr, int nrhs,
-                                 float* __restrict__ out) {  // (nrhs, n_pad, 3)
-  const size_t per_rhs = (size_t)n_pad * 3;
+                                 const int* __restrict__ nbr, int t0,
+                                 int n_out, int max_nbr, int nrhs,
+                                 float* __restrict__ out) {  // (nrhs, n_out, 3)
+  const size_t per_rhs = (size_t)n_out * 3;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= nrhs * per_rhs) return;
   const int i = (int)((idx % per_rhs) / 3);
-  const int* row = nbr + (size_t)(i / kTile) * max_nbr;
+  const int* row = nbr + (size_t)(t0 + i / kTile) * max_nbr;
   const size_t stride = nrhs * per_rhs;
   float v = 0.0f;
   for (int s = 0; s < max_nbr && row[s] >= 0; ++s) v += part[s * stride + idx];
@@ -337,6 +363,8 @@ struct Args {
   const int* pairs;
   const int* n_pairs;
   int n_pad;
+  int t0;
+  int nt;
   float h_floor;
   CellBox box;
   float* part;
@@ -349,8 +377,8 @@ int launch(int cap, cudaStream_t stream, const Args& g) {
   const int grid = cap < resident ? cap : resident;
   near_pair_kernel<WALL, NRHS, BOX, POLY><<<grid, kTile, 0, stream>>>(
       g.pos, g.cell, g.live, g.force, g.ahat,
-      reinterpret_cast<const int4*>(g.pairs), g.n_pairs, g.n_pad, g.h_floor,
-      g.box, g.part);
+      reinterpret_cast<const int4*>(g.pairs), g.n_pairs, g.n_pad, g.t0, g.nt,
+      g.h_floor, g.box, g.part);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -374,31 +402,35 @@ extern "C" {
 // Blobs per tile: n_pad must be a multiple of it.
 int near_sweep_tile() { return kTile; }
 
-// K3: out (nrhs, n_pad, 3) = Σ_j M_ij F_j over the kept pairs of each tile
-// and its neighbor tiles.  n_pad = t·128, nbr (t, max_nbr); pairs (cap, 4)
-// int32 with its used length in device memory at n_pairs; part holds
-// max_nbr·nrhs·n_pad·3 floats of scratch (only the used slots are written
-// and read).  box_x > 0 selects the box form: the film's (box_x, box_y) in
-// units of a and its (gx, gy) cells; box_x = 0 the open form.  ahat: the
-// n_pad radii in units of a (the POLY form), or NULL for one radius.
+// K3: out (nrhs, nt·128, 3) = Σ_j M_ij F_j over the kept pairs of each
+// tile of [t0, t0 + nt) and its neighbor tiles: the row-tile slice, the
+// whole sweep at (0, t).  n_pad = t·128, nbr (t, max_nbr); pairs (cap, 4)
+// int32 with its used length in device memory at n_pairs, every used pair
+// holding a tile of the slice; part holds max_nbr·nrhs·nt·128·3 floats of
+// scratch (only the used slots are written and read).  box_x > 0 selects
+// the box form: the film's (box_x, box_y) in units of a and its (gx, gy)
+// cells; box_x = 0 the open form.  ahat: the n_pad radii in units of a
+// (the POLY form), or NULL for one radius.
 int near_sweep(const float* pos, const int* cell, const unsigned char* live,
                const float* force, const float* ahat, const int* nbr,
-               const int* pairs, const int* n_pairs, int n_pad, int max_nbr,
-               int cap, int nrhs, int wall, float h_floor, float box_x,
-               float box_y, int gx, int gy, float* part, float* out,
-               void* stream_ptr) {
+               const int* pairs, const int* n_pairs, int n_pad, int t0,
+               int nt, int max_nbr, int cap, int nrhs, int wall,
+               float h_floor, float box_x, float box_y, int gx, int gy,
+               float* part, float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (n_pad % kTile != 0 || max_nbr < 0 || cap < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (t0 < 0 || nt < 0 || (t0 + nt) * kTile > n_pad)
+    return static_cast<int>(cudaErrorInvalidValue);
   const bool in_box = box_x > 0.0f;
   if (in_box && !(box_y > 0.0f && gx > 0 && gy > 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pad == 0) return 0;
+  if (nt == 0) return 0;
   if (cap > 0) {
     const CellBox box{box_x, box_y, in_box ? 1.0f / box_x : 0.0f,
                       in_box ? 1.0f / box_y : 0.0f, gx, gy};
-    const Args g{pos, cell, live, force, ahat, pairs, n_pairs, n_pad,
+    const Args g{pos, cell, live, force, ahat, pairs, n_pairs, n_pad, t0, nt,
                  h_floor, box, part};
     const bool poly = ahat != nullptr;
     int code;
@@ -410,10 +442,10 @@ int near_sweep(const float* pos, const int* cell, const unsigned char* live,
                   : launch_poly<false, false>(poly, nrhs, cap, stream, g);
     if (code != 0) return code;
   }
-  const size_t total = (size_t)nrhs * n_pad * 3;
+  const size_t total = (size_t)nrhs * nt * kTile * 3;
   const int threads = 256;
   sum_slots_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                     stream>>>(part, nbr, n_pad, max_nbr, nrhs, out);
+                     stream>>>(part, nbr, t0, nt * kTile, max_nbr, nrhs, out);
   return static_cast<int>(cudaGetLastError());
 }
 

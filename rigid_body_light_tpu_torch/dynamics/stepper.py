@@ -20,6 +20,14 @@ shapes by mode:
   the split pair's distribution).
 - W_rfd: (B, n, 3), the blob-space draw of the midpoint scheme's M-RFD;
   (B, 6), the body-space draw of ``em_exact``'s N-RFD.
+
+Distributed mode (``group``, a ``torch.distributed`` process group; the
+JAX package's ``axis_name``): the state, forces and draws are this rank's
+bodies, ``mob_apply`` is the local operator of
+:mod:`rigid_body_light_tpu_torch.parallel`, and every Krylov and Lanczos
+reduction is all-reduced over the group.  Where the JAX step folds its key
+with the device index, a rank draws its own bodies' draws from its own
+generator (or takes them through ``draws``).
 """
 
 from __future__ import annotations
@@ -74,15 +82,17 @@ def _residual_ok(res, cfg):
 
 def deterministic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
                        state: BodyState, force, slip=None,
-                       mob_apply: Callable = None):
+                       mob_apply: Callable = None, group=None):
     """One deterministic step: solve the mobility problem, advance by U·dt.
-    Returns (new_state, StepAux)."""
+    group: distributed mode (the module docstring).  Returns (new_state,
+    StepAux)."""
     if mob_apply is None:
         mob_apply = saddle_mod.mobility_apply_fn(cfg)
     ops = saddle_mod.geometry_ops(geom, state)
     if slip is None:
         slip = torch.zeros_like(ops.flat_positions)
-    res = solvers.solve_saddle(ops, cfg, slip, force, mob_apply=mob_apply)
+    res = solvers.solve_saddle(ops, cfg, slip, force, mob_apply=mob_apply,
+                               group=group)
     dU = torch.where(_residual_ok(res, cfg), res.U,
                      torch.zeros_like(res.U)) * cfg.dt
     return _commit(geom, cfg, state, dU), StepAux(
@@ -136,7 +146,7 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
                     state: BodyState, force, slip=None,
                     mob_apply: Callable = None, x0=None, pc=None,
                     noise_pc=None, mob_multi: Callable = None, draws=None,
-                    generator: torch.Generator = None):
+                    generator: torch.Generator = None, group=None):
     """One fluctuating BD step (EM–midpoint with RFD drift, or
     ``em_exact``).
 
@@ -157,17 +167,23 @@ def stochastic_step(geom: kin.RefGeometry, cfg: SimulationConfig,
 
     draws: (W1, W2, W_rfd) in the shapes of the module docstring, or None
     to draw them from ``generator``.  x0: optional (λ, U) warm start.
-    Returns (new_state, StepAux).
+    group: distributed mode (the module docstring), which needs the local
+    ``mob_apply``.  Returns (new_state, StepAux).
     """
     with profiling.span("step"):
         return _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0,
-                                pc, noise_pc, mob_multi, draws, generator)
+                                pc, noise_pc, mob_multi, draws, generator,
+                                group)
 
 
 def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
-                     noise_pc, mob_multi, draws, generator):
+                     noise_pc, mob_multi, draws, generator, group):
     default_mob = mob_apply is None
     if default_mob:
+        if group is not None:
+            raise ValueError(
+                "distributed stochastic_step needs an explicit ring "
+                "mob_apply (parallel.ring_mobility_apply_fn)")
         mob_apply = saddle_mod.mobility_apply_fn(cfg)
     dtype = state.X.dtype
     with profiling.span("kinematics"):
@@ -175,8 +191,13 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
     # far field: build the kernel lattices once per step and share them
     # across the noise draw, RFD's displaced applies and the half-kick
     # solve (their position sets differ by far less than a cell); no-op
-    # for the pair-sweep operators
+    # for the pair-sweep operators.  A caller that passes one operator as
+    # both products (the distributed stepper) shares the pinned one: the
+    # unpinned operator would build the lattices again for the noise
+    same_multi = mob_multi is not None and mob_multi is mob_apply
     mob_apply = saddle_mod.pin_geometry(mob_apply, ops.flat_positions)
+    if same_multi:
+        mob_multi = mob_apply
     B, n, _ = ops.offsets.shape
     if slip is None:
         slip = torch.zeros_like(ops.flat_positions)
@@ -197,7 +218,8 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
                                                          cfg.eta)
         with profiling.span("noise"):
             mhw1, noise_err, c1, bi = _brownian(
-                cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1, W2)
+                cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1, W2,
+                group)
         if cfg.drift_mode == "em_exact":
             # plain EM: solve at q^n, add the solved-mobility divergence
             # drift afterwards — no midpoint kick (it would double count)
@@ -205,7 +227,7 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
             ops_solve = ops
             with profiling.span("rfd"):
                 drift_U = kBT * rfd.n_rfd_exact(geom, state, cfg, W_rfd,
-                                                mob_apply, pc=pc)
+                                                mob_apply, pc=pc, group=group)
         else:
             with profiling.span("rfd"):
                 drift = kBT * rfd.m_rfd(geom, state, ops, cfg, W_rfd,
@@ -223,7 +245,7 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
         noise_err = torch.zeros((), dtype=dtype, device=state.X.device)
 
     res = solvers.solve_saddle(ops_solve, cfg, slip_eff, force,
-                               mob_apply=mob_apply, x0=x0, pc=pc)
+                               mob_apply=mob_apply, x0=x0, pc=pc, group=group)
     U_total = res.U if drift_U is None else res.U + drift_U
     # a failed solve moves nothing (a garbage U launches bodies across the
     # box); aux.residual surfaces the event
@@ -237,7 +259,7 @@ def _stochastic_step(geom, cfg, state, force, slip, mob_apply, x0, pc,
 
 
 def _brownian(cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1,
-              W2):
+              W2, group=None):
     """The step's Lanczos draws at q^n → (M^{1/2}W₁, noise_err, c₁, the
     Brownian increment BI): preconditioned with ``cfg.lanczos_precond``
     (``noise_pc`` = (L, L⁻¹)), and fused through the 2-RHS product when the
@@ -245,7 +267,7 @@ def _brownian(cfg, mob_apply, mob_multi, default_mob, ops, noise_pc, W1,
     kBT = cfg.kBT
     pos = ops.flat_positions
     lz = dict(iters=cfg.lanczos_iters, max_iters=cfg.lanczos_max_iters,
-              err_tol=cfg.lanczos_err_tol, return_err=True)
+              err_tol=cfg.lanczos_err_tol, return_err=True, group=group)
 
     def one(mob, W):
         if cfg.lanczos_precond:
@@ -283,7 +305,8 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
            n_steps: int, generator: torch.Generator = None,
            force_fn: Callable = None, slip_fn: Callable = None,
            mob_apply: Callable = None, save_every: int = 1,
-           mob_multi: Callable = None, draws_fn: Callable = None):
+           mob_multi: Callable = None, draws_fn: Callable = None,
+           group=None):
     """Run a BD trajectory of ``n_steps`` stochastic steps.
 
     force_fn / slip_fn: (BodyState, step) → (B, 6) force / (N, 3) slip
@@ -294,7 +317,8 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
     ``pc_refresh`` steps; each solve is warm-started from the previous
     step's (λ, U), zeroed after a failed solve.  A periodic box too small
     for the body geometry raises ``ValueError`` before the first step.
-    Returns (final_state, trajectory dict of stacked snapshots every
+    group: distributed mode (the module docstring): ``state``, the forces,
+    the slip and the draws are this rank's bodies.  Returns (final_state, trajectory dict of stacked snapshots every
     ``save_every`` steps: X, Q, residual, iters, noise_err).
     """
     dtype, dev = state.X.dtype, state.X.device
@@ -327,7 +351,7 @@ def run_bd(geom: kin.RefGeometry, cfg: SimulationConfig, state: BodyState,
             mob_apply=mob_apply, x0=x_prev, pc=pc, noise_pc=noise_pc,
             mob_multi=mob_multi,
             draws=draws_fn(i) if draws_fn is not None else None,
-            generator=generator)
+            generator=generator, group=group)
         for key, v in (("X", s.X), ("Q", s.Q), ("residual", aux.residual),
                        ("iters", torch.tensor(aux.iters)),
                        ("noise_err", aux.noise_err)):

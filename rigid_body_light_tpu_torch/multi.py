@@ -24,8 +24,9 @@ W1 and W2 (3·N_total,) — in the species-major body-frame layout of
 layout of ``lanczos.m_half_w`` — W2 None where the step takes one draw
 (``split_rand`` off, or ``em_exact``); W_rfd (N_total, 3) for the
 midpoint scheme, (B_total, 6) species-major for ``em_exact``'s
-:func:`n_rfd_exact_multi`.  Not ported: the distributed mode
-(``axis_name``, ROADMAP.md queue 1, item 16).
+:func:`n_rfd_exact_multi`.  Not ported: the distributed mode (a
+process group as ``group``, the JAX package's ``axis_name``, raises;
+ROADMAP.md queue 1, item 16).
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ from rigid_body_light_tpu_torch.utils import profiling
 from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
 
 
-def _no_axis(axis_name):
-    if axis_name is not None:
-        raise _not_ported("the distributed mixture (axis_name)", "item 16")
+def _no_group(group):
+    if group is not None:
+        raise _not_ported("the distributed mixture (a process group)",
+                          "item 16")
 
 
 class MultiGeometry(NamedTuple):
@@ -414,7 +416,7 @@ def _unflatten(x, opses):
 def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
                        states: Sequence[BodyState], slip, forces,
                        mob_apply: Callable = None, opses=None, x0=None,
-                       pcs=None, axis_name=None) -> MultiSolveResult:
+                       pcs=None, group=None) -> MultiSolveResult:
     """Preconditioned GMRES solve of the mixed saddle system.
 
     slip: (N_total, 3) or None; forces: tuple of (B_s, 6).  x0: optional
@@ -422,7 +424,7 @@ def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     With ``cfg.pc_mode == "ras"`` the mixture RAS coupling is attached at
     this solve's geometry.
     """
-    _no_axis(axis_name)
+    _no_group(group)
     if opses is None:
         opses = geometry_ops_multi(mgeom, states)
     if mob_apply is None:
@@ -511,7 +513,7 @@ def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
                           mob_apply: Callable = None, x0=None, pcs=None,
                           noise_pcs=None, mob_multi: Callable = None,
                           draws=None, generator: torch.Generator = None,
-                          axis_name=None):
+                          group=None):
     """One fluctuating BD step of the mixture, the modes of
     :func:`rigid_body_light_tpu_torch.dynamics.stochastic_step`: fused
     2-RHS Lanczos noise with ``split_rand`` (preconditioned by per-species
@@ -525,13 +527,13 @@ def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     with profiling.span("step"):
         return _stochastic_step_multi(mgeom, cfg, tuple(states), forces, slip,
                                       mob_apply, x0, pcs, noise_pcs,
-                                      mob_multi, draws, generator, axis_name)
+                                      mob_multi, draws, generator, group)
 
 
 def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
                            pcs, noise_pcs, mob_multi, draws, generator,
-                           axis_name):
-    _no_axis(axis_name)
+                           group):
+    _no_group(group)
     default_mob = mob_apply is None
     with profiling.span("kinematics"):
         opses = geometry_ops_multi(mgeom, states)
@@ -656,7 +658,7 @@ def run_bd_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
                  generator: torch.Generator = None, force_fn: Callable = None,
                  slip_fn: Callable = None, mob_apply: Callable = None,
                  save_every: int = 1, mob_multi: Callable = None,
-                 draws_fn: Callable = None, axis_name=None):
+                 draws_fn: Callable = None, group=None):
     """A mixture BD trajectory of ``n_steps`` stochastic steps, with the
     warm starts and PC tiers of the single-species ``run_bd``: the
     ``block_free`` PC (and the static tier of ``ras``, whose coupling each
@@ -672,7 +674,7 @@ def run_bd_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     steps: trajectory["X"][s] has shape (n_saved, B_s, 3); "residual" and
     "iters" (n_saved,).
     """
-    _no_axis(axis_name)
+    _no_group(group)
     states = tuple(states)
     dtype, dev = states[0].X.dtype, states[0].X.device
     if cfg.box is not None:

@@ -56,8 +56,15 @@ the offsets, :func:`_band_apply_free` / :func:`_band_apply_wall`, the
 span ``far_band``) and masks the FFT lattices to the offsets beyond; it
 takes the same moment and output channels, with or without radii.
 
-Left to a later slice (ROADMAP.md queue 1, item 16): the distributed
-locals.  The TPU layout workarounds of the JAX module (the ``_flat_outer``
+With a ``group`` (a ``torch.distributed`` process group; the JAX
+package's ``mobility_apply_local``, ``prepare_local`` and
+``prepare_geometry_local``, which keep those names here) the same
+functions run the operator over the group's ranks, each holding its
+blobs: the bounding box closes with MIN / MAX all-reduces, the node
+moments with a sum, the lattices are built on every rank alike, and the
+near part sweeps each rank's slice of the gathered sorted tiles (K3's
+row-tile slice).  The film with a group is left to a later slice
+(ROADMAP.md queue 1, item 16).  The TPU layout workarounds of the JAX module (the ``_flat_outer``
 selector matmuls, the packed real/imaginary lattices, ``fftsafe``) are not
 ported: plain outer products, complex tensors and ``torch.fft`` compute
 the same thing.
@@ -72,8 +79,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from rigid_body_light_tpu_torch.config import _not_ported
 from rigid_body_light_tpu_torch.ops import farfield_cuda, rpy, tiles
-from rigid_body_light_tpu_torch.utils import profiling
+from rigid_body_light_tpu_torch.utils import collectives, profiling
 
 # near-sweep tile: cell-snake runs of TILE blobs (the JAX module's TILE),
 # the row and column tile of kernel K3
@@ -125,10 +133,12 @@ def _node_grid(p, dtype, device):
 
 
 # ----------------------------------------------------------- grid/binning
-def _grid_geometry(x, grid):
+def _grid_geometry(x, grid, group=None):
     """Dynamic bounding box → (lo, h), h the per-axis cell sizes (units
-    of a)."""
-    lo, hi = x.min(dim=0).values, x.max(dim=0).values
+    of a).  group: the distributed apply's, over whose ranks the box
+    closes (MIN / MAX all-reduces of the local bounds)."""
+    lo = collectives.pmin(x.min(dim=0).values, group)
+    hi = collectives.pmax(x.max(dim=0).values, group)
     span = torch.clamp(hi - lo, min=1e-6) * (1.0 + 1e-5)
     return lo, span / torch.as_tensor(grid, dtype=x.dtype, device=x.device)
 
@@ -787,7 +797,7 @@ def _open_channels(Un, Uw, poly):
 
 
 def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
-              ahat=None, band=None):
+              ahat=None, band=None, group=None):
     """Spread → kernel-lattice convolutions → interpolate: the far-tier
     velocities (k, N, 3) of the (damped) forces Fs (k, N, 3).  per: the
     pseudo-2D film, whose one combined lattice is ``khat_wall``.  ahat:
@@ -798,7 +808,9 @@ def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
     (W6, band_free, band_wall, plan) of the band tier (open domain only):
     the same moment channels spread at the band order and convolved over
     the band offsets (:func:`_band_apply_free`, :func:`_band_apply_wall`),
-    ``plan`` the grid's :func:`_band_plan`."""
+    ``plan`` the grid's :func:`_band_plan`.  group: the distributed
+    apply's, over whose ranks the node moments (the FFT tier's and the
+    band's) are summed, each rank spreading its own blobs."""
     k, n = Fs.shape[0], Fs.shape[1]
     poly = ahat is not None
     if not poly:
@@ -812,6 +824,7 @@ def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
     Fm = torch.cat([Fs if c is None else Fs * c[None, :, None]
                     for c in scales])                        # (nm·k, N, 3)
     Q = _p2m(W3, cid, Fm, ncell)
+    Q = collectives.psum(Q, group)
     Q = Q.reshape(nm, k, ncell, Q.shape[-1])
     if per:
         return _interpolate(_far_2p(Q, grid, khat_wall), W3, cid, ahat)
@@ -824,6 +837,7 @@ def _far_part(Fs, W3, cid, grid, wall, khat_free, khat_wall, per=False,
         (_, idx_f, ok_f), (_, idx_w, ok_w) = plan
         with profiling.span("far_band"):
             Qb = _p2m(W6, cid, Fm, ncell)
+            Qb = collectives.psum(Qb, group)
             Qb = Qb.reshape(nm, k, ncell, Qb.shape[-1])
             Unb = _band_apply_free(band_free, Qb[free], grid, idx_f, ok_f)
             Uwb = (_band_apply_wall(band_wall, Qb, grid, idx_w, ok_w)
@@ -932,8 +946,9 @@ def _chunk_rows(t: int, max_nbr: int, nrhs: int) -> int:
 
 
 def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
-                wrap_xy=None, ah_s=None):
-    """Exact adjacent-cell pair sweep — the plain PyTorch version of K3.
+                wrap_xy=None, ah_s=None, t0=0, nt=None):
+    """Exact adjacent-cell pair sweep — the plain PyTorch version of K3
+    and, with ``t0`` / ``nt``, of its row-tile slice.
 
     x_s/ci_s/id_s (t·TILE, …) sorted padded positions (units of a), cell
     indices and blob ids (−1 = pad); F_s (k, t·TILE, 3); nbr (t, max_nbr)
@@ -947,21 +962,24 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
     the (t·TILE,) sorted radii in units of a (pads 1): the polydisperse
     fields (:func:`.rpy._free_coeffs_poly`), the wall terms in units of
     √(aᵢaⱼ) with the scaled heights floored per pair (K3's POLY form).
+    t0 / nt: the rows of tiles [t0, t0 + nt) alone (default all t), the
+    distributed apply's slice; returns (k, nt·TILE, 3).
     """
     t = nbr.shape[0]
     k = F_s.shape[0]
+    nt = t - t0 if nt is None else nt
     used = torch.nonzero((nbr >= 0).any(dim=0))
     width = int(used.max()) + 1 if used.numel() else 0
     nbr = nbr[:, :width].long()
     nbr_ix = torch.clamp(nbr, min=0)
-    ch = _chunk_rows(t, max(width, 1), k)
+    ch = _chunk_rows(nt, max(width, 1), k)
     xt = x_s.reshape(t, TILE, 3)
     ct = ci_s.reshape(t, TILE, 3)
     it = id_s.reshape(t, TILE)
     Ft = F_s.reshape(k, t, TILE, 3)
     at = None if ah_s is None else ah_s.to(x_s.dtype).reshape(t, TILE)
     outs = []
-    for c0 in range(0, t, ch):
+    for c0 in range(t0, t0 + nt, ch):
         rows_x, rows_c = xt[c0:c0 + ch], ct[c0:c0 + ch]
         rows_id = it[c0:c0 + ch]
         nb = nbr_ix[c0:c0 + ch]
@@ -1024,7 +1042,7 @@ def _near_sweep(x_s, ci_s, id_s, F_s, nbr, wall, h_floor, box_n=None,
                                      torch.zeros_like(z_part), z_part],
                                     dim=-1)
         outs.append(out)                                     # (ch, k, TILE, 3)
-    return torch.cat(outs).permute(1, 0, 2, 3).reshape(k, t * TILE, 3)
+    return torch.cat(outs).permute(1, 0, 2, 3).reshape(k, nt * TILE, 3)
 
 
 # --------------------------------------------------------------- top level
@@ -1069,6 +1087,8 @@ class FarCtx(NamedTuple):
     W6: Optional[torch.Tensor] = None    # (N, band_p³) band spread weights
     band_free: Optional[torch.Tensor] = None  # (nk, n_off, B6, B6)
     band_wall: Optional[torch.Tensor] = None  # (nk, n_oxy, gz·B6, gz·B6)
+    n_boundary: Optional[torch.Tensor] = None  # (1,) int32: the slice's
+    #   pairs with one tile outside it (distributed context only)
 
 
 class FarGeo(NamedTuple):
@@ -1172,14 +1192,90 @@ def _resolve(n, wall, grid, p, max_nbr, poly=False):
     return grid, max_nbr
 
 
+
+def _resolve_local(n, wall, grid, p, max_nbr, poly, n_ranks):
+    """The shapes of the apply over ``n_ranks`` ranks (1: one device):
+    grid, the neighbor-list width (widened so the isolated pad tiles
+    cannot overflow it), the real and the rank-padded tile counts (the JAX
+    package's ``_resolve_local``).  At one rank the width is
+    :func:`_resolve`'s, capped at the tile count, which the lists never
+    exceed."""
+    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr, poly)
+    t = -(-n // TILE)
+    t_pad = -(-t // n_ranks) * n_ranks
+    # the whole pad tiles share one isolated cell, so each neighbors all of
+    # them: widen the list to cover them (their rows are masked, but an
+    # overflow there would poison the whole apply)
+    max_nbr = min(t_pad, max(max_nbr, t_pad - t + 1))
+    return grid, max_nbr, t, t_pad
+
+
+def _check_group_box(box, group):
+    if box is not None and group is not None:
+        raise _not_ported("the distributed pseudo-2D far field (a 2-D box "
+                          "with a process group)", "item 16")
+
+
+def sorted_tiles(x, ci, grid, t_pad, max_nbr, ahat=None, wrap_xy=None):
+    """The sorted tiles of all the blobs, padded to ``t_pad`` tiles (the
+    tile count, or its multiple of the ranks): (order, x_s, ci_s, id_s,
+    ah_s, nbr, overflow) of :class:`FarCtx`.  The partial last tile is
+    padded with the last sorted entry: its cell is the tile's final real
+    cell, so the tile's cell range (and the neighbor lists) stay as tight
+    as without padding.  The whole pad tiles sit at an isolated cell
+    outside the grid, so they neighbor only each other (the list width
+    must cover them: :func:`_resolve_local`).  x (N, 3) in units of a, ci
+    (N, 3) their cells, ahat (N,) radii or None; wrap_xy: the film's
+    cyclic neighbor lists."""
+    n, dev = x.shape[0], x.device
+    t = -(-n // TILE)
+    order = tiles.cell_snake_order(ci, grid)
+    pad = t_pad * TILE - n
+    pad_part = min(pad, t * TILE - n)
+    last = order[-1:]
+    iso = torch.as_tensor(grid, dtype=ci.dtype, device=dev) + 2
+    x_s = torch.cat([x[order], x[last].expand(pad, 3)])
+    ci_s = torch.cat([ci[order], ci[last].expand(pad_part, 3),
+                      iso.expand(pad - pad_part, 3)])
+    id_s = torch.cat([order.to(torch.int32),
+                      torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+    # pad radii 1: the pads are masked, but a 0 would divide by zero in the
+    # pair fields before the select
+    ah_s = (None if ahat is None else
+            torch.cat([ahat[order], torch.ones(pad, dtype=ahat.dtype,
+                                               device=dev)]))
+    nbr, overflow = _near_neighbor_lists(ci_s, t_pad, max_nbr,
+                                         wrap_xy=wrap_xy)
+    return order, x_s, ci_s, id_s, ah_s, nbr, overflow
+
+
+def _slice_pairs(pairs, n_pairs, t0: int, nt: int):
+    """The work list of K3's row-tile slice [t0, t0 + nt): the rows of the
+    full list (``pairs``, ``n_pairs`` of :func:`_tile_pairs`) with at least
+    one tile in the slice, in list order, as (cap, 4) int32 rows whose
+    first count are used, the count a (1,) int32 tensor, and the (1,)
+    int32 count of those pairs with one tile outside the slice (the
+    neighboring slice evaluates them too).  On the device, no host sync."""
+    cap = pairs.shape[0]
+    a, b = pairs[:, 0], pairs[:, 1]
+    used = torch.arange(cap, device=pairs.device) < n_pairs
+    a_in = (a >= t0) & (a < t0 + nt)
+    b_in = (b >= t0) & (b < t0 + nt)
+    keep = used & (a_in | b_in)
+    order = torch.argsort((~keep).to(torch.int8), stable=True)
+    return (pairs[order].contiguous(),
+            keep.sum().to(torch.int32).reshape(1),
+            (used & (a_in ^ b_in)).sum().to(torch.int32).reshape(1))
+
+
 def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly,
-                    band_p=0):
+                    band_p=0, group=None):
     if box_n is not None:
         lo, h = _geometry_2p(x, grid, box_n)
         return FarGeo(lo=lo, h=h, khat_free=None, khat_wall=_kernel_hat_2p(
             lo[2], h, grid, p, h_floor, int(image_shells), poly=poly))
     ne = _BAND_MAX if band_p else 1
-    lo, h = _grid_geometry(x, grid)
+    lo, h = _grid_geometry(x, grid, group)
     khat_free = _far_kernel_hat(h, grid, p, poly=poly, near_excl=ne)
     khat_wall = (_wall_kernel_hat(lo[2], h, grid, p, h_floor, poly=poly,
                                   near_excl=ne)
@@ -1197,7 +1293,7 @@ def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly,
 
 def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                      max_nbr=None, h_floor=rpy.WALL_H_FLOOR, box=None,
-                     image_shells=8, radii=None, band_p=0):
+                     image_shells=8, radii=None, band_p=0, group=None):
     """Build only the geometry tier (:class:`FarGeo`) for positions ``r``;
     pass it as ``geo=`` to :func:`prepare` to share one kernel-lattice
     build across several nearby position sets.
@@ -1207,20 +1303,25 @@ def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     to ``image_shells`` with the two-ring tail (:func:`_kernel_hat_2p`).
     radii: None, or per-blob radii: the radius-split lattices (their
     values do not enter the geometry tier).  band_p: the band tier's order
-    (0: off), whose blocks belong to this tier."""
+    (0: off), whose blocks belong to this tier.  group: as
+    :func:`prepare`'s; the bounding box closes over it (MIN / MAX
+    all-reduces), and every rank builds the same lattices and blocks."""
     r = r.reshape(-1, 3)
     poly = radii is not None
-    grid, _ = _resolve(r.shape[0], wall, grid, p, max_nbr, poly)
+    _check_group_box(box, group)
+    grid, _ = _resolve(r.shape[0] * collectives.size(group), wall, grid, p,
+                       max_nbr, poly)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
     band_p = _check_band(band_p, box is not None)
     return _build_geometry(r * (1.0 / a), grid, p, wall, h_floor,
-                           rpy._box_n(box, a), image_shells, poly, band_p)
+                           rpy._box_n(box, a), image_shells, poly, band_p,
+                           group=group)
 
 
 def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
             h_floor=rpy.WALL_H_FLOOR, geo: FarGeo = None, box=None,
-            image_shells=8, radii=None, band_p=0):
+            image_shells=8, radii=None, band_p=0, group=None):
     """Build the :class:`FarCtx` for positions ``r`` (same keywords as
     :func:`mobility_apply`).
 
@@ -1231,12 +1332,25 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     path sees it instead of a silently extrapolated basis.  In the film the
     positions wrap in x/y and never leave the grid there: z alone is
     guarded.
+
+    group: None (one device), or the process group of a distributed apply
+    (the JAX package's ``prepare_local``): ``r`` and ``radii`` are this
+    rank's blobs, every rank holding as many, in rank order.  The
+    bounding box and the excursion guard close over the group; the sorted
+    tiles come from one gather of the positions and cells, their count
+    rounded up to a multiple of the group's size by whole pad tiles
+    (:func:`sorted_tiles`); K3's work list is this rank's equal slice's
+    (:func:`_slice_pairs`), ``n_boundary`` its pairs that cross the
+    slice's edge.
     """
     r = r.reshape(-1, 3)
-    n = r.shape[0]
+    n_l = r.shape[0]
+    D, rank = collectives.size(group), collectives.rank(group)
     dtype = r.dtype
     poly = radii is not None
-    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr, poly)
+    _check_group_box(box, group)
+    grid, max_nbr, _, t_pad = _resolve_local(n_l * D, wall, grid, p, max_nbr,
+                                             poly, D)
     box_n = rpy._box_n(box, a)
     if box is not None:
         _check_2p(wall, box, grid, int(image_shells))
@@ -1254,36 +1368,28 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
         hi = torch.as_tensor(grid, dtype=dtype, device=r.device)
         if box_n is not None:
             u, hi = u[:, 2], hi[2]
-        geo_bad = torch.maximum(torch.max(-u), torch.max(u - hi)) > 0.5
+        excursion = torch.maximum(torch.max(-u), torch.max(u - hi))
+        geo_bad = collectives.pmax(excursion, group) > 0.5
     else:
         geo = _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells,
-                              poly, band_p)
+                              poly, band_p, group=group)
     lo, h = geo.lo, geo.h
     ci, cid = _cell_indices(x, lo, h, grid)
     t3 = (x - lo) / h - ci.to(dtype)
     W3 = _blob_weights(t3, _cheb_nodes(p))
     W6 = _blob_weights(t3, _cheb_nodes(band_p)) if band_p else None
 
-    order = tiles.cell_snake_order(ci, grid)
-    t = -(-n // TILE)
-    pad = t * TILE - n
-    # pad the partial tile with the last sorted entry: its cell is the
-    # tile's final real cell, so the tile's cell range (and the neighbor
-    # lists) stay as tight as without padding
-    last = order[-1:]
-    x_s = torch.cat([x[order], x[last].expand(pad, 3)])
-    ci_s = torch.cat([ci[order], ci[last].expand(pad, 3)])
-    id_s = torch.cat([order.to(torch.int32),
-                      torch.full((pad,), -1, dtype=torch.int32,
-                                 device=r.device)])
-    # pad radii 1: the pads are masked, but a 0 would divide by zero in the
-    # pair fields before the select
-    ah_s = (torch.cat([ahat[order], torch.ones(pad, dtype=dtype,
-                                               device=r.device)])
-            if poly else None)
-    nbr, overflow = _near_neighbor_lists(
-        ci_s, t, max_nbr, wrap_xy=grid[:2] if box_n is not None else None)
+    order, x_s, ci_s, id_s, ah_s, nbr, overflow = sorted_tiles(
+        collectives.all_gather(x, group), collectives.all_gather(ci, group),
+        grid, t_pad, max_nbr,
+        ahat=None if ahat is None else collectives.all_gather(ahat, group),
+        wrap_xy=grid[:2] if box_n is not None else None)
     pairs, n_pairs = _tile_pairs(nbr)
+    n_boundary = None
+    if group is not None:
+        nt = t_pad // D
+        pairs, n_pairs, n_boundary = _slice_pairs(pairs, n_pairs, rank * nt,
+                                                  nt)
     if geo_bad is not None:
         overflow = overflow | geo_bad
     return FarCtx(lo=lo, h=h, khat_free=geo.khat_free,
@@ -1292,13 +1398,13 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
                   order=order, x_s=x_s, ci_s=ci_s, id_s=id_s, nbr=nbr,
                   pairs=pairs, n_pairs=n_pairs, overflow=overflow,
                   ahat=ahat, ah_s=ah_s, W6=W6, band_free=geo.band_free,
-                  band_wall=geo.band_wall)
+                  band_wall=geo.band_wall, n_boundary=n_boundary)
 
 
 def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
                    max_nbr=None, h_floor=rpy.WALL_H_FLOOR,
                    ctx: FarCtx = None, use_pallas=True, box=None,
-                   image_shells=8, radii=None, band_p=0):
+                   image_shells=8, radii=None, band_p=0, group=None):
     """U = M(r)·F by the exact near part plus the proxy-grid far field.
 
     F: (N, 3) or (k, N, 3); r: (N, 3).  grid: int or (gx, gy, gz)
@@ -1329,14 +1435,28 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     hand-written kernels): float32 with k ≤ 2 sweeps the near part through
     K3 (:func:`.farfield_cuda.near_sweep`, its plain version on a CPU
     tensor); otherwise the plain :func:`_near_sweep`.
+
+    group: None (one device), or the process group of a distributed apply
+    (the JAX package's ``mobility_apply_local``): ``F``, ``r`` and
+    ``radii`` are this rank's blobs and U this rank's rows.  The far tier
+    spreads this rank's blobs, sums the node moments (the band tier's too)
+    over the group and convolves on every rank alike; the near part
+    gathers the forces once, sweeps this rank's slice of the sorted tiles
+    (K3's row-tile slice, ``t0`` / ``nt``) and gathers the slices back.
+    The film (a ``box``) with a group raises: ROADMAP.md item 16's next
+    slice.
     """
     r = r.reshape(-1, 3)
     multi = F.dim() == 3
     Fs = F.to(r.dtype)
     Fs = Fs if multi else Fs[None]
-    k, n = Fs.shape[0], r.shape[0]
+    k, n_l = Fs.shape[0], r.shape[0]
+    D, rank = collectives.size(group), collectives.rank(group)
+    n = n_l * D
     dtype = r.dtype
-    grid, max_nbr = _resolve(n, wall, grid, p, max_nbr, radii is not None)
+    _check_group_box(box, group)
+    grid, max_nbr, _, t_pad = _resolve_local(n, wall, grid, p, max_nbr,
+                                             radii is not None, D)
     per = box is not None
     if per:
         _check_2p(wall, box, grid, int(image_shells))
@@ -1344,7 +1464,8 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     if ctx is None:
         ctx = prepare(r, a=a, eta=eta, wall=wall, grid=grid, p=p,
                       max_nbr=max_nbr, h_floor=h_floor, box=box,
-                      image_shells=image_shells, radii=radii, band_p=band_p)
+                      image_shells=image_shells, radii=radii, band_p=band_p,
+                      group=group)
     band = None
     if band_p:
         if ctx.W6 is None or ctx.W6.shape[1] != band_p ** 3:
@@ -1354,25 +1475,30 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     if wall:
         Fs = Fs * ctx.b[None, :, None]
     U_far = _far_part(Fs, ctx.W3, ctx.cid, grid, wall, ctx.khat_free,
-                      ctx.khat_wall, per=per, ahat=ctx.ahat, band=band)
+                      ctx.khat_wall, per=per, ahat=ctx.ahat, band=band,
+                      group=group)
 
-    pad = ctx.x_s.shape[0] - n
-    F_s = torch.cat([Fs[:, ctx.order],
-                     torch.zeros((k, pad, 3), dtype=dtype, device=r.device)],
-                    dim=1)
+    F_s = torch.cat([collectives.all_gather(Fs, group, dim=1)[:, ctx.order],
+                     torch.zeros((k, t_pad * TILE - n, 3), dtype=dtype,
+                                 device=r.device)], dim=1)
     box_n = rpy._box_n(box, a)
     wrap_xy = grid[:2] if per else None
+    # this rank's slice of the sorted tiles; one device sweeps them all
+    sl = ({} if group is None else
+          dict(t0=rank * (t_pad // D), nt=t_pad // D))
     if use_pallas and dtype == torch.float32 and k <= 2:
         U_near_s = farfield_cuda.near_sweep(
             ctx.x_s, ctx.ci_s, ctx.id_s >= 0, F_s, ctx.nbr, wall, h_floor,
             pairs=(ctx.pairs, ctx.n_pairs), box_over_a=box_n,
-            wrap_cells=wrap_xy, ahat_s=ctx.ah_s)
+            wrap_cells=wrap_xy, ahat_s=ctx.ah_s, **sl)
     else:
         U_near_s = _near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F_s, ctx.nbr,
                                wall, h_floor, box_n=box_n, wrap_xy=wrap_xy,
-                               ah_s=ctx.ah_s)
-    U_near = torch.zeros_like(Fs)
-    U_near[:, ctx.order] = U_near_s[:, :n].to(dtype)
+                               ah_s=ctx.ah_s, **sl)
+    U_sorted = collectives.all_gather(U_near_s.to(dtype), group, dim=1)
+    U_near = torch.zeros((k, n, 3), dtype=dtype, device=r.device)
+    U_near[:, ctx.order] = U_sorted[:, :n]
+    U_near = U_near[:, rank * n_l:(rank + 1) * n_l]
     U_near = torch.where(ctx.overflow, torch.full_like(U_near, math.nan),
                          U_near)
 
@@ -1381,3 +1507,23 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
         U = U * ctx.b[None, :, None]
     U = U * (1.0 / (8.0 * math.pi * eta * a))
     return U if multi else U[0]
+
+
+# ------------------------------------------------------------- distributed
+# the JAX package's names of the distributed apply: the functions above
+# over a process group
+def prepare_geometry_local(r_l, group, radii_l=None, **kw):
+    """:func:`prepare_geometry` over ``group`` (``radii_l``: this rank's
+    radii)."""
+    return prepare_geometry(r_l, radii=radii_l, group=group, **kw)
+
+
+def prepare_local(r_l, group, radii_l=None, **kw):
+    """:func:`prepare` over ``group`` (``radii_l``: this rank's radii)."""
+    return prepare(r_l, radii=radii_l, group=group, **kw)
+
+
+def mobility_apply_local(F_l, r_l, group, radii_l=None, **kw):
+    """:func:`mobility_apply` over ``group``: this rank's rows
+    (``radii_l``: this rank's radii)."""
+    return mobility_apply(F_l, r_l, radii=radii_l, group=group, **kw)

@@ -31,10 +31,19 @@ no fallback.  Like the Pallas wrapper, it computes in float32 and raises
 for more than 2 RHS.  It has no backward: a CUDA tensor that requires grad
 raises (:func:`.cuda_build.refuse_grad`).
 
+Its row-tile slice (:func:`near_sweep`'s ``t0`` / ``nt``, as
+``rpy_pallas.near_sweep``'s) gives the rows of tiles
+[t0, t0 + nt) alone, for the distributed far field
+(``farfield.mobility_apply`` with a ``group``): the same kernel and C
+entry over the slice's work list (:func:`.farfield._slice_pairs`, the
+pairs with a tile in the slice), writing only the slice's side of each
+pair; the whole sweep is the slice (0, t).
+
 ``near_launches`` and ``near_poly_launches`` count launches of the
-monodisperse and the POLY form (incremented where the kernel is launched,
-nowhere else) so a run can show that its main path went through the
-kernel.
+monodisperse and the POLY form, ``slice_launches`` and
+``slice_poly_launches`` those of the slice (incremented where the kernel
+is launched, nowhere else) so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -49,17 +58,23 @@ from rigid_body_light_tpu_torch.utils import profiling
 TILE = 128  # blobs per tile; build() checks it against the kernel's
 near_launches = 0
 near_poly_launches = 0
+slice_launches = 0
+slice_poly_launches = 0
 
 _lib = None
 
 
 def reset_launch_counts():
     global near_launches, near_poly_launches
+    global slice_launches, slice_poly_launches
     near_launches = near_poly_launches = 0
+    slice_launches = slice_poly_launches = 0
 
 
 def launch_counts():
-    return {"near_sweep": near_launches, "near_sweep_poly": near_poly_launches}
+    return {"near_sweep": near_launches, "near_sweep_poly": near_poly_launches,
+            "near_sweep_slice": slice_launches,
+            "near_sweep_slice_poly": slice_poly_launches}
 
 
 def build():
@@ -73,8 +88,8 @@ def build():
     lib.near_sweep_tile.restype = i
     lib.near_sweep_tile.argtypes = []
     lib.near_sweep.restype = i
-    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, f,
-                               f, i, i, p, p, p]
+    lib.near_sweep.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                               f, f, f, i, i, p, p, p]
     if lib.near_sweep_tile() != TILE:
         raise RuntimeError(f"near_sweep.cu tiles {lib.near_sweep_tile()} "
                            f"blobs, the wrapper {TILE}")
@@ -84,7 +99,8 @@ def build():
 
 def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
                       wall: bool, h_floor: float, box_over_a=None,
-                      wrap_cells=None, ahat_s=None):
+                      wrap_cells=None, ahat_s=None, t0: int = None,
+                      nt: int = None):
     """K3 on the card.  x_s (n_pad, 3) float32, ci_s (n_pad, 3) int32,
     live_s (n_pad,) bool, F_s (k, n_pad, 3) float32 with k ∈ {1, 2}, nbr
     (t, max_nbr) int32 with n_pad = t·128, pairs (cap, 4) int32 and n_pairs
@@ -92,11 +108,21 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
     → (k, n_pad, 3) pair terms in sorted order.  box_over_a / wrap_cells:
     None, or the film's (Lx, Ly) in units of a and (gx, gy), both given
     (the box form).  ahat_s: None, or the (n_pad,) float32 sorted radii in
-    units of a (the POLY form; the kernel stages dead blobs at radius 1)."""
+    units of a (the POLY form; the kernel stages dead blobs at radius 1).
+    t0 / nt: the row-tile slice (both or neither): the rows of tiles
+    [t0, t0 + nt), (k, nt·128, 3), from the slice's work list
+    (:func:`.farfield._slice_pairs`) in ``pairs`` / ``n_pairs``."""
     global near_launches, near_poly_launches
+    global slice_launches, slice_poly_launches
     n_pad, k = x_s.shape[0], F_s.shape[0]
     t, max_nbr = nbr.shape
     cap = pairs.shape[0]
+    sliced = t0 is not None
+    if sliced != (nt is not None):
+        raise ValueError("K3's slice takes t0 and nt together")
+    if sliced and not (0 <= t0 and 0 <= nt and t0 + nt <= t):
+        raise ValueError(f"K3's slice [{t0}, {t0} + {nt}) is not inside "
+                         f"its {t} tiles")
     if k not in (1, 2):
         raise ValueError(f"near_sweep takes 1 or 2 RHS, got {k}")
     if n_pad != t * TILE:
@@ -120,21 +146,29 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
                          f"counts, got {box_over_a}, {wrap_cells}")
     lib = build()
     dev = x_s.device
+    if not sliced:
+        t0, nt = 0, t
+    n_out = nt * TILE
     # per-slot partials; only the slots a tile uses are written and read
-    part = torch.empty((max_nbr, k, n_pad, 3), dtype=torch.float32,
+    part = torch.empty((max_nbr, k, n_out, 3), dtype=torch.float32,
                        device=dev)
-    out = torch.empty((k, n_pad, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev), profiling.span("near_sweep"):
+    out = torch.empty((k, n_out, 3), dtype=torch.float32, device=dev)
+    ahat_ptr = None if ahat_s is None else ahat_s.data_ptr()
+    name = "near_sweep_slice" if sliced else "near_sweep"
+    with torch.cuda.device(dev), profiling.span(name):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.near_sweep(
             x_s.data_ptr(), ci_s.data_ptr(), live_s.data_ptr(),
-            F_s.data_ptr(), None if ahat_s is None else ahat_s.data_ptr(),
-            nbr.data_ptr(), pairs.data_ptr(),
-            n_pairs.data_ptr(), n_pad, max_nbr, cap, k, int(bool(wall)),
-            float(h_floor), bx, by, gx, gy, part.data_ptr(), out.data_ptr(),
-            stream)
-    cuda_build.raise_on_error(code, "near_sweep")
-    if ahat_s is None:
+            F_s.data_ptr(), ahat_ptr, nbr.data_ptr(), pairs.data_ptr(),
+            n_pairs.data_ptr(), n_pad, int(t0), int(nt), max_nbr, cap, k,
+            int(bool(wall)), float(h_floor), bx, by, gx, gy,
+            part.data_ptr(), out.data_ptr(), stream)
+    cuda_build.raise_on_error(code, name)
+    if sliced and ahat_s is None:
+        slice_launches += 1
+    elif sliced:
+        slice_poly_launches += 1
+    elif ahat_s is None:
         near_launches += 1
     else:
         near_poly_launches += 1
@@ -142,7 +176,8 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
 
 
 def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
-               pairs=None, box_over_a=None, wrap_cells=None, ahat_s=None):
+               pairs=None, box_over_a=None, wrap_cells=None, ahat_s=None,
+               t0: int = None, nt: int = None):
     """Adjacent-cell pair sweep over the sorted tiles, float32: the contract
     of ``rpy_pallas.near_sweep`` (pair terms only, sorted order, no self
     term, scale or damping).
@@ -158,7 +193,11 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
     :func:`.rpy.wrapped_difference`'s rule.  ahat_s: None, or the (n_pad,)
     sorted radii in units of a: the POLY form (``ahat_s`` of
     ``rpy_pallas.near_sweep``; dead blobs at radius 1).  Returns (k, n_pad,
-    3); rows of pad blobs hold garbage.
+    3); rows of pad blobs hold garbage.  t0 / nt: the row-tile slice (both
+    or neither; the distributed far field's), the rows of tiles [t0, t0 +
+    nt) alone, (k, nt·128, 3); ``pairs`` is then the slice's work list
+    (:func:`.farfield._slice_pairs`, ``FarCtx.pairs`` of
+    ``farfield.prepare`` with a ``group``).
     """
     n_pad, k = x_s.shape[0], F_s.shape[0]
     if k > 2:
@@ -175,9 +214,11 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
         ids = torch.where(live_s, torch.arange(n_pad, dtype=torch.int32), -1)
         return farfield._near_sweep(x32, ci_s, ids, F32, nbr, wall, h_floor,
                                     box_n=box_over_a, wrap_xy=wrap_cells,
-                                    ah_s=a32)
+                                    ah_s=a32, t0=t0 or 0, nt=nt)
     if x_s.device.type == "cuda":
-        cuda_build.refuse_grad("K3 near_sweep", x_s, F_s, ahat_s)
+        cuda_build.refuse_grad(
+            "K3 near_sweep" if t0 is None else "K3 near_sweep_slice", x_s,
+            F_s, ahat_s)
         if pairs is None:
             raise ValueError("K3 needs the tile-pair list of farfield.prepare "
                              "(pairs=(ctx.pairs, ctx.n_pairs))")
@@ -186,5 +227,6 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
             live_s.to(torch.bool).contiguous(), F32,
             nbr.to(torch.int32).contiguous(), pairs[0].contiguous(),
             pairs[1].contiguous(), wall, h_floor, box_over_a, wrap_cells,
-            a32)
+            a32, t0=t0, nt=nt)
     raise ValueError(f"no near sweep for device {x_s.device}")
+

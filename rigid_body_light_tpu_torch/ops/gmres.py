@@ -11,6 +11,12 @@ Where JAX skips the rest of a cycle with ``lax.cond``, the port breaks out
 of a Python loop: one host sync per inner iteration.  The O(m) Givens and
 Hessenberg scalars live on the host (numpy, in the run dtype); the O(n)
 basis and the matvecs stay on the device of ``b``.
+
+Distributed mode (``group``, a ``torch.distributed`` process group; the
+JAX package's ``axis_name``): vectors are this rank's shard of the
+unknown, and every inner product and norm is all-reduced over the group
+before it reaches the host, so every rank computes the same Givens and
+Hessenberg scalars and takes the same branches; the basis stays sharded.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from rigid_body_light_tpu_torch.utils.collectives import psum
 
 
 class GmresResult(NamedTuple):
@@ -31,13 +39,13 @@ def _np_dtype(dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
 
-def _cycle(matvec: Callable, x0, r0, m: int, atol):
+def _cycle(matvec: Callable, x0, r0, m: int, atol, group=None):
     """One GMRES(m) cycle from residual r0 → (x_new, n_exec)."""
     n = r0.shape[0]
     dtype, dev = r0.dtype, r0.device
     npdt = _np_dtype(dtype)
     tiny = npdt(1e-30)
-    beta = torch.sqrt(torch.sum(r0 * r0))
+    beta = torch.sqrt(psum(torch.sum(r0 * r0), group))
     v0 = r0 / torch.clamp(beta, min=1e-30)
     V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
     V[0] = v0
@@ -52,11 +60,11 @@ def _cycle(matvec: Callable, x0, r0, m: int, atol):
             break
         w = matvec(V[j])
         # CGS2: project twice against the whole basis (unset rows are zero)
-        h1 = V @ w
+        h1 = psum(V @ w, group)
         w = w - h1 @ V
-        h2 = V @ w
+        h2 = psum(V @ w, group)
         w = w - h2 @ V
-        hn = torch.sqrt(torch.sum(w * w))
+        hn = torch.sqrt(psum(torch.sum(w * w), group))
         V[j + 1] = w / torch.clamp(hn, min=1e-30)
         col = (h1 + h2).cpu().numpy()
         col[j + 1] = hn.item()
@@ -84,22 +92,25 @@ def _cycle(matvec: Callable, x0, r0, m: int, atol):
 
 
 def gmres(matvec: Callable, b, x0=None, tol: float = 1e-6, restart: int = 40,
-          max_restarts: int = 5) -> GmresResult:
-    """Solve matvec(x) = b for flat vectors; restarted, early-exiting."""
+          max_restarts: int = 5, group=None) -> GmresResult:
+    """Solve matvec(x) = b for flat vectors; restarted, early-exiting.
+    group: distributed mode, ``b`` / ``x0`` this rank's shard."""
     b = b.reshape(-1)
     npdt = _np_dtype(b.dtype)
     if x0 is None:
         x0 = torch.zeros_like(b)
-    b_norm = torch.clamp(torch.sqrt(torch.sum(b * b)), min=1e-30)
+    b_norm = torch.clamp(torch.sqrt(psum(torch.sum(b * b), group)),
+                         min=1e-30)
     atol = npdt(tol) * npdt(b_norm.item())
     atol2 = atol * atol
     x = x0
     r = b - matvec(x)
     k = it = 0
-    while k < max_restarts and npdt(torch.sum(r * r).item()) > atol2:
-        x, n_exec = _cycle(matvec, x, r, restart, atol)
+    while (k < max_restarts
+           and npdt(psum(torch.sum(r * r), group).item()) > atol2):
+        x, n_exec = _cycle(matvec, x, r, restart, atol, group)
         r = b - matvec(x)
         k += 1
         it += n_exec
-    return GmresResult(x=x, residual=torch.sqrt(torch.sum(r * r)) / b_norm,
-                       iters=it)
+    return GmresResult(x=x, residual=torch.sqrt(psum(torch.sum(r * r), group))
+                       / b_norm, iters=it)

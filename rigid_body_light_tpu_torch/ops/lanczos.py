@@ -11,6 +11,11 @@ and ``m_half_w_pair`` for two draws through the fused 2-RHS product).
 
 The Gaussian draws W are inputs: the caller makes them (from a
 ``torch.Generator``, or the JAX package's keys in the parity tests).
+
+Distributed mode (``group``, a ``torch.distributed`` process group; the
+JAX package's ``axis_name``): W's rows are this rank's shard, the inner
+products are all-reduced over the group, so every rank runs the same
+recurrence and stops at the same iteration, and the basis stays sharded.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 
 from rigid_body_light_tpu_torch.ops import rpy, saddle
 from rigid_body_light_tpu_torch.utils import profiling
+from rigid_body_light_tpu_torch.utils.collectives import psum
 
 
 def _y_coeffs(alphas, betas, s, m):
@@ -55,7 +61,8 @@ def _trunc_err(alphas, betas, s, m):
 
 def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
                         max_iters: int = 0, err_tol: float = 0.0,
-                        return_err: bool = False, return_iters: bool = False):
+                        return_err: bool = False, return_iters: bool = False,
+                        group=None):
     """A^{1/2}·w_k for a batch W (k, sz) with a joint matvec (k, sz) →
     (k, sz), with full reorthogonalization.  Returns (k, sz); with
     ``return_err`` also the truncation estimate err (k,), with
@@ -67,13 +74,14 @@ def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
     ``max_iters``, while the largest estimate exceeds ``err_tol``.
 
     The m×m eigensolves run on the host (they are tiny); the O(sz) basis
-    stays on the device of ``W``.
+    stays on the device of ``W``.  group: distributed mode (the module
+    docstring).
     """
     k, sz = W.shape
     dtype, dev = W.dtype, W.device
     adaptive = max_iters > iters and err_tol > 0.0
     m = max_iters if adaptive else iters
-    norm_w = torch.sqrt(torch.sum(W * W, dim=1))
+    norm_w = torch.sqrt(psum(torch.sum(W * W, dim=1), group))
     V = torch.zeros((k, m, sz), dtype=dtype, device=dev)
     V[:, 0] = W / torch.clamp(norm_w, min=1e-30)[:, None]
     alphas = torch.zeros((k, m), dtype=dtype, device=dev)
@@ -87,13 +95,13 @@ def sqrt_matvec_batched(matvec: Callable, W, iters: int = 30,
             > err_tol):
         v = V[:, i].clone()
         av = matvec(v)
-        alpha = torch.einsum("ks,ks->k", v, av)
+        alpha = psum(torch.einsum("ks,ks->k", v, av), group)
         r = av - alpha[:, None] * v - beta_prev[:, None] * v_prev
         # full reorthogonalization against the basis built so far (rows
         # ≥ i+1 are still zero) — keeps small m accurate in float32
-        proj = torch.einsum("kms,ks->km", V, r)
+        proj = psum(torch.einsum("kms,ks->km", V, r), group)
         r = r - torch.einsum("km,kms->ks", proj, V)
-        beta = torch.sqrt(torch.sum(r * r, dim=1))
+        beta = torch.sqrt(psum(torch.sum(r * r, dim=1), group))
         if i + 1 < m:
             V[:, i + 1] = r / torch.clamp(beta, min=1e-30)[:, None]
         alphas[:, i] = alpha
@@ -119,13 +127,13 @@ def sqrt_matvec(matvec: Callable, w, iters: int = 30):
 
 def m_half_w(mob_apply: Callable, positions, W, iters: int = 30,
              max_iters: int = 0, err_tol: float = 0.0,
-             return_err: bool = False):
+             return_err: bool = False, group=None):
     """M^{1/2}W on the blob space from a Gaussian draw ``W`` (3N,) in the
     blob layout (x, y, z of blob 0, then blob 1, …), without the body-frame
     preconditioner.  mob_apply: (F (N,3), r (N,3)) → (N,3), the damped
     product.  Returns (N, 3), or ((N, 3), the truncation estimate) with
     ``return_err``; ``max_iters`` / ``err_tol``: the adaptive recurrence of
-    :func:`sqrt_matvec_batched`."""
+    :func:`sqrt_matvec_batched`; group: distributed mode."""
     positions = positions.reshape(-1, 3)
     mob_apply = saddle.hoist_positions(mob_apply, positions)
 
@@ -135,7 +143,8 @@ def m_half_w(mob_apply: Callable, positions, W, iters: int = 30,
 
     out = sqrt_matvec_batched(mv, W.reshape(1, -1).to(positions.dtype),
                               iters=iters, max_iters=max_iters,
-                              err_tol=err_tol, return_err=return_err)
+                              err_tol=err_tol, return_err=return_err,
+                              group=group)
     if return_err:
         out, err = out
         return out[0].reshape(-1, 3), err[0]
@@ -144,12 +153,12 @@ def m_half_w(mob_apply: Callable, positions, W, iters: int = 30,
 
 def m_half_w_pair(mob_apply_multi: Callable, positions, W, iters: int = 30,
                   max_iters: int = 0, err_tol: float = 0.0,
-                  return_err: bool = False):
+                  return_err: bool = False, group=None):
     """Two independent M^{1/2}W draws from ``W`` (2, 3N) (blob layout, as
     :func:`m_half_w`), both recurrences through one 2-RHS product
     ``mob_apply_multi`` ((2, N, 3), r) → (2, N, 3) a step.  Returns
     ((N, 3), (N, 3)), plus the larger truncation estimate with
-    ``return_err``."""
+    ``return_err``; group: distributed mode."""
     positions = positions.reshape(-1, 3)
     mob_apply_multi = saddle.hoist_positions(mob_apply_multi, positions)
 
@@ -160,7 +169,8 @@ def m_half_w_pair(mob_apply_multi: Callable, positions, W, iters: int = 30,
 
     out = sqrt_matvec_batched(mv2, W.reshape(2, -1).to(positions.dtype),
                               iters=iters, max_iters=max_iters,
-                              err_tol=err_tol, return_err=return_err)
+                              err_tol=err_tol, return_err=return_err,
+                              group=group)
     if return_err:
         out, err = out
         return (out[0].reshape(-1, 3), out[1].reshape(-1, 3),
@@ -188,13 +198,14 @@ def _rot_apply(rot, v, transpose=False):
 def m_half_w_precond(mob_apply_or_multi: Callable, positions, rot, L, L_inv,
                      W, iters: int = 10, multi: bool = False,
                      return_err: bool = False, max_iters: int = 0,
-                     err_tol: float = 0.0):
+                     err_tol: float = 0.0, group=None):
     """Preconditioned M^{1/2}W draws from Gaussian draws ``W``: one (B·3n,)
     draw (multi=False) or two, (2, B·3n), through the fused 2-RHS product
     (multi=True).  Returns (N, 3), or a pair of (N, 3); with ``return_err``
     the last element is the max relative truncation estimate (measured in
     the preconditioned G-space).  ``max_iters`` / ``err_tol``: the adaptive
-    recurrence of :func:`sqrt_matvec_batched`.
+    recurrence of :func:`sqrt_matvec_batched`; group: distributed mode
+    (``positions``, ``rot`` and ``W`` this rank's bodies).
 
     G·v = L⁻¹ R̃ᵀ · M · R̃ L⁻ᵀ v, noise = R̃ L · G^{1/2} W.
     """
@@ -227,7 +238,8 @@ def m_half_w_precond(mob_apply_or_multi: Callable, positions, rot, L, L_inv,
         return from_world(mx)
 
     g = sqrt_matvec_batched(mv, W, iters=iters, max_iters=max_iters,
-                            err_tol=err_tol, return_err=return_err)
+                            err_tol=err_tol, return_err=return_err,
+                            group=group)
     err = None
     if return_err:
         g, err = g

@@ -89,7 +89,7 @@ def rfd_delta(cfg: SimulationConfig, dtype) -> float:
 
 def n_rfd_exact(geom: kin.RefGeometry, state: BodyState,
                 cfg: SimulationConfig, w, mob_apply: Callable = None,
-                pc=None):
+                pc=None, group=None):
     """Body-space divergence drift ∂·N by a centered RFD on the solved body
     mobility N(q) = (KᵀM⁻¹K)⁻¹, for a Gaussian body-space draw ``w``
     (B, 6):
@@ -98,7 +98,9 @@ def n_rfd_exact(geom: kin.RefGeometry, state: BodyState,
 
     two extra saddle solves (``drift_mode='em_exact'``).  Returns (B, 6);
     multiply by kBT at the call site.  δ: :func:`rfd_delta`.  ``pc``: the
-    step's preconditioner, good at q ± δW/2 too.
+    step's preconditioner, good at q ± δW/2 too.  group: distributed mode
+    (``state`` and ``w`` this rank's bodies, ``mob_apply`` the local
+    operator; the two solves all-reduce their Krylov recurrences).
     """
     from rigid_body_light_tpu_torch.ops import solvers
 
@@ -116,7 +118,8 @@ def n_rfd_exact(geom: kin.RefGeometry, state: BodyState,
         X, Q = kin.update_X_Q(state.X, state.Q, dU_signed)
         ops = saddle_mod.geometry_ops(geom, BodyState(X=X, Q=Q))
         return solvers.solve_saddle(ops, cfg, zero_slip, w,
-                                    mob_apply=mob_apply, pc=pc).U
+                                    mob_apply=mob_apply, pc=pc,
+                                    group=group).U
 
     return (n_dot_w(dU) - n_dot_w(-dU)) / delta
 

@@ -48,11 +48,21 @@ tensor that requires grad raises (:func:`.cuda_build.refuse_grad`): the
 kernels' outputs carry no ``grad_fn``, and a gradient through them would
 miss the pair terms.
 
+The sharded paths reach K2 through :func:`pair_sum_slab`, the port of
+``rpy_pallas.pair_sum_slab`` (``rpy_pallas.py:648``): a rectangular slab
+of local rows at a global ``row_offset`` against a block of columns at a
+global ``col_offset`` (:mod:`rigid_body_light_tpu_torch.parallel`).
+:func:`mobility_apply_rows` streams rows of the exact product through it,
+the comparator for sizes where the full exact sweep and a far-field
+context do not fit on the card together.
+
 ``sym_launches`` / ``ordered_launches`` (``sym_poly_launches`` /
 ``ordered_poly_launches`` for the POLY forms, ``sym_poly_box_launches`` /
-``ordered_poly_box_launches`` for the POLY × box forms) count kernel
-launches (incremented where each kernel is launched, nowhere else) so a
-run can show that its main path went through the kernels.
+``ordered_poly_box_launches`` for the POLY × box forms; ``slab_launches``,
+``slab_poly_launches`` and ``slab_poly_box_launches`` for K2 launched
+through :func:`pair_sum_slab`) count kernel launches (incremented where
+each kernel is launched, nowhere else) so a run can show that its main
+path went through the kernels.
 """
 
 from __future__ import annotations
@@ -82,6 +92,9 @@ sym_poly_launches = 0
 ordered_poly_launches = 0
 sym_poly_box_launches = 0
 ordered_poly_box_launches = 0
+slab_launches = 0
+slab_poly_launches = 0
+slab_poly_box_launches = 0
 
 _lib = None
 
@@ -90,9 +103,11 @@ def reset_launch_counts():
     global sym_launches, ordered_launches, sym_poly_launches
     global ordered_poly_launches, sym_poly_box_launches
     global ordered_poly_box_launches
+    global slab_launches, slab_poly_launches, slab_poly_box_launches
     sym_launches = ordered_launches = 0
     sym_poly_launches = ordered_poly_launches = 0
     sym_poly_box_launches = ordered_poly_box_launches = 0
+    slab_launches = slab_poly_launches = slab_poly_box_launches = 0
 
 
 def launch_counts():
@@ -101,7 +116,10 @@ def launch_counts():
             "pair_sweep_sym_poly": sym_poly_launches,
             "pair_sweep_ordered_poly": ordered_poly_launches,
             "pair_sweep_sym_poly_box": sym_poly_box_launches,
-            "pair_sweep_ordered_poly_box": ordered_poly_box_launches}
+            "pair_sweep_ordered_poly_box": ordered_poly_box_launches,
+            "pair_sweep_slab": slab_launches,
+            "pair_sweep_slab_poly": slab_poly_launches,
+            "pair_sweep_slab_poly_box": slab_poly_box_launches}
 
 
 def uses_sym(k, n):
@@ -215,14 +233,16 @@ def pair_sweep_sym(r_over_a, F, wall: bool, h_floor: float, box=None,
 
 def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
                        col_offset: int, wall: bool, h_floor: float, box=None,
-                       ahat_rows=None, ahat_cols=None):
+                       ahat_rows=None, ahat_cols=None, slab: bool = False):
     """K2: Σ_j M_ij F_j over all columns whose global id differs from the
     row's, on the card.  r_rows (R, 3), r_cols (N, 3), F_cols (k, N, 3)
     float32 CUDA tensors, k ∈ {1, 2} → (k, R, 3).  box: :func:`box_args`
     (None: no box); a blob's own images are included.  ahat_rows (R,) /
     ahat_cols (N,): the rows' and columns' radii in units of a (both or
-    neither), the POLY form (with a box the POLY × box form)."""
+    neither), the POLY form (with a box the POLY × box form).  slab: count
+    the launch as a slab of a sharded sweep (:func:`pair_sum_slab`)."""
     global ordered_launches, ordered_poly_launches, ordered_poly_box_launches
+    global slab_launches, slab_poly_launches, slab_poly_box_launches
     n_rows = r_rows_over_a.shape[0]
     k, n_cols = F_cols.shape[0], r_cols_over_a.shape[0]
     if k not in (1, 2):
@@ -248,7 +268,14 @@ def pair_sweep_ordered(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
             int(col_offset), k, int(bool(wall)), float(h_floor),
             *(box or box_args()), part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "pair_sweep_ordered")
-    if ahat_rows is None:
+    if slab:
+        if ahat_rows is None:
+            slab_launches += 1
+        elif _boxed(box):
+            slab_poly_box_launches += 1
+        else:
+            slab_poly_launches += 1
+    elif ahat_rows is None:
         ordered_launches += 1
     elif _boxed(box):
         ordered_poly_box_launches += 1
@@ -314,6 +341,94 @@ def pair_sum(r_over_a, F, wall: bool, h_floor: float = None, box_over_a=None,
     else:
         raise ValueError(f"no pair sweep for device {r_over_a.device}")
     return U if multi else U[0]
+
+
+def pair_sum_slab(r_rows_over_a, row_offset: int, r_cols_over_a, F_cols,
+                  wall: bool, col_offset: int = 0, h_floor: float = None,
+                  box_over_a=None, ahat_rows=None, ahat_cols=None,
+                  image_shells=0, image_tail=True):
+    """Rectangular slab of the pair sum for the sharded paths: local rows
+    × a block of columns, the contract of ``rpy_pallas.pair_sum_slab``.
+
+    r_rows_over_a (R, 3) rows whose first has global id ``row_offset``;
+    r_cols_over_a (N, 3) columns from global id ``col_offset``; F_cols
+    (N, 3) or (k, N, 3), k ≤ 2.  A pair is skipped iff its two global ids
+    are equal, so a slab off the diagonal block keeps every pair; with the
+    box and ``image_shells`` a blob's own images at nonzero offsets are
+    included (every global ordered pair a decomposition visits once adds
+    its whole image sum).  Padded columns must carry F = 0; padded rows
+    are the caller's to drop.  ahat_rows (R,) / ahat_cols (N,): radii in
+    units of a, both or neither (the POLY forms).  Float32; CPU tensors
+    take the plain sweep with those global ids, CUDA tensors K2
+    (:func:`pair_sweep_ordered`, counted as a slab).  Returns F_cols'
+    layout with R rows."""
+    if h_floor is None:
+        h_floor = rpy.WALL_H_FLOOR
+    if (ahat_rows is None) != (ahat_cols is None):
+        raise ValueError("pair_sum_slab takes ahat_rows and ahat_cols "
+                         "together")
+    box = box_args(box_over_a, image_shells, image_tail)
+    multi = F_cols.dim() == 3
+    Fk = F_cols if multi else F_cols[None]
+    k = Fk.shape[0]
+    if k > 2:
+        raise _not_ported(f"a {k}-RHS slab", "item 3 (K2 takes k ≤ 2, as "
+                          "the Pallas kernel does)")
+    rr = r_rows_over_a.to(torch.float32).contiguous()
+    rc = r_cols_over_a.to(torch.float32).contiguous()
+    Fk = Fk.to(torch.float32).contiguous()
+    ar, ac = ((None, None) if ahat_rows is None else
+              (ahat_rows.to(torch.float32).contiguous(),
+               ahat_cols.to(torch.float32).contiguous()))
+    dev = rr.device.type
+    if dev == "cpu":
+        row_ids = int(row_offset) + torch.arange(rr.shape[0])
+        col_ids = int(col_offset) + torch.arange(rc.shape[0])
+        U = rpy.pair_sum(rr, row_ids, rc, col_ids, Fk, a=1.0, wall=wall,
+                         h_floor=h_floor, box=box_over_a,
+                         image_shells=box[2], image_tail=image_tail,
+                         radii_rows=ar, radii_cols=ac)
+    elif dev == "cuda":
+        cuda_build.refuse_grad("K2's slab", rr, rc, Fk, ar, ac)
+        U = pair_sweep_ordered(rr, row_offset, rc, Fk, col_offset, wall,
+                               h_floor, box, ahat_rows=ar, ahat_cols=ac,
+                               slab=True)
+    else:
+        raise ValueError(f"no pair sweep for device {rr.device}")
+    return U if multi else U[0]
+
+
+def mobility_apply_rows(F, r, row_start: int, row_len: int, a=1.0, eta=1.0,
+                        wall=False, h_floor=None, box=None, radii=None):
+    """Rows [row_start, row_start + row_len) of :func:`mobility_apply`
+    (float32, one RHS), with the pair terms of those rows alone: the port
+    of ``rpy_pallas.mobility_apply_rows``, the streamed exact comparator
+    for sizes where the full exact sweep beside a far-field context does
+    not fit.  Same damping, self term and 1/(8πηa); not
+    differentiable."""
+    if h_floor is None:
+        h_floor = rpy.WALL_H_FLOOR
+    r = r.to(torch.float32).reshape(-1, 3)
+    F = F.to(torch.float32).reshape(-1, 3)
+    rows = slice(int(row_start), int(row_start) + int(row_len))
+    radii = (None if radii is None else
+             torch.as_tensor(radii, dtype=torch.float32, device=r.device))
+    ahat = None if radii is None else radii * (1.0 / a)
+    Fd = F
+    if wall:
+        b = rpy.damping_factors(r, a, radii)
+        Fd = F * b[:, None]
+    boa = None if box is None else (box[0] / a, box[1] / a)
+    U = pair_sum_slab(r[rows] * (1.0 / a), row_start, r * (1.0 / a), Fd, wall,
+                      h_floor=h_floor, box_over_a=boa,
+                      ahat_rows=None if ahat is None else ahat[rows],
+                      ahat_cols=ahat)
+    U = U + rpy._self_diag(r[rows], a, wall, h_floor,
+                           None if radii is None else radii[rows]) * Fd[rows]
+    U = U * (1.0 / (8.0 * math.pi * eta * a))
+    if wall:
+        U = U * b[rows, None]
+    return U
 
 
 def mobility_apply_multi(Fs, r, a=1.0, eta=1.0, wall=False, damp=None,

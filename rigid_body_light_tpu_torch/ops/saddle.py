@@ -217,7 +217,7 @@ def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
     return apply_plain
 
 
-def _farfield_apply_fn(cfg: SimulationConfig, radii=None):
+def _farfield_apply_fn(cfg: SimulationConfig, radii=None, group=None):
     """Proxy-grid near + far mobility (:mod:`.farfield`), O(N) at fixed
     density.  It takes (N, 3) or (k, N, 3) forces, so it serves both
     apply-fn entry points; float32 with ``use_pallas`` sweeps the near part
@@ -231,12 +231,18 @@ def _farfield_apply_fn(cfg: SimulationConfig, radii=None):
     The returned callable carries ``prepare`` / ``prepare_geometry``
     attributes: loop hosts build the position setup once with
     :func:`hoist_positions`, and a step shares one kernel-lattice build
-    across its position sets with :func:`pin_geometry`."""
+    across its position sets with :func:`pin_geometry`.
+
+    group: None, or the process group of the distributed stepper: the
+    callable then takes and returns this rank's blobs
+    (:func:`.farfield.mobility_apply`'s ``group``); the film with a group
+    raises here (ROADMAP.md item 16)."""
+    farfield._check_group_box(cfg.box, group)
     grid = None if cfg.farfield_grid == "auto" else cfg.farfield_grid
     max_nbr = cfg.farfield_nbr_tiles if cfg.farfield_nbr_tiles > 0 else None
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, grid=grid,
               p=cfg.farfield_p, max_nbr=max_nbr, h_floor=cfg.wall_h_floor,
-              radii=radii, band_p=cfg.farfield_band_p)
+              radii=radii, band_p=cfg.farfield_band_p, group=group)
     if cfg.box is not None:
         kw.update(box=cfg.box, image_shells=cfg.image_shells)
 

@@ -9,11 +9,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from rigid_body_light_tpu_torch.config import SimulationConfig
+from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.utils import profiling
+from rigid_body_light_tpu_torch.utils.collectives import psum
 
 
 class SolveResult(NamedTuple):
@@ -25,10 +26,19 @@ class SolveResult(NamedTuple):
                                                   # unpreconditioned system
 
 
+def check_group_pc(cfg: SimulationConfig, group):
+    """The distributed solve takes the per-body preconditioners only: RAS
+    couples bodies across shards (its distributed halo build is the JAX
+    package's ``saddle.py:657-671``, ``:782-850``)."""
+    if group is not None and cfg.pc_mode == "ras":
+        raise _not_ported("the distributed RAS preconditioner "
+                          "(pc_mode='ras' with a process group)", "item 16")
+
+
 def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
                  force, pc: saddle_mod.PCData = None, x0=None,
                  mob_apply: Callable = None,
-                 true_residual: bool = False) -> SolveResult:
+                 true_residual: bool = False, group=None) -> SolveResult:
     """Solve [M −K; Kᵀ 0][λ; U] = [slip; F] with left-preconditioned GMRES.
     With ``cfg.pc_mode == "ras"`` and ``pc`` without its halo tier, the
     halo coupling is built here at ``ops``' geometry.
@@ -37,7 +47,14 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     (with slip=0 the solve returns U = (KᵀM⁻¹K)⁻¹·F).  x0: optional (λ, U)
     warm start.  true_residual=True also reports the residual of the
     unpreconditioned system (one extra mobility matvec).
+
+    group: distributed mode (a ``torch.distributed`` process group; the JAX
+    package's ``axis_name``): ``ops`` / ``slip`` / ``force`` are this
+    rank's bodies, ``mob_apply`` the local operator of
+    :mod:`rigid_body_light_tpu_torch.parallel`, and the Krylov reductions
+    are all-reduced over the group.
     """
+    check_group_pc(cfg, group)
     if mob_apply is None:
         mob_apply = saddle_mod.mobility_apply_fn(cfg)
     # far-field operators: build the position setup once here, not once
@@ -74,7 +91,7 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     with profiling.span("gmres"):
         result = gmres_mod.gmres(matvec, b, x0=x0, tol=cfg.gmres_tol,
                                  restart=cfg.gmres_restart,
-                                 max_restarts=max_restarts)
+                                 max_restarts=max_restarts, group=group)
     lam = result.x[:nb].reshape(-1, 3)
     U = result.x[nb:].reshape(-1, 6)
     tr = None
@@ -82,8 +99,9 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
         s, f = saddle_mod.apply_saddle(lam, U, ops, cfg, mob_apply)
         rvec = torch.cat([(slip - s).reshape(-1), (force - f).reshape(-1)])
         bvec = torch.cat([slip.reshape(-1), force.reshape(-1)])
-        tr = (torch.sqrt(torch.sum(rvec * rvec))
-              / torch.clamp(torch.sqrt(torch.sum(bvec * bvec)), min=1e-30))
+        tr = (torch.sqrt(psum(torch.sum(rvec * rvec), group))
+              / torch.clamp(torch.sqrt(psum(torch.sum(bvec * bvec), group)),
+                            min=1e-30))
     return SolveResult(lam=lam, U=U, residual=result.residual,
                        iters=result.iters, true_residual=tr)
 

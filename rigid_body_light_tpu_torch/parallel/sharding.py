@@ -1,0 +1,389 @@
+"""Distribution of the mobility product and the BD step on
+``torch.distributed`` — the port of
+``rigid_body_light_tpu/parallel/sharding.py``.
+
+Where the JAX package runs one program over a device mesh under
+``shard_map``, the port runs one process a device, each holding its
+shard, joined by a process group:
+
+- a mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the
+  process group the caller initialised (:func:`make_mesh`,
+  :func:`make_mesh_2d`), NCCL for CUDA tensors, gloo for CPU tensors; its
+  size must be the group's;
+- where the JAX code takes ``axis_name``, the port takes the
+  ``ProcessGroup`` of that mesh dimension as ``group`` (``None``: one
+  device), and each collective is one call of
+  :mod:`rigid_body_light_tpu_torch.utils.collectives` on it;
+- the entry points that the JAX package gives global arrays
+  (:func:`sharded_pair_sum`, :func:`sharded_pair_sum_2d`,
+  :func:`sharded_mobility_apply_fn`, :func:`make_distributed_step`,
+  :func:`make_distributed_run_bd`) take the global arrays on every rank
+  and return them gathered; the local views (:func:`ring_pair_sum_local`,
+  :func:`ring_mobility_apply_fn`, :func:`farfield_mobility_apply_local_fn`)
+  take and return this rank's shard.
+
+Inside the distributed stepper every O(N) array (positions, λ, the GMRES
+and Lanczos bases) stays on its rank; the ranks meet in the ring's
+transfers (or the far field's gathers) and in the all-reduced scalars of
+the Krylov recurrences.  Nothing here falls back to another backend or to
+the single-device path.
+
+Not ported yet (ROADMAP.md queue 1, item 16): the Ewald locals (a 3-D box
+raises), the distributed pseudo-2D far field (a 2-D box with
+``farfield_grid``), distributed RAS, the mixture steppers and
+``ensemble.py``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
+from rigid_body_light_tpu_torch.dynamics import stepper as stepper_mod
+from rigid_body_light_tpu_torch.ops import rpy, rpy_cuda, saddle, solvers
+from rigid_body_light_tpu_torch.state import BodyState
+from rigid_body_light_tpu_torch.utils import collectives
+
+AXIS = "blobs"
+
+
+def _device_type():
+    """The mesh's device type: CUDA under NCCL, the CPU under gloo."""
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def _world() -> int:
+    if not dist.is_initialized():
+        raise RuntimeError("a mesh needs an initialised process group "
+                           "(torch.distributed.init_process_group)")
+    return dist.get_world_size()
+
+
+def _check_size(n_req: int):
+    world = _world()
+    if n_req != world:
+        raise ValueError(f"a mesh of {n_req} devices over a process group "
+                         f"of {world}: the sizes must be equal")
+
+
+def make_mesh(n_devices: int = None, axis_name: str = AXIS) -> DeviceMesh:
+    """1-D mesh over the initialised process group (``n_devices`` must be
+    its size; None takes it)."""
+    n = _world() if n_devices is None else int(n_devices)
+    _check_size(n)
+    return init_device_mesh(_device_type(), (n,), mesh_dim_names=(axis_name,))
+
+
+def make_mesh_2d(shape, axis_names=("rows", "cols")) -> DeviceMesh:
+    """2-D mesh, e.g. (2, 2) over 4 processes, for the SUMMA sweep."""
+    shape = tuple(int(s) for s in shape)
+    _check_size(shape[0] * shape[1])
+    return init_device_mesh(_device_type(), shape,
+                            mesh_dim_names=tuple(axis_names))
+
+
+def mesh_group(mesh: DeviceMesh, axis_name: str = None):
+    """The process group of one mesh dimension (the first by default)."""
+    return mesh.get_group(axis_name or mesh.mesh_dim_names[0])
+
+
+def _pad_rows(x, n_pad):
+    if n_pad == x.shape[-2]:
+        return x
+    shape = list(x.shape)
+    shape[-2] = n_pad - x.shape[-2]
+    return torch.cat([x, x.new_zeros(shape)], dim=-2)
+
+
+def _slab(r_rows, row0, r_cols, col0, F_cols, a, wall, row_tile, h_floor,
+          box, image_shells, use_kernel, radii_rows=None, radii_cols=None,
+          image_tail=True):
+    """Pair terms of a rows × columns slab at global offsets: K2's slab on
+    float32 with ``use_kernel`` (:func:`.rpy_cuda.pair_sum_slab`), else
+    the plain sweep with global ids (``rpy.pair_sum``), as the JAX
+    package's ``use_pallas`` branch."""
+    if h_floor is None:
+        h_floor = rpy.WALL_H_FLOOR
+    if use_kernel and r_rows.dtype == torch.float32:
+        inv_a = 1.0 / a
+        boa = None if box is None else tuple(b * inv_a for b in box)
+        return rpy_cuda.pair_sum_slab(
+            r_rows * inv_a, row0, r_cols * inv_a, F_cols, wall,
+            col_offset=col0, h_floor=h_floor, box_over_a=boa,
+            ahat_rows=None if radii_rows is None else radii_rows * inv_a,
+            ahat_cols=None if radii_cols is None else radii_cols * inv_a,
+            image_shells=image_shells, image_tail=image_tail
+        ).to(r_rows.dtype)
+    dev = r_rows.device
+    row_ids = row0 + torch.arange(r_rows.shape[0], device=dev)
+    col_ids = col0 + torch.arange(r_cols.shape[0], device=dev)
+    return rpy.pair_sum(r_rows, row_ids, r_cols, col_ids, F_cols, a=a,
+                        wall=wall, row_tile=row_tile, h_floor=h_floor,
+                        box=box, image_shells=image_shells,
+                        image_tail=image_tail, radii_rows=radii_rows,
+                        radii_cols=radii_cols)
+
+
+def sharded_pair_sum(r, F, mesh: DeviceMesh, a=1.0, wall=False,
+                     row_tile=512, axis_name=AXIS, use_pallas=False,
+                     h_floor=None, box=None, image_shells=0):
+    """Row-sharded Σ_j M_ij F_j (pair terms only) over a 1-D mesh.
+
+    r (N, 3) and F (N, 3) or (k, N, 3): the global arrays, the same on
+    every rank.  N is padded to a multiple of the mesh size (padded
+    columns carry F = 0, padded rows are dropped); each rank sweeps its
+    row block against all the columns (K2's slab with ``use_pallas`` in
+    float32, else the plain sweep) and the blocks are gathered: every rank
+    returns the global result."""
+    group = mesh_group(mesh, axis_name)
+    d, idx = collectives.size(group), collectives.rank(group)
+    n = r.shape[0]
+    n_pad = -(-n // d) * d
+    n_loc = n_pad // d
+    r_p, F_p = _pad_rows(r, n_pad), _pad_rows(F, n_pad)
+    rows = slice(idx * n_loc, (idx + 1) * n_loc)
+    part = _slab(r_p[rows], idx * n_loc, r_p, 0, F_p, a, wall, row_tile,
+                 h_floor, box, image_shells, use_pallas)
+    U = collectives.all_gather(part, group, dim=part.dim() - 2)
+    return U[..., :n, :]
+
+
+def sharded_pair_sum_2d(r, F, mesh: DeviceMesh, a=1.0, wall=False,
+                        row_tile=512, axis_names=("rows", "cols"),
+                        use_pallas=False, h_floor=None, box=None,
+                        image_shells=0):
+    """2-D (SUMMA) Σ_j M_ij F_j over a (Dr, Dc) mesh: the rank at (i, j)
+    sweeps row block i against column block j (K2's slab at both global
+    offsets, or the plain sweep), the row sums close with one all-reduce
+    over the column group, and the row blocks are gathered over the row
+    group.  Global arrays in and out, as :func:`sharded_pair_sum`."""
+    ax_r, ax_c = axis_names
+    g_r, g_c = mesh.get_group(ax_r), mesh.get_group(ax_c)
+    dr, dc = collectives.size(g_r), collectives.size(g_c)
+    i, j = collectives.rank(g_r), collectives.rank(g_c)
+    n = r.shape[0]
+    lcm = dr * dc // math.gcd(dr, dc)
+    n_pad = -(-n // lcm) * lcm
+    n_r, n_c = n_pad // dr, n_pad // dc
+    r_p, F_p = _pad_rows(r, n_pad), _pad_rows(F, n_pad)
+    cols = slice(j * n_c, (j + 1) * n_c)
+    part = _slab(r_p[i * n_r:(i + 1) * n_r], i * n_r, r_p[cols], j * n_c,
+                 F_p[..., cols, :], a, wall, row_tile, h_floor, box,
+                 image_shells, use_pallas)
+    part = collectives.psum(part, g_c)
+    U = collectives.all_gather(part, g_r, dim=part.dim() - 2)
+    return U[..., :n, :]
+
+
+def sharded_mobility_apply_fn(cfg: SimulationConfig, mesh: DeviceMesh,
+                              axis_name: str = AXIS) -> Callable:
+    """A drop-in ``mob_apply(F, r) → U`` (global arrays, as
+    :func:`.saddle.mobility_apply_fn`'s) whose pair sweep is sharded over
+    ``mesh``: 1-D row blocks, or SUMMA on a 2-D mesh.  The damping, the
+    self term and the scale are elementwise and stay on every rank."""
+    two_d = mesh.ndim == 2
+
+    def apply(F, r):
+        r = r.reshape(-1, 3)
+        F = F if F.dim() == 3 else F.reshape(-1, 3)
+        Fd = F
+        if cfg.wall:
+            b = rpy.damping_factors(r, cfg.a)
+            Fd = F * b[:, None]
+        kw = dict(a=cfg.a, wall=cfg.wall, row_tile=cfg.matvec_row_tile,
+                  use_pallas=cfg.use_pallas, h_floor=cfg.wall_h_floor,
+                  box=cfg.box, image_shells=cfg.image_shells)
+        if two_d:
+            U = sharded_pair_sum_2d(r, Fd, mesh,
+                                    axis_names=mesh.mesh_dim_names, **kw)
+        else:
+            U = sharded_pair_sum(r, Fd, mesh, axis_name=axis_name, **kw)
+        U = U + rpy._self_diag(r, cfg.a, cfg.wall, cfg.wall_h_floor) * Fd
+        U = U * (1.0 / (8.0 * math.pi * cfg.eta * cfg.a))
+        if cfg.wall:
+            U = U * b[:, None]
+        return U
+
+    return apply
+
+
+def ring_pair_sum_local(r_l, F_l, group, a=1.0, wall=False, row_tile=512,
+                        h_floor=None, box=None, use_pallas=False,
+                        radii_l=None, image_shells=0, image_tail=True):
+    """Ring-pipelined Σ_j M_ij F_j for this rank's rows (local view).
+
+    Each rank holds its (N_l, 3) shard and one block in flight: over D
+    steps the (positions, forces, radii) blocks rotate around the ring, the
+    next block's send and receive posted before the current slab's sweep,
+    so the transfer overlaps it.  Step s sweeps the block from rank
+    (idx − s) mod D, and the steps are summed in order, as the JAX
+    package's.  r_l (N_l, 3); F_l (N_l, 3) or (k, N_l, 3), k ≤ 2 through
+    the kernel; radii_l (N_l,) or None, rotating with the positions.  Each
+    slab is K2's slab form with ``use_pallas`` in float32 (the plain sweep
+    otherwise) at the global offsets of its rows and its block, so with a
+    2-D ``box`` and ``image_shells`` every global ordered pair, a blob with
+    itself included, adds its image sum at exactly one step.  Returns the
+    pair terms in F_l's layout."""
+    d, idx = collectives.size(group), collectives.rank(group)
+    n_l = r_l.shape[0]
+    acc = torch.zeros_like(F_l)
+    blk = [r_l, F_l] + ([radii_l] if radii_l is not None else [])
+    for s in range(d):
+        wait = None
+        if s < d - 1:
+            nxt, wait = collectives.ring_shift(blk, group)
+        src = (idx - s) % d
+        acc = acc + _slab(r_l, idx * n_l, blk[0], src * n_l, blk[1], a, wall,
+                          row_tile, h_floor, box, image_shells, use_pallas,
+                          radii_rows=radii_l,
+                          radii_cols=blk[2] if radii_l is not None else None,
+                          image_tail=image_tail)
+        if wait is not None:
+            wait()
+            blk = nxt
+    return acc
+
+
+def ring_mobility_apply_fn(cfg: SimulationConfig, group,
+                           radii=None) -> Callable:
+    """Local-view ``mob_apply(F_l, r_l) → U_l`` whose pair sweep rides the
+    ring (:func:`ring_pair_sum_local`); the damping, the self term and the
+    scale are per-blob.  Takes (N_l, 3) or (k, N_l, 3) forces (the fused
+    two-draw noise).  radii: this rank's per-blob radii or None."""
+
+    def apply(F, r):
+        r = r.reshape(-1, 3)
+        F = F if F.dim() == 3 else F.reshape(-1, 3)
+        Fd = F
+        if cfg.wall:
+            b = rpy.damping_factors(r, cfg.a, radii)
+            Fd = F * b[:, None]
+        U = ring_pair_sum_local(
+            r, Fd, group, a=cfg.a, wall=cfg.wall,
+            row_tile=cfg.matvec_row_tile, h_floor=cfg.wall_h_floor,
+            box=cfg.box, use_pallas=cfg.use_pallas, radii_l=radii,
+            image_shells=cfg.image_shells)
+        U = U + rpy._self_diag(r, cfg.a, cfg.wall, cfg.wall_h_floor,
+                               radii) * Fd
+        U = U * (1.0 / (8.0 * math.pi * cfg.eta * cfg.a))
+        if cfg.wall:
+            U = U * b[:, None]
+        return U
+
+    return apply
+
+
+def farfield_mobility_apply_local_fn(cfg: SimulationConfig,
+                                     group) -> Callable:
+    """Local-view proxy-grid ``mob_apply(F_l, r_l, ctx=None) → U_l``
+    (``cfg.farfield_grid`` set, the band tier with it): the single-device
+    :func:`.saddle._farfield_apply_fn` over ``group``, this rank's rows of
+    :func:`.farfield.mobility_apply`, with the ``prepare`` /
+    ``prepare_geometry`` attributes that :func:`.saddle.hoist_positions`
+    and :func:`.saddle.pin_geometry` use, so a step builds the lattices
+    once and each Krylov or Lanczos loop its position setup once."""
+    return saddle._farfield_apply_fn(cfg, group=group)
+
+
+def _local_mobility_fn(cfg: SimulationConfig, group) -> Callable:
+    """The distributed stepper's operator, routed as the single-device
+    ``saddle.mobility_apply_fn``: the far field when ``farfield_grid`` is
+    set, else the ring (open, wall, or the 2-D box with its image sum).  A
+    3-D box (the Ewald locals) raises: item 16's next slice."""
+    if cfg.box is not None and len(cfg.box) == 3:
+        raise _not_ported("the distributed Ewald operator (a 3-D box with a "
+                          "process group)", "item 16")
+    if cfg.farfield_grid is not None:
+        return farfield_mobility_apply_local_fn(cfg, group)
+    return ring_mobility_apply_fn(cfg, group)
+
+
+def _shard(x, idx, d):
+    """Rank ``idx``'s equal block of x along its first axis."""
+    n = x.shape[0] // d
+    return x[idx * n:(idx + 1) * n]
+
+
+def _check_bodies(B, d, what):
+    if B % d != 0:
+        raise ValueError(f"distributed {what} needs n_bodies divisible by "
+                         f"the mesh size: B={B}, D={d}")
+
+
+def make_distributed_step(geom, cfg: SimulationConfig, mesh: DeviceMesh,
+                          axis_name: str = None, deterministic: bool = False):
+    """The fully distributed BD step over a 1-D mesh: bodies sharded, every
+    O(N) object (positions, forces, λ, the GMRES and Lanczos bases) on its
+    rank, the ranks coupled by the ring (or the far field's slices) and
+    the all-reduced Krylov scalars.  Needs B % D == 0 (whole bodies a
+    rank: kinematics, the preconditioner and the commits stay local).
+
+    Returns ``step(state, force, draws=None, generator=None) → (state',
+    StepAux)``: the global state and force on every rank in, this rank's
+    B/D bodies stepped, the global new state and StepAux (U and λ
+    gathered) out.  draws: this rank's (W1, W2, W_rfd) in the local
+    shapes of :mod:`.stepper`, else drawn from ``generator`` (where the
+    JAX step folds its key with the device index, each rank draws its own
+    bodies' noise).  ``deterministic`` runs the kBT = 0 step."""
+    group = mesh_group(mesh, axis_name)
+    solvers.check_group_pc(cfg, group)
+    d, idx = collectives.size(group), collectives.rank(group)
+    mob_local = _local_mobility_fn(cfg, group)
+
+    def step(state, force, draws=None, generator=None):
+        B = state.X.shape[0]
+        _check_bodies(B, d, "step")
+        s_l = BodyState(X=_shard(state.X, idx, d), Q=_shard(state.Q, idx, d))
+        f_l = _shard(force, idx, d)
+        if deterministic:
+            s2, aux = stepper_mod.deterministic_step(
+                geom, cfg, s_l, f_l, mob_apply=mob_local, group=group)
+        else:
+            s2, aux = stepper_mod.stochastic_step(
+                geom, cfg, s_l, f_l, mob_apply=mob_local, mob_multi=mob_local,
+                draws=draws, generator=generator, group=group)
+        gather = lambda x: collectives.all_gather(x, group)  # noqa: E731
+        return BodyState(X=gather(s2.X), Q=gather(s2.Q)), stepper_mod.StepAux(
+            U=gather(aux.U), lam=gather(aux.lam), residual=aux.residual,
+            iters=aux.iters, noise_err=aux.noise_err)
+
+    return step
+
+
+def make_distributed_run_bd(geom, cfg: SimulationConfig, mesh: DeviceMesh,
+                            n_steps: int, force_fn=None, slip_fn=None,
+                            save_every: int = 1, axis_name: str = None):
+    """A whole distributed trajectory (:func:`.stepper.run_bd` on every
+    rank's bodies, the operator and the reductions as
+    :func:`make_distributed_step`'s).
+
+    force_fn / slip_fn see this rank's bodies: (local BodyState, step) →
+    (B/D, 6) / (N/D, 3); pair forces between bodies of different ranks
+    need a gather of the body centres inside force_fn.  Returns
+    ``run(state, generator=None, draws_fn=None) → (final state, trajectory)``
+    with the global state in and out and the trajectory's X and Q gathered
+    (steps, B, ·); draws_fn: step → this rank's draws."""
+    group = mesh_group(mesh, axis_name)
+    solvers.check_group_pc(cfg, group)
+    d, idx = collectives.size(group), collectives.rank(group)
+    mob_local = _local_mobility_fn(cfg, group)
+
+    def run(state, generator=None, draws_fn=None):
+        _check_bodies(state.X.shape[0], d, "run")
+        s_l = BodyState(X=_shard(state.X, idx, d), Q=_shard(state.Q, idx, d))
+        final, traj = stepper_mod.run_bd(
+            geom, cfg, s_l, n_steps, generator=generator, force_fn=force_fn,
+            slip_fn=slip_fn, mob_apply=mob_local, save_every=save_every,
+            mob_multi=mob_local, draws_fn=draws_fn, group=group)
+        final = BodyState(X=collectives.all_gather(final.X, group),
+                          Q=collectives.all_gather(final.Q, group))
+        traj = dict(traj, X=collectives.all_gather(traj["X"], group, dim=1),
+                    Q=collectives.all_gather(traj["Q"], group, dim=1))
+        return final, traj
+
+    return run

@@ -20,16 +20,31 @@ Differences from the JAX driver:
   so a resumed run draws the stream the uninterrupted run would have (a
   JAX checkpoint resumes from a generator seeded from its key data,
   ``utils.checkpoint.restore_generator``);
-- a ``"mesh"`` key (multi-chip runs) raises ``NotImplementedError`` before
-  anything is written: distribution is ROADMAP.md queue 1, item 16;
-- the configuration, the chunking and the periodic box's geometry are all
-  checked before the trajectory writer opens (and, without ``--resume``,
-  truncates) ``trajectory.rblt``.
+- a ``"mesh"`` key (``{"shape": [...], "mode": "gather" | "distributed"}``)
+  runs one process a device, launched as
+
+      python -m torch.distributed.run --nproc_per_node D \
+          -m rigid_body_light_tpu_torch.run config.json
+
+  (NCCL on the card, one rank a GPU; gloo with ``--device cpu``; without
+  the launcher, one process).  ``"gather"`` (1-D or 2-D) sends the pair
+  sweep through :func:`.parallel.sharded_mobility_apply_fn` with the
+  solver on every rank, which then draws the same noise; ``"distributed"``
+  (1-D) is :func:`.parallel.make_distributed_run_bd`, each rank drawing
+  its own bodies' noise from the seed plus its rank.  Rank 0 alone prints
+  and writes the frames and the checkpoint (the other ranks' generator
+  states go into its metadata), from gathered body arrays.  A mixture
+  with a mesh raises (``"distributed"`` with the JAX package's text; the
+  gather mode of a mixture is ROADMAP.md queue 1, item 16);
+- the configuration, the chunking, the periodic box's geometry and the
+  mesh are all checked before the trajectory writer opens (and, without
+  ``--resume``, truncates) ``trajectory.rblt``.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import os
 import time
@@ -134,9 +149,111 @@ def _build_cfg(conf, a, dtype):
         box=tuple(conf["box"]) if conf.get("box") else None, **solver)
 
 
-def _start(conf, args, device, dtype):
+def _world_size() -> int:
+    """The processes of the run: the initialised group's, else the
+    launcher's ``WORLD_SIZE``, else 1."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _init_group(device):
+    """Join the launcher's process group (``torch.distributed.run`` sets
+    its address), or make a group of this one process; NCCL for the card,
+    gloo for the CPU.  Returns whether it made the group (False: the
+    caller had initialised one)."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "MASTER_ADDR" in os.environ:
+        dist.init_process_group(backend)
+        return True
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    return True
+
+
+def _build_mesh_mob(conf, cfg, device):
+    """The config's ``"mesh"`` → (mesh, mob_apply, mode), or (None, None,
+    None) without one — the JAX driver's checks and texts, the devices
+    being the run's processes.  ``"gather"``: the sharded pair sweep as
+    the operator; ``"distributed"``: mob_apply None (the caller builds
+    :func:`.parallel.make_distributed_run_bd`), 1-D only."""
+    spec = conf.get("mesh")
+    if not spec:
+        return None, None, None
+    n_avail = _world_size()
+    shape = list(spec.get("shape", [n_avail]))
+    mode = spec.get("mode", "gather")
+    if mode not in ("gather", "distributed"):
+        raise ValueError(f"mesh mode must be 'gather' or 'distributed', "
+                         f"got {mode!r}")
+    n_req = int(np.prod(shape))
+    if n_req > n_avail:
+        raise ValueError(
+            f"mesh shape {shape} needs {n_req} devices but only {n_avail} "
+            f"are visible (launch one process a device: python -m "
+            f"torch.distributed.run --nproc_per_node {n_req} -m "
+            f"rigid_body_light_tpu_torch.run CONFIG)")
+    if mode == "distributed" and len(shape) != 1:
+        raise ValueError(
+            f"mesh mode 'distributed' needs a 1-D shape, got {shape}")
+    if len(shape) not in (1, 2):
+        raise ValueError(f"mesh shape must be 1-D or 2-D, got {shape}")
+    if _init_group(device):
+        import torch.distributed as dist
+
+        atexit.register(dist.destroy_process_group)
+    from rigid_body_light_tpu_torch import parallel
+
+    if len(shape) == 1:
+        mesh = parallel.make_mesh(shape[0])
+    else:
+        mesh = parallel.make_mesh_2d(tuple(shape))
+    if mode == "distributed":
+        return mesh, None, mode
+    return mesh, parallel.sharded_mobility_apply_fn(cfg, mesh), mode
+
+
+def _mesh_line(mesh, mode):
+    return json.dumps({"mesh": dict(zip(map(str, mesh.mesh_dim_names),
+                                        map(int, mesh.shape))),
+                       "mode": mode})
+
+
+def _device(args, conf):
+    """The run's device; under a launcher with a mesh on the card, this
+    rank's GPU (``LOCAL_RANK``)."""
+    from rigid_body_light_tpu_torch.state import resolve_device
+
+    device = resolve_device(args.device)
+    if device.type == "cuda" and conf.get("mesh"):
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    return device
+
+
+def _start(conf, args, device, dtype, rank_seeds=False):
     """(output directory, the resumed (state, generator, step) or None).
-    A checkpoint without random state resumes from ``"seed"``."""
+    A checkpoint without random state resumes from ``"seed"``.
+    rank_seeds: each rank of a distributed run has its own generator,
+    seeded from ``"seed"`` plus its rank; rank r > 0 resumes from the
+    state rank 0 stored for it in the checkpoint's metadata."""
     from rigid_body_light_tpu_torch.utils.checkpoint import (
         load_checkpoint, restore_generator)
 
@@ -144,12 +261,22 @@ def _start(conf, args, device, dtype):
     os.makedirs(out_dir, exist_ok=True)
     if not args.resume:
         return out_dir, None
-    state, rng, step, _ = load_checkpoint(args.resume, dtype=dtype,
-                                          device=device)
+    state, rng, step, meta = load_checkpoint(args.resume, dtype=dtype,
+                                             device=device)
+    rank = _rank() if rank_seeds else 0
+    if rank_seeds:
+        states = meta.get("rank_generator_states")
+        if states is None or len(states) != _world_size():
+            raise RuntimeError(
+                f"checkpoint {args.resume} was not written by a "
+                f"distributed run of {_world_size()} ranks")
+        rng = np.asarray(states[rank], np.uint8)
     gen = restore_generator(rng, device)
     if gen is None:
-        gen = torch.Generator(device=device).manual_seed(conf.get("seed", 0))
-    print(f"resumed from {args.resume} at step {step}")
+        gen = torch.Generator(device=device).manual_seed(
+            conf.get("seed", 0) + rank)
+    if _rank() == 0:
+        print(f"resumed from {args.resume} at step {step}")
     return out_dir, (state, gen, step)
 
 
@@ -163,10 +290,16 @@ def _chunk_line(step, chunk, dt_chunk, traj):
 
 
 def _drive(run_chunk, state, gen, start_step, n_steps, chunk, save_every,
-           dt, writer, ckpt_path, meta, frames_of):
+           dt, writer, ckpt_path, meta, frames_of, rank_seeds=False,
+           meshed=False):
     """The chunk loop: frames appended and flushed before the checkpoint
     that references them (a crash leaves no checkpoint ahead of the
-    trajectory), one JSON line a chunk."""
+    trajectory), one JSON line a chunk.  ``writer`` None: a rank other
+    than 0, which writes and prints nothing.  rank_seeds: every rank's
+    generator state goes into the checkpoint's metadata.  meshed: the
+    ranks wait for rank 0's checkpoint at the end of every chunk."""
+    import torch.distributed as dist
+
     from rigid_body_light_tpu_torch.utils.checkpoint import save_checkpoint
 
     step = start_step
@@ -175,13 +308,21 @@ def _drive(run_chunk, state, gen, start_step, n_steps, chunk, save_every,
         state, traj = run_chunk(state, gen)
         Xs, Qs = frames_of(traj)   # host copies: the chunk's work is done
         dt_chunk = time.perf_counter() - t0
-        for i in range(Xs.shape[0]):
-            frame_step = step + (i + 1) * save_every
-            writer.append(frame_step, frame_step * dt, Xs[i], Qs[i])
         step += chunk
-        writer.flush()
-        save_checkpoint(ckpt_path, state, gen, step=step, metadata=meta)
-        print(_chunk_line(step, chunk, dt_chunk, traj), flush=True)
+        if rank_seeds:
+            states = [None] * dist.get_world_size()
+            dist.all_gather_object(states,
+                                   gen.get_state().numpy().tolist())
+            meta = dict(meta, rank_generator_states=states)
+        if writer is not None:
+            for i in range(Xs.shape[0]):
+                frame_step = step - chunk + (i + 1) * save_every
+                writer.append(frame_step, frame_step * dt, Xs[i], Qs[i])
+            writer.flush()
+            save_checkpoint(ckpt_path, state, gen, step=step, metadata=meta)
+            print(_chunk_line(step, chunk, dt_chunk, traj), flush=True)
+        if meshed:
+            dist.barrier()
     return state
 
 
@@ -199,6 +340,16 @@ def main_multi(conf, args):
     dtype = torch.float64 if conf.get("dtype") == "float64" else torch.float32
     rng = np.random.default_rng(conf.get("seed", 0))
     species = conf["species"]
+    if conf.get("mesh"):
+        if conf["mesh"].get("mode") == "distributed":
+            raise ValueError(
+                "mesh mode 'distributed' is single-species only — mixtures "
+                "run on the gather modes (omit 'mode' or set it to "
+                "'gather')")
+        raise NotImplementedError(
+            "a mixture on the gather mesh is not ported to "
+            "rigid_body_light_tpu_torch yet (ROADMAP.md queue 1, item 16): "
+            "drop the 'mesh' key to run on one device")
 
     ref_cfgs, all_params = [], []
     for sp in species:
@@ -280,11 +431,6 @@ def main(argv=None):
 
     with open(args.config) as f:
         conf = json.load(f)
-    if conf.get("mesh"):
-        raise NotImplementedError(
-            "the 'mesh' key (a multi-chip run) is not ported to "
-            "rigid_body_light_tpu_torch yet (ROADMAP.md queue 1, item 16): "
-            "drop it to run on one device")
 
     if "species" in conf:
         return main_multi(conf, args)
@@ -293,10 +439,11 @@ def main(argv=None):
     from rigid_body_light_tpu_torch.dynamics import run_bd
     from rigid_body_light_tpu_torch.ops import kinematics as kin
     from rigid_body_light_tpu_torch.runtime import TrajectoryWriter
-    from rigid_body_light_tpu_torch.state import make_state, resolve_device
+    from rigid_body_light_tpu_torch.state import make_state
     from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
 
-    device = resolve_device(args.device)
+    device = _device(args, conf)
+    distributed = (conf.get("mesh") or {}).get("mode") == "distributed"
     params, blobs = load_structure(conf["structure"])
     a = conf.get("a") or params["sep"] / 2
     dtype = torch.float64 if conf.get("dtype") == "float64" else torch.float32
@@ -307,7 +454,12 @@ def main(argv=None):
     if cfg.box is not None:
         check_box_geometry(cfg.box, geom.ref_cfg.cpu().numpy(), cfg.a)
 
-    out_dir, resumed = _start(conf, args, device, dtype)
+    # the mesh is checked before anything is written: the output
+    # directory, or the writer, which without --resume truncates
+    # trajectory.rblt
+    mesh, mob_apply, mesh_mode = _build_mesh_mob(conf, cfg, device)
+    out_dir, resumed = _start(conf, args, device, dtype,
+                              rank_seeds=distributed)
     if resumed is not None:
         state, gen, start_step = resumed
         if not hasattr(state, "X"):
@@ -318,27 +470,54 @@ def main(argv=None):
         X, Q = place_bodies(conf.get("placement"), conf["n_bodies"], rng,
                             cfg.wall)
         state = make_state(X, Q, dtype=dtype, device=device)
-        gen = torch.Generator(device=device).manual_seed(conf.get("seed", 0))
+        gen = None
         start_step = 0
 
     force_fn = build_forces(conf.get("forces"), default_box=conf.get("box"))
 
-    def run_chunk(s, g):
-        return run_bd(geom, cfg, s, chunk, generator=g, force_fn=force_fn,
-                      save_every=save_every)
+    B = state.X.shape[0]
+    if mesh_mode == "distributed" and B % mesh.size() != 0:
+        raise ValueError(
+            f"mesh mode 'distributed' needs n_bodies divisible by the mesh "
+            f"size: B={B}, D={mesh.size()}")
+    rank = _rank()
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(
+            conf.get("seed", 0) + (rank if distributed else 0))
+    if mesh is not None and rank == 0:
+        print(_mesh_line(mesh, mesh_mode), flush=True)
+
+    if distributed:
+        from rigid_body_light_tpu_torch import parallel
+
+        run = parallel.make_distributed_run_bd(
+            geom, cfg, mesh, chunk, force_fn=force_fn, save_every=save_every)
+
+        def run_chunk(s, g):
+            return run(s, generator=g)
+    else:
+        def run_chunk(s, g):
+            return run_bd(geom, cfg, s, chunk, generator=g,
+                          force_fn=force_fn, save_every=save_every,
+                          mob_apply=mob_apply)
 
     def frames_of(traj):
         return traj["X"].cpu().numpy(), traj["Q"].cpu().numpy()
 
     traj_path = os.path.join(out_dir, "trajectory.rblt")
-    writer = TrajectoryWriter(
-        traj_path, state.X.shape[0],
-        dtype=np.float64 if dtype == torch.float64 else np.float32,
-        append=bool(args.resume))
+    writer = None
+    if rank == 0:
+        writer = TrajectoryWriter(
+            traj_path, B,
+            dtype=np.float64 if dtype == torch.float64 else np.float32,
+            append=bool(args.resume))
     t_start = time.perf_counter()
     _drive(run_chunk, state, gen, start_step, n_steps, chunk, save_every,
            cfg.dt, writer, os.path.join(out_dir, "checkpoint.npz"),
-           {"config": conf}, frames_of)
+           {"config": conf}, frames_of, rank_seeds=distributed,
+           meshed=mesh is not None)
+    if writer is None:
+        return
     writer.flush()
     writer.close()
     print(json.dumps({

@@ -14,8 +14,10 @@ profiling.py``, with a per-part step timer.
   launch-count names), the mobility products around them, the GMRES loop,
   the Lanczos recurrence, the RFD drift, the preconditioner's build and
   applies, kinematics, the far field's lattice build and position setup,
-  and the balanced-split Ewald operator's tile sweep and gridded wave
-  part.  A span's time runs from the card reaching its start to the card
+  the balanced-split Ewald operator's tile sweep and gridded wave part,
+  and, on the distributed path, the collectives (``collective``: the
+  all-reduces, gathers and ring transfers of
+  :mod:`rigid_body_light_tpu_torch.utils.collectives`).  A span's time runs from the card reaching its start to the card
   reaching its end, so it holds the card's idle time while the host works
   inside it; :meth:`StepTimer.split` subtracts the spans nested in a span
   to give each part's own time.
@@ -40,8 +42,9 @@ logger = logging.getLogger("rigid_body_light_tpu_torch")
 # the parts the step marks, outermost first
 PARTS = ("step", "noise", "rfd", "kinematics", "pc_build", "gmres",
          "pc_apply", "mobility", "lattice_build", "far_setup", "far_band",
-         "ewald_cells", "ewald_pme", "pair_sweep_sym", "pair_sweep_ordered",
-         "near_sweep", "ewald_real_sweep")
+         "ewald_cells", "ewald_pme", "collective", "pair_sweep_sym",
+         "pair_sweep_ordered", "near_sweep", "near_sweep_slice",
+         "ewald_real_sweep")
 
 _ACTIVE = contextvars.ContextVar("rigid_body_light_tpu_torch_step_timer",
                                  default=None)

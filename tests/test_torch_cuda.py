@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
 near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
-against their plain PyTorch versions; the RigidBody API through K1; the
+against their plain PyTorch versions, with the distributed path's forms
+(K2's slab entry at nonzero offsets, K3's row-tile slice); the RigidBody API through K1; the
 balanced-split Ewald operator (plain PyTorch, no kernel) on the card
 against the CPU; and the adjoints: K1's autograd Function against autograd
 through the plain sweep, and the raises of the kernels without a backward.
@@ -1117,3 +1118,93 @@ def test_kernels_without_backward_raise(dev, cloud, ewald_boxes):
     # without autograd the same calls run
     with torch.no_grad():
         rpy_cuda.mobility_apply_multi(F.float(), r32, wall=True)
+
+
+# ------------------------------------------------ the distributed forms
+@pytest.mark.parametrize("box", [False, True], ids=["open", "box"])
+@pytest.mark.parametrize("poly", [False, True], ids=["mono", "poly"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k2_slab_entry_at_offsets_matches_plain(cloud, box, poly, k):
+    """K2's slab entry (rpy_cuda.pair_sum_slab): rows [130, 430) against
+    the column block [64, 700) at their global offsets, 300 rows (not a
+    multiple of K2's 64), R ≠ N; with the box's image sum (a blob keeping
+    its own images) and with radii; counted as a slab."""
+    r, F = cloud
+    rng = np.random.default_rng(21)
+    ahat = (torch.from_numpy(rng.choice([0.6, 1.1], r.shape[0])).to(r.device)
+            if poly else None)
+    kw = dict(box=(11.0, 13.0), image_shells=1) if box else {}
+    ids = torch.arange(r.shape[0], device=r.device)
+    rows, cols = slice(130, 430), slice(64, 700)
+    r32, F32 = r.float(), F[:k].float()
+    ref = rpy.pair_sum(r32[rows].double(), ids[rows], r32[cols].double(),
+                       ids[cols], F32[:, cols].double(), wall=True,
+                       radii_rows=None if ahat is None else ahat[rows],
+                       radii_cols=None if ahat is None else ahat[cols], **kw)
+    before = rpy_cuda.launch_counts()
+    U = rpy_cuda.pair_sum_slab(
+        r32[rows], 130, r32[cols], F32[:, cols], True, col_offset=64,
+        h_floor=0.75, box_over_a=kw.get("box"),
+        ahat_rows=None if ahat is None else ahat[rows],
+        ahat_cols=None if ahat is None else ahat[cols],
+        image_shells=kw.get("image_shells", 0))
+    torch.cuda.synchronize()
+    after = rpy_cuda.launch_counts()
+    key = ("pair_sweep_slab" if not poly else
+           "pair_sweep_slab_poly_box" if box else "pair_sweep_slab_poly")
+    assert after[key] == before[key] + 1
+    assert after["pair_sweep_ordered"] == before["pair_sweep_ordered"]
+    assert U.shape == (k, 300, 3)
+    assert _rel(U, ref) < TOL
+
+
+@pytest.mark.parametrize("wall", [False, True])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k3_row_slices_match_plain(near, wall, k):
+    """K3's row-tile slice at D = 2 and 4 of the fixture's 12 tiles: each
+    slice against the plain sweep's rows of that slice, and two launches
+    bitwise equal; counted as a slice."""
+    ctx, F = near
+    t = ctx.nbr.shape[0]
+    live = ctx.id_s >= 0
+    x32, F32 = ctx.x_s.float(), F[:k].float()
+    for D in (2, 4):
+        nt = t // D
+        for d in range(D):
+            t0 = d * nt
+            pairs, count, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs,
+                                                    t0, nt)
+            ref = farfield._near_sweep(x32.double(), ctx.ci_s, ctx.id_s,
+                                       F32.double(), ctx.nbr, wall, 0.75,
+                                       t0=t0, nt=nt)
+            before = farfield_cuda.launch_counts()["near_sweep_slice"]
+            U = farfield_cuda.near_sweep(
+                x32, ctx.ci_s, live, F32, ctx.nbr, wall, 0.75,
+                pairs=(pairs, count), t0=t0, nt=nt)
+            U2 = farfield_cuda.near_sweep(
+                x32, ctx.ci_s, live, F32, ctx.nbr, wall, 0.75,
+                pairs=(pairs, count), t0=t0, nt=nt)
+            torch.cuda.synchronize()
+            assert farfield_cuda.launch_counts()["near_sweep_slice"] == \
+                before + 2
+            rows = live[t0 * 128:(t0 + nt) * 128]
+            assert U.shape == (k, nt * 128, 3)
+            assert torch.equal(U, U2)
+            assert _rel(U[:, rows], ref[:, rows]) < TOL
+
+
+def test_distributed_forms_refuse_grad(dev, cloud, near):
+    """K2's slab entry and K3's slice have no backward: a CUDA tensor that
+    requires grad raises at both."""
+    r, F = cloud
+    r32 = r.float().clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="K2's slab.*item 15"):
+        rpy_cuda.pair_sum_slab(r32[:100], 0, r32, F[0].float(), True)
+    ctx, Fn = near
+    t = ctx.nbr.shape[0]
+    pairs, count, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs, 0, t // 2)
+    with pytest.raises(RuntimeError, match="K3 near_sweep_slice.*item 15"):
+        farfield_cuda.near_sweep(
+            ctx.x_s.float().requires_grad_(), ctx.ci_s, ctx.id_s >= 0,
+            Fn[:1].float(), ctx.nbr, True, 0.75, pairs=(pairs, count),
+            t0=0, nt=t // 2)

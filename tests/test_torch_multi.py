@@ -237,7 +237,7 @@ def test_distributed_mixture_is_not_ported(mix):
     with pytest.raises(NotImplementedError, match="item 16"):
         multi_t.solve_saddle_multi(mg_t, cfg_t, st_t, None,
                                    tuple(torch.zeros(b, 6) for b in (3, 2)),
-                                   axis_name="x")
+                                   group=object())
 
 
 def dense_wall_mixture():

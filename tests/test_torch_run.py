@@ -1,8 +1,9 @@
 """The port's run driver (``python -m rigid_body_light_tpu_torch.run``) on
 the CPU (``--device cpu``): the single-device cases of
 ``tests/test_run_driver.py`` (run and resume, bad chunking, random and
-file placement, a mixture run and resume, a ``"mesh"`` key refused before
-anything is written); a resume that reproduces the uninterrupted run
+file placement, a mixture run and resume, a ``"mesh"`` key larger than
+the run's processes, or on a mixture, refused before anything is
+written); a resume that reproduces the uninterrupted run
 bitwise; and parity with the JAX package's driver on the same float64
 configs at kBT = 0 — a monodisperse film and a small polydisperse film
 (per-species ``"blob_radius"``, image_shells 1), frames within 1e-9 of
@@ -191,9 +192,11 @@ def test_mixture_run_and_resume(tmp_path, capsys):
 
 
 def test_mesh_key_refused_before_anything_is_written(tmp_path):
+    # one process: a mesh of 8 devices raises with the JAX driver's text
     for mesh in ({"shape": [8]}, {"shape": [8], "mode": "distributed"}):
         cfg_path, conf = _config(tmp_path, mesh=mesh)
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(ValueError,
+                           match="needs 8 devices but only 1 are visible"):
             run_t.main([cfg_path, "--device", "cpu"])
         assert not os.path.exists(conf["output_dir"])
     cfg_path, conf = _mixture(tmp_path, "mixmesh", mesh={"shape": [2]})

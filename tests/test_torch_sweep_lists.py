@@ -3,7 +3,11 @@
 K3 (the far field's near sweep) walks the unordered adjacent tile pairs of
 ``farfield._tile_pairs`` and writes each side of a pair into a per-slot
 partial; a plain PyTorch walk of that list, written here, must give the
-plain ordered sweep ``farfield._near_sweep`` in float64.  K1 (the dense
+plain ordered sweep ``farfield._near_sweep`` in float64; its row-tile
+slice (the distributed far field's) walks the slice's work list
+(``farfield._slice_pairs``: the pairs with a tile in the slice, in list
+order) writing the slice's sides alone, and must give the rows of the
+slice, each pair listed once and the boundary pairs counted.  K1 (the dense
 symmetric pair sweep) and K4 (the Ewald real-space sweep) walk the 128 ×
 128 tile pairs of ``tiles.upper_tile_items``, which must cover every
 unordered pair i < j once; a mirror of K1's per-thread loop must too.
@@ -154,6 +158,107 @@ def _walk_tile_pairs(ctx, F_s, wall):
                 break
             out[:, rows] += part[s, :, rows]
     return out
+
+
+def _walk_slice(ctx, F_s, wall, t0, nt):
+    """What K3's row-tile slice computes, in plain PyTorch: each pair of the
+    slice's work list once, a side written only where its tile lies in
+    [t0, t0 + nt), into partials indexed from the slice's first row, then
+    each slice tile's used slots summed in list order."""
+    x, ci, live = ctx.x_s, ctx.ci_s, ctx.id_s >= 0
+    t, w = ctx.nbr.shape
+    k = F_s.shape[0]
+    pairs, n_pairs, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs, t0, nt)
+    part = torch.full((w, k, nt * TILE, 3), float("nan"), dtype=x.dtype)
+    lane = torch.arange(TILE)
+
+    def local(tile):
+        return slice((tile - t0) * TILE, (tile - t0 + 1) * TILE)
+
+    for a, b, sab, sba in pairs[:int(n_pairs.item())].tolist():
+        rows = slice(a * TILE, (a + 1) * TILE)
+        cols = slice(b * TILE, (b + 1) * TILE)
+        keep = (torch.all((ci[rows][:, None] - ci[cols][None]).abs() <= 1,
+                          dim=-1)
+                & live[rows][:, None] & live[cols][None, :])
+        if a == b:
+            keep &= lane[:, None] < lane[None, :]
+        M = torch.where(keep[..., None, None],
+                        _pair_blocks(x[rows], x[cols], wall), 0.0)
+        row_side = torch.einsum("rcxy,kcy->krx", M, F_s[:, cols])
+        col_side = torch.einsum("rcxy,krx->kcy", M, F_s[:, rows])
+        if a == b:
+            part[sab, :, local(a)] = row_side + col_side
+            continue
+        if t0 <= a < t0 + nt:
+            part[sab, :, local(a)] = row_side
+        if t0 <= b < t0 + nt:
+            part[sba, :, local(b)] = col_side
+    out = torch.zeros((k, nt * TILE, 3), dtype=x.dtype)
+    for a in range(t0, t0 + nt):
+        for s in range(w):
+            if ctx.nbr[a, s] < 0:
+                break
+            out[:, local(a)] += part[s, :, local(a)]
+    return out
+
+
+@pytest.mark.parametrize("n_slices", [2, 4])
+def test_slice_work_lists_cover_the_slices(ctxs, n_slices):
+    """Each slice's list holds every pair with a tile in it once, in the
+    full list's order; the slices' lists together hold each pair once, or
+    twice where its tiles lie in two slices (the boundary count)."""
+    ctx = ctxs[True]
+    t = ctx.nbr.shape[0]
+    nt = t // n_slices
+    full = [tuple(p) for p in ctx.pairs[:int(ctx.n_pairs.item())].tolist()]
+    seen = {}
+    for d in range(n_slices):
+        t0 = d * nt
+        pairs, count, boundary = farfield._slice_pairs(
+            ctx.pairs, ctx.n_pairs, t0, nt)
+        got = [tuple(p) for p in pairs[:int(count.item())].tolist()]
+        want = [p for p in full
+                if t0 <= p[0] < t0 + nt or t0 <= p[1] < t0 + nt]
+        assert got == want
+        assert int(boundary.item()) == sum(
+            (t0 <= p[0] < t0 + nt) != (t0 <= p[1] < t0 + nt) for p in got)
+        for p in got:
+            seen[p] = seen.get(p, 0) + 1
+    assert set(seen) == set(full)
+    twice = [p for p in full if p[0] // nt != p[1] // nt]
+    assert all(seen[p] == (2 if p in twice else 1) for p in full)
+    assert twice, "the slices should share some pairs"
+
+
+@pytest.mark.parametrize("wall", [False, True])
+def test_slice_walk_matches_plain_slices(ctxs, wall):
+    """K3's slice walk at 4 slices gives the plain sweep's rows of each
+    slice, and the slices together the whole sweep."""
+    ctx = ctxs[wall]
+    live = ctx.id_s >= 0
+    t = ctx.nbr.shape[0]
+    n_slices = 4
+    nt = t // n_slices
+    F = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, ctx.x_s.shape[0], 3)))
+    full = farfield._near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F, ctx.nbr,
+                                wall, H_FLOOR)
+    parts = []
+    for d in range(n_slices):
+        t0 = d * nt
+        plain = farfield._near_sweep(ctx.x_s, ctx.ci_s, ctx.id_s, F, ctx.nbr,
+                                     wall, H_FLOOR, t0=t0, nt=nt)
+        walk = _walk_slice(ctx, F, wall, t0, nt)
+        rows = live[t0 * TILE:(t0 + nt) * TILE]
+        assert torch.isfinite(walk[:, rows]).all()
+        rel = ((walk - plain)[:, rows].abs().max()
+               / plain[:, rows].abs().max()).item()
+        assert rel < WALK_TOL
+        parts.append(plain)
+    U = torch.cat(parts, dim=1)
+    rel = ((U - full)[:, live].abs().max() / full[:, live].abs().max()).item()
+    assert rel < WALK_TOL
 
 
 @pytest.mark.parametrize("k", [1, 2])
