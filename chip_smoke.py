@@ -315,12 +315,40 @@ Phases (each raises on failure; any failure exits nonzero):
      run_bd, K2 slab / K3 slice launches a step, the step timer's split
      with its collective span; the gather mode
      (parallel.sharded_mobility_apply_fn) through run_bd;
- 53. not run: no backend carries every collective the port uses with
-     four ranks on one card (PERF.md);
+ 53. not run: NCCL refuses four ranks on one card (PERF.md); phase 57
+     runs D = 4 on the card through gloo ranks instead;
  54. the run driver with a "mesh" key: examples/distributed_suspension.json
      at shape [1], mode "distributed", 10 steps, through python -m
      torch.distributed.run --nproc_per_node 1, then resumed for 10 more:
-     the frames and the checkpoint rank 0 wrote, no gap.
+     the frames and the checkpoint rank 0 wrote, no gap;
+ 55. K4's slab form (the distributed ring's off-diagonal blocks) at the
+     periodic slice's 10,272 positions in L = 14, the ring over 4 ranks
+     in this process (ewald.ring_slab): each rank's ring sum at 1 and 2
+     RHS within KERNEL_TOL of the float64 Clenshaw sweep, the diagonal
+     blocks bitwise K4's symmetric sweep of the block, the n × n slab
+     (self pairs masked) against float64, two launches bitwise equal,
+     the n × n, n/4 × n and n/4 × n/4 slabs' ms beside their bounds and
+     the plain block's;
+ 56. the balanced split's tile sweep at phase 44's 115,560 blobs in
+     L = 30, its sorted tiles padded for 1, 2 and 4 ranks and each rank's
+     slice swept in this process: the slices' union bitwise the
+     one-device sweep;
+ 57. on an NCCL group of this one process, each new distributed path
+     against its single-device counterpart from the same draws, with
+     steps/s in turns against run_bd / run_bd_multi: the periodic slice
+     (classic split, bitwise; ewald_rc 3.5 with the dense wave part), the
+     settled slice with distributed RAS (fewer GMRES iterations than
+     block_free), the mixture through the POLY ring, the far-field
+     mixture and the far-field film (bitwise), each distributed step's
+     split under the step timer, make_ensemble_run_bd on a (1, 1) mesh
+     with 2 walkers (each walker bitwise the distributed run
+     from the same draws); then the periodic slice at D = 4 on the one
+     card (4 gloo ranks, the ring's blocks staged through the host): the
+     distributed step against the single-device step from every rank's
+     draws, K4's slab launches a step, steps/s;
+ 58. the run driver with a mixture config (the polydisperse film) and
+     mesh shape [1] (the gather mesh) through python -m
+     torch.distributed.run, then resumed: frames without a gap.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -337,8 +365,10 @@ gridded wave part, no kernel; K4 as the classic split's yardstick),
 phases 46-48 the far field's band tier (K3 and the band's matmuls),
 phase 49 the adjoints (K1 under autograd), phases 50-54 the
 distributed path (K2's slab entries, K3's row-tile slice, the
-distributed stepper and driver); phase 15 is the probe's own entry
-point.  The kernels
+distributed stepper and driver), phases 55-58 the rest of it (K4's slab
+form, the tile sweep's slices, distributed RAS, the distributed mixture,
+the film's far field over a group, the ensemble runner, the mixture on
+the gather mesh); phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
 
@@ -547,6 +577,12 @@ DIST_TIMED_STEPS = 8
 # exact operator's, streamed through K2's slab (rpy_cuda.mobility_apply_rows)
 DIST_EXACT_ROWS = 8192
 DRIVER_MESH_STEPS = 10
+# phases 55-58: the periodic slice at D = 4 on one card (gloo ranks), the
+# timed steps of the slower world-size-1 paths, the ensemble's steps, the
+# periodic slice's GMRES tolerance (ewald_setup's)
+DIST4_TIMED_STEPS = 2
+ENSEMBLE_STEPS = 2
+EW_GMRES_TOL = 1e-4
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -1247,7 +1283,8 @@ def step_split(torch, profiling, label, run, steps):
     kernels = sum(own.get(k, 0.0) for k in ("pair_sweep_sym",
                                              "pair_sweep_ordered",
                                              "near_sweep", "near_sweep_slice",
-                                             "ewald_real_sweep"))
+                                             "ewald_real_sweep",
+                                             "ewald_real_slab"))
     print(f"step split, {label} slice, {steps} step(s): {step_ms:.3f} ms a "
           f"step; kernels {kernels:.3f}, GMRES loop (own) "
           f"{own.get('gmres', 0.0):.3f} ms a step; own ms a step by part: "
@@ -3088,11 +3125,11 @@ def distributed_phases(torch, dev, counters):
     ph52["seconds"] = time.perf_counter() - t52
     out["phase52"] = ph52
 
-    # ---- 53. D = 4 ranks on the one card: not run (see PERF.md: NCCL
-    # refuses four ranks on one GPU, gloo's CUDA send/recv fails)
-    print("phase 53: not run: no backend carries every collective of the "
-          "port (NCCL: 'Duplicate GPU detected' at four ranks on one card; "
-          "gloo: its ring send/recv of CUDA tensors fails)")
+    # ---- 53. D = 4 NCCL ranks on the one card: not run (NCCL refuses
+    # four ranks on one GPU; phase 57 runs D = 4 through gloo ranks)
+    print("phase 53: not run: NCCL refuses four ranks on one card "
+          "('Duplicate GPU detected'); phase 57 runs D = 4 on the card "
+          "through gloo ranks")
 
     # ---- 54. the run driver with a "mesh" key
     t54 = time.perf_counter()
@@ -3167,6 +3204,633 @@ def driver_mesh_phase():
         return rec
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ewald_slab_bound(rows, cols, k, deg):
+    """Bound of one K4 slab: rows [r0, r0 + R) against columns [c0, c0 + C)
+    (global ids).  The pairs of its overlap with its own rows are
+    unordered pairs the function evaluates once, at K4's 36 + 6·D + 36 per
+    RHS (fields, two Clenshaw chains of degree D, both directions); the
+    rest ordered pairs at 36 + 6·D + 18 per RHS (one direction).  Bytes:
+    positions and the columns' forces read once, the rows' output written
+    once, the coefficient table."""
+    (r0, R), (c0, C) = rows, cols
+    o = max(0, min(r0 + R, c0 + C) - max(r0, c0))
+    fields = 36 + 6 * deg
+    flops = (o * (o - 1) // 2 * (fields + 36 * k)
+             + (R * C - o * o) * (fields + 18 * k))
+    return bound_ms(flops, 12 * (R + C) + 12 * k * (R + C) + 32 * (deg + 1))
+
+
+def ewald_slab_phase(torch, dev):
+    """Phase 55: K4's slab form at the periodic slice's 10,272 positions in
+    L = 14, split over DIST_D ranks in this process as the ring sweeps it
+    (ewald.ring_slab: each rank's diagonal block through K4's symmetric
+    sweep, the others through the slab form): each rank's ring sum at 1
+    and 2 RHS against the float64 Clenshaw sweep, the diagonal blocks
+    bitwise K4's sweep of the block, the slab at the n × n overlap (its
+    self pairs masked) against float64 too, two launches bitwise equal,
+    and each slab shape's ms beside its bound and the plain block's."""
+    from rigid_body_light_tpu_torch.ops import ewald, ewald_cuda, saddle
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    cfg, geom, state = ewald_setup(torch, dev)
+    params = saddle._ewald_params(*saddle._ewald_params_key(cfg))
+    deg = ewald_cuda.operator_tables(params, dev)[2]
+    r = kin.blob_positions(geom, state.X, state.Q).reshape(-1, 3).float()
+    r = r.contiguous()
+    n = r.shape[0]
+    n_l = n // DIST_D
+    rng = np.random.default_rng(SEED + 55)
+    F2 = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+    ref = ewald.real_space_apply(F2.double(), r.double(), params, cheb=True)
+    scale = ref.abs().max().item()
+    out = {"n": n, "degree": deg, "ring": {}}
+    for k in (1, 2):
+        errs = []
+        for idx in range(DIST_D):
+            rows = slice(idx * n_l, (idx + 1) * n_l)
+            acc = None
+            for s in range(DIST_D):
+                src = (idx - s) % DIST_D
+                cols = slice(src * n_l, (src + 1) * n_l)
+                part = ewald.ring_slab(
+                    F2[:k, cols].contiguous(), r[rows], idx * n_l, r[cols],
+                    src * n_l, params, use_kernel=True, diagonal=s == 0)
+                if s == 0 and not torch.equal(part, ewald_cuda.
+                                              real_sweep_kernel(
+                                                  r[rows].contiguous(),
+                                                  F2[:k, rows].contiguous(),
+                                                  params)):
+                    raise AssertionError(f"phase 55: rank {idx}'s diagonal "
+                                         f"block is not K4's sweep, k={k}")
+                acc = part if acc is None else acc + part
+            torch.cuda.synchronize()
+            errs.append((acc.double() - ref[:k, rows]).abs().max().item())
+        whole = ewald_cuda.real_pair_sum_slab(F2[:k], r, 0, r, 0, params)
+        again = ewald_cuda.real_pair_sum_slab(F2[:k], r, 0, r, 0, params)
+        torch.cuda.synchronize()
+        err_whole = (whole.double() - ref[:k]).abs().max().item()
+        rec = dict(err=max(errs), rel=max(errs) / scale,
+                   err_n_by_n=err_whole, rel_n_by_n=err_whole / scale,
+                   repeat_bitwise=bool(torch.equal(whole, again)))
+        out["ring"][k] = rec
+        print(f"phase 55, K4 slab form at the periodic slice (n={n}, "
+              f"degree {deg}), {k} RHS: the ring over {DIST_D} ranks "
+              f"{rec['rel']:.3e} of max|U| from float64 (tol "
+              f"{KERNEL_TOL:g}), the n x n slab {rec['rel_n_by_n']:.3e}, "
+              f"two launches bitwise equal: {rec['repeat_bitwise']}; the "
+              f"diagonal blocks bitwise K4's sweep")
+        if not (rec["rel"] <= KERNEL_TOL and rec["rel_n_by_n"] <= KERNEL_TOL
+                and rec["repeat_bitwise"] and torch.isfinite(whole).all()):
+            raise AssertionError(f"phase 55, k={k}: {rec}")
+    shapes = {"one_rank": ((0, n), (0, n)), "gather": ((0, n_l), (0, n)),
+              "ring": ((n_l, n_l), (0, n_l))}
+    out["times"] = {}
+    for label, ((r0, R), (c0, C)) in shapes.items():
+        rows = r[r0:r0 + R].contiguous()
+        cols = r[c0:c0 + C].contiguous()
+        for k in (1, 2):
+            Fk = F2[:k, c0:c0 + C].contiguous()
+            ms = cuda_ms(torch, lambda: ewald_cuda.real_slab_kernel(
+                rows, r0, cols, c0, Fk, params), 10)
+            plain = cuda_ms(torch, lambda: ewald.real_space_block(
+                rows, torch.arange(r0, r0 + R, device=dev), cols,
+                torch.arange(c0, c0 + C, device=dev), Fk, params), 1)
+            b = ewald_slab_bound((r0, R), (c0, C), k, deg)
+            out["times"][(label, k)] = dict(ms=ms, plain_ms=plain,
+                                            bound_ms=b[0], bound_by=b[1],
+                                            ratio=ms / b[0])
+            print(f"phase 55, K4 slab {label} ({R} x {C} at offsets {r0}, "
+                  f"{c0}), {k} RHS: {ms:.4f} ms a launch, plain float32 "
+                  f"{plain:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                  f"{ms / b[0]:.2f}x")
+    return out
+
+
+def tile_slice_phase(torch, dev):
+    """Phase 56: the balanced split's tile sweep at phase 44's 115,560
+    blobs in L = 30, its sorted tiles padded for 1, 2 and 4 ranks and each
+    rank's slice swept in this process (ewald_cells._cell_sweep at t0,
+    nt): the slices' union bitwise the one-device sweep, with each
+    decomposition's slice times."""
+    from rigid_body_light_tpu_torch.ops import ewald_cells, saddle
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    cfg, geom, state = balanced_split_setup(torch, dev)
+    params = saddle._ewald_params(*saddle._ewald_params_key(cfg))
+    r = kin.blob_positions(geom, state.X, state.Q).reshape(-1, 3).float()
+    n = r.shape[0]
+    rng = np.random.default_rng(SEED + 56)
+    F = torch.from_numpy(rng.standard_normal((1, n, 3))).to(dev).float()
+    rf = ewald_cells._fold(r, params)
+    out = {"n": n}
+    whole = None
+    for d in (1, 2, 4):
+        order, r_pad, ids_pad, F_pad, pp, nbr, overflow = \
+            ewald_cells.sorted_tiles(rf, F, params, nbr_tiles(ewald_cells, r),
+                                     d)
+        nt = nbr.shape[0] // d
+        parts, ms = [], []
+        for i in range(d):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts.append(ewald_cells._cell_sweep(r_pad, ids_pad, F_pad, nbr,
+                                                 params, poly=pp, t0=i * nt,
+                                                 nt=nt))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        U = torch.cat(parts, dim=1)[:, :n]
+        if whole is None:
+            whole = U
+        same = bool(torch.equal(U, whole)) and not bool(overflow)
+        out[d] = dict(tiles=int(nbr.shape[0]), slice_ms=ms, bitwise=same)
+        print(f"phase 56, the tile sweep at n={n} over {d} rank(s): "
+              f"{nbr.shape[0]} tiles, {nt} a slice, slices "
+              f"{[round(m, 1) for m in ms]} ms; the union bitwise the "
+              f"one-device sweep: {same}")
+        if not same:
+            raise AssertionError(f"phase 56, D={d}: the slices' union "
+                                 f"differs from the whole sweep")
+    return out
+
+
+def step_pair_multi(torch, multi, parallel, mgeom, cfg, mesh, states,
+                    forces, seed):
+    """phase 57's mixture form of step_pair: one single-device mixture step
+    and one distributed mixture step (world size 1) from the same draws."""
+    gen = torch.Generator(device=states[0].X.device).manual_seed(seed)
+    draws = multi.make_draws_multi(mgeom, states, gen, cfg)
+    s1, r1 = multi.stochastic_step_multi(mgeom, cfg, states, forces,
+                                         draws=draws)
+    s2, r2 = parallel.make_distributed_step_multi(mgeom, cfg, mesh)(
+        states, forces, draws=draws)
+    torch.cuda.synchronize()
+    dX1 = torch.cat([a.X - b.X for a, b in zip(s1, states)])
+    dx = dX1.abs().max().item()
+    rel = max((a.X - b.X).abs().max().item() for a, b in zip(s2, s1)) / dx
+    dq = max((a.Q - b.Q).abs().max().item() for a, b in zip(s2, s1))
+    return dict(rel_dx=rel, max_dx=dx, dq=dq, iters=(r1.iters, r2.iters),
+                residuals=(r1.residual.item(), r2.residual.item()))
+
+
+def in_turns(torch, counters, label, runs, timed):
+    """steps/s of each of ``runs`` ({name: (warm(), timed())}) in turns A B
+    B A, one warm-up each; the launch counts of each name's last timed
+    run."""
+    names = list(runs)
+    rates, counts = {}, {}
+    for name in names + names[::-1]:
+        warm, run = runs[name]
+        warm()
+        torch.cuda.synchronize()
+        reset_launches(counters)
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        rates.setdefault(name, []).append(timed / (time.perf_counter() - t0))
+        counts[name] = launches(counters)
+        if not bool(torch.isfinite(res).all()):
+            raise AssertionError(f"phase 57, {label}, {name}: not finite")
+    print(f"phase 57, {label}: steps/s in turns {rates}; launches "
+          f"{counts}")
+    return rates, counts
+
+
+def gloo_card_rank(rank, world, path):
+    """A rank of phase 57's D = 4 on one card: gloo ranks sharing cuda:0
+    (the ring's blocks staged through the host), the periodic slice's
+    distributed step from this rank's draws, rank 0 also the single-device
+    step from every rank's draws; then 1 + DIST4_TIMED_STEPS distributed
+    steps with their launch counts.  Writes its readings to path."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.dynamics import stepper
+    from rigid_body_light_tpu_torch.ops import ewald_cuda, rpy_cuda
+    from rigid_body_light_tpu_torch.state import BodyState
+    from rigid_body_light_tpu_torch.utils import collectives
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    store = dist.FileStore(os.path.join(path, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        cfg, geom, state = ewald_setup(torch, dev)
+        B = state.X.shape[0]
+        b = B // world
+        force = torch.zeros((B, 6), dtype=torch.float32, device=dev)
+        mesh = parallel.make_mesh(world)
+        group = parallel.mesh_group(mesh)
+        s_l = BodyState(X=state.X[rank * b:(rank + 1) * b],
+                        Q=state.Q[rank * b:(rank + 1) * b])
+        gen = torch.Generator(device=dev).manual_seed(SEED + 57 + rank)
+        draws = stepper.make_draws(geom, s_l, gen, cfg)
+        step = parallel.make_distributed_step(geom, cfg, mesh)
+        ewald_cuda.reset_launch_counts()
+        rpy_cuda.reset_launch_counts()
+        s2, a2 = step(state, force, draws=draws)
+        torch.cuda.synchronize()
+        rec = {"step_launches": {**ewald_cuda.launch_counts(),
+                                 **rpy_cuda.launch_counts()},
+               "iters": a2.iters}
+        all_draws = [collectives.all_gather(w, group) for w in draws]
+        if rank == 0:
+            s1, a1 = stepper.stochastic_step(geom, cfg, state, force,
+                                             draws=all_draws)
+            torch.cuda.synchronize()
+            dx = (s1.X - state.X).abs().max().item()
+            rec.update(rel_dx=(s2.X - s1.X).abs().max().item() / dx,
+                       dq=(s2.Q - s1.Q).abs().max().item(),
+                       iters_single=a1.iters)
+        run = parallel.make_distributed_run_bd(
+            geom, cfg, mesh, DIST4_TIMED_STEPS,
+            force_fn=lambda s, i: force[:b])
+        run(state, generator=gen)
+        torch.cuda.synchronize()
+        dist.barrier()
+        ewald_cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        s3, tr = run(state, generator=gen)
+        torch.cuda.synchronize()
+        rec.update(steps_per_s=DIST4_TIMED_STEPS / (time.perf_counter() - t0),
+                   run_launches=ewald_cuda.launch_counts(),
+                   max_residual=tr["residual"].max().item(),
+                   finite=bool(torch.isfinite(s3.X).all()))
+        with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_card_phase(torch):
+    """Phase 57's D = 4 on one card: DIST_D gloo ranks (spawned processes)
+    sharing cuda:0, through the distributed periodic step (the ring's
+    off-diagonal blocks through K4's slab form)."""
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    try:
+        t0 = time.perf_counter()
+        mp.start_processes(gloo_card_rank, args=(DIST_D, tmp), nprocs=DIST_D,
+                           join=True, start_method="spawn")
+        recs = []
+        for r in range(DIST_D):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = recs[0]
+    rec = dict(seconds=time.perf_counter() - t0, rel_dx=r0["rel_dx"],
+               dq=r0["dq"], iters=(r0["iters_single"], r0["iters"]),
+               step_launches=[r["step_launches"] for r in recs],
+               run_launches=[r["run_launches"] for r in recs],
+               steps_per_s=[r["steps_per_s"] for r in recs],
+               max_residual=max(r["max_residual"] for r in recs))
+    print(f"phase 57, the periodic slice at D = {DIST_D} on one card ("
+          f"{DIST_D} gloo ranks): distributed step against the "
+          f"single-device step from the same draws {rec['rel_dx']:.3e} of "
+          f"max|dX| (tol {STEP_TOL:g}), |dQ| {rec['dq']:.3e}, GMRES "
+          f"{rec['iters']}; launches a step by rank {rec['step_launches']}; "
+          f"{DIST4_TIMED_STEPS} steps at {rec['steps_per_s']} steps/s by "
+          f"rank, launches {rec['run_launches']}")
+    ok = (rec["rel_dx"] <= STEP_TOL and all(r["finite"] for r in recs)
+          and rec["max_residual"] < 10 * EW_GMRES_TOL
+          and all(r["step_launches"].get("ewald_real_slab") for r in recs))
+    if not ok:
+        raise AssertionError(f"phase 57, D = {DIST_D} on one card: {rec}")
+    return rec
+
+
+def driver_mixture_phase():
+    """Phase 58: the polydisperse film's mixture config (poly_film_config)
+    with mesh shape [1] (the gather mesh) through python -m
+    torch.distributed.run --nproc_per_node 1 (NCCL), DRIVER_MESH_STEPS
+    steps, then resumed for as many: the mesh line, the frames rank 0
+    wrote without a gap, the checkpoint at the end, every residual below
+    10·gmres_tol."""
+    from rigid_body_light_tpu_torch.runtime import read_trajectory
+    from rigid_body_light_tpu_torch.utils.checkpoint import load_checkpoint
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mixmesh_")
+    try:
+        path, conf = poly_film_config(tmp, DRIVER_MESH_STEPS, 5, 5)
+        conf["mesh"] = {"shape": [1]}
+        with open(path, "w") as f:
+            json.dump(conf, f)
+        env = dict(os.environ, PYTHONPATH=here)
+        base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1", "-m",
+                "rigid_body_light_tpu_torch.run", path]
+        ckpt = os.path.join(conf["output_dir"], "checkpoint.npz")
+        lines, times = [], []
+        for argv in (base, base + ["--resume", ckpt]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, cwd=here, env=env,
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            times.append(time.perf_counter() - t0)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 58: {' '.join(argv[2:])} exited "
+                                     f"{proc.returncode}: "
+                                     f"{proc.stderr[-3000:]}")
+            lines.append([json.loads(ln) for ln in proc.stdout.splitlines()
+                          if ln.startswith("{")])
+        steps, _, X, Q = read_trajectory(os.path.join(conf["output_dir"],
+                                                      "trajectory.rblt"))
+        _, _, step, meta = load_checkpoint(ckpt, device="cuda")
+        chunks = [ln for run in lines for ln in run if "step" in ln]
+        rec = dict(first_line=lines[0][0], steps=steps.tolist(),
+                   checkpoint_step=step, launch_s=times,
+                   steps_per_s=[ln["steps_per_sec"] for ln in chunks],
+                   max_residual=max(ln["max_residual"] for ln in chunks),
+                   species_sizes=meta.get("species_sizes"))
+        print("phase 58, the mixture on the gather mesh through "
+              "torch.distributed.run: " + json.dumps(rec))
+        want = list(range(5, 2 * DRIVER_MESH_STEPS + 1, 5))
+        checks = {
+            "first line": rec["first_line"] == {"mesh": {"blobs": 1},
+                                                "mode": "gather"},
+            "frames without a gap": rec["steps"] == want,
+            "checkpoint at the end": step == 2 * DRIVER_MESH_STEPS,
+            "finite": bool(np.isfinite(X).all() and np.isfinite(Q).all()),
+            "residuals": rec["max_residual"]
+            < 10 * conf["solver"]["gmres_tol"],
+        }
+        for what, ok in checks.items():
+            if not ok:
+                raise AssertionError(f"phase 58: {what}: {rec}")
+        return rec
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ensemble_check(torch, dev, counters, mesh):
+    """Phase 57's ensemble: make_ensemble_run_bd on a (1, 1) hybrid mesh of
+    the process group, 2 walkers of the dense slice (the second shifted),
+    each walker bitwise make_distributed_run_bd on ``mesh`` from the same
+    draws."""
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.dynamics import stepper
+    from rigid_body_light_tpu_torch.state import BodyState
+
+    cfg_d, geom_d, state_d, force_d = slice_setup(torch, dev)
+    hmesh = parallel.make_hybrid_mesh(dcn=1, ici=1)
+    X = torch.stack([state_d.X, state_d.X + torch.tensor(
+        [0.05, -0.05, 0.1], device=dev)])
+    Q = torch.stack([state_d.Q, state_d.Q])
+    gens = [torch.Generator(device=dev).manual_seed(SEED + w)
+            for w in range(2)]
+    draws = [[stepper.make_draws(geom_d, state_d, g, cfg_d)
+              for _ in range(ENSEMBLE_STEPS)] for g in gens]
+    reset_launches(counters)
+    fin, traj = parallel.make_ensemble_run_bd(
+        geom_d, cfg_d, hmesh, ENSEMBLE_STEPS,
+        force_fn=lambda s, i: force_d)(
+        BodyState(X=X, Q=Q), draws_fn=lambda w, i: draws[w][i])
+    torch.cuda.synchronize()
+    cnt = launches(counters)
+    diffs = []
+    for w in range(2):
+        s_w, _ = parallel.make_distributed_run_bd(
+            geom_d, cfg_d, mesh, ENSEMBLE_STEPS,
+            force_fn=lambda s, i: force_d)(
+            BodyState(X=X[w], Q=Q[w]), draws_fn=lambda i, w=w: draws[w][i])
+        diffs.append((fin.X[w] - s_w.X).abs().max().item())
+    rec = dict(walkers=2, steps=ENSEMBLE_STEPS, max_diff=diffs, launches=cnt,
+               traj_shape=list(traj["X"].shape))
+    print(f"phase 57, make_ensemble_run_bd on a (1, 1) mesh, 2 walkers x "
+          f"{ENSEMBLE_STEPS} steps: each walker against "
+          f"make_distributed_run_bd from the same draws {diffs} (bitwise: "
+          f"0); trajectory {list(traj['X'].shape)}; launches {cnt}")
+    if max(diffs) != 0.0 or not cnt.get("pair_sweep_slab"):
+        raise AssertionError(f"phase 57, ensemble: {rec}")
+    return rec
+
+
+def distribution_rest_phases(torch, dev, counters):
+    """Phases 55-58: the rest of distribution (ROADMAP item 16): K4's slab
+    form and the tile sweep's slices in this process; on an NCCL group of
+    this one process each new distributed path against its single-device
+    counterpart from the same draws, with steps/s in turns; the periodic
+    slice at D = 4 on the one card (gloo ranks); the mixture on the gather
+    mesh through the run driver.  Returns the phases' readings."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from rigid_body_light_tpu_torch import multi, parallel
+    from rigid_body_light_tpu_torch.dynamics import run_bd, stepper
+    from rigid_body_light_tpu_torch.utils import profiling
+
+    out = {}
+    t = time.perf_counter()
+    out["phase55"] = ewald_slab_phase(torch, dev)
+    out["phase55"]["seconds"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["phase56"] = tile_slice_phase(torch, dev)
+    out["phase56"]["seconds"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    # ---- 57. the new distributed paths on a process group of one
+    t57 = time.perf_counter()
+    ph = {}
+    init_process_group(torch)
+    try:
+        mesh = parallel.make_mesh(1)
+
+        def single(label, cfg, geom, state, force, tol, timed, bitwise=False,
+                   extra=None):
+            rec = {}
+            p = step_pair(torch, stepper, parallel, geom, cfg, mesh, state,
+                          force, SEED + 57)
+            print(f"phase 57, {label}: distributed step against "
+                  f"single-device {p['rel_dx']:.3e} of max|dX| (tol "
+                  f"{tol:g}{', bitwise' if bitwise else ''}), |dQ| "
+                  f"{p['dq']:.3e}, GMRES {p['iters']}, residuals "
+                  f"{p['residuals']}")
+            ok = (p["rel_dx"] <= tol and max(p["residuals"])
+                  < 10 * cfg.gmres_tol)
+            if bitwise:
+                ok = ok and p["rel_dx"] == 0.0 and p["dq"] == 0.0
+            if not ok:
+                raise AssertionError(f"phase 57, {label}: {p}")
+            rec["step"] = p
+            run_d = parallel.make_distributed_run_bd(
+                geom, cfg, mesh, timed, force_fn=lambda s, i: force)
+            warm_d = parallel.make_distributed_run_bd(
+                geom, cfg, mesh, DIST_WARM_STEPS, force_fn=lambda s, i: force)
+
+            def gen():
+                return torch.Generator(device=dev).manual_seed(SEED)
+            runs = {
+                "run_bd": (lambda: run_bd(geom, cfg, state, DIST_WARM_STEPS,
+                                          generator=gen(),
+                                          force_fn=lambda s, i: force),
+                           lambda: run_bd(geom, cfg, state, timed,
+                                          generator=gen(),
+                                          force_fn=lambda s, i: force)[0].X),
+                "distributed": (lambda: warm_d(state, generator=gen()),
+                                lambda: run_d(state, generator=gen())[0].X)}
+            rec["steps_per_s"], rec["launches"] = in_turns(
+                torch, counters, label, runs, timed)
+            rec["launches_per_step"] = {
+                k: v / timed for k, v in rec["launches"]["distributed"].items()}
+            rec["split"] = step_split(
+                torch, profiling, f"{label} distributed",
+                lambda n_: parallel.make_distributed_run_bd(
+                    geom, cfg, mesh, n_, force_fn=lambda s, i: force)(
+                    state, generator=gen()), 1)
+            return rec
+
+        cfg_e, geom_e, state_e = ewald_setup(torch, dev)
+        f_e = torch.zeros((state_e.X.shape[0], 6), dtype=torch.float32,
+                          device=dev)
+        ph["periodic classic"] = single("periodic slice, classic split",
+                                        cfg_e, geom_e, state_e, f_e,
+                                        STEP_TOL, DIST_TIMED_STEPS,
+                                        bitwise=True)
+        if not ph["periodic classic"]["launches_per_step"].get(
+                "ewald_real_sweep"):
+            raise AssertionError("phase 57: the distributed periodic step "
+                                 "launched no ewald_real_sweep")
+        r_e = state_e.X
+        from rigid_body_light_tpu_torch.ops import ewald_cells
+        from rigid_body_light_tpu_torch.ops import kinematics as kin
+        n_e = geom_e.n_blobs * r_e.shape[0]
+        cfg_rc = cfg_e.replace(ewald_rc=BAL_RC, ewald_nbr_tiles=-(-n_e //
+                                                              ewald_cells.TILE))
+        ph["periodic balanced"] = single(
+            f"periodic slice, ewald_rc {BAL_RC}, dense wave part", cfg_rc,
+            geom_e, state_e, f_e, STEP_TOL, DIST4_TIMED_STEPS)
+
+        cfg_s, geom_s, state_s, force_fn_s = settled_setup(torch, dev)
+        f_s = force_fn_s(state_s, 0)
+        ph["settled RAS"] = single("settled slice, RAS", cfg_s, geom_s,
+                                   state_s, f_s, STEP_TOL, DIST4_TIMED_STEPS)
+        bf = step_pair(torch, stepper, parallel, geom_s,
+                       cfg_s.replace(pc_mode="block_free"), mesh, state_s,
+                       f_s, SEED + 57)
+        ph["settled RAS"]["block_free_iters"] = bf["iters"]
+        print(f"phase 57, settled slice: RAS GMRES "
+              f"{ph['settled RAS']['step']['iters']} against block_free "
+              f"{bf['iters']} (single-device, distributed)")
+        if not ph["settled RAS"]["step"]["iters"][1] < bf["iters"][1]:
+            raise AssertionError("phase 57: distributed RAS took no fewer "
+                                 "iterations than block_free")
+        del cfg_s, geom_s, state_s
+
+        def mixture(label, cfg, mgeom, states, forces, tol, timed,
+                    bitwise=False):
+            p = step_pair_multi(torch, multi, parallel, mgeom, cfg, mesh,
+                                states, forces, SEED + 57)
+            print(f"phase 57, {label}: distributed mixture step against "
+                  f"single-device {p['rel_dx']:.3e} of max|dX| (tol "
+                  f"{tol:g}{', bitwise' if bitwise else ''}), |dQ| "
+                  f"{p['dq']:.3e}, GMRES {p['iters']}, residuals "
+                  f"{p['residuals']}")
+            ok = (p["rel_dx"] <= tol and max(p["residuals"])
+                  < 10 * cfg.gmres_tol)
+            if bitwise:
+                ok = ok and p["rel_dx"] == 0.0 and p["dq"] == 0.0
+            if not ok:
+                raise AssertionError(f"phase 57, {label}: {p}")
+            rec = {"step": p}
+            run_d = parallel.make_distributed_run_bd_multi(
+                mgeom, cfg, mesh, timed, force_fn=lambda ss, i: forces)
+            warm_d = parallel.make_distributed_run_bd_multi(
+                mgeom, cfg, mesh, DIST_WARM_STEPS,
+                force_fn=lambda ss, i: forces)
+
+            def gen():
+                return torch.Generator(device=dev).manual_seed(SEED)
+            runs = {
+                "run_bd_multi": (
+                    lambda: multi.run_bd_multi(
+                        mgeom, cfg, states, DIST_WARM_STEPS, generator=gen(),
+                        force_fn=lambda ss, i: forces),
+                    lambda: multi.run_bd_multi(
+                        mgeom, cfg, states, timed, generator=gen(),
+                        force_fn=lambda ss, i: forces)[0][0].X),
+                "distributed": (lambda: warm_d(states, generator=gen()),
+                                lambda: run_d(states,
+                                              generator=gen())[0][0].X)}
+            rec["steps_per_s"], rec["launches"] = in_turns(
+                torch, counters, label, runs, timed)
+            rec["launches_per_step"] = {
+                k: v / timed for k, v in rec["launches"]["distributed"].items()}
+            rec["split"] = step_split(
+                torch, profiling, f"{label} distributed",
+                lambda n_: parallel.make_distributed_run_bd_multi(
+                    mgeom, cfg, mesh, n_, force_fn=lambda ss, i: forces)(
+                    states, generator=gen()), 1)
+            return rec
+
+        cfg_m, mgeom_m, states_m, forces_m = mixture_setup(torch, dev)
+        ph["mixture POLY ring"] = mixture(
+            "mixture, the POLY ring", cfg_m, mgeom_m, states_m, forces_m,
+            STEP_TOL, DIST_TIMED_STEPS)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            cfg_fm, mgeom_fm, states_fm, forces_fm = farfield_mixture_setup(
+                torch, dev, FF_BODIES)
+        ph["far-field mixture"] = mixture(
+            "far-field mixture", cfg_fm, mgeom_fm, states_fm, forces_fm,
+            STEP_TOL, FF_TIMED_STEPS, bitwise=True)
+        del cfg_fm, mgeom_fm, states_fm, forces_fm
+        torch.cuda.empty_cache()
+        cfg_fb, geom_fb, state_fb, force_fb = farfield_setup(
+            torch, dev, FF_BODIES, side=FB_SIDE, box=FB_BOX, grid=FB_GRID)
+        ph["far-field film"] = single(
+            "far-field film", cfg_fb, geom_fb, state_fb, force_fb, STEP_TOL,
+            DIST4_TIMED_STEPS, bitwise=True)
+        del cfg_fb, geom_fb, state_fb, force_fb
+        torch.cuda.empty_cache()
+
+        ph["ensemble"] = ensemble_check(torch, dev, counters, mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ph["periodic D = 4 on one card"] = gloo_card_phase(torch)
+    ph["seconds"] = time.perf_counter() - t57
+    out["phase57"] = ph
+    t = time.perf_counter()
+    out["phase58"] = driver_mixture_phase()
+    out["phase58"]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def ewald_slab_entry(d):
+    """The kernels line's entry of K4's slab form (phases 55 and 57):
+    launches on the distributed periodic step at D = 4 on the one card
+    (rank 0's, phase 57), its error at the periodic slice (phase 55, the
+    ring at 2 RHS), its ms at the main path's shape there (a rank's n/4 ×
+    n/4 ring slab at 1 RHS) and the other shapes'."""
+    t = d["phase55"]["times"]
+    main_ = t[("ring", 1)]
+    four = d["phase57"]["periodic D = 4 on one card"]
+    return {
+        "name": "ewald_real_slab", "route": "cuda", "source": K4_SOURCE,
+        "replaces": "rigid_body_light_tpu/ops/ewald_pallas.py:81",
+        "entry_replaces": "rigid_body_light_tpu/ops/ewald.py:788",
+        "launches": four["run_launches"][0].get("ewald_real_slab", 0),
+        "max_abs_err": max(v["err"] for v in d["phase55"]["ring"].values()),
+        "ms": main_["ms"], "plain_ms": main_["plain_ms"],
+        "bound_ms": main_["bound_ms"], "bound_by": main_["bound_by"],
+        "library_ms": None,
+        **{f"ms_{key}_{k}rhs": v["ms"] for (key, k), v in t.items()},
+        **{f"bound_ms_{key}_{k}rhs": v["bound_ms"] for (key, k), v in
+           t.items()},
+        "launches_per_step_d4": four["step_launches"][0].get(
+            "ewald_real_slab", 0),
+        "launches_per_step_world1": d["phase57"]["periodic classic"][
+            "launches_per_step"].get("ewald_real_slab", 0)}
 
 
 def jsonable(x):
@@ -5136,6 +5800,13 @@ def main():
     dist_ = distributed_phases(torch, dev, counters)
     dist_["seconds"] = time.perf_counter() - t_dist
     print(json.dumps({"distribution": jsonable(dist_)}))
+
+    # ---- 55-58. the rest of distribution
+    torch.cuda.empty_cache()
+    t_rest = time.perf_counter()
+    dist_rest = distribution_rest_phases(torch, dev, counters)
+    dist_rest["seconds"] = time.perf_counter() - t_rest
+    print(json.dumps({"distribution_rest": jsonable(dist_rest)}))
     band47 = band["phase47"]["p = 4 + band 6"]
 
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
@@ -5249,6 +5920,7 @@ def main():
          "launches_balanced_split_slice": balanced["phase44"][
              "launches"].get("ewald_real_sweep", 0)},
         slice_entry(dist_),
+        ewald_slab_entry(dist_rest),
         {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
          "replaces": "scripts/tpu_kernel_roofline.py:53",
          "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,

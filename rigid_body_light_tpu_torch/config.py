@@ -3,8 +3,7 @@
 Same field names, defaults and ``__post_init__`` checks as the JAX
 ``SimulationConfig``, with ``dtype`` a ``torch.dtype``.  The far field's
 band tier with a 2-D box raises here already (the JAX package raises at
-the first apply).  ``_not_ported`` names the ROADMAP.md queue-1 item of a
-feature the port does not have yet where a module refuses it.
+the first apply).
 """
 
 from __future__ import annotations
@@ -14,12 +13,6 @@ import warnings
 from typing import Any
 
 import torch
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to rigid_body_light_tpu_torch yet "
-        f"(ROADMAP.md queue 1, {item})")
 
 
 @dataclasses.dataclass(frozen=True)

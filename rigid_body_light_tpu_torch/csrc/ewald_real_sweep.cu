@@ -6,6 +6,15 @@
 //                        minimum image, every unordered pair i<j once,
 //                        applied forward (into row i) and transposed (into
 //                        column j).  1 or 2 RHS sharing the pair fields.
+//   ewald_real_slab      its ordered slab form for the distributed ring
+//                        (rigid_body_light_tpu_torch/ops/ewald.py::
+//                        mobility_apply_local): U_i = Σ_j [A·I + B·r̂r̂]·F_j
+//                        for rows i of one block against the columns j of
+//                        another, at global offsets, the pair whose global
+//                        ids are equal left out.  The JAX package sweeps
+//                        these blocks in plain XLA (ewald.py:788
+//                        real_space_block); the ring's diagonal block is
+//                        K4's own sweep.
 //
 // A(r) and B(r) are never evaluated from their closed forms (those cancel
 // catastrophically in float32): they come from the host-fitted float64
@@ -304,6 +313,169 @@ void launch_item(const tile_items::Groups& g, cudaStream_t stream,
         pos, force, n, g, cst, coef, deg, row_part, col_part);
 }
 
+// The slab form.  Block (row block blockIdx.x, column chunk blockIdx.y) of
+// kSlabRows rows × kSlabChunk columns, K2's ordered layout
+// (rpy_pair_sweep.cu::pair_sweep_ordered_kernel): lane l owns rows l and
+// l + 32 of the row block, and their two Clenshaw chains run side by side
+// (K4's two pairs a thread; the rows of a warp share a column, so their
+// segment nearly always, and one shared read serves both chains); warp w
+// sweeps columns [64w, 64w + 64) of the chunk.  Every pair is evaluated
+// from its row's side only (an ordered sweep), with K4's wrap, distance,
+// segment map and Clenshaw, and a pair is live iff its row is in range and
+// its global ids differ, so a block that overlaps its rows is right too.
+// The 4 warps' sums are added in a fixed order into the chunk's partial
+// (one writer per element), and a second pass sums the chunks in order:
+// no atomics, launches repeat bitwise.
+constexpr int kSlabRows = 64;
+constexpr int kSlabChunk = 256;
+constexpr int kSlabWarps = 4;
+constexpr int kSlabWarpCols = kSlabChunk / kSlabWarps;
+constexpr int kSlabRowsPerLane = kSlabRows / 32;
+
+template <int NRHS>
+__global__ void __launch_bounds__(kSlabWarps * 32)
+ewald_slab_kernel(const float* __restrict__ rows_pos,    // (n_rows, 3)
+                  int n_rows, int row0,
+                  const float* __restrict__ cols_pos,    // (n_cols, 3)
+                  const float* __restrict__ cols_force,  // (NRHS, n_cols, 3)
+                  int n_cols, int col0, SweepConsts cst,
+                  const float2* __restrict__ coef,       // (deg+1, 4)
+                  int deg,
+                  float* __restrict__ part) {  // (chunks, NRHS, n_rows, 3)
+  constexpr int NF = 3 * NRHS;
+  constexpr int RL = kSlabRowsPerLane;
+  __shared__ float2 s_coef[(kMaxDeg + 1) * 4];
+  __shared__ float s_pos[3][kSlabChunk];
+  __shared__ float s_f[NF][kSlabChunk];
+  __shared__ float s_red[kSlabWarps][NF][kSlabRows];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int w = t >> 5;
+  const int c0 = blockIdx.y * kSlabChunk;
+  const int n_c = min(kSlabChunk, n_cols - c0);
+
+  for (int idx = t; idx < (deg + 1) * 4; idx += kSlabWarps * 32)
+    s_coef[idx] = coef[idx];
+  for (int c = t; c < kSlabChunk; c += kSlabWarps * 32) {
+    const int j = c0 + c;
+    const bool ok = j < n_cols;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) s_pos[d][c] = ok ? cols_pos[3 * j + d] : 0.0f;
+#pragma unroll
+    for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        s_f[3 * k + d][c] =
+            ok ? cols_force[((size_t)k * n_cols + j) * 3 + d] : 0.0f;
+  }
+  float xR[RL], yR[RL], zR[RL];
+  bool row_ok[RL];
+  int gi[RL];
+  float acc[RL][NF];
+#pragma unroll
+  for (int r = 0; r < RL; ++r) {
+    const int i = blockIdx.x * kSlabRows + r * 32 + lane;
+    row_ok[r] = i < n_rows;
+    gi[r] = row0 + i;
+    xR[r] = row_ok[r] ? rows_pos[3 * i] : 0.0f;
+    yR[r] = row_ok[r] ? rows_pos[3 * i + 1] : 0.0f;
+    zR[r] = row_ok[r] ? rows_pos[3 * i + 2] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < NF; ++q) acc[r][q] = 0.0f;
+  }
+  __syncthreads();  // the stage and the table are written
+
+  // warp-uniform bounds: every lane runs every column (the Clenshaw
+  // helper's vote needs the whole warp)
+  const int c_end = min(n_c, (w + 1) * kSlabWarpCols);
+  for (int c = w * kSlabWarpCols; c < c_end; ++c) {
+    const float xC = s_pos[0][c], yC = s_pos[1][c], zC = s_pos[2][c];
+    const int gj = col0 + c0 + c;
+    float dx[RL], dy[RL], dz[RL], x[RL], inv_r2[RL];
+    int seg[RL];
+    bool valid[RL];
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      valid[r] = row_ok[r] && gi[r] != gj;
+      dx[r] = xR[r] - xC;
+      dy[r] = yR[r] - yC;
+      dz[r] = zR[r] - zC;
+      dx[r] -= cst.box[0] * rintf(dx[r] * cst.inv_box[0]);
+      dy[r] -= cst.box[1] * rintf(dy[r] * cst.inv_box[1]);
+      dz[r] -= cst.box[2] * rintf(dz[r] * cst.inv_box[2]);
+      float r2 = fmaxf(dx[r] * dx[r] + dy[r] * dy[r] + dz[r] * dz[r],
+                       1e-24f);
+      r2 = valid[r] ? r2 : 1.0f;
+      const float rr = sqrtf(r2);
+      inv_r2[r] = 1.0f / r2;
+      const bool in1 = rr >= cst.b1, in2 = rr >= cst.b2;
+      seg[r] = (int)in1 + (int)in2;
+      const float lo = in2 ? cst.lo[2] : (in1 ? cst.lo[1] : cst.lo[0]);
+      const float two_inv_w = in2 ? cst.two_inv_w[2]
+                                  : (in1 ? cst.two_inv_w[1]
+                                         : cst.two_inv_w[0]);
+      x[r] = fminf(fmaxf((rr - lo) * two_inv_w - 1.0f, -1.0f), 1.0f);
+    }
+    float A[RL], B[RL];
+    clenshaw<RL>(s_coef, deg, seg, x, A, B);
+#pragma unroll
+    for (int r = 0; r < RL; ++r) {
+      const float Ap = valid[r] ? A[r] : 0.0f;
+      const float Bh = valid[r] ? B[r] * inv_r2[r] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < NRHS; ++k) {
+        const float fx = s_f[3 * k][c], fy = s_f[3 * k + 1][c],
+                    fz = s_f[3 * k + 2][c];
+        const float bdF = Bh * (dx[r] * fx + dy[r] * fy + dz[r] * fz);
+        acc[r][3 * k] += Ap * fx + bdF * dx[r];
+        acc[r][3 * k + 1] += Ap * fy + bdF * dy[r];
+        acc[r][3 * k + 2] += Ap * fz + bdF * dz[r];
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RL; ++r)
+#pragma unroll
+    for (int q = 0; q < NF; ++q) s_red[w][q][r * 32 + lane] = acc[r][q];
+  __syncthreads();
+  for (int idx = t; idx < NF * kSlabRows; idx += kSlabWarps * 32) {
+    const int q = idx / kSlabRows;
+    const int rr = idx % kSlabRows;
+    const int i = blockIdx.x * kSlabRows + rr;
+    if (i >= n_rows) continue;
+    float v = s_red[0][q][rr];
+#pragma unroll
+    for (int s = 1; s < kSlabWarps; ++s) v += s_red[s][q][rr];
+    part[(((size_t)blockIdx.y * NRHS + q / 3) * n_rows + i) * 3 + q % 3] = v;
+  }
+}
+
+// The slab's second pass: out[e] = Σ_chunk part[chunk][e] in chunk order,
+// for the per_chunk = nrhs·n_rows·3 elements e.
+__global__ void slab_sum_chunks_kernel(const float* __restrict__ part,
+                                       int n_chunks, int per_chunk,
+                                       float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= per_chunk) return;
+  float v = 0.0f;
+  for (int c = 0; c < n_chunks; ++c) v += part[(size_t)c * per_chunk + e];
+  out[e] = v;
+}
+
+SweepConsts unpack_consts(const float* consts) {
+  SweepConsts cst;
+  for (int d = 0; d < 3; ++d) {
+    cst.box[d] = consts[d];
+    cst.inv_box[d] = consts[3 + d];
+    cst.lo[d] = consts[8 + d];
+    cst.two_inv_w[d] = consts[11 + d];
+  }
+  cst.b1 = consts[6];
+  cst.b2 = consts[7];
+  return cst;
+}
+
 }  // namespace
 
 extern "C" {
@@ -327,15 +499,7 @@ int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (deg < 0 || deg > kMaxDeg) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 0) return 0;
-  SweepConsts cst;
-  for (int d = 0; d < 3; ++d) {
-    cst.box[d] = consts[d];
-    cst.inv_box[d] = consts[3 + d];
-    cst.lo[d] = consts[8 + d];
-    cst.two_inv_w[d] = consts[11 + d];
-  }
-  cst.b1 = consts[6];
-  cst.b2 = consts[7];
+  const SweepConsts cst = unpack_consts(consts);
   const tile_items::Groups g = tile_items::groups_of(n);
   const float2* coef2 = reinterpret_cast<const float2*>(coef);
   if (nrhs == 1)
@@ -348,6 +512,47 @@ int ewald_real_sweep(const float* pos, const float* force, int n, int nrhs,
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(
       tile_items::sum_items(row_part, col_part, n, nrhs, out, stream));
+}
+
+// The slab form's rows and columns a block.
+int ewald_slab_rows() { return kSlabRows; }
+int ewald_slab_chunk() { return kSlabChunk; }
+
+// The slab form: out (nrhs, n_rows, 3) = Σ_j [A·I + B·r̂r̂]·F_j over every
+// column j whose global id (col0 + j) differs from the row's (row0 + i).
+// consts and coef as ewald_real_sweep's.  part holds
+// ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).
+int ewald_real_slab(const float* rows_pos, int n_rows, int row0,
+                    const float* cols_pos, const float* cols_force,
+                    int n_cols, int col0, int nrhs, const float* consts,
+                    const float* coef, int deg, float* part, float* out,
+                    void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (deg < 0 || deg > kMaxDeg) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0) return 0;
+  const int n_chunks = n_cols > 0 ? (n_cols + kSlabChunk - 1) / kSlabChunk
+                                  : 0;
+  if (n_chunks > 0) {
+    const SweepConsts cst = unpack_consts(consts);
+    const float2* coef2 = reinterpret_cast<const float2*>(coef);
+    const dim3 grid((n_rows + kSlabRows - 1) / kSlabRows, n_chunks);
+    if (nrhs == 1)
+      ewald_slab_kernel<1><<<grid, kSlabWarps * 32, 0, stream>>>(
+          rows_pos, n_rows, row0, cols_pos, cols_force, n_cols, col0, cst,
+          coef2, deg, part);
+    else
+      ewald_slab_kernel<2><<<grid, kSlabWarps * 32, 0, stream>>>(
+          rows_pos, n_rows, row0, cols_pos, cols_force, n_cols, col0, cst,
+          coef2, deg, part);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int per_chunk = nrhs * n_rows * 3;
+  const int threads = 256;
+  slab_sum_chunks_kernel<<<(per_chunk + threads - 1) / threads, threads, 0,
+                           stream>>>(part, n_chunks, per_chunk, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

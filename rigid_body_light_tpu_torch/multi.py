@@ -24,9 +24,17 @@ W1 and W2 (3·N_total,) — in the species-major body-frame layout of
 layout of ``lanczos.m_half_w`` — W2 None where the step takes one draw
 (``split_rand`` off, or ``em_exact``); W_rfd (N_total, 3) for the
 midpoint scheme, (B_total, 6) species-major for ``em_exact``'s
-:func:`n_rfd_exact_multi`.  Not ported: the distributed mode (a
-process group as ``group``, the JAX package's ``axis_name``, raises;
-ROADMAP.md queue 1, item 16).
+:func:`n_rfd_exact_multi`.
+
+Distributed mode (``group``, a ``torch.distributed`` process group; the
+JAX package's ``axis_name``): the states, forces, slip and draws are this
+rank's bodies of every species (each rank's draws in its own
+species-major layout), ``mob_apply`` is the local operator of
+:mod:`rigid_body_light_tpu_torch.parallel` with this rank's radii closed
+in (``parallel.make_distributed_step_multi`` builds it), and every Krylov
+and Lanczos reduction is all-reduced over the group.  ``pc_mode="ras"``
+keeps the static per-species preconditioner there, as the JAX package
+does: the mixture's coupled Ñ is single-device.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
+from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.dynamics.stepper import _commit, uses_split
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
 from rigid_body_light_tpu_torch.ops import kinematics as kin
@@ -47,12 +55,6 @@ from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
 from rigid_body_light_tpu_torch.state import BodyState
 from rigid_body_light_tpu_torch.utils import profiling
 from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
-
-
-def _no_group(group):
-    if group is not None:
-        raise _not_ported("the distributed mixture (a process group)",
-                          "item 16")
 
 
 class MultiGeometry(NamedTuple):
@@ -342,7 +344,7 @@ def make_noise_preconditioner_multi(mgeom: MultiGeometry, a, eta):
 
 
 def m_half_w_precond_multi(mob_apply_multi: Callable, opses, npcs, W,
-                           iters: int = 10):
+                           iters: int = 10, group=None):
     """Preconditioned M^{1/2}W draws on the mixture's blob space, from the
     Gaussian draws ``W`` (k, 3·N_total) (k = 1 or 2, species-major, each
     species' slice in its bodies' frames).  The per-species factors
@@ -351,7 +353,7 @@ def m_half_w_precond_multi(mob_apply_multi: Callable, opses, npcs, W,
     the kernels take it.  Returns a tuple of k (N_total, 3) draws.
 
     G·v = L⁻¹ R̃ᵀ · M · R̃ L⁻ᵀ v per species, noise = R̃ L · G^{1/2} W.
-    """
+    group: distributed mode (the module docstring)."""
     pos = concat_positions(opses)
     mob_apply_multi = saddle_mod.hoist_positions(mob_apply_multi, pos)
     W = W.to(pos.dtype)
@@ -383,7 +385,7 @@ def m_half_w_precond_multi(mob_apply_multi: Callable, opses, npcs, W,
             mx = mob_apply_multi(x, pos)
         return from_world(mx)
 
-    g = lanczos.sqrt_matvec_batched(mv, W, iters=iters)
+    g = lanczos.sqrt_matvec_batched(mv, W, iters=iters, group=group)
     out, start = [], 0
     for o, (L, _), (B, n) in zip(opses, npcs, shapes):  # slice = R̃ L g_s
         gb = g[:, start:start + 3 * B * n].reshape(k, B, 3 * n)
@@ -422,9 +424,9 @@ def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     slip: (N_total, 3) or None; forces: tuple of (B_s, 6).  x0: optional
     (λ, Us) Krylov warm start; pcs: optional prebuilt per-species PC tuple.
     With ``cfg.pc_mode == "ras"`` the mixture RAS coupling is attached at
-    this solve's geometry.
+    this solve's geometry, on one device; with a ``group`` (distributed
+    mode, the module docstring) the static per-species PC stays.
     """
-    _no_group(group)
     if opses is None:
         opses = geometry_ops_multi(mgeom, states)
     if mob_apply is None:
@@ -438,7 +440,8 @@ def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     with profiling.span("pc_build"):
         if pcs is None:
             pcs = build_pc_multi(opses, cfg, species_a=mgeom.species_a(cfg))
-        if cfg.pc_mode == "ras" and not isinstance(pcs, RasMultiPC):
+        if (cfg.pc_mode == "ras" and group is None
+                and not isinstance(pcs, RasMultiPC)):
             pcs = build_pc_ras_multi(opses, cfg, static_pcs=pcs,
                                      species_a=mgeom.species_a(cfg))
 
@@ -459,7 +462,7 @@ def solve_saddle_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     with profiling.span("gmres"):
         result = gmres_mod.gmres(matvec, b, x0=x0, tol=cfg.gmres_tol,
                                  restart=cfg.gmres_restart,
-                                 max_restarts=max_restarts)
+                                 max_restarts=max_restarts, group=group)
     lam, Us = _unflatten(result.x, opses)
     return MultiSolveResult(lam=lam, Us=Us, residual=result.residual,
                             iters=result.iters)
@@ -485,13 +488,14 @@ def make_draws_multi(mgeom: MultiGeometry, states: Sequence[BodyState],
 
 def n_rfd_exact_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
                       states: Sequence[BodyState], w,
-                      mob_apply: Callable = None, pcs=None):
+                      mob_apply: Callable = None, pcs=None, group=None):
     """The mixture's body-space divergence drift ∂·N per species by a
     centered RFD on the solved mixture body mobility (two extra mixture
     saddle solves), as :func:`rigid_body_light_tpu_torch.ops.rfd
     .n_rfd_exact`, for a Gaussian draw ``w`` (B_total, 6), species-major.
     Returns a tuple of per-species (B_s, 6); multiply by kBT at the call
-    site.  δ is floored at 1e-2 in float32 (``rfd.rfd_delta``)."""
+    site.  δ is floored at 1e-2 in float32 (``rfd.rfd_delta``).  group:
+    distributed mode (the module docstring)."""
     dtype = states[0].X.dtype
     ws = tuple(torch.split(w.reshape(-1, 6).to(dtype),
                            [s.X.shape[0] for s in states]))
@@ -502,7 +506,8 @@ def n_rfd_exact_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
             BodyState(*kin.update_X_Q(s.X, s.Q, sign * (delta / 2.0) * w_s))
             for s, w_s in zip(states, ws))
         return solve_saddle_multi(mgeom, cfg, displaced, None, ws,
-                                  mob_apply=mob_apply, pcs=pcs).Us
+                                  mob_apply=mob_apply, pcs=pcs,
+                                  group=group).Us
 
     up, um = n_dot_w(1.0), n_dot_w(-1.0)
     return tuple((p - m) / delta for p, m in zip(up, um))
@@ -522,8 +527,10 @@ def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     saddle solve at the half-kicked configuration; or ``em_exact``, one
     draw, the solve at q^n and :func:`n_rfd_exact_multi`; a guarded
     per-species commit.  draws: (W1, W2, W_rfd) in the shapes of the module
-    docstring, or None to draw them from ``generator``.  Returns
-    (new_states, MultiSolveResult), its Us the committed velocities."""
+    docstring, or None to draw them from ``generator``.  group: distributed
+    mode (the module docstring), which needs the local ``mob_apply``.
+    Returns (new_states, MultiSolveResult), its Us the committed
+    velocities."""
     with profiling.span("step"):
         return _stochastic_step_multi(mgeom, cfg, tuple(states), forces, slip,
                                       mob_apply, x0, pcs, noise_pcs,
@@ -533,13 +540,22 @@ def stochastic_step_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
 def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
                            pcs, noise_pcs, mob_multi, draws, generator,
                            group):
-    _no_group(group)
     default_mob = mob_apply is None
+    if default_mob and group is not None:
+        raise ValueError(
+            "distributed stochastic_step_multi needs an explicit local "
+            "mob_apply (parallel.ring_mobility_apply_fn with the "
+            "mixture's radii)")
     with profiling.span("kinematics"):
         opses = geometry_ops_multi(mgeom, states)
     if default_mob:
         mob_apply = _mob_fns(mgeom, opses, cfg)[0]
+    # as the single-species step: one operator passed as both products (the
+    # distributed steppers) shares its pinned lattices with the noise
+    same_multi = mob_multi is not None and mob_multi is mob_apply
     mob_apply = saddle_mod.pin_geometry(mob_apply, concat_positions(opses))
+    if same_multi:
+        mob_multi = mob_apply
     dtype = states[0].X.dtype
     dev = states[0].X.device
     n_total = sum(_blob_counts(opses))
@@ -573,21 +589,22 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
                 if cfg.lanczos_precond:
                     mhw1, mhw2 = m_half_w_precond_multi(
                         mob_multi, opses, noise_pcs, torch.stack([W1, W2]),
-                        iters=cfg.lanczos_iters)
+                        iters=cfg.lanczos_iters, group=group)
                 else:
                     mhw1, mhw2 = lanczos.m_half_w_pair(
                         mob_multi, pos, torch.stack([W1, W2]),
-                        iters=cfg.lanczos_iters)
+                        iters=cfg.lanczos_iters, group=group)
                 c1 = 2.0 * math.sqrt(kBT / cfg.dt)
                 bi = math.sqrt(kBT / cfg.dt) * (mhw1 - mhw2)
             else:
                 if cfg.lanczos_precond:
                     (mhw1,) = m_half_w_precond_multi(
                         mob_multi, opses, noise_pcs, W1[None],
-                        iters=cfg.lanczos_iters)
+                        iters=cfg.lanczos_iters, group=group)
                 else:
                     mhw1 = lanczos.m_half_w(mob_apply, pos, W1,
-                                            iters=cfg.lanczos_iters)
+                                            iters=cfg.lanczos_iters,
+                                            group=group)
                 c1 = math.sqrt(2.0 * kBT / cfg.dt)
                 bi = c1 * mhw1
     if kBT > 0.0 and cfg.drift_mode == "em_exact":
@@ -597,7 +614,8 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
         opses_solve = opses
         with profiling.span("rfd"):
             drift_Us = tuple(kBT * d for d in n_rfd_exact_multi(
-                mgeom, cfg, states, W_rfd, mob_apply=mob_apply, pcs=pcs))
+                mgeom, cfg, states, W_rfd, mob_apply=mob_apply, pcs=pcs,
+                group=group))
     elif kBT > 0.0:
         with profiling.span("rfd"):
             # drift: centered RFD of M along the rigid direction u = K⁺W
@@ -628,7 +646,7 @@ def _stochastic_step_multi(mgeom, cfg, states, forces, slip, mob_apply, x0,
 
     res = solve_saddle_multi(mgeom, cfg, states, slip_eff, forces,
                              mob_apply=mob_apply, opses=opses_solve, x0=x0,
-                             pcs=pcs)
+                             pcs=pcs, group=group)
     if drift_Us is not None:
         res = res._replace(Us=tuple(U + d for U, d in zip(res.Us, drift_Us)))
     ok = res.residual < cfg.max_step_residual
@@ -669,12 +687,12 @@ def run_bd_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
     force_fn: (states, step) → tuple of per-species (B_s, 6) (default 0).
     slip_fn: (states, step) → (N_total, 3).  draws_fn: step → (W1, W2,
     W_rfd) in the shapes of the module docstring, else the draws come from
-    ``generator``.  Returns (final_states,
-    trajectory) with per-species stacked snapshots every ``save_every``
-    steps: trajectory["X"][s] has shape (n_saved, B_s, 3); "residual" and
-    "iters" (n_saved,).
+    ``generator``.  group: distributed mode (the module docstring): the
+    states, forces, slip and draws are this rank's bodies.  Returns
+    (final_states, trajectory) with per-species stacked snapshots every
+    ``save_every`` steps: trajectory["X"][s] has shape (n_saved, B_s, 3);
+    "residual" and "iters" (n_saved,).
     """
-    _no_group(group)
     states = tuple(states)
     dtype, dev = states[0].X.dtype, states[0].X.device
     if cfg.box is not None:
@@ -710,7 +728,7 @@ def run_bd_multi(mgeom: MultiGeometry, cfg: SimulationConfig,
             mob_apply=mob_apply, x0=x_prev, pcs=pcs, noise_pcs=noise_pcs,
             mob_multi=mob_multi,
             draws=draws_fn(i) if draws_fn is not None else None,
-            generator=generator)
+            generator=generator, group=group)
         Xs.append(tuple(s.X for s in ss))
         Qs.append(tuple(s.Q for s in ss))
         residuals.append(res.residual)

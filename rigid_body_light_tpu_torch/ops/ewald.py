@@ -55,7 +55,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rigid_body_light_tpu_torch.utils import profiling
+from rigid_body_light_tpu_torch.utils import collectives, profiling
+from rigid_body_light_tpu_torch.utils.collectives import psum
 
 _SQPI = math.sqrt(math.pi)
 
@@ -589,17 +590,22 @@ def real_space_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
 
 
 # ------------------------------------------------------------- wave space
-def wave_space_apply(F, r, params: EwaldParams, radii=None):
+def wave_space_apply(F, r, params: EwaldParams, radii=None, group=None):
     """U_wave = Σ_{k≠0} w(k)(I − k̂k̂) e^{ik·(r_i−r_j)} F_j as matmuls
     against the (N, K) phase matrices C/S = cos/sin(r·kᵀ).  The k-sum
     includes the i = j term (the wave part of the self mobility).  Above a
     memory threshold the k-sum runs in K-chunks so the phase matrices never
     exist whole.  radii: per-blob sinc(|k|aᵢ) weights on the spread and
-    the readback (the weights then carry no sinc²)."""
+    the readback (the weights then carry no sinc²).
+
+    group: None (one device), or a process group: F, r and radii are this
+    rank's blobs, the (K, 3) k-space moments are summed over the group
+    (one all-reduce each of their real and imaginary parts) and the
+    phases stay local."""
     K = len(params.kvecs)
     if K * r.shape[0] > 2**27 and K > 4096:
-        return _wave_space_chunked(F, r, params, radii=radii)
-    return _wave_space_dense(F, r, params, radii=radii)
+        return _wave_space_chunked(F, r, params, radii=radii, group=group)
+    return _wave_space_dense(F, r, params, radii=radii, group=group)
 
 
 def _nmax3(nvecs):
@@ -637,7 +643,8 @@ def _phases_from_tables(tables, nvecs, nmax3):
     return cxy * czg - sxy * szg, cxy * szg + sxy * czg
 
 
-def _wave_space_chunked(F, r, params: EwaldParams, radii=None, kc=4096):
+def _wave_space_chunked(F, r, params: EwaldParams, radii=None, kc=4096,
+                        group=None):
     """The k-sum in chunks of ``kc`` wavevectors, sharing the per-axis
     phase tables."""
     K = len(params.kvecs)
@@ -653,7 +660,7 @@ def _wave_space_chunked(F, r, params: EwaldParams, radii=None, kc=4096):
         phases = (_phases_from_tables(tables, params.nvecs[sl], nmax3)
                   if tables is not None else None)
         U = U + _wave_space_dense(F, r, sub, radii=radii, phases=phases,
-                                  keep=False)
+                                  keep=False, group=group)
     return U
 
 
@@ -667,9 +674,10 @@ def _wave_tables(params: EwaldParams, dtype, dev):
 
 
 def _wave_space_dense(F, r, params: EwaldParams, radii=None, phases=None,
-                      keep=True):
+                      keep=True, group=None):
     """keep: the wave tables are kept per operator (:func:`per_operator`);
-    the chunked sum's per-chunk operators are temporaries, not kept."""
+    the chunked sum's per-chunk operators are temporaries, not kept.
+    group: the moments' all-reduce (:func:`wave_space_apply`)."""
     dtype, dev = r.dtype, r.device
     if keep:
         kv, wk, wk_raw, khat = per_operator(
@@ -702,12 +710,14 @@ def _wave_space_dense(F, r, params: EwaldParams, radii=None, phases=None,
                                                    keepdim=True))
 
     if F.dim() == 3:                           # (k, N, 3): shared phases
-        ReP = project(torch.einsum("nK,qnx->qKx", C, F))
-        ImP = project(-torch.einsum("nK,qnx->qKx", S, F))
+        ReF = psum(torch.einsum("nK,qnx->qKx", C, F), group)
+        ImF = psum(-torch.einsum("nK,qnx->qKx", S, F), group)
+        ReP, ImP = project(ReF), project(ImF)
         return (torch.einsum("nK,qKx->qnx", C, ReP)
                 - torch.einsum("nK,qKx->qnx", S, ImP))
-    ReP = project(C.T @ F)                     # (K, 3) = Re Σ e^{-ikr} F
-    ImP = project(-(S.T @ F))
+    ReF = psum(C.T @ F, group)                 # (K, 3) = Re Σ e^{-ikr} F
+    ImF = psum(-(S.T @ F), group)
+    ReP, ImP = project(ReF), project(ImF)
     return C @ ReP - S @ ImP
 
 
@@ -781,3 +791,101 @@ def mobility_matrix(r, params: EwaldParams, radii=None):
     cols = mobility_apply_multi(eye.reshape(3 * n, n, 3), r, params,
                                 radii=radii)
     return cols.reshape(3 * n, 3 * n).T
+
+
+# ------------------------------------------------------------ distributed
+def ring_slab(Fs, r_rows, row0, r_cols, col0, params: EwaldParams,
+              row_tile=512, use_kernel=False, diagonal=False):
+    """One slab of the classic split's ring: Σ_j [A·I + B·r̂r̂]·F_j for the
+    rows ``r_rows`` (global ids row0, …) against the columns ``r_cols``
+    (col0, …), the pair of equal ids left out.  The plain
+    :func:`real_space_block`, or with ``use_kernel`` (float32, Fs (k, N_c,
+    3)) K4's symmetric sweep for the ``diagonal`` block (the rank's own
+    rows against themselves) and K4's slab form for the others
+    (:mod:`.ewald_cuda`)."""
+    if use_kernel:
+        from rigid_body_light_tpu_torch.ops import ewald_cuda
+
+        if diagonal:
+            return ewald_cuda.real_pair_sum(Fs, r_rows, params)
+        return ewald_cuda.real_pair_sum_slab(Fs, r_rows, row0, r_cols, col0,
+                                             params)
+    dev = r_rows.device
+    return real_space_block(
+        r_rows, row0 + torch.arange(r_rows.shape[0], device=dev), r_cols,
+        col0 + torch.arange(r_cols.shape[0], device=dev), Fs, params,
+        row_tile=row_tile)
+
+
+def _ring_real(Fs, r_l, params: EwaldParams, group, row_tile, use_kernel):
+    """The classic split's real part of this rank's rows on a ring of
+    slabs (:func:`ring_slab`): over D steps the (positions, forces) blocks
+    rotate around the group, the next block's send and receive posted
+    before the current slab's sweep, step s sweeping the block from rank
+    (idx − s) mod D and the steps summed in order, as the JAX package's
+    ring; step 0 is the diagonal block."""
+    d, idx = collectives.size(group), collectives.rank(group)
+    n_l = r_l.shape[0]
+    acc = None
+    blk = [r_l, Fs]
+    for s in range(d):
+        wait = None
+        if s < d - 1:
+            nxt, wait = collectives.ring_shift(blk, group)
+        part = ring_slab(blk[1], r_l, idx * n_l, blk[0],
+                         ((idx - s) % d) * n_l, params, row_tile,
+                         use_kernel, diagonal=s == 0)
+        acc = part if acc is None else acc + part
+        if wait is not None:
+            wait()
+            blk = nxt
+    return acc
+
+
+def mobility_apply_local(F_l, r_l, params: EwaldParams, group, row_tile=512,
+                         max_nbr=None, radii_l=None,
+                         poly_tables: PolyTables = None, use_kernel=False):
+    """The periodic RPY product of this rank's rows over a process group
+    (the JAX package's ``mobility_apply_local``): F_l (N_l, 3) or (k, N_l,
+    3) and r_l (N_l, 3) this rank's blobs, every rank holding as many, in
+    rank order; ``group`` None is one device.
+
+    The classic split's real part rides the ring of slabs
+    (:func:`_ring_real`; ``use_kernel``, float32 monodisperse: K4 and its
+    slab form, the layout of :func:`.ewald_cuda.mobility_apply_multi`);
+    the balanced split's (``params.rc``) is this rank's slice of the tile
+    sweep (:func:`.ewald_cells.real_space_apply_cells` with the group,
+    ``max_nbr`` its list width).  The wave part's k-space moments are
+    summed over the group (:func:`wave_space_apply`), the self term is
+    per blob.  At one rank it is the single-device operator, bit for bit.
+
+    radii_l: this rank's per-blob radii (balanced split only, as in the
+    JAX package); float32 needs ``poly_tables`` built from the global
+    radii.
+    """
+    r_l = r_l.reshape(-1, 3)
+    multi = F_l.dim() == 3
+    Fs = F_l.to(r_l.dtype)
+    Fs = Fs if multi else Fs.reshape(-1, 3)
+    if radii_l is not None and params.rc is None:
+        raise NotImplementedError(
+            "distributed polydisperse Ewald needs balanced splitting "
+            "(ewald_rc > 0) — the classic-split ring sweep is monodisperse")
+    if use_kernel and not multi:
+        Fs = Fs[None]
+    if radii_l is not None:
+        radii_l = torch.as_tensor(radii_l, dtype=r_l.dtype,
+                                  device=r_l.device)
+    if params.rc is not None:
+        from rigid_body_light_tpu_torch.ops import ewald_cells
+
+        with profiling.span("ewald_cells"):
+            U = ewald_cells.real_space_apply_cells(
+                Fs, r_l, params, max_nbr=max_nbr, radii=radii_l,
+                poly_tables=poly_tables, group=group)
+    else:
+        U = _ring_real(Fs, r_l, params, group, row_tile, use_kernel)
+    a_self = params.a if radii_l is None else radii_l[:, None]
+    U = U + self_coeff(a_self, params.xi, params.eta) * Fs
+    U = U + wave_space_apply(Fs, r_l, params, radii=radii_l, group=group)
+    return U[0] if use_kernel and not multi else U

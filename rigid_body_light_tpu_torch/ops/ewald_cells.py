@@ -1,5 +1,6 @@
 """Sorted-tile neighbor sweep for the balanced-split Ewald real part — the
-port of ``rigid_body_light_tpu/ops/ewald_cells.py`` (one device).
+port of ``rigid_body_light_tpu/ops/ewald_cells.py`` (one device, or this
+rank's slice of the tiles over a process group).
 
 With ``ewald.make_params(..., rc=...)`` the real-space scalars truncate at
 a cutoff rc < min(L)/2, so the all-pairs sweep is wasted work.  This
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from rigid_body_light_tpu_torch.ops import ewald, tiles
+from rigid_body_light_tpu_torch.utils import collectives
 
 TILE = tiles.TILE
 # candidate pairs (live tile pairs × TILE²) one chunk of row tiles holds:
@@ -47,7 +49,8 @@ def _fold(r, params: ewald.EwaldParams):
 
 
 def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
-                           radii=None, poly_tables=None, chunk_tiles=None):
+                           radii=None, poly_tables=None, chunk_tiles=None,
+                           group=None):
     """U_real = Σ_{j≠i, r_ij ≤ rc} [A·I + B·r̂r̂]·F_j over sorted tiles.
 
     F: (N, 3) or (k, N, 3).  Returns U shaped like F, NaN-poisoned on a
@@ -58,6 +61,15 @@ def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
     chunk_tiles: row tiles a chunk holds (default: as many as hold
     :data:`CHUNK_PAIRS` candidate pairs); it groups rows only and changes no
     result.
+
+    group: None (one device), or a process group (the JAX package's
+    ``real_space_apply_cells_local``): F, r and radii are this rank's
+    blobs, every rank holding as many, in rank order, and U this rank's
+    rows.  The folded positions, the forces and the radii are gathered
+    once, every rank builds the same sorted tiles (:func:`sorted_tiles`,
+    their count padded to a multiple of the ranks), sweeps its equal slice
+    of the row tiles and the slices are gathered back.  float32 radii need
+    ``poly_tables`` built from the global radii.
     """
     if params.rc is None:
         raise ValueError("tile sweep needs params built with rc= "
@@ -65,33 +77,65 @@ def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
     dtype, dev = r.dtype, r.device
     multi = F.dim() == 3
     Fs = (F if multi else F[None]).to(dtype)
-    k, n = Fs.shape[0], r.shape[0]
+    D, rank = collectives.size(group), collectives.rank(group)
+    k, n_l = Fs.shape[0], r.shape[0]
+    n = n_l * D
     if max_nbr is None:
         max_nbr = default_max_nbr(n, params)
     if radii is not None and dtype == torch.float32 and poly_tables is None:
+        if group is not None:
+            raise ValueError("the distributed float32 polydisperse tile "
+                             "sweep needs poly_tables=make_poly_tables("
+                             "params, radii) built from the global radii")
         poly_tables = ewald.make_poly_tables(params, radii)
-    rf = _fold(r, params)
+    rad_all = None
+    if radii is not None:
+        rad_all = collectives.all_gather(
+            torch.as_tensor(radii, dtype=dtype, device=dev), group)
+    order, r_pad, ids_pad, F_pad, pp, nbr, overflow = sorted_tiles(
+        collectives.all_gather(_fold(r, params), group),
+        collectives.all_gather(Fs, group, dim=1), params, max_nbr, D,
+        radii=rad_all, poly_tables=poly_tables)
+    nt = nbr.shape[0] // D
+    U_s = _cell_sweep(r_pad, ids_pad, F_pad, nbr, params, poly=pp,
+                      chunk_tiles=chunk_tiles, t0=rank * nt, nt=nt)
+    U_sorted = collectives.all_gather(U_s, group, dim=1)[:, :n]
+    U = torch.zeros((k, n, 3), dtype=dtype, device=dev)
+    U[:, order] = U_sorted
+    U = U[:, rank * n_l:(rank + 1) * n_l]
+    U = torch.where(overflow, torch.full_like(U, float("nan")), U)
+    return U if multi else U[0]
+
+
+def sorted_tiles(rf, Fs, params: ewald.EwaldParams, max_nbr, n_ranks=1,
+                 radii=None, poly_tables=None):
+    """The sweep's sorted, padded structure of all the blobs: (order, r_pad,
+    ids_pad, F_pad, poly, nbr, overflow).  rf (N, 3) folded positions, Fs
+    (k, N, 3), radii (N,) or None.  The tile count is padded to a multiple
+    of ``n_ranks`` by whole pad tiles; pad rows sit at the first sorted
+    blob's folded position with id −1 (the pair mask drops them as
+    columns, and their rows are cut off), and since the whole pad tiles
+    neighbor each other and the tiles near that blob, the list width is
+    widened by their count (an overflow there would poison the apply), as
+    the JAX package's ``real_space_apply_cells_local`` does."""
+    dtype, dev = rf.dtype, rf.device
+    k, n = Fs.shape[0], rf.shape[0]
     order = tiles.serpentine_order(
         rf, tiles.column_width(n, float(np.prod(params.box))))
     t = -(-n // TILE)
-    pad = t * TILE - n
+    t_pad = -(-t // n_ranks) * n_ranks
+    pad = t_pad * TILE - n
+    max_nbr = min(t_pad, max_nbr + (t_pad - t))
     rf_s = rf[order]
-    # pad rows sit at blob 0's folded position with id −1: the pair mask
-    # drops them as columns, and their rows are cut off below
     r_pad = torch.cat([rf_s, rf_s[:1].expand(pad, 3)])
     ids_pad = torch.cat([order, torch.full((pad,), -1, dtype=order.dtype,
                                            device=dev)])
     F_pad = torch.cat([Fs[:, order], torch.zeros((k, pad, 3), dtype=dtype,
                                                  device=dev)], dim=1)
     pp = _poly_pad(radii, poly_tables, order, pad, dtype)
-    adj = tiles.bbox_adjacency(r_pad, t, params.rc, box=params.box)
+    adj = tiles.bbox_adjacency(r_pad, t_pad, params.rc, box=params.box)
     nbr, overflow = tiles.pack_neighbor_lists(adj, max_nbr)
-    U_s = _cell_sweep(r_pad, ids_pad, F_pad, nbr, params, poly=pp,
-                      chunk_tiles=chunk_tiles)[:, :n]
-    U = torch.zeros_like(Fs)
-    U[:, order] = U_s
-    U = torch.where(overflow, torch.full_like(U, float("nan")), U)
-    return U if multi else U[0]
+    return order, r_pad, ids_pad, F_pad, pp, nbr, overflow
 
 
 def _poly_pad(radii, poly_tables, order, pad, dtype):
@@ -113,14 +157,15 @@ def _poly_pad(radii, poly_tables, order, pad, dtype):
 
 
 def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
-                poly=None, chunk_tiles=None):
-    """Cutoff pair sweep of every sorted row tile against its neighbor
-    tiles.
+                poly=None, chunk_tiles=None, t0=0, nt=None):
+    """Cutoff pair sweep of the sorted row tiles [t0, t0 + nt) (default:
+    every one) against their neighbor tiles.
 
     r_pad / ids_pad (t·TILE, …) folded, sorted, padded positions and blob
     ids (−1 for pads), F_pad (k, t·TILE, 3), nbr (t, M) neighbor-tile
-    lists (−1 unused).  Returns (k, t·TILE, 3) pair terms in sorted order.
-    poly: ``(rad_pad, sidx_pad, poly_tables)`` from :func:`_poly_pad`.
+    lists (−1 unused).  Returns (k, nt·TILE, 3) pair terms of the slice's
+    rows in sorted order.  poly: ``(rad_pad, sidx_pad, poly_tables)`` from
+    :func:`_poly_pad`.
 
     Only the live (row tile, neighbor tile) entries of ``nbr`` are swept,
     TILE × TILE candidate pairs each, in chunks of whole row tiles.  A pair
@@ -128,21 +173,24 @@ def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
     r ≤ rc — the all-pairs sweep's pair set; A and B are evaluated on kept
     pairs only, and each row's terms are summed in its list's column order
     by ``segment_reduce`` (no atomics: the sum repeats bitwise and does not
-    depend on the chunking).
+    depend on the chunking, nor on the slice).
     """
     dtype, dev = r_pad.dtype, r_pad.device
     t = nbr.shape[0]
+    if nt is None:
+        nt = t - t0
     k = F_pad.shape[0]
     cheb = dtype == torch.float32
     rt = r_pad.reshape(t, TILE, 3)
     it = ids_pad.reshape(t, TILE)
     F_rows = F_pad.transpose(0, 1).reshape(-1, 3 * k)   # (t·TILE, 3k)
-    live = nbr >= 0
-    pair_I, slot = live.nonzero(as_tuple=True)           # row tile, slot
-    pair_J = nbr[pair_I, slot]
+    live = nbr[t0:t0 + nt] >= 0
+    pair_I, slot = live.nonzero(as_tuple=True)    # row tile in the slice
+    pair_J = nbr[t0 + pair_I, slot]
+    pair_I = pair_I + t0
     offs = np.concatenate([[0], np.cumsum(live.sum(dim=1).cpu().numpy())])
     if chunk_tiles:
-        bounds = list(range(0, t, chunk_tiles)) + [t]
+        bounds = list(range(0, nt, chunk_tiles)) + [nt]
     else:
         bounds = _chunk_bounds(offs, CHUNK_PAIRS // (TILE * TILE))
     outs = []
@@ -157,7 +205,7 @@ def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
         rr = torch.sqrt(torch.where(pair_ok, torch.clamp(r2, min=1e-24),
                                     torch.ones_like(r2)))
         p, i, j = (pair_ok & (rr <= params.rc)).nonzero(as_tuple=True)
-        rows = (I[p] - c0) * TILE + i                    # row in the chunk
+        rows = (I[p] - t0 - c0) * TILE + i               # row in the chunk
         m = (c1 - c0) * TILE
         if p.numel() == 0:
             outs.append(torch.zeros((m, 3 * k), dtype=dtype, device=dev))
@@ -186,7 +234,7 @@ def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
         outs.append(torch.segment_reduce(
             terms.reshape(-1, 3 * k), "sum", axis=0, unsafe=True,
             lengths=torch.bincount(rows, minlength=m)))
-    return torch.cat(outs).reshape(t * TILE, k, 3).transpose(0, 1)
+    return torch.cat(outs).reshape(nt * TILE, k, 3).transpose(0, 1)
 
 
 def _chunk_bounds(offs, budget):

@@ -11,6 +11,12 @@ Kernel (``csrc/ewald_real_sweep.cu``, built for sm_90a at first use by
                            (Clenshaw on the host-fitted Chebyshev
                            representation, never the closed forms), applied
                            forward and transposed.  1 or 2 RHS.
+  its slab form            ``ewald_real_slab``: the same pair terms as an
+                           ordered rows × columns sweep at global offsets,
+                           the pair of equal global ids left out — the
+                           distributed ring's off-diagonal blocks
+                           (:func:`real_pair_sum_slab`; the JAX package
+                           sweeps them in plain XLA, ``ewald.py:788``).
 
 Monodisperse float32, classic split only: the balanced split (``rc``) and
 per-blob radii take the plain PyTorch operator (:mod:`.ewald`), as the JAX
@@ -35,9 +41,9 @@ so a launch does no host arithmetic and no host→device copy.  Not
 differentiable (neither is the Pallas kernel): a CUDA tensor that requires
 grad raises (:func:`.cuda_build.refuse_grad`).
 
-``sweep_launches`` counts kernel launches (incremented where the kernel is
-launched, nowhere else) so a run can show that its main path went through
-the kernel.
+``sweep_launches`` and ``slab_launches`` count kernel launches
+(incremented where a kernel is launched, nowhere else) so a run can show
+that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -51,19 +57,22 @@ from rigid_body_light_tpu_torch.ops import cuda_build, ewald, tiles
 from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
+SLAB_ROWS, SLAB_CHUNK = 64, 256  # the slab form's block; build() checks
 sweep_launches = 0
+slab_launches = 0
 
 _lib = None
 _F32_MAX = float(np.finfo(np.float32).max)
 
 
 def reset_launch_counts():
-    global sweep_launches
-    sweep_launches = 0
+    global sweep_launches, slab_launches
+    sweep_launches = slab_launches = 0
 
 
 def launch_counts():
-    return {"ewald_real_sweep": sweep_launches}
+    return {"ewald_real_sweep": sweep_launches,
+            "ewald_real_slab": slab_launches}
 
 
 def build():
@@ -75,7 +84,8 @@ def build():
     lib = cuda_build.load("ewald_real_sweep")
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ewald_sweep_tile, lib.ewald_sweep_max_degree,
-               lib.ewald_sweep_max_groups):
+               lib.ewald_sweep_max_groups, lib.ewald_slab_rows,
+               lib.ewald_slab_chunk):
         fn.restype = i
         fn.argtypes = []
     if lib.ewald_sweep_tile() != TILE:
@@ -85,9 +95,17 @@ def build():
         raise RuntimeError(f"ewald_real_sweep.cu groups at most "
                            f"{lib.ewald_sweep_max_groups()} tile groups, the "
                            f"wrapper {tiles.MAX_GROUPS}")
+    if (lib.ewald_slab_rows(), lib.ewald_slab_chunk()) != (SLAB_ROWS,
+                                                             SLAB_CHUNK):
+        raise RuntimeError(f"ewald_real_sweep.cu's slab blocks are "
+                           f"{lib.ewald_slab_rows()} x "
+                           f"{lib.ewald_slab_chunk()}, the wrapper's "
+                           f"{SLAB_ROWS} x {SLAB_CHUNK}")
+    cf = ctypes.POINTER(ctypes.c_float)
     lib.ewald_real_sweep.restype = i
-    lib.ewald_real_sweep.argtypes = [p, p, i, i, ctypes.POINTER(ctypes.c_float),
-                                     p, i, p, p, p, p]
+    lib.ewald_real_sweep.argtypes = [p, p, i, i, cf, p, i, p, p, p, p]
+    lib.ewald_real_slab.restype = i
+    lib.ewald_real_slab.argtypes = [p, i, i, p, p, i, i, i, cf, p, i, p, p, p]
     _lib = lib
     return lib
 
@@ -168,6 +186,34 @@ def real_sweep_kernel(r, Fs, params):
     return out
 
 
+def real_slab_kernel(r_rows, row0, r_cols, col0, Fs, params):
+    """K4's slab form on the card.  r_rows (n_r, 3), r_cols (n_c, 3), Fs
+    (k, n_c, 3) float32 contiguous CUDA tensors, k ∈ {1, 2}, at global
+    offsets row0 and col0 → (k, n_r, 3) pair terms."""
+    global slab_launches
+    n_r, n_c, k = r_rows.shape[0], r_cols.shape[0], Fs.shape[0]
+    if k not in (1, 2):
+        raise ValueError(f"ewald_real_slab takes 1 or 2 RHS, got {k}")
+    cuda_build.check_tensor(r_rows, "r_rows", (n_r, 3))
+    cuda_build.check_tensor(r_cols, "r_cols", (n_c, 3))
+    cuda_build.check_tensor(Fs, "Fs", (k, n_c, 3))
+    lib = build()
+    dev = r_rows.device
+    coef, consts, deg = operator_tables(params, dev)
+    part = torch.empty((max(1, -(-n_c // SLAB_CHUNK)), k, n_r, 3),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((k, n_r, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev), profiling.span("ewald_real_slab"):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ewald_real_slab(
+            r_rows.data_ptr(), n_r, int(row0), r_cols.data_ptr(),
+            Fs.data_ptr(), n_c, int(col0), k, consts, coef.data_ptr(), deg,
+            part.data_ptr(), out.data_ptr(), stream)
+    cuda_build.raise_on_error(code, "ewald_real_slab")
+    slab_launches += 1
+    return out
+
+
 def _check(params, k):
     if params.rc is not None:
         raise ValueError(
@@ -196,6 +242,32 @@ def real_pair_sum(Fs, r, params):
     if r.device.type == "cuda":
         return real_sweep_kernel(r, Fs, params)
     raise ValueError(f"no Ewald sweep for device {r.device}")
+
+
+def real_pair_sum_slab(Fs, r_rows, row0, r_cols, col0, params):
+    """Σ_j [A·I + B·r̂r̂]·F_j in float32 for the rows ``r_rows`` (global
+    ids row0, row0 + 1, …) against the columns ``r_cols`` (global ids
+    col0, …), the pair of equal ids left out: the distributed ring's
+    slabs (:func:`.ewald.mobility_apply_local`).
+
+    Fs: (k, N_c, 3) column forces, k ∈ {1, 2}.  CPU tensors take the plain
+    block (:func:`.ewald.real_space_block`), CUDA tensors K4's slab form.
+    Returns (k, N_r, 3)."""
+    _check(params, Fs.shape[0])
+    if r_rows.device.type == "cuda":
+        cuda_build.refuse_grad("K4 ewald_real_slab", Fs, r_rows, r_cols)
+    r_rows = r_rows.to(torch.float32).contiguous()
+    r_cols = r_cols.to(torch.float32).contiguous()
+    Fs = Fs.to(torch.float32).contiguous()
+    if r_rows.device.type == "cpu":
+        dev = r_rows.device
+        return ewald.real_space_block(
+            r_rows, row0 + torch.arange(r_rows.shape[0], device=dev),
+            r_cols, col0 + torch.arange(r_cols.shape[0], device=dev), Fs,
+            params)
+    if r_rows.device.type == "cuda":
+        return real_slab_kernel(r_rows, row0, r_cols, col0, Fs, params)
+    raise ValueError(f"no Ewald slab for device {r_rows.device}")
 
 
 def mobility_apply_multi(Fs, r, params):

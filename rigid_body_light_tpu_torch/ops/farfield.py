@@ -63,8 +63,10 @@ functions run the operator over the group's ranks, each holding its
 blobs: the bounding box closes with MIN / MAX all-reduces, the node
 moments with a sum, the lattices are built on every rank alike, and the
 near part sweeps each rank's slice of the gathered sorted tiles (K3's
-row-tile slice).  The film with a group is left to a later slice
-(ROADMAP.md queue 1, item 16).  The TPU layout workarounds of the JAX module (the ``_flat_outer``
+row-tile slice).  The film over a group takes its z bounds the same way,
+builds the same image-summed lattices on every rank and sweeps the
+cyclic neighbor lists of the gathered tiles through K3's box slice.  The
+TPU layout workarounds of the JAX module (the ``_flat_outer``
 selector matmuls, the packed real/imaginary lattices, ``fftsafe``) are not
 ported: plain outer products, complex tensors and ``torch.fft`` compute
 the same thing.
@@ -79,7 +81,6 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from rigid_body_light_tpu_torch.config import _not_ported
 from rigid_body_light_tpu_torch.ops import farfield_cuda, rpy, tiles
 from rigid_body_light_tpu_torch.utils import collectives, profiling
 
@@ -674,14 +675,18 @@ def _p2m(W3, cid, Fs, ncell):
     (as the JAX package's ``segment_sum``), not by atomic adds: on the card
     an ``index_add_`` sums in a varying order, and the RFD drift's 1/δ
     turned that roundoff into step differences of ~2e-3·max|ΔX| between
-    runs; this way the far field repeats bitwise, like the kernels."""
+    runs; this way the far field repeats bitwise, like the kernels.  Q is
+    returned contiguous: the film's FFTs read it through a view, and the
+    FFT's rounding follows the strides it is given (a group's all-reduce
+    returns a contiguous Q, so the distributed film at one rank would not
+    be bitwise the single-device film otherwise)."""
     k, n = Fs.shape[0], Fs.shape[1]
     order = torch.argsort(cid, stable=True)
     prod = (W3[order, None, :, None]
             * Fs[:, order].transpose(0, 1)[:, :, None, :]).reshape(n, -1)
     Q = torch.segment_reduce(prod, "sum", axis=0, unsafe=True,
                              lengths=torch.bincount(cid, minlength=ncell))
-    return Q.reshape(ncell, k, -1).transpose(0, 1)
+    return Q.reshape(ncell, k, -1).transpose(0, 1).contiguous()
 
 
 def _l2p(W3, cid, Unodes):
@@ -1159,13 +1164,15 @@ def _check_2p(wall, box, grid, shells):
             f"pairs), got {grid}")
 
 
-def _geometry_2p(x, grid, box_n):
+def _geometry_2p(x, grid, box_n, group=None):
     """Pseudo-2D grid geometry: x/y anchored at 0 with h·G = box (the cyclic
-    convolution is the periodicity), z from the positions' bounds."""
-    z = x[:, 2]
-    span = torch.clamp(z.max() - z.min(), min=1e-6) * (1.0 + 1e-5)
+    convolution is the periodicity), z from the positions' bounds (over the
+    ranks of ``group``: MIN / MAX all-reduces)."""
+    z_lo = collectives.pmin(x[:, 2].min(), group)
+    z_hi = collectives.pmax(x[:, 2].max(), group)
+    span = torch.clamp(z_hi - z_lo, min=1e-6) * (1.0 + 1e-5)
     lo = torch.zeros(3, dtype=x.dtype, device=x.device)
-    lo[2] = z.min()
+    lo[2] = z_lo
     h = torch.tensor([box_n[0] / grid[0], box_n[1] / grid[1], 0.0],
                      dtype=x.dtype, device=x.device)
     h[2] = span / grid[2]
@@ -1208,12 +1215,6 @@ def _resolve_local(n, wall, grid, p, max_nbr, poly, n_ranks):
     # overflow there would poison the whole apply)
     max_nbr = min(t_pad, max(max_nbr, t_pad - t + 1))
     return grid, max_nbr, t, t_pad
-
-
-def _check_group_box(box, group):
-    if box is not None and group is not None:
-        raise _not_ported("the distributed pseudo-2D far field (a 2-D box "
-                          "with a process group)", "item 16")
 
 
 def sorted_tiles(x, ci, grid, t_pad, max_nbr, ahat=None, wrap_xy=None):
@@ -1271,7 +1272,7 @@ def _slice_pairs(pairs, n_pairs, t0: int, nt: int):
 def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly,
                     band_p=0, group=None):
     if box_n is not None:
-        lo, h = _geometry_2p(x, grid, box_n)
+        lo, h = _geometry_2p(x, grid, box_n, group)
         return FarGeo(lo=lo, h=h, khat_free=None, khat_wall=_kernel_hat_2p(
             lo[2], h, grid, p, h_floor, int(image_shells), poly=poly))
     ne = _BAND_MAX if band_p else 1
@@ -1308,7 +1309,6 @@ def prepare_geometry(r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     all-reduces), and every rank builds the same lattices and blocks."""
     r = r.reshape(-1, 3)
     poly = radii is not None
-    _check_group_box(box, group)
     grid, _ = _resolve(r.shape[0] * collectives.size(group), wall, grid, p,
                        max_nbr, poly)
     if box is not None:
@@ -1348,7 +1348,6 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     D, rank = collectives.size(group), collectives.rank(group)
     dtype = r.dtype
     poly = radii is not None
-    _check_group_box(box, group)
     grid, max_nbr, _, t_pad = _resolve_local(n_l * D, wall, grid, p, max_nbr,
                                              poly, D)
     box_n = rpy._box_n(box, a)
@@ -1442,9 +1441,8 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     spreads this rank's blobs, sums the node moments (the band tier's too)
     over the group and convolves on every rank alike; the near part
     gathers the forces once, sweeps this rank's slice of the sorted tiles
-    (K3's row-tile slice, ``t0`` / ``nt``) and gathers the slices back.
-    The film (a ``box``) with a group raises: ROADMAP.md item 16's next
-    slice.
+    (K3's row-tile slice, ``t0`` / ``nt``; the film's box form with its
+    cyclic lists) and gathers the slices back.
     """
     r = r.reshape(-1, 3)
     multi = F.dim() == 3
@@ -1454,7 +1452,6 @@ def mobility_apply(F, r, a=1.0, eta=1.0, wall=False, grid=None, p=4,
     D, rank = collectives.size(group), collectives.rank(group)
     n = n_l * D
     dtype = r.dtype
-    _check_group_box(box, group)
     grid, max_nbr, _, t_pad = _resolve_local(n, wall, grid, p, max_nbr,
                                              radii is not None, D)
     per = box is not None

@@ -32,7 +32,7 @@ from rigid_body_light_tpu_torch.ops import quaternion as quat
 from rigid_body_light_tpu_torch.ops import rpy
 from rigid_body_light_tpu_torch.ops import rpy_cuda
 from rigid_body_light_tpu_torch.state import BodyState
-from rigid_body_light_tpu_torch.utils import profiling
+from rigid_body_light_tpu_torch.utils import collectives, profiling
 
 
 class GeometryOps(NamedTuple):
@@ -179,6 +179,13 @@ def _poly_tables(params_key, radii_key):
                                   np.frombuffer(radii_key))
 
 
+def _ewald_params_key(cfg: SimulationConfig):
+    """The arguments of :func:`_ewald_params` for ``cfg``."""
+    return (cfg.box, cfg.a, cfg.eta,
+            cfg.ewald_xi if cfg.ewald_xi > 0 else None, cfg.ewald_tol,
+            cfg.ewald_rc if cfg.ewald_rc > 0 else None)
+
+
 def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
     """Triply-periodic positively-split Ewald operator (:mod:`.ewald`) for a
     3-D ``cfg.box``, as the JAX package's ``saddle._ewald_apply_fn`` builds
@@ -190,10 +197,8 @@ def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
     else takes the plain PyTorch operator on the tensors' device
     (closed-form scalars in float64; float32 radii through species-pair
     fits built once).  radii: (N,) per-blob radii."""
-    rc = cfg.ewald_rc if cfg.ewald_rc > 0 else None
-    params_key = (cfg.box, cfg.a, cfg.eta,
-                  cfg.ewald_xi if cfg.ewald_xi > 0 else None, cfg.ewald_tol,
-                  rc)
+    params_key = _ewald_params_key(cfg)
+    rc = params_key[-1]
     params = _ewald_params(*params_key)
     if (cfg.use_pallas and cfg.dtype == torch.float32 and radii is None
             and rc is None):
@@ -235,9 +240,7 @@ def _farfield_apply_fn(cfg: SimulationConfig, radii=None, group=None):
 
     group: None, or the process group of the distributed stepper: the
     callable then takes and returns this rank's blobs
-    (:func:`.farfield.mobility_apply`'s ``group``); the film with a group
-    raises here (ROADMAP.md item 16)."""
-    farfield._check_group_box(cfg.box, group)
+    (:func:`.farfield.mobility_apply`'s ``group``), the film's too."""
     grid = None if cfg.farfield_grid == "auto" else cfg.farfield_grid
     max_nbr = cfg.farfield_nbr_tiles if cfg.farfield_nbr_tiles > 0 else None
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, grid=grid,
@@ -535,10 +538,10 @@ def _nearest(d, k):
 
 
 def build_pc_ras(ops: GeometryOps, cfg: SimulationConfig,
-                 static_pc: PCData = None) -> PCData:
+                 static_pc: PCData = None, group=None) -> PCData:
     """Attach the configuration-dependent RAS halo coupling to the static
     ``block_free`` core — the settled-suspension preconditioner (the JAX
-    ``build_pc_ras``, single device).
+    ``build_pc_ras``).
 
     Per body, a cluster of its own blobs and the ≤ H = ``pc_halo_max``
     nearest other-body blobs within ``pc_halo``·a: the exact damped wall
@@ -546,37 +549,51 @@ def build_pc_ras(ops: GeometryOps, cfg: SimulationConfig,
     body core A (W = A⁻¹C and the Schur inverse (D − CᵀW)⁻¹, Newton–Schulz),
     own rows kept; Ñ is the consistent coupled (Kᵀ M̃⁻¹ K)⁻¹.  Returns the
     static tier alone for one body or ``pc_halo_max`` = 0.
+
+    group: None (one device), or the process group of the distributed
+    solve: ``ops`` is this rank's bodies.  Halo clusters cross the ranks'
+    bodies, so the build gathers the blob positions and the body offsets
+    once, selects each local body's halo against the global blob set and
+    builds the Woodbury factors of the local bodies only; Ñ⁻¹'s rows are
+    this rank's RAS rows applied to all 6B K columns, gathered into the
+    replicated (6B)² matrix, whose Newton–Schulz inverse every rank
+    computes (6B ≪ N).  The halo values of an apply come from one gather
+    (:func:`_inv_m_apply`).
     """
-    B, n, _ = ops.offsets.shape
+    B_l, n, _ = ops.offsets.shape
     if static_pc is None or static_pc.minv_ref is None:
         static_pc = build_pc(ops, cfg.replace(pc_mode="block_free"))
+    B = B_l * collectives.size(group)                      # global bodies
     H = min(cfg.pc_halo_max, (B - 1) * n)
     if H <= 0 or B == 1:
         return static_pc
-    pos = ops.flat_positions                               # (N, 3)
+    pos = collectives.all_gather(ops.flat_positions, group)   # (N, 3)
+    b0 = collectives.rank(group) * B_l                     # first own body
+    own = slice(b0 * n, (b0 + B_l) * n)                    # own blobs
     N = B * n
     dtype, dev = pos.dtype, pos.device
 
     # halo selection: the 2H other-body blobs nearest the body's tracking
     # point, then the H of them nearest any of its blobs, cut off at
     # pc_halo·a
-    X = ops.positions[:, 0, :] - ops.offsets[:, 0, :]      # (B, 3)
+    X = ops.positions[:, 0, :] - ops.offsets[:, 0, :]      # (B_l, 3)
     body_of = torch.arange(B, device=dev).repeat_interleave(n)
     d_c = torch.linalg.norm(pos[None, :, :] - X[:, None, :], dim=-1)
-    d_c = torch.where(body_of[None, :] == torch.arange(B, device=dev)[:, None],
-                      torch.full_like(d_c, float("inf")), d_c)   # (B, N)
+    d_c = torch.where(
+        body_of[None, :] == (b0 + torch.arange(B_l, device=dev))[:, None],
+        torch.full_like(d_c, float("inf")), d_c)           # (B_l, N)
     K2 = min(2 * H, (B - 1) * n)
-    cand = _nearest(d_c, K2)                               # (B, K2)
-    cand_pos = pos[cand.reshape(-1)].reshape(B, K2, 3)
+    cand = _nearest(d_c, K2)                               # (B_l, K2)
+    cand_pos = pos[cand.reshape(-1)].reshape(B_l, K2, 3)
     d_exact = torch.amin(torch.linalg.norm(
         ops.positions[:, :, None, :] - cand_pos[:, None, :, :], dim=-1),
-        dim=1)                                             # (B, K2)
+        dim=1)                                             # (B_l, K2)
     sel = _nearest(d_exact, H)
-    halo_idx = torch.gather(cand, 1, sel)                  # (B, H)
+    halo_idx = torch.gather(cand, 1, sel)                  # (B_l, H) global
     mask = torch.gather(d_exact, 1, sel) < cfg.pc_halo * cfg.a
-    halo_pos = pos[halo_idx.reshape(-1)].reshape(B, H, 3)
+    halo_pos = pos[halo_idx.reshape(-1)].reshape(B_l, H, 3)
 
-    # coupling C (B, 3n, 3H) and halo block D (B, 3H, 3H): the operator's
+    # coupling C (B_l, 3n, 3H) and halo block D (B_l, 3H, 3H): the operator's
     # damped wall pair blocks; masked slots give zero coupling, so an empty
     # halo reduces the PC to block_free exactly
     kw = dict(a=cfg.a, eta=cfg.eta, wall=cfg.wall, h_floor=cfg.wall_h_floor)
@@ -584,8 +601,8 @@ def build_pc_ras(ops: GeometryOps, cfg: SimulationConfig,
     Db = rpy.cross_mobility_blocks(halo_pos, halo_pos, **kw)
     if cfg.wall:
         b_all = rpy.damping_factors(pos, cfg.a)
-        b_body = b_all.reshape(B, n)
-        b_halo = b_all[halo_idx.reshape(-1)].reshape(B, H)
+        b_body = b_all[own].reshape(B_l, n)
+        b_halo = b_all[halo_idx.reshape(-1)].reshape(B_l, H)
         Cb = Cb * (b_body[:, :, None] * b_halo[:, None, :])[..., None, None]
         Db = Db * (b_halo[:, :, None] * b_halo[:, None, :])[..., None, None]
     mf = mask.to(dtype)
@@ -595,54 +612,63 @@ def build_pc_ras(ops: GeometryOps, cfg: SimulationConfig,
     # get an identity diagonal so the Schur block stays invertible
     selfb = rpy.self_mobility_blocks(
         halo_pos.reshape(-1, 3), cfg.a, cfg.eta, cfg.wall,
-        h_floor=cfg.wall_h_floor).reshape(B, H, 3, 3)
+        h_floor=cfg.wall_h_floor).reshape(B_l, H, 3, 3)
     if cfg.wall:
         selfb = selfb * (b_halo * b_halo)[:, :, None, None]
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     hh = torch.arange(H, device=dev)
     Db[:, hh, hh] = torch.where(mask[:, :, None, None], selfb, eye3)
-    C = Cb.permute(0, 1, 3, 2, 4).reshape(B, 3 * n, 3 * H)
-    D = Db.permute(0, 1, 3, 2, 4).reshape(B, 3 * H, 3 * H)
+    C = Cb.permute(0, 1, 3, 2, 4).reshape(B_l, 3 * n, 3 * H)
+    D = Db.permute(0, 1, 3, 2, 4).reshape(B_l, 3 * H, 3 * H)
 
     # Woodbury factors
     minv_ref, rot = static_pc.minv_ref, ops.rot
     W = _ras_core_apply(
-        minv_ref, rot, C.reshape(B, n, 3, 3 * H).permute(3, 0, 1, 2)
-    ).permute(1, 2, 3, 0).reshape(B, 3 * n, 3 * H)
+        minv_ref, rot, C.reshape(B_l, n, 3, 3 * H).permute(3, 0, 1, 2)
+    ).permute(1, 2, 3, 0).reshape(B_l, 3 * n, 3 * H)
     S_inv = _ns_inverse(D - torch.einsum("bph,bpg->bhg", C, W), _NS_ITERS_S)
 
     # consistent coupled Ñ = (Kᵀ M̃⁻¹ K)⁻¹ from the RAS inverse of all 6B
-    # K columns: [p, q] = K_pᵀ M̃⁻¹ K_q
-    Kb = body_K_blocks(ops.offsets)                        # (B, n, 3, 6)
+    # K columns: [p, q] = K_pᵀ M̃⁻¹ K_q; every rank builds the global K
+    # columns from the gathered offsets and applies its own RAS rows
+    Kb = body_K_blocks(ops.offsets)                        # (B_l, n, 3, 6)
+    Kb_all = body_K_blocks(collectives.all_gather(ops.offsets, group))
 
-    def rows(cols):        # (c, N, 3) columns → (c, B, 6) = Kᵀ M̃⁻¹ cols
-        y = _ras_apply(cols, minv_ref, rot, halo_idx, W, S_inv)
-        return torch.einsum("bnif,cbni->cbf", Kb, y.reshape(-1, B, n, 3))
+    def rows(cols):    # (c, N, 3) columns → (c, B_l, 6) = Kᵀ M̃⁻¹ cols
+        y = _ras_apply(cols[:, own], minv_ref, rot, halo_idx, W, S_inv,
+                       v_full=cols)
+        return torch.einsum("bnif,cbni->cbf", Kb, y.reshape(-1, B_l, n, 3))
 
     if 6 * B * N * 3 * pos.element_size() <= _RAS_BATCH_BYTES:
         cols = torch.zeros((B, 6, B, n, 3), dtype=dtype, device=dev)
         idx = torch.arange(B, device=dev)
-        cols[idx, :, idx] = Kb.permute(0, 3, 1, 2)
-        ninv = rows(cols.reshape(6 * B, N, 3))             # (6B, B, 6)
+        cols[idx, :, idx] = Kb_all.permute(0, 3, 1, 2)
+        ninv = collectives.all_gather(rows(cols.reshape(6 * B, N, 3)),
+                                      group, dim=1)        # (6B, B, 6)
     else:
         parts = []
         for j in range(B):
             cols = torch.zeros((6, N, 3), dtype=dtype, device=dev)
-            cols[:, j * n:(j + 1) * n] = Kb[j].permute(2, 0, 1)
+            cols[:, j * n:(j + 1) * n] = Kb_all[j].permute(2, 0, 1)
             parts.append(rows(cols))
-        ninv = torch.stack(parts)                          # (B, 6, B, 6)
+        ninv = collectives.all_gather(torch.stack(parts), group,
+                                      dim=2)               # (B, 6, B, 6)
     ninv = ninv.reshape(6 * B, 6 * B).T
     return static_pc._replace(halo_idx=halo_idx, halo_w=W, halo_sinv=S_inv,
                               n_full=_ns_inverse(ninv, _NS_ITERS_N))
 
 
-def _inv_m_apply(pc: PCData, v, ops: GeometryOps):
-    """M̃⁻¹ · v for any PC flavor; v and the result (B, n, 3)."""
+def _inv_m_apply(pc: PCData, v, ops: GeometryOps, group=None):
+    """M̃⁻¹ · v for any PC flavor; v and the result (B, n, 3), this rank's
+    bodies with a ``group``, where the RAS flavor gathers the blob vector
+    once to read its halo values."""
     B, n, _ = v.shape
     if pc.halo_w is not None:
-        return _ras_apply(v.reshape(B * n, 3), pc.minv_ref, ops.rot,
-                          pc.halo_idx, pc.halo_w,
-                          pc.halo_sinv).reshape(B, n, 3)
+        v_flat = v.reshape(B * n, 3)
+        return _ras_apply(v_flat, pc.minv_ref, ops.rot, pc.halo_idx,
+                          pc.halo_w, pc.halo_sinv,
+                          v_full=collectives.all_gather(v_flat, group)
+                          ).reshape(B, n, 3)
     if pc.minv_ref is not None:
         v_body = torch.einsum("bji,bnj->bni", ops.rot, v).reshape(B, 3 * n)
         w = torch.einsum("pq,bq->bp", pc.minv_ref, v_body).reshape(B, n, 3)
@@ -654,11 +680,15 @@ def _inv_m_apply(pc: PCData, v, ops: GeometryOps):
     return torch.einsum("bkij,bkj->bki", blocks, v)
 
 
-def _n_solve(pc: PCData, rhs, ops: GeometryOps):
-    """Solve Ñ⁻¹ U = rhs per body; rhs (B, 6).  RAS: one dense (6B)²
-    matvec with the coupled Ñ."""
+def _n_solve(pc: PCData, rhs, ops: GeometryOps, group=None):
+    """Solve Ñ⁻¹ U = rhs per body; rhs (B, 6), this rank's bodies with a
+    ``group``.  RAS: one dense (6B)² matvec with the coupled Ñ, the rhs
+    gathered over the group and this rank's rows kept."""
     if pc.n_full is not None:
-        return (pc.n_full @ rhs.reshape(-1)).reshape(-1, 6)
+        B_l = rhs.shape[0]
+        rhs_all = collectives.all_gather(rhs, group)
+        b0 = collectives.rank(group) * B_l
+        return (pc.n_full @ rhs_all.reshape(-1)).reshape(-1, 6)[b0:b0 + B_l]
     if pc.n_ref is not None:
         f_b = torch.einsum("bji,bj->bi", ops.rot, rhs[:, 0:3])
         t_b = torch.einsum("bji,bj->bi", ops.rot, rhs[:, 3:6])
@@ -670,12 +700,15 @@ def _n_solve(pc: PCData, rhs, ops: GeometryOps):
     return torch.linalg.solve(pc.n_mat, rhs[..., None])[..., 0]
 
 
-def apply_pc(pc: PCData, slip, F, ops: GeometryOps, cfg: SimulationConfig):
-    """Apply the saddle preconditioner: (slip (N,3), F (B,6)) → (λ, U)."""
+def apply_pc(pc: PCData, slip, F, ops: GeometryOps, cfg: SimulationConfig,
+             group=None):
+    """Apply the saddle preconditioner: (slip (N,3), F (B,6)) → (λ, U).
+    group: distributed mode (this rank's bodies); only the RAS flavor
+    communicates (:func:`_inv_m_apply`, :func:`_n_solve`)."""
     B, n, _ = ops.offsets.shape
     slip_b = slip.reshape(B, n, 3)
-    im_slip = _inv_m_apply(pc, slip_b, ops)
+    im_slip = _inv_m_apply(pc, slip_b, ops, group)
     rhs = -F - kin.KT_dot(im_slip, ops.offsets)
-    U = _n_solve(pc, rhs, ops)
-    lam = _inv_m_apply(pc, slip_b + kin.K_dot(U, ops.offsets), ops)
+    U = _n_solve(pc, rhs, ops, group)
+    lam = _inv_m_apply(pc, slip_b + kin.K_dot(U, ops.offsets), ops, group)
     return (cfg.m_scale * lam).reshape(-1, 3), U

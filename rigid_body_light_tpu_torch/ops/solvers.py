@@ -9,7 +9,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from rigid_body_light_tpu_torch.config import SimulationConfig, _not_ported
+from rigid_body_light_tpu_torch.config import SimulationConfig
 from rigid_body_light_tpu_torch.ops import gmres as gmres_mod
 from rigid_body_light_tpu_torch.ops import kinematics as kin
 from rigid_body_light_tpu_torch.ops import saddle as saddle_mod
@@ -24,15 +24,6 @@ class SolveResult(NamedTuple):
     iters: int = None       # inner GMRES iterations executed
     true_residual: Optional[torch.Tensor] = None  # ‖b − A·x‖/‖b‖ on the
                                                   # unpreconditioned system
-
-
-def check_group_pc(cfg: SimulationConfig, group):
-    """The distributed solve takes the per-body preconditioners only: RAS
-    couples bodies across shards (its distributed halo build is the JAX
-    package's ``saddle.py:657-671``, ``:782-850``)."""
-    if group is not None and cfg.pc_mode == "ras":
-        raise _not_ported("the distributed RAS preconditioner "
-                          "(pc_mode='ras' with a process group)", "item 16")
 
 
 def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
@@ -52,9 +43,9 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
     package's ``axis_name``): ``ops`` / ``slip`` / ``force`` are this
     rank's bodies, ``mob_apply`` the local operator of
     :mod:`rigid_body_light_tpu_torch.parallel`, and the Krylov reductions
-    are all-reduced over the group.
+    are all-reduced over the group; the RAS preconditioner is built and
+    applied over the group (:func:`.saddle.build_pc_ras`).
     """
-    check_group_pc(cfg, group)
     if mob_apply is None:
         mob_apply = saddle_mod.mobility_apply_fn(cfg)
     # far-field operators: build the position setup once here, not once
@@ -66,7 +57,7 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
         if cfg.pc_mode == "ras" and pc.halo_w is None:
             # the RAS halo coupling at this solve's geometry, on the static
             # block_free tier (run_bd builds that once, a lone call above)
-            pc = saddle_mod.build_pc_ras(ops, cfg, static_pc=pc)
+            pc = saddle_mod.build_pc_ras(ops, cfg, static_pc=pc, group=group)
     dtype = ops.positions.dtype
     B, n, _ = ops.offsets.shape
     nb = 3 * B * n
@@ -75,7 +66,7 @@ def solve_saddle(ops: saddle_mod.GeometryOps, cfg: SimulationConfig, slip,
 
     def pc_apply_flat(s, f):
         with profiling.span("pc_apply"):
-            lam, U = saddle_mod.apply_pc(pc, s, f, ops, cfg)
+            lam, U = saddle_mod.apply_pc(pc, s, f, ops, cfg, group)
             return torch.cat([lam.reshape(-1), U.reshape(-1)])
 
     def matvec(x):

@@ -34,8 +34,10 @@ Differences from the JAX driver:
   its own bodies' noise from the seed plus its rank.  Rank 0 alone prints
   and writes the frames and the checkpoint (the other ranks' generator
   states go into its metadata), from gathered body arrays.  A mixture
-  with a mesh raises (``"distributed"`` with the JAX package's text; the
-  gather mode of a mixture is ROADMAP.md queue 1, item 16);
+  runs on the gather mesh with its radii closed in (``"distributed"``
+  raises with the JAX package's text); the gather mode with a 3-D box or
+  a ``farfield_grid`` raises, its sweep being the all-pairs
+  minimum-image RPY;
 - the configuration, the chunking, the periodic box's geometry and the
   mesh are all checked before the trajectory writer opens (and, without
   ``--resume``, truncates) ``trajectory.rblt``.
@@ -188,12 +190,18 @@ def _init_group(device):
     return True
 
 
-def _build_mesh_mob(conf, cfg, device):
+def _build_mesh_mob(conf, cfg, device, radii=None):
     """The config's ``"mesh"`` → (mesh, mob_apply, mode), or (None, None,
     None) without one — the JAX driver's checks and texts, the devices
     being the run's processes.  ``"gather"``: the sharded pair sweep as
-    the operator; ``"distributed"``: mob_apply None (the caller builds
-    :func:`.parallel.make_distributed_run_bd`), 1-D only."""
+    the operator (radii: a mixture's global per-blob radii, closed in);
+    ``"distributed"``: mob_apply None (the caller builds
+    :func:`.parallel.make_distributed_run_bd`), 1-D only.
+
+    The gather sweep is the all-pairs minimum-image RPY, so the gather
+    mode refuses a 3-D box (the Ewald operator) and a ``farfield_grid``
+    (the far field), where the JAX driver would run that sweep in their
+    place."""
     spec = conf.get("mesh")
     if not spec:
         return None, None, None
@@ -203,6 +211,16 @@ def _build_mesh_mob(conf, cfg, device):
     if mode not in ("gather", "distributed"):
         raise ValueError(f"mesh mode must be 'gather' or 'distributed', "
                          f"got {mode!r}")
+    if mode == "gather" and (cfg.farfield_grid is not None or (
+            cfg.box is not None and len(cfg.box) == 3)):
+        what = ("a 3-D box (the Ewald operator)"
+                if cfg.farfield_grid is None else
+                "a farfield_grid (the far field)")
+        raise ValueError(
+            f"mesh mode 'gather' sweeps the all-pairs minimum-image RPY "
+            f"(parallel.sharded_mobility_apply_fn), not the operator of "
+            f"{what}: set \"mode\": \"distributed\" to run that operator "
+            f"over the mesh")
     n_req = int(np.prod(shape))
     if n_req > n_avail:
         raise ValueError(
@@ -227,7 +245,8 @@ def _build_mesh_mob(conf, cfg, device):
         mesh = parallel.make_mesh_2d(tuple(shape))
     if mode == "distributed":
         return mesh, None, mode
-    return mesh, parallel.sharded_mobility_apply_fn(cfg, mesh), mode
+    return mesh, parallel.sharded_mobility_apply_fn(cfg, mesh,
+                                                    radii=radii), mode
 
 
 def _mesh_line(mesh, mode):
@@ -329,27 +348,23 @@ def _drive(run_chunk, state, gen, start_step, n_steps, chunk, save_every,
 def main_multi(conf, args):
     """A ``"species"`` mixture through ``multi.run_bd_multi``; frames hold
     the concatenated bodies in species order (the sizes in the checkpoint's
-    metadata and the ``done`` line)."""
+    metadata and the ``done`` line).  A ``"mesh"`` runs it on the gather
+    mesh (every rank the whole mixture, the pair sweep sharded, its radii
+    closed in; rank 0 writes); the distributed mode is single-species."""
     from rigid_body_light_tpu_torch import load_structure, multi
     from rigid_body_light_tpu_torch.runtime import TrajectoryWriter
-    from rigid_body_light_tpu_torch.state import (BodyState, make_state,
-                                                  resolve_device)
+    from rigid_body_light_tpu_torch.state import BodyState, make_state
     from rigid_body_light_tpu_torch.utils.validation import check_box_geometry
 
-    device = resolve_device(args.device)
+    device = _device(args, conf)
     dtype = torch.float64 if conf.get("dtype") == "float64" else torch.float32
     rng = np.random.default_rng(conf.get("seed", 0))
     species = conf["species"]
-    if conf.get("mesh"):
-        if conf["mesh"].get("mode") == "distributed":
-            raise ValueError(
-                "mesh mode 'distributed' is single-species only — mixtures "
-                "run on the gather modes (omit 'mode' or set it to "
-                "'gather')")
-        raise NotImplementedError(
-            "a mixture on the gather mesh is not ported to "
-            "rigid_body_light_tpu_torch yet (ROADMAP.md queue 1, item 16): "
-            "drop the 'mesh' key to run on one device")
+    if (conf.get("mesh") or {}).get("mode") == "distributed":
+        raise ValueError(
+            "mesh mode 'distributed' is single-species only — mixtures "
+            "run on the gather modes (omit 'mode' or set it to "
+            "'gather')")
 
     ref_cfgs, all_params = [], []
     for sp in species:
@@ -365,6 +380,16 @@ def main_multi(conf, args):
     if cfg.box is not None:
         for g in mgeom.geoms:
             check_box_geometry(cfg.box, g.ref_cfg.cpu().numpy(), cfg.a)
+    radii = None
+    if mgeom.is_poly():
+        radii = torch.cat([
+            torch.full((sp["n_bodies"] * g.n_blobs,), a_s, dtype=dtype,
+                       device=device)
+            for sp, g, a_s in zip(species, mgeom.geoms,
+                                  mgeom.species_a(cfg))])
+    # the mesh is checked before anything is written (as the single-species
+    # driver's)
+    mesh, mob_apply, mesh_mode = _build_mesh_mob(conf, cfg, device, radii)
 
     out_dir, resumed = _start(conf, args, device, dtype)
     if resumed is not None:
@@ -393,23 +418,32 @@ def main_multi(conf, args):
             else torch.zeros((b, 6), dtype=dtype, device=device)
             for fn, s, b in zip(per_species_fns, ss, sizes))
 
+    if mesh is not None and _rank() == 0:
+        print(_mesh_line(mesh, mesh_mode), flush=True)
+
     def run_chunk(ss, g):
         return multi.run_bd_multi(mgeom, cfg, ss, chunk, generator=g,
-                                  force_fn=force_fn, save_every=save_every)
+                                  force_fn=force_fn, save_every=save_every,
+                                  mob_apply=mob_apply)
 
     def frames_of(traj):
         return (np.concatenate([x.cpu().numpy() for x in traj["X"]], axis=1),
                 np.concatenate([q.cpu().numpy() for q in traj["Q"]], axis=1))
 
     traj_path = os.path.join(out_dir, "trajectory.rblt")
-    writer = TrajectoryWriter(
-        traj_path, sum(sizes),
-        dtype=np.float64 if dtype == torch.float64 else np.float32,
-        append=bool(args.resume))
+    writer = None
+    if _rank() == 0:
+        writer = TrajectoryWriter(
+            traj_path, sum(sizes),
+            dtype=np.float64 if dtype == torch.float64 else np.float32,
+            append=bool(args.resume))
     t_start = time.perf_counter()
     _drive(run_chunk, states, gen, start_step, n_steps, chunk, save_every,
            cfg.dt, writer, os.path.join(out_dir, "checkpoint.npz"),
-           {"config": conf, "species_sizes": list(sizes)}, frames_of)
+           {"config": conf, "species_sizes": list(sizes)}, frames_of,
+           meshed=mesh is not None)
+    if writer is None:
+        return
     writer.flush()
     writer.close()
     print(json.dumps({

@@ -7,8 +7,11 @@ Every function takes the group of one mesh dimension; ``None`` means one
 device (``axis_name=None`` in the JAX package) and returns its input
 unchanged.  Each call is one collective on that group, timed under the
 ``collective`` span of :class:`.profiling.StepTimer`.  The backend is the
-group's own (NCCL for CUDA tensors, gloo for CPU tensors): nothing here
-picks another one or falls back to the single-device path when a
+group's own (NCCL for CUDA tensors, gloo for CPU tensors; gloo reduces
+and gathers a CUDA tensor through the host, and the ring's send and
+receive, which gloo does not carry for CUDA tensors, are staged through
+the host here, so several gloo ranks can share one card): nothing here
+picks another backend or falls back to the single-device path when a
 collective fails.
 """
 
@@ -83,13 +86,15 @@ def ring_shift(tensors, group):
     d, r = size(group), rank(group)
     peer_next = dist.get_global_rank(group, (r + 1) % d)
     peer_prev = dist.get_global_rank(group, (r - 1) % d)
-    sends = [t.contiguous() for t in tensors]
-    recv = [torch.empty_like(t) for t in sends]
-    ops = []
-    for t, buf in zip(sends, recv):
-        ops.append(dist.P2POp(dist.isend, t, peer_next, group=group))
-        ops.append(dist.P2POp(dist.irecv, buf, peer_prev, group=group))
+    recv = [torch.empty_like(t) for t in tensors]
+    host = tensors[0].is_cuda and dist.get_backend(group) == "gloo"
     with profiling.span("collective"):
+        sends = [t.cpu() if host else t.contiguous() for t in tensors]
+        bufs = [torch.empty_like(t) for t in sends] if host else recv
+        ops = []
+        for t, buf in zip(sends, bufs):
+            ops.append(dist.P2POp(dist.isend, t, peer_next, group=group))
+            ops.append(dist.P2POp(dist.irecv, buf, peer_prev, group=group))
         reqs = dist.batch_isend_irecv(ops)
 
     def wait():
@@ -97,5 +102,8 @@ def ring_shift(tensors, group):
         with profiling.span("collective"):
             for q in reqs:
                 q.wait()
+            if host:
+                for out, buf in zip(recv, bufs):
+                    out.copy_(buf)
         sends.clear()
     return recv, wait

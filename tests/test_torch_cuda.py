@@ -1,7 +1,8 @@
 """The CUDA kernels on the card (the pair sweeps K1/K2, the far field's
 near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
 against their plain PyTorch versions, with the distributed path's forms
-(K2's slab entry at nonzero offsets, K3's row-tile slice); the RigidBody API through K1; the
+(K2's slab entry at nonzero offsets, K3's row-tile slice, K4's slab
+form); the RigidBody API through K1; the
 balanced-split Ewald operator (plain PyTorch, no kernel) on the card
 against the CPU; and the adjoints: K1's autograd Function against autograd
 through the plain sweep, and the raises of the kernels without a backward.
@@ -529,6 +530,47 @@ def test_ewald_operator_through_k4(dev, ewald_boxes):
     f1m2 = (F[0] * U[1].double()).sum().item()
     f2m1 = (F[1] * U[0].double()).sum().item()
     assert abs(f1m2 - f2m1) / abs(f1m2) < 1e-5
+
+
+@pytest.mark.parametrize("which", [0, 1])
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("offsets", [(0, 700), (100, 0), (0, 0)])
+def test_k4_slab_matches_plain(dev, ewald_boxes, which, k, offsets):
+    """K4's slab form (ordered rows × columns at global offsets, the pair
+    of equal ids left out) against the float64 Clenshaw block on the same
+    fit: rows apart from the columns, rows inside them (their self pairs
+    masked) and the block against itself; ragged row and column counts
+    (333 rows, 700 columns: a last block of 13 rows, a last chunk of 188
+    columns); two launches bitwise equal, each counted."""
+    params = ewald_boxes[which]
+    r, F = _periodic_cloud(dev, params.box, 700, 13)
+    row0, col0 = offsets
+    lo = row0 - col0
+    rows = (r[lo:lo + 333] if 0 <= lo < 700 else
+            _periodic_cloud(dev, params.box, 333, 14)[0])
+    ids = torch.arange(700, device=dev)
+    ref = ewald.real_space_block(rows, row0 + ids[:rows.shape[0]], r,
+                                 col0 + ids, F[:k], params, cheb=True)
+    before = ewald_cuda.slab_launches
+    U = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, r, col0, params)
+    V = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, r, col0, params)
+    torch.cuda.synchronize()
+    assert ewald_cuda.slab_launches == before + 2
+    assert U.shape == (k, rows.shape[0], 3) and U.dtype == torch.float32
+    assert _rel(U, ref) < TOL and torch.equal(U, V)
+
+
+def test_k4_slab_refuses_float64_three_rhs_and_grad(dev, ewald_boxes):
+    params = ewald_boxes[0]
+    r, F = _periodic_cloud(dev, params.box, 100, 2)
+    with pytest.raises(TypeError, match="float32"):
+        ewald_cuda.real_slab_kernel(r, 0, r, 0, F, params)
+    F3 = torch.cat([F, F[:1]])
+    with pytest.raises(NotImplementedError, match="RHS"):
+        ewald_cuda.real_pair_sum_slab(F3, r, 0, r, 0, params)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ewald_cuda.real_pair_sum_slab(F.float().requires_grad_(), r, 0, r,
+                                      0, params)
 
 
 def test_fma_probe_matches_plain(dev):

@@ -233,11 +233,16 @@ def test_one_species_mixture_equals_the_single_solve(mix):
 
 
 def test_distributed_mixture_is_not_ported(mix):
+    """The distributed mixture is ported (``tests/test_torch_distributed_
+    multi.py`` holds it to the JAX package); a process group without the
+    local operator raises the JAX package's ValueError before any
+    collective."""
     cfg_t, mg_t, st_t = mix[3:]
-    with pytest.raises(NotImplementedError, match="item 16"):
-        multi_t.solve_saddle_multi(mg_t, cfg_t, st_t, None,
-                                   tuple(torch.zeros(b, 6) for b in (3, 2)),
-                                   group=object())
+    with pytest.raises(ValueError, match="needs an explicit local mob_apply"):
+        multi_t.stochastic_step_multi(mg_t, cfg_t, st_t,
+                                      tuple(torch.zeros(b, 6)
+                                            for b in (3, 2)),
+                                      group=object())
 
 
 def dense_wall_mixture():

@@ -199,8 +199,10 @@ def test_mesh_key_refused_before_anything_is_written(tmp_path):
                            match="needs 8 devices but only 1 are visible"):
             run_t.main([cfg_path, "--device", "cpu"])
         assert not os.path.exists(conf["output_dir"])
+    # a mixture runs on the gather mesh now, checked the same way
     cfg_path, conf = _mixture(tmp_path, "mixmesh", mesh={"shape": [2]})
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError,
+                       match="needs 2 devices but only 1 are visible"):
         run_t.main([cfg_path, "--device", "cpu"])
     assert not os.path.exists(conf["output_dir"])
 

@@ -126,12 +126,11 @@ def sharding_task(rank, world, p):
 
 
 # --------------------------------------------------------------- stepper
-def _system(p):
+def _system(p, dtype=torch.float64):
     from rigid_body_light_tpu_torch import interop
 
-    geom = interop.geometry_from_numpy(p["ref"], dtype=torch.float64,
-                                       device="cpu")
-    state = interop.state_from_numpy(p["X"], p["Q"], dtype=torch.float64,
+    geom = interop.geometry_from_numpy(p["ref"], dtype=dtype, device="cpu")
+    state = interop.state_from_numpy(p["X"], p["Q"], dtype=dtype,
                                      device="cpu")
     return geom, state
 
@@ -149,8 +148,9 @@ def _draws(d):
 def distributed_task(rank, world, p):
     """The distributed steps on 4 ranks: deterministic (dense and far
     field), stochastic from this rank's JAX draws (dense and far field), a
-    3-step run_bd, the body count that must divide and the item-16
-    refusals."""
+    3-step run_bd, the body count that must divide, and the paths that
+    once refused (RAS, a 3-D box, the film's far field, the mixture) each
+    taking a deterministic step."""
     from rigid_body_light_tpu_torch import forces, multi, parallel
 
     mesh = parallel.make_mesh(world)
@@ -185,14 +185,23 @@ def distributed_task(rank, world, p):
         geom, _cfg(p["stoch"]), state, F, draws=_draws(p["draws"][rank]),
         group=group), ValueError)
     for name in ("ras", "box3", "film_far"):
-        out[name] = _raises(lambda: parallel.make_distributed_step(
-            geom, _cfg(p[name]), mesh), NotImplementedError)
+        out[name] = _runs(lambda: parallel.make_distributed_step(
+            geom, _cfg(p[name]), mesh, deterministic=True)(state, F)[0].X)
     mg = multi.MultiGeometry.create([p["ref"]], dtype=torch.float64,
                                     device="cpu")
-    out["mixture"] = _raises(lambda: multi.stochastic_step_multi(
-        mg, _cfg(p["stoch"]), (state,), (F,), group=group),
-        NotImplementedError)
+    out["mixture"] = _runs(lambda: parallel.make_distributed_step_multi(
+        mg, _cfg(p["det"]), mesh)((state,), (F,))[0][0].X)
     return out
+
+
+def _runs(fn):
+    """(the message of a NotImplementedError that ``fn()`` raises, or None;
+    whether the X it returned is finite)."""
+    try:
+        X = fn()
+    except NotImplementedError as e:
+        return str(e), False
+    return None, bool(torch.isfinite(X).all())
 
 
 # ------------------------------------------------------------ far field
@@ -234,3 +243,239 @@ def run_mesh_task(rank, world, p):
     return {name: _raises(lambda: run.main([path, "--device", "cpu"]),
                           ValueError)
             for name, path in p["bad"].items()}
+
+
+# ------------------------------------------------------- the Ewald locals
+def ewald_task(rank, world, p):
+    """The distributed Ewald operator on 4 ranks: the classic ring
+    (float64 plain, float32 through K4's wrappers, whose CPU versions are
+    the plain blocks), the balanced split's tile slice (float64 mono and
+    poly), the operator of the config routing (float32 poly, its tables
+    from the gathered radii), the refusals (radii on the ring, ewald_grid_p), and the
+    deterministic steps in a periodic box, classic and balanced."""
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.ops import ewald
+
+    group = dist.group.WORLD
+    out = {}
+    for name, c in p["ops"].items():
+        params = ewald.make_params(c["box"], c["a"], c["eta"], tol=c["tol"],
+                                   rc=c.get("rc"))
+        r_l = _shard(_t(c["r"]), rank, world)
+        F = _t(c["F"])
+        F_l = (_shard(F, rank, world) if F.dim() == 2 else
+               torch.stack([_shard(f, rank, world) for f in F]))
+        radii = c.get("radii")
+        rad_l = None if radii is None else _shard(_t(radii), rank, world)
+        out[name] = _np(ewald.mobility_apply_local(F_l, r_l, params, group,
+                                                   radii_l=rad_l))
+        if c.get("f32") and radii is None:
+            out[name + "_f32"] = _np(ewald.mobility_apply_local(
+                F_l.float(), r_l.float(), params, group, use_kernel=True))
+    c = p["ops"]["ring"]
+    params = ewald.make_params(c["box"], c["a"], c["eta"], tol=c["tol"])
+    out["ring_radii"] = _raises(lambda: ewald.mobility_apply_local(
+        _shard(_t(c["F"]), rank, world), _shard(_t(c["r"]), rank, world),
+        params, group, radii_l=torch.ones(c["F"].shape[0] // world,
+                                          dtype=torch.float64)),
+        NotImplementedError)
+    # the config routing: float32 poly tables built from the gathered radii
+    cfg = _cfg(p["cfg_poly"])
+    c = p["ops"]["cells_poly"]
+    r_l = _shard(_t(c["r"]), rank, world).float()
+    rad_l = _shard(_t(c["radii"]), rank, world).float()
+    mob = parallel.ewald_mobility_apply_local_fn(cfg, group, radii=rad_l)
+    out["fn_poly_f32"] = _np(mob(_shard(_t(c["F"][0]), rank, world).float(),
+                                 r_l))
+    out["grid_p"] = _raises(lambda: parallel.ewald_mobility_apply_local_fn(
+        _cfg(p["cfg_grid"]), group), ValueError)
+    geom, state = _system(p)
+    mesh = parallel.make_mesh(world)
+    F = _t(p["force"])
+    for name in ("step_classic", "step_rc"):
+        s, aux = parallel.make_distributed_step(
+            geom, _cfg(p[name]), mesh, deterministic=True)(state, F)
+        out[name] = dict(X=_np(s.X), Q=_np(s.Q), U=_np(aux.U),
+                         iters=aux.iters)
+    return out
+
+
+# ------------------------------------------------------- distributed RAS
+def ras_task(rank, world, p):
+    """Distributed RAS on 4 ranks: the preconditioner's build (halo ids,
+    the replicated coupled Ñ), a solve in float64 and float32, block_free's
+    iterations beside it, and the deterministic and stochastic steps."""
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.ops import saddle, solvers
+    from rigid_body_light_tpu_torch.state import BodyState
+
+    group = dist.group.WORLD
+    mesh = parallel.make_mesh(world)
+    out = {}
+    for dt, key in (("float64", "cfg64"), ("float32", "cfg32")):
+        dtype = getattr(torch, dt)
+        cfg = _cfg(dict(p[key], dtype=dt))
+        geom, state = _system(p, dtype)
+        s_l = BodyState(X=_shard(state.X, rank, world),
+                        Q=_shard(state.Q, rank, world))
+        ops_l = saddle.geometry_ops(geom, s_l)
+        slip_l = _shard(_t(p["slip"]).reshape(state.X.shape[0], -1, 3),
+                        rank, world).reshape(-1, 3).to(dtype)
+        force_l = _shard(_t(p["solve_force"]), rank, world).to(dtype)
+        mob = parallel.ring_mobility_apply_fn(cfg, group)
+        res = solvers.solve_saddle(ops_l, cfg, slip_l, force_l,
+                                   mob_apply=mob, group=group)
+        bf = solvers.solve_saddle(ops_l, cfg.replace(pc_mode="block_free"),
+                                  slip_l, force_l, mob_apply=mob,
+                                  group=group)
+        out[dt] = dict(U=_np(res.U), lam=_np(res.lam), iters=res.iters,
+                       iters_block_free=bf.iters)
+        if dt == "float64":
+            pc = saddle.build_pc_ras(ops_l, cfg, group=group)
+            out["halo_idx"] = _np(pc.halo_idx)
+            out["n_full"] = _np(pc.n_full)
+    geom, state = _system(p)
+    F = _t(p["force"])
+    cfg = _cfg(p["cfg"])
+    s, aux = parallel.make_distributed_step(geom, cfg, mesh,
+                                            deterministic=True)(state, F)
+    out["det"] = dict(X=_np(s.X), Q=_np(s.Q), iters=aux.iters)
+    s, aux = parallel.make_distributed_step(geom, _cfg(p["cfg_st"]), mesh)(
+        state, F, draws=_draws(p["draws"][rank]))
+    out["stoch"] = dict(X=_np(s.X), Q=_np(s.Q), iters=aux.iters)
+    return out
+
+
+# ------------------------------------------------- the distributed mixture
+def _mixture(p, dtype=torch.float64):
+    from rigid_body_light_tpu_torch import multi
+    from rigid_body_light_tpu_torch.state import make_state
+
+    mg = multi.MultiGeometry.create(p["refs"], dtype=dtype,
+                                    radii=p["radii"], device="cpu")
+    states = tuple(make_state(x, q, dtype=dtype, device="cpu")
+                   for x, q in zip(p["Xs"], p["Qs"]))
+    return mg, states, tuple(_t(f).to(dtype) for f in p["forces"])
+
+
+def multi_task(rank, world, p):
+    """The gather mesh's operator (mono and with a mixture's radii) and
+    the distributed mixture on 4 ranks: deterministic steps through the
+    polydisperse ring, the sliced far field and the distributed Ewald, a
+    stochastic step from this rank's JAX draws, a 3-step run, and a group
+    without its operator."""
+    from rigid_body_light_tpu_torch import multi, parallel
+
+    mesh = parallel.make_mesh(world)
+    out = {}
+    for name, c in p["gather"].items():
+        cfg = _cfg(p["cfg"])
+        radii = None if c["radii"] is None else _t(c["radii"])
+        out[name] = _np(parallel.sharded_mobility_apply_fn(
+            cfg, mesh, radii=radii)(_t(c["F"]), _t(c["r"])))
+    mg, states, forces = _mixture(p)
+    for name in ("ring", "far", "ewald"):
+        m_, s_, f_ = (_mixture(p["ewald_mixture"]) if name == "ewald" else
+                      (mg, states, forces))
+        step = parallel.make_distributed_step_multi(m_, _cfg(p[name]), mesh)
+        ss, res = step(s_, f_)
+        out[name] = dict(X=[_np(s.X) for s in ss], Q=[_np(s.Q) for s in ss],
+                         iters=res.iters)
+    step = parallel.make_distributed_step_multi(mg, _cfg(p["stoch"]), mesh)
+    ss, res = step(states, forces, draws=_draws(p["draws"][rank]))
+    out["stoch"] = dict(X=[_np(s.X) for s in ss], iters=res.iters)
+
+    def force_fn(ss_, i):
+        return tuple(torch.zeros((s.X.shape[0], 6), dtype=torch.float64)
+                     .index_fill_(1, torch.tensor([2]), v)
+                     for s, v in zip(ss_, (-1.0, -2.0)))
+
+    run = parallel.make_distributed_run_bd_multi(mg, _cfg(p["ring"]), mesh,
+                                                 p["n_run"],
+                                                 force_fn=force_fn)
+    final, traj = run(states)
+    out["run"] = dict(X=[_np(s.X) for s in final],
+                      residual=_np(traj["residual"]),
+                      tX=[_np(x) for x in traj["X"]])
+    out["no_mob"] = _raises(lambda: multi.stochastic_step_multi(
+        mg, _cfg(p["ring"]), states, forces,
+        group=parallel.mesh_group(mesh)), ValueError)
+    return out
+
+
+# ------------------------------------------------------ the film's far field
+def film_task(rank, world, p):
+    """The film's far field over 4 ranks: the operator mono and with radii
+    (float64; float32 through K3's box slice, whose CPU version is the
+    plain slice), with a prepared ctx and a pinned geometry; the
+    deterministic and stochastic film far-field steps."""
+    from rigid_body_light_tpu_torch import parallel
+    from rigid_body_light_tpu_torch.ops import farfield
+
+    group = dist.group.WORLD
+    out = {}
+    for name, c in p["ops"].items():
+        r_l = _shard(_t(c["r"]), rank, world)
+        F_l = _shard(_t(c["F"]), rank, world)
+        radii = c.get("radii")
+        kw = dict(p["kw"], radii=None if radii is None
+                  else _shard(_t(radii), rank, world))
+        out[name] = _np(farfield.mobility_apply(F_l, r_l, group=group, **kw))
+        ctx = farfield.prepare(r_l, group=group, **kw)
+        out[name + "_ctx"] = _np(farfield.mobility_apply(
+            F_l, r_l, ctx=ctx, group=group, **kw))
+        geo = farfield.prepare_geometry(r_l, group=group, **kw)
+        ctx_g = farfield.prepare(r_l, geo=geo, group=group, **kw)
+        out[name + "_pinned"] = _np(farfield.mobility_apply(
+            F_l, r_l, ctx=ctx_g, group=group, **kw))
+        kw32 = dict(kw, radii=None if kw["radii"] is None
+                    else kw["radii"].float())
+        out[name + "_f32"] = _np(farfield.mobility_apply(
+            F_l.float(), r_l.float(), group=group, use_pallas=True, **kw32))
+    geom, state = _system(p)
+    mesh = parallel.make_mesh(world)
+    F = _t(p["force"])
+    s, aux = parallel.make_distributed_step(
+        geom, _cfg(p["cfg"]), mesh, deterministic=True)(state, F)
+    out["det"] = dict(X=_np(s.X), Q=_np(s.Q), iters=aux.iters)
+    s, aux = parallel.make_distributed_step(geom, _cfg(p["cfg_st"]), mesh)(
+        state, F, draws=_draws(p["draws"][rank]))
+    out["stoch"] = dict(X=_np(s.X), Q=_np(s.Q), iters=aux.iters)
+    return out
+
+
+# ----------------------------------------------------------------- ensemble
+def ensemble_task(rank, world, p):
+    """The ensemble runner on a (2, 2) hybrid mesh: its dimensions, the
+    deterministic and the stochastic ensembles (each rank fed the JAX
+    ensemble's draws of its walker and its bodies), and the refusals."""
+    from rigid_body_light_tpu_torch import forces, parallel
+    from rigid_body_light_tpu_torch.state import BodyState
+
+    mesh = parallel.make_hybrid_mesh(dcn=2)
+    out = {"dims": (mesh.mesh_dim_names, tuple(mesh.shape)),
+           "dcn3": _raises(lambda: parallel.make_hybrid_mesh(dcn=3),
+                           ValueError)}
+    geom, _ = _system(dict(p, X=p["X"][0], Q=p["Q"][0]))
+    states = BodyState(X=_t(p["X"]), Q=_t(p["Q"]))
+    force_fn = forces.sum_forces(
+        forces.gravity(np.array([0, 0, -1.0, 0, 0, 0])),
+        forces.wall_repulsion(strength=2.0, debye_length=0.5, radius=1.0))
+    chips = mesh.get_group("chips")
+    c_rank = dist.get_rank(chips)
+    for name in ("det", "stoch"):
+        run = parallel.make_ensemble_run_bd(geom, _cfg(p[name]), mesh,
+                                            p["n_steps"], force_fn=force_fn)
+        draws = p["draws"] if name == "stoch" else None
+        fin, traj = run(states, draws_fn=None if draws is None else
+                        lambda w, i: _draws(draws[w][i][c_rank]))
+        out[name] = dict(X=_np(fin.X), Q=_np(fin.Q), tX=_np(traj["X"]),
+                         iters=_np(traj["iters"]))
+    run = parallel.make_ensemble_run_bd(geom, _cfg(p["det"]), mesh, 1)
+    out["walkers"] = _raises(lambda: run(BodyState(X=states.X[:1],
+                                                   Q=states.Q[:1])),
+                             ValueError)
+    out["bodies"] = _raises(lambda: run(BodyState(X=states.X[:, :3],
+                                                  Q=states.Q[:, :3])),
+                            ValueError)
+    return out
