@@ -8,7 +8,8 @@ Phases (each raises on failure; any failure exits nonzero):
   0. the card: name and power limit from nvidia-smi, torch and CUDA versions;
   1. build the kernels for sm_90a: K1/K2 from
      rigid_body_light_tpu_torch/csrc/rpy_pair_sweep.cu, K3 from
-     near_sweep.cu, K4 from ewald_real_sweep.cu, P from fma_peak.cu;
+     near_sweep.cu, K4, its slab form and K4 tiles from
+     ewald_real_sweep.cu, P from fma_peak.cu;
   2. K1 (symmetric sweep) against the plain PyTorch sweep in float64 on
      the card, wall and free, at the slice's 10,272 blob positions and a
      ragged 1,000-blob cloud straddling the wall-height floor: at 1 RHS
@@ -230,8 +231,8 @@ Phases (each raises on failure; any failure exits nonzero):
      through K3 alone (K1 and K2 not launched), apply_M within 1e-2 of
      the exact operator (K1);
  42. the balanced split (ewald_rc 3.5: the tile sweep of
-     rigid_body_light_tpu_torch/ops/ewald_cells.py, plain PyTorch as the
-     JAX package runs it outside Pallas) at the periodic slice's 10,272
+     rigid_body_light_tpu_torch/ops/ewald_cells.py through the kernel K4
+     tiles, csrc/ewald_real_sweep.cu) at the periodic slice's 10,272
      positions, with the dense wave part and with the gridded wave part
      (ops/ewald_pme.py, p = 4), against the classic split through K4 at 1
      and 2 RHS within 2e-4 of max|U|; the tile sweep against the float64
@@ -249,15 +250,18 @@ Phases (each raises on failure; any failure exits nonzero):
      6 x 6 x 5 lattice in a cubic L = 30 box (ewald_rc 3.5, ewald_grid_p
      4, the periodic slice's solver settings), run_bd for 1 warm-up and 2
      timed steps (every residual below 10·gmres_tol, |q| within 1e-5 of 1,
-     no kernel launched), the step timer's split of one more step with the
-     mobility span divided into the tile sweep, the gridded wave part and
-     the rest; then RigidBody.apply_M (numpy in and out) at the slice's
-     positions beside the device function;
+     K4 tiles launched and K4 not), the step timer's split of one more step
+     with the mobility span divided into the tile lists, the tile kernel,
+     the rest of the tile sweep, the gridded wave part and the rest; one
+     step through the kernel against one with use_pallas=False (the plain
+     tile sweep) from the same draws; then RigidBody.apply_M (numpy in and
+     out) at the slice's positions beside the device function;
  45. the polydisperse periodic mixture: the mixture slice's 10,296 blobs
      and forces in a cubic L = 14 box with no wall (ewald_rc 3.5,
      ewald_grid_p 4): the operator with radii against the classic split
      with radii (the plain all-pairs sweep) at 1 and 2 RHS, then
-     multi.run_bd_multi for 1 warm-up and 4 timed steps;
+     multi.run_bd_multi for 1 warm-up and 4 timed steps (K4 tiles
+     launched, its POLY form; K4 not);
  46. the far field's band tier (farfield_band_p: cell offsets 2-3 at a
      higher order as batched float32 matmuls, no TF32) at
      scripts/tpu_farfield_bench.py's band case, 102,400 points: the slab
@@ -331,12 +335,13 @@ Phases (each raises on failure; any failure exits nonzero):
      the plain block's;
  56. the balanced split's tile sweep at phase 44's 115,560 blobs in
      L = 30, its sorted tiles padded for 1, 2 and 4 ranks and each rank's
-     slice swept in this process: the slices' union bitwise the
-     one-device sweep;
+     slice swept in this process through K4 tiles: the slices' union
+     bitwise the one-device sweep;
  57. on an NCCL group of this one process, each new distributed path
      against its single-device counterpart from the same draws, with
      steps/s in turns against run_bd / run_bd_multi: the periodic slice
-     (classic split, bitwise; ewald_rc 3.5 with the dense wave part), the
+     (classic split and ewald_rc 3.5 with the dense wave part, both
+     bitwise), the
      settled slice with distributed RAS (fewer GMRES iterations than
      block_free), the mixture through the POLY ring, the far-field
      mixture and the far-field film (bitwise), each distributed step's
@@ -348,7 +353,20 @@ Phases (each raises on failure; any failure exits nonzero):
      draws, K4's slab launches a step, steps/s;
  58. the run driver with a mixture config (the polydisperse film) and
      mesh shape [1] (the gather mesh) through python -m
-     torch.distributed.run, then resumed: frames without a gap.
+     torch.distributed.run, then resumed: frames without a gap;
+ 59. K4 tiles (ewald_cuda.tile_pair_sum) against its plain twin
+     (ewald_cells._cell_sweep, KERNEL_TOL) and against the float64
+     all-pairs sweep with the cut on the kernel's own folded float32
+     inputs (TILES_F64_TOL; beside it the same sweep on the unfolded
+     positions), 1 and 2 RHS: at phase 42's positions, at phase 43's
+     102,400 points (rc 3.5 and 4.5; 256 sampled rows against float64),
+     at phase 44's 115,560 blobs (sampled rows) and in the POLY form at
+     phase 45's mixture; bitwise repeats; the row-tile slices at D = 1, 2
+     and 4 whose union is bitwise the whole launch (mono at 2 RHS, POLY at
+     1); a list one slot narrower than the widest NaN-poisons the apply;
+     each case's ms beside its bound (kept unordered pairs counted on
+     this run's data), the twin's ms, and the work items' width C timed
+     at 8, 16 and 32 at phase 44.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -360,15 +378,17 @@ lattices, multi.run_bd_multi on the far field), phases 36-38 the
 polydisperse film path (K1/K2's POLY × BOX forms through the run driver),
 phase 39 the exact-drift and unpreconditioned stepper modes, phases
 40-41 the RigidBody API over the dense (K1/K2) and far-field (K3) paths,
-phases 42-45 the balanced-split periodic path (the tile sweep and the
-gridded wave part, no kernel; K4 as the classic split's yardstick),
+phases 42-45 the balanced-split periodic path (the tile sweep through
+K4 tiles and the gridded wave part; K4 as the classic split's
+yardstick),
 phases 46-48 the far field's band tier (K3 and the band's matmuls),
 phase 49 the adjoints (K1 under autograd), phases 50-54 the
 distributed path (K2's slab entries, K3's row-tile slice, the
 distributed stepper and driver), phases 55-58 the rest of it (K4's slab
 form, the tile sweep's slices, distributed RAS, the distributed mixture,
 the film's far field over a group, the ensemble runner, the mixture on
-the gather mesh); phase 15 is the probe's own entry point.  The kernels
+the gather mesh), phase 59 K4 tiles at the balanced split's shapes;
+phase 15 is the probe's own entry point.  The kernels
 are built at first use from the checkout's sources, one nvcc per source,
 all started together.
 
@@ -583,6 +603,15 @@ DRIVER_MESH_STEPS = 10
 DIST4_TIMED_STEPS = 2
 ENSEMBLE_STEPS = 2
 EW_GMRES_TOL = 1e-4
+# phase 59: K4 tiles against the float64 all-pairs sweep with the cut on
+# the kernel's own float32 inputs, relative to max|U| (the kernel's float32
+# Clenshaw and sums; against the unfolded positions the fold's own
+# rounding adds to it, and that reading is recorded beside), the work
+# items' widths timed, and the chunk of live list entries kept_pairs counts
+# at once
+TILES_F64_TOL = 2e-6
+TILES_SLOTS = (8, 16, 32)
+KEPT_CHUNK = 16384
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -1284,7 +1313,8 @@ def step_split(torch, profiling, label, run, steps):
                                              "pair_sweep_ordered",
                                              "near_sweep", "near_sweep_slice",
                                              "ewald_real_sweep",
-                                             "ewald_real_slab"))
+                                             "ewald_real_slab",
+                                             "ewald_real_tiles"))
     print(f"step split, {label} slice, {steps} step(s): {step_ms:.3f} ms a "
           f"step; kernels {kernels:.3f}, GMRES loop (own) "
           f"{own.get('gmres', 0.0):.3f} ms a step; own ms a step by part: "
@@ -1836,13 +1866,13 @@ def balanced_split_setup(torch, device):
 
 
 def balanced_split_phases(torch, dev, counters):
-    """Phases 42-45: the balanced split (the tile sweep of ops/ewald_cells,
-    the gridded wave part of ops/ewald_pme, per-blob radii), plain PyTorch
-    on the card as the JAX package runs it outside any Pallas kernel.
-    Returns the phases' readings."""
+    """Phases 42-45: the balanced split (the tile sweep of ops/ewald_cells
+    through K4 tiles, the gridded wave part of ops/ewald_pme, per-blob
+    radii).  Returns the phases' readings."""
     import rigid_body_light_tpu_torch as rt
     from rigid_body_light_tpu_torch import multi
-    from rigid_body_light_tpu_torch.dynamics import run_bd
+    from rigid_body_light_tpu_torch.dynamics import (make_draws, run_bd,
+                                                     stochastic_step)
     from rigid_body_light_tpu_torch.ops import (ewald, ewald_cells,
                                                 ewald_cuda, ewald_pme,
                                                 kinematics as kin, saddle)
@@ -2029,9 +2059,28 @@ def balanced_split_phases(torch, dev, counters):
     ph44["step_ms"] = split["step"]["ms"]
     ph44["own_ms"] = own
     ph44["mobility_split_ms"] = {
-        "cells sweep": own.get("ewald_cells", 0.0),
+        "tile lists": own.get("ewald_tiles", 0.0),
+        "tile kernel": own.get("ewald_real_tiles", 0.0),
+        "rest of the tile sweep": own.get("ewald_cells", 0.0),
         "PME wave part": own.get("ewald_pme", 0.0),
         "rest": own.get("mobility", 0.0)}
+    ph44["split_counts"] = {k: split[k]["count"] for k in (
+        "ewald_tiles", "ewald_real_tiles", "ewald_pme") if k in split}
+    # one step through the kernel against one through the plain tile
+    # sweep (use_pallas=False), from the same draws
+    zero_s = torch.zeros((s1.X.shape[0], 6), dtype=torch.float32,
+                         device=dev)
+    draws = make_draws(geom_s, s1, gen)
+    s_k, aux_k = stochastic_step(geom_s, cfg_s, s1, zero_s, draws=draws)
+    s_p, aux_p = stochastic_step(geom_s, cfg_s.replace(use_pallas=False),
+                                 s1, zero_s, draws=draws)
+    torch.cuda.synchronize()
+    dX_k, dX_p = s_k.X - s1.X, s_p.X - s1.X
+    ph44["kernel_vs_plain_step"] = dict(
+        rel_dx=((dX_k - dX_p).abs().max() / dX_p.abs().max()).item(),
+        iters=[int(aux_k.iters), int(aux_p.iters)],
+        residuals=[aux_k.residual.item(), aux_p.residual.item()])
+    del s_k, s_p, draws
     print(f"phase 44, the balanced-split slice: {ph44['bodies']} x {SHELL} ="
           f" {n_s} blobs in L = {BS_BOX[0]:g}, rc {BAL_RC}, p {BAL_P}: "
           + json.dumps(ph44))
@@ -2042,7 +2091,13 @@ def balanced_split_phases(torch, dev, counters):
                              and torch.isfinite(s1.Q).all()),
         "|q| within 1e-5 of 1": ph44["max_q_dev"] <= 1e-5,
         "bodies moved": (s1.X - x0).abs().max().item() > 0,
-        "no kernel launched (K4 serves the classic split only)": not cnt,
+        "K4 tiles launched": cnt.get("ewald_real_tiles", 0) > 0,
+        "no other kernel launched (K4 serves the classic split only)":
+            set(cnt) == {"ewald_real_tiles"},
+        "the kernel step within STEP_TOL of the plain step":
+            ph44["kernel_vs_plain_step"]["rel_dx"] <= STEP_TOL,
+        "the plain step's residual < 10 gmres_tol": max(
+            ph44["kernel_vs_plain_step"]["residuals"]) < 10 * cfg_s.gmres_tol,
     }
     for what, ok in checks.items():
         if not ok:
@@ -2122,7 +2177,9 @@ def balanced_split_phases(torch, dev, counters):
         "|q| within 1e-5 of 1": ph45["max_q_dev"] <= 1e-5,
         "bodies moved": (torch.cat([s.X for s in ss]) - x0_m).abs().max()
         .item() > 0,
-        "no kernel launched": not ph45["launches"],
+        "K4 tiles launched": ph45["launches"].get("ewald_real_tiles", 0) > 0,
+        "no other kernel launched (K4 has no POLY form)":
+            set(ph45["launches"]) == {"ewald_real_tiles"},
     }
     for what, ok in checks.items():
         if not ok:
@@ -3311,10 +3368,10 @@ def ewald_slab_phase(torch, dev):
 def tile_slice_phase(torch, dev):
     """Phase 56: the balanced split's tile sweep at phase 44's 115,560
     blobs in L = 30, its sorted tiles padded for 1, 2 and 4 ranks and each
-    rank's slice swept in this process (ewald_cells._cell_sweep at t0,
-    nt): the slices' union bitwise the one-device sweep, with each
-    decomposition's slice times."""
-    from rigid_body_light_tpu_torch.ops import ewald_cells, saddle
+    rank's slice swept in this process (K4 tiles,
+    ewald_cuda.tile_pair_sum at t0, nt): the slices' union bitwise the
+    one-device sweep, with each decomposition's slice times."""
+    from rigid_body_light_tpu_torch.ops import ewald_cells, ewald_cuda, saddle
     from rigid_body_light_tpu_torch.ops import kinematics as kin
 
     cfg, geom, state = balanced_split_setup(torch, dev)
@@ -3335,9 +3392,9 @@ def tile_slice_phase(torch, dev):
         for i in range(d):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            parts.append(ewald_cells._cell_sweep(r_pad, ids_pad, F_pad, nbr,
-                                                 params, poly=pp, t0=i * nt,
-                                                 nt=nt))
+            parts.append(ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr,
+                                                  params, poly=pp, t0=i * nt,
+                                                  nt=nt))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
         U = torch.cat(parts, dim=1)[:, :n]
@@ -3708,7 +3765,11 @@ def distribution_rest_phases(torch, dev, counters):
                                                               ewald_cells.TILE))
         ph["periodic balanced"] = single(
             f"periodic slice, ewald_rc {BAL_RC}, dense wave part", cfg_rc,
-            geom_e, state_e, f_e, STEP_TOL, DIST4_TIMED_STEPS)
+            geom_e, state_e, f_e, STEP_TOL, DIST4_TIMED_STEPS, bitwise=True)
+        if not ph["periodic balanced"]["launches_per_step"].get(
+                "ewald_real_tiles"):
+            raise AssertionError("phase 57: the distributed balanced step "
+                                 "launched no ewald_real_tiles")
 
         cfg_s, geom_s, state_s, force_fn_s = settled_setup(torch, dev)
         f_s = force_fn_s(state_s, 0)
@@ -3804,6 +3865,267 @@ def distribution_rest_phases(torch, dev, counters):
     out["phase58"] = driver_mixture_phase()
     out["phase58"]["seconds"] = time.perf_counter() - t
     return out
+
+
+def kept_pairs(torch, ewald_cells, r_pad, ids_pad, nbr, params):
+    """Ordered pairs of real rows the tile sweep keeps (column id >= 0, the
+    ids differ, r <= rc), counted over the live list entries as
+    ewald_cells._cell_sweep selects them: this run's work."""
+    T = 32
+    t = nbr.shape[0]
+    rt = r_pad.reshape(t, T, 3)
+    it = ids_pad.reshape(t, T)
+    I, slot = (nbr >= 0).nonzero(as_tuple=True)
+    J = nbr[I, slot]
+    kept = 0
+    for c in range(0, I.shape[0], KEPT_CHUNK):
+        Ic, Jc = I[c:c + KEPT_CHUNK], J[c:c + KEPT_CHUNK]
+        d = ewald_cells._min_image(rt[Ic][:, :, None], rt[Jc][:, None],
+                                   params.box)
+        r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[
+            ..., 2]
+        ci, cj = it[Ic][:, :, None], it[Jc][:, None, :]
+        ok = (cj >= 0) & (ci >= 0) & (ci != cj)
+        rr = torch.sqrt(torch.where(ok, torch.clamp(r2, min=1e-24),
+                                    torch.ones_like(r2)))
+        kept += int((ok & (rr <= params.rc)).sum())
+    return kept
+
+
+def tiles_bound(kept, deg, k, n_pad, n_lists, poly=False):
+    """K4 tiles' bound: K4's 36 + 6·D + 36·k flop an unordered pair over
+    this run's kept pairs, against its operands read once (positions, ids,
+    forces, species, the lists) and its output written once."""
+    flops = kept / 2 * (36 + 6 * deg + 36 * k)
+    n_bytes = n_pad * (12 + 4 + 12 * k + (4 if poly else 0) + 12 * k) \
+        + 4 * n_lists
+    return bound_ms(flops, n_bytes)
+
+
+def tile_kernel_phase(torch, dev, counters):
+    """Phase 59: K4 tiles (ewald_cuda.tile_pair_sum) at the balanced
+    split's shapes: against its plain twin (ewald_cells._cell_sweep) and
+    the float64 all-pairs sweep with the cut, repeats, slices, the NaN
+    poison of a narrow list, times beside bounds.  Returns its readings."""
+    from rigid_body_light_tpu_torch import multi
+    from rigid_body_light_tpu_torch.ops import (ewald, ewald_cells,
+                                                ewald_cuda, saddle)
+    from rigid_body_light_tpu_torch.ops import kinematics as kin
+
+    out = {}
+    rng = np.random.default_rng(SEED + 59)
+
+    def f64_ref(F, r, params, rows, pt=None):
+        """The float64 all-pairs sweep with the cut, on ``rows`` (None:
+        all) of positions r: the same Chebyshev fits in float64."""
+        n = r.shape[0]
+        r64, F64 = r.double(), F.double()
+        ids = torch.arange(n, device=dev)
+        rr_ = r64 if rows is None else r64[rows]
+        ri = ids if rows is None else rows
+        if pt is None:
+            return ewald.real_space_block(rr_, ri, r64, ids, F64, params,
+                                          cheb=True)
+        sidx = ewald.poly_device_tables(pt, torch.float64, dev)[0]
+        si = sidx if rows is None else sidx[rows]
+        return ewald._sweep(
+            rr_, ri, r64, ids, F64, params, 512,
+            lambda rr, sl: ewald.pair_scalars(rr, params, True,
+                                              si=si[sl, None],
+                                              sj=sidx[None, :], pt=pt))
+
+    def case(label, r, params, rows=None, radii=None, pt=None,
+             slots=(ewald_cuda.TILE_SLOTS,)):
+        n = r.shape[0]
+        F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
+        rf = ewald_cells._fold(r, params)
+        w = nbr_tiles(ewald_cells, r)
+        order, r_pad, ids_pad, F_pad, pp, nbr, overflow = \
+            ewald_cells.sorted_tiles(rf, F, params, w, radii=radii,
+                                     poly_tables=pt)
+        deg = ewald_cuda._tile_table_size(params, pt)[1]
+        kept = kept_pairs(torch, ewald_cells, r_pad, ids_pad, nbr, params)
+        rec = dict(n=n, tiles=int(nbr.shape[0]), degree=deg,
+                   list_width=int((nbr >= 0).sum(dim=1).max()),
+                   live_entries=int((nbr >= 0).sum()),
+                   kept_ordered_pairs=kept, overflow=bool(overflow))
+        real = ids_pad >= 0
+        for k in (1, 2):
+            Fk = F_pad[:k].contiguous()
+            reset_launches(counters)
+            U = ewald_cuda.tile_pair_sum(r_pad, ids_pad, Fk, nbr, params,
+                                         poly=pp)
+            U2 = ewald_cuda.tile_pair_sum(r_pad, ids_pad, Fk, nbr, params,
+                                          poly=pp)
+            torch.cuda.synchronize()
+            rec[f"launches_{k}"] = launches(counters)
+            twin = ewald_cells._cell_sweep(r_pad, ids_pad, Fk, nbr, params,
+                                           poly=pp)
+            rec[f"twin_rel_{k}"] = op_rel(U[:, real], twin[:, real])
+            rec[f"repeat_bitwise_{k}"] = bool(torch.equal(U, U2))
+            rec[f"finite_{k}"] = bool(torch.isfinite(U).all())
+            U_o = torch.empty((k, n, 3), dtype=U.dtype, device=dev)
+            U_o[:, order] = U[:, :n]
+            sel = slice(None) if rows is None else rows
+            ref = f64_ref(F[:k], rf, params, rows, pt)
+            rec[f"f64_rel_{k}"] = op_rel(U_o[:, sel], ref)
+            rec[f"f64_abs_{k}"] = (U_o[:, sel].double() - ref).abs().max(
+                ).item()
+            rec[f"twin_f64_rel_{k}"] = op_rel(
+                torch.empty_like(U_o).index_copy_(1, order, twin[:, :n])[
+                    :, sel], ref)
+            rec[f"f64_unfolded_rel_{k}"] = op_rel(
+                U_o[:, sel], f64_ref(F[:k], r, params, rows, pt))
+            del ref
+            for c in slots:
+                rec[f"ms_{k}_C{c}"] = cuda_ms(
+                    torch, lambda: ewald_cuda.tile_pair_sum(
+                        r_pad, ids_pad, Fk, nbr, params, poly=pp, slots=c),
+                    5)
+            rec[f"ms_{k}"] = rec[f"ms_{k}_C{ewald_cuda.TILE_SLOTS}"]
+            rec[f"plain_ms_{k}"] = cuda_ms(
+                torch, lambda: ewald_cells._cell_sweep(
+                    r_pad, ids_pad, Fk, nbr, params, poly=pp), 2)
+            b = tiles_bound(kept, deg, k, r_pad.shape[0], nbr.numel(),
+                            poly=pt is not None)
+            rec[f"bound_ms_{k}"], rec["bound_by"] = b
+            rec[f"bound_ratio_{k}"] = rec[f"ms_{k}"] / b[0]
+            del U, U2, twin, U_o
+        print(f"phase 59, K4 tiles at {label}: " + json.dumps(rec))
+        return rec, (rf, F, pp, pt, radii)
+
+    def check(label, rec):
+        for k in (1, 2):
+            ok = (rec[f"twin_rel_{k}"] <= KERNEL_TOL
+                  and rec[f"f64_rel_{k}"] <= TILES_F64_TOL
+                  and rec[f"repeat_bitwise_{k}"] and rec[f"finite_{k}"]
+                  and rec[f"launches_{k}"] == {"ewald_real_tiles": 2}
+                  and not rec["overflow"])
+            if not ok:
+                raise AssertionError(f"phase 59, {label}, {k} RHS: {rec}")
+
+    def slices(label, rf, F, params, pp_args, k):
+        """The row-tile slices for D = 1, 2, 4 ranks: their union bitwise
+        the whole launch on the same padded tiles."""
+        res = {}
+        for d in (1, 2, 4):
+            _, r_pad, ids_pad, F_pad, pp, nbr, _ = ewald_cells.sorted_tiles(
+                rf, F[:k], params, -(-rf.shape[0] // 32), d, **pp_args)
+            whole = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr,
+                                             params, poly=pp)
+            nt = nbr.shape[0] // d
+            parts = [ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr,
+                                              params, poly=pp, t0=i * nt,
+                                              nt=nt) for i in range(d)]
+            res[d] = bool(torch.equal(torch.cat(parts, dim=1), whole))
+        print(f"phase 59, {label} slices at {k} RHS: union bitwise the "
+              f"whole launch at D = 1, 2, 4: {res}")
+        if not all(res.values()):
+            raise AssertionError(f"phase 59, {label}: slices {res}")
+        return res
+
+    # phase 42's positions: the periodic slice in L = 14
+    torch.cuda.empty_cache()
+    cfg_e, geom_e, state_e = ewald_setup(torch, dev)
+    r42 = kin.blob_positions(geom_e, state_e.X, state_e.Q).reshape(-1, 3)
+    par42 = ewald.make_params(EW_BOX, cfg_e.a, cfg_e.eta, tol=EW_TOL,
+                              rc=BAL_RC)
+    out["phase42"], (rf42, F42, _, _, _) = case("phase 42's positions",
+                                                r42, par42)
+    check("phase 42's positions", out["phase42"])
+    out["phase42"]["slices_2rhs"] = slices("phase 42's positions", rf42,
+                                           F42, par42, {}, 2)
+    # a list one slot narrower than the widest poisons the apply
+    width = ewald_cells.neighbor_width(r42, par42)
+    U_ok = ewald_cells.real_space_apply_cells(F42, r42, par42, width)
+    U_bad = ewald_cells.real_space_apply_cells(F42, r42, par42, width - 1)
+    out["phase42"]["narrow_list"] = dict(
+        width=width, finite_at_width=bool(torch.isfinite(U_ok).all()),
+        nan_one_narrower=bool(torch.isnan(U_bad).all()))
+    print(f"phase 59, a list one narrower than the widest ({width}): "
+          + json.dumps(out["phase42"]["narrow_list"]))
+    if not (out["phase42"]["narrow_list"]["finite_at_width"]
+            and out["phase42"]["narrow_list"]["nan_one_narrower"]):
+        raise AssertionError("phase 59: the narrow list does not poison")
+    del U_ok, U_bad
+
+    # phase 43's points: 102,400 uniform in L = 30, rc 3.5 and 4.5
+    rng0 = np.random.default_rng(0)
+    L = PME_BENCH_L
+    r43 = torch.from_numpy(rng0.uniform(0, L, (PME_BENCH_N, 3))).to(
+        dev).float()
+    rows43 = torch.from_numpy(np.sort(rng.choice(
+        PME_BENCH_N, SCALE_ROWS, replace=False))).to(dev)
+    for rc in PME_BENCH_RCS:
+        torch.cuda.empty_cache()
+        par = ewald.make_params((L, L, L), PME_BENCH_A, 1.0, tol=EW_TOL,
+                                rc=rc)
+        key = f"phase43_rc{rc}"
+        out[key], _ = case(f"phase 43's points, rc {rc}", r43, par,
+                           rows=rows43)
+        check(f"phase 43's points, rc {rc}", out[key])
+    del r43
+
+    # phase 44's positions: 115,560 blobs in L = 30, C timed
+    torch.cuda.empty_cache()
+    cfg_s, geom_s, state_s = balanced_split_setup(torch, dev)
+    par44 = saddle._ewald_params(*saddle._ewald_params_key(cfg_s))
+    r44 = kin.blob_positions(geom_s, state_s.X, state_s.Q).reshape(-1, 3)
+    rows44 = torch.from_numpy(np.sort(rng.choice(
+        r44.shape[0], SCALE_ROWS, replace=False))).to(dev)
+    out["phase44"], _ = case("phase 44's positions", r44, par44, rows=rows44,
+                             slots=TILES_SLOTS)
+    check("phase 44's positions", out["phase44"])
+    del r44
+
+    # phase 45's mixture: the POLY form
+    torch.cuda.empty_cache()
+    cfg_m, mgeom, states, _ = mixture_setup(torch, dev, poly=True)
+    cfg_45 = cfg_m.replace(wall=False, box=EW_BOX, ewald_tol=EW_TOL,
+                           ewald_rc=BAL_RC, ewald_grid_p=BAL_P)
+    opses = multi.geometry_ops_multi(mgeom, states)
+    radii = multi.blob_radii_multi(mgeom, opses, cfg_45).float()
+    r45 = multi.concat_positions(opses).float()
+    par45 = saddle._ewald_params(*saddle._ewald_params_key(cfg_45))
+    pt45 = ewald.make_poly_tables(par45, radii)
+    out["poly"], (rf45, F45, _, _, _) = case(
+        "phase 45's mixture (POLY)", r45, par45, radii=radii, pt=pt45)
+    out["poly"]["fits"] = int(pt45.bounds.shape[0])
+    check("phase 45's mixture (POLY)", out["poly"])
+    out["poly"]["slices_1rhs"] = slices(
+        "phase 45's mixture (POLY)", rf45, F45, par45,
+        dict(radii=radii, poly_tables=pt45), 1)
+    return out
+
+
+def tiles_entry(bal, d):
+    """The kernels line's entry of K4 tiles: launches on phase 44's run_bd,
+    its error and times at phase 44's positions (phase 59), the other
+    shapes' beside."""
+    p44 = d["phase44"]
+    return {
+        "name": "ewald_real_tiles", "route": "cuda", "source": K4_SOURCE,
+        "replaces": "rigid_body_light_tpu/ops/ewald_cells.py:122",
+        "replaces_kind": "the JAX package's plain-XLA _cell_sweep; no "
+                         "Pallas kernel",
+        "launches": bal["phase44"]["launches"].get("ewald_real_tiles", 0),
+        "max_abs_err": max(p44["f64_abs_1"], p44["f64_abs_2"]),
+        "max_rel_err_f64": max(
+            v[f"f64_rel_{k}"] for v in d.values() if isinstance(v, dict)
+            and "f64_rel_1" in v for k in (1, 2)),
+        "ms": p44["ms_1"], "plain_ms": p44["plain_ms_1"],
+        "bound_ms": p44["bound_ms_1"], "bound_by": p44["bound_by"],
+        "library_ms": None, "ms_2rhs": p44["ms_2"],
+        "plain_ms_2rhs": p44["plain_ms_2"], "bound_ms_2rhs": p44["bound_ms_2"],
+        **{f"ms_{k}rhs_C{c}": p44[f"ms_{k}_C{c}"] for k in (1, 2)
+           for c in TILES_SLOTS},
+        **{f"ms_{key}_{k}rhs": v[f"ms_{k}"] for key, v in d.items()
+           if isinstance(v, dict) and "ms_1" in v for k in (1, 2)},
+        **{f"bound_ms_{key}_{k}rhs": v[f"bound_ms_{k}"]
+           for key, v in d.items() if isinstance(v, dict) and "ms_1" in v
+           for k in (1, 2)},
+        "launches_poly_mixture_run": bal["phase45"]["launches"].get(
+            "ewald_real_tiles", 0)}
 
 
 def ewald_slab_entry(d):
@@ -5807,6 +6129,13 @@ def main():
     dist_rest = distribution_rest_phases(torch, dev, counters)
     dist_rest["seconds"] = time.perf_counter() - t_rest
     print(json.dumps({"distribution_rest": jsonable(dist_rest)}))
+
+    # ---- 59. K4 tiles at the balanced split's shapes
+    torch.cuda.empty_cache()
+    t_tiles = time.perf_counter()
+    tiles59 = tile_kernel_phase(torch, dev, counters)
+    tiles59["seconds"] = time.perf_counter() - t_tiles
+    print(json.dumps({"tile_kernel": jsonable(tiles59)}))
     band47 = band["phase47"]["p = 4 + band 6"]
 
     print(json.dumps({"step_split": splits, "timer_cost_steps_per_s": cost,
@@ -5921,6 +6250,7 @@ def main():
              "launches"].get("ewald_real_sweep", 0)},
         slice_entry(dist_),
         ewald_slab_entry(dist_rest),
+        tiles_entry(balanced, tiles59),
         {"name": "fma_peak", "route": "cuda", "source": P_SOURCE,
          "replaces": "scripts/tpu_kernel_roofline.py:53",
          "launches": p_launches, "max_abs_err": p_err, "ms": p_ms,

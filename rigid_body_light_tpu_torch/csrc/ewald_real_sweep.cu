@@ -15,6 +15,12 @@
 //                        these blocks in plain XLA (ewald.py:788
 //                        real_space_block); the ring's diagonal block is
 //                        K4's own sweep.
+//   ewald_tile_kernel    "K4 tiles": the balanced split's cutoff sweep over
+//                        sorted neighbor tiles (its own note is below).
+//                        It replaces no Pallas kernel: the JAX package
+//                        sweeps these tiles in plain XLA
+//                        (rigid_body_light_tpu/ops/ewald_cells.py:122
+//                        _cell_sweep).
 //
 // A(r) and B(r) are never evaluated from their closed forms (those cancel
 // catastrophically in float32): they come from the host-fitted float64
@@ -463,6 +469,309 @@ __global__ void slab_sum_chunks_kernel(const float* __restrict__ part,
   out[e] = v;
 }
 
+// ---------------------------------------------------------------------
+// K4 tiles: the balanced split's real part over sorted neighbor tiles.
+//
+// Contract: exactly ewald_cells._cell_sweep's (rigid_body_light_tpu_torch/
+// ops/ewald_cells.py; the JAX package's ewald_cells.py:122).  The blobs
+// arrive folded into the box, sorted into t tiles of 32 and padded
+// (ewald_cells.sorted_tiles): positions (t·32, 3), blob ids (−1 for a
+// pad), forces (k, t·32, 3), the neighbor lists nbr (t, M), the live
+// tiles of each row first, ascending, then −1.  For the row tiles
+// [t0, t0 + nt), out (k, nt·32, 3) = Σ_j [A(r)·I + B(r)·r̂r̂]·F_j over the
+// columns j of the row's listed tiles where the column id is ≥ 0, the two
+// ids differ and r ≤ rc under the 3-D minimum image.  A and B come from
+// one Chebyshev fit (monodisperse) or, in the POLY form, from the fit
+// pair_map[species_i][species_j] of per-species-pair fits
+// (ewald.make_poly_tables), by K4's Clenshaw.
+//
+// What bounds it: arithmetic, as K4.  At the balanced-split slice
+// (115,560 blobs in L = 30, rc 3.5, degree 47) 39.7 M unordered pairs lie
+// within rc; at K4's 36 + 6·D + 36·k flop an unordered pair that is 14.1 /
+// 15.5 GFLOP at 1 / 2 RHS, 0.210 / 0.231 ms at 67 TFLOP/s.  This ordered
+// design evaluates every kept pair from both sides, so twice that is its
+// own floor; a symmetric sweep over unordered tile pairs (K3's design) is
+// later work.  Its operands are ~40 bytes a blob.
+//
+// Design: ordered, one writer a row.
+//   - A work item is (row tile, a run of at most C consecutive live slots
+//     of its list), C = `slots`.  The items are listed on the card from
+//     the live counts by a prefix sum (ewald_cuda.tile_items), with no
+//     host sync, so the grid is persistent: as many blocks as fit at once,
+//     block g taking items g, g + G, ..., the count read from the device
+//     (as K3).  Splitting a list keeps the longest one (528 tiles at the
+//     slice, against a mean of 57) from setting the tail.
+//   - A block of kTileWarps warps takes its item's slots in a fixed
+//     interleave: warp w the slots s0 + w, s0 + w + kTileWarps, ...  For
+//     each, the warp stages the neighbor tile's 32 blobs (position, id,
+//     forces, species) in its own shared slice, and lane l, which owns row
+//     l of the row tile, walks the 32 columns, kTilePairs at a time
+//     (columns c and c + 16: two Clenshaw chains side by side and one
+//     coefficient read for both where their fit and segment agree, K4's
+//     trick).  A column step where no lane keeps a pair is skipped (a
+//     vote); a masked pair in a kept step adds an exact 0 through a select.
+//   - The warps' row sums are added in warp order into the item's partial
+//     (one writer an element); a second pass adds a row tile's items in
+//     slot order.  No atomics: launches repeat bitwise, and a slice of the
+//     row tiles is bitwise the same rows of the whole launch.
+//   - A lane sums each slot's 32 columns apart and adds that sum to its
+//     row's: one running float32 sum over a row's hundreds of kept pairs
+//     (the plain version's segment sum) loses several times more against
+//     float64 than sums of 32 added together (PERF.md §6).
+//   - The minimum image is K4's, but the period comes off the coordinate
+//     past L/2 before the difference (min_image): the plain version's
+//     xi − xj of a pair across the box's face is rounded at the scale of
+//     L before the wrap, which dominates its error where bodies straddle
+//     the face.  r² is summed as the plain version sums it (no
+//     contraction); IEEE sqrt and division; the segment map and Clenshaw
+//     are K4's.
+//   - The tables (every fit's coefficients, its 8 segment constants, the
+//     species-pair map) sit in dynamic shared memory sized from the table
+//     itself, at most kTileTableBytes; the wrapper refuses a larger one.
+// Scratch: partials (nt·⌈M/C⌉, k, 32, 3) float32 (every list could be
+// full: the host does not know the live count) and the item list
+// (nt·⌈M/C⌉, 2) int32; at the slice with M = t = 3,612 and C = 16,
+// 313 / 627 MB at 1 / 2 RHS.  The step's peak there: 15.2 GB, most of it
+// the gridded wave part's.
+// Resources (ptxas, sm_90a): 71 / 64 registers at 1 / 2 RHS, 64 / 63 in
+// the POLY form, no spills; 5,120 / 8,192 bytes of static shared memory
+// (POLY 5,632 / 8,704) besides the table (1,568 bytes at degree 47).
+// On an H100 at 700 W, at the slice: 2.840 / 3.065 ms, 13.5× / 13.3× the
+// bound, against the plain twin's 220.8 / 226.4 ms; C = 16 against C = 8
+// and 32 (2.961 / 2.999 ms at 1 RHS) (PERF.md §6).
+constexpr int kTileRows = 32;   // blobs a tile, one row a lane
+constexpr int kTileWarps = 4;   // warps a block, sharing the item's slots
+constexpr int kTilePairs = 2;   // columns a lane evaluates side by side
+constexpr int kTileSteps = kTileRows / kTilePairs;
+constexpr int kTileTableBytes = 196608;  // largest shared fit table
+constexpr int kFitConsts = 8;   // b1, b2, lo[3], two_inv_w[3] a fit
+
+struct TileConsts {
+  float box[3];
+  float inv_box[3];
+  float rc;
+};
+
+// Dynamic shared bytes of the tables: coefficients (n_fits, deg+1, 4)
+// float2, the fits' constants, the species-pair map.
+int tile_table_bytes(int n_fits, int deg, int n_species) {
+  return n_fits * (deg + 1) * 4 * 8 + n_fits * kFitConsts * 4
+         + n_species * n_species * 4;
+}
+
+// a − b under the minimum image of a period L, for a, b folded into
+// [0, L]: the image is K4's (rint of (a − b)/L), but the period is taken
+// off the coordinate past L/2 before the difference (exact there, by
+// Sterbenz), so a pair across the box's face has its small difference
+// rounded once at its own scale, not at L's.
+__device__ __forceinline__ float min_image(float a, float b, float L,
+                                           float inv_L) {
+  const float n = rintf((a - b) * inv_L);
+  return n > 0.0f ? (a - L) - b : (n < 0.0f ? a - (b - L) : a - b);
+}
+
+template <int NRHS, bool POLY>
+__global__ void __launch_bounds__(kTileWarps * 32)
+ewald_tile_kernel(const float* __restrict__ pos,      // (n_pad, 3)
+                  const int* __restrict__ ids,        // (n_pad,)
+                  const float* __restrict__ force,    // (NRHS, n_pad, 3)
+                  const int* __restrict__ species,    // (n_pad,), POLY
+                  const int* __restrict__ nbr,        // (t, max_nbr)
+                  int max_nbr,
+                  const int2* __restrict__ items,     // (row tile − t0, q)
+                  const int* __restrict__ n_items,
+                  int n_pad, int t0, int slots, int q_cap, TileConsts cst,
+                  const float2* __restrict__ coef,    // (n_fits, deg+1, 4)
+                  const float* __restrict__ fit_consts,  // (n_fits, 8)
+                  int n_fits, int deg,
+                  const int* __restrict__ pair_map,   // (S, S), POLY
+                  int n_species,
+                  float* __restrict__ part) {  // (nt·q_cap, NRHS, 32, 3)
+  constexpr int NF = 3 * NRHS;
+  extern __shared__ float4 s_dyn[];
+  float2* s_coef = reinterpret_cast<float2*>(s_dyn);
+  const int n_coef = n_fits * (deg + 1) * 4;
+  float* s_fit = reinterpret_cast<float*>(s_coef + n_coef);
+  int* s_map = reinterpret_cast<int*>(s_fit + n_fits * kFitConsts);
+  __shared__ float s_pos[kTileWarps][3][kTileRows];
+  __shared__ float s_f[kTileWarps][NF][kTileRows];
+  __shared__ int s_id[kTileWarps][kTileRows];
+  __shared__ int s_sp[kTileWarps][kTileRows];
+  __shared__ float s_red[kTileWarps][NF][kTileRows];
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int stride = deg + 1;
+  for (int idx = t; idx < n_coef; idx += kTileWarps * 32)
+    s_coef[idx] = coef[idx];
+  for (int idx = t; idx < n_fits * kFitConsts; idx += kTileWarps * 32)
+    s_fit[idx] = fit_consts[idx];
+  if (POLY)
+    for (int idx = t; idx < n_species * n_species; idx += kTileWarps * 32)
+      s_map[idx] = pair_map[idx];
+  __syncthreads();  // the tables are written
+
+  const int count = *n_items;
+  for (int item = blockIdx.x; item < count; item += gridDim.x) {
+    const int2 it = items[item];
+    const int I = t0 + it.x;
+    const int i = I * kTileRows + lane;
+    const float xR = pos[3 * i], yR = pos[3 * i + 1], zR = pos[3 * i + 2];
+    const int idR = ids[i];
+    const int spR = POLY ? species[i] : 0;
+    float acc[NF];
+#pragma unroll
+    for (int q = 0; q < NF; ++q) acc[q] = 0.0f;
+
+    const int* list = nbr + (size_t)I * max_nbr;
+    const int s_end = min(it.y * slots + slots, max_nbr);
+    for (int s = it.y * slots + warp; s < s_end; s += kTileWarps) {
+      const int J = list[s];  // warp-uniform
+      if (J < 0) break;
+      __syncwarp();  // the previous slot's columns are read
+      {
+        const int j = J * kTileRows + lane;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) s_pos[warp][d][lane] = pos[3 * j + d];
+        s_id[warp][lane] = ids[j];
+        if (POLY) s_sp[warp][lane] = species[j];
+#pragma unroll
+        for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            s_f[warp][3 * k + d][lane] =
+                force[((size_t)k * n_pad + j) * 3 + d];
+      }
+      __syncwarp();  // the stage is written
+
+      float slot_sum[NF];  // this slot's 32 columns, then into acc
+#pragma unroll
+      for (int q = 0; q < NF; ++q) slot_sum[q] = 0.0f;
+      for (int c = 0; c < kTileSteps; ++c) {
+        int base[kTilePairs];
+        bool valid[kTilePairs];
+        float dx[kTilePairs], dy[kTilePairs], dz[kTilePairs], x[kTilePairs],
+            inv_r2[kTilePairs];
+        bool any = false;
+#pragma unroll
+        for (int p = 0; p < kTilePairs; ++p) {
+          const int col = c + p * kTileSteps;
+          dx[p] = min_image(xR, s_pos[warp][0][col], cst.box[0],
+                            cst.inv_box[0]);
+          dy[p] = min_image(yR, s_pos[warp][1][col], cst.box[1],
+                            cst.inv_box[1]);
+          dz[p] = min_image(zR, s_pos[warp][2][col], cst.box[2],
+                            cst.inv_box[2]);
+          float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx[p], dx[p]),
+                                         __fmul_rn(dy[p], dy[p])),
+                               __fmul_rn(dz[p], dz[p]));
+          const int idC = s_id[warp][col];
+          const bool ok = idC >= 0 && idC != idR;
+          r2 = ok ? fmaxf(r2, 1e-24f) : 1.0f;
+          const float r = __fsqrt_rn(r2);
+          valid[p] = ok && r <= cst.rc;
+          any = any || valid[p];
+          inv_r2[p] = __fdiv_rn(1.0f, r2);
+          const int fit = POLY ? s_map[spR * n_species + s_sp[warp][col]] : 0;
+          const float* fc = s_fit + fit * kFitConsts;
+          const bool in1 = r >= fc[0], in2 = r >= fc[1];
+          const int seg = (int)in1 + (int)in2;
+          x[p] = fminf(fmaxf((r - fc[2 + seg]) * fc[5 + seg] - 1.0f, -1.0f),
+                       1.0f);
+          base[p] = fit * stride * 4 + seg;
+        }
+        if (!__any_sync(0xffffffffu, any)) continue;
+        float A[kTilePairs], B[kTilePairs];
+        clenshaw<kTilePairs>(s_coef, deg, base, x, A, B);
+#pragma unroll
+        for (int p = 0; p < kTilePairs; ++p) {
+          const int col = c + p * kTileSteps;
+          const float Ap = valid[p] ? A[p] : 0.0f;
+          const float Bh = valid[p] ? B[p] * inv_r2[p] : 0.0f;
+#pragma unroll
+          for (int k = 0; k < NRHS; ++k) {
+            const float fx = s_f[warp][3 * k][col],
+                        fy = s_f[warp][3 * k + 1][col],
+                        fz = s_f[warp][3 * k + 2][col];
+            const float bdF = Bh * (dx[p] * fx + dy[p] * fy + dz[p] * fz);
+            slot_sum[3 * k] += Ap * fx + bdF * dx[p];
+            slot_sum[3 * k + 1] += Ap * fy + bdF * dy[p];
+            slot_sum[3 * k + 2] += Ap * fz + bdF * dz[p];
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NF; ++q) acc[q] += slot_sum[q];
+    }
+
+    // the warps' row sums in warp order, one writer an element
+#pragma unroll
+    for (int q = 0; q < NF; ++q) s_red[warp][q][lane] = acc[q];
+    __syncthreads();
+    float* out =
+        part + ((size_t)it.x * q_cap + it.y) * NRHS * kTileRows * 3;
+    for (int idx = t; idx < NF * kTileRows; idx += kTileWarps * 32) {
+      const int q = idx / kTileRows, row = idx % kTileRows;
+      float v = s_red[0][q][row];
+#pragma unroll
+      for (int w = 1; w < kTileWarps; ++w) v += s_red[w][q][row];
+      out[((q / 3) * kTileRows + row) * 3 + q % 3] = v;
+    }
+    __syncthreads();  // s_red is read before the next item writes it
+  }
+}
+
+// The second pass: out[k][i][d] = Σ_{q < n_q[i / 32]} part[(i/32)·q_cap +
+// q][k][i % 32][d] in item order, for the nt·32 rows i of the slice.
+__global__ void tile_sum_items_kernel(const float* __restrict__ part,
+                                      const int* __restrict__ n_q, int nt,
+                                      int q_cap, int nrhs,
+                                      float* __restrict__ out) {
+  const size_t per_rhs = (size_t)nt * kTileRows * 3;
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= nrhs * per_rhs) return;
+  const int k = (int)(e / per_rhs);
+  const int rem = (int)(e % per_rhs);
+  const int tile = rem / (kTileRows * 3);
+  const int within = rem % (kTileRows * 3);
+  const float* p = part + ((size_t)tile * q_cap * nrhs + k) * kTileRows * 3
+                   + within;
+  const size_t step = (size_t)nrhs * kTileRows * 3;
+  float v = 0.0f;
+  for (int q = 0; q < n_q[tile]; ++q) v += p[q * step];
+  out[e] = v;
+}
+
+template <int NRHS, bool POLY>
+int launch_tiles(int cap, int shared, cudaStream_t stream, const float* pos,
+                 const int* ids, const float* force, const int* species,
+                 const int* nbr, int max_nbr, const int* items,
+                 const int* n_items, int n_pad, int t0, int slots, int q_cap,
+                 const TileConsts& cst, const float2* coef,
+                 const float* fit_consts, int n_fits, int deg,
+                 const int* pair_map, int n_species, float* part) {
+  auto kernel = ewald_tile_kernel<NRHS, POLY>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess
+      || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev)) != cudaSuccess
+      || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+              &per_sm, kernel, kTileWarps * 32, shared)) != cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int resident = sms * per_sm;
+  const int grid = cap < resident ? cap : resident;
+  kernel<<<grid, kTileWarps * 32, shared, stream>>>(
+      pos, ids, force, species, nbr, max_nbr,
+      reinterpret_cast<const int2*>(items), n_items, n_pad, t0, slots, q_cap,
+      cst, coef, fit_consts, n_fits, deg, pair_map, n_species, part);
+  return static_cast<int>(cudaGetLastError());
+}
+
 SweepConsts unpack_consts(const float* consts) {
   SweepConsts cst;
   for (int d = 0; d < 3; ++d) {
@@ -552,6 +861,81 @@ int ewald_real_slab(const float* rows_pos, int n_rows, int row0,
   const int threads = 256;
   slab_sum_chunks_kernel<<<(per_chunk + threads - 1) / threads, threads, 0,
                            stream>>>(part, n_chunks, per_chunk, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4 tiles' tile size and shared-table capacity (the wrapper checks its
+// own against them).
+int ewald_tile_rows() { return kTileRows; }
+int ewald_tile_table_capacity() { return kTileTableBytes; }
+
+// K4 tiles: out (nrhs, nt·32, 3), the pair terms of the row tiles
+// [t0, t0 + nt) against their listed neighbor tiles (see the kernel's
+// note).  pos (n_pad, 3), ids (n_pad,) int32, force (nrhs, n_pad, 3),
+// species (n_pad,) int32 or NULL (monodisperse), nbr (t, max_nbr) int32;
+// items (cap, 2) int32 with its used length at n_items on the device and
+// n_q (nt,) int32 the items of each row tile (ewald_cuda.tile_items);
+// consts: 7 host floats (box[3], inv_box[3], rc); coef (n_fits, deg+1,
+// 4, 2) and fit_consts (n_fits, 8) floats, pair_map (S, S) int32 or NULL;
+// part holds nt·q_cap·nrhs·32·3 floats (scratch; only used items are
+// written and read).
+int ewald_real_tiles(const float* pos, const int* ids, const float* force,
+                     const int* species, const int* nbr, int max_nbr,
+                     const int* items, const int* n_items, const int* n_q,
+                     int cap, int n_pad, int t0, int nt, int slots,
+                     int q_cap, int nrhs, const float* consts,
+                     const float* coef, const float* fit_consts, int n_fits,
+                     int deg, const int* pair_map, int n_species,
+                     float* part, float* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
+  const bool poly = species != nullptr;
+  if (n_fits < 1 || deg < 0 || slots < 1 || (poly && pair_map == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int shared = tile_table_bytes(n_fits, deg, poly ? n_species : 0);
+  if (shared > kTileTableBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (nt <= 0) return 0;
+  TileConsts cst;
+  for (int d = 0; d < 3; ++d) {
+    cst.box[d] = consts[d];
+    cst.inv_box[d] = consts[3 + d];
+  }
+  cst.rc = consts[6];
+  const float2* coef2 = reinterpret_cast<const float2*>(coef);
+  int code = 0;
+  if (cap > 0) {
+    if (nrhs == 1)
+      code = poly ? launch_tiles<1, true>(cap, shared, stream, pos, ids,
+                                          force, species, nbr, max_nbr,
+                                          items, n_items, n_pad, t0, slots,
+                                          q_cap, cst, coef2, fit_consts,
+                                          n_fits, deg, pair_map, n_species,
+                                          part)
+                  : launch_tiles<1, false>(cap, shared, stream, pos, ids,
+                                           force, species, nbr, max_nbr,
+                                           items, n_items, n_pad, t0, slots,
+                                           q_cap, cst, coef2, fit_consts,
+                                           n_fits, deg, pair_map, 0, part);
+    else
+      code = poly ? launch_tiles<2, true>(cap, shared, stream, pos, ids,
+                                          force, species, nbr, max_nbr,
+                                          items, n_items, n_pad, t0, slots,
+                                          q_cap, cst, coef2, fit_consts,
+                                          n_fits, deg, pair_map, n_species,
+                                          part)
+                  : launch_tiles<2, false>(cap, shared, stream, pos, ids,
+                                           force, species, nbr, max_nbr,
+                                           items, n_items, n_pad, t0, slots,
+                                           q_cap, cst, coef2, fit_consts,
+                                           n_fits, deg, pair_map, 0, part);
+    if (code != 0) return code;
+  }
+  const size_t total = (size_t)nrhs * nt * kTileRows * 3;
+  const int threads = 256;
+  tile_sum_items_kernel<<<(unsigned)((total + threads - 1) / threads),
+                          threads, 0, stream>>>(part, n_q, nt, q_cap, nrhs,
+                                                out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,7 +41,8 @@ the JAX package so that both build identical arrays.
 
 The balanced split (``make_params(rc=)``) cuts the real part at rc < L/2:
 :func:`mobility_apply` then sweeps it over sorted tiles
-(:mod:`.ewald_cells`), and with a ``grid`` evaluates the wave part on the
+(:mod:`.ewald_cells`; float32 through the kernel K4 tiles unless
+``use_kernel=False``), and with a ``grid`` evaluates the wave part on the
 cell-spectral grid (:mod:`.ewald_pme`).  float32 with per-blob radii
 evaluates per-species-pair Chebyshev fits (:class:`PolyTables`).
 """
@@ -723,10 +724,11 @@ def _wave_space_dense(F, r, params: EwaldParams, radii=None, phases=None,
 
 # --------------------------------------------------------------- operator
 def _operator(Fs, r, params: EwaldParams, row_tile, radii, poly_tables,
-              max_nbr, grid, cheb):
+              max_nbr, grid, cheb, use_kernel):
     """M_per·Fs for (N, 3) or (k, N, 3) forces: the real part (all pairs,
-    or the tile sweep under ``params.rc``), the self term and the wave part
-    (dense, or on ``grid``)."""
+    or the tile sweep under ``params.rc``, float32 through K4 tiles with
+    ``use_kernel``), the self term and the wave part (dense, or on
+    ``grid``)."""
     if grid is not None and (radii is None) != (grid.sidx is None):
         raise ValueError("gridded wave part: build the grid with the "
                          "same radii= as the apply (polydisperse needs "
@@ -739,7 +741,7 @@ def _operator(Fs, r, params: EwaldParams, row_tile, radii, poly_tables,
         with profiling.span("ewald_cells"):
             U = ewald_cells.real_space_apply_cells(
                 Fs, r, params, max_nbr=max_nbr, radii=radii,
-                poly_tables=poly_tables)
+                poly_tables=poly_tables, use_kernel=use_kernel)
     else:
         U = real_space_apply(Fs, r, params, row_tile=row_tile, radii=radii,
                              poly_tables=poly_tables, cheb=cheb)
@@ -755,31 +757,33 @@ def _operator(Fs, r, params: EwaldParams, row_tile, radii, poly_tables,
 
 def mobility_apply(F, r, params: EwaldParams, row_tile=512, radii=None,
                    poly_tables: PolyTables = None, max_nbr=None, grid=None,
-                   cheb=None):
+                   cheb=None, use_kernel=True):
     """Full periodic RPY product U = M_per(r)·F, SPD by construction;
     (N, 3) → (N, 3) in ``r``'s dtype.
 
     radii: (N,) per-blob radii (polydisperse; float32 through
     ``poly_tables``, built from the radii when not given).  With
     ``params.rc`` the real part is the tile sweep (:mod:`.ewald_cells`,
-    ``max_nbr`` its neighbor-list width); ``grid``: the gridded wave part
+    ``max_nbr`` its neighbor-list width; float32 through the kernel K4
+    tiles unless ``use_kernel`` is False); ``grid``: the gridded wave part
     (:mod:`.ewald_pme`), built with the same ``radii=`` as the apply.
     """
     r = r.reshape(-1, 3)
     F = F.to(r.dtype).reshape(-1, 3)
     return _operator(F, r, params, row_tile, radii, poly_tables, max_nbr,
-                     grid, cheb)
+                     grid, cheb, use_kernel)
 
 
 def mobility_apply_multi(Fs, r, params: EwaldParams, row_tile=512,
                          radii=None, poly_tables: PolyTables = None,
-                         max_nbr=None, grid=None, cheb=None):
+                         max_nbr=None, grid=None, cheb=None,
+                         use_kernel=True):
     """Multi-RHS periodic product (k, N, 3) → (k, N, 3) sharing the pair
     fields: the real-space (A, B) sweep and the wave-space phase matrices
     (or the grid's spread weights) are computed once for all RHS."""
     r = r.reshape(-1, 3)
     return _operator(Fs.to(r.dtype), r, params, row_tile, radii,
-                     poly_tables, max_nbr, grid, cheb)
+                     poly_tables, max_nbr, grid, cheb, use_kernel)
 
 
 def mobility_matrix(r, params: EwaldParams, radii=None):
@@ -855,7 +859,8 @@ def mobility_apply_local(F_l, r_l, params: EwaldParams, group, row_tile=512,
     slab form, the layout of :func:`.ewald_cuda.mobility_apply_multi`);
     the balanced split's (``params.rc``) is this rank's slice of the tile
     sweep (:func:`.ewald_cells.real_space_apply_cells` with the group,
-    ``max_nbr`` its list width).  The wave part's k-space moments are
+    ``max_nbr`` its list width; ``use_kernel``, float32: K4 tiles on the
+    slice).  The wave part's k-space moments are
     summed over the group (:func:`wave_space_apply`), the self term is
     per blob.  At one rank it is the single-device operator, bit for bit.
 
@@ -871,7 +876,8 @@ def mobility_apply_local(F_l, r_l, params: EwaldParams, group, row_tile=512,
         raise NotImplementedError(
             "distributed polydisperse Ewald needs balanced splitting "
             "(ewald_rc > 0) — the classic-split ring sweep is monodisperse")
-    if use_kernel and not multi:
+    ring_kernel = use_kernel and params.rc is None
+    if ring_kernel and not multi:
         Fs = Fs[None]
     if radii_l is not None:
         radii_l = torch.as_tensor(radii_l, dtype=r_l.dtype,
@@ -882,10 +888,10 @@ def mobility_apply_local(F_l, r_l, params: EwaldParams, group, row_tile=512,
         with profiling.span("ewald_cells"):
             U = ewald_cells.real_space_apply_cells(
                 Fs, r_l, params, max_nbr=max_nbr, radii=radii_l,
-                poly_tables=poly_tables, group=group)
+                poly_tables=poly_tables, group=group, use_kernel=use_kernel)
     else:
         U = _ring_real(Fs, r_l, params, group, row_tile, use_kernel)
     a_self = params.a if radii_l is None else radii_l[:, None]
     U = U + self_coeff(a_self, params.xi, params.eta) * Fs
     U = U + wave_space_apply(Fs, r_l, params, radii=radii_l, group=group)
-    return U[0] if use_kernel and not multi else U
+    return U[0] if ring_kernel and not multi else U

@@ -19,6 +19,11 @@ those within rc (not the pad columns, not the self pair), evaluates A and
 B on the kept pairs only and sums each row's terms in column order by a
 segmented reduction, so a row's sum does not depend on how rows are
 chunked.
+float32 sweeps the tiles through the hand-written kernel "K4 tiles"
+(:func:`.ewald_cuda.tile_pair_sum`: on the card the kernel, on the CPU
+:func:`_cell_sweep`, its plain twin); ``use_kernel=False`` keeps the plain
+sweep on the card (the configuration's ``use_pallas=False``), and float64
+always takes it (the closed forms, not the fits).
 A neighbor-list overflow cannot be repaired inside the apply, so it is
 loud: the velocities are NaN-poisoned by a select on a device flag (no
 host sync), the stepper's validity guards catch it, and the width is
@@ -30,8 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rigid_body_light_tpu_torch.ops import ewald, tiles
-from rigid_body_light_tpu_torch.utils import collectives
+from rigid_body_light_tpu_torch.ops import ewald, ewald_cuda, tiles
+from rigid_body_light_tpu_torch.utils import collectives, profiling
 
 TILE = tiles.TILE
 # candidate pairs (live tile pairs × TILE²) one chunk of row tiles holds:
@@ -50,7 +55,7 @@ def _fold(r, params: ewald.EwaldParams):
 
 def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
                            radii=None, poly_tables=None, chunk_tiles=None,
-                           group=None):
+                           group=None, use_kernel=True):
     """U_real = Σ_{j≠i, r_ij ≤ rc} [A·I + B·r̂r̂]·F_j over sorted tiles.
 
     F: (N, 3) or (k, N, 3).  Returns U shaped like F, NaN-poisoned on a
@@ -58,9 +63,11 @@ def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
     per-blob radii, the exact polydisperse scalars of the all-pairs sweep
     (float32: the species-pair fits of ``poly_tables``, built from the
     radii when not given; float64: the shifted closed forms).
-    chunk_tiles: row tiles a chunk holds (default: as many as hold
-    :data:`CHUNK_PAIRS` candidate pairs); it groups rows only and changes no
-    result.
+    chunk_tiles: row tiles a chunk of the plain sweep holds (default: as
+    many as hold :data:`CHUNK_PAIRS` candidate pairs); it groups rows only
+    and changes no result.  use_kernel: float32 through K4 tiles
+    (:func:`.ewald_cuda.tile_pair_sum`, 2 RHS a launch), else the plain
+    :func:`_cell_sweep` on any device.
 
     group: None (one device), or a process group (the JAX package's
     ``real_space_apply_cells_local``): F, r and radii are this rank's
@@ -92,13 +99,21 @@ def real_space_apply_cells(F, r, params: ewald.EwaldParams, max_nbr=None,
     if radii is not None:
         rad_all = collectives.all_gather(
             torch.as_tensor(radii, dtype=dtype, device=dev), group)
-    order, r_pad, ids_pad, F_pad, pp, nbr, overflow = sorted_tiles(
-        collectives.all_gather(_fold(r, params), group),
-        collectives.all_gather(Fs, group, dim=1), params, max_nbr, D,
-        radii=rad_all, poly_tables=poly_tables)
+    with profiling.span("ewald_tiles"):
+        order, r_pad, ids_pad, F_pad, pp, nbr, overflow = sorted_tiles(
+            collectives.all_gather(_fold(r, params), group),
+            collectives.all_gather(Fs, group, dim=1), params, max_nbr, D,
+            radii=rad_all, poly_tables=poly_tables)
     nt = nbr.shape[0] // D
-    U_s = _cell_sweep(r_pad, ids_pad, F_pad, nbr, params, poly=pp,
-                      chunk_tiles=chunk_tiles, t0=rank * nt, nt=nt)
+    if use_kernel and dtype == torch.float32:
+        parts = [ewald_cuda.tile_pair_sum(
+            r_pad, ids_pad, F_pad[c:c + 2], nbr, params, poly=pp,
+            t0=rank * nt, nt=nt, chunk_tiles=chunk_tiles)
+            for c in range(0, k, 2)]
+        U_s = parts[0] if len(parts) == 1 else torch.cat(parts)
+    else:
+        U_s = _cell_sweep(r_pad, ids_pad, F_pad, nbr, params, poly=pp,
+                          chunk_tiles=chunk_tiles, t0=rank * nt, nt=nt)
     U_sorted = collectives.all_gather(U_s, group, dim=1)[:, :n]
     U = torch.zeros((k, n, 3), dtype=dtype, device=dev)
     U[:, order] = U_sorted
@@ -156,6 +171,20 @@ def _poly_pad(radii, poly_tables, order, pad, dtype):
     return rad_pad, sidx_pad, poly_tables
 
 
+def _min_image(a, b, box):
+    """a − b under the 3-D minimum image, a and b folded into the box: the
+    image of :func:`.ewald._wrap3` (round((a − b)/L)), with the period
+    taken off the coordinate past L/2 before the difference (exact there),
+    so that a pair across the box's face is rounded once, at its own
+    scale, and not at L's as a − b is — K4 tiles' ``min_image``.  float32
+    loses several times more against float64 the other way where rigid
+    bodies straddle the face."""
+    L = torch.as_tensor(box, dtype=a.dtype, device=a.device)
+    n = torch.round((a - b) / L)
+    return torch.where(n > 0, (a - L) - b,
+                       torch.where(n < 0, a - (b - L), a - b))
+
+
 def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
                 poly=None, chunk_tiles=None, t0=0, nt=None):
     """Cutoff pair sweep of the sorted row tiles [t0, t0 + nt) (default:
@@ -170,7 +199,8 @@ def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
     Only the live (row tile, neighbor tile) entries of ``nbr`` are swept,
     TILE × TILE candidate pairs each, in chunks of whole row tiles.  A pair
     is kept when its column is not a pad, it is not the self pair and
-    r ≤ rc — the all-pairs sweep's pair set; A and B are evaluated on kept
+    r ≤ rc (:func:`_min_image`) — the all-pairs sweep's pair set; A and B
+    are evaluated on kept
     pairs only, and each row's terms are summed in its list's column order
     by ``segment_reduce`` (no atomics: the sum repeats bitwise and does not
     depend on the chunking, nor on the slice).
@@ -197,7 +227,7 @@ def _cell_sweep(r_pad, ids_pad, F_pad, nbr, params: ewald.EwaldParams,
     for c0, c1 in zip(bounds[:-1], bounds[1:]):
         I = pair_I[offs[c0]:offs[c1]]
         J = pair_J[offs[c0]:offs[c1]]
-        d = ewald._wrap3(rt[I][:, :, None] - rt[J][:, None], params.box)
+        d = _min_image(rt[I][:, :, None], rt[J][:, None], params.box)
         r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[
             ..., 2]                                      # (P, TILE, TILE)
         cols_id = it[J][:, None, :]

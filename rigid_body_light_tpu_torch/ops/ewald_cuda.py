@@ -18,9 +18,19 @@ Kernel (``csrc/ewald_real_sweep.cu``, built for sm_90a at first use by
                            (:func:`real_pair_sum_slab`; the JAX package
                            sweeps them in plain XLA, ``ewald.py:788``).
 
-Monodisperse float32, classic split only: the balanced split (``rc``) and
-per-blob radii take the plain PyTorch operator (:mod:`.ewald`), as the JAX
-package's dispatch skips its Pallas kernel for them.  :func:`real_pair_sum` takes the
+  K4 tiles ``ewald_real_tiles``  the balanced split's cutoff sweep over
+                           sorted neighbor tiles (:func:`tile_pair_sum`,
+                           ``ewald_cells._cell_sweep``'s contract, mono
+                           and POLY): it replaces no Pallas kernel but the
+                           JAX package's plain-XLA ``_cell_sweep``
+                           (``ewald_cells.py:122``).  Ordered work items of
+                           (row tile, at most :data:`TILE_SLOTS` live list
+                           slots) listed on the card by :func:`tile_items`.
+
+K4 and its slab form are monodisperse float32, classic split only: the
+balanced split (``rc``) takes K4 tiles, and per-blob radii without ``rc``
+the plain PyTorch operator (:mod:`.ewald`), as the JAX package's dispatch
+skips its Pallas kernel for them.  :func:`real_pair_sum` takes the
 plain PyTorch sweep (:func:`rigid_body_light_tpu_torch.ops.ewald.
 real_space_apply`) for a tensor on the CPU, and launches the kernel or
 raises for a CUDA tensor — there is no fallback.  Like the Pallas wrapper,
@@ -41,9 +51,9 @@ so a launch does no host arithmetic and no host→device copy.  Not
 differentiable (neither is the Pallas kernel): a CUDA tensor that requires
 grad raises (:func:`.cuda_build.refuse_grad`).
 
-``sweep_launches`` and ``slab_launches`` count kernel launches
-(incremented where a kernel is launched, nowhere else) so a run can show
-that its main path went through the kernels.
+``sweep_launches``, ``slab_launches`` and ``tile_launches`` count kernel
+launches (incremented where a kernel is launched, nowhere else) so a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -58,21 +68,26 @@ from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
 SLAB_ROWS, SLAB_CHUNK = 64, 256  # the slab form's block; build() checks
+TILE_ROWS = tiles.TILE  # K4 tiles' tile; build() checks the kernel's
+TILE_SLOTS = 16  # live list slots a K4 tiles work item takes at most
+TILE_TABLE_BYTES = 196608  # K4 tiles' shared fit table; build() checks
 sweep_launches = 0
 slab_launches = 0
+tile_launches = 0
 
 _lib = None
 _F32_MAX = float(np.finfo(np.float32).max)
 
 
 def reset_launch_counts():
-    global sweep_launches, slab_launches
-    sweep_launches = slab_launches = 0
+    global sweep_launches, slab_launches, tile_launches
+    sweep_launches = slab_launches = tile_launches = 0
 
 
 def launch_counts():
     return {"ewald_real_sweep": sweep_launches,
-            "ewald_real_slab": slab_launches}
+            "ewald_real_slab": slab_launches,
+            "ewald_real_tiles": tile_launches}
 
 
 def build():
@@ -85,7 +100,8 @@ def build():
     p, i = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.ewald_sweep_tile, lib.ewald_sweep_max_degree,
                lib.ewald_sweep_max_groups, lib.ewald_slab_rows,
-               lib.ewald_slab_chunk):
+               lib.ewald_slab_chunk, lib.ewald_tile_rows,
+               lib.ewald_tile_table_capacity):
         fn.restype = i
         fn.argtypes = []
     if lib.ewald_sweep_tile() != TILE:
@@ -101,7 +117,16 @@ def build():
                            f"{lib.ewald_slab_rows()} x "
                            f"{lib.ewald_slab_chunk()}, the wrapper's "
                            f"{SLAB_ROWS} x {SLAB_CHUNK}")
+    if (lib.ewald_tile_rows(), lib.ewald_tile_table_capacity()) != (
+            TILE_ROWS, TILE_TABLE_BYTES):
+        raise RuntimeError(f"ewald_real_sweep.cu's K4 tiles hold "
+                           f"{lib.ewald_tile_rows()}-blob tiles and "
+                           f"{lib.ewald_tile_table_capacity()} table bytes, "
+                           f"the wrapper {TILE_ROWS} and {TILE_TABLE_BYTES}")
     cf = ctypes.POINTER(ctypes.c_float)
+    lib.ewald_real_tiles.restype = i
+    lib.ewald_real_tiles.argtypes = [p, p, p, p, p, i, p, p, p, i, i, i, i, i,
+                                     i, i, cf, p, p, i, i, p, i, p, p, p]
     lib.ewald_real_sweep.restype = i
     lib.ewald_real_sweep.argtypes = [p, p, i, i, cf, p, i, p, p, p, p]
     lib.ewald_real_slab.restype = i
@@ -115,12 +140,18 @@ def sweep_constants(params):
     float64: box[3], 1/box[3], the two inner segment edges, each segment's
     left edge and 2/width (a zero-width segment's is capped at the float32
     maximum: its x clips to −1 either way)."""
-    b = [float(v) for v in params.cheb_bounds]
+    box = [float(v) for v in params.box]
+    return np.asarray(box + [1.0 / v for v in box]
+                      + _segment_constants(params.cheb_bounds), np.float32)
+
+
+def _segment_constants(bounds):
+    """A fit's 8 segment constants from its (4,) edges, in float64: the two
+    inner edges, each segment's left edge and 2/width."""
+    b = [float(v) for v in bounds]
     two_inv_w = [min(2.0 / max(b[s + 1] - b[s], 1e-300), _F32_MAX)
                  for s in range(3)]
-    box = [float(v) for v in params.box]
-    return np.asarray(box + [1.0 / v for v in box] + [b[1], b[2]] + b[:3]
-                      + two_inv_w, np.float32)
+    return [b[1], b[2]] + b[:3] + two_inv_w
 
 
 def coefficient_table(params):
@@ -212,6 +243,171 @@ def real_slab_kernel(r_rows, row0, r_cols, col0, Fs, params):
     cuda_build.raise_on_error(code, "ewald_real_slab")
     slab_launches += 1
     return out
+
+
+def _tile_table_size(params, pt):
+    """(fits, degree, species, shared bytes) of K4 tiles' table for the
+    monodisperse fit (``pt`` None, no species) or the species-pair fits
+    ``pt``: (deg + 1) × 4 coefficient pairs and 8 segment constants a fit,
+    the (S, S) species-pair map (the kernel's ``tile_table_bytes``)."""
+    if pt is None:
+        n_fits, deg, n_sp = 1, np.shape(params.cheb_A)[1] - 1, 0
+    else:
+        n_fits, deg, n_sp = pt.bounds.shape[0], pt.coefA.shape[2] - 1, \
+            pt.n_species
+    return n_fits, deg, n_sp, (n_fits * (deg + 1) * 32 + n_fits * 32
+                               + n_sp * n_sp * 4)
+
+
+def tile_tables(params, pt=None):
+    """K4 tiles' host tables: coefficients (F, D+1, 4, 2) float32 ([fit, j,
+    segment] = (A_j, B_j), slot 3 unused), the fits' segment constants (F,
+    8) float32 and the species-pair map (S, S) int32 (None monodisperse):
+    the monodisperse fit (F = 1) or the species-pair fits ``pt``."""
+    if pt is None:
+        return (coefficient_table(params)[None],
+                np.asarray([_segment_constants(params.cheb_bounds)],
+                           np.float32), None)
+    P, _, d1 = pt.coefA.shape
+    coef = np.zeros((P, d1, 4, 2), np.float32)
+    coef[:, :, :3, 0] = np.transpose(pt.coefA, (0, 2, 1))
+    coef[:, :, :3, 1] = np.transpose(pt.coefB, (0, 2, 1))
+    fits = np.asarray([_segment_constants(b) for b in pt.bounds], np.float32)
+    return coef, fits, pt.pair_map.astype(np.int32)
+
+
+def tile_items(nbr, t0, nt, slots=TILE_SLOTS):
+    """K4 tiles' work items for the row tiles [t0, t0 + nt) of the neighbor
+    lists ``nbr`` (t, M) (live tiles first, then −1), built on nbr's
+    device with no host sync.
+
+    Row tile I's L live slots make ⌈L/slots⌉ items (I − t0, q), item q
+    taking the slots [q·slots, (q + 1)·slots); they are listed row tile by
+    row tile, q ascending, by a prefix sum over the item counts.  Returns
+    (items (nt·Q, 2) int32, the used ones first; n_q (nt,) int32, the
+    items of each row tile; n_items (1,) int32, the used count; Q =
+    ⌈M/slots⌉, the most items a row tile can have)."""
+    dev = nbr.device
+    q_cap = max(1, -(-nbr.shape[1] // slots))
+    live = (nbr[t0:t0 + nt] >= 0).sum(dim=1)
+    n_q = (live + slots - 1) // slots
+    ends = torch.cumsum(n_q, 0)
+    q = torch.arange(q_cap, device=dev)
+    cap = nt * q_cap
+    dest = torch.where(q[None, :] < n_q[:, None],
+                       (ends - n_q)[:, None] + q[None, :], cap)
+    src = torch.stack(torch.broadcast_tensors(
+        torch.arange(nt, device=dev)[:, None], q[None, :]), dim=-1)
+    items = torch.zeros((cap + 1, 2), dtype=torch.int32, device=dev)
+    items.scatter_(0, dest.reshape(-1, 1).expand(-1, 2),
+                   src.reshape(-1, 2).to(torch.int32))
+    return (items[:cap], n_q.to(torch.int32), ends[-1:].to(torch.int32),
+            q_cap)
+
+
+def tile_operator_tables(params, pt, dev):
+    """K4 tiles' tables on ``dev`` (coefficients, segment constants, pair
+    map or None) and the launch's 7 constants (box, 1/box, rc) as a ctypes
+    array, built once per operator or species-pair table set and kept
+    (:func:`.ewald.per_operator`)."""
+    def upload():
+        return tuple(None if v is None else torch.from_numpy(v).to(dev)
+                     for v in tile_tables(params, pt))
+    tabs = ewald.per_operator(params if pt is None else pt,
+                              ("K4 tiles tables", dev), upload)
+    consts = ewald.per_operator(params, "K4 tiles constants", lambda: (
+        ctypes.c_float * 7)(*[float(v) for v in params.box],
+                            *[1.0 / float(v) for v in params.box],
+                            float(params.rc)))
+    return tabs, consts
+
+
+def tile_sweep_kernel(r_pad, ids_pad, F_pad, nbr, params, poly, t0, nt,
+                      slots=TILE_SLOTS):
+    """K4 tiles on the card: :func:`tile_pair_sum`'s arguments, r_pad and
+    F_pad float32 contiguous CUDA tensors → (k, nt·32, 3)."""
+    global tile_launches
+    n_pad, k = r_pad.shape[0], F_pad.shape[0]
+    t, max_nbr = nbr.shape
+    cuda_build.check_tensor(r_pad, "r_pad", (t * TILE_ROWS, 3))
+    cuda_build.check_tensor(F_pad, "F_pad", (k, n_pad, 3))
+    lib = build()
+    dev = r_pad.device
+    pt = None if poly is None else poly[2]
+    n_fits, deg, n_sp, _ = _tile_table_size(params, pt)
+    (coef, fits, pmap), consts = tile_operator_tables(params, pt, dev)
+    out = torch.empty((k, nt * TILE_ROWS, 3), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev), profiling.span("ewald_real_tiles"):
+        ids32 = ids_pad.to(torch.int32).contiguous()
+        nbr32 = nbr.to(torch.int32).contiguous()
+        sp32 = None if pt is None else poly[1].to(torch.int32).contiguous()
+        items, n_q, n_items, q_cap = tile_items(nbr32, t0, nt, slots)
+        part = torch.empty((nt * q_cap, k, TILE_ROWS, 3),
+                           dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.ewald_real_tiles(
+            r_pad.data_ptr(), ids32.data_ptr(), F_pad.data_ptr(),
+            None if sp32 is None else sp32.data_ptr(), nbr32.data_ptr(),
+            max_nbr, items.data_ptr(), n_items.data_ptr(), n_q.data_ptr(),
+            items.shape[0], n_pad, int(t0), int(nt), int(slots), q_cap, k,
+            consts, coef.data_ptr(), fits.data_ptr(), n_fits, deg,
+            None if pmap is None else pmap.data_ptr(), n_sp,
+            part.data_ptr(), out.data_ptr(), stream)
+    cuda_build.raise_on_error(code, "ewald_real_tiles")
+    tile_launches += 1
+    return out
+
+
+def tile_pair_sum(r_pad, ids_pad, F_pad, nbr, params, poly=None, t0=0,
+                  nt=None, chunk_tiles=None, slots=TILE_SLOTS):
+    """K4 tiles: the balanced split's cutoff sweep of the sorted row tiles
+    [t0, t0 + nt) against their neighbor tiles, float32, with exactly
+    :func:`.ewald_cells._cell_sweep`'s contract and arguments (r_pad,
+    ids_pad, F_pad (k, t·32, 3) with k ∈ {1, 2}, nbr (t, M), poly from
+    :func:`.ewald_cells._poly_pad` with its species-pair fits) → (k,
+    nt·32, 3) pair terms in sorted order.
+
+    CPU tensors take the plain twin ``_cell_sweep`` (``chunk_tiles``
+    groups its rows; the kernel has no chunks), CUDA tensors the kernel;
+    there is no fallback.  Raises on anything else than float32, a
+    non-contiguous r_pad or F_pad, k ∉ {1, 2}, params without rc, or a
+    fit table larger than the kernel's shared memory holds (never
+    truncated).  ``slots``: the live list slots a work item takes."""
+    if params.rc is None:
+        raise ValueError("K4 tiles sweep the balanced split's real part: "
+                         "params built with rc=")
+    k = F_pad.shape[0]
+    if k not in (1, 2):
+        raise ValueError(f"ewald_real_tiles takes 1 or 2 RHS, got {k}")
+    for name, x in (("r_pad", r_pad), ("F_pad", F_pad)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be torch.float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if poly is not None and poly[1] is None:
+        raise ValueError("the float32 tile sweep with radii evaluates "
+                         "species-pair fits: build poly with poly_tables")
+    _, deg, _, nbytes = _tile_table_size(params,
+                                         None if poly is None else poly[2])
+    if nbytes > TILE_TABLE_BYTES:
+        raise ValueError(
+            f"the Chebyshev fits of degree {deg} need {nbytes} bytes of "
+            f"shared table; K4 tiles hold at most {TILE_TABLE_BYTES} (raise "
+            "kTileTableBytes in csrc/ewald_real_sweep.cu)")
+    if nt is None:
+        nt = nbr.shape[0] - t0
+    if r_pad.device.type == "cuda":
+        cuda_build.refuse_grad("K4 tiles ewald_real_tiles", F_pad, r_pad)
+        return tile_sweep_kernel(r_pad, ids_pad, F_pad, nbr, params, poly,
+                                 t0, nt, slots)
+    if r_pad.device.type == "cpu":
+        from rigid_body_light_tpu_torch.ops import ewald_cells
+
+        return ewald_cells._cell_sweep(r_pad, ids_pad, F_pad, nbr, params,
+                                       poly=poly, chunk_tiles=chunk_tiles,
+                                       t0=t0, nt=nt)
+    raise ValueError(f"no tile sweep for device {r_pad.device}")
 
 
 def _check(params, k):

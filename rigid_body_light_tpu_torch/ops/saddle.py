@@ -193,10 +193,13 @@ def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
     :mod:`.ewald_cells`, ``ewald_nbr_tiles`` its neighbor-list width),
     ``ewald_grid_p`` its gridded wave part (:mod:`.ewald_pme`, built with
     the radii).  Monodisperse float32 with ``use_pallas`` and no ``rc``
-    sweeps the real part through kernel K4 (:mod:`.ewald_cuda`); anything
-    else takes the plain PyTorch operator on the tensors' device
-    (closed-form scalars in float64; float32 radii through species-pair
-    fits built once).  radii: (N,) per-blob radii."""
+    sweeps the real part through kernel K4 (:mod:`.ewald_cuda`); float32
+    with ``use_pallas`` and ``rc`` sweeps the tiles through kernel K4 tiles
+    (:func:`.ewald_cuda.tile_pair_sum`, monodisperse and with radii) inside
+    the operator of :mod:`.ewald`; anything else takes the plain PyTorch
+    operator on the tensors' device (closed-form scalars in float64;
+    float32 radii through species-pair fits built once).  radii: (N,)
+    per-blob radii."""
     params_key = _ewald_params_key(cfg)
     rc = params_key[-1]
     params = _ewald_params(*params_key)
@@ -218,7 +221,8 @@ def _ewald_apply_fn(cfg: SimulationConfig, radii, multi: bool):
 
     def apply_plain(F, r):
         return plain(F, r, params, row_tile=cfg.matvec_row_tile, radii=radii,
-                     poly_tables=pt, max_nbr=max_nbr, grid=grid)
+                     poly_tables=pt, max_nbr=max_nbr, grid=grid,
+                     use_kernel=cfg.use_pallas)
     return apply_plain
 
 

@@ -324,7 +324,8 @@ def ewald_mobility_apply_local_fn(cfg: SimulationConfig, group,
     the single-device operator's parameters — the classic split's ring of
     slabs (float32 with ``use_pallas``: K4 on the diagonal block, its slab
     form on the others), or with ``ewald_rc`` this rank's slice of the
-    tile sweep; the wave part's moments summed over the group.
+    tile sweep (float32 with ``use_pallas``: K4 tiles on the slice); the
+    wave part's moments summed over the group.
 
     radii: this rank's per-blob radii (needs ``ewald_rc``, as in the JAX
     package).  float32 evaluates species-pair fits built from the
@@ -349,7 +350,7 @@ def ewald_mobility_apply_local_fn(cfg: SimulationConfig, group,
         pt = saddle._poly_tables(key, saddle._radii_key(
             collectives.all_gather(radii, group)))
     use_kernel = (cfg.use_pallas and cfg.dtype == torch.float32
-                  and radii is None and params.rc is None)
+                  and (radii is None or params.rc is not None))
     max_nbr = cfg.ewald_nbr_tiles if cfg.ewald_nbr_tiles > 0 else None
 
     def apply(F, r):

@@ -14,7 +14,8 @@ profiling.py``, with a per-part step timer.
   launch-count names), the mobility products around them, the GMRES loop,
   the Lanczos recurrence, the RFD drift, the preconditioner's build and
   applies, kinematics, the far field's lattice build and position setup,
-  the balanced-split Ewald operator's tile sweep and gridded wave part,
+  the balanced-split Ewald operator's tile sweep (``ewald_cells``), its
+  sorted tiles and neighbor lists (``ewald_tiles``) and gridded wave part,
   and, on the distributed path, the collectives (``collective``: the
   all-reduces, gathers and ring transfers of
   :mod:`rigid_body_light_tpu_torch.utils.collectives`).  A span's time runs from the card reaching its start to the card
@@ -42,9 +43,9 @@ logger = logging.getLogger("rigid_body_light_tpu_torch")
 # the parts the step marks, outermost first
 PARTS = ("step", "noise", "rfd", "kinematics", "pc_build", "gmres",
          "pc_apply", "mobility", "lattice_build", "far_setup", "far_band",
-         "ewald_cells", "ewald_pme", "collective", "pair_sweep_sym",
-         "pair_sweep_ordered", "near_sweep", "near_sweep_slice",
-         "ewald_real_sweep")
+         "ewald_cells", "ewald_tiles", "ewald_pme", "collective",
+         "pair_sweep_sym", "pair_sweep_ordered", "near_sweep",
+         "near_sweep_slice", "ewald_real_sweep", "ewald_real_tiles")
 
 _ACTIVE = contextvars.ContextVar("rigid_body_light_tpu_torch_step_timer",
                                  default=None)

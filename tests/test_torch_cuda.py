@@ -3,8 +3,8 @@ near sweep K3, the Ewald real-space sweep K4 and the FP32 peak probe P),
 against their plain PyTorch versions, with the distributed path's forms
 (K2's slab entry at nonzero offsets, K3's row-tile slice, K4's slab
 form); the RigidBody API through K1; the
-balanced-split Ewald operator (plain PyTorch, no kernel) on the card
-against the CPU; and the adjoints: K1's autograd Function against autograd
+balanced-split Ewald operator on the card against the CPU, and its tile
+kernel K4 tiles against its plain twin; and the adjoints: K1's autograd Function against autograd
 through the plain sweep, and the raises of the kernels without a backward.
 
 Marked ``cuda``: they skip without a CUDA device.  The GPU machine has no
@@ -1081,8 +1081,8 @@ def test_balanced_split_on_the_card_matches_the_cpu(dev, poly):
     """The balanced split (the tile sweep and the gridded wave part, with
     and without radii) in float32 on the card against float64 on the CPU
     from the same float32 inputs, within 2e-4 of max|U| (the JAX package's
-    float32 bound for the grid); two applies bitwise equal; no kernel
-    launched."""
+    float32 bound for the grid); two applies bitwise equal; the tile sweep
+    through K4 tiles, one launch an apply, K4 not launched."""
     rng = np.random.default_rng(13)
     n, L = 1500, 10.0
     r = torch.from_numpy(rng.uniform(0, L, (n, 3))).float()
@@ -1096,7 +1096,10 @@ def test_balanced_split_on_the_card_matches_the_cpu(dev, poly):
     U = ewald.mobility_apply_multi(F.to(dev), r.to(dev), par, **on_card)
     U2 = ewald.mobility_apply_multi(F.to(dev), r.to(dev), par, **on_card)
     torch.cuda.synchronize()
-    assert ewald_cuda.launch_counts() == before
+    after = ewald_cuda.launch_counts()
+    assert after["ewald_real_tiles"] == before["ewald_real_tiles"] + 2
+    assert {k: v for k, v in after.items() if k != "ewald_real_tiles"} == {
+        k: v for k, v in before.items() if k != "ewald_real_tiles"}
     assert torch.equal(U, U2)
     ref = ewald.mobility_apply_multi(
         F.double(), r.double(), par, grid=g,
@@ -1105,6 +1108,98 @@ def test_balanced_split_on_the_card_matches_the_cpu(dev, poly):
     w = ewald_cells.neighbor_width(r.to(dev), par)
     assert w == ewald_cells.neighbor_width(r, par)
 
+
+
+def _tile_case(dev, poly, n=3000, L=10.0, seed=17):
+    """ewald_cells.sorted_tiles of a uniform cloud in an L box (rc 3.0, a =
+    0.3, tol 1e-4; radii {0.2, 0.3} with their species-pair fits) on the
+    card, at 2 RHS: (params, tiles, float32 positions, forces, the sweep's
+    extra arguments)."""
+    rng = np.random.default_rng(seed)
+    r = torch.from_numpy(rng.uniform(0, L, (n, 3))).float().to(dev)
+    F = torch.from_numpy(rng.standard_normal((2, n, 3))).float().to(dev)
+    par = ewald.make_params((L, L, L), 0.3, tol=1e-4, rc=3.0)
+    kw = {}
+    if poly:
+        radii = torch.from_numpy(rng.choice([0.2, 0.3], n)).float().to(dev)
+        kw = dict(radii=radii, poly_tables=ewald.make_poly_tables(par, radii))
+    tiles_ = ewald_cells.sorted_tiles(ewald_cells._fold(r, par), F, par,
+                                      -(-n // 32), **kw)
+    return par, tiles_, r, F, kw
+
+
+@pytest.mark.parametrize("poly", [False, True], ids=["mono", "poly"])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k4_tiles_match_plain_twin(dev, poly, k):
+    """K4 tiles against its plain twin (ewald_cells._cell_sweep) on the
+    card, on the real rows, and against the all-pairs sweep with the cut,
+    within 5e-6 of max|U|; one launch counted."""
+    par, (order, r_pad, ids_pad, F_pad, pp, nbr, of), r, F, kw = _tile_case(
+        dev, poly)
+    assert not bool(of)
+    Fk = F_pad[:k].contiguous()
+    before = ewald_cuda.launch_counts()["ewald_real_tiles"]
+    U = ewald_cuda.tile_pair_sum(r_pad, ids_pad, Fk, nbr, par, poly=pp)
+    torch.cuda.synchronize()
+    assert ewald_cuda.launch_counts()["ewald_real_tiles"] == before + 1
+    twin = ewald_cells._cell_sweep(r_pad, ids_pad, Fk, nbr, par, poly=pp)
+    real = ids_pad >= 0
+    assert U.shape == (k, r_pad.shape[0], 3)
+    assert _rel(U[:, real], twin[:, real].double()) < TOL
+    U_o = torch.empty((k, r.shape[0], 3), device=dev)
+    U_o[:, order] = U[:, :r.shape[0]]
+    if poly:   # the plain all-pairs sweep with the same fits
+        ref = ewald.real_space_apply(F[:k], r, par, **kw)
+    else:      # the float64 Clenshaw of the same fit
+        ref = ewald.real_space_apply(F[:k].double(), r.double(), par,
+                                     cheb=True)
+    assert _rel(U_o, ref.double()) < TOL
+
+
+@pytest.mark.parametrize("poly", [False, True], ids=["mono", "poly"])
+def test_k4_tiles_slices_and_repeat(dev, poly):
+    """Two launches bitwise equal; the row-tile slices for 1, 2 and 4 ranks
+    (tiles padded to a multiple of the ranks) bitwise the whole launch;
+    every work-item width gives the twin's sums within 5e-6."""
+    par, _, r, F, kw = _tile_case(dev, poly)
+    rf = ewald_cells._fold(r, par)
+    for d in (1, 2, 4):
+        _, r_pad, ids_pad, F_pad, pp, nbr, _ = ewald_cells.sorted_tiles(
+            rf, F, par, -(-r.shape[0] // 32), d, **kw)
+        whole = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par,
+                                         poly=pp)
+        assert torch.equal(whole, ewald_cuda.tile_pair_sum(
+            r_pad, ids_pad, F_pad, nbr, par, poly=pp))
+        nt = nbr.shape[0] // d
+        parts = [ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par,
+                                          poly=pp, t0=i * nt, nt=nt)
+                 for i in range(d)]
+        assert torch.equal(torch.cat(parts, dim=1), whole)
+    for slots in (1, 8, 32):
+        U = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par,
+                                     poly=pp, slots=slots)
+        assert _rel(U, whole.double()) < TOL
+
+
+def test_k4_tiles_overflow_poisons_and_grad_raises(dev):
+    """A list one slot narrower than the widest NaN-poisons the apply
+    through the kernel (the width itself does not); a force that requires
+    grad raises instead of missing the pair terms; without autograd it
+    runs."""
+    par, (_, r_pad, ids_pad, F_pad, pp, nbr, _), r, F, _ = _tile_case(
+        dev, False)
+    w = ewald_cells.neighbor_width(r, par)
+    before = ewald_cuda.launch_counts()["ewald_real_tiles"]
+    U_ok = ewald_cells.real_space_apply_cells(F, r, par, max_nbr=w)
+    U_bad = ewald_cells.real_space_apply_cells(F, r, par, max_nbr=w - 1)
+    torch.cuda.synchronize()
+    assert ewald_cuda.launch_counts()["ewald_real_tiles"] == before + 2
+    assert bool(torch.isfinite(U_ok).all()) and bool(torch.isnan(U_bad).all())
+    Fg = F_pad.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="K4 tiles.*no backward"):
+        ewald_cuda.tile_pair_sum(r_pad, ids_pad, Fg, nbr, par)
+    with torch.no_grad():
+        ewald_cuda.tile_pair_sum(r_pad, ids_pad, Fg, nbr, par)
 
 
 # ------------------------------------------------- the adjoints (item 15)
