@@ -364,9 +364,12 @@ Phases (each raises on failure; any failure exits nonzero):
      phase 45's mixture; bitwise repeats; the row-tile slices at D = 1, 2
      and 4 whose union is bitwise the whole launch (mono at 2 RHS, POLY at
      1); a list one slot narrower than the widest NaN-poisons the apply;
-     each case's ms beside its bound (kept unordered pairs counted on
-     this run's data), the twin's ms, and the work items' width C timed
-     at 8, 16 and 32 at phase 44.
+     each case's kernel ms (the launch over a built work list) beside
+     its bound (kept unordered pairs counted on this run's data), the
+     work list's ms and the wrapper's (list and launch), the twin's ms,
+     the partials' scratch bytes, and the share of the kernel's executed
+     warp steps (8 × 8 sub-blocks with a kept pair) that carry a kept
+     pair, beside the share K1's and K3's column rotation would have.
 
 Phases 1-5 drive the dense path (K1/K2), phases 6-9 the far-field path
 (K3), phases 10-14 the triply-periodic path (K4), phases 17-19 the settled
@@ -606,12 +609,10 @@ EW_GMRES_TOL = 1e-4
 # phase 59: K4 tiles against the float64 all-pairs sweep with the cut on
 # the kernel's own float32 inputs, relative to max|U| (the kernel's float32
 # Clenshaw and sums; against the unfolded positions the fold's own
-# rounding adds to it, and that reading is recorded beside), the work
-# items' widths timed, and the chunk of live list entries kept_pairs counts
-# at once
+# rounding adds to it, and that reading is recorded beside), and the chunk
+# of listed tile pairs tile_steps counts at once
 TILES_F64_TOL = 2e-6
-TILES_SLOTS = (8, 16, 32)
-KEPT_CHUNK = 16384
+KEPT_CHUNK = 8192
 # the card's published peaks (H100 SXM at 700 W): FP32 outside the tensor
 # cores, and device memory
 PEAK_FP32_FLOPS = 67e12
@@ -2797,6 +2798,8 @@ def check_slices(torch, farfield, farfield_cuda, label, x, ci, grid, n_real,
     slices' listed pairs and the boundary pairs evaluated twice; at the D
     in ``timed`` each slice's ms against its bound (and at D = 1 the plain
     slice's)."""
+    from rigid_body_light_tpu_torch.ops import tiles
+
     rng = np.random.default_rng(SEED + 51)
     out = {}
     ref = whole = None
@@ -2809,7 +2812,7 @@ def check_slices(torch, farfield, farfield_cuda, label, x, ci, grid, n_real,
             raise AssertionError(f"phase 51, {label}: the neighbor lists "
                                  f"overflow at D = {D}")
         live = id_s >= 0
-        full_pairs, full_count = farfield._tile_pairs(nbr)
+        full_pairs, full_count = tiles.tile_pairs(nbr)
         if ref is None:
             F = torch.from_numpy(rng.standard_normal((2, n_real, 3))).to(
                 x.device).float()
@@ -2828,7 +2831,7 @@ def check_slices(torch, farfield, farfield_cuda, label, x, ci, grid, n_real,
             F_s[:, :n_real] = F[:, order]
         scale = ref.abs().max().item()
         nt = t_pad // D
-        lists = [farfield._slice_pairs(full_pairs, full_count, d * nt, nt)
+        lists = [tiles.slice_pairs(full_pairs, full_count, d * nt, nt)
                  for d in range(D)]
         counts = [int(c) for _, c, _ in lists]
         boundary = sum(int(b) for _, _, b in lists) // 2
@@ -3867,35 +3870,56 @@ def distribution_rest_phases(torch, dev, counters):
     return out
 
 
-def kept_pairs(torch, ewald_cells, r_pad, ids_pad, nbr, params):
-    """Ordered pairs of real rows the tile sweep keeps (column id >= 0, the
-    ids differ, r <= rc), counted over the live list entries as
-    ewald_cells._cell_sweep selects them: this run's work."""
+def tile_steps(torch, ewald_cells, r_pad, ids_pad, pairs, params):
+    """Over the listed tile pairs (a, b ≥ a) of K4 tiles' work list, as the
+    kernel selects pairs (both ids >= 0, they differ, j > i on a diagonal
+    pair, r <= rc): the kept unordered pairs, the kernel's executed warp
+    steps (8 × 8 sub-blocks with a kept pair; the others are skipped by its
+    vote) and those K1's and K3's column rotation would execute (lane l at
+    columns (l + s) mod 32 and (l + s + 16) mod 32, 16 steps a pair): this
+    run's work and each schedule's share of kept pairs in its steps."""
     T = 32
-    t = nbr.shape[0]
+    t = r_pad.shape[0] // T
+    dev = r_pad.device
     rt = r_pad.reshape(t, T, 3)
     it = ids_pad.reshape(t, T)
-    I, slot = (nbr >= 0).nonzero(as_tuple=True)
-    J = nbr[I, slot]
-    kept = 0
-    for c in range(0, I.shape[0], KEPT_CHUNK):
-        Ic, Jc = I[c:c + KEPT_CHUNK], J[c:c + KEPT_CHUNK]
-        d = ewald_cells._min_image(rt[Ic][:, :, None], rt[Jc][:, None],
+    lane = torch.arange(T, device=dev)
+    upper = lane[:, None] < lane[None, :]
+    subs = torch.arange(T // 8, device=dev)
+    lower_sub = subs[:, None] > subs[None, :]
+    kept = sub_steps = rot_steps = 0
+    for c in range(0, pairs.shape[0], KEPT_CHUNK):
+        P = pairs[c:c + KEPT_CHUNK].long()
+        I, J = P[:, 0], P[:, 1]
+        diag = (I == J)[:, None, None]
+        d = ewald_cells._min_image(rt[I][:, :, None], rt[J][:, None],
                                    params.box)
         r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[
             ..., 2]
-        ci, cj = it[Ic][:, :, None], it[Jc][:, None, :]
-        ok = (cj >= 0) & (ci >= 0) & (ci != cj)
+        ci, cj = it[I][:, :, None], it[J][:, None, :]
+        ok = (cj >= 0) & (ci >= 0) & (ci != cj) & (~diag | upper)
         rr = torch.sqrt(torch.where(ok, torch.clamp(r2, min=1e-24),
                                     torch.ones_like(r2)))
-        kept += int((ok & (rr <= params.rc)).sum())
-    return kept
+        K = ok & (rr <= params.rc)
+        kept += int(K.sum())
+        blocks = K.reshape(-1, T // 8, 8, T // 8, 8).any(4).any(2)
+        sub_steps += int((blocks & ~(diag & lower_sub)).sum())
+        for step in range(T // 2):
+            m = K[:, lane, (lane + step) % T] | K[:, lane,
+                                                  (lane + step + 16) % T]
+            rot_steps += int(m.any(1).sum())
+    return dict(kept_unordered_pairs=kept, executed_steps=sub_steps,
+                kept_share=kept / (64 * sub_steps) if sub_steps else 0.0,
+                rotation_steps=rot_steps,
+                rotation_kept_share=kept / (64 * rot_steps) if rot_steps
+                else 0.0)
 
 
 def tiles_bound(kept, deg, k, n_pad, n_lists, poly=False):
     """K4 tiles' bound: K4's 36 + 6·D + 36·k flop an unordered pair over
     this run's kept pairs, against its operands read once (positions, ids,
-    forces, species, the lists) and its output written once."""
+    forces, species, the work list's n_lists ints) and its output written
+    once."""
     flops = kept / 2 * (36 + 6 * deg + 36 * k)
     n_bytes = n_pad * (12 + 4 + 12 * k + (4 if poly else 0) + 12 * k) \
         + 4 * n_lists
@@ -3934,8 +3958,7 @@ def tile_kernel_phase(torch, dev, counters):
                                               si=si[sl, None],
                                               sj=sidx[None, :], pt=pt))
 
-    def case(label, r, params, rows=None, radii=None, pt=None,
-             slots=(ewald_cuda.TILE_SLOTS,)):
+    def case(label, r, params, rows=None, radii=None, pt=None):
         n = r.shape[0]
         F = torch.from_numpy(rng.standard_normal((2, n, 3))).to(dev).float()
         rf = ewald_cells._fold(r, params)
@@ -3944,11 +3967,21 @@ def tile_kernel_phase(torch, dev, counters):
             ewald_cells.sorted_tiles(rf, F, params, w, radii=radii,
                                      poly_tables=pt)
         deg = ewald_cuda._tile_table_size(params, pt)[1]
-        kept = kept_pairs(torch, ewald_cells, r_pad, ids_pad, nbr, params)
-        rec = dict(n=n, tiles=int(nbr.shape[0]), degree=deg,
+        t = nbr.shape[0]
+        lst = ewald_cuda.tile_list(nbr, 0, t)
+        n_pairs = int(lst.n_pairs)
+        steps = tile_steps(torch, ewald_cells, r_pad, ids_pad,
+                           lst.pairs[:n_pairs], params)
+        kept = 2 * steps["kept_unordered_pairs"]
+        rec = dict(n=n, tiles=t, degree=deg,
                    list_width=int((nbr >= 0).sum(dim=1).max()),
-                   live_entries=int((nbr >= 0).sum()),
-                   kept_ordered_pairs=kept, overflow=bool(overflow))
+                   live_entries=int((nbr >= 0).sum()), tile_pairs=n_pairs,
+                   partials=lst.cap, kept_ordered_pairs=kept,
+                   overflow=bool(overflow), **steps)
+        rec["list_ms"] = cuda_ms(torch, lambda: ewald_cuda.tile_list(
+            nbr, 0, t), 5)
+        ids32 = ids_pad.to(torch.int32).contiguous()
+        sp32 = None if pp is None else pp[1].to(torch.int32).contiguous()
         real = ids_pad >= 0
         for k in (1, 2):
             Fk = F_pad[:k].contiguous()
@@ -3964,6 +3997,7 @@ def tile_kernel_phase(torch, dev, counters):
             rec[f"twin_rel_{k}"] = op_rel(U[:, real], twin[:, real])
             rec[f"repeat_bitwise_{k}"] = bool(torch.equal(U, U2))
             rec[f"finite_{k}"] = bool(torch.isfinite(U).all())
+            rec[f"scratch_bytes_{k}"] = lst.cap * k * 32 * 3 * 4
             U_o = torch.empty((k, n, 3), dtype=U.dtype, device=dev)
             U_o[:, order] = U[:, :n]
             sel = slice(None) if rows is None else rows
@@ -3977,17 +4011,17 @@ def tile_kernel_phase(torch, dev, counters):
             rec[f"f64_unfolded_rel_{k}"] = op_rel(
                 U_o[:, sel], f64_ref(F[:k], r, params, rows, pt))
             del ref
-            for c in slots:
-                rec[f"ms_{k}_C{c}"] = cuda_ms(
-                    torch, lambda: ewald_cuda.tile_pair_sum(
-                        r_pad, ids_pad, Fk, nbr, params, poly=pp, slots=c),
-                    5)
-            rec[f"ms_{k}"] = rec[f"ms_{k}_C{ewald_cuda.TILE_SLOTS}"]
+            rec[f"ms_{k}"] = cuda_ms(
+                torch, lambda: ewald_cuda.tile_sweep_launch(
+                    r_pad, ids32, Fk, sp32, lst, params, pt, 0, t), 10)
+            rec[f"wrapper_ms_{k}"] = cuda_ms(
+                torch, lambda: ewald_cuda.tile_pair_sum(
+                    r_pad, ids_pad, Fk, nbr, params, poly=pp), 5)
             rec[f"plain_ms_{k}"] = cuda_ms(
                 torch, lambda: ewald_cells._cell_sweep(
                     r_pad, ids_pad, Fk, nbr, params, poly=pp), 2)
-            b = tiles_bound(kept, deg, k, r_pad.shape[0], nbr.numel(),
-                            poly=pt is not None)
+            b = tiles_bound(kept, deg, k, r_pad.shape[0],
+                            4 * n_pairs + t + 1, poly=pt is not None)
             rec[f"bound_ms_{k}"], rec["bound_by"] = b
             rec[f"bound_ratio_{k}"] = rec[f"ms_{k}"] / b[0]
             del U, U2, twin, U_o
@@ -4073,8 +4107,7 @@ def tile_kernel_phase(torch, dev, counters):
     r44 = kin.blob_positions(geom_s, state_s.X, state_s.Q).reshape(-1, 3)
     rows44 = torch.from_numpy(np.sort(rng.choice(
         r44.shape[0], SCALE_ROWS, replace=False))).to(dev)
-    out["phase44"], _ = case("phase 44's positions", r44, par44, rows=rows44,
-                             slots=TILES_SLOTS)
+    out["phase44"], _ = case("phase 44's positions", r44, par44, rows=rows44)
     check("phase 44's positions", out["phase44"])
     del r44
 
@@ -4117,8 +4150,13 @@ def tiles_entry(bal, d):
         "bound_ms": p44["bound_ms_1"], "bound_by": p44["bound_by"],
         "library_ms": None, "ms_2rhs": p44["ms_2"],
         "plain_ms_2rhs": p44["plain_ms_2"], "bound_ms_2rhs": p44["bound_ms_2"],
-        **{f"ms_{k}rhs_C{c}": p44[f"ms_{k}_C{c}"] for k in (1, 2)
-           for c in TILES_SLOTS},
+        "redesigned_in": 18,
+        "list_ms": p44["list_ms"], "wrapper_ms": p44["wrapper_ms_1"],
+        "wrapper_ms_2rhs": p44["wrapper_ms_2"],
+        "scratch_bytes": p44["scratch_bytes_1"],
+        "scratch_bytes_2rhs": p44["scratch_bytes_2"],
+        "kept_share": p44["kept_share"],
+        "rotation_kept_share": p44["rotation_kept_share"],
         **{f"ms_{key}_{k}rhs": v[f"ms_{k}"] for key, v in d.items()
            if isinstance(v, dict) and "ms_1" in v for k in (1, 2)},
         **{f"bound_ms_{key}_{k}rhs": v[f"bound_ms_{k}"]

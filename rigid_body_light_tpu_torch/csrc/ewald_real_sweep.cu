@@ -479,72 +479,92 @@ __global__ void slab_sum_chunks_kernel(const float* __restrict__ part,
 // pad), forces (k, t·32, 3), the neighbor lists nbr (t, M), the live
 // tiles of each row first, ascending, then −1.  For the row tiles
 // [t0, t0 + nt), out (k, nt·32, 3) = Σ_j [A(r)·I + B(r)·r̂r̂]·F_j over the
-// columns j of the row's listed tiles where the column id is ≥ 0, the two
-// ids differ and r ≤ rc under the 3-D minimum image.  A and B come from
-// one Chebyshev fit (monodisperse) or, in the POLY form, from the fit
+// columns j of the row's listed tiles where both ids are ≥ 0, they differ
+// and r ≤ rc under the 3-D minimum image.  A and B come from one
+// Chebyshev fit (monodisperse) or, in the POLY form, from the fit
 // pair_map[species_i][species_j] of per-species-pair fits
 // (ewald.make_poly_tables), by K4's Clenshaw.
 //
 // What bounds it: arithmetic, as K4.  At the balanced-split slice
 // (115,560 blobs in L = 30, rc 3.5, degree 47) 39.7 M unordered pairs lie
 // within rc; at K4's 36 + 6·D + 36·k flop an unordered pair that is 14.1 /
-// 15.5 GFLOP at 1 / 2 RHS, 0.210 / 0.231 ms at 67 TFLOP/s.  This ordered
-// design evaluates every kept pair from both sides, so twice that is its
-// own floor; a symmetric sweep over unordered tile pairs (K3's design) is
-// later work.  Its operands are ~40 bytes a blob.
+// 15.5 GFLOP at 1 / 2 RHS, 0.210 / 0.231 ms at 67 TFLOP/s.  The work is
+// scalar float32 FMA chains (Clenshaw) with no matrix product, so wgmma
+// and the tensor cores do not apply; the operands are ~40 bytes a blob,
+// a few MB that stay in L2, so TMA or cp.async staging would not move the
+// time.  What the design uses: the register file (a lane's two pairs, their
+// four Clenshaw chains and its sums), shared memory for the fit tables
+// (dynamic, up to kTileTableBytes) and each warp's stage, warp shuffles
+// for the sums, and the hardware's block scheduler to balance the pairs.
 //
-// Design: ordered, one writer a row.
-//   - A work item is (row tile, a run of at most C consecutive live slots
-//     of its list), C = `slots`.  The items are listed on the card from
-//     the live counts by a prefix sum (ewald_cuda.tile_items), with no
-//     host sync, so the grid is persistent: as many blocks as fit at once,
-//     block g taking items g, g + G, ..., the count read from the device
-//     (as K3).  Splitting a list keeps the longest one (528 tiles at the
-//     slice, against a mean of 57) from setting the tail.
-//   - A block of kTileWarps warps takes its item's slots in a fixed
-//     interleave: warp w the slots s0 + w, s0 + w + kTileWarps, ...  For
-//     each, the warp stages the neighbor tile's 32 blobs (position, id,
-//     forces, species) in its own shared slice, and lane l, which owns row
-//     l of the row tile, walks the 32 columns, kTilePairs at a time
-//     (columns c and c + 16: two Clenshaw chains side by side and one
-//     coefficient read for both where their fit and segment agree, K4's
-//     trick).  A column step where no lane keeps a pair is skipped (a
-//     vote); a masked pair in a kept step adds an exact 0 through a select.
-//   - The warps' row sums are added in warp order into the item's partial
-//     (one writer an element); a second pass adds a row tile's items in
-//     slot order.  No atomics: launches repeat bitwise, and a slice of the
-//     row tiles is bitwise the same rows of the whole launch.
-//   - A lane sums each slot's 32 columns apart and adds that sum to its
-//     row's: one running float32 sum over a row's hundreds of kept pairs
-//     (the plain version's segment sum) loses several times more against
-//     float64 than sums of 32 added together (PERF.md §6).
-//   - The minimum image is K4's, but the period comes off the coordinate
-//     past L/2 before the difference (min_image): the plain version's
-//     xi − xj of a pair across the box's face is rounded at the scale of
-//     L before the wrap, which dominates its error where bodies straddle
-//     the face.  r² is summed as the plain version sums it (no
-//     contraction); IEEE sqrt and division; the segment map and Clenshaw
-//     are K4's.
-//   - The tables (every fit's coefficients, its 8 segment constants, the
-//     species-pair map) sit in dynamic shared memory sized from the table
-//     itself, at most kTileTableBytes; the wrapper refuses a larger one.
-// Scratch: partials (nt·⌈M/C⌉, k, 32, 3) float32 (every list could be
-// full: the host does not know the live count) and the item list
-// (nt·⌈M/C⌉, 2) int32; at the slice with M = t = 3,612 and C = 16,
-// 313 / 627 MB at 1 / 2 RHS.  The step's peak there: 15.2 GB, most of it
-// the gridded wave part's.
-// Resources (ptxas, sm_90a): 71 / 64 registers at 1 / 2 RHS, 64 / 63 in
-// the POLY form, no spills; 5,120 / 8,192 bytes of static shared memory
-// (POLY 5,632 / 8,704) besides the table (1,568 bytes at degree 47).
-// On an H100 at 700 W, at the slice: 2.840 / 3.065 ms, 13.5× / 13.3× the
-// bound, against the plain twin's 220.8 / 226.4 ms; C = 16 against C = 8
-// and 32 (2.961 / 2.999 ms at 1 RHS) (PERF.md §6).
-constexpr int kTileRows = 32;   // blobs a tile, one row a lane
-constexpr int kTileWarps = 4;   // warps a block, sharing the item's slots
-constexpr int kTilePairs = 2;   // columns a lane evaluates side by side
-constexpr int kTileSteps = kTileRows / kTilePairs;
+// Design: a symmetric sweep over unordered tile pairs (K3's).
+//   - The work list (ewald_cuda.tile_list: K3's list, tiles.tile_pairs,
+//     sliced by tiles.slice_pairs) holds each unordered pair of listed
+//     tiles (a, b ≥ a) once, in list order.  The balanced split's lists
+//     are symmetric (tiles.bbox_adjacency: its centre difference is exactly
+//     antisymmetric, rint odd) and min_image is odd, so a pair's fields are
+//     evaluated once, from a's side, and applied twice: [A·I + B·r̂r̂]·F_j
+//     into row i and the same block times F_i into column j.  The ordered
+//     design before it (rows against up to 16 live list slots) evaluated
+//     each kept pair from both sides (2.840 / 3.065 ms, PERF.md §6).
+//   - One warp a tile pair, 4 warps a block, one block per 4 pairs: the
+//     block scheduler balances pairs of very different work (a persistent
+//     grid sized by occupancy took 1.2975 / 1.4404 ms against this
+//     grid's 1.2045 / 1.3420 in one run).  The warp stages both tiles
+//     (position, id, species, forces) in its shared slice.
+//   - A warp step is an 8 × 8 sub-block (R, C) of the pair's 32 × 32
+//     candidates: lane (ρ, γ) = (l & 3, l >> 2) evaluates rows 8R + ρ and
+//     8R + ρ + 4 against column 8C + γ, K4's two Clenshaw chains side by
+//     side, one coefficient read for both where their fit and segment
+//     agree.  A sub-block whose 8-blob sub-tiles' bounding boxes lie more
+//     than rc apart under the minimum image is skipped before its
+//     distances (sub_block_mask), one where no lane keeps a pair after
+//     them (a vote); a masked pair in a kept step adds an exact 0 through
+//     a select.  K1's and K3's column rotation (lane l at columns (l + s)
+//     mod 32 and (l + s + 16) mod 32 at step s) spreads a step over the
+//     whole 32 × 32 block: at phase 44's positions 49.6% of its executed
+//     pair slots carry a kept pair against the sub-blocks' 64.1%, and it
+//     took 1.8017 / 1.9798 ms against the sub-blocks' 1.5819 / 1.6762 in
+//     one run (before the box test, which took them from 1.6138 / 1.7587
+//     to 1.5256 / 1.6757 in another).
+//   - Sums, one writer an element, no atomics: a row's terms over the
+//     sub-blocks' columns (C ascending, per γ) and then over its 8 γ lanes
+//     by a butterfly; a column's over a sub-block's 8 rows by a butterfly
+//     over its 4 ρ lanes and then over R ascending.  Each side of a pair
+//     is so a sum of 32 terms, 8 of them in a tree: the slot-sum trick
+//     (one running float32 sum over a row's hundreds of kept pairs loses
+//     several times more against float64).  A diagonal pair (a, a) keeps
+//     j > i (the sub-blocks left of the diagonal are skipped) and adds its
+//     two sides.
+//   - Partials: the row side of pair (a, b) at a's slot of b, the column
+//     side at b's slot of a, the slots counted through the lists' live
+//     entries (row_start, their prefix sum); each side only where its tile
+//     lies in the slice [t0, t0 + nt) (K3's scheme: a pair across a
+//     slice's edge is evaluated by both slices, each writing its side).
+//     The second pass sums a tile's partials in its list's order, so
+//     launches repeat bitwise and a slice is bitwise the same rows of the
+//     whole launch.  The scratch is one partial a live slot of the slice
+//     (207,210 at the slice: 80 / 159 MB at 1 / 2 RHS, where the ordered
+//     design's grew as t·M: 313 / 627 MB), the count read to the host once
+//     a list build.
+//   - Numerics as before: min_image (the period off the coordinate past
+//     L/2 before the difference), r² summed as the plain version sums it
+//     (no contraction), IEEE sqrt and division, K4's segment map.
+// Resources (ptxas, sm_90a): 64 / 67 registers at 1 / 2 RHS, 64 / 69 in
+// the POLY form, no spills (__launch_bounds__'s 4 blocks an SM: without
+// it the POLY form at 2 RHS spilled 16 bytes around the IEEE division's
+// slow path); 11,264 / 17,408 bytes of static shared memory besides the
+// table (1,568 bytes at degree 47).  On an H100 at 700 W, at the slice:
+// 1.1956 / 1.3848 ms, 5.7× / 6.0× the bound, against the plain twin's
+// 220.2 / 225.0 ms; the POLY form (degree 88) 0.6779 / 0.7429 ms
+// (PERF.md §6).
+constexpr int kTileRows = 32;   // blobs a tile
+constexpr int kTileWarps = 4;   // warps a block, each on its own tile pairs
+constexpr int kTileSub = 8;     // edge of a warp step's sub-block
+constexpr int kTileSubs = kTileRows / kTileSub;
 constexpr int kTileTableBytes = 196608;  // largest shared fit table
 constexpr int kFitConsts = 8;   // b1, b2, lo[3], two_inv_w[3] a fit
+constexpr unsigned kFull = 0xffffffffu;
 
 struct TileConsts {
   float box[3];
@@ -563,46 +583,157 @@ int tile_table_bytes(int n_fits, int deg, int n_species) {
 // [0, L]: the image is K4's (rint of (a − b)/L), but the period is taken
 // off the coordinate past L/2 before the difference (exact there, by
 // Sterbenz), so a pair across the box's face has its small difference
-// rounded once at its own scale, not at L's.
+// rounded once at its own scale, not at L's.  Odd in (a, b), ties
+// included (rint is odd, and u − v = −(v − u) in IEEE arithmetic), so a
+// pair's two sides see one separation, negated.
 __device__ __forceinline__ float min_image(float a, float b, float L,
                                            float inv_L) {
   const float n = rintf((a - b) * inv_L);
   return n > 0.0f ? (a - L) - b : (n < 0.0f ? a - (b - L) : a - b);
 }
 
+// One warp's stage of a tile pair: the row tile a (side 0) and the
+// column tile b (side 1), 32 blobs each.
+template <int NF>
+struct TileStage {
+  float pos[2][3][kTileRows];
+  float f[2][NF][kTileRows];
+  int id[2][kTileRows];
+  int sp[2][kTileRows];
+  float row[NF][kTileRows];  // the row side's sums, row r of tile a
+  float col[NF][kTileRows];  // the column side's sums, column c of tile b
+};
+
+// The pair (row r of tile a, column c of tile b): its separation d, 1/r²,
+// Clenshaw argument and table base (fit and segment), and whether it is
+// kept: both ids live and different, on a diagonal pair c > r, and
+// r ≤ rc.  r² is summed as the plain sweep sums it (no contraction), 1
+// for a masked pair and floored at 1e-24; IEEE square root and division;
+// K4's segment map.
+template <int NF, bool POLY>
+__device__ __forceinline__ bool pair_setup(
+    const TileStage<NF>& st, int r, int c, bool diag, const TileConsts& cst,
+    const float* s_fit, const int* s_map, int n_species, int stride,
+    float& dx, float& dy, float& dz, float& inv_r2, float& x, int& base) {
+  dx = min_image(st.pos[0][0][r], st.pos[1][0][c], cst.box[0],
+                 cst.inv_box[0]);
+  dy = min_image(st.pos[0][1][r], st.pos[1][1][c], cst.box[1],
+                 cst.inv_box[1]);
+  dz = min_image(st.pos[0][2][r], st.pos[1][2][c], cst.box[2],
+                 cst.inv_box[2]);
+  float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                       __fmul_rn(dz, dz));
+  const int idR = st.id[0][r], idC = st.id[1][c];
+  const bool ok = idR >= 0 && idC >= 0 && idR != idC && (!diag || c > r);
+  r2 = ok ? fmaxf(r2, 1e-24f) : 1.0f;
+  const float rr = __fsqrt_rn(r2);
+  inv_r2 = __fdiv_rn(1.0f, r2);
+  const int fit = POLY ? s_map[st.sp[0][r] * n_species + st.sp[1][c]] : 0;
+  const float* fc = s_fit + fit * kFitConsts;
+  const bool in1 = rr >= fc[0], in2 = rr >= fc[1];
+  const int seg = (int)in1 + (int)in2;
+  x = fminf(fmaxf((rr - fc[2 + seg]) * fc[5 + seg] - 1.0f, -1.0f), 1.0f);
+  base = fit * stride * 4 + seg;
+  return ok && rr <= cst.rc;
+}
+
+// The pair's two applies, masked pairs an exact 0: row[] = [A·I + B·r̂r̂]
+// ·F_c (into row r), col[] = the same block times F_r (into column c).
+template <int NRHS, int NF>
+__device__ __forceinline__ void pair_apply(const TileStage<NF>& st, int r,
+                                           int c, bool valid, float A,
+                                           float B, float dx, float dy,
+                                           float dz, float inv_r2,
+                                           float (&row)[NF],
+                                           float (&col)[NF]) {
+  const float Ap = valid ? A : 0.0f;
+  const float Bh = valid ? B * inv_r2 : 0.0f;  // r̂r̂ = d dᵀ/r²
+#pragma unroll
+  for (int k = 0; k < NRHS; ++k) {
+    const float fx = st.f[1][3 * k][c], fy = st.f[1][3 * k + 1][c],
+                fz = st.f[1][3 * k + 2][c];
+    const float bdF = Bh * (dx * fx + dy * fy + dz * fz);
+    row[3 * k] = Ap * fx + bdF * dx;
+    row[3 * k + 1] = Ap * fy + bdF * dy;
+    row[3 * k + 2] = Ap * fz + bdF * dz;
+    const float gx = st.f[0][3 * k][r], gy = st.f[0][3 * k + 1][r],
+                gz = st.f[0][3 * k + 2][r];
+    const float bdR = Bh * (dx * gx + dy * gy + dz * gz);
+    col[3 * k] = Ap * gx + bdR * dx;
+    col[3 * k + 1] = Ap * gy + bdR * dy;
+    col[3 * k + 2] = Ap * gz + bdR * dz;
+  }
+}
+
+// Which of the pair's 16 sub-blocks (R, C) can keep a pair, bit 4R + C:
+// the 8-blob sub-tiles' bounding boxes against each other under the
+// minimum image (the centre difference wrapped, less the half extents,
+// less a margin of 1e-5·L for float32 rounding: a box test can only keep
+// more than the pair test).  Called by the whole warp.
+template <int NF>
+__device__ __forceinline__ unsigned sub_block_mask(const TileStage<NF>& st,
+                                                   const TileConsts& cst,
+                                                   int lane) {
+  const int R = (lane >> 2) & (kTileSubs - 1), C = lane & (kTileSubs - 1);
+  float g2 = 0.0f;
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    float lo[2], hi[2];
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      lo[side] = hi[side] = st.pos[side][d][lane];
+#pragma unroll
+      for (int off = 1; off < kTileSub; off <<= 1) {
+        lo[side] = fminf(lo[side], __shfl_xor_sync(kFull, lo[side], off));
+        hi[side] = fmaxf(hi[side], __shfl_xor_sync(kFull, hi[side], off));
+      }
+    }
+    const float loR = __shfl_sync(kFull, lo[0], kTileSub * R);
+    const float hiR = __shfl_sync(kFull, hi[0], kTileSub * R);
+    const float loC = __shfl_sync(kFull, lo[1], kTileSub * C);
+    const float hiC = __shfl_sync(kFull, hi[1], kTileSub * C);
+    float dc = 0.5f * (loR + hiR) - 0.5f * (loC + hiC);
+    dc -= cst.box[d] * rintf(dc * cst.inv_box[d]);
+    const float g = fmaxf(fabsf(dc) - 0.5f * (hiR - loR) - 0.5f * (hiC - loC)
+                              - 1e-5f * cst.box[d],
+                          0.0f);
+    g2 += g * g;
+  }
+  return __ballot_sync(kFull, g2 <= cst.rc * cst.rc) & 0xffffu;
+}
+
+// (4 blocks an SM at least: without it ptxas spills 16 bytes in the POLY
+// form at 2 RHS around the IEEE division's slow path)
 template <int NRHS, bool POLY>
-__global__ void __launch_bounds__(kTileWarps * 32)
+__global__ void __launch_bounds__(kTileWarps * 32, 4)
 ewald_tile_kernel(const float* __restrict__ pos,      // (n_pad, 3)
                   const int* __restrict__ ids,        // (n_pad,)
                   const float* __restrict__ force,    // (NRHS, n_pad, 3)
                   const int* __restrict__ species,    // (n_pad,), POLY
-                  const int* __restrict__ nbr,        // (t, max_nbr)
-                  int max_nbr,
-                  const int2* __restrict__ items,     // (row tile − t0, q)
-                  const int* __restrict__ n_items,
-                  int n_pad, int t0, int slots, int q_cap, TileConsts cst,
+                  const int4* __restrict__ pairs,     // (≥ cap, 4)
+                  const int* __restrict__ n_pairs, int cap,
+                  const int* __restrict__ row_start,  // (t + 1,)
+                  int n_pad, int t0, int nt, TileConsts cst,
                   const float2* __restrict__ coef,    // (n_fits, deg+1, 4)
                   const float* __restrict__ fit_consts,  // (n_fits, 8)
                   int n_fits, int deg,
                   const int* __restrict__ pair_map,   // (S, S), POLY
                   int n_species,
-                  float* __restrict__ part) {  // (nt·q_cap, NRHS, 32, 3)
+                  float* __restrict__ part) {  // (cap, NRHS, 32, 3)
   constexpr int NF = 3 * NRHS;
   extern __shared__ float4 s_dyn[];
   float2* s_coef = reinterpret_cast<float2*>(s_dyn);
   const int n_coef = n_fits * (deg + 1) * 4;
   float* s_fit = reinterpret_cast<float*>(s_coef + n_coef);
   int* s_map = reinterpret_cast<int*>(s_fit + n_fits * kFitConsts);
-  __shared__ float s_pos[kTileWarps][3][kTileRows];
-  __shared__ float s_f[kTileWarps][NF][kTileRows];
-  __shared__ int s_id[kTileWarps][kTileRows];
-  __shared__ int s_sp[kTileWarps][kTileRows];
-  __shared__ float s_red[kTileWarps][NF][kTileRows];
+  __shared__ TileStage<NF> s_stage[kTileWarps];
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int stride = deg + 1;
+  const int count = min(*n_pairs, cap);
+  if (blockIdx.x * kTileWarps >= count) return;  // the block has no pair
   for (int idx = t; idx < n_coef; idx += kTileWarps * 32)
     s_coef[idx] = coef[idx];
   for (int idx = t; idx < n_fits * kFitConsts; idx += kTileWarps * 32)
@@ -612,164 +743,192 @@ ewald_tile_kernel(const float* __restrict__ pos,      // (n_pad, 3)
       s_map[idx] = pair_map[idx];
   __syncthreads();  // the tables are written
 
-  const int count = *n_items;
-  for (int item = blockIdx.x; item < count; item += gridDim.x) {
-    const int2 it = items[item];
-    const int I = t0 + it.x;
-    const int i = I * kTileRows + lane;
-    const float xR = pos[3 * i], yR = pos[3 * i + 1], zR = pos[3 * i + 2];
-    const int idR = ids[i];
-    const int spR = POLY ? species[i] : 0;
-    float acc[NF];
+  TileStage<NF>& st = s_stage[warp];
+  // lane (ρ, γ) = (l & 3, l >> 2) takes rows 8R + ρ and 8R + ρ + 4 against
+  // column 8C + γ of sub-block (R, C); it sums row own_r (over all
+  // columns) and column own_c (over all rows) into the stage
+  const int rho = lane & 3, gam = lane >> 2;
+  const int own_r = kTileSub * (gam >> 1) + rho + 4 * (gam & 1);
+  const int own_c = kTileSub * rho + gam;
+  const int item = blockIdx.x * kTileWarps + warp;  // one pair a warp
+  if (item >= count) return;
+  const int4 pr = pairs[item];
+  const int a = pr.x, b = pr.y;
+  const bool diag = a == b;
 #pragma unroll
-    for (int q = 0; q < NF; ++q) acc[q] = 0.0f;
+  for (int side = 0; side < 2; ++side) {
+    const int j = (side ? b : a) * kTileRows + lane;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) st.pos[side][d][lane] = pos[3 * j + d];
+    st.id[side][lane] = ids[j];
+    st.sp[side][lane] = POLY ? species[j] : 0;
+#pragma unroll
+    for (int k = 0; k < NRHS; ++k)
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        st.f[side][3 * k + d][lane] =
+            force[((size_t)k * n_pad + j) * 3 + d];
+  }
+#pragma unroll
+  for (int q = 0; q < NF; ++q) st.row[q][lane] = st.col[q][lane] = 0.0f;
+  __syncwarp();  // the stage is written
+  const unsigned mask = sub_block_mask<NF>(st, cst, lane);
 
-    const int* list = nbr + (size_t)I * max_nbr;
-    const int s_end = min(it.y * slots + slots, max_nbr);
-    for (int s = it.y * slots + warp; s < s_end; s += kTileWarps) {
-      const int J = list[s];  // warp-uniform
-      if (J < 0) break;
-      __syncwarp();  // the previous slot's columns are read
-      {
-        const int j = J * kTileRows + lane;
+#pragma unroll 1
+  for (int R = 0; R < kTileSubs; ++R) {
+    float rp[2][NF];
 #pragma unroll
-        for (int d = 0; d < 3; ++d) s_pos[warp][d][lane] = pos[3 * j + d];
-        s_id[warp][lane] = ids[j];
-        if (POLY) s_sp[warp][lane] = species[j];
+    for (int q = 0; q < NF; ++q) rp[0][q] = rp[1][q] = 0.0f;
+    bool ran = false;
+#pragma unroll 1
+    for (int C = diag ? R : 0; C < kTileSubs; ++C) {
+      if (!((mask >> (kTileSubs * R + C)) & 1u)) continue;
+      const int c = kTileSub * C + gam;
+      int rows[2], base[2];
+      float dx[2], dy[2], dz[2], inv_r2[2], x[2];
+      bool valid[2];
 #pragma unroll
-        for (int k = 0; k < NRHS; ++k)
-#pragma unroll
-          for (int d = 0; d < 3; ++d)
-            s_f[warp][3 * k + d][lane] =
-                force[((size_t)k * n_pad + j) * 3 + d];
+      for (int p = 0; p < 2; ++p) {
+        rows[p] = kTileSub * R + rho + 4 * p;
+        valid[p] = pair_setup<NF, POLY>(st, rows[p], c, diag, cst, s_fit,
+                                        s_map, n_species, stride, dx[p],
+                                        dy[p], dz[p], inv_r2[p], x[p],
+                                        base[p]);
       }
-      __syncwarp();  // the stage is written
-
-      float slot_sum[NF];  // this slot's 32 columns, then into acc
+      if (!__any_sync(kFull, valid[0] || valid[1])) continue;
+      ran = true;
+      float A[2], B[2];
+      clenshaw<2>(s_coef, deg, base, x, A, B);
+      float ct[NF];
 #pragma unroll
-      for (int q = 0; q < NF; ++q) slot_sum[q] = 0.0f;
-      for (int c = 0; c < kTileSteps; ++c) {
-        int base[kTilePairs];
-        bool valid[kTilePairs];
-        float dx[kTilePairs], dy[kTilePairs], dz[kTilePairs], x[kTilePairs],
-            inv_r2[kTilePairs];
-        bool any = false;
+      for (int p = 0; p < 2; ++p) {
+        float row[NF], col[NF];
+        pair_apply<NRHS, NF>(st, rows[p], c, valid[p], A[p], B[p], dx[p],
+                             dy[p], dz[p], inv_r2[p], row, col);
 #pragma unroll
-        for (int p = 0; p < kTilePairs; ++p) {
-          const int col = c + p * kTileSteps;
-          dx[p] = min_image(xR, s_pos[warp][0][col], cst.box[0],
-                            cst.inv_box[0]);
-          dy[p] = min_image(yR, s_pos[warp][1][col], cst.box[1],
-                            cst.inv_box[1]);
-          dz[p] = min_image(zR, s_pos[warp][2][col], cst.box[2],
-                            cst.inv_box[2]);
-          float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx[p], dx[p]),
-                                         __fmul_rn(dy[p], dy[p])),
-                               __fmul_rn(dz[p], dz[p]));
-          const int idC = s_id[warp][col];
-          const bool ok = idC >= 0 && idC != idR;
-          r2 = ok ? fmaxf(r2, 1e-24f) : 1.0f;
-          const float r = __fsqrt_rn(r2);
-          valid[p] = ok && r <= cst.rc;
-          any = any || valid[p];
-          inv_r2[p] = __fdiv_rn(1.0f, r2);
-          const int fit = POLY ? s_map[spR * n_species + s_sp[warp][col]] : 0;
-          const float* fc = s_fit + fit * kFitConsts;
-          const bool in1 = r >= fc[0], in2 = r >= fc[1];
-          const int seg = (int)in1 + (int)in2;
-          x[p] = fminf(fmaxf((r - fc[2 + seg]) * fc[5 + seg] - 1.0f, -1.0f),
-                       1.0f);
-          base[p] = fit * stride * 4 + seg;
-        }
-        if (!__any_sync(0xffffffffu, any)) continue;
-        float A[kTilePairs], B[kTilePairs];
-        clenshaw<kTilePairs>(s_coef, deg, base, x, A, B);
-#pragma unroll
-        for (int p = 0; p < kTilePairs; ++p) {
-          const int col = c + p * kTileSteps;
-          const float Ap = valid[p] ? A[p] : 0.0f;
-          const float Bh = valid[p] ? B[p] * inv_r2[p] : 0.0f;
-#pragma unroll
-          for (int k = 0; k < NRHS; ++k) {
-            const float fx = s_f[warp][3 * k][col],
-                        fy = s_f[warp][3 * k + 1][col],
-                        fz = s_f[warp][3 * k + 2][col];
-            const float bdF = Bh * (dx[p] * fx + dy[p] * fy + dz[p] * fz);
-            slot_sum[3 * k] += Ap * fx + bdF * dx[p];
-            slot_sum[3 * k + 1] += Ap * fy + bdF * dy[p];
-            slot_sum[3 * k + 2] += Ap * fz + bdF * dz[p];
-          }
+        for (int q = 0; q < NF; ++q) {
+          rp[p][q] += row[q];
+          ct[q] = p == 0 ? col[q] : ct[q] + col[q];
         }
       }
+      // column 8C + γ over the sub-block's 8 rows: the lanes of one γ
 #pragma unroll
-      for (int q = 0; q < NF; ++q) acc[q] += slot_sum[q];
+      for (int q = 0; q < NF; ++q) {
+        ct[q] += __shfl_xor_sync(kFull, ct[q], 1);
+        ct[q] += __shfl_xor_sync(kFull, ct[q], 2);
+      }
+      if (C == rho)
+#pragma unroll
+        for (int q = 0; q < NF; ++q) st.col[q][own_c] += ct[q];
     }
+    if (!ran) continue;
+    // rows 8R + ρ (+ 4) over their 32 columns: the lanes of one ρ
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int q = 0; q < NF; ++q) {
+        rp[p][q] += __shfl_xor_sync(kFull, rp[p][q], 4);
+        rp[p][q] += __shfl_xor_sync(kFull, rp[p][q], 8);
+        rp[p][q] += __shfl_xor_sync(kFull, rp[p][q], 16);
+      }
+    if ((gam >> 1) == R)
+#pragma unroll
+      for (int q = 0; q < NF; ++q)
+        st.row[q][own_r] = (gam & 1) ? rp[1][q] : rp[0][q];
+  }
+  __syncwarp();  // the row and column sums are written
 
-    // the warps' row sums in warp order, one writer an element
+  // the pair's two partials, one writer an element (lane l: row l and
+  // column l): the row side at a's slot of b, the column side at b's
+  // slot of a (a diagonal pair's two sides added at its one slot), each
+  // written only where its tile lies in the slice
+  const int first = row_start[t0];
+  float* out_r = part + (size_t)(row_start[a] - first + pr.z) * NRHS
+                            * kTileRows * 3;
+  float* out_c = part + (size_t)(row_start[b] - first + pr.w) * NRHS
+                            * kTileRows * 3;
+  if (diag) {
 #pragma unroll
-    for (int q = 0; q < NF; ++q) s_red[warp][q][lane] = acc[q];
-    __syncthreads();
-    float* out =
-        part + ((size_t)it.x * q_cap + it.y) * NRHS * kTileRows * 3;
-    for (int idx = t; idx < NF * kTileRows; idx += kTileWarps * 32) {
-      const int q = idx / kTileRows, row = idx % kTileRows;
-      float v = s_red[0][q][row];
+    for (int q = 0; q < NF; ++q)
+      out_r[((q / 3) * kTileRows + lane) * 3 + q % 3] =
+          st.row[q][lane] + st.col[q][lane];
+  } else {
+    if (a >= t0 && a < t0 + nt)
 #pragma unroll
-      for (int w = 1; w < kTileWarps; ++w) v += s_red[w][q][row];
-      out[((q / 3) * kTileRows + row) * 3 + q % 3] = v;
-    }
-    __syncthreads();  // s_red is read before the next item writes it
+      for (int q = 0; q < NF; ++q)
+        out_r[((q / 3) * kTileRows + lane) * 3 + q % 3] = st.row[q][lane];
+    if (b >= t0 && b < t0 + nt)
+#pragma unroll
+      for (int q = 0; q < NF; ++q)
+        out_c[((q / 3) * kTileRows + lane) * 3 + q % 3] = st.col[q][lane];
   }
 }
 
-// The second pass: out[k][i][d] = Σ_{q < n_q[i / 32]} part[(i/32)·q_cap +
-// q][k][i % 32][d] in item order, for the nt·32 rows i of the slice.
-__global__ void tile_sum_items_kernel(const float* __restrict__ part,
-                                      const int* __restrict__ n_q, int nt,
-                                      int q_cap, int nrhs,
+// The second pass: out[k][i][d] for the nt·32 rows i of the slice, the
+// partials of tile x = t0 + i/32's live slots summed in its list's order
+// (partial row_start[x] − row_start[t0] + s for slot s).
+__global__ void tile_sum_slots_kernel(const float* __restrict__ part,
+                                      const int* __restrict__ row_start,
+                                      int t0, int nt, int nrhs,
                                       float* __restrict__ out) {
   const size_t per_rhs = (size_t)nt * kTileRows * 3;
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= nrhs * per_rhs) return;
   const int k = (int)(e / per_rhs);
   const int rem = (int)(e % per_rhs);
-  const int tile = rem / (kTileRows * 3);
+  const int x = t0 + rem / (kTileRows * 3);
   const int within = rem % (kTileRows * 3);
-  const float* p = part + ((size_t)tile * q_cap * nrhs + k) * kTileRows * 3
-                   + within;
-  const size_t step = (size_t)nrhs * kTileRows * 3;
+  const int first = row_start[t0];
   float v = 0.0f;
-  for (int q = 0; q < n_q[tile]; ++q) v += p[q * step];
+  for (int g = row_start[x]; g < row_start[x + 1]; ++g)
+    v += part[((size_t)(g - first) * nrhs + k) * kTileRows * 3 + within];
   out[e] = v;
 }
 
+struct TileArgs {
+  const float* pos;
+  const int* ids;
+  const float* force;
+  const int* species;
+  const int* pairs;
+  const int* n_pairs;
+  int cap;
+  const int* row_start;
+  int n_pad;
+  int t0;
+  int nt;
+  TileConsts cst;
+  const float2* coef;
+  const float* fit_consts;
+  int n_fits;
+  int deg;
+  const int* pair_map;
+  int n_species;
+  float* part;
+};
+
 template <int NRHS, bool POLY>
-int launch_tiles(int cap, int shared, cudaStream_t stream, const float* pos,
-                 const int* ids, const float* force, const int* species,
-                 const int* nbr, int max_nbr, const int* items,
-                 const int* n_items, int n_pad, int t0, int slots, int q_cap,
-                 const TileConsts& cst, const float2* coef,
-                 const float* fit_consts, int n_fits, int deg,
-                 const int* pair_map, int n_species, float* part) {
+int launch_tiles(int shared, cudaStream_t stream, const TileArgs& g) {
   auto kernel = ewald_tile_kernel<NRHS, POLY>;
-  cudaError_t err = cudaFuncSetAttribute(
+  const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess
-      || (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev)) != cudaSuccess
-      || (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-              &per_sm, kernel, kTileWarps * 32, shared)) != cudaSuccess)
-    return static_cast<int>(err);
-  if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int resident = sms * per_sm;
-  const int grid = cap < resident ? cap : resident;
-  kernel<<<grid, kTileWarps * 32, shared, stream>>>(
-      pos, ids, force, species, nbr, max_nbr,
-      reinterpret_cast<const int2*>(items), n_items, n_pad, t0, slots, q_cap,
-      cst, coef, fit_consts, n_fits, deg, pair_map, n_species, part);
+  kernel<<<(g.cap + kTileWarps - 1) / kTileWarps, kTileWarps * 32, shared,
+           stream>>>(g.pos, g.ids, g.force, g.species,
+                     reinterpret_cast<const int4*>(g.pairs), g.n_pairs,
+                     g.cap, g.row_start, g.n_pad, g.t0, g.nt, g.cst, g.coef,
+                     g.fit_consts, g.n_fits, g.deg, g.pair_map, g.n_species,
+                     g.part);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tile_sweep(int nrhs, bool poly, int shared, cudaStream_t stream,
+                      const TileArgs& g) {
+  if (nrhs == 1)
+    return poly ? launch_tiles<1, true>(shared, stream, g)
+                : launch_tiles<1, false>(shared, stream, g);
+  return poly ? launch_tiles<2, true>(shared, stream, g)
+              : launch_tiles<2, false>(shared, stream, g);
 }
 
 SweepConsts unpack_consts(const float* consts) {
@@ -872,25 +1031,27 @@ int ewald_tile_table_capacity() { return kTileTableBytes; }
 // K4 tiles: out (nrhs, nt·32, 3), the pair terms of the row tiles
 // [t0, t0 + nt) against their listed neighbor tiles (see the kernel's
 // note).  pos (n_pad, 3), ids (n_pad,) int32, force (nrhs, n_pad, 3),
-// species (n_pad,) int32 or NULL (monodisperse), nbr (t, max_nbr) int32;
-// items (cap, 2) int32 with its used length at n_items on the device and
-// n_q (nt,) int32 the items of each row tile (ewald_cuda.tile_items);
-// consts: 7 host floats (box[3], inv_box[3], rc); coef (n_fits, deg+1,
-// 4, 2) and fit_consts (n_fits, 8) floats, pair_map (S, S) int32 or NULL;
-// part holds nt·q_cap·nrhs·32·3 floats (scratch; only used items are
-// written and read).
+// species (n_pad,) int32 or NULL (monodisperse); pairs (≥ cap, 4) int32,
+// the slice's unordered tile pairs (a, b ≥ a, slot of b in a's list, slot
+// of a in b's list; tiles.tile_pairs / slice_pairs) with its used length
+// at n_pairs on the device, at most cap, the slice's live list entries;
+// row_start (t + 1,) int32 the prefix sum of the lists' live entries;
+// consts: 7 host floats (box[3], inv_box[3], rc); coef (n_fits, deg+1, 4,
+// 2) and fit_consts (n_fits, 8) floats, pair_map (S, S) int32 or NULL;
+// part holds cap·nrhs·32·3 floats (scratch, one partial a live slot of
+// the slice, all written).
 int ewald_real_tiles(const float* pos, const int* ids, const float* force,
-                     const int* species, const int* nbr, int max_nbr,
-                     const int* items, const int* n_items, const int* n_q,
-                     int cap, int n_pad, int t0, int nt, int slots,
-                     int q_cap, int nrhs, const float* consts,
-                     const float* coef, const float* fit_consts, int n_fits,
-                     int deg, const int* pair_map, int n_species,
-                     float* part, float* out, void* stream_ptr) {
+                     const int* species, const int* pairs,
+                     const int* n_pairs, int cap, const int* row_start,
+                     int n_pad, int t0, int nt, int nrhs,
+                     const float* consts, const float* coef,
+                     const float* fit_consts, int n_fits, int deg,
+                     const int* pair_map, int n_species, float* part,
+                     float* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (nrhs != 1 && nrhs != 2) return static_cast<int>(cudaErrorInvalidValue);
   const bool poly = species != nullptr;
-  if (n_fits < 1 || deg < 0 || slots < 1 || (poly && pair_map == nullptr))
+  if (n_fits < 1 || deg < 0 || cap < 0 || (poly && pair_map == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int shared = tile_table_bytes(n_fits, deg, poly ? n_species : 0);
   if (shared > kTileTableBytes)
@@ -902,39 +1063,18 @@ int ewald_real_tiles(const float* pos, const int* ids, const float* force,
     cst.inv_box[d] = consts[3 + d];
   }
   cst.rc = consts[6];
-  const float2* coef2 = reinterpret_cast<const float2*>(coef);
-  int code = 0;
   if (cap > 0) {
-    if (nrhs == 1)
-      code = poly ? launch_tiles<1, true>(cap, shared, stream, pos, ids,
-                                          force, species, nbr, max_nbr,
-                                          items, n_items, n_pad, t0, slots,
-                                          q_cap, cst, coef2, fit_consts,
-                                          n_fits, deg, pair_map, n_species,
-                                          part)
-                  : launch_tiles<1, false>(cap, shared, stream, pos, ids,
-                                           force, species, nbr, max_nbr,
-                                           items, n_items, n_pad, t0, slots,
-                                           q_cap, cst, coef2, fit_consts,
-                                           n_fits, deg, pair_map, 0, part);
-    else
-      code = poly ? launch_tiles<2, true>(cap, shared, stream, pos, ids,
-                                          force, species, nbr, max_nbr,
-                                          items, n_items, n_pad, t0, slots,
-                                          q_cap, cst, coef2, fit_consts,
-                                          n_fits, deg, pair_map, n_species,
-                                          part)
-                  : launch_tiles<2, false>(cap, shared, stream, pos, ids,
-                                           force, species, nbr, max_nbr,
-                                           items, n_items, n_pad, t0, slots,
-                                           q_cap, cst, coef2, fit_consts,
-                                           n_fits, deg, pair_map, 0, part);
+    const TileArgs g{pos, ids, force, species, pairs, n_pairs, cap,
+                     row_start, n_pad, t0, nt, cst,
+                     reinterpret_cast<const float2*>(coef), fit_consts,
+                     n_fits, deg, pair_map, poly ? n_species : 0, part};
+    const int code = launch_tile_sweep(nrhs, poly, shared, stream, g);
     if (code != 0) return code;
   }
   const size_t total = (size_t)nrhs * nt * kTileRows * 3;
   const int threads = 256;
-  tile_sum_items_kernel<<<(unsigned)((total + threads - 1) / threads),
-                          threads, 0, stream>>>(part, n_q, nt, q_cap, nrhs,
+  tile_sum_slots_kernel<<<(unsigned)((total + threads - 1) / threads),
+                          threads, 0, stream>>>(part, row_start, t0, nt, nrhs,
                                                 out);
   return static_cast<int>(cudaGetLastError());
 }

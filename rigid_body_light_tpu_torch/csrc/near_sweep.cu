@@ -27,7 +27,7 @@
 // at 1 RHS against the 28.1 that the function needs (102,480 blobs, grid
 // (12, 12, 3)), and its 48 KB stage at 2 RHS held an SM to 4 blocks.  It
 // took 3.42-3.45 / 4.22-4.27 ms, 8.2× / 6.7× the bound (PERF.md).  Now:
-//   - The work list (farfield._tile_pairs, built once per positions on the
+//   - The work list (tiles.tile_pairs, built once per positions on the
 //     device) holds each unordered adjacent tile pair (a, b), b ≥ a, once,
 //     in list order, with the slot of b in a's list and of a in b's list.
 //     The neighbor relation is symmetric (cell-range gaps), so that covers
@@ -111,7 +111,7 @@
 // gives each device, farfield.py:1672-1676): the output rows of tiles
 // [t0, t0 + nt) alone.  The work list is the full list's unordered pairs
 // with at least one tile in the slice, in list order
-// (farfield._slice_pairs, built on the device).  The kernel is the same
+// (tiles.slice_pairs, built on the device).  The kernel is the same
 // kernel: a pair's fields are evaluated once, and a side is written only
 // where its tile lies in the slice, into partials and an output indexed
 // from the slice's first row.  One writer per slot, no atomics, launches

@@ -23,9 +23,11 @@ Kernel (``csrc/ewald_real_sweep.cu``, built for sm_90a at first use by
                            ``ewald_cells._cell_sweep``'s contract, mono
                            and POLY): it replaces no Pallas kernel but the
                            JAX package's plain-XLA ``_cell_sweep``
-                           (``ewald_cells.py:122``).  Ordered work items of
-                           (row tile, at most :data:`TILE_SLOTS` live list
-                           slots) listed on the card by :func:`tile_items`.
+                           (``ewald_cells.py:122``).  A symmetric sweep
+                           over the unordered neighbor-tile pairs that
+                           :func:`tile_list` lists on the card (K3's list,
+                           :func:`.tiles.tile_pairs`): each kept pair's
+                           fields once, applied to both blobs.
 
 K4 and its slab form are monodisperse float32, classic split only: the
 balanced split (``rc``) takes K4 tiles, and per-blob radii without ``rc``
@@ -59,6 +61,7 @@ can show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -69,7 +72,6 @@ from rigid_body_light_tpu_torch.utils import profiling
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
 SLAB_ROWS, SLAB_CHUNK = 64, 256  # the slab form's block; build() checks
 TILE_ROWS = tiles.TILE  # K4 tiles' tile; build() checks the kernel's
-TILE_SLOTS = 16  # live list slots a K4 tiles work item takes at most
 TILE_TABLE_BYTES = 196608  # K4 tiles' shared fit table; build() checks
 sweep_launches = 0
 slab_launches = 0
@@ -125,8 +127,8 @@ def build():
                            f"the wrapper {TILE_ROWS} and {TILE_TABLE_BYTES}")
     cf = ctypes.POINTER(ctypes.c_float)
     lib.ewald_real_tiles.restype = i
-    lib.ewald_real_tiles.argtypes = [p, p, p, p, p, i, p, p, p, i, i, i, i, i,
-                                     i, i, cf, p, p, i, i, p, i, p, p, p]
+    lib.ewald_real_tiles.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, cf,
+                                     p, p, i, i, p, i, p, p, p]
     lib.ewald_real_sweep.restype = i
     lib.ewald_real_sweep.argtypes = [p, p, i, i, cf, p, i, p, p, p, p]
     lib.ewald_real_slab.restype = i
@@ -276,33 +278,36 @@ def tile_tables(params, pt=None):
     return coef, fits, pt.pair_map.astype(np.int32)
 
 
-def tile_items(nbr, t0, nt, slots=TILE_SLOTS):
-    """K4 tiles' work items for the row tiles [t0, t0 + nt) of the neighbor
-    lists ``nbr`` (t, M) (live tiles first, then −1), built on nbr's
-    device with no host sync.
+class TileList(NamedTuple):
+    """K4 tiles' work list of one row-tile slice (:func:`tile_list`)."""
+    pairs: torch.Tensor      # (≥ cap, 4) int32: a, b ≥ a, slot of b in a's
+    #                          list, slot of a in b's list; the first used
+    n_pairs: torch.Tensor    # (1,) int32: the used rows
+    row_start: torch.Tensor  # (t + 1,) int32: live list entries before a row
+    cap: int                 # the slice's live list entries: its partials
 
-    Row tile I's L live slots make ⌈L/slots⌉ items (I − t0, q), item q
-    taking the slots [q·slots, (q + 1)·slots); they are listed row tile by
-    row tile, q ascending, by a prefix sum over the item counts.  Returns
-    (items (nt·Q, 2) int32, the used ones first; n_q (nt,) int32, the
-    items of each row tile; n_items (1,) int32, the used count; Q =
-    ⌈M/slots⌉, the most items a row tile can have)."""
-    dev = nbr.device
-    q_cap = max(1, -(-nbr.shape[1] // slots))
-    live = (nbr[t0:t0 + nt] >= 0).sum(dim=1)
-    n_q = (live + slots - 1) // slots
-    ends = torch.cumsum(n_q, 0)
-    q = torch.arange(q_cap, device=dev)
-    cap = nt * q_cap
-    dest = torch.where(q[None, :] < n_q[:, None],
-                       (ends - n_q)[:, None] + q[None, :], cap)
-    src = torch.stack(torch.broadcast_tensors(
-        torch.arange(nt, device=dev)[:, None], q[None, :]), dim=-1)
-    items = torch.zeros((cap + 1, 2), dtype=torch.int32, device=dev)
-    items.scatter_(0, dest.reshape(-1, 1).expand(-1, 2),
-                   src.reshape(-1, 2).to(torch.int32))
-    return (items[:cap], n_q.to(torch.int32), ends[-1:].to(torch.int32),
-            q_cap)
+
+def tile_list(nbr, t0, nt):
+    """K4 tiles' work list for the row tiles [t0, t0 + nt) of the neighbor
+    lists ``nbr`` (t, M) (live tiles first, ascending, then −1): the
+    unordered tile pairs with a tile in the slice, in list order, as K3
+    lists them (:func:`.tiles.tile_pairs`, :func:`.tiles.slice_pairs` for
+    a slice), on nbr's device, and the prefix sum of the live entries.  One
+    host sync reads the widest live row W and the slice's live entries:
+    the lists are cut to W columns before the pairs are built (M = t at
+    the balanced-split slice, W ≈ M/7 there), and the live entries count
+    the partials, one a slot (a pair's two sides at its two tiles' slots),
+    and bound the pairs, each of which holds a slot of the slice."""
+    per_row = (nbr >= 0).sum(dim=1, dtype=torch.int32)
+    row_start = torch.nn.functional.pad(
+        torch.cumsum(per_row, 0, dtype=torch.int32), (1, 0))
+    width, live = torch.stack([per_row.max(), row_start[t0 + nt]
+                               - row_start[t0]]).tolist()
+    pairs, n_pairs = tiles.tile_pairs(nbr[:, :max(width, 1)].to(
+        torch.int32, memory_format=torch.contiguous_format))
+    if (t0, nt) != (0, nbr.shape[0]):
+        pairs, n_pairs, _ = tiles.slice_pairs(pairs, n_pairs, t0, nt)
+    return TileList(pairs, n_pairs, row_start, live)
 
 
 def tile_operator_tables(params, pt, dev):
@@ -322,45 +327,54 @@ def tile_operator_tables(params, pt, dev):
     return tabs, consts
 
 
-def tile_sweep_kernel(r_pad, ids_pad, F_pad, nbr, params, poly, t0, nt,
-                      slots=TILE_SLOTS):
-    """K4 tiles on the card: :func:`tile_pair_sum`'s arguments, r_pad and
-    F_pad float32 contiguous CUDA tensors → (k, nt·32, 3)."""
+def tile_sweep_launch(r_pad, ids32, F_pad, sp32, lst, params, pt, t0, nt):
+    """K4 tiles' launch over a built work list ``lst`` (:func:`tile_list`):
+    r_pad, F_pad float32, ids32 and sp32 (None monodisperse) int32, all
+    contiguous CUDA tensors, pt the species-pair fits or None → (k, nt·32,
+    3).  Counted as ``ewald_real_tiles``."""
     global tile_launches
     n_pad, k = r_pad.shape[0], F_pad.shape[0]
-    t, max_nbr = nbr.shape
-    cuda_build.check_tensor(r_pad, "r_pad", (t * TILE_ROWS, 3))
-    cuda_build.check_tensor(F_pad, "F_pad", (k, n_pad, 3))
     lib = build()
     dev = r_pad.device
-    pt = None if poly is None else poly[2]
     n_fits, deg, n_sp, _ = _tile_table_size(params, pt)
     (coef, fits, pmap), consts = tile_operator_tables(params, pt, dev)
+    part = torch.empty((lst.cap, k, TILE_ROWS, 3), dtype=torch.float32,
+                       device=dev)
     out = torch.empty((k, nt * TILE_ROWS, 3), dtype=torch.float32,
                       device=dev)
     with torch.cuda.device(dev), profiling.span("ewald_real_tiles"):
-        ids32 = ids_pad.to(torch.int32).contiguous()
-        nbr32 = nbr.to(torch.int32).contiguous()
-        sp32 = None if pt is None else poly[1].to(torch.int32).contiguous()
-        items, n_q, n_items, q_cap = tile_items(nbr32, t0, nt, slots)
-        part = torch.empty((nt * q_cap, k, TILE_ROWS, 3),
-                           dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.ewald_real_tiles(
             r_pad.data_ptr(), ids32.data_ptr(), F_pad.data_ptr(),
-            None if sp32 is None else sp32.data_ptr(), nbr32.data_ptr(),
-            max_nbr, items.data_ptr(), n_items.data_ptr(), n_q.data_ptr(),
-            items.shape[0], n_pad, int(t0), int(nt), int(slots), q_cap, k,
-            consts, coef.data_ptr(), fits.data_ptr(), n_fits, deg,
-            None if pmap is None else pmap.data_ptr(), n_sp,
+            None if sp32 is None else sp32.data_ptr(), lst.pairs.data_ptr(),
+            lst.n_pairs.data_ptr(), lst.cap, lst.row_start.data_ptr(), n_pad,
+            int(t0), int(nt), k, consts, coef.data_ptr(), fits.data_ptr(),
+            n_fits, deg, None if pmap is None else pmap.data_ptr(), n_sp,
             part.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on_error(code, "ewald_real_tiles")
     tile_launches += 1
     return out
 
 
+def tile_sweep_kernel(r_pad, ids_pad, F_pad, nbr, params, poly, t0, nt):
+    """K4 tiles on the card: :func:`tile_pair_sum`'s arguments, r_pad and
+    F_pad float32 contiguous CUDA tensors → (k, nt·32, 3): the work list
+    (timed as ``ewald_tiles``, with the sorted tiles), then the launch."""
+    t = nbr.shape[0]
+    cuda_build.check_tensor(r_pad, "r_pad", (t * TILE_ROWS, 3))
+    cuda_build.check_tensor(F_pad, "F_pad", (F_pad.shape[0],
+                                             r_pad.shape[0], 3))
+    pt = None if poly is None else poly[2]
+    with torch.cuda.device(r_pad.device), profiling.span("ewald_tiles"):
+        lst = tile_list(nbr, t0, nt)
+        ids32 = ids_pad.to(torch.int32).contiguous()
+        sp32 = None if pt is None else poly[1].to(torch.int32).contiguous()
+    return tile_sweep_launch(r_pad, ids32, F_pad, sp32, lst, params, pt, t0,
+                             nt)
+
+
 def tile_pair_sum(r_pad, ids_pad, F_pad, nbr, params, poly=None, t0=0,
-                  nt=None, chunk_tiles=None, slots=TILE_SLOTS):
+                  nt=None, chunk_tiles=None):
     """K4 tiles: the balanced split's cutoff sweep of the sorted row tiles
     [t0, t0 + nt) against their neighbor tiles, float32, with exactly
     :func:`.ewald_cells._cell_sweep`'s contract and arguments (r_pad,
@@ -369,11 +383,13 @@ def tile_pair_sum(r_pad, ids_pad, F_pad, nbr, params, poly=None, t0=0,
     nt·32, 3) pair terms in sorted order.
 
     CPU tensors take the plain twin ``_cell_sweep`` (``chunk_tiles``
-    groups its rows; the kernel has no chunks), CUDA tensors the kernel;
-    there is no fallback.  Raises on anything else than float32, a
-    non-contiguous r_pad or F_pad, k ∉ {1, 2}, params without rc, or a
-    fit table larger than the kernel's shared memory holds (never
-    truncated).  ``slots``: the live list slots a work item takes."""
+    groups its rows; the kernel has no chunks), CUDA tensors the kernel
+    (its work list costs one host sync, :func:`tile_list`); there is no
+    fallback.  Rows of pad blobs hold garbage (the twin's) or 0 (the
+    kernel's); the caller drops them.  Raises on anything else than
+    float32, a non-contiguous r_pad or F_pad, k ∉ {1, 2}, params without
+    rc, or a fit table larger than the kernel's shared memory holds (never
+    truncated)."""
     if params.rc is None:
         raise ValueError("K4 tiles sweep the balanced split's real part: "
                          "params built with rc=")
@@ -400,7 +416,7 @@ def tile_pair_sum(r_pad, ids_pad, F_pad, nbr, params, poly=None, t0=0,
     if r_pad.device.type == "cuda":
         cuda_build.refuse_grad("K4 tiles ewald_real_tiles", F_pad, r_pad)
         return tile_sweep_kernel(r_pad, ids_pad, F_pad, nbr, params, poly,
-                                 t0, nt, slots)
+                                 t0, nt)
     if r_pad.device.type == "cpu":
         from rigid_body_light_tpu_torch.ops import ewald_cells
 

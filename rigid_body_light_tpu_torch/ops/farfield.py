@@ -21,7 +21,8 @@ box above the wall).
     against per-tile neighbor-tile lists, masked pairwise by cell adjacency
     so near and far partition every pair exactly once.  On a CUDA tensor
     the sweep is the hand-written kernel K3 (:mod:`.farfield_cuda`), which
-    visits each unordered pair of neighbor tiles once (:func:`_tile_pairs`);
+    visits each unordered pair of neighbor tiles once
+    (:func:`.tiles.tile_pairs`);
     :func:`_near_sweep` is its plain version.
 
 The grid is anchored to the dynamic bounding box (in the film: x/y at 0
@@ -884,32 +885,6 @@ def _near_neighbor_lists(ci_sorted, t, max_nbr, wrap_xy=None):
     return torch.where(packed < t, packed, -1).to(torch.int32), overflow
 
 
-def _tile_pairs(nbr):
-    """K3's work list: each unordered adjacent tile pair (a, b), b ≥ a, of
-    the neighbor lists once, in list order (a-major, then a's slots), as
-    (t·max_nbr, 4) int32 rows (a, b, slot of b in a's list, slot of a in
-    b's list) whose first ``n_pairs`` are used; n_pairs a (1,) int32
-    tensor.  Built on the device with no host sync.  The lists are
-    symmetric (cell-range gaps), so the two slots point back at each other;
-    after an overflow (the apply is NaN-poisoned) the rows stay in range
-    but may miss pairs."""
-    t, w = nbr.shape
-    dev = nbr.device
-    a = torch.arange(t, device=dev)[:, None].expand(t, w)
-    s = torch.arange(w, device=dev)[None, :].expand(t, w)
-    b = nbr.long()
-    used = b >= 0
-    b = b.clamp(min=0)
-    # slot_of[x, y]: the slot of y in x's list (column t takes empty slots)
-    slot_of = torch.zeros((t, t + 1), dtype=torch.long, device=dev)
-    slot_of.scatter_(1, torch.where(used, b, t), s)
-    upper = (used & (b >= a)).reshape(-1)
-    rows = torch.stack([a, b, s, slot_of[b, a]], dim=-1).reshape(-1, 4)
-    order = torch.argsort((~upper).to(torch.int8), stable=True)
-    return (rows[order].to(torch.int32).contiguous(),
-            upper.sum().to(torch.int32).reshape(1))
-
-
 def auto_grid(n: int, p: int, wall: bool, poly: bool = False) -> int:
     """Density-targeted supercell count (cells of ~CELL_TARGET blobs),
     capped so the kernel lattices stay under KHAT_BUDGET bytes; ``poly``
@@ -1250,25 +1225,6 @@ def sorted_tiles(x, ci, grid, t_pad, max_nbr, ahat=None, wrap_xy=None):
     return order, x_s, ci_s, id_s, ah_s, nbr, overflow
 
 
-def _slice_pairs(pairs, n_pairs, t0: int, nt: int):
-    """The work list of K3's row-tile slice [t0, t0 + nt): the rows of the
-    full list (``pairs``, ``n_pairs`` of :func:`_tile_pairs`) with at least
-    one tile in the slice, in list order, as (cap, 4) int32 rows whose
-    first count are used, the count a (1,) int32 tensor, and the (1,)
-    int32 count of those pairs with one tile outside the slice (the
-    neighboring slice evaluates them too).  On the device, no host sync."""
-    cap = pairs.shape[0]
-    a, b = pairs[:, 0], pairs[:, 1]
-    used = torch.arange(cap, device=pairs.device) < n_pairs
-    a_in = (a >= t0) & (a < t0 + nt)
-    b_in = (b >= t0) & (b < t0 + nt)
-    keep = used & (a_in | b_in)
-    order = torch.argsort((~keep).to(torch.int8), stable=True)
-    return (pairs[order].contiguous(),
-            keep.sum().to(torch.int32).reshape(1),
-            (used & (a_in ^ b_in)).sum().to(torch.int32).reshape(1))
-
-
 def _build_geometry(x, grid, p, wall, h_floor, box_n, image_shells, poly,
                     band_p=0, group=None):
     if box_n is not None:
@@ -1340,7 +1296,7 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
     tiles come from one gather of the positions and cells, their count
     rounded up to a multiple of the group's size by whole pad tiles
     (:func:`sorted_tiles`); K3's work list is this rank's equal slice's
-    (:func:`_slice_pairs`), ``n_boundary`` its pairs that cross the
+    (:func:`.tiles.slice_pairs`), ``n_boundary`` its pairs that cross the
     slice's edge.
     """
     r = r.reshape(-1, 3)
@@ -1383,12 +1339,12 @@ def prepare(r, a=1.0, eta=1.0, wall=False, grid=None, p=4, max_nbr=None,
         grid, t_pad, max_nbr,
         ahat=None if ahat is None else collectives.all_gather(ahat, group),
         wrap_xy=grid[:2] if box_n is not None else None)
-    pairs, n_pairs = _tile_pairs(nbr)
+    pairs, n_pairs = tiles.tile_pairs(nbr)
     n_boundary = None
     if group is not None:
         nt = t_pad // D
-        pairs, n_pairs, n_boundary = _slice_pairs(pairs, n_pairs, rank * nt,
-                                                  nt)
+        pairs, n_pairs, n_boundary = tiles.slice_pairs(pairs, n_pairs,
+                                                       rank * nt, nt)
     if geo_bad is not None:
         overflow = overflow | geo_bad
     return FarCtx(lo=lo, h=h, khat_free=geo.khat_free,

@@ -16,7 +16,7 @@ Kernel (``csrc/near_sweep.cu``, built for sm_90a at first use by
                      polydisperse pair fields of K1's and K2's POLY forms.
 
 The kernel sweeps each unordered tile pair once (the list
-``farfield._tile_pairs`` builds with the neighbor lists), evaluating each
+``tiles.tile_pairs`` builds with the neighbor lists), evaluating each
 kept pair's fields once and applying them to both blobs; it replaced an
 ordered design that swept every row tile against all of its neighbors and
 so evaluated every pair twice (8.2× / 6.7× its bound at 1 / 2 RHS on the
@@ -35,7 +35,7 @@ Its row-tile slice (:func:`near_sweep`'s ``t0`` / ``nt``, as
 ``rpy_pallas.near_sweep``'s) gives the rows of tiles
 [t0, t0 + nt) alone, for the distributed far field
 (``farfield.mobility_apply`` with a ``group``): the same kernel and C
-entry over the slice's work list (:func:`.farfield._slice_pairs`, the
+entry over the slice's work list (:func:`.tiles.slice_pairs`, the
 pairs with a tile in the slice), writing only the slice's side of each
 pair; the whole sweep is the slice (0, t).
 
@@ -104,14 +104,14 @@ def near_sweep_kernel(x_s, ci_s, live_s, F_s, nbr, pairs, n_pairs,
     """K3 on the card.  x_s (n_pad, 3) float32, ci_s (n_pad, 3) int32,
     live_s (n_pad,) bool, F_s (k, n_pad, 3) float32 with k ∈ {1, 2}, nbr
     (t, max_nbr) int32 with n_pad = t·128, pairs (cap, 4) int32 and n_pairs
-    (1,) int32 (:func:`.farfield._tile_pairs`), all contiguous CUDA tensors
+    (1,) int32 (:func:`.tiles.tile_pairs`), all contiguous CUDA tensors
     → (k, n_pad, 3) pair terms in sorted order.  box_over_a / wrap_cells:
     None, or the film's (Lx, Ly) in units of a and (gx, gy), both given
     (the box form).  ahat_s: None, or the (n_pad,) float32 sorted radii in
     units of a (the POLY form; the kernel stages dead blobs at radius 1).
     t0 / nt: the row-tile slice (both or neither): the rows of tiles
     [t0, t0 + nt), (k, nt·128, 3), from the slice's work list
-    (:func:`.farfield._slice_pairs`) in ``pairs`` / ``n_pairs``."""
+    (:func:`.tiles.slice_pairs`) in ``pairs`` / ``n_pairs``."""
     global near_launches, near_poly_launches
     global slice_launches, slice_poly_launches
     n_pad, k = x_s.shape[0], F_s.shape[0]
@@ -185,7 +185,7 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
     x_s (n_pad, 3) sorted padded positions in units of a; ci_s (n_pad, 3)
     cell indices; live_s (n_pad,) real-blob mask; F_s (k, n_pad, 3) sorted
     forces, k ≤ 2; nbr (t, max_nbr) neighbor-tile ids (−1 = empty); pairs
-    the (list, count) of :func:`.farfield._tile_pairs` for ``nbr``
+    the (list, count) of :func:`.tiles.tile_pairs` for ``nbr``
     (``FarCtx.pairs``, ``FarCtx.n_pairs``), which the kernel needs and the
     plain version does not.  box_over_a / wrap_cells: the pseudo-2D film's
     (Lx, Ly) in units of a and (gx, gy) cyclic cell counts, as in
@@ -196,7 +196,7 @@ def near_sweep(x_s, ci_s, live_s, F_s, nbr, wall: bool, h_floor: float,
     3); rows of pad blobs hold garbage.  t0 / nt: the row-tile slice (both
     or neither; the distributed far field's), the rows of tiles [t0, t0 +
     nt) alone, (k, nt·128, 3); ``pairs`` is then the slice's work list
-    (:func:`.farfield._slice_pairs`, ``FarCtx.pairs`` of
+    (:func:`.tiles.slice_pairs`, ``FarCtx.pairs`` of
     ``farfield.prepare`` with a ``group``).
     """
     n_pad, k = x_s.shape[0], F_s.shape[0]

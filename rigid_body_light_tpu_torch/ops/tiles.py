@@ -1,7 +1,9 @@
 """Equal-population spatial tiles — the port of
-``rigid_body_light_tpu/ops/tiles.py`` — and the work items, blocks and
+``rigid_body_light_tpu/ops/tiles.py`` — the work items, blocks and
 partials of the symmetric all-pairs sweeps (K1, K4; the Python mirror of
-``csrc/tile_items.cuh``).
+``csrc/tile_items.cuh``) and the unordered tile-pair lists of the
+symmetric neighbor-tile sweeps (K3, K4 tiles: :func:`tile_pairs`,
+:func:`slice_pairs`).
 
 The far field's near sweep (:mod:`rigid_body_light_tpu_torch.ops.farfield`)
 partitions pairs by cell adjacency; sorting blobs along a serpentine walk
@@ -107,6 +109,64 @@ def pack_neighbor_lists(adj, max_nbr):
     packed = torch.sort(key, dim=1).values[:, :max_nbr]
     overflow = torch.any(adj.sum(dim=1) > max_nbr)
     return torch.where(packed < t, packed, -1), overflow
+
+
+def _keep_first(rows, keep):
+    """rows with the rows where ``keep`` holds first, each part in its
+    order (a stable partition by a prefix sum: no sort, no host sync)."""
+    n = keep.shape[0]
+    if n == 0:
+        return rows.contiguous()
+    c = torch.cumsum(keep, 0)
+    idx = torch.arange(n, device=keep.device)
+    dest = torch.where(keep, c - 1, c[-1] + idx - c)
+    return torch.empty_like(rows).index_copy_(0, dest, rows)
+
+
+def tile_pairs(nbr):
+    """The work list of the symmetric neighbor-tile sweeps (K3, K4 tiles):
+    each unordered adjacent tile pair (a, b), b ≥ a, of the neighbor lists
+    ``nbr`` (t, max_nbr; live ascending, then −1) once, in list order
+    (a-major, then a's slots), as (t·max_nbr, 4) int32 rows (a, b, slot of
+    b in a's list, slot of a in b's list) whose first ``n_pairs`` are used;
+    n_pairs a (1,) int32 tensor.  Built on the device with no host sync.
+    The lists are symmetric (:func:`bbox_adjacency`, K3's cell-range
+    gaps), so the two slots point back at each other; after an overflow
+    (the apply is NaN-poisoned) the rows stay in range but may miss
+    pairs."""
+    t, w = nbr.shape
+    dev = nbr.device
+    b = nbr.long()
+    used = b >= 0
+    b = b.clamp(min=0)
+    a = torch.arange(t, device=dev)[:, None].expand(t, w)
+    s = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(t, w)
+    # slot_of[x, y]: the slot of y in x's list (column t takes empty slots)
+    slot_of = torch.zeros((t, t + 1), dtype=torch.int32, device=dev)
+    slot_of.scatter_(1, torch.where(used, b, t), s)
+    upper = (used & (b >= a)).reshape(-1)
+    rows = torch.stack([a.to(torch.int32), b.to(torch.int32), s,
+                        slot_of[b, a]], dim=-1).reshape(-1, 4)
+    return (_keep_first(rows, upper),
+            upper.sum().to(torch.int32).reshape(1))
+
+
+def slice_pairs(pairs, n_pairs, t0: int, nt: int):
+    """The work list of a row-tile slice [t0, t0 + nt): the rows of the
+    full list (``pairs``, ``n_pairs`` of :func:`tile_pairs`) with at least
+    one tile in the slice, in list order, as (cap, 4) int32 rows whose
+    first count are used, the count a (1,) int32 tensor, and the (1,)
+    int32 count of those pairs with one tile outside the slice (the
+    neighboring slice evaluates them too).  On the device, no host sync."""
+    cap = pairs.shape[0]
+    a, b = pairs[:, 0], pairs[:, 1]
+    used = torch.arange(cap, device=pairs.device) < n_pairs
+    a_in = (a >= t0) & (a < t0 + nt)
+    b_in = (b >= t0) & (b < t0 + nt)
+    keep = used & (a_in | b_in)
+    return (_keep_first(pairs, keep),
+            keep.sum().to(torch.int32).reshape(1),
+            (used & (a_in ^ b_in)).sum().to(torch.int32).reshape(1))
 
 
 def default_max_nbr(n: int, volume: float, radius: float) -> int:

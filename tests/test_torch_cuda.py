@@ -23,6 +23,7 @@ from rigid_body_light_tpu_torch.ops import ewald, ewald_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import ewald_cells, ewald_pme  # noqa: E402
 from rigid_body_light_tpu_torch.ops import farfield, farfield_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import kinematics, rpy, rpy_cuda  # noqa: E402
+from rigid_body_light_tpu_torch.ops import tiles  # noqa: E402
 from rigid_body_light_tpu_torch.utils import roofline  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1159,8 +1160,9 @@ def test_k4_tiles_match_plain_twin(dev, poly, k):
 @pytest.mark.parametrize("poly", [False, True], ids=["mono", "poly"])
 def test_k4_tiles_slices_and_repeat(dev, poly):
     """Two launches bitwise equal; the row-tile slices for 1, 2 and 4 ranks
-    (tiles padded to a multiple of the ranks) bitwise the whole launch;
-    every work-item width gives the twin's sums within 5e-6."""
+    (tiles padded to a multiple of the ranks) bitwise the whole launch, at
+    D = 4 with tile pairs straddling a slice's edge (each evaluated by
+    both slices, each writing its own side)."""
     par, _, r, F, kw = _tile_case(dev, poly)
     rf = ewald_cells._fold(r, par)
     for d in (1, 2, 4):
@@ -1175,10 +1177,52 @@ def test_k4_tiles_slices_and_repeat(dev, poly):
                                           poly=pp, t0=i * nt, nt=nt)
                  for i in range(d)]
         assert torch.equal(torch.cat(parts, dim=1), whole)
-    for slots in (1, 8, 32):
-        U = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par,
-                                     poly=pp, slots=slots)
-        assert _rel(U, whole.double()) < TOL
+        if d == 4:
+            full = tiles.tile_pairs(nbr.to(torch.int32))
+            edge = [int(tiles.slice_pairs(*full, i * nt, nt)[2])
+                    for i in range(d)]
+            assert min(edge) > 0, edge
+
+
+def test_k4_tiles_tile_adjacent_to_itself_across_the_face(dev):
+    """A tile straddling the box's z face (its diagonal pair keeps pairs
+    that meet only through the face) and a tile across the x face from
+    it: K4 tiles within 5e-6 of the twin and of the float64 Clenshaw of
+    the same fit over all pairs with the cut, one launch; the slices at
+    D = 4 (a whole pad tile) bitwise the whole launch."""
+    rng = np.random.default_rng(5)
+    r = np.empty((96, 3))
+    r[:32, :2] = rng.uniform(0.4, 1.0, (32, 2))
+    r[:32, 2] = np.concatenate([rng.uniform(0.02, 0.4, 16),
+                                rng.uniform(5.6, 5.98, 16)])
+    r[32:64] = rng.uniform([5.3, 0.3, 2.0], [5.9, 1.2, 3.5], (32, 3))
+    r[64:] = rng.uniform([2.5, 4.6, 2.5], [3.5, 5.4, 3.5], (32, 3))
+    r = torch.from_numpy(r).float().to(dev)
+    F = torch.from_numpy(rng.standard_normal((2, 96, 3))).float().to(dev)
+    par = ewald.make_params((6.0, 6.0, 6.0), 0.3, tol=1e-5, rc=2.5)
+    rf = ewald_cells._fold(r, par)
+    order, r_pad, ids_pad, F_pad, pp, nbr, of = ewald_cells.sorted_tiles(
+        rf, F, par, 3)
+    assert not bool(of)
+    z = r_pad[:, 2].reshape(-1, 32)
+    assert bool(((z.min(dim=1).values < 0.5)
+                 & (z.max(dim=1).values > 5.5)).any())
+    before = ewald_cuda.launch_counts()["ewald_real_tiles"]
+    U = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par)
+    torch.cuda.synchronize()
+    assert ewald_cuda.launch_counts()["ewald_real_tiles"] == before + 1
+    twin = ewald_cells._cell_sweep(r_pad, ids_pad, F_pad, nbr, par)
+    assert _rel(U[:, :96], twin[:, :96].double()) < TOL
+    U_o = torch.empty_like(U[:, :96])
+    U_o[:, order] = U[:, :96]
+    ref = ewald.real_space_apply(F.double(), rf.double(), par, cheb=True)
+    assert _rel(U_o, ref) < TOL
+    _, r_pad, ids_pad, F_pad, pp, nbr, _ = ewald_cells.sorted_tiles(
+        rf, F, par, 3, 4)
+    whole = ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par)
+    parts = [ewald_cuda.tile_pair_sum(r_pad, ids_pad, F_pad, nbr, par,
+                                      t0=i, nt=1) for i in range(4)]
+    assert torch.equal(torch.cat(parts, dim=1), whole)
 
 
 def test_k4_tiles_overflow_poisons_and_grad_raises(dev):
@@ -1309,7 +1353,7 @@ def test_k3_row_slices_match_plain(near, wall, k):
         nt = t // D
         for d in range(D):
             t0 = d * nt
-            pairs, count, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs,
+            pairs, count, _ = tiles.slice_pairs(ctx.pairs, ctx.n_pairs,
                                                     t0, nt)
             ref = farfield._near_sweep(x32.double(), ctx.ci_s, ctx.id_s,
                                        F32.double(), ctx.nbr, wall, 0.75,
@@ -1339,7 +1383,7 @@ def test_distributed_forms_refuse_grad(dev, cloud, near):
         rpy_cuda.pair_sum_slab(r32[:100], 0, r32, F[0].float(), True)
     ctx, Fn = near
     t = ctx.nbr.shape[0]
-    pairs, count, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs, 0, t // 2)
+    pairs, count, _ = tiles.slice_pairs(ctx.pairs, ctx.n_pairs, 0, t // 2)
     with pytest.raises(RuntimeError, match="K3 near_sweep_slice.*item 15"):
         farfield_cuda.near_sweep(
             ctx.x_s.float().requires_grad_(), ctx.ci_s, ctx.id_s >= 0,

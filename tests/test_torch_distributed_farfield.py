@@ -26,7 +26,7 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 import torch_dist_ranks  # noqa: E402
 from rigid_body_light_tpu import parallel as par_j  # noqa: E402
 from rigid_body_light_tpu.ops import farfield as ff_j  # noqa: E402
-from rigid_body_light_tpu_torch.ops import farfield, farfield_cuda  # noqa: E402
+from rigid_body_light_tpu_torch.ops import farfield, farfield_cuda, tiles  # noqa: E402
 
 D = 4
 AX = "bodies"
@@ -114,7 +114,7 @@ def _cloud(n=1000, seed=4):
 @pytest.mark.parametrize("wall", [False, True])
 def test_row_tile_slices_give_the_whole_sweep(wall):
     """K3's slice entry at D = 4 (each slice's work list from
-    ``_slice_pairs``), its plain version here, against one whole sweep."""
+    ``tiles.slice_pairs``), its plain version here, against one whole sweep."""
     r = _cloud()
     ctx = farfield.prepare(r, a=0.9, wall=wall, grid=(3, 3, 2), p=3)
     live = ctx.id_s >= 0
@@ -127,7 +127,7 @@ def test_row_tile_slices_give_the_whole_sweep(wall):
     nt = t // D
     parts = []
     for d in range(D):
-        pairs, count, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs,
+        pairs, count, _ = tiles.slice_pairs(ctx.pairs, ctx.n_pairs,
                                                 d * nt, nt)
         parts.append(farfield_cuda.near_sweep(
             ctx.x_s, ctx.ci_s, live, F, ctx.nbr, wall, 0.75,

@@ -29,6 +29,7 @@ from rigid_body_light_tpu_torch.config import SimulationConfig as CfgT  # noqa: 
 from rigid_body_light_tpu_torch.ops import farfield as ff_t  # noqa: E402
 from rigid_body_light_tpu_torch.ops import farfield_cuda  # noqa: E402
 from rigid_body_light_tpu_torch.ops import rpy as rpy_t  # noqa: E402
+from rigid_body_light_tpu_torch.ops import tiles as tiles_t  # noqa: E402
 
 N = 300
 BOX = (16.0, 16.0)
@@ -145,7 +146,7 @@ def test_wrapped_neighbor_lists_match_jax(ctx_j):
 def _check_tile_pairs(nbr):
     """K3's work list covers each unordered adjacent tile pair once, its
     slots point back at each other."""
-    pairs, n_pairs = ff_t._tile_pairs(nbr)
+    pairs, n_pairs = tiles_t.tile_pairs(nbr)
     rows = pairs[:int(n_pairs)].numpy()
     nb = nbr.numpy()
     adj = {(a, int(b)) for a in range(nb.shape[0]) for b in nb[a] if b >= 0}

@@ -1,11 +1,11 @@
 """The work lists of the sweep kernels K1–K4, on the CPU.
 
 K3 (the far field's near sweep) walks the unordered adjacent tile pairs of
-``farfield._tile_pairs`` and writes each side of a pair into a per-slot
+``tiles.tile_pairs`` and writes each side of a pair into a per-slot
 partial; a plain PyTorch walk of that list, written here, must give the
 plain ordered sweep ``farfield._near_sweep`` in float64; its row-tile
 slice (the distributed far field's) walks the slice's work list
-(``farfield._slice_pairs``: the pairs with a tile in the slice, in list
+(``tiles.slice_pairs``: the pairs with a tile in the slice, in list
 order) writing the slice's sides alone, and must give the rows of the
 slice, each pair listed once and the boundary pairs counted.  K1 (the dense
 symmetric pair sweep) and K4 (the Ewald real-space sweep) walk the 128 ×
@@ -168,7 +168,7 @@ def _walk_slice(ctx, F_s, wall, t0, nt):
     x, ci, live = ctx.x_s, ctx.ci_s, ctx.id_s >= 0
     t, w = ctx.nbr.shape
     k = F_s.shape[0]
-    pairs, n_pairs, _ = farfield._slice_pairs(ctx.pairs, ctx.n_pairs, t0, nt)
+    pairs, n_pairs, _ = tiles.slice_pairs(ctx.pairs, ctx.n_pairs, t0, nt)
     part = torch.full((w, k, nt * TILE, 3), float("nan"), dtype=x.dtype)
     lane = torch.arange(TILE)
 
@@ -215,7 +215,7 @@ def test_slice_work_lists_cover_the_slices(ctxs, n_slices):
     seen = {}
     for d in range(n_slices):
         t0 = d * nt
-        pairs, count, boundary = farfield._slice_pairs(
+        pairs, count, boundary = tiles.slice_pairs(
             ctx.pairs, ctx.n_pairs, t0, nt)
         got = [tuple(p) for p in pairs[:int(count.item())].tolist()]
         want = [p for p in full
