@@ -319,27 +319,84 @@ void launch_item(const tile_items::Groups& g, cudaStream_t stream,
         pos, force, n, g, cst, coef, deg, row_part, col_part);
 }
 
-// The slab form.  Block (row block blockIdx.x, column chunk blockIdx.y) of
-// kSlabRows rows × kSlabChunk columns, K2's ordered layout
-// (rpy_pair_sweep.cu::pair_sweep_ordered_kernel): lane l owns rows l and
-// l + 32 of the row block, and their two Clenshaw chains run side by side
-// (K4's two pairs a thread; the rows of a warp share a column, so their
-// segment nearly always, and one shared read serves both chains); warp w
-// sweeps columns [64w, 64w + 64) of the chunk.  Every pair is evaluated
-// from its row's side only (an ordered sweep), with K4's wrap, distance,
-// segment map and Clenshaw, and a pair is live iff its row is in range and
-// its global ids differ, so a block that overlaps its rows is right too.
-// The 4 warps' sums are added in a fixed order into the chunk's partial
-// (one writer per element), and a second pass sums the chunks in order:
-// no atomics, launches repeat bitwise.
-constexpr int kSlabRows = 64;
-constexpr int kSlabChunk = 256;
+// ---------------------------------------------------------------------
+// The slab form: K4's pair terms as an ordered rows × columns sweep.
+//
+// Contract: out (k, n_rows, 3) = Σ_j [A(r)·I + B(r)·r̂r̂]·F_j for the rows i
+// of one block of blobs against the columns j of another, at global
+// offsets (row0 + i, col0 + j), under K4's 3-D minimum image, the pair of
+// equal global ids left out.  It replaces K4's pair terms
+// (rigid_body_light_tpu/ops/ewald_pallas.py:81 _kernel_ewald_sym) on the
+// distributed ring's off-diagonal blocks, which the JAX package sweeps in
+// plain XLA (rigid_body_light_tpu/ops/ewald.py:788 real_space_block); the
+// ring's diagonal block is K4's own sweep.  Its main shape is the ring's
+// n/D × n/D block: 2,568 × 2,568 at D = 4 and 5,136 × 5,136 at D = 2 for
+// the periodic slice's 10,272 blobs.
+//
+// What bounds it: arithmetic.  Every ordered pair costs K4's fields (36
+// flop, an IEEE sqrt and division, two Clenshaw chains of degree D: 6·D,
+// 486 at the slice's D = 81) and 18 flop a RHS for its one direction; the
+// operands are 24-36 bytes a blob, a few MB that stay in L2.  As for K4
+// tiles, the work is scalar float32 FMA chains with no matrix product, so
+// wgmma and the tensor cores do not apply, and TMA or cp.async staging
+// would not move the time.  A count of issued instructions gives ~430 a pair
+// (a FADD and an FFMA a Clenshaw step and chain, one shared read a step for
+// a lane's rows, the prologue and the apply) against the bound's 540
+// flop, so ~1.6-1.9× its bound at the card's sustained FMA clock is the
+// practical floor.
+//
+// Design.  A block is kSlabRows = 128 rows × kSlabChunk = 32 columns, 4
+// warps: the D = 4 ring's 2,568 × 2,568 is 21 × 81 = 1,701 blocks, 12.9
+// an SM, the D = 2 ring's 5,136 × 5,136 41 × 161.  Lane l owns rows l,
+// l + 32, l + 64 and l + 96 of the row block, and their four Clenshaw
+// chain pairs run side by side (the rows of a warp share a column, so
+// nearly always a segment, and one shared read of (A_q, B_q) serves all
+// eight chains); warp w sweeps columns w, w + 4, … of the chunk, so a
+// ragged chunk stays balanced over the warps.  __launch_bounds__(128, 5)
+// holds it to 96 registers: 5 blocks, 20 warps, an SM (ptxas reports a
+// 32-byte spill at 2 RHS, which costs nothing measurable, below).  Every
+// pair is evaluated from its row's side only, and a pair is live iff its
+// row is in range and its global ids differ, so a block that overlaps its
+// rows is right too.  The warps' sums are added in a fixed order into the
+// chunk's partial (one writer per element), and a second pass sums the
+// chunks in order: no atomics, launches repeat bitwise.  The scratch is
+// one (k, n_rows, 3) partial a chunk, ⌈n_cols/32⌉·k·n_rows·12 bytes: 2.5
+// MB a RHS at the D = 4 ring, 9.9 MB at the D = 2 ring, 39.6 MB at the
+// slice's n × n, 313 MB at a 28,890² block (115,560 blobs over 4 ranks),
+// 8× what 256-column chunks took.
+//
+// Why (scripts/torch_sweep_turns.py --only "K4 slab": the kernel alone at
+// the ring's blocks of the periodic slice's positions, in turns against
+// copies of this file with one constant or the row stage changed, two
+// calls; one H100 80GB HBM3 at 700.00 W; ms at 1 / 2 RHS, PERF.md §6).
+// The earlier design, 64 × 256 blocks of 4 warps with 64 contiguous
+// columns each, gave the D = 4 ring's block 41 × 11 = 451 blocks for 132
+// SMs (4 on the busiest against a mean of 3.4, the 11th chunk 8 columns
+// wide), at most 16 warps an SM: 0.1963-0.1982 / 0.2032-0.2047 there,
+// 3.7× its bound.
+// This design 0.1341-0.1349 / 0.1385-0.1392 (2.5×); at the D = 2 ring
+// 0.4861-0.4901 / 0.5043-0.5051 (2.3×).  At the D = 4 ring:
+//   - kSlabChunk = 64: 0.1449-0.1464 / 0.1499-0.1509, 8% slower (at the
+//     D = 2 ring 0.4859-0.4891 / 0.4993-0.5019, at most 1% faster);
+//   - kSlabRowsPerLane = 2 (64-row blocks, 61 / 67 registers):
+//     0.1520-0.1596 / 0.1570-0.1590;
+//   - kSlabMinBlocks = 1 (105 / 117 registers, no spill, 4 blocks an
+//     SM): 0.1438-0.1444 / 0.1491-0.1536;
+//   - the rows' positions staged in shared memory, their ids derived (93
+//     / 96 registers, no spill): 0.1513-0.1522 / 0.1387-0.1388, so the
+//     spill costs nothing at 2 RHS and the stage 13% at 1 RHS; at 6
+//     blocks an SM so (79 / 80 registers, a 48-byte spill at 2 RHS)
+//     0.1381-0.1384 / 0.1452;
+//   - the chunk sum, a second launch, 3.1 µs of a ~131-µs call (4.9-5.4
+//     µs at the D = 2 ring; torch.profiler): kept.
 constexpr int kSlabWarps = 4;
-constexpr int kSlabWarpCols = kSlabChunk / kSlabWarps;
-constexpr int kSlabRowsPerLane = kSlabRows / 32;
+constexpr int kSlabRowsPerLane = 4;
+constexpr int kSlabRows = 32 * kSlabRowsPerLane;
+constexpr int kSlabChunk = 32;
+constexpr int kSlabMinBlocks = 5;  // __launch_bounds__' resident blocks
 
 template <int NRHS>
-__global__ void __launch_bounds__(kSlabWarps * 32)
+__global__ void __launch_bounds__(kSlabWarps * 32, kSlabMinBlocks)
 ewald_slab_kernel(const float* __restrict__ rows_pos,    // (n_rows, 3)
                   int n_rows, int row0,
                   const float* __restrict__ cols_pos,    // (n_cols, 3)
@@ -363,17 +420,15 @@ ewald_slab_kernel(const float* __restrict__ rows_pos,    // (n_rows, 3)
 
   for (int idx = t; idx < (deg + 1) * 4; idx += kSlabWarps * 32)
     s_coef[idx] = coef[idx];
-  for (int c = t; c < kSlabChunk; c += kSlabWarps * 32) {
+  for (int c = t; c < n_c; c += kSlabWarps * 32) {
     const int j = c0 + c;
-    const bool ok = j < n_cols;
 #pragma unroll
-    for (int d = 0; d < 3; ++d) s_pos[d][c] = ok ? cols_pos[3 * j + d] : 0.0f;
+    for (int d = 0; d < 3; ++d) s_pos[d][c] = cols_pos[3 * j + d];
 #pragma unroll
     for (int k = 0; k < NRHS; ++k)
 #pragma unroll
       for (int d = 0; d < 3; ++d)
-        s_f[3 * k + d][c] =
-            ok ? cols_force[((size_t)k * n_cols + j) * 3 + d] : 0.0f;
+        s_f[3 * k + d][c] = cols_force[((size_t)k * n_cols + j) * 3 + d];
   }
   float xR[RL], yR[RL], zR[RL];
   bool row_ok[RL];
@@ -394,8 +449,7 @@ ewald_slab_kernel(const float* __restrict__ rows_pos,    // (n_rows, 3)
 
   // warp-uniform bounds: every lane runs every column (the Clenshaw
   // helper's vote needs the whole warp)
-  const int c_end = min(n_c, (w + 1) * kSlabWarpCols);
-  for (int c = w * kSlabWarpCols; c < c_end; ++c) {
+  for (int c = w; c < n_c; c += kSlabWarps) {
     const float xC = s_pos[0][c], yC = s_pos[1][c], zC = s_pos[2][c];
     const int gj = col0 + c0 + c;
     float dx[RL], dy[RL], dz[RL], x[RL], inv_r2[RL];
@@ -989,7 +1043,7 @@ int ewald_slab_chunk() { return kSlabChunk; }
 // The slab form: out (nrhs, n_rows, 3) = Σ_j [A·I + B·r̂r̂]·F_j over every
 // column j whose global id (col0 + j) differs from the row's (row0 + i).
 // consts and coef as ewald_real_sweep's.  part holds
-// ⌈n_cols/256⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).
+// ⌈n_cols/32⌉·nrhs·n_rows·3 floats (scratch, fully overwritten).
 int ewald_real_slab(const float* rows_pos, int n_rows, int row0,
                     const float* cols_pos, const float* cols_force,
                     int n_cols, int col0, int nrhs, const float* consts,
@@ -1001,6 +1055,7 @@ int ewald_real_slab(const float* rows_pos, int n_rows, int row0,
   if (n_rows <= 0) return 0;
   const int n_chunks = n_cols > 0 ? (n_cols + kSlabChunk - 1) / kSlabChunk
                                   : 0;
+  if (n_chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (n_chunks > 0) {
     const SweepConsts cst = unpack_consts(consts);
     const float2* coef2 = reinterpret_cast<const float2*>(coef);

@@ -43,7 +43,11 @@ The kernel sweeps 128 × 128 tile pairs of the upper triangle
 of tile groups (:func:`.tiles.group_items`; one item a block up to 65,536
 blobs) into O(n) partials (:func:`.tiles.partial_shape`); it replaced a
 grid of 128-row × 512-column blocks that at the periodic slice formed one
-uneven wave of blocks (4.5–5.2× its bound, PERF.md §6).
+uneven wave of blocks (4.5–5.2× its bound, PERF.md §6).  The slab form
+runs blocks of 128 rows (four a lane, their Clenshaw chains side by side)
+× 32 columns into one partial a column chunk (:func:`slab_partial_shape`),
+summed in order by a second pass; it replaced 64 × 256 blocks that gave
+the D = 4 ring's block 451 blocks for 132 SMs.
 
 Every launch carries its own constants and coefficient table, so
 operators with different boxes can be alive at once.  Both are built once
@@ -70,7 +74,7 @@ from rigid_body_light_tpu_torch.ops import cuda_build, ewald, tiles
 from rigid_body_light_tpu_torch.utils import profiling
 
 TILE = 128  # rows and columns of a work item; build() checks the kernel's
-SLAB_ROWS, SLAB_CHUNK = 64, 256  # the slab form's block; build() checks
+SLAB_ROWS, SLAB_CHUNK = 128, 32  # the slab form's block; build() checks
 TILE_ROWS = tiles.TILE  # K4 tiles' tile; build() checks the kernel's
 TILE_TABLE_BYTES = 196608  # K4 tiles' shared fit table; build() checks
 sweep_launches = 0
@@ -219,6 +223,12 @@ def real_sweep_kernel(r, Fs, params):
     return out
 
 
+def slab_partial_shape(n_rows, n_cols, k):
+    """K4's slab form's scratch: one (k, n_rows, 3) partial a column chunk
+    of SLAB_CHUNK (at least one, so the buffer is never empty)."""
+    return (max(1, -(-n_cols // SLAB_CHUNK)), k, n_rows, 3)
+
+
 def real_slab_kernel(r_rows, row0, r_cols, col0, Fs, params):
     """K4's slab form on the card.  r_rows (n_r, 3), r_cols (n_c, 3), Fs
     (k, n_c, 3) float32 contiguous CUDA tensors, k ∈ {1, 2}, at global
@@ -233,7 +243,7 @@ def real_slab_kernel(r_rows, row0, r_cols, col0, Fs, params):
     lib = build()
     dev = r_rows.device
     coef, consts, deg = operator_tables(params, dev)
-    part = torch.empty((max(1, -(-n_c // SLAB_CHUNK)), k, n_r, 3),
+    part = torch.empty(slab_partial_shape(n_r, n_c, k),
                        dtype=torch.float32, device=dev)
     out = torch.empty((k, n_r, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev), profiling.span("ewald_real_slab"):

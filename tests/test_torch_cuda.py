@@ -533,32 +533,106 @@ def test_ewald_operator_through_k4(dev, ewald_boxes):
     assert abs(f1m2 - f2m1) / abs(f1m2) < 1e-5
 
 
+SLAB_F32_MARGIN = 1e-6  # the slab form's error over the float32 plain
+# block's on the same inputs, relative to max|U|
+
+
+def _slab_case(dev, box, case):
+    """(rows, row0, columns, col0, column forces) of a slab case.  On 700
+    columns and 333 other rows (a last row block of 77 of the kernel's
+    128, a last chunk of 28 of 32): rows apart from the columns, rows
+    inside them at offsets 0 and 100 (their self pairs masked), the
+    columns against themselves, fewer rows than a block against fewer
+    columns than a chunk, one column.  On clouds of 20·c + 7 columns for
+    c = 32 and 64 (647 and 1,287: last chunks of 7 of 32 columns)
+    and 589 other rows (a last row block of 77): rows apart from the
+    columns and inside them at offset 50."""
+    if case.startswith("ragged"):
+        c = int(case.rsplit("_", 1)[1])
+        cols, F = _periodic_cloud(dev, box, 20 * c + 7, 13)
+        rows = _periodic_cloud(dev, box, 589, 14)[0]
+        if "inside" in case:
+            return cols[50:639], 50, cols, 0, F
+        return rows, 0, cols, 20 * c + 7, F
+    cols, F = _periodic_cloud(dev, box, 700, 13)
+    rows = _periodic_cloud(dev, box, 333, 14)[0]
+    return {"apart": (rows, 0, cols, 700, F),
+            "inside_0": (cols[:333], 0, cols, 0, F),
+            "inside_100": (cols[100:433], 100, cols, 0, F),
+            "whole": (cols, 0, cols, 0, F),
+            "few": (rows[:5], 0, cols[:29], 700, F[:, :29]),
+            "one_column": (rows, 0, cols[:1], 700, F[:, :1])}[case]
+
+
 @pytest.mark.parametrize("which", [0, 1])
 @pytest.mark.parametrize("k", [1, 2])
-@pytest.mark.parametrize("offsets", [(0, 700), (100, 0), (0, 0)])
-def test_k4_slab_matches_plain(dev, ewald_boxes, which, k, offsets):
+@pytest.mark.parametrize("case", ["apart", "inside_0", "inside_100",
+                                  "whole", "few", "one_column", "ragged_32",
+                                  "ragged_64", "ragged_inside_32",
+                                  "ragged_inside_64"])
+def test_k4_slab_matches_plain(dev, ewald_boxes, which, k, case):
     """K4's slab form (ordered rows × columns at global offsets, the pair
     of equal ids left out) against the float64 Clenshaw block on the same
-    fit: rows apart from the columns, rows inside them (their self pairs
-    masked) and the block against itself; ragged row and column counts
-    (333 rows, 700 columns: a last block of 13 rows, a last chunk of 188
-    columns); two launches bitwise equal, each counted."""
+    fit: ragged last row blocks and column chunks, rows apart from the
+    columns and inside them (their self pairs masked), the block against
+    itself, fewer rows than a block and columns than a chunk, one column;
+    within TOL of max|U|, and within SLAB_F32_MARGIN of the float32 plain
+    block's error on the same inputs (printed beside it); two launches
+    bitwise equal, each counted."""
     params = ewald_boxes[which]
-    r, F = _periodic_cloud(dev, params.box, 700, 13)
-    row0, col0 = offsets
-    lo = row0 - col0
-    rows = (r[lo:lo + 333] if 0 <= lo < 700 else
-            _periodic_cloud(dev, params.box, 333, 14)[0])
-    ids = torch.arange(700, device=dev)
-    ref = ewald.real_space_block(rows, row0 + ids[:rows.shape[0]], r,
-                                 col0 + ids, F[:k], params, cheb=True)
+    rows, row0, cols, col0, F = _slab_case(dev, params.box, case)
+    n_r, n_c = rows.shape[0], cols.shape[0]
+    row_ids = row0 + torch.arange(n_r, device=dev)
+    col_ids = col0 + torch.arange(n_c, device=dev)
+    ref = ewald.real_space_block(rows, row_ids, cols, col_ids, F[:k], params,
+                                 cheb=True)
+    plain = ewald.real_space_block(rows.float(), row_ids, cols.float(),
+                                   col_ids, F[:k].float(), params, cheb=True)
     before = ewald_cuda.slab_launches
-    U = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, r, col0, params)
-    V = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, r, col0, params)
+    U = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, cols, col0, params)
+    V = ewald_cuda.real_pair_sum_slab(F[:k], rows, row0, cols, col0, params)
     torch.cuda.synchronize()
     assert ewald_cuda.slab_launches == before + 2
-    assert U.shape == (k, rows.shape[0], 3) and U.dtype == torch.float32
-    assert _rel(U, ref) < TOL and torch.equal(U, V)
+    assert U.shape == (k, n_r, 3) and U.dtype == torch.float32
+    assert torch.equal(U, V)
+    err, err_plain = _rel(U, ref), _rel(plain, ref)
+    print(f"K4 slab {case} box {which} k={k}: {err:.3e} of max|U|, the "
+          f"float32 plain block {err_plain:.3e}")
+    assert err < TOL
+    assert err <= err_plain + SLAB_F32_MARGIN
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("k", [1, 2])
+def test_k4_slab_ring_matches_float64(dev, ewald_boxes, D, k):
+    """The distributed ring's real part in one process: each rank's rows
+    against every rank's block (ewald.ring_slab: K4's sweep on the
+    diagonal block, the slab form on the others), summed in the ring's
+    order, against the float64 Clenshaw sweep of all pairs, at the
+    periodic slice's box and fit; D·(D − 1) slab launches, D sweeps."""
+    params = ewald_boxes[1]
+    n = 1000
+    r, F = _periodic_cloud(dev, params.box, n, 17)
+    r32, F32 = r.float().contiguous(), F[:k].float().contiguous()
+    ref = ewald.real_space_apply(F[:k], r, params, cheb=True)
+    m = n // D
+    slabs, sweeps = ewald_cuda.slab_launches, ewald_cuda.sweep_launches
+    U = torch.empty((k, n, 3), dtype=torch.float32, device=dev)
+    for idx in range(D):
+        rows = slice(idx * m, (idx + 1) * m)
+        acc = None
+        for s in range(D):
+            src = (idx - s) % D
+            cols = slice(src * m, (src + 1) * m)
+            part = ewald.ring_slab(F32[:, cols].contiguous(), r32[rows],
+                                   idx * m, r32[cols], src * m, params,
+                                   use_kernel=True, diagonal=s == 0)
+            acc = part if acc is None else acc + part
+        U[:, rows] = acc
+    torch.cuda.synchronize()
+    assert ewald_cuda.slab_launches == slabs + D * (D - 1)
+    assert ewald_cuda.sweep_launches == sweeps + D
+    assert _rel(U, ref) < TOL
 
 
 def test_k4_slab_refuses_float64_three_rhs_and_grad(dev, ewald_boxes):

@@ -17,7 +17,9 @@ block's groups: the walks must cover every tile pair once, a float64
 mirror of the partials and the second pass (``tiles.sum_order``) must give
 the plain pair sum, and the partials must grow as n up to 1M blobs.  K2
 (the ordered slab) must visit every ordered pair of a slab with global
-offsets once, and no self pair.  The kernels themselves run on the card
+offsets once, and no self pair; so must a mirror of K4's slab form, whose
+grid and scratch are pinned at the ring's shapes.  The kernels
+themselves run on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -367,6 +369,59 @@ def test_k2_blocks_cover_each_ordered_pair_of_a_slab_once(
     gi = row_offset + np.arange(n_rows)
     gj = col_offset + np.arange(n_cols)
     assert (kept == (gi[:, None] != gj[None, :])).all()
+
+
+@pytest.mark.parametrize("n_rows, row_offset, n_cols, col_offset", [
+    (1, 0, 1, 0), (5, 0, 29, 0), (128, 0, 128, 0), (269, 113, 113, 0),
+    (93, 713, 113, 700), (300, 0, 257, 40), (33, 0, 31, 0),
+    (129, 0, 33, 0), (127, 1, 65, 0), (256, 64, 96, 0), (40, 0, 200, 10),
+    (2, 5, 300, 0)])
+def test_k4_slab_blocks_cover_each_ordered_pair_once(
+        n_rows, row_offset, n_cols, col_offset):
+    """A mirror of K4's slab form: blocks of SLAB_ROWS rows × SLAB_CHUNK
+    columns (ewald_cuda.slab_partial_shape counts the chunks), lane l
+    owning rows l, l + 32, l + 64, l + 96 of its block, warp w sweeping
+    columns w, w + 4, … of its chunk.  Every (row, column) of the slab is
+    visited once, and kept iff the global ids differ."""
+    rows_pb, chunk = ewald_cuda.SLAB_ROWS, ewald_cuda.SLAB_CHUNK
+    n_ch = ewald_cuda.slab_partial_shape(n_rows, n_cols, 1)[0]
+    count = np.zeros((n_rows, n_cols), np.int64)
+    kept = np.zeros((n_rows, n_cols), np.int64)
+    for bx in range(-(-n_rows // rows_pb)):
+        for by in range(n_ch):
+            n_c = min(chunk, n_cols - by * chunk)
+            for w in range(4):
+                j = by * chunk + np.arange(w, n_c, 4)
+                for r in range(rows_pb // 32):
+                    i = bx * rows_pb + 32 * r + np.arange(32)
+                    i = i[i < n_rows]
+                    np.add.at(count, np.ix_(i, j), 1)
+                    live = (row_offset + i)[:, None] != (col_offset + j)[None]
+                    np.add.at(kept, np.ix_(i, j), live.astype(np.int64))
+    assert (count == 1).all()
+    gi = row_offset + np.arange(n_rows)
+    gj = col_offset + np.arange(n_cols)
+    assert (kept == (gi[:, None] != gj[None, :])).all()
+
+
+@pytest.mark.parametrize("n_rows, n_cols, blocks", [
+    (2568, 2568, 21 * 81),       # the D = 4 ring's block
+    (5136, 5136, 41 * 161),      # the D = 2 ring's
+    (2568, 10272, 21 * 321),     # the gather's
+    (10272, 10272, 81 * 321),    # one rank's n × n
+    (10, 3, 1), (1, 1, 1)])
+def test_k4_slab_grid_and_scratch(n_rows, n_cols, blocks):
+    """The slab form's grid of 128 × 32 blocks at the ring's, the gather's
+    and one rank's shapes of the periodic slice's 10,272 blobs (the D = 4
+    ring's 1,701 blocks, 12.9 an SM of an H100's 132), and its scratch, one
+    partial a chunk, at 1 and 2 RHS."""
+    assert (ewald_cuda.SLAB_ROWS, ewald_cuda.SLAB_CHUNK) == (128, 32)
+    n_ch = -(-n_cols // ewald_cuda.SLAB_CHUNK)
+    assert -(-n_rows // ewald_cuda.SLAB_ROWS) * n_ch == blocks
+    for k in (1, 2):
+        assert ewald_cuda.slab_partial_shape(n_rows, n_cols, k) == (
+            n_ch, k, n_rows, 3)
+    assert ewald_cuda.slab_partial_shape(n_rows, 0, 1) == (1, 1, n_rows, 3)
 
 
 # (n, max_groups): one item a unit (G = T) up to 2·max_groups tiles, then
